@@ -1,0 +1,543 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA
+H100: builds the hand-written kernels, holds each against its plain
+PyTorch version, serves full-width qwen1.5-4b (lut_infer, int8 LUTs)
+through the continuous-batching engine, and checks one decode step's
+logits through the kernels against the plain versions.
+
+    python3 chip_smoke.py [--seed N]
+
+Imports nothing of JAX and nothing of the JAX package. Exits non-zero,
+without a result line, when there is no CUDA device or any check fails.
+Its last line is ``{"ok": true, "device": {...}}``; the line before it
+is the per-kernel JSON record (times in ms, measured in this run, with
+the bound computed from this run's inputs).
+"""
+from __future__ import annotations
+
+import argparse
+import contextlib
+import json
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+from repro_torch.configs import qwen1p5_4b  # noqa: E402
+from repro_torch.core.lut import QuantConfig  # noqa: E402
+from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.kernels import flash_decode as fd  # noqa: E402
+from repro_torch.kernels.fused_amm import vq_amm_cuda  # noqa: E402
+from repro_torch.models.model import Model  # noqa: E402
+from repro_torch.serve.engine import Engine  # noqa: E402
+from repro_torch.serve.scheduler import Request  # noqa: E402
+
+# Published H100 SXM peaks (NVIDIA data sheet), at a 700 W power limit.
+HBM_BYTES_PER_S = 3.35e12
+FP32_CUDA_CORE_OPS_PER_S = 67e12      # also used for int32 adds
+L2_FLUSH_BYTES = 256 << 20            # > the 50 MB L2: launches start cold
+SPIN_CYCLES = 2_000_000               # ~1 ms: longer than any host enqueue
+
+DEV = "cuda"
+SLOTS, PAGE, MAX_SEQ, CHUNK = 8, 16, 512, 32
+V, C = 8, 16
+# (K, N, launches per layer) of the 7 projections: wq wk wv wo, wg wu, wd
+PROJ_SHAPES = [(2560, 2560, 4), (2560, 6912, 2), (6912, 2560, 1)]
+
+# Logit check tolerance. Both sides compute every projection as an exact
+# int8 sum times the same scale, and attention with fp32 sums in another
+# order. A projection's output is piecewise constant in its input (a hard
+# centroid assignment), so a small difference upstream vanishes at the
+# next projection, unless it flips an argmin that nearly ties. A flip
+# moves that row of that projection by a few percent and cascades through
+# the later layers, but only within its own slot: decode rows never mix.
+# In bf16 the attention sums' fp32 rounding reaches the next projection
+# as whole bf16 ulps, so flips are likelier than in float32. A wrong
+# kernel (mask, index, scale) corrupts every row instead. So a row
+# "agrees" when ||lg_kernel - lg_plain|| <= 1e-3 ||lg_plain||, and all but
+# LOGIT_ROWS_OFF[dtype] of the rows must agree. On an H100 this measured
+# 7 of 8 rows agreeing exactly in bf16 (the eighth at 0.157), and 8 of 8
+# exactly in float32.
+LOGIT_ROW_REL_TOL = 1e-3
+LOGIT_ROWS_OFF = {"bfloat16": 2, "float32": 1}
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def time_ms(fn, iters: int, flush: torch.Tensor) -> float:
+    """Mean device time of ``fn`` in ms: CUDA events around each launch,
+    the L2 flushed before each (the main path reaches every LUT and page
+    cold: a decode step streams GBs between two visits). A spin kernel
+    ahead of each keeps the card busy while the host enqueues, so the
+    events time the device work, not the wrapper's host time."""
+    fn()
+    torch.cuda.synchronize()
+    pairs = []
+    for _ in range(iters):
+        torch.cuda._sleep(SPIN_CYCLES)
+        flush.sum()                   # a read: the L2 is left clean
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        pairs.append((s, e))
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in pairs) / iters
+
+
+def host_us(fn, iters: int = 50) -> float:
+    """Host time per call of ``fn`` in us (enqueue only; the card runs
+    behind): what each call costs the Python step loop."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e6 * t / iters
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def bound(bytes_: float, ops_: float):
+    t_b, t_o = bytes_ / HBM_BYTES_PER_S, ops_ / FP32_CUDA_CORE_OPS_PER_S
+    return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Route the CUDA dispatch of both kernels to their plain versions
+    (for the kernel-vs-plain logit check only)."""
+    saved = ops.vq_amm_cuda, fd.flash_decode_splits_cuda
+    ops.vq_amm_cuda = ref.vq_amm_ref
+    fd.flash_decode_splits_cuda = fd.flash_decode_splits
+    try:
+        yield
+    finally:
+        ops.vq_amm_cuda, fd.flash_decode_splits_cuda = saved
+
+
+def reset_counts() -> None:
+    vq_amm_cuda.launches = 0
+    fd.flash_decode_splits_cuda.launches = 0
+    ref.vq_amm_ref.calls = 0
+    fd.flash_decode_splits.calls = 0
+
+
+# ---------------------------------------------------------------------------
+# kernels phase
+# ---------------------------------------------------------------------------
+
+def b1_case(gen, m, k, n, flush):
+    """B1 at one main-path shape: x = a centroid + small noise, so every
+    argmin has a clear margin. Returns a result dict."""
+    dev = DEV
+    nc = k // V
+    z = (0.02 * torch.randn((nc, C, V), generator=gen, device=dev)).to(
+        torch.bfloat16)
+    pick = torch.randint(0, C, (m, nc), generator=gen, device=dev)
+    noise = 0.002 * torch.randn((m, nc, V), generator=gen, device=dev)
+    x = (z.float()[torch.arange(nc, device=dev)[None], pick] + noise).to(
+        torch.bfloat16)
+    lut = torch.randint(-127, 128, (nc, C, n), generator=gen, device=dev,
+                        dtype=torch.int32).to(torch.int8)
+    scale = 1e-3 + 1e-2 * torch.rand((n,), generator=gen, device=dev)
+
+    idx_plain = ref.assign_ref(x, z)
+    # index probe: lut[k, j, col] = j * [col == k] reads each selected
+    # index back through the kernel's own argmin and gather
+    probe = (torch.arange(C, device=dev)[None, :, None]
+             * torch.eye(nc, device=dev)[:, None, :]).to(torch.int8)
+    idx_kernel = vq_amm_cuda(x, z, probe, torch.ones(nc, device=dev))
+    idx_kernel = torch.round(idx_kernel).to(torch.int32)
+    check(torch.equal(idx_kernel, idx_plain),
+          f"B1 {m}x{k}x{n}: kernel indices differ from the plain argmin at "
+          f"{int((idx_kernel != idx_plain).sum())} of {idx_plain.numel()}")
+    out_k = vq_amm_cuda(x, z, lut, scale)
+    out_p = ref.vq_amm_ref(x, z, lut, scale)
+    torch.cuda.synchronize()
+    err = float((out_k - out_p).abs().max())
+    # both sides are exact int32/fp32 integer sums times the same scale
+    tol = 1e-5 * max(1.0, float(out_p.abs().max()))
+    check(err <= tol, f"B1 {m}x{k}x{n}: max abs err {err} > {tol}")
+
+    # random unit-scale x (as after RMSNorm): near-ties may flip
+    xr = torch.randn((m, nc, V), generator=gen, device=dev).to(torch.bfloat16)
+    flips = float((torch.round(vq_amm_cuda(xr, z, probe, torch.ones(
+        nc, device=dev))).to(torch.int32) != ref.assign_ref(xr, z)).float()
+        .mean())
+    off = float(((vq_amm_cuda(xr, z, lut, scale)
+                  - ref.vq_amm_ref(xr, z, lut, scale)).abs() > 1e-3)
+                .float().mean())
+    check(flips < 1e-3, f"B1 {m}x{k}x{n}: {flips:.2%} of random-x "
+          "assignments differ (a near-tie flip rate is ~1e-4)")
+
+    ms = time_ms(lambda: vq_amm_cuda(x, z, lut, scale), 30, flush)
+    plain_ms = time_ms(lambda: ref.vq_amm_ref(x, z, lut, scale), 5, flush)
+    host = host_us(lambda: vq_amm_cuda(x, z, lut, scale))
+    # bytes this data needs: x, z, the LUT rows some row selects, scale, out
+    rows = torch.zeros((nc, C), device=dev)
+    rows.scatter_(1, idx_plain.T.long(), 1.0)
+    lut_bytes = float(rows.sum()) * n
+    b = nbytes(x, z, scale) + lut_bytes + m * n * 4
+    o = m * nc * C * (4 * V + 2) + m * nc * n + m * n
+    bms, by = bound(b, o)
+    print(f"B1 vq_amm M={m} K={k} N={n}: kernel {ms * 1e3:.1f} us, plain "
+          f"{plain_ms * 1e3:.1f} us, bound {bms * 1e3:.2f} us ({by}; "
+          f"{lut_bytes / 1e6:.2f} MB of LUT rows selected of "
+          f"{nbytes(lut) / 1e6:.2f}), host {host:.1f} us/call, max abs "
+          f"err {err:.3g}; random x: "
+          f"{flips:.2e} index flips, {off:.2%} of outputs off by >1e-3")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "err": err}
+
+
+def b2_inputs(gen, b, h, kvh, d, np_, positions, kv_start, dev=DEV):
+    n_pages = b * np_
+    kp = torch.randn((n_pages + 1, PAGE, kvh, d), generator=gen,
+                     device=dev).to(torch.bfloat16)
+    vp = torch.randn((n_pages + 1, PAGE, kvh, d), generator=gen,
+                     device=dev).to(torch.bfloat16)
+    kp[-1] = 1e4                      # trash page: must never be attended
+    vp[-1] = 1e4
+    perm = torch.randperm(n_pages, generator=gen, device=dev)
+    phys = perm.reshape(b, np_).to(torch.int32)
+    pos = torch.tensor(positions, dtype=torch.int32, device=dev)
+    for i, p in enumerate(positions):  # unallocated tail -> trash
+        phys[i, max(0, -(-p // PAGE)):] = n_pages
+    q = torch.randn((b, 1, h, d), generator=gen, device=dev).to(
+        torch.bfloat16)
+    kn = torch.randn((b, 1, kvh, d), generator=gen, device=dev).to(
+        torch.bfloat16)
+    vn = torch.randn((b, 1, kvh, d), generator=gen, device=dev).to(
+        torch.bfloat16)
+    ks = torch.tensor(kv_start, dtype=torch.int32, device=dev)
+    return q, kp, vp, kn, vn, phys, pos, ks
+
+
+def b2_case(gen, name, b, h, kvh, d, np_, positions, window, kv_start,
+            flush, timed):
+    q, kp, vp, kn, vn, phys, pos, ks = b2_inputs(gen, b, h, kvh, d, np_,
+                                                 positions, kv_start)
+    g = h // kvh
+    sp = min(fd.SPLIT_PAGES, np_)
+    qg = (q.reshape(b, kvh, g, d).float() * d ** -0.5).contiguous()
+    pad = (-np_) % sp
+    phys_p = torch.nn.functional.pad(phys, (0, pad),
+                                     value=kp.shape[0] - 1).contiguous()
+    tk = fd.flash_decode_splits_cuda(qg, kp, vp, phys_p, pos, window, ks, sp)
+    tp = fd.flash_decode_splits(qg, kp, vp, phys_p, pos, window, ks, sp)
+    torch.cuda.synchronize()
+    for nm, a, c in zip("mla", tk, tp):
+        e = float((a - c).abs().max())
+        check(e <= 2e-5 * (1.0 + float(c.abs().max())),
+              f"B2 {name}: split {nm} max abs err {e}")
+    neg = torch.tensor(fd.NEG_INF, dtype=torch.float32)
+    dead = pos < 0
+    if bool(dead.any()):              # masked lanes: exactly the identity
+        check(bool((tk[0][:, dead] == neg.to(tk[0].device)).all()
+                   and (tk[1][:, dead] == 0).all()
+                   and (tk[2][:, dead] == 0).all()),
+              f"B2 {name}: masked lane is not (-1e30, 0, 0)")
+    out_k = fd.flash_decode_paged(q, kp, vp, kn, vn, phys, pos,
+                                  window=window, kv_start=ks)
+    with plain_kernels():
+        out_p = fd.flash_decode_paged(q, kp, vp, kn, vn, phys, pos,
+                                      window=window, kv_start=ks)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(out_k).all()), f"B2 {name}: non-finite out")
+    err = float((out_k.float() - out_p.float()).abs().max())
+    # the two differ only in fp32 summation order before the bf16 cast
+    check(err <= 2e-2, f"B2 {name}: output max abs err {err}")
+    if not timed:
+        print(f"B2 flash_decode {name}: max abs err {err:.3g} (checked)")
+        return {"err": err}
+    ms = time_ms(lambda: fd.flash_decode_splits_cuda(
+        qg, kp, vp, phys_p, pos, window, ks, sp), 30, flush)
+    plain_ms = time_ms(lambda: fd.flash_decode_splits(
+        qg, kp, vp, phys_p, pos, window, ks, sp), 5, flush)
+    host = host_us(lambda: fd.flash_decode_splits_cuda(
+        qg, kp, vp, phys_p, pos, window, ks, sp))
+    sweep = []
+    for s in (1, 2, 4, 8, 16):        # pages per split
+        ph = torch.nn.functional.pad(phys, (0, (-np_) % s),
+                                     value=kp.shape[0] - 1).contiguous()
+        t_s = time_ms(lambda: fd.flash_decode_splits_cuda(
+            qg, kp, vp, ph, pos, window, ks, s), 30, flush)
+        sweep.append(f"{s}: {t_s * 1e3:.1f}")
+    print(f"B2 flash_decode {name}: kernel us by pages per split (the port "
+          f"uses {fd.SPLIT_PAGES}): {', '.join(sweep)}")
+    # yardstick: SDPA over the already gathered, contiguous K/V
+    t = np_ * PAGE
+    kg = kp[phys.long()].reshape(b, t, kvh, d).transpose(1, 2).contiguous()
+    vg = vp[phys.long()].reshape(b, t, kvh, d).transpose(1, 2).contiguous()
+    mask = (torch.arange(t, device=DEV)[None] < pos[:, None])[:, None,
+                                                                None]
+    qs = q.transpose(1, 2).contiguous()
+    library_ms = time_ms(lambda: torch.nn.functional.
+                         scaled_dot_product_attention(qs, kg, vg,
+                                                      attn_mask=mask),
+                         30, flush)
+    live = int(pos.clamp_min(0).sum())
+    b_ = (2 * live * kvh * d * kp.element_size() + nbytes(qg, phys_p, pos)
+          + nbytes(*tk))
+    bms, by = bound(b_, 4 * live * h * d)
+    print(f"B2 flash_decode {name}: kernel {ms * 1e3:.1f} us, plain "
+          f"{plain_ms * 1e3:.1f} us, SDPA on gathered K/V "
+          f"{library_ms * 1e3:.1f} us, bound {bms * 1e3:.2f} us ({by}; "
+          f"{live} live tokens), host {host:.1f} us/call, max abs err "
+          f"{err:.3g}")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "library_ms": library_ms, "err": err}
+
+
+# ---------------------------------------------------------------------------
+# serve phase + logit check
+# ---------------------------------------------------------------------------
+
+def serve(model, params, qc, seed):
+    rng = np.random.default_rng(seed)
+    vocab = model.cfg.vocab_size
+    reqs = [Request(tokens=rng.integers(0, vocab, int(n)).tolist(),
+                    max_new_tokens=32, temperature=0.8 if i == 3 else 0.0)
+            for i, n in enumerate(rng.integers(32, 257, 10))]
+    eng = Engine(model, params, qc, batch_size=SLOTS, max_seq=MAX_SEQ,
+                 page_size=PAGE, prefill_chunk=CHUNK, seed=seed)
+    times = {"_prefill_chunk_step": [], "_decode_step": []}
+
+    def timed(name):
+        fn = getattr(eng, name)
+
+        def wrapper(*a):
+            t0 = time.perf_counter()
+            fn(*a)
+            torch.cuda.synchronize()
+            times[name].append(time.perf_counter() - t0)
+        return wrapper
+    for name in times:
+        setattr(eng, name, timed(name))
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {"b1": vq_amm_cuda.launches,
+              "b2": fd.flash_decode_splits_cuda.launches,
+              "b1_plain": ref.vq_amm_ref.calls,
+              "b2_plain": fd.flash_decode_splits.calls}
+    for r in reqs:
+        check(r.done and len(r.out_tokens) == 32,
+              f"request not served in full: {len(r.out_tokens)} tokens")
+        check(all(0 <= t < vocab for t in r.out_tokens), "token out of range")
+    check(counts["b1"] > 0 and counts["b2"] > 0,
+          f"the main path did not launch both kernels: {counts}")
+    check(counts["b1_plain"] == 0 and counts["b2_plain"] == 0,
+          f"the main path took a plain version: {counts}")
+    gen_tokens = sum(len(r.out_tokens) for r in reqs)
+    prompt_tokens = sum(len(r.tokens) for r in reqs)
+    dec, pre = times["_decode_step"], times["_prefill_chunk_step"]
+    print(f"serve: {len(reqs)} requests ({prompt_tokens} prompt tokens, "
+          f"{gen_tokens} generated) in {wall:.2f} s: "
+          f"{gen_tokens / wall:.1f} generated tokens/s; "
+          f"{len(dec)} decode steps, mean {1e3 * np.mean(dec):.1f} ms; "
+          f"{len(pre)} prefill chunks, mean {1e3 * np.mean(pre):.1f} ms; "
+          f"{eng.device_reads} host reads; launches {counts}")
+    return counts
+
+
+def logit_check(model, params, qc, seed):
+    """One full-width decode_paged step through the kernels and through
+    the plain versions, on the same pool (in the model's dtype)."""
+    rng = np.random.default_rng(seed + 1)
+    kv = model.init_paged_cache(MAX_SEQ, PAGE, SLOTS * (MAX_SEQ // PAGE))
+    npg = MAX_SEQ // PAGE
+    table = torch.arange(SLOTS * npg, dtype=torch.int32,
+                         device=DEV).reshape(SLOTS, npg)
+    lengths = rng.integers(40, 300, SLOTS)
+    for slot, n in enumerate(lengths):
+        prompt = rng.integers(0, model.cfg.vocab_size, int(n))
+        for pos in range(0, int(n), CHUNK):
+            chunk = prompt[pos:pos + CHUNK]
+            toks = np.zeros((1, CHUNK), np.int32)
+            toks[0, :len(chunk)] = chunk
+            model.prefill_paged(params, torch.from_numpy(toks).to(DEV), kv,
+                                table, slot, pos, len(chunk), qc)
+    toks = torch.from_numpy(rng.integers(0, model.cfg.vocab_size,
+                                         (SLOTS, 1)).astype(np.int32)).to(DEV)
+    positions = torch.from_numpy(lengths.astype(np.int32)).to(DEV)
+    lg_k = model.decode_paged(params, toks, kv, table, positions, qc).float()
+    with plain_kernels():
+        lg_p = model.decode_paged(params, toks, kv, table, positions,
+                                  qc).float()
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(lg_k).all()), "non-finite logits")
+    delta = lg_k - lg_p
+    rel = (delta.norm(dim=-1) / lg_p.norm(dim=-1)).tolist()
+    mean_frac = float(delta.abs().mean() / lg_p.std())
+    agree = int((lg_k.argmax(-1) == lg_p.argmax(-1)).sum())
+    print(f"logit check, {model.cfg.dtype} (one decode step, {SLOTS} slots "
+          f"at lengths {lengths.tolist()}): row relative L2 "
+          f"{[round(r, 4) for r in rel]}, mean |diff| {mean_frac:.4f} of "
+          f"std {float(lg_p.std()):.4g}, max |diff| "
+          f"{float(delta.abs().max()):.4g}, argmax agrees on {agree}/{SLOTS}")
+    agreeing = sum(r <= LOGIT_ROW_REL_TOL for r in rel)
+    allowed = LOGIT_ROWS_OFF[model.cfg.dtype]
+    check(agreeing >= SLOTS - allowed,
+          f"kernel vs plain logits ({model.cfg.dtype}): {agreeing} of "
+          f"{SLOTS} rows within relative L2 {LOGIT_ROW_REL_TOL}, at least "
+          f"{SLOTS - allowed} required")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device visible to torch", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False   # plain fp32 versions
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    print(smi)
+    t0 = time.perf_counter()
+    logs = _build.build()
+    print(f"build: {time.perf_counter() - t0:.1f} s "
+          f"({', '.join(_build.SOURCES)})")
+    for text in logs.values():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                print("  ptxas:", line.strip())
+
+    gen = torch.Generator(device=DEV).manual_seed(args.seed)
+    flush = torch.ones(L2_FLUSH_BYTES // 4, dtype=torch.int32, device=DEV)
+    clocks = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+         "--format=csv,noheader,nounits", "-lms", "200"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        b1 = {}
+        for m in (8, 32):
+            for k, n, _ in PROJ_SHAPES:
+                b1[(m, k, n)] = b1_case(gen, m, k, n, flush)
+        rng = np.random.default_rng(args.seed)
+        main_pos = sorted(rng.integers(32, MAX_SEQ, SLOTS).tolist())
+        b2 = b2_case(gen, "main path B=8 KVH=20 G=1 D=128 NP=32", SLOTS, 20,
+                     20, 128, MAX_SEQ // PAGE, main_pos, 0, [0] * SLOTS,
+                     flush, True)
+        b2_full = b2_case(gen, "all 8 slots at 511 tokens", SLOTS, 20, 20,
+                          128, MAX_SEQ // PAGE, [MAX_SEQ - 1] * SLOTS, 0,
+                          [0] * SLOTS, flush, True)
+        b2_gqa = b2_case(gen, "G=4 window=100 kv_start>0, pos=-1 lanes", 4,
+                         16, 4, 128, 16, [200, -1, 77, 255], 100,
+                         [5, 0, 3, 17], flush, False)
+    finally:
+        clocks.terminate()
+        out = clocks.communicate()[0]
+    del flush
+    samples = [[float(f) for f in line.split(",")]
+               for line in out.splitlines() if line.count(",") == 1]
+    if samples:
+        sm = sorted(x[0] for x in samples)
+        print(f"kernel phase: SM clock min/median/max {sm[0]:.0f}/"
+              f"{sm[len(sm) // 2]:.0f}/{sm[-1]:.0f} MHz, power max "
+              f"{max(x[1] for x in samples):.0f} W ({len(samples)} samples)")
+
+    cfg = qwen1p5_4b.config()
+    qc = QuantConfig(mode="lut_infer", v=V, c=C, metric="l2",
+                     lut_dtype="int8")
+    model = Model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=DEV).manual_seed(
+        args.seed), qc)
+    torch.cuda.synchronize()
+    pbytes = sum(nbytes(t) for t in _leaves(params))
+    print(f"init: full-width {cfg.name} ({cfg.num_layers} layers, lut_infer "
+          f"int8 v={V} c={C}) built on the card in "
+          f"{time.perf_counter() - t0:.1f} s, {pbytes / 1e9:.2f} GB of params")
+    torch.cuda.reset_peak_memory_stats()
+    step_b1 = cfg.num_layers * sum(b1[(8, k, n)]["ms"] * cnt
+                                   for k, n, cnt in PROJ_SHAPES)
+    print(f"kernel device time per decode step (from the kernel phase): B1 "
+          f"{step_b1:.2f} ms, B2 {cfg.num_layers * b2['ms']:.2f} ms")
+    counts = serve(model, params, qc, args.seed)
+    print(f"peak device memory while serving: "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    logit_check(model, params, qc, args.seed)
+    # the same step in float32 (LUTs stay int8): what is left of the
+    # difference without bf16 rounding
+    logit_check(Model(cfg.replace(dtype="float32")), _map_float(
+        params, torch.float32), qc, args.seed)
+
+    decode = [b1[(8, k, n)] for k, n, _ in PROJ_SHAPES]
+    per_layer = [r for r, (_, _, cnt) in zip(decode, PROJ_SHAPES)
+                 for _ in range(cnt)]
+    kernels = [
+        {"name": "vq_amm (B1, 7 projections of one layer at decode M=8)",
+         "route": "cuda", "source": "src/repro_torch/csrc/fused_amm.cu",
+         "replaces": "src/repro/kernels/fused_amm.py:87",
+         "launches": counts["b1"],
+         "max_abs_err": max(r["err"] for r in b1.values()),
+         "ms": sum(r["ms"] for r in per_layer),
+         "plain_ms": sum(r["plain_ms"] for r in per_layer),
+         "bound_ms": sum(r["bound_ms"] for r in per_layer),
+         "bound_by": "bytes" if all(r["bound_by"] == "bytes"
+                                    for r in per_layer) else "operations",
+         "library_ms": None},
+        {"name": "flash_decode_splits (B2, one layer, 8 slots)",
+         "route": "cuda", "source": "src/repro_torch/csrc/flash_decode.cu",
+         "replaces": "src/repro/kernels/flash_decode.py:183",
+         "launches": counts["b2"],
+         "max_abs_err": max(b2["err"], b2_full["err"], b2_gqa["err"]),
+         "ms": b2["ms"], "plain_ms": b2["plain_ms"],
+         "bound_ms": b2["bound_ms"], "bound_by": b2["bound_by"],
+         "library_ms": b2["library_ms"]},
+    ]
+    print(json.dumps({"kernels": kernels}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def _map_float(tree, dtype):
+    if isinstance(tree, dict):
+        return {k: _map_float(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map_float(v, dtype) for v in tree]
+    return tree.to(dtype) if tree.is_floating_point() else tree
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+if __name__ == "__main__":
+    sys.exit(main())

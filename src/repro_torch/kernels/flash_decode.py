@@ -1,0 +1,241 @@
+"""Paged flash decode: attention of one new token per slot over the paged
+KV pool, read in place through the page table (port of
+``repro.kernels.flash_decode``).
+
+  * split-KV: each slot's logical KV length is cut into splits of
+    ``split_pages`` pages; every split reduces to a triple ``(m, l, acc)``
+    (running max, sum of exponentials at that max, partial numerator).
+  * the triples form a commutative monoid under :func:`combine_splits`
+    with identity ``(NEG_INF, 0, 0)``; :func:`reduce_splits` folds them,
+    then the new token's self term is folded in. All-masked splits emit
+    the identity, never NaN: probabilities are zero under the mask, not
+    through ``exp(-inf)``.
+  * GQA: queries arrive grouped ``(B, KVH, G, D)``, so the G query heads
+    of one kv head share each K/V row.
+  * trash page: ``phys`` maps unallocated pages to the pool's last page;
+    its keys sit at ``kj >= pos`` and are masked, so its contents are
+    never attended.
+
+The per-split triples come from kernel B2 (``csrc/flash_decode.cu``,
+:func:`flash_decode_splits_cuda`) for CUDA tensors and from the plain
+version :func:`flash_decode_splits` for CPU tensors. The reduction over
+splits and the self-term fold are plain PyTorch in both cases, as they
+are plain XLA in the JAX package.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+
+from . import _build
+
+# Finite stand-in for -inf. exp(NEG_INF - NEG_INF) == 1 (not NaN), which
+# is what makes the identity triple compose safely.
+NEG_INF = -1e30
+
+#: Pages per split: 2 pages of 16 tokens is 32 keys a block; at the main
+#: path's 8 slots x 20 kv heads x 32 pages that is 2560 blocks on the
+#: H100's 132 SMs, so a block's serial page loop stays short. Chosen on
+#: an H100 among 1, 2, 4, 8 and 16 (``chip_smoke.py`` prints that sweep);
+#: the port's choice for this card, not the TPU's table.
+SPLIT_PAGES = 2
+
+Triple = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def combine_splits(a: Triple, b: Triple) -> Triple:
+    """Merge two split triples ``(m, l, acc)`` into one (associative,
+    commutative, identity ``(NEG_INF, 0, 0)``)."""
+    m_a, l_a, o_a = a
+    m_b, l_b, o_b = b
+    m = torch.maximum(m_a, m_b)
+    wa = torch.exp(m_a - m)
+    wb = torch.exp(m_b - m)
+    return (m, l_a * wa + l_b * wb,
+            o_a * wa[..., None] + o_b * wb[..., None])
+
+
+def reduce_splits(m: torch.Tensor, l: torch.Tensor,
+                  acc: torch.Tensor) -> Triple:
+    """Fold per-split triples over the leading split axis in one pass.
+    m, l: (NS, ...); acc: (NS, ..., D)."""
+    m_t = torch.amax(m, dim=0)
+    w = torch.exp(m - m_t[None])
+    return m_t, torch.sum(l * w, dim=0), torch.sum(acc * w[..., None], dim=0)
+
+
+def _split_masks(pos, win: int, ks, kj):
+    """Shared causal/window/kv_start mask. kj broadcasts against pos."""
+    mask = (kj < pos) & (kj >= ks)
+    if win > 0:
+        mask = mask & (kj > pos - win)
+    return mask
+
+
+def flash_decode_splits(qg: torch.Tensor, k_pages: torch.Tensor,
+                        v_pages: torch.Tensor, phys: torch.Tensor,
+                        pos: torch.Tensor, win: int, ks: torch.Tensor,
+                        split_pages: int) -> Triple:
+    """Per-split triples in plain PyTorch: the plain version of kernel B2.
+
+    qg: (B, KVH, G, D) float32 queries, already scaled by D**-0.5.
+    k_pages/v_pages: (P+1, page, KVH, D) pool (last page = trash).
+    phys: (B, NS*split_pages) physical page ids (trash-padded).
+    pos/ks: (B,) int32; win: int (0 = no window).
+    Returns (m, l, acc) shaped (NS, B, KVH, G[, D]) float32.
+    ``flash_decode_splits.calls`` counts calls.
+    """
+    flash_decode_splits.calls += 1
+    b, kvh, g, d = qg.shape
+    ps = k_pages.shape[1]
+    ns = phys.shape[1] // split_pages
+    sl = split_pages * ps                                  # tokens / split
+    kg = k_pages[phys.long()].reshape(b, ns, sl, kvh, d).float()
+    vg = v_pages[phys.long()].reshape(b, ns, sl, kvh, d).float()
+    kj = torch.arange(ns * sl, dtype=torch.int32,
+                      device=qg.device).reshape(ns, sl)
+    mask = _split_masks(pos[:, None, None], win, ks[:, None, None],
+                        kj[None])                          # (B, NS, SL)
+    mask5 = mask[:, :, None, None, :]
+    sc = torch.einsum("bkgd,bstkd->bskgt", qg, kg)
+    sc = torch.where(mask5, sc, torch.full_like(sc, NEG_INF))
+    m = torch.amax(sc, dim=-1)                             # (B, NS, KVH, G)
+    p = torch.where(mask5, torch.exp(sc - m[..., None]),
+                    torch.zeros_like(sc))
+    l = torch.sum(p, dim=-1)
+    acc = torch.einsum("bskgt,bstkd->bskgd", p, vg)
+    return (m.movedim(1, 0).contiguous(), l.movedim(1, 0).contiguous(),
+            acc.movedim(1, 0).contiguous())
+
+
+flash_decode_splits.calls = 0
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_KV_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _lib():
+    lib = _build.load("flash_decode")
+    fn = lib.flash_decode_splits_launch
+    if fn.argtypes is None:
+        fn.argtypes = [_P, _P, _P, _P, _P, _P, _I, _P, _P, _P,
+                       _I, _I, _I, _I, _I, _I, _I, _I, _P]
+        fn.restype = _I
+    return fn
+
+
+def _check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(f"flash_decode_splits_cuda: {msg}")
+
+
+def flash_decode_splits_cuda(qg: torch.Tensor, k_pages: torch.Tensor,
+                             v_pages: torch.Tensor, phys: torch.Tensor,
+                             pos: torch.Tensor, win: int, ks: torch.Tensor,
+                             split_pages: int) -> Triple:
+    """Kernel B2: the same contract as :func:`flash_decode_splits`, on the
+    card. All tensors contiguous CUDA tensors on one device; qg float32,
+    pages float32 or bfloat16, phys/pos/ks int32. G <= 8, D <= 256.
+    ``flash_decode_splits_cuda.launches`` counts launches."""
+    tensors = [qg, k_pages, v_pages, phys, pos, ks]
+    _check(all(t.device.type == "cuda" for t in tensors),
+           "all tensors must be CUDA tensors")
+    _check(len({t.device for t in tensors}) == 1,
+           "tensors lie on different devices")
+    _check(all(t.is_contiguous() for t in tensors),
+           "tensors must be contiguous")
+    _check(qg.dtype == torch.float32, "qg must be float32")
+    _check(k_pages.dtype in _KV_DTYPES and v_pages.dtype == k_pages.dtype,
+           f"pages must share one of {list(_KV_DTYPES)}")
+    _check(all(t.dtype == torch.int32 for t in (phys, pos, ks)),
+           "phys, pos and kv_start must be int32")
+    b, kvh, g, d = qg.shape
+    p1, ps = k_pages.shape[0], k_pages.shape[1]
+    _check(tuple(k_pages.shape) == (p1, ps, kvh, d)
+           and v_pages.shape == k_pages.shape,
+           f"pool {tuple(k_pages.shape)} does not match qg {tuple(qg.shape)}")
+    _check(phys.dim() == 2 and phys.shape[0] == b
+           and tuple(pos.shape) == (b,) and tuple(ks.shape) == (b,),
+           "phys (B, NP), pos (B,) and kv_start (B,) expected")
+    _check(1 <= g <= 8 and 1 <= d <= 256 and split_pages >= 1,
+           f"G={g}, D={d} or split_pages={split_pages} out of range")
+    np_ = phys.shape[1]
+    ns = -(-np_ // split_pages)
+    fn = _lib()
+    m = torch.empty((ns, b, kvh, g), dtype=torch.float32, device=qg.device)
+    l = torch.empty_like(m)
+    acc = torch.empty((ns, b, kvh, g, d), dtype=torch.float32,
+                      device=qg.device)
+    with torch.cuda.device(qg.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(qg.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                 phys.data_ptr(), pos.data_ptr(), ks.data_ptr(), int(win),
+                 m.data_ptr(), l.data_ptr(), acc.data_ptr(),
+                 b, kvh, g, d, ps, np_, split_pages,
+                 _KV_DTYPES[k_pages.dtype], stream)
+    if err != 0:
+        raise RuntimeError(
+            f"flash_decode_splits_cuda: launch failed with cudaError {err}")
+    flash_decode_splits_cuda.launches += 1
+    return m, l, acc
+
+
+flash_decode_splits_cuda.launches = 0
+
+
+def flash_decode_paged(q: torch.Tensor, k_pages: torch.Tensor,
+                       v_pages: torch.Tensor, k_new: torch.Tensor,
+                       v_new: torch.Tensor, phys: torch.Tensor, positions,
+                       *, window: int = 0, kv_start=0,
+                       split_pages: int = SPLIT_PAGES) -> torch.Tensor:
+    """Single-token paged decode attention.
+
+    q (B,1,H,D); k_pages/v_pages (P+1, page, KVH, D): one layer's slice of
+    the pool, last page = trash; k_new/v_new (B,1,KVH,D) the fresh token,
+    NOT yet in the pool (its self term is always live). phys (B, NP)
+    physical page ids, already trash-redirected. positions: (B,) int32
+    per-slot lengths (-1 = inactive lane: its output is the v_new row,
+    discarded by the caller). window: int; kv_start: int or (B,).
+    Runs kernel B2 for CUDA tensors, its plain version for CPU tensors.
+    Returns (B, 1, H*D) in q's dtype.
+    """
+    b, s, h, d = q.shape
+    if s != 1:
+        raise ValueError(f"flash decode is single-token (got S={s})")
+    kvh = k_pages.shape[2]
+    g = h // kvh
+    np_ = phys.shape[1]
+    dev = q.device
+    qg = q.reshape(b, kvh, g, d).float() * (d ** -0.5)
+    pos = torch.as_tensor(positions, dtype=torch.int32,
+                          device=dev).expand(b).contiguous()
+    ks = torch.as_tensor(kv_start, dtype=torch.int32,
+                         device=dev).expand(b).contiguous()
+    sp = min(split_pages, np_)
+    pad = (-np_) % sp
+    phys = phys.to(torch.int32)
+    if pad:                        # trash-pad: kj >= NP*page >= pos
+        phys = torch.nn.functional.pad(phys, (0, pad),
+                                       value=k_pages.shape[0] - 1)
+    phys = phys.contiguous()
+    if dev.type == "cpu":
+        m, l, acc = flash_decode_splits(qg, k_pages, v_pages, phys, pos,
+                                        window, ks, sp)
+    else:
+        m, l, acc = flash_decode_splits_cuda(qg, k_pages, v_pages, phys,
+                                             pos, window, ks, sp)
+    m, l, acc = reduce_splits(m, l, acc)
+    # fold the self term (qg is pre-scaled). The new token is always live,
+    # so the denominator is >= exp(0): never zero, even for pos = -1 lanes.
+    s_new = torch.einsum("bkgd,bkd->bkg", qg, k_new[:, 0].float())
+    m_f = torch.maximum(m, s_new)
+    alpha = torch.exp(m - m_f)
+    p_new = torch.exp(s_new - m_f)
+    denom = l * alpha + p_new
+    out = (acc * alpha[..., None]
+           + p_new[..., None] * v_new[:, 0, :, None, :].float())
+    out = out / denom[..., None]
+    return out.reshape(b, 1, h * d).to(q.dtype)

@@ -1,0 +1,137 @@
+"""Model building blocks: RMSNorm, RoPE, paged attention, SwiGLU MLP
+(port of ``repro.models.layers``, dense family, ``head_layout="heads"``).
+
+Every projection routes through :func:`proj`, a LutLinear, so the paper's
+VQ-AMM technique is a switch for every projection (``QuantConfig.mode``).
+Attention is ported for the two paths paged serving runs: a prefill chunk
+over the slot's cached rows plus the chunk itself (plain matmul and masked
+softmax, as the JAX package's naive ``_sdpa``), and single-token decode
+straight off the page pool (``kernels.flash_decode.flash_decode_paged``,
+kernel B2).
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+
+from repro_torch.core.lut import QuantConfig, lut_linear_apply
+from repro_torch.kernels.flash_decode import flash_decode_paged
+
+Params = Dict
+
+
+def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps)
+    return (out * (1.0 + gamma.float())).to(x.dtype)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor,
+         theta: float) -> torch.Tensor:
+    """Rotary embedding (rotate-half). x (B, S, H, D), positions (B, S)."""
+    d = x.shape[-1]
+    half = d // 2
+    exps = torch.arange(0, half, dtype=torch.float32, device=x.device) / half
+    freqs = 1.0 / (theta ** exps)
+    angles = positions[..., None].float() * freqs            # (B, S, half)
+    cos = torch.cos(angles)[..., None, :]                    # (B, S, 1, half)
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def proj(p: Params, x: torch.Tensor, qc: QuantConfig) -> torch.Tensor:
+    """One LutLinear projection."""
+    return lut_linear_apply(p, x, qc)
+
+
+def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_offset: int,
+          window: int) -> torch.Tensor:
+    """Grouped-query attention of a chunk: q (B,S,H,D) at absolute
+    positions q_offset.., k/v (B,T,KVH,D) at positions 0..T-1. Scores in
+    float32, masked to -1e30, softmax, then probabilities in v's type."""
+    b, s, h, d = q.shape
+    t, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    qg = q.reshape(b, s, kvh, g, d)
+    qi = torch.arange(s, device=q.device) + q_offset
+    kj = torch.arange(t, device=q.device)
+    mask = kj[None, :] <= qi[:, None]                            # (s, t)
+    if window > 0:
+        mask = mask & (kj[None, :] > qi[:, None] - window)
+    scores = torch.einsum("bskgd,btkd->bkgst", qg.float(),
+                          k.float()) * (d ** -0.5)
+    scores = torch.where(mask, scores, torch.full_like(scores, -1e30))
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    out = torch.einsum("bkgst,btkd->bskgd", probs, v)
+    return out.reshape(b, s, h, d)
+
+
+def _paged_view(pages: torch.Tensor, phys: torch.Tensor,
+                n_tokens: int) -> torch.Tensor:
+    """Rows [0, n_tokens) of each slot, gathered from one layer's pool.
+    pages (P+1, page, KVH, HD), phys (B, NP) -> (B, n_tokens, KVH, HD)."""
+    ps = pages.shape[1]
+    n_pages = -(-n_tokens // ps)
+    view = pages[phys[:, :n_pages].long()]          # (B, n, page, KVH, HD)
+    b = phys.shape[0]
+    return view.reshape(b, n_pages * ps, *pages.shape[2:])[:, :n_tokens]
+
+
+def attention(p: Params, x: torch.Tensor, cfg, qc: QuantConfig, q_offset,
+              k_pages: torch.Tensor, v_pages: torch.Tensor,
+              phys: torch.Tensor, window: int = 0
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Pre-norm GQA attention over one layer of the paged pool.
+
+    The pool is read only; the fresh K/V rows come back (in the pool's
+    type) for the caller to write.
+
+    Args:
+      p: layer params {"wq","wk","wv","wo","norm"}.
+      x: (B, S, D) residual stream.
+      q_offset: prefill (S > 1, B == 1): int, absolute position of the
+        chunk's first token; the slot's rows [0, q_offset) come from the
+        pool, the chunk's own K/V are fresh. Decode (S == 1): (B,) int32
+        per-slot positions (-1 = lane not decoding).
+      k_pages/v_pages: (P+1, page, KVH, HD) one layer of the pool.
+      phys: (B, NP) trash-redirected physical page ids.
+      window: 0 = global attention, >0 = sliding window.
+
+    Returns: (out (B, S, D), k_new, v_new (B, S, KVH, HD) in pool type).
+    """
+    b, s, _ = x.shape
+    h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    xn = rms_norm(x, p["norm"], cfg.norm_eps)
+    q = proj(p["wq"], xn, qc)
+    k = proj(p["wk"], xn, qc)
+    v = proj(p["wv"], xn, qc)
+    if s == 1:
+        positions = q_offset[:, None]                            # (B, 1)
+    else:
+        positions = (torch.arange(s, device=x.device) + q_offset)[None]
+    q = rope(q.reshape(b, s, h, hd), positions, cfg.rope_theta)
+    k = rope(k.reshape(b, s, kvh, hd), positions, cfg.rope_theta)
+    v = v.reshape(b, s, kvh, hd)
+    k_new, v_new = k.to(k_pages.dtype), v.to(v_pages.dtype)
+    if s == 1:
+        out = flash_decode_paged(q, k_pages, v_pages, k, v, phys, q_offset,
+                                 window=window)
+    else:
+        k_all = torch.cat([_paged_view(k_pages, phys, q_offset), k_new], 1)
+        v_all = torch.cat([_paged_view(v_pages, phys, q_offset), v_new], 1)
+        out = _sdpa(q, k_all.to(x.dtype), v_all.to(x.dtype), q_offset,
+                    window).reshape(b, s, h * hd)
+    return proj(p["wo"], out, qc), k_new, v_new
+
+
+def mlp(p: Params, x: torch.Tensor, cfg, qc: QuantConfig) -> torch.Tensor:
+    """Pre-norm SwiGLU MLP."""
+    xn = rms_norm(x, p["norm"], cfg.norm_eps)
+    g = proj(p["wg"], xn, qc)
+    u = proj(p["wu"], xn, qc)
+    return proj(p["wd"], torch.nn.functional.silu(g) * u, qc)

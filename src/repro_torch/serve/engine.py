@@ -1,0 +1,235 @@
+"""Continuous-batching serving engine over the paged KV pool (port of the
+core of ``repro.serve.engine.Engine``).
+
+  * slot scheduling: a request is admitted the moment a slot frees,
+    mid-decode included (``SlotScheduler``);
+  * chunked prefill: prompts go through in right-padded chunks of
+    ``prefill_chunk`` tokens, one chunk interleaved with each decode step,
+    so a long prompt never stalls the running requests;
+  * paged KV: attention KV lives in fixed-size pages with per-slot page
+    tables (``PagedKVCache``), so memory scales with live tokens;
+  * per-slot positions: one ``decode_paged`` call advances every decoding
+    slot at its own sequence length;
+  * one host read per decode step (the sampled token ids), counted in
+    ``device_reads``.
+
+Padding: prompts are RIGHT-padded per chunk. Pad positions sit causally
+after every real token, only real rows are written to the pool, and decode
+masks rows ``>= pos``, so pads are never attended.
+
+The paper's technique enters through ``qc``: with ``mode="lut_infer"``
+every projection runs assignment + LUT lookup (kernel B1) instead of a
+dense GEMM; the LUTs must already be in ``params``.
+
+Not ported yet (ROADMAP.md queue A): prefix caching and copy-on-write,
+deadlines, load shedding and the degradation ladder, observability,
+speculative decoding, the tensor-parallel mesh, and the batch-to-completion
+baseline engine.
+"""
+from __future__ import annotations
+
+from typing import List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.core.lut import DENSE, QuantConfig
+from .kv_cache import PagedKVCache, PagePoolExhausted
+from .scheduler import FinishReason, Request, SlotPhase, SlotScheduler
+
+
+def _sample_tokens(logits: torch.Tensor, temps: Optional[Sequence[float]],
+                   generators: Sequence[torch.Generator]) -> torch.Tensor:
+    """One token id per row of ``logits`` (B, V), on the device.
+
+    Greedy (argmax, lowest index on ties) where the row's temperature is
+    <= 0, a categorical draw over ``softmax(logits / T)`` from the row's
+    own generator elsewhere. ``temps`` None = the whole batch is greedy
+    (no generator advances). Per-row generators are the per-slot streams:
+    identical requests in different slots draw different samples. The
+    streams will not reproduce the JAX package's bits.
+    """
+    out = torch.argmax(logits, dim=-1)
+    if temps is None:
+        return out
+    for i, t in enumerate(temps):
+        if t > 0.0:
+            probs = torch.softmax(logits[i].float() / t, dim=-1)
+            out[i] = torch.multinomial(probs, 1, generator=generators[i])[0]
+    return out
+
+
+class Engine:
+    """Continuous-batching engine over a paged KV cache.
+
+    Args:
+      model: ``repro_torch.models.model.Model``; the engine runs on its
+        device.
+      params: model params (LUTs precomputed for ``qc.mode == "lut_infer"``).
+      qc: quantisation operating point threaded through every projection.
+      batch_size: number of slots (max concurrently running requests).
+      max_seq: per-slot sequence capacity (rounded up to a page multiple).
+      eos_id: optional stop token.
+      seed: seeds the per-slot sampling generators.
+      page_size: tokens per KV page.
+      num_pages: physical pool size; default ``slots x pages_per_slot``.
+        A smaller pool admits fewer concurrent tokens and may preempt.
+      prefill_chunk: static prefill chunk width (must divide max_seq).
+    """
+
+    def __init__(self, model, params, qc: QuantConfig = DENSE,
+                 batch_size: int = 8, max_seq: int = 512,
+                 eos_id: Optional[int] = None, seed: int = 0,
+                 page_size: int = 16, num_pages: Optional[int] = None,
+                 prefill_chunk: int = 32):
+        self.model = model
+        self.params = params
+        self.qc = qc
+        self.device = model.device
+        self.num_slots = batch_size
+        max_seq = -(-max_seq // page_size) * page_size
+        self.max_seq = max_seq
+        self.eos_id = eos_id
+        self.prefill_chunk = max(2, min(prefill_chunk, max_seq))
+        if max_seq % self.prefill_chunk:
+            raise ValueError(
+                f"prefill_chunk ({self.prefill_chunk}) must divide "
+                f"max_seq ({max_seq})")
+        self.kv = PagedKVCache(model, self.num_slots, max_seq,
+                               page_size=page_size, num_pages=num_pages)
+        self.scheduler = SlotScheduler(self.num_slots)
+        self.step_count = 0
+        self.device_reads = 0
+        self._gens = [torch.Generator(device=self.device).manual_seed(
+            seed * 1_000_003 + i) for i in range(self.num_slots)]
+
+    # ------------------------------------------------------------------
+    # public API
+    # ------------------------------------------------------------------
+    def submit(self, req: Request) -> None:
+        """Enqueue a request; it is admitted as soon as a slot and pages
+        free. Raises :class:`PagePoolExhausted` at once if its prompt
+        could never be served."""
+        self.kv.table.check_admissible(len(req.tokens) + len(req.out_tokens))
+        self.scheduler.submit(req)
+
+    def run(self, requests: List[Request]) -> List[Request]:
+        """Serve all requests to completion."""
+        for r in requests:
+            self.submit(r)
+        self.run_until_idle()
+        return requests
+
+    def run_until_idle(self) -> None:
+        """Step until queue and slots are empty."""
+        while self.scheduler.has_work:
+            if not self.step():
+                raise RuntimeError("engine made no progress with work "
+                                   f"pending ({self.kv.table.occupancy()})")
+
+    def step(self) -> bool:
+        """One iteration: admit, one prefill chunk, one decode step.
+        Returns False when there was nothing to do."""
+        self.scheduler.admit(self.kv)
+        progressed = False
+        slot = self.scheduler.next_prefill()
+        if slot is not None:
+            self._prefill_chunk_step(slot)
+            progressed = True
+        if self.scheduler.decode_slots():
+            self._decode_step()
+            progressed = True
+        self.step_count += 1
+        return progressed
+
+    # ------------------------------------------------------------------
+    # internals
+    # ------------------------------------------------------------------
+    def _device_read(self, t: torch.Tensor) -> np.ndarray:
+        """THE device -> host transfer of the step loop (one per decode
+        step, one per finished prefill), counted in ``device_reads``."""
+        self.device_reads += 1
+        return t.cpu().numpy()
+
+    def _ensure_pages(self, slot_idx: int, n_tokens: int) -> None:
+        """Grow a slot to n_tokens, preempting other slots if needed."""
+        while True:
+            try:
+                self.kv.table.ensure(slot_idx, n_tokens)
+                return
+            except PagePoolExhausted:
+                if self.scheduler.preempt_youngest(
+                        self.kv, exclude=slot_idx) is None:
+                    raise
+
+    def _grow_or_shed(self, s) -> None:
+        """Reserve the page for slot ``s``'s next write, preempting other
+        slots if needed. Once no other slot is left to preempt, the pool
+        can never hold this sequence: the request finishes truncated (its
+        last sampled token is already in out_tokens)."""
+        try:
+            self._ensure_pages(s.idx, s.pos + 1)
+        except PagePoolExhausted:
+            s.req.finish(FinishReason.TRUNCATED)
+            self.scheduler.evict(s, self.kv)
+
+    def _prefill_chunk_step(self, slot) -> None:
+        c = self.prefill_chunk           # static chunk width
+        chunk = self.scheduler.prompt_chunk(slot, c)
+        valid = len(chunk)
+        toks = np.zeros((1, c), np.int32)
+        toks[0, :valid] = chunk
+        logits = self.model.prefill_paged(
+            self.params, torch.from_numpy(toks).to(self.device),
+            self.kv.data, self.kv.table_device(), slot.idx, slot.pos, valid,
+            self.qc)
+        slot.pos += valid
+        if slot.pos < slot.prefill_len:
+            return
+        temp = slot.req.temperature
+        tok = _sample_tokens(logits, [temp] if temp > 0.0 else None,
+                             [self._gens[slot.idx]])
+        tok = int(self._device_read(tok)[0])
+        self.scheduler.finish_prefill(slot, tok)
+        self._record_token(slot, tok)
+
+    def _decode_step(self) -> None:
+        for s in list(self.scheduler.decode_slots()):
+            if s.phase is not SlotPhase.DECODE:
+                continue          # preempted by an earlier ensure this loop
+            self._grow_or_shed(s)
+        dslots = self.scheduler.decode_slots()
+        if not dslots:
+            return
+        b = self.num_slots
+        toks = np.zeros((b, 1), np.int32)
+        # -1 marks lanes that are NOT decoding this step (free slots and
+        # slots mid-prefill): their KV writes go to the trash page.
+        positions = np.full((b,), -1, np.int32)
+        temps = np.zeros((b,), np.float32)
+        for s in dslots:
+            toks[s.idx, 0] = s.next_token
+            positions[s.idx] = s.pos
+            temps[s.idx] = s.req.temperature
+        logits = self.model.decode_paged(
+            self.params, torch.from_numpy(toks).to(self.device),
+            self.kv.data, self.kv.table_device(),
+            torch.from_numpy(positions).to(self.device), self.qc)
+        nxt = self._device_read(_sample_tokens(
+            logits, temps if (temps > 0.0).any() else None, self._gens))
+        for s in dslots:
+            s.pos += 1
+            self._record_token(s, int(nxt[s.idx]))
+
+    def _record_token(self, slot, tok: int) -> None:
+        """Append a sampled token and apply the eviction rules."""
+        req = slot.req
+        req.out_tokens.append(tok)
+        slot.next_token = tok
+        hit_eos = self.eos_id is not None and tok == self.eos_id
+        budget_done = len(req.out_tokens) >= req.max_new_tokens
+        truncated = slot.pos >= self.max_seq      # no room for another write
+        if hit_eos or budget_done or truncated:
+            req.finish(FinishReason.COMPLETED if (hit_eos or budget_done)
+                       else FinishReason.TRUNCATED)
+            self.scheduler.evict(slot, self.kv)

@@ -1,0 +1,146 @@
+"""Kernels B1 and B2 on the card against their plain versions, beyond the
+main path's shapes: every metric, x type and LUT type on ragged M, N and
+nc, split-K over several row tiles (B1); GQA, sliding window, kv_start,
+inactive lanes, float32 and bfloat16 pools and a split size that does not
+divide the page count (B2).
+
+Needs a CUDA device and ``nvcc``: marked ``cuda``, and skipped when torch
+sees no card. On a machine with an H100, from the repository root:
+
+    PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
+
+(``--noconftest``: the repository's ``tests/conftest.py`` imports JAX.)
+
+Inputs have a clear argmin margin (each sub-vector is a centroid plus
+small noise), so the kernel's indices must equal the plain argmin.
+Tolerances: int8 LUTs are exact int32 sums times the same scale
+(rtol 1e-6); float LUTs meet through float atomics in run-dependent
+order (rtol/atol 1e-4); B2's triples differ by fp32 summation order
+(atol 2e-5 relative to their magnitude).
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels import flash_decode as tfd  # noqa: E402
+from repro_torch.kernels import ref as tref  # noqa: E402
+from repro_torch.kernels.fused_amm import vq_amm_cuda  # noqa: E402
+
+pytestmark = pytest.mark.cuda
+
+# (M, nc, v, c, N): ragged everywhere; the last two need several k splits
+# and several 8-row tiles
+B1_SHAPES = [(17, 5, 3, 7, 33), (1, 3, 4, 9, 50), (23, 11, 8, 16, 130),
+             (40, 700, 8, 16, 300), (9, 90, 8, 256, 70)]
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _b1_inputs(shape, x_dtype, lut_dtype, seed, dev):
+    m, nc, v, c, n = shape
+    rng = np.random.default_rng(seed)
+    z = rng.standard_normal((nc, c, v)).astype(np.float32)
+    pick = rng.integers(0, c, (m, nc))
+    x = z[np.arange(nc)[None], pick] + 0.01 * rng.standard_normal(
+        (m, nc, v)).astype(np.float32)
+    lut = rng.standard_normal((nc, c, n)).astype(np.float32)
+    scale = None
+    if lut_dtype == torch.int8:
+        lut = rng.integers(-127, 128, (nc, c, n)).astype(np.int8)
+        scale = torch.from_numpy(
+            (0.01 + rng.random(n)).astype(np.float32)).to(dev)
+    x = torch.from_numpy(x).to(dev, x_dtype)
+    z = torch.from_numpy(z).to(dev, x_dtype)
+    lut = torch.from_numpy(lut).to(dev, lut_dtype)
+    return x, z, lut, scale
+
+
+@pytest.mark.parametrize("lut_dtype", [torch.float32, torch.bfloat16,
+                                       torch.int8])
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("metric", ["l2", "l1", "chebyshev"])
+def test_vq_amm_kernel_matches_plain(dev, metric, x_dtype, lut_dtype):
+    for i, shape in enumerate(B1_SHAPES):
+        x, z, lut, scale = _b1_inputs(shape, x_dtype, lut_dtype, i, dev)
+        before = vq_amm_cuda.launches
+        got = vq_amm_cuda(x, z, lut, scale, metric)
+        want = tref.vq_amm_ref(x, z, lut, scale, metric)
+        torch.cuda.synchronize()
+        assert vq_amm_cuda.launches == before + 1
+        assert got.dtype == torch.float32 and got.shape == want.shape
+        if lut_dtype == torch.int8:
+            torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+        else:
+            torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+def test_vq_amm_kernel_ties_take_the_lowest_index(dev):
+    """All-zero x and centroids tie everywhere: centroid 0 must win (the
+    LUT row j holds j, so the output is the index sum)."""
+    m, nc, v, c, n = 5, 7, 4, 16, 8
+    x = torch.zeros((m, nc, v), device=dev)
+    z = torch.zeros((nc, c, v), device=dev)
+    lut = torch.arange(c, dtype=torch.float32, device=dev)[None, :, None]
+    lut = lut.expand(nc, c, n).contiguous()
+    for metric in ("l2", "l1", "chebyshev"):
+        out = vq_amm_cuda(x, z, lut, None, metric)
+        assert float(out.abs().max()) == 0.0
+
+
+def _b2_problem(dev, b, h, kvh, d, ps, np_, positions, kv_dtype, seed):
+    rng = np.random.default_rng(seed)
+    n_pages = b * np_
+    kp = rng.standard_normal((n_pages + 1, ps, kvh, d)).astype(np.float32)
+    vp = rng.standard_normal((n_pages + 1, ps, kvh, d)).astype(np.float32)
+    kp[-1] = 1e4                        # trash page: never attended
+    vp[-1] = 1e4
+    phys = rng.permutation(n_pages).reshape(b, np_).astype(np.int32)
+    for i, p in enumerate(positions):   # unallocated tail -> trash
+        phys[i, max(0, -(-p // ps)):] = n_pages
+    qg = (rng.standard_normal((b, kvh, h // kvh, d)) * d ** -0.5).astype(
+        np.float32)
+    t = lambda a, dt=None: torch.from_numpy(a).to(dev, dt)  # noqa: E731
+    return (t(qg), t(kp, kv_dtype), t(vp, kv_dtype), t(phys),
+            t(np.asarray(positions, np.int32)))
+
+
+@pytest.mark.parametrize("kv_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,kvh,d,ps,np_,split,window,kv_start", [
+    (20, 20, 128, 16, 32, 8, 0, 0),     # the main path's shape
+    (16, 4, 128, 16, 10, 3, 0, 0),      # GQA G=4, split does not divide
+    (8, 1, 64, 8, 9, 2, 20, 5),         # G=8, window, kv_start
+    (6, 3, 256, 4, 7, 7, 0, 3),         # D=256, one split
+])
+def test_flash_decode_splits_kernel_matches_plain(dev, kv_dtype, h, kvh, d,
+                                                  ps, np_, split, window,
+                                                  kv_start):
+    b = 4
+    cap = np_ * ps
+    positions = [cap, -1, ps, min(cap, 3 * ps + 1)]   # full, idle, page edge
+    qg, kp, vp, phys, pos = _b2_problem(dev, b, h, kvh, d, ps, np_,
+                                        positions, kv_dtype, h + d)
+    pad = (-np_) % split
+    phys = torch.nn.functional.pad(phys, (0, pad),
+                                   value=kp.shape[0] - 1).contiguous()
+    ks = torch.full((b,), kv_start, dtype=torch.int32, device=dev)
+    before = tfd.flash_decode_splits_cuda.launches
+    got = tfd.flash_decode_splits_cuda(qg, kp, vp, phys, pos, window, ks,
+                                       split)
+    want = tfd.flash_decode_splits(qg, kp, vp, phys, pos, window, ks, split)
+    torch.cuda.synchronize()
+    assert tfd.flash_decode_splits_cuda.launches == before + 1
+    for a, w in zip(got, want):
+        assert a.shape == w.shape
+        tol = 2e-5 * (1.0 + float(w.abs().max()))
+        torch.testing.assert_close(a, w, rtol=0, atol=tol)
+    neg = torch.tensor(tfd.NEG_INF, dtype=torch.float32, device=dev)
+    m, l, acc = got
+    assert bool((m[:, 1] == neg).all() and (l[:, 1] == 0).all()
+                and (acc[:, 1] == 0).all())          # pos = -1: identity

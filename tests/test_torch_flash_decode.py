@@ -1,0 +1,106 @@
+"""Port parity: paged flash decode (kernel B2's plain version, the split
+reduction and the self-term fold) against the JAX package's Pallas kernel
+(interpret mode) and its full-softmax oracle, on the same numpy inputs.
+
+Tolerance: atol 1e-5 (float32; softmax sums in another order).
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels import flash_decode as jfd  # noqa: E402
+from repro.kernels.ref import flash_decode_ref  # noqa: E402
+from repro_torch.kernels import flash_decode as tfd  # noqa: E402
+
+ATOL = 1e-5
+
+
+def _problem(seed, b=3, h=4, kvh=4, d=16, ps=4, n_pages=14, np_=5,
+             positions=(7, -1, 19)):
+    """Random pool with a poisoned trash page, per-slot page rows (some -1,
+    trash-redirected) and per-slot lengths."""
+    rng = np.random.default_rng(seed)
+    k_pages = rng.standard_normal((n_pages + 1, ps, kvh, d)).astype(np.float32)
+    v_pages = rng.standard_normal((n_pages + 1, ps, kvh, d)).astype(np.float32)
+    k_pages[-1] = 1e4          # trash page: must never be attended
+    v_pages[-1] = 1e4
+    phys = np.stack([rng.permutation(n_pages)[:np_] for _ in range(b)])
+    pos = np.asarray(positions, np.int32)
+    for i, p in enumerate(pos):                 # unallocated tail -> trash
+        phys[i, max(0, -(-int(p) // ps)):] = n_pages
+    q = rng.standard_normal((b, 1, h, d)).astype(np.float32)
+    k_new = rng.standard_normal((b, 1, kvh, d)).astype(np.float32)
+    v_new = rng.standard_normal((b, 1, kvh, d)).astype(np.float32)
+    return q, k_pages, v_pages, k_new, v_new, phys.astype(np.int32), pos
+
+
+@pytest.mark.parametrize("h,kvh,window,kv_start,split", [
+    (4, 4, 0, 0, 2),      # G = 1, split of 2 pages does not divide NP = 5
+    (8, 2, 5, 3, 3),      # GQA G = 4, sliding window, kv_start > 0
+    (8, 4, 6, 2, 1),      # G = 2, window and kv_start, one page per split
+])
+def test_flash_decode_plain_matches_jax_kernel_and_oracle(h, kvh, window,
+                                                          kv_start, split):
+    q, kp, vp, kn, vn, phys, pos = _problem(h * 10 + window, h=h, kvh=kvh)
+    j = [jnp.asarray(a) for a in (q, kp, vp, kn, vn, phys, pos)]
+    out_pl = np.asarray(jfd.flash_decode_paged(
+        *j, window=window, kv_start=kv_start, impl="pallas",
+        split_pages=split, interpret=True))
+    out_ref = np.asarray(flash_decode_ref(*j, window=window,
+                                          kv_start=kv_start))
+    t = [torch.from_numpy(a) for a in (q, kp, vp, kn, vn, phys, pos)]
+    before = tfd.flash_decode_splits.calls
+    out_t = tfd.flash_decode_paged(*t, window=window, kv_start=kv_start,
+                                   split_pages=split).numpy()
+    assert tfd.flash_decode_splits.calls == before + 1   # CPU -> plain
+    assert out_t.shape == (3, 1, h * 16)
+    assert np.isfinite(out_t).all()
+    live = pos >= 0        # pos = -1 lanes: garbage by contract, but finite
+    np.testing.assert_allclose(out_t[live], out_pl[live], atol=ATOL)
+    np.testing.assert_allclose(out_t[live], out_ref[live], atol=ATOL)
+    np.testing.assert_allclose(out_t, out_pl, atol=ATOL)
+
+
+def test_split_triples_match_jax_and_masked_splits_are_identity():
+    q, kp, vp, _, _, phys, pos = _problem(3, positions=(5, -1, 9))
+    qg = (q.reshape(3, 4, 1, 16) * 16 ** -0.5).astype(np.float32)
+    phys = np.pad(phys, ((0, 0), (0, 1)), constant_values=kp.shape[0] - 1)
+    ks = np.zeros(3, np.int32)
+    m_j, l_j, a_j = jfd.flash_decode_splits(
+        jnp.asarray(qg), jnp.asarray(kp), jnp.asarray(vp), jnp.asarray(phys),
+        jnp.asarray(pos), jnp.asarray(0), jnp.asarray(ks), 2)
+    m_t, l_t, a_t = tfd.flash_decode_splits(
+        torch.from_numpy(qg), torch.from_numpy(kp), torch.from_numpy(vp),
+        torch.from_numpy(phys), torch.from_numpy(pos), 0,
+        torch.from_numpy(ks), 2)
+    for got, want in ((m_t, m_j), (l_t, l_j), (a_t, a_j)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
+    # slot 1 (pos = -1) and every split past a slot's length: exactly the
+    # identity, compared in the array's own dtype
+    neg = np.float32(tfd.NEG_INF)
+    m, l, a = m_t.numpy(), l_t.numpy(), a_t.numpy()
+    assert (m[:, 1] == neg).all() and (l[:, 1] == 0).all()
+    assert (a[:, 1] == 0).all()
+    assert (m[1:, 0] == neg).all() and (l[1:, 0] == 0).all()   # 5 keys
+    assert (m[0, 0] > neg).all()
+
+
+def test_reduce_splits_equals_sequential_combine():
+    rng = np.random.default_rng(4)
+    m = torch.from_numpy(rng.standard_normal((4, 2, 3)).astype(np.float32))
+    m[1, 0] = tfd.NEG_INF                        # an all-masked split
+    l = torch.from_numpy(rng.random((4, 2, 3)).astype(np.float32))
+    l[1, 0] = 0
+    acc = torch.from_numpy(rng.standard_normal((4, 2, 3, 5)).astype(
+        np.float32))
+    acc[1, 0] = 0
+    tri = (m[0], l[0], acc[0])
+    for i in (3, 1, 2):                          # any order
+        tri = tfd.combine_splits(tri, (m[i], l[i], acc[i]))
+    red = tfd.reduce_splits(m, l, acc)
+    for got, want in zip(red, tri):
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5,
+                                   atol=1e-6)
