@@ -1,9 +1,12 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA
-H100: builds the hand-written kernels, holds each against its plain
-PyTorch version, serves full-width qwen1.5-4b (lut_infer, int8 LUTs)
-through the continuous-batching engine, and checks one decode step's
-logits through the kernels against the plain versions.
+H100: builds the hand-written kernels (B1-B5), holds each against its
+plain PyTorch version at the main path's shapes, serves full-width
+qwen1.5-4b (lut_infer, int8 LUTs) through the continuous-batching engine
+three times -- fused projections on an fp KV pool (B1, B2), two-pass
+projections (B3, B4, B2), fused projections on a VQ code pool (B1, B5)
+-- and checks one decode step's logits of each through the kernels
+against the plain versions.
 
     python3 chip_smoke.py [--seed N]
 
@@ -32,8 +35,11 @@ import torch  # noqa: E402
 from repro_torch.configs import qwen1p5_4b  # noqa: E402
 from repro_torch.core.lut import QuantConfig  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.core.kv_codebook import KVCodebook, kv_encode  # noqa
 from repro_torch.kernels import flash_decode as fd  # noqa: E402
+from repro_torch.kernels.assign import vq_assign_cuda  # noqa: E402
 from repro_torch.kernels.fused_amm import vq_amm_cuda  # noqa: E402
+from repro_torch.kernels.lut_gemm import lut_gemm_cuda  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
 from repro_torch.serve.engine import Engine  # noqa: E402
 from repro_torch.serve.scheduler import Request  # noqa: E402
@@ -47,6 +53,7 @@ SPIN_CYCLES = 2_000_000               # ~1 ms: longer than any host enqueue
 DEV = "cuda"
 SLOTS, PAGE, MAX_SEQ, CHUNK = 8, 16, 512, 32
 V, C = 8, 16
+KV_V, KV_C = 4, 16                    # the VQ-KV run's codebook
 # (K, N, launches per layer) of the 7 projections: wq wk wv wo, wg wu, wd
 PROJ_SHAPES = [(2560, 2560, 4), (2560, 6912, 2), (6912, 2560, 1)]
 
@@ -121,33 +128,56 @@ def bound(bytes_: float, ops_: float):
     return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
 
 
+# (module, attribute of the kernel's wrapper, its plain version): the CUDA
+# dispatch of every kernel, as the entry points look it up
+DISPATCH = {
+    "b1": (ops, "vq_amm_cuda", ref.vq_amm_ref),
+    "b3": (ops, "vq_assign_cuda", ref.assign_ref),
+    "b4": (ops, "lut_gemm_cuda", ref.lut_gemm_onehot),
+    "b2": (fd, "flash_decode_splits_cuda", fd.flash_decode_splits),
+    "b5": (fd, "flash_decode_splits_kvq_cuda", fd.flash_decode_splits_kvq),
+}
+WRAPPERS = {"b1": vq_amm_cuda, "b3": vq_assign_cuda, "b4": lut_gemm_cuda,
+            "b2": fd.flash_decode_splits_cuda,
+            "b5": fd.flash_decode_splits_kvq_cuda}
+
+
 @contextlib.contextmanager
 def plain_kernels():
-    """Route the CUDA dispatch of both kernels to their plain versions
-    (for the kernel-vs-plain logit check only)."""
-    saved = ops.vq_amm_cuda, fd.flash_decode_splits_cuda
-    ops.vq_amm_cuda = ref.vq_amm_ref
-    fd.flash_decode_splits_cuda = fd.flash_decode_splits
+    """Route the CUDA dispatch of every kernel to its plain version (for
+    the kernel-vs-plain logit check only)."""
+    saved = {k: getattr(mod, attr) for k, (mod, attr, _) in DISPATCH.items()}
+    for mod, attr, plain in DISPATCH.values():
+        setattr(mod, attr, plain)
     try:
         yield
     finally:
-        ops.vq_amm_cuda, fd.flash_decode_splits_cuda = saved
+        for k, (mod, attr, _) in DISPATCH.items():
+            setattr(mod, attr, saved[k])
 
 
 def reset_counts() -> None:
-    vq_amm_cuda.launches = 0
-    fd.flash_decode_splits_cuda.launches = 0
-    ref.vq_amm_ref.calls = 0
-    fd.flash_decode_splits.calls = 0
+    for k, (_, _, plain) in DISPATCH.items():
+        WRAPPERS[k].launches = 0
+        plain.calls = 0
+
+
+def read_counts() -> dict:
+    out = {k: w.launches for k, w in WRAPPERS.items()}
+    out.update({k + "_plain": plain.calls
+                for k, (_, _, plain) in DISPATCH.items()})
+    return out
 
 
 # ---------------------------------------------------------------------------
 # kernels phase
 # ---------------------------------------------------------------------------
 
-def b1_case(gen, m, k, n, flush):
-    """B1 at one main-path shape: x = a centroid + small noise, so every
-    argmin has a clear margin. Returns a result dict."""
+def vq_inputs(gen, m, k, n):
+    """One projection's operands at a main-path shape: x = a centroid +
+    small noise (every argmin has a clear margin), an int8 LUT and its
+    scale, and random unit-scale rows xr (as after RMSNorm; near-ties may
+    flip between two orders of summation)."""
     dev = DEV
     nc = k // V
     z = (0.02 * torch.randn((nc, C, V), generator=gen, device=dev)).to(
@@ -159,6 +189,24 @@ def b1_case(gen, m, k, n, flush):
     lut = torch.randint(-127, 128, (nc, C, n), generator=gen, device=dev,
                         dtype=torch.int32).to(torch.int8)
     scale = 1e-3 + 1e-2 * torch.rand((n,), generator=gen, device=dev)
+    xr = torch.randn((m, nc, V), generator=gen, device=dev).to(
+        torch.bfloat16)
+    return x, z, lut, scale, xr
+
+
+def selected_lut_bytes(idx, n):
+    """Bytes of the int8 LUT rows that some row of idx (M, nc) selects:
+    what a gather-accumulate must read."""
+    rows = torch.zeros((idx.shape[1], C), device=DEV)
+    rows.scatter_(1, idx.T.long(), 1.0)
+    return float(rows.sum()) * n
+
+
+def b1_case(gen, m, k, n, flush):
+    """B1 at one main-path shape. Returns a result dict."""
+    dev = DEV
+    nc = k // V
+    x, z, lut, scale, xr = vq_inputs(gen, m, k, n)
 
     idx_plain = ref.assign_ref(x, z)
     # index probe: lut[k, j, col] = j * [col == k] reads each selected
@@ -178,8 +226,6 @@ def b1_case(gen, m, k, n, flush):
     tol = 1e-5 * max(1.0, float(out_p.abs().max()))
     check(err <= tol, f"B1 {m}x{k}x{n}: max abs err {err} > {tol}")
 
-    # random unit-scale x (as after RMSNorm): near-ties may flip
-    xr = torch.randn((m, nc, V), generator=gen, device=dev).to(torch.bfloat16)
     flips = float((torch.round(vq_amm_cuda(xr, z, probe, torch.ones(
         nc, device=dev))).to(torch.int32) != ref.assign_ref(xr, z)).float()
         .mean())
@@ -193,9 +239,7 @@ def b1_case(gen, m, k, n, flush):
     plain_ms = time_ms(lambda: ref.vq_amm_ref(x, z, lut, scale), 5, flush)
     host = host_us(lambda: vq_amm_cuda(x, z, lut, scale))
     # bytes this data needs: x, z, the LUT rows some row selects, scale, out
-    rows = torch.zeros((nc, C), device=dev)
-    rows.scatter_(1, idx_plain.T.long(), 1.0)
-    lut_bytes = float(rows.sum()) * n
+    lut_bytes = selected_lut_bytes(idx_plain, n)
     b = nbytes(x, z, scale) + lut_bytes + m * n * 4
     o = m * nc * C * (4 * V + 2) + m * nc * n + m * n
     bms, by = bound(b, o)
@@ -207,6 +251,76 @@ def b1_case(gen, m, k, n, flush):
           f"{flips:.2e} index flips, {off:.2%} of outputs off by >1e-3")
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
             "err": err}
+
+
+def b34_case(gen, m, k, n, flush):
+    """B3 then B4 (the two-pass path) at one main-path shape: B3's indices
+    equal the plain argmin on margin inputs and B1's own on random ones
+    (they share one distance and argmin code), B4's int8 sums are exact,
+    and B4(B3(x)) equals B1(x) bit for bit. Returns two result dicts."""
+    dev = DEV
+    nc = k // V
+    x, z, lut, scale, xr = vq_inputs(gen, m, k, n)
+    idx_k = vq_assign_cuda(x, z)
+    idx_p = ref.assign_ref(x, z)
+    check(torch.equal(idx_k, idx_p),
+          f"B3 {m}x{k}: kernel indices differ from the plain argmin at "
+          f"{int((idx_k != idx_p).sum())} of {idx_p.numel()}")
+    out_k = lut_gemm_cuda(idx_k, lut, scale)
+    out_p = ref.lut_gemm_onehot(idx_p, lut, scale)
+    torch.cuda.synchronize()
+    err = float((out_k - out_p).abs().max())
+    tol = 1e-5 * max(1.0, float(out_p.abs().max()))
+    check(err <= tol, f"B4 {m}x{k}x{n}: max abs err {err} > {tol}")
+    probe = (torch.arange(C, device=dev)[None, :, None]
+             * torch.eye(nc, device=dev)[:, None, :]).to(torch.int8)
+    ones = torch.ones(nc, device=dev)
+    for name, xx in (("margin", x), ("random", xr)):
+        two = lut_gemm_cuda(vq_assign_cuda(xx, z), lut, scale)
+        check(torch.equal(two, vq_amm_cuda(xx, z, lut, scale)),
+              f"B4(B3(x)) != B1(x) at {m}x{k}x{n} on {name} x")
+    idx_r = vq_assign_cuda(xr, z)
+    b1_r = torch.round(vq_amm_cuda(xr, z, probe, ones)).to(torch.int32)
+    check(torch.equal(idx_r, b1_r),
+          f"B3 {m}x{k}: indices differ from B1's on random x")
+    flips = float((idx_r != ref.assign_ref(xr, z)).float().mean())
+    check(flips < 1e-3, f"B3 {m}x{k}: {flips:.2%} of random-x "
+          "assignments differ from the plain argmin")
+
+    lut_f = lut.float().reshape(nc * C, n)       # embedding_bag's table
+    offs = (idx_k.long() + C * torch.arange(nc, device=dev)[None])
+    lib = torch.nn.functional.embedding_bag(offs, lut_f, mode="sum")
+    check(torch.allclose(lib * scale, out_k, rtol=1e-6, atol=0.0),
+          f"B4 {m}x{k}x{n}: embedding_bag yardstick disagrees")
+    r3 = {"ms": time_ms(lambda: vq_assign_cuda(x, z), 30, flush),
+          "plain_ms": time_ms(lambda: ref.assign_ref(x, z), 5, flush),
+          "host": host_us(lambda: vq_assign_cuda(x, z)), "err": 0.0,
+          "library_ms": None}
+    r4 = {"ms": time_ms(lambda: lut_gemm_cuda(idx_k, lut, scale), 30, flush),
+          "plain_ms": time_ms(lambda: ref.lut_gemm_onehot(idx_k, lut, scale),
+                              5, flush),
+          "host": host_us(lambda: lut_gemm_cuda(idx_k, lut, scale)),
+          "library_ms": time_ms(lambda: torch.nn.functional.embedding_bag(
+              offs, lut_f, mode="sum"), 30, flush),
+          "err": err}
+    # B3 must read x and z and write the indices; B4 read the indices,
+    # the LUT rows they select and the scale, and write out
+    r3["bound_ms"], r3["bound_by"] = bound(
+        nbytes(x, z, idx_k), m * nc * C * (4 * V + 2))
+    lut_bytes = selected_lut_bytes(idx_k, n)
+    r4["bound_ms"], r4["bound_by"] = bound(
+        nbytes(idx_k, scale) + lut_bytes + m * n * 4, m * nc * n + m * n)
+    print(f"B3 vq_assign M={m} K={k}: kernel {r3['ms'] * 1e3:.1f} us, plain "
+          f"{r3['plain_ms'] * 1e3:.1f} us, bound {r3['bound_ms'] * 1e3:.3f} "
+          f"us ({r3['bound_by']}), host {r3['host']:.1f} us/call; random x: "
+          f"{flips:.2e} flips vs plain, indices equal to B1's")
+    print(f"B4 lut_gemm M={m} K={k} N={n}: kernel {r4['ms'] * 1e3:.1f} us, "
+          f"plain {r4['plain_ms'] * 1e3:.1f} us, embedding_bag (float32 copy "
+          f"of the int8 table, no scale) {r4['library_ms'] * 1e3:.1f} us, "
+          f"bound {r4['bound_ms'] * 1e3:.2f} us ({r4['bound_by']}), host "
+          f"{r4['host']:.1f} us/call, max abs err {err:.3g}; B4(B3(x)) == "
+          f"B1(x) bitwise")
+    return r3, r4
 
 
 def b2_inputs(gen, b, h, kvh, d, np_, positions, kv_start, dev=DEV):
@@ -308,18 +422,153 @@ def b2_case(gen, name, b, h, kvh, d, np_, positions, window, kv_start,
             "library_ms": library_ms, "err": err}
 
 
+def b5_inputs(gen, b, h, kvh, d, np_, positions, kv_start, exact_c=None):
+    """A code pool of one layer: random fp K/V pages, encoded with a table
+    fit on them (nc = d / KV_V, c = KV_C), or with an exact-cover table of
+    exact_c rows (nc = 1, v = d) and random codes; the trash page holds
+    codes too (never attended). Returns the operands and the fp pages the
+    codes stand for (dequantized), for the SDPA yardstick."""
+    dev = DEV
+    n_pages = b * np_
+    kp = torch.randn((n_pages + 1, PAGE, kvh, d), generator=gen, device=dev)
+    vp = torch.randn((n_pages + 1, PAGE, kvh, d), generator=gen, device=dev)
+    if exact_c is None:
+        cb = KVCodebook.fit(kp[None, :n_pages].reshape(1, -1, kvh, d),
+                            vp[None, :n_pages].reshape(1, -1, kvh, d),
+                            v=KV_V, c=KV_C, generator=gen)
+        kc = kv_encode(kp, cb.zk[0], cb.sk[0])
+        vc = kv_encode(vp, cb.zv[0], cb.sv[0])
+    else:
+        rows = torch.randn((2, 1, exact_c // kvh, kvh, d), generator=gen,
+                           device=dev)
+        cb = KVCodebook.from_rows(rows[0], rows[1])
+        kc = torch.randint(0, exact_c, (n_pages + 1, PAGE, kvh, 1),
+                           generator=gen, device=dev).to(torch.uint8)
+        vc = torch.randint(0, exact_c, (n_pages + 1, PAGE, kvh, 1),
+                           generator=gen, device=dev).to(torch.uint8)
+    cb_l = {key: leaf[0].contiguous() for key, leaf in cb.tree().items()}
+    perm = torch.randperm(n_pages, generator=gen, device=dev)
+    phys = perm.reshape(b, np_).to(torch.int32)
+    pos = torch.tensor(positions, dtype=torch.int32, device=dev)
+    for i, p in enumerate(positions):  # unallocated tail -> trash
+        phys[i, max(0, -(-p // PAGE)):] = n_pages
+    q = torch.randn((b, 1, h, d), generator=gen, device=dev)
+    kn = torch.randn((b, 1, kvh, d), generator=gen, device=dev)
+    vn = torch.randn((b, 1, kvh, d), generator=gen, device=dev)
+    ks = torch.tensor(kv_start, dtype=torch.int32, device=dev)
+    return q, kc, vc, cb_l, kn, vn, phys, pos, ks
+
+
+def b5_case(gen, name, b, h, kvh, d, np_, positions, window, kv_start,
+            flush, timed, exact_c=None):
+    """B5 at one shape, against its plain version (triples and output)
+    and the dequantize-then-reference oracle, all in float32."""
+    q, kc, vc, cb_l, kn, vn, phys, pos, ks = b5_inputs(
+        gen, b, h, kvh, d, np_, positions, kv_start, exact_c)
+    g = h // kvh
+    sp = min(fd.SPLIT_PAGES_KVQ, np_)
+    qg = (q.reshape(b, kvh, g, d).float() * d ** -0.5).contiguous()
+    tab = (cb_l["zk"], cb_l["zv"], cb_l["sk"], cb_l["sv"])
+
+    def pad(s_):
+        return torch.nn.functional.pad(phys, (0, (-np_) % s_),
+                                       value=kc.shape[0] - 1).contiguous()
+    phys_p = pad(sp)
+    tk = fd.flash_decode_splits_kvq_cuda(qg, kc, vc, *tab, phys_p, pos,
+                                         window, ks, sp)
+    tp = fd.flash_decode_splits_kvq(qg, kc, vc, *tab, phys_p, pos, window,
+                                    ks, sp)
+    torch.cuda.synchronize()
+    for nm, a, c in zip("mla", tk, tp):
+        e = float((a - c).abs().max())
+        check(e <= 2e-5 * (1.0 + float(c.abs().max())),
+              f"B5 {name}: split {nm} max abs err {e}")
+    neg = torch.tensor(fd.NEG_INF, dtype=torch.float32, device=DEV)
+    dead = pos < 0
+    if bool(dead.any()):              # masked lanes: exactly the identity
+        check(bool((tk[0][:, dead] == neg).all()
+                   and (tk[1][:, dead] == 0).all()
+                   and (tk[2][:, dead] == 0).all()),
+              f"B5 {name}: masked lane is not (-1e30, 0, 0) in float32")
+    out_k = fd.flash_decode_paged(q, kc, vc, kn, vn, phys, pos,
+                                  window=window, kv_start=ks, codebook=cb_l)
+    with plain_kernels():
+        out_p = fd.flash_decode_paged(q, kc, vc, kn, vn, phys, pos,
+                                      window=window, kv_start=ks,
+                                      codebook=cb_l)
+    oracle = ref.flash_decode_kvq_ref(q, kc, vc, cb_l, kn, vn, phys, pos,
+                                      window=window, kv_start=ks)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(out_k).all()), f"B5 {name}: non-finite out")
+    live = ~dead
+    err = max(float((out_k - w)[live].abs().max()) for w in (out_p, oracle))
+    check(err <= 1e-4, f"B5 {name}: output max abs err {err} (float32)")
+    tables = nbytes(*tab)
+    if not timed:
+        print(f"B5 flash_decode_kvq {name}: tables {tables / 1024:.0f} KB, "
+              f"max abs err {err:.3g} vs plain and oracle (checked)")
+        return {"err": err}
+    ms = time_ms(lambda: fd.flash_decode_splits_kvq_cuda(
+        qg, kc, vc, *tab, phys_p, pos, window, ks, sp), 30, flush)
+    plain_ms = time_ms(lambda: fd.flash_decode_splits_kvq(
+        qg, kc, vc, *tab, phys_p, pos, window, ks, sp), 5, flush)
+    host = host_us(lambda: fd.flash_decode_splits_kvq_cuda(
+        qg, kc, vc, *tab, phys_p, pos, window, ks, sp))
+    sweep = []
+    for s_ in (1, 2, 4, 8, 16):       # pages per split
+        ph = pad(s_)
+        t_s = time_ms(lambda: fd.flash_decode_splits_kvq_cuda(
+            qg, kc, vc, *tab, ph, pos, window, ks, s_), 30, flush)
+        sweep.append(f"{s_}: {t_s * 1e3:.1f}")
+    print(f"B5 flash_decode_kvq {name}: kernel us by pages per split (the "
+          f"port uses {fd.SPLIT_PAGES_KVQ}): {', '.join(sweep)}")
+    # yardstick: SDPA over K/V already dequantized, gathered, contiguous
+    t = np_ * PAGE
+    kd = (cb_l["zk"][torch.arange(kc.shape[-1], device=DEV),
+                     kc[phys.long()].long()].reshape(b, t, kvh, d)
+          * cb_l["sk"][:, None]).to(torch.bfloat16)
+    vd = (cb_l["zv"][torch.arange(vc.shape[-1], device=DEV),
+                     vc[phys.long()].long()].reshape(b, t, kvh, d)
+          * cb_l["sv"][:, None]).to(torch.bfloat16)
+    kd, vd = kd.transpose(1, 2).contiguous(), vd.transpose(1, 2).contiguous()
+    mask = (torch.arange(t, device=DEV)[None] < pos[:, None])[:, None, None]
+    qs = q.to(torch.bfloat16).transpose(1, 2).contiguous()
+    library_ms = time_ms(lambda: torch.nn.functional.
+                         scaled_dot_product_attention(qs, kd, vd,
+                                                      attn_mask=mask),
+                         30, flush)
+    live_t = int(pos.clamp_min(0).sum())
+    b_ = (2 * live_t * kvh * kc.shape[-1] * kc.element_size() + tables
+          + nbytes(qg, phys_p, pos, ks) + nbytes(*tk))
+    bms, by = bound(b_, 4 * live_t * h * d + 2 * live_t * kvh * d)
+    print(f"B5 flash_decode_kvq {name}: kernel {ms * 1e3:.1f} us, plain "
+          f"{plain_ms * 1e3:.1f} us, SDPA on dequantized bf16 K/V "
+          f"{library_ms * 1e3:.1f} us, bound {bms * 1e3:.2f} us ({by}; "
+          f"{live_t} live tokens, {kc.shape[-1]} code bytes per token and "
+          f"head), host {host:.1f} us/call, max abs err {err:.3g}")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "library_ms": library_ms, "err": err}
+
+
 # ---------------------------------------------------------------------------
 # serve phase + logit check
 # ---------------------------------------------------------------------------
 
-def serve(model, params, qc, seed):
+def serve(model, params, qc, seed, label, launched, idle):
+    """Serve the 10 requests through the engine under ``qc``; every
+    kernel in ``launched`` must launch, none in ``idle``, and no plain
+    version may run. Returns (counts, tokens, engine)."""
     rng = np.random.default_rng(seed)
     vocab = model.cfg.vocab_size
     reqs = [Request(tokens=rng.integers(0, vocab, int(n)).tolist(),
                     max_new_tokens=32, temperature=0.8 if i == 3 else 0.0)
             for i, n in enumerate(rng.integers(32, 257, 10))]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     eng = Engine(model, params, qc, batch_size=SLOTS, max_seq=MAX_SEQ,
                  page_size=PAGE, prefill_chunk=CHUNK, seed=seed)
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
     times = {"_prefill_chunk_step": [], "_decode_step": []}
 
     def timed(name):
@@ -339,35 +588,42 @@ def serve(model, params, qc, seed):
     eng.run(reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = {"b1": vq_amm_cuda.launches,
-              "b2": fd.flash_decode_splits_cuda.launches,
-              "b1_plain": ref.vq_amm_ref.calls,
-              "b2_plain": fd.flash_decode_splits.calls}
+    counts = read_counts()
     for r in reqs:
         check(r.done and len(r.out_tokens) == 32,
-              f"request not served in full: {len(r.out_tokens)} tokens")
-        check(all(0 <= t < vocab for t in r.out_tokens), "token out of range")
-    check(counts["b1"] > 0 and counts["b2"] > 0,
-          f"the main path did not launch both kernels: {counts}")
-    check(counts["b1_plain"] == 0 and counts["b2_plain"] == 0,
-          f"the main path took a plain version: {counts}")
+              f"{label}: request not served in full: {len(r.out_tokens)} "
+              "tokens")
+        check(all(0 <= t < vocab for t in r.out_tokens),
+              f"{label}: token out of range")
+    check(all(counts[k] > 0 for k in launched),
+          f"{label}: the path did not launch {launched}: {counts}")
+    check(all(counts[k] == 0 for k in idle),
+          f"{label}: the path launched one of {idle}: {counts}")
+    check(all(counts[k + "_plain"] == 0 for k in DISPATCH),
+          f"{label}: the path took a plain version: {counts}")
     gen_tokens = sum(len(r.out_tokens) for r in reqs)
     prompt_tokens = sum(len(r.tokens) for r in reqs)
     dec, pre = times["_decode_step"], times["_prefill_chunk_step"]
-    print(f"serve: {len(reqs)} requests ({prompt_tokens} prompt tokens, "
-          f"{gen_tokens} generated) in {wall:.2f} s: "
+    fit = (f"codebook fit + pool in {setup:.2f} s, "
+           if qc.kv_quant == "vq" else "")
+    print(f"serve [{label}]: {len(reqs)} requests ({prompt_tokens} prompt "
+          f"tokens, {gen_tokens} generated) in {wall:.2f} s: "
           f"{gen_tokens / wall:.1f} generated tokens/s; "
           f"{len(dec)} decode steps, mean {1e3 * np.mean(dec):.1f} ms; "
           f"{len(pre)} prefill chunks, mean {1e3 * np.mean(pre):.1f} ms; "
-          f"{eng.device_reads} host reads; launches {counts}")
-    return counts
+          f"{eng.device_reads} host reads; {fit}KV pool "
+          f"{eng.kv.bytes_per_token} B per token "
+          f"({eng.kv.data['k'].dtype}); launches {counts}")
+    return counts, [r.out_tokens for r in reqs], eng
 
 
-def logit_check(model, params, qc, seed):
+def logit_check(model, params, qc, seed, label, codebook=None):
     """One full-width decode_paged step through the kernels and through
-    the plain versions, on the same pool (in the model's dtype)."""
+    the plain versions, on the same pool (in the model's dtype, or codes
+    under ``codebook``)."""
     rng = np.random.default_rng(seed + 1)
-    kv = model.init_paged_cache(MAX_SEQ, PAGE, SLOTS * (MAX_SEQ // PAGE))
+    kv = model.init_paged_cache(MAX_SEQ, PAGE, SLOTS * (MAX_SEQ // PAGE),
+                                codebook=codebook)
     npg = MAX_SEQ // PAGE
     table = torch.arange(SLOTS * npg, dtype=torch.int32,
                          device=DEV).reshape(SLOTS, npg)
@@ -393,15 +649,17 @@ def logit_check(model, params, qc, seed):
     rel = (delta.norm(dim=-1) / lg_p.norm(dim=-1)).tolist()
     mean_frac = float(delta.abs().mean() / lg_p.std())
     agree = int((lg_k.argmax(-1) == lg_p.argmax(-1)).sum())
-    print(f"logit check, {model.cfg.dtype} (one decode step, {SLOTS} slots "
-          f"at lengths {lengths.tolist()}): row relative L2 "
-          f"{[round(r, 4) for r in rel]}, mean |diff| {mean_frac:.4f} of "
+    agreeing = sum(r <= LOGIT_ROW_REL_TOL for r in rel)
+    print(f"logit check [{label}], {model.cfg.dtype} (one decode step, "
+          f"{SLOTS} slots at lengths {lengths.tolist()}): {agreeing}/{SLOTS} "
+          f"rows agree (relative L2 <= {LOGIT_ROW_REL_TOL}); row relative "
+          f"L2 {[round(r, 4) for r in rel]}, mean |diff| {mean_frac:.4f} of "
           f"std {float(lg_p.std()):.4g}, max |diff| "
           f"{float(delta.abs().max()):.4g}, argmax agrees on {agree}/{SLOTS}")
-    agreeing = sum(r <= LOGIT_ROW_REL_TOL for r in rel)
     allowed = LOGIT_ROWS_OFF[model.cfg.dtype]
     check(agreeing >= SLOTS - allowed,
-          f"kernel vs plain logits ({model.cfg.dtype}): {agreeing} of "
+          f"kernel vs plain logits [{label}] ({model.cfg.dtype}): "
+          f"{agreeing} of "
           f"{SLOTS} rows within relative L2 {LOGIT_ROW_REL_TOL}, at least "
           f"{SLOTS - allowed} required")
 
@@ -423,10 +681,10 @@ def main(argv=None) -> int:
     logs = _build.build()
     print(f"build: {time.perf_counter() - t0:.1f} s "
           f"({', '.join(_build.SOURCES)})")
-    for text in logs.values():
+    for name, text in logs.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
-                print("  ptxas:", line.strip())
+                print(f"  ptxas [{name}]:", line.strip())
 
     gen = torch.Generator(device=DEV).manual_seed(args.seed)
     flush = torch.ones(L2_FLUSH_BYTES // 4, dtype=torch.int32, device=DEV)
@@ -435,21 +693,38 @@ def main(argv=None) -> int:
          "--format=csv,noheader,nounits", "-lms", "200"],
         stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
     try:
-        b1 = {}
+        b1, b3, b4 = {}, {}, {}
         for m in (8, 32):
             for k, n, _ in PROJ_SHAPES:
                 b1[(m, k, n)] = b1_case(gen, m, k, n, flush)
+                b3[(m, k, n)], b4[(m, k, n)] = b34_case(gen, m, k, n, flush)
         rng = np.random.default_rng(args.seed)
         main_pos = sorted(rng.integers(32, MAX_SEQ, SLOTS).tolist())
-        b2 = b2_case(gen, "main path B=8 KVH=20 G=1 D=128 NP=32", SLOTS, 20,
-                     20, 128, MAX_SEQ // PAGE, main_pos, 0, [0] * SLOTS,
-                     flush, True)
+        full_pos = [MAX_SEQ - 1] * SLOTS
+        main_name = "main path B=8 KVH=20 G=1 D=128 NP=32"
+        b2 = b2_case(gen, main_name, SLOTS, 20, 20, 128, MAX_SEQ // PAGE,
+                     main_pos, 0, [0] * SLOTS, flush, True)
         b2_full = b2_case(gen, "all 8 slots at 511 tokens", SLOTS, 20, 20,
-                          128, MAX_SEQ // PAGE, [MAX_SEQ - 1] * SLOTS, 0,
-                          [0] * SLOTS, flush, True)
+                          128, MAX_SEQ // PAGE, full_pos, 0, [0] * SLOTS,
+                          flush, True)
         b2_gqa = b2_case(gen, "G=4 window=100 kv_start>0, pos=-1 lanes", 4,
                          16, 4, 128, 16, [200, -1, 77, 255], 100,
                          [5, 0, 3, 17], flush, False)
+        b5 = b5_case(gen, main_name + " nc=32 c=16", SLOTS, 20, 20, 128,
+                     MAX_SEQ // PAGE, main_pos, 0, [0] * SLOTS, flush, True)
+        b5_full = b5_case(gen, "all 8 slots at 511 tokens", SLOTS, 20, 20,
+                          128, MAX_SEQ // PAGE, full_pos, 0, [0] * SLOTS,
+                          flush, True)
+        b5_checks = [
+            b5_case(gen, "G=4 window=100 kv_start>0, pos=-1 lanes", 4, 16,
+                    4, 128, 16, [200, -1, 77, 255], 100, [5, 0, 3, 17],
+                    flush, False),
+            b5_case(gen, "exact cover c=128 (64 KB tables, staged)", 4, 8,
+                    2, 128, 8, [100, -1, 37, 128], 0, [0, 0, 4, 0], flush,
+                    False, exact_c=128),
+            b5_case(gen, "exact cover c=256 (128 KB tables, read from L2)",
+                    4, 8, 2, 128, 8, [100, 64, -1, 128], 30, [0, 2, 0, 0],
+                    flush, False, exact_c=256)]
     finally:
         clocks.terminate()
         out = clocks.communicate()[0]
@@ -474,43 +749,100 @@ def main(argv=None) -> int:
     print(f"init: full-width {cfg.name} ({cfg.num_layers} layers, lut_infer "
           f"int8 v={V} c={C}) built on the card in "
           f"{time.perf_counter() - t0:.1f} s, {pbytes / 1e9:.2f} GB of params")
+
+    def per_step(res):
+        return cfg.num_layers * sum(res[(8, k, n)]["ms"] * cnt
+                                    for k, n, cnt in PROJ_SHAPES)
+    print(f"kernel device time per decode step (from the kernel phase): "
+          f"fused B1 {per_step(b1):.2f} ms, two-pass B3 {per_step(b3):.2f} + "
+          f"B4 {per_step(b4):.2f} ms; attention B2 "
+          f"{cfg.num_layers * b2['ms']:.2f} ms, B5 "
+          f"{cfg.num_layers * b5['ms']:.2f} ms")
     torch.cuda.reset_peak_memory_stats()
-    step_b1 = cfg.num_layers * sum(b1[(8, k, n)]["ms"] * cnt
-                                   for k, n, cnt in PROJ_SHAPES)
-    print(f"kernel device time per decode step (from the kernel phase): B1 "
-          f"{step_b1:.2f} ms, B2 {cfg.num_layers * b2['ms']:.2f} ms")
-    counts = serve(model, params, qc, args.seed)
+    runs = {
+        "fused": (qc, {"b1", "b2"}, {"b3", "b4", "b5"}),
+        "two-pass": (qc.replace(fuse=False), {"b3", "b4", "b2"},
+                     {"b1", "b5"}),
+        "vq-kv": (qc.replace(kv_quant="vq", kv_v=KV_V, kv_c=KV_C),
+                  {"b1", "b5"}, {"b2", "b3", "b4"}),
+    }
+    counts, tokens, codebook, bpt = {}, {}, None, {}
+    for label, (qc_r, launched, idle) in runs.items():
+        counts[label], tokens[label], eng = serve(
+            model, params, qc_r, args.seed, label, launched, idle)
+        bpt[label] = eng.kv.bytes_per_token
+        if qc_r.kv_quant == "vq":
+            codebook = eng.kv_codebook
+        del eng
+    check(tokens["two-pass"] == tokens["fused"],
+          "two-pass tokens differ from the fused run's")
+    want_vq = 2 * cfg.num_layers * cfg.num_kv_heads * (cfg.head_dim // KV_V)
+    want_fp = 2 * cfg.num_layers * cfg.num_kv_heads * cfg.head_dim * 2
+    check(bpt["vq-kv"] == want_vq and bpt["fused"] == want_fp,
+          f"bytes per token {bpt}, expected {want_vq} (codes) and "
+          f"{want_fp} (bf16)")
+    print(f"two-pass tokens identical to the fused run's (10 requests, "
+          f"temperature request included); KV bytes per token: codes "
+          f"{bpt['vq-kv']} vs bf16 {bpt['fused']} "
+          f"({bpt['fused'] / bpt['vq-kv']:.1f}x)")
     print(f"peak device memory while serving: "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
-    logit_check(model, params, qc, args.seed)
-    # the same step in float32 (LUTs stay int8): what is left of the
-    # difference without bf16 rounding
-    logit_check(Model(cfg.replace(dtype="float32")), _map_float(
-        params, torch.float32), qc, args.seed)
+    params32 = _map_float(params, torch.float32)
+    model32 = Model(cfg.replace(dtype="float32"))
+    for label, (qc_r, _, _) in runs.items():
+        cb = codebook if qc_r.kv_quant == "vq" else None
+        logit_check(model, params, qc_r, args.seed, label, cb)
+        # the same step in float32 (LUTs stay int8): what is left of the
+        # difference without bf16 rounding
+        logit_check(model32, params32, qc_r, args.seed, label, cb)
 
-    decode = [b1[(8, k, n)] for k, n, _ in PROJ_SHAPES]
-    per_layer = [r for r, (_, _, cnt) in zip(decode, PROJ_SHAPES)
-                 for _ in range(cnt)]
+    def layer_sum(res, key):
+        return sum(res[(8, k, n)][key] * cnt for k, n, cnt in PROJ_SHAPES)
+
+    def proj_row(name, res, source, replaces, launches):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": max(r["err"] for r in res.values()),
+                "ms": layer_sum(res, "ms"),
+                "plain_ms": layer_sum(res, "plain_ms"),
+                "bound_ms": layer_sum(res, "bound_ms"),
+                "bound_by": "bytes" if all(
+                    res[(8, k, n)]["bound_by"] == "bytes"
+                    for k, n, _ in PROJ_SHAPES) else "operations",
+                "library_ms": (None if res[(8, 2560, 2560)]["library_ms"]
+                               is None else layer_sum(res, "library_ms"))}
+
+    def attn_row(name, res, errs, source, replaces, launches):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": max(errs), "ms": res["ms"],
+                "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
+                "bound_by": res["bound_by"],
+                "library_ms": res["library_ms"]}
+
+    def launches(key):
+        return sum(c[key] for c in counts.values())
+    for r in b1.values():
+        r["library_ms"] = None
     kernels = [
-        {"name": "vq_amm (B1, 7 projections of one layer at decode M=8)",
-         "route": "cuda", "source": "src/repro_torch/csrc/fused_amm.cu",
-         "replaces": "src/repro/kernels/fused_amm.py:87",
-         "launches": counts["b1"],
-         "max_abs_err": max(r["err"] for r in b1.values()),
-         "ms": sum(r["ms"] for r in per_layer),
-         "plain_ms": sum(r["plain_ms"] for r in per_layer),
-         "bound_ms": sum(r["bound_ms"] for r in per_layer),
-         "bound_by": "bytes" if all(r["bound_by"] == "bytes"
-                                    for r in per_layer) else "operations",
-         "library_ms": None},
-        {"name": "flash_decode_splits (B2, one layer, 8 slots)",
-         "route": "cuda", "source": "src/repro_torch/csrc/flash_decode.cu",
-         "replaces": "src/repro/kernels/flash_decode.py:183",
-         "launches": counts["b2"],
-         "max_abs_err": max(b2["err"], b2_full["err"], b2_gqa["err"]),
-         "ms": b2["ms"], "plain_ms": b2["plain_ms"],
-         "bound_ms": b2["bound_ms"], "bound_by": b2["bound_by"],
-         "library_ms": b2["library_ms"]},
+        proj_row("vq_amm (B1, 7 projections of one layer at decode M=8)",
+                 b1, "src/repro_torch/csrc/fused_amm.cu",
+                 "src/repro/kernels/fused_amm.py:87", launches("b1")),
+        attn_row("flash_decode_splits (B2, one layer, 8 slots)", b2,
+                 [b2["err"], b2_full["err"], b2_gqa["err"]],
+                 "src/repro_torch/csrc/flash_decode.cu",
+                 "src/repro/kernels/flash_decode.py:183", launches("b2")),
+        proj_row("vq_assign (B3, 7 projections of one layer at decode M=8)",
+                 b3, "src/repro_torch/csrc/assign.cu",
+                 "src/repro/kernels/assign.py:54", launches("b3")),
+        proj_row("lut_gemm (B4, 7 projections of one layer at decode M=8)",
+                 b4, "src/repro_torch/csrc/lut_gemm.cu",
+                 "src/repro/kernels/lut_gemm.py:61", launches("b4")),
+        attn_row("flash_decode_splits_kvq (B5, one layer, 8 slots, "
+                 "nc=32 c=16)", b5,
+                 [b5["err"], b5_full["err"]] + [r["err"] for r in b5_checks],
+                 "src/repro_torch/csrc/flash_decode_kvq.cu",
+                 "src/repro/kernels/flash_decode.py:294", launches("b5")),
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -6,6 +6,8 @@ leading layer axis (its layer loop is a ``lax.scan``). The caller turns
 that pytree into numpy arrays (``jax.tree_util.tree_map(np.asarray, ...)``)
 so this module needs nothing of JAX; :func:`params_from_numpy` then builds
 the port's params, with ``blocks`` unstacked into one dict per layer.
+:func:`kv_codebook_from_numpy` carries a JAX ``KVCodebook`` over the same
+way (its ``tree()`` as numpy arrays).
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.core.kv_codebook import KVCodebook
 from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
 
@@ -55,3 +58,12 @@ def params_from_numpy(tree: Any, cfg: ModelConfig,
 
     out["blocks"] = [layer(i) for i in range(n_layers)]
     return out
+
+
+def kv_codebook_from_numpy(tree: Any, device="cuda") -> KVCodebook:
+    """The port's :class:`KVCodebook` from a JAX codebook's ``tree()``
+    ({"zk", "zv": (L, nc, c, v), "sk", "sv": (L, KVH)}) as numpy arrays,
+    on ``device``, every leaf bit for bit."""
+    dev = resolve_device(device)
+    return KVCodebook(**{key: _tensor(tree[key], dev)
+                         for key in ("zk", "zv", "sk", "sv")})

@@ -5,8 +5,16 @@ Two operating modes are ported (``QuantConfig.mode``):
   * ``dense``      — plain ``x @ w + b`` (the paper's comparison baseline).
   * ``lut_infer``  — deployment path: precomputed LUT (optionally int8),
                      nearest-centroid assignment fused with the LUT
-                     gather-accumulate (``kernels.ops.vq_amm``, kernel B1).
-                     No dense weight is needed at run time.
+                     gather-accumulate (``kernels.ops.vq_amm``, kernel B1),
+                     or, with ``fuse=False``, the two-pass path: the
+                     assignment (``ops.vq_assign``, kernel B3) writes the
+                     indices, then the LUT accumulate reads them
+                     (``ops.lut_matmul``, kernel B4). No dense weight is
+                     needed at run time.
+
+``QuantConfig.kv_quant="vq"`` is read by the paged serving path, not by
+the projections: the KV pool then holds uint8 centroid codes
+(``core/kv_codebook.py``, kernel B5).
 
 Parameters of one LutLinear (a plain dict of tensors):
   w  (K, N)            dense weight  (absent after `strip_for_inference`)
@@ -36,17 +44,21 @@ LUT_DTYPES = ("float32", "bfloat16", "int8")
 class QuantConfig:
     """VQ-AMM operating point threaded through every projection.
 
-    Options of the JAX ``QuantConfig`` that select code this port does not
-    have yet raise ``NotImplementedError`` naming the ROADMAP.md queue A
-    item that ports them.
+    ``mode="lut_train"`` selects code this port does not have yet and
+    raises ``NotImplementedError`` naming the ROADMAP.md queue A item that
+    ports it.
     """
     mode: str = "dense"            # dense | lut_infer
     v: int = 8                     # sub-vector length
     c: int = 16                    # centroids per subspace (<= 256)
     metric: Metric = "l2"          # l2 | l1 | chebyshev
     lut_dtype: str = "float32"     # float32 | bfloat16 | int8
-    fuse: bool = True              # fused assign + LUT kernel (B1)
-    kv_quant: str = "none"         # paged KV pool of fp rows
+    fuse: bool = True              # lut_infer: one fused assign + LUT
+    #                                kernel (B1) vs two passes (B3, B4)
+    kv_quant: str = "none"         # paged KV pool: none (fp rows) | vq
+    #                                (uint8 codebook indices; kernel B5)
+    kv_v: int = 4                  # KV sub-vector length over head_dim
+    kv_c: int = 16                 # KV centroids per subspace (<= 256)
 
     def __post_init__(self):
         if self.mode == "lut_train":
@@ -55,15 +67,12 @@ class QuantConfig:
                 "ROADMAP.md queue A item 13 (Training)")
         if self.mode not in ("dense", "lut_infer"):
             raise ValueError(f"unknown quant mode: {self.mode}")
-        if not self.fuse:
-            raise NotImplementedError(
-                "fuse=False (the two-pass assign -> LUT-GEMM path, kernels "
-                "B3 and B4) is not ported yet: ROADMAP.md queue A item 8 "
-                "(Two-pass path)")
-        if self.kv_quant != "none":
-            raise NotImplementedError(
-                f"kv_quant={self.kv_quant!r} (VQ KV pages, kernel B5) is "
-                "not ported yet: ROADMAP.md queue A item 9 (VQ KV pages)")
+        if self.kv_quant not in ("none", "vq"):
+            raise ValueError(
+                f"kv_quant must be 'none' or 'vq', got {self.kv_quant!r}")
+        if self.kv_quant == "vq" and self.kv_c > 256:
+            raise ValueError(
+                f"kv_c={self.kv_c} does not fit uint8 page codes")
         if self.lut_dtype not in LUT_DTYPES:
             raise ValueError(f"lut_dtype must be one of {LUT_DTYPES}, got "
                              f"{self.lut_dtype!r}")
@@ -160,7 +169,11 @@ def lut_linear_apply(p: Params, x: torch.Tensor,
     lut = p.get("lut")
     if lut is None:                    # on-the-fly (testing convenience)
         lut = build_lut(p["w"], z)
-    out = kops.vq_amm(x2d, z, lut, p.get("lut_scale"), qc.metric)
+    if qc.fuse:        # indices stay on chip (kernel B1)
+        out = kops.vq_amm(x2d, z, lut, p.get("lut_scale"), qc.metric)
+    else:              # two-pass: (M, nc) indices through device memory
+        idx = kops.vq_assign(x2d, z, qc.metric)
+        out = kops.lut_matmul(idx, lut, p.get("lut_scale"))
     out = out.reshape(*lead, -1).to(x.dtype)
     if "b" in p:
         out = out + p["b"]

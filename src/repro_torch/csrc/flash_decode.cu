@@ -40,88 +40,37 @@
 //    contributes 0 by the mask, never through exp(-inf). K and V are read
 //    in their storage type; all arithmetic is fp32 (expf, not __expf).
 //  * GQA: the G query heads sharing a kv head share each K/V row load.
+//  * The split loop (flash_split) lives in flash_common.cuh, shared with
+//    B5 (flash_decode_kvq.cu); this file supplies how a page's rows reach
+//    shared memory (FpPages).
 
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr int THREADS = 128;
-constexpr int WARPS = THREADS / 32;
-constexpr int MAX_G = 8;
-constexpr int MAX_D = 256;
-constexpr int DT = MAX_D / THREADS;    // columns of acc per thread
-constexpr int LD = 8;                  // loads in flight per thread
-constexpr float NEG_INF = -1e30f;
+using namespace flashc;
 
 __device__ __forceinline__ float to_f(float a) { return a; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 a) { return __bfloat162float(a); }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
+// Pages of fp K/V rows (P+1, page, KVH, D): a page's live rows are copied
+// to shared memory, LD loads in flight per thread before any is used, so
+// a page costs one memory round trip per LD * THREADS elements.
 template <typename KT>
-__global__ void __launch_bounds__(THREADS)
-flash_splits_kernel(const float* __restrict__ qg, const KT* __restrict__ kp,
-                    const KT* __restrict__ vp, const int* __restrict__ phys,
-                    const int* __restrict__ pos, const int* __restrict__ kvs,
-                    int window, float* __restrict__ m_out,
-                    float* __restrict__ l_out, float* __restrict__ acc_out,
-                    int B, int KVH, int G, int D, int ps, int NP, int sp) {
-  extern __shared__ float smem[];
-  float* q_s = smem;                   // [G][D]
-  float* k_s = q_s + G * D;            // [ps][D] live K rows of the page
-  float* v_s = k_s + ps * D;           // [ps][D] live V rows of the page
-  float* p_s = v_s + ps * D;           // [G][ps] scores, then probabilities
-  float* m_s = p_s + G * ps;           // [G]
-  float* l_s = m_s + G;                // [G]
-  float* alpha_s = l_s + G;            // [G]
+struct FpPages {
+  const KT* kp;
+  const KT* vp;
+  int KVH, D, ps, h;
 
-  const int s = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const size_t row_stride = (size_t)KVH * D;   // one token of one page
-
-  for (int i = tid; i < G * D; i += THREADS)
-    q_s[i] = qg[((size_t)b * KVH + h) * G * D + i];
-  for (int g = tid; g < G; g += THREADS) {
-    m_s[g] = NEG_INF;
-    l_s[g] = 0.f;
-  }
-  float a[MAX_G][DT];
-#pragma unroll
-  for (int g = 0; g < MAX_G; ++g)
-#pragma unroll
-    for (int i = 0; i < DT; ++i) a[g][i] = 0.f;
-
-  // live keys form the range [lo, hi)
-  const int hi = pos[b];
-  int lo = kvs[b];
-  if (window > 0 && hi - window + 1 > lo) lo = hi - window + 1;
-  __syncthreads();
-
-  for (int ip = 0; ip < sp; ++ip) {
-    const int lp = s * sp + ip;                  // logical page
-    if (lp >= NP) break;
-    const int t0 = lp * ps;
-    const int tlo = max(lo - t0, 0), thi = min(hi - t0, ps);
-    if (tlo >= thi) continue;                    // no live key: no read
-    const size_t page = (size_t)phys[(size_t)b * NP + lp];
+  __device__ __forceinline__ void stage(size_t page, int tlo, int thi,
+                                        float* k_s, float* v_s) const {
+    const size_t row_stride = (size_t)KVH * D;   // one token of one page
     const KT* kbase = kp + page * ps * row_stride + (size_t)h * D;
     const KT* vbase = vp + page * ps * row_stride + (size_t)h * D;
-
-    // stage the page's live K and V rows in shared memory: LD loads in
-    // flight per thread before any is used, one round trip per LD * 128
     const int n_el = (thi - tlo) * D;
-    for (int base = tid; base < n_el; base += THREADS * LD) {
+    for (int base = threadIdx.x; base < n_el; base += THREADS * LD) {
       float kr[LD], vr[LD];
 #pragma unroll
       for (int u = 0; u < LD; ++u) {
@@ -141,75 +90,21 @@ flash_splits_kernel(const float* __restrict__ qg, const KT* __restrict__ kp,
         }
       }
     }
-    __syncthreads();
-
-    // scores of the live keys: warp w scores keys w, w+4, ...
-    for (int t = tlo + warp; t < thi; t += WARPS) {
-      for (int g = 0; g < G; ++g) {
-        float part = 0.f;
-        for (int d = lane; d < D; d += 32) part += q_s[g * D + d] * k_s[t * D + d];
-        part = warp_sum(part);
-        if (lane == 0) p_s[g * ps + t] = part;
-      }
-    }
-    __syncthreads();
-
-    // online softmax update, one warp per query head
-    for (int g = warp; g < G; g += WARPS) {
-      float mx = NEG_INF;
-      for (int t = tlo + lane; t < thi; t += 32) mx = fmaxf(mx, p_s[g * ps + t]);
-      mx = warp_max(mx);
-      const float m_prev = m_s[g];
-      const float m_new = fmaxf(m_prev, mx);
-      float sum = 0.f;
-      for (int t = tlo + lane; t < thi; t += 32) {
-        const float p = expf(p_s[g * ps + t] - m_new);
-        p_s[g * ps + t] = p;
-        sum += p;
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float alpha = expf(m_prev - m_new);
-        alpha_s[g] = alpha;
-        l_s[g] = l_s[g] * alpha + sum;
-        m_s[g] = m_new;
-      }
-    }
-    __syncthreads();
-
-    // acc = acc * alpha + sum_t p_t v_t
-#pragma unroll
-    for (int i = 0; i < DT; ++i) {
-      const int d = tid + THREADS * i;
-      if (d < D) {
-#pragma unroll
-        for (int g = 0; g < MAX_G; ++g)
-          if (g < G) a[g][i] *= alpha_s[g];
-        for (int t = tlo; t < thi; ++t) {
-          const float vv = v_s[t * D + d];
-#pragma unroll
-          for (int g = 0; g < MAX_G; ++g)
-            if (g < G) a[g][i] += p_s[g * ps + t] * vv;
-        }
-      }
-    }
-    __syncthreads();                             // smem is reused next page
   }
+};
 
-  const size_t o = (((size_t)s * B + b) * KVH + h) * G;
-  for (int g = tid; g < G; g += THREADS) {
-    m_out[o + g] = m_s[g];
-    l_out[o + g] = l_s[g];
-  }
-#pragma unroll
-  for (int i = 0; i < DT; ++i) {
-    const int d = tid + THREADS * i;
-    if (d < D) {
-#pragma unroll
-      for (int g = 0; g < MAX_G; ++g)
-        if (g < G) acc_out[(o + g) * D + d] = a[g][i];
-    }
-  }
+template <typename KT>
+__global__ void __launch_bounds__(THREADS)
+flash_splits_kernel(const float* __restrict__ qg, const KT* __restrict__ kp,
+                    const KT* __restrict__ vp, const int* __restrict__ phys,
+                    const int* __restrict__ pos, const int* __restrict__ kvs,
+                    int window, float* __restrict__ m_out,
+                    float* __restrict__ l_out, float* __restrict__ acc_out,
+                    int B, int KVH, int G, int D, int ps, int NP, int sp) {
+  extern __shared__ float smem[];
+  const FpPages<KT> pages{kp, vp, KVH, D, ps, (int)blockIdx.y};
+  flash_split(pages, qg, phys, pos, kvs, window, m_out, l_out, acc_out, B,
+              KVH, G, D, ps, NP, sp, smem);
 }
 
 }  // namespace
@@ -226,8 +121,7 @@ extern "C" int flash_decode_splits_launch(
   const int ns = (NP + sp - 1) / sp;
   if (KVH > 65535 || B > 65535) return (int)cudaErrorInvalidValue;
   const dim3 grid(ns, KVH, B);
-  const size_t smem = sizeof(float) *
-      ((size_t)G * D + 2 * (size_t)ps * D + (size_t)G * ps + 3 * G);
+  const size_t smem = sizeof(float) * split_floats(G, D, ps);
   if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* q = static_cast<const float*>(qg);

@@ -40,75 +40,20 @@
 //    small kernel (the TPU kernel's flush + scale step).
 //  * The ragged edges (M, N, nc not multiples of the tiles) are masked in
 //    the kernel; nothing is padded.
+//  * Phase 1 (assign_tile) and phase 2 (lut_tile) live in vq_common.cuh,
+//    shared with the two-pass kernels B3 (assign.cu) and B4 (lut_gemm.cu),
+//    so that B4(B3(x)) is this kernel's result bit for bit on int8 LUTs.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "vq_common.cuh"
 
 namespace {
 
-constexpr int BM = 8;                  // rows of x per block
-constexpr int WARPS = 8;
-constexpr int THREADS = WARPS * 32;
-constexpr int VEC = 4;                 // output columns per lane
-constexpr int BN = 32 * VEC;           // 128 output columns per block
-constexpr int TARGET_BLOCKS = 2 * 132; // ~2 blocks per SM on an H100
-constexpr size_t MAX_SMEM = 48 * 1024;
-
-__device__ __forceinline__ float to_f(float a) { return a; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 a) { return __bfloat162float(a); }
-
-__device__ __forceinline__ int to_acc(int8_t a) { return (int)a; }
-__device__ __forceinline__ float to_acc(float a) { return a; }
-__device__ __forceinline__ float to_acc(__nv_bfloat16 a) { return __bfloat162float(a); }
-
-// Add lut[p .. p+3] into a[0..3]; p is 4-element aligned.
-__device__ __forceinline__ void add4(const int8_t* p, int* a) {
-  const char4 q = *reinterpret_cast<const char4*>(p);
-  a[0] += q.x; a[1] += q.y; a[2] += q.z; a[3] += q.w;
-}
-__device__ __forceinline__ void add4(const float* p, float* a) {
-  const float4 q = *reinterpret_cast<const float4*>(p);
-  a[0] += q.x; a[1] += q.y; a[2] += q.z; a[3] += q.w;
-}
-__device__ __forceinline__ void add4(const __nv_bfloat16* p, float* a) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&raw.x);
-  const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&raw.y);
-  a[0] += __low2float(lo); a[1] += __high2float(lo);
-  a[2] += __low2float(hi); a[3] += __high2float(hi);
-}
-
-// Distance of the sub-vector xr to the centroid zj (v elements), fp32.
-template <int METRIC>
-__device__ __forceinline__ float distance(const float* xr, const float* zj,
-                                          int v) {
-  float acc = 0.f, x2 = 0.f, z2 = 0.f;
-  for (int i = 0; i < v; ++i) {
-    const float xv = xr[i], zv = zj[i];
-    if (METRIC == 0) {                 // l2: |x|^2 - 2 x.z + |z|^2
-      x2 += xv * xv;
-      acc += xv * zv;
-      z2 += zv * zv;
-    } else if (METRIC == 1) {          // l1
-      acc += fabsf(xv - zv);
-    } else {                           // chebyshev
-      acc = fmaxf(acc, fabsf(xv - zv));
-    }
-  }
-  return METRIC == 0 ? x2 - 2.f * acc + z2 : acc;
-}
+using namespace vqc;
 
 // Shared memory of one block: the (BM, BN) partial tile, then the staged
-// z and x (fp32; rows padded by one float against bank conflicts), then
-// the indices.
-__host__ __device__ inline int z_stride(int c, int v) { return c * v + 1; }
-__host__ __device__ inline int x_stride(int ks, int v) { return ks * v + 1; }
-__host__ __device__ inline size_t smem_bytes(size_t acc_size, int ks, int c,
-                                             int v) {
-  return acc_size * BM * BN + sizeof(float) * ((size_t)ks * z_stride(c, v) +
-                                               (size_t)BM * x_stride(ks, v)) +
+// z and x (vq_common.cuh), then the indices.
+inline size_t smem_bytes(size_t acc_size, int ks, int c, int v) {
+  return acc_size * BM * BN + sizeof(float) * stage_floats(ks, c, v) +
          (size_t)BM * ks;
 }
 
@@ -129,111 +74,28 @@ vq_amm_kernel(const XT* __restrict__ x, const XT* __restrict__ z,
   const int m0 = blockIdx.z * BM;
   const int kn = min(ks, nc - k0);
   const int mn = min(BM, M - m0);
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int cv = c * v, zst = z_stride(c, v), xst = x_stride(ks, v);
 
-  // phase 1a: stage z[k0 .. k0+kn) and x[m0 .. m0+mn, k0 .. k0+kn)
-  const XT* zsrc = z + (size_t)k0 * cv;
-#pragma unroll 4
-  for (int i = tid; i < kn * cv; i += THREADS)
-    zs[(i / cv) * zst + i % cv] = to_f(zsrc[i]);
-  const int xw = kn * v;                 // elements of one row's slice
-#pragma unroll 4
-  for (int i = tid; i < mn * xw; i += THREADS) {
-    const int mi = i / xw, j = i % xw;
-    xs[mi * xst + j] = to_f(x[((size_t)(m0 + mi) * nc + k0) * v + j]);
-  }
-  __syncthreads();
-
-  // phase 1b: one thread per (subspace, row) pair; the 8 rows of one
-  // subspace are neighbouring threads, so their z reads are broadcasts
-  for (int t = tid; t < kn * BM; t += THREADS) {
-    const int kk = t / BM, mi = t % BM;
-    if (mi < mn) {
-      const float* xr = xs + mi * xst + kk * v;
-      const float* zk = zs + kk * zst;
-      float best = INFINITY;
-      int best_j = 0;
-      for (int j = 0; j < c; ++j) {      // j rises: strict < keeps lowest
-        const float d = distance<METRIC>(xr, zk + j * v, v);
-        if (d < best) {
-          best = d;
-          best_j = j;
-        }
-      }
-      sidx[mi * ks + kk] = (unsigned char)best_j;
-    }
-  }
-  for (int i = tid; i < BM * BN; i += THREADS) red[i] = AccT(0);
-  __syncthreads();
-
-  // phase 2: gather-accumulate; warp w takes subspaces w, w+8, ...
-  const int n = n0 + lane * VEC;
-  AccT a[BM][VEC];
-#pragma unroll
-  for (int mi = 0; mi < BM; ++mi)
-#pragma unroll
-    for (int j = 0; j < VEC; ++j) a[mi][j] = AccT(0);
-  if (n < N) {
-    const bool full = vec_ok && (n + VEC <= N);
-    for (int kk = warp; kk < kn; kk += WARPS) {
-      const LT* base = lut + (size_t)(k0 + kk) * c * N + n;
-#pragma unroll
-      for (int mi = 0; mi < BM; ++mi) {
-        if (mi < mn) {
-          const LT* p = base + (size_t)sidx[mi * ks + kk] * N;
-          if (full) {
-            add4(p, a[mi]);
-          } else {
-#pragma unroll
-            for (int j = 0; j < VEC; ++j)
-              if (n + j < N) a[mi][j] += to_acc(p[j]);
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int mi = 0; mi < BM; ++mi)
-#pragma unroll
-      for (int j = 0; j < VEC; ++j)
-        if (mi < mn) atomicAdd(&red[mi * BN + lane * VEC + j], a[mi][j]);
-  }
-  __syncthreads();
-
-  // one global atomic per output element of this block's tile
-  for (int i = tid; i < mn * BN; i += THREADS) {
-    const int col = n0 + i % BN;
-    if (col < N) atomicAdd(&acc[(size_t)(m0 + i / BN) * N + col], red[i]);
-  }
-}
-
-// out = acc (x scale); acc may alias out (float LUTs scale in place).
-template <typename AccT>
-__global__ void scale_kernel(const AccT* acc, const float* scale,
-                             float* out, int M, int N) {
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= (size_t)M * N) return;
-  float val = (float)acc[i];
-  if (scale != nullptr) val *= scale[i % N];
-  out[i] = val;
+  // phase 1: indices into shared memory only
+  assign_tile<XT, METRIC>(x, z, zs, xs, nc, c, v, ks, m0, mn, k0, kn,
+                          [&](int mi, int kk, int j) {
+                            sidx[mi * ks + kk] = (unsigned char)j;
+                          });
+  // phase 2: gather-accumulate, then one global atomic per element
+  lut_tile<LT, AccT>(lut, sidx, red, acc, c, N, ks, m0, mn, k0, kn, n0,
+                     vec_ok);
 }
 
 template <typename XT, typename LT, typename AccT>
 cudaError_t launch_typed(const void* x, const void* z, const void* lut,
                          AccT* acc, int M, int nc, int c, int v, int N,
                          int metric, cudaStream_t st) {
-  const int nbn = (N + BN - 1) / BN;
-  const int nbm = (M + BM - 1) / BM;
-  int splits = (TARGET_BLOCKS + nbn * nbm - 1) / (nbn * nbm);
-  splits = splits < 1 ? 1 : (splits > nc ? nc : splits);
-  int ks = (nc + splits - 1) / splits;
+  int ks = split_width(M, nc, N);
   while (ks > 1 && smem_bytes(sizeof(AccT), ks, c, v) > MAX_SMEM) --ks;
   const size_t smem = smem_bytes(sizeof(AccT), ks, c, v);
   if (smem > MAX_SMEM) return cudaErrorInvalidValue;
-  splits = (nc + ks - 1) / ks;
+  const int splits = (nc + ks - 1) / ks;
   const int vec_ok = (N % VEC == 0) && ((uintptr_t)lut % 16 == 0);
-  const dim3 grid(nbn, splits, nbm);
+  const dim3 grid((N + BN - 1) / BN, splits, (M + BM - 1) / BM);
   const XT* xp = static_cast<const XT*>(x);
   const XT* zp = static_cast<const XT*>(z);
   const LT* lp = static_cast<const LT*>(lut);
@@ -251,30 +113,19 @@ cudaError_t launch_x(const void* x, const void* z, const void* lut,
                      const float* scale, float* out, int* work, int M,
                      int nc, int c, int v, int N, int lut_dtype, int metric,
                      cudaStream_t st) {
-  cudaError_t err;
-  if (lut_dtype == 2) {                // int8: exact int32 accumulator
-    err = cudaMemsetAsync(work, 0, sizeof(int) * (size_t)M * N, st);
-    if (err != cudaSuccess) return err;
+  cudaError_t err = zero_acc(lut_dtype, out, work, M, N, st);
+  if (err != cudaSuccess) return err;
+  if (lut_dtype == 2)                  // int8: exact int32 accumulator
     err = launch_typed<XT, int8_t, int>(x, z, lut, work, M, nc, c, v, N,
                                         metric, st);
-  } else {                             // float LUT: accumulate in out
-    err = cudaMemsetAsync(out, 0, sizeof(float) * (size_t)M * N, st);
-    if (err != cudaSuccess) return err;
-    if (lut_dtype == 0)
-      err = launch_typed<XT, float, float>(x, z, lut, out, M, nc, c, v, N,
-                                           metric, st);
-    else
-      err = launch_typed<XT, __nv_bfloat16, float>(x, z, lut, out, M, nc,
-                                                   c, v, N, metric, st);
-  }
+  else if (lut_dtype == 0)             // float LUT: accumulate in out
+    err = launch_typed<XT, float, float>(x, z, lut, out, M, nc, c, v, N,
+                                         metric, st);
+  else
+    err = launch_typed<XT, __nv_bfloat16, float>(x, z, lut, out, M, nc, c,
+                                                 v, N, metric, st);
   if (err != cudaSuccess) return err;
-  const size_t total = (size_t)M * N;
-  const int blocks = (int)((total + 255) / 256);
-  if (lut_dtype == 2)
-    scale_kernel<int><<<blocks, 256, 0, st>>>(work, scale, out, M, N);
-  else if (scale != nullptr)
-    scale_kernel<float><<<blocks, 256, 0, st>>>(out, scale, out, M, N);
-  return cudaGetLastError();
+  return finish(lut_dtype, scale, out, work, M, N, st);
 }
 
 }  // namespace

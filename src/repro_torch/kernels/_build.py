@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and compiles on its
 own into ``build/repro_torch/<name>-<hash>.so`` at the repository root
-(git-ignored), at first use. The hash covers the source and the flags, so
-an edited source builds afresh. ``build(names)`` starts one ``nvcc`` per
+(git-ignored), at first use. The hash covers the source, every shared
+header ``csrc/*.cuh`` and the flags, so an edited source or header builds
+afresh. ``build(names)`` starts one ``nvcc`` per
 source and waits for all of them, so a cold start pays for the slowest
 source, not the sum.
 
@@ -22,7 +23,8 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("fused_amm", "flash_decode")
+SOURCES = ("fused_amm", "flash_decode", "assign", "lut_gemm",
+           "flash_decode_kvq")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -44,9 +46,14 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:12]}.so"
+    """Where ``csrc/<name>.cu`` is built: the name carries a hash of the
+    source, of every header in ``csrc/`` (a source may include any of
+    them) and of the flags."""
+    h = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
 
 
 def build(names: Iterable[str] = SOURCES) -> Dict[str, str]:

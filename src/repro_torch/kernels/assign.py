@@ -1,0 +1,78 @@
+"""Kernel B3 wrapper: VQ centroid assignment on Hopper, the first of the
+two passes that ``QuantConfig(fuse=False)`` runs.
+
+Port of ``repro.kernels.assign.vq_assign_pallas``. The kernel is CUDA C++
+in ``csrc/assign.cu`` (its header says what bounds it); it shares its
+distance and argmin code with kernel B1 (``csrc/vq_common.cuh``), so its
+indices are B1's bit for bit. This module checks the arguments, allocates
+the index tensor and launches the kernel on the current stream. The plain
+version is ``kernels.ref.assign_ref``; ``kernels.ops.vq_assign`` picks
+between the two by device.
+
+``vq_assign_cuda.launches`` counts launches.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.core.similarity import Metric
+from . import _build
+from .fused_amm import _METRICS, _X_DTYPES
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+def _lib():
+    fn = _build.load("assign").vq_assign_launch
+    if fn.argtypes is None:
+        fn.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
+        fn.restype = _I
+    return fn
+
+
+def _check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(f"vq_assign_cuda: {msg}")
+
+
+def vq_assign_cuda(x: torch.Tensor, z: torch.Tensor,
+                   metric: Metric = "l2") -> torch.Tensor:
+    """Nearest-centroid assignment on the card.
+
+    x (M, nc, v) f32|bf16 and z (nc, c, v) of x's type, contiguous CUDA
+    tensors on one device. Returns idx (M, nc) int32; the lowest index
+    wins a tie. Raises on anything else, and when the kernel cannot be
+    built or launched.
+    """
+    _check(x.device.type == "cuda" and z.device == x.device,
+           "x and z must be CUDA tensors on one device")
+    _check(x.is_contiguous() and z.is_contiguous(),
+           "tensors must be contiguous")
+    _check(x.dtype in _X_DTYPES and z.dtype == x.dtype,
+           f"x and z must share one of {list(_X_DTYPES)} "
+           f"(got {x.dtype}, {z.dtype})")
+    _check(metric in _METRICS, f"unknown metric {metric!r}")
+    _check(x.dim() == 3 and z.dim() == 3, "x and z must be 3-d")
+    m, nc, v = x.shape
+    c = z.shape[1]
+    _check(tuple(z.shape) == (nc, c, v),
+           f"shapes x {tuple(x.shape)}, z {tuple(z.shape)} do not match")
+    _check(1 <= c <= 256, f"c={c} out of range (uint8 indices)")
+    _check(m * nc * v < 2 ** 31, "sizes beyond int32 indexing")
+    fn = _lib()
+    idx = torch.empty((m, nc), dtype=torch.int32, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(x.data_ptr(), z.data_ptr(), idx.data_ptr(), m, nc, c, v,
+                 _X_DTYPES[x.dtype], _METRICS[metric], stream)
+    if err != 0:
+        raise RuntimeError(
+            f"vq_assign_cuda: launch failed with cudaError {err}")
+    vq_assign_cuda.launches += 1
+    return idx
+
+
+vq_assign_cuda.launches = 0

@@ -16,16 +16,22 @@ KV pool, read in place through the page table (port of
     its keys sit at ``kj >= pos`` and are masked, so its contents are
     never attended.
 
+  * quantized pool: with ``codebook=`` the pages hold uint8 centroid
+    codes ``(P+1, page, KVH, nc)`` (``core/kv_codebook.py``); fp K/V rows
+    are never written to device memory.
+
 The per-split triples come from kernel B2 (``csrc/flash_decode.cu``,
-:func:`flash_decode_splits_cuda`) for CUDA tensors and from the plain
-version :func:`flash_decode_splits` for CPU tensors. The reduction over
-splits and the self-term fold are plain PyTorch in both cases, as they
+:func:`flash_decode_splits_cuda`) or, over a code pool, kernel B5
+(``csrc/flash_decode_kvq.cu``, :func:`flash_decode_splits_kvq_cuda`) for
+CUDA tensors, and from the plain versions :func:`flash_decode_splits` /
+:func:`flash_decode_splits_kvq` for CPU tensors. The reduction over
+splits and the self-term fold are plain PyTorch in every case, as they
 are plain XLA in the JAX package.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -41,6 +47,13 @@ NEG_INF = -1e30
 #: an H100 among 1, 2, 4, 8 and 16 (``chip_smoke.py`` prints that sweep);
 #: the port's choice for this card, not the TPU's table.
 SPLIT_PAGES = 2
+
+#: Pages per split of kernel B5 over a code pool: 1 page of 16 tokens is
+#: 5120 blocks at the main path's shape. Chosen on an H100 among 1, 2, 4,
+#: 8 and 16 (``chip_smoke.py`` prints the sweep): 1 page was the fastest
+#: both at the main path's mixed lengths and with every slot full, by
+#: 3-7% over 2.
+SPLIT_PAGES_KVQ = 1
 
 Triple = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -127,9 +140,10 @@ def _lib():
     return fn
 
 
-def _check(cond: bool, msg: str) -> None:
+def _check(cond: bool, msg: str,
+           who: str = "flash_decode_splits_cuda") -> None:
     if not cond:
-        raise ValueError(f"flash_decode_splits_cuda: {msg}")
+        raise ValueError(f"{who}: {msg}")
 
 
 def flash_decode_splits_cuda(qg: torch.Tensor, k_pages: torch.Tensor,
@@ -186,21 +200,157 @@ def flash_decode_splits_cuda(qg: torch.Tensor, k_pages: torch.Tensor,
 flash_decode_splits_cuda.launches = 0
 
 
+def flash_decode_splits_kvq(qg: torch.Tensor, kc_pages: torch.Tensor,
+                            vc_pages: torch.Tensor, zk: torch.Tensor,
+                            zv: torch.Tensor, sk: torch.Tensor,
+                            sv: torch.Tensor, phys: torch.Tensor,
+                            pos: torch.Tensor, win: int, ks: torch.Tensor,
+                            split_pages: int) -> Triple:
+    """Per-split triples over a code pool, in plain PyTorch: the plain
+    version of kernel B5, in the LUT-accumulate form of the JAX package's
+    ``_flash_xla_kvq`` (cut into splits). Scores are a one-hot contraction
+    of the codes with the per-query table ``(q * sk)_s . zk_s``; the value
+    side pools probability mass per (subspace, centroid) and applies each
+    centroid once. fp K/V rows are never formed.
+
+    kc_pages/vc_pages: (P+1, page, KVH, nc) uint8; zk/zv (nc, c, v);
+    sk/sv (KVH,); the rest as :func:`flash_decode_splits`.
+    ``flash_decode_splits_kvq.calls`` counts calls.
+    """
+    flash_decode_splits_kvq.calls += 1
+    b, kvh, g, d = qg.shape
+    ps = kc_pages.shape[1]
+    nc, c, v = zk.shape
+    ns = phys.shape[1] // split_pages
+    sl = split_pages * ps
+    kc = kc_pages[phys.long()].reshape(b, ns, sl, kvh, nc).long()
+    vc = vc_pages[phys.long()].reshape(b, ns, sl, kvh, nc).long()
+    qs = (qg * sk.float()[None, :, None, None]).reshape(b, kvh, g, nc, v)
+    lut_k = torch.einsum("bkgsv,scv->bkgsc", qs, zk.float())
+    oh_k = torch.nn.functional.one_hot(kc, c).float()
+    sc = torch.einsum("bntksc,bkgsc->bnkgt", oh_k, lut_k)  # (B,NS,KVH,G,SL)
+    kj = torch.arange(ns * sl, dtype=torch.int32,
+                      device=qg.device).reshape(ns, sl)
+    mask = _split_masks(pos[:, None, None], win, ks[:, None, None],
+                        kj[None])                          # (B, NS, SL)
+    mask5 = mask[:, :, None, None, :]
+    sc = torch.where(mask5, sc, torch.full_like(sc, NEG_INF))
+    m = torch.amax(sc, dim=-1)                             # (B, NS, KVH, G)
+    p = torch.where(mask5, torch.exp(sc - m[..., None]),
+                    torch.zeros_like(sc))
+    l = torch.sum(p, dim=-1)
+    oh_v = torch.nn.functional.one_hot(vc, c).float()
+    w = torch.einsum("bnkgt,bntksc->bnkgsc", p, oh_v)
+    acc = torch.einsum("bnkgsc,scv->bnkgsv", w, zv.float())
+    acc = acc.reshape(b, ns, kvh, g, d) * sv.float()[None, None, :, None,
+                                                     None]
+    return (m.movedim(1, 0).contiguous(), l.movedim(1, 0).contiguous(),
+            acc.movedim(1, 0).contiguous())
+
+
+flash_decode_splits_kvq.calls = 0
+
+
+def _lib_kvq():
+    fn = _build.load("flash_decode_kvq").flash_decode_splits_kvq_launch
+    if fn.argtypes is None:
+        fn.argtypes = [_P] * 10 + [_I, _P, _P, _P] + [_I] * 10 + [_P]
+        fn.restype = _I
+    return fn
+
+
+def flash_decode_splits_kvq_cuda(qg: torch.Tensor, kc_pages: torch.Tensor,
+                                 vc_pages: torch.Tensor, zk: torch.Tensor,
+                                 zv: torch.Tensor, sk: torch.Tensor,
+                                 sv: torch.Tensor, phys: torch.Tensor,
+                                 pos: torch.Tensor, win: int,
+                                 ks: torch.Tensor, split_pages: int
+                                 ) -> Triple:
+    """Kernel B5: the same contract as :func:`flash_decode_splits_kvq`, on
+    the card. All tensors contiguous CUDA tensors on one device; qg, zk,
+    zv, sk, sv float32, code pages uint8, phys/pos/ks int32; G <= 8,
+    D = nc * v <= 256, c <= 256. ``flash_decode_splits_kvq_cuda.launches``
+    counts launches."""
+    tensors = [qg, kc_pages, vc_pages, zk, zv, sk, sv, phys, pos, ks]
+
+    def check(cond, msg):
+        _check(cond, msg, "flash_decode_splits_kvq_cuda")
+    check(all(t.device.type == "cuda" for t in tensors),
+           "all tensors must be CUDA tensors")
+    check(len({t.device for t in tensors}) == 1,
+           "tensors lie on different devices")
+    check(all(t.is_contiguous() for t in tensors),
+           "tensors must be contiguous")
+    check(all(t.dtype == torch.float32 for t in (qg, zk, zv, sk, sv)),
+           "qg, zk, zv, sk and sv must be float32")
+    check(kc_pages.dtype == torch.uint8 and vc_pages.dtype == torch.uint8,
+           "code pages must be uint8")
+    check(all(t.dtype == torch.int32 for t in (phys, pos, ks)),
+           "phys, pos and kv_start must be int32")
+    b, kvh, g, d = qg.shape
+    nc, c, v = zk.shape
+    p1, ps = kc_pages.shape[0], kc_pages.shape[1]
+    check(tuple(kc_pages.shape) == (p1, ps, kvh, nc)
+           and vc_pages.shape == kc_pages.shape,
+           f"code pool {tuple(kc_pages.shape)} does not match qg "
+           f"{tuple(qg.shape)} and nc={nc}")
+    check(zv.shape == zk.shape and nc * v == d,
+           f"tables {tuple(zk.shape)}/{tuple(zv.shape)} do not cover D={d}")
+    check(tuple(sk.shape) == (kvh,) and tuple(sv.shape) == (kvh,),
+           "sk and sv must have shape (KVH,)")
+    check(phys.dim() == 2 and phys.shape[0] == b
+           and tuple(pos.shape) == (b,) and tuple(ks.shape) == (b,),
+           "phys (B, NP), pos (B,) and kv_start (B,) expected")
+    check(1 <= g <= 8 and 1 <= d <= 256 and 1 <= c <= 256
+           and split_pages >= 1,
+           f"G={g}, D={d}, c={c} or split_pages={split_pages} out of range")
+    np_ = phys.shape[1]
+    ns = -(-np_ // split_pages)
+    fn = _lib_kvq()
+    m = torch.empty((ns, b, kvh, g), dtype=torch.float32, device=qg.device)
+    l = torch.empty_like(m)
+    acc = torch.empty((ns, b, kvh, g, d), dtype=torch.float32,
+                      device=qg.device)
+    with torch.cuda.device(qg.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(qg.data_ptr(), kc_pages.data_ptr(), vc_pages.data_ptr(),
+                 zk.data_ptr(), zv.data_ptr(), sk.data_ptr(), sv.data_ptr(),
+                 phys.data_ptr(), pos.data_ptr(), ks.data_ptr(), int(win),
+                 m.data_ptr(), l.data_ptr(), acc.data_ptr(),
+                 b, kvh, g, d, ps, np_, split_pages, nc, c, v, stream)
+    if err != 0:
+        raise RuntimeError(
+            f"flash_decode_splits_kvq_cuda: launch failed with cudaError "
+            f"{err}")
+    flash_decode_splits_kvq_cuda.launches += 1
+    return m, l, acc
+
+
+flash_decode_splits_kvq_cuda.launches = 0
+
+
 def flash_decode_paged(q: torch.Tensor, k_pages: torch.Tensor,
                        v_pages: torch.Tensor, k_new: torch.Tensor,
                        v_new: torch.Tensor, phys: torch.Tensor, positions,
                        *, window: int = 0, kv_start=0,
-                       split_pages: int = SPLIT_PAGES) -> torch.Tensor:
+                       codebook: Optional[dict] = None,
+                       split_pages: Optional[int] = None) -> torch.Tensor:
     """Single-token paged decode attention.
 
     q (B,1,H,D); k_pages/v_pages (P+1, page, KVH, D): one layer's slice of
     the pool, last page = trash; k_new/v_new (B,1,KVH,D) the fresh token,
-    NOT yet in the pool (its self term is always live). phys (B, NP)
-    physical page ids, already trash-redirected. positions: (B,) int32
-    per-slot lengths (-1 = inactive lane: its output is the v_new row,
-    discarded by the caller). window: int; kv_start: int or (B,).
-    Runs kernel B2 for CUDA tensors, its plain version for CPU tensors.
-    Returns (B, 1, H*D) in q's dtype.
+    NOT yet in the pool (its self term is always live and computed from
+    these fp rows, so the newest token is exact on a quantized pool too).
+    phys (B, NP) physical page ids, already trash-redirected. positions:
+    (B,) int32 per-slot lengths (-1 = inactive lane: its output is the
+    v_new row, discarded by the caller). window: int; kv_start: int or
+    (B,). codebook: one layer's slice of the KV codebook ({"zk": (nc, c,
+    v), "zv": ..., "sk": (KVH,), "sv": ...}); when given, k_pages/v_pages
+    are uint8 code pools (P+1, page, KVH, nc). split_pages: pages per
+    split (default :data:`SPLIT_PAGES`, or :data:`SPLIT_PAGES_KVQ` over a
+    code pool).
+    Runs kernel B2 (B5 over codes) for CUDA tensors, its plain version for
+    CPU tensors. Returns (B, 1, H*D) in q's dtype.
     """
     b, s, h, d = q.shape
     if s != 1:
@@ -214,6 +364,8 @@ def flash_decode_paged(q: torch.Tensor, k_pages: torch.Tensor,
                           device=dev).expand(b).contiguous()
     ks = torch.as_tensor(kv_start, dtype=torch.int32,
                          device=dev).expand(b).contiguous()
+    if split_pages is None:
+        split_pages = SPLIT_PAGES if codebook is None else SPLIT_PAGES_KVQ
     sp = min(split_pages, np_)
     pad = (-np_) % sp
     phys = phys.to(torch.int32)
@@ -221,12 +373,16 @@ def flash_decode_paged(q: torch.Tensor, k_pages: torch.Tensor,
         phys = torch.nn.functional.pad(phys, (0, pad),
                                        value=k_pages.shape[0] - 1)
     phys = phys.contiguous()
-    if dev.type == "cpu":
-        m, l, acc = flash_decode_splits(qg, k_pages, v_pages, phys, pos,
-                                        window, ks, sp)
+    if codebook is None:
+        splits = (flash_decode_splits if dev.type == "cpu"
+                  else flash_decode_splits_cuda)
+        m, l, acc = splits(qg, k_pages, v_pages, phys, pos, window, ks, sp)
     else:
-        m, l, acc = flash_decode_splits_cuda(qg, k_pages, v_pages, phys,
-                                             pos, window, ks, sp)
+        splits = (flash_decode_splits_kvq if dev.type == "cpu"
+                  else flash_decode_splits_kvq_cuda)
+        m, l, acc = splits(qg, k_pages, v_pages, codebook["zk"],
+                           codebook["zv"], codebook["sk"], codebook["sv"],
+                           phys, pos, window, ks, sp)
     m, l, acc = reduce_splits(m, l, acc)
     # fold the self term (qg is pre-scaled). The new token is always live,
     # so the denominator is >= exp(0): never zero, even for pos = -1 lanes.

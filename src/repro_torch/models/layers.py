@@ -7,14 +7,15 @@ Attention is ported for the two paths paged serving runs: a prefill chunk
 over the slot's cached rows plus the chunk itself (plain matmul and masked
 softmax, as the JAX package's naive ``_sdpa``), and single-token decode
 straight off the page pool (``kernels.flash_decode.flash_decode_paged``,
-kernel B2).
+kernel B2, or B5 over a pool of centroid codes).
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.core.kv_codebook import kv_decode
 from repro_torch.core.lut import QuantConfig, lut_linear_apply
 from repro_torch.kernels.flash_decode import flash_decode_paged
 
@@ -84,12 +85,14 @@ def _paged_view(pages: torch.Tensor, phys: torch.Tensor,
 
 def attention(p: Params, x: torch.Tensor, cfg, qc: QuantConfig, q_offset,
               k_pages: torch.Tensor, v_pages: torch.Tensor,
-              phys: torch.Tensor, window: int = 0
+              phys: torch.Tensor, window: int = 0,
+              codebook: Optional[Params] = None
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Pre-norm GQA attention over one layer of the paged pool.
 
-    The pool is read only; the fresh K/V rows come back (in the pool's
-    type) for the caller to write.
+    The pool is read only; the fresh K/V rows come back for the caller to
+    write: in the pool's type for an fp pool, in x's type for a code pool
+    (the caller encodes them).
 
     Args:
       p: layer params {"wq","wk","wv","wo","norm"}.
@@ -101,8 +104,11 @@ def attention(p: Params, x: torch.Tensor, cfg, qc: QuantConfig, q_offset,
       k_pages/v_pages: (P+1, page, KVH, HD) one layer of the pool.
       phys: (B, NP) trash-redirected physical page ids.
       window: 0 = global attention, >0 = sliding window.
+      codebook: this layer's slice of the KV codebook ({"zk": (nc, c, v),
+        "zv", "sk": (KVH,), "sv"}) when the pool holds uint8 codes
+        (P+1, page, KVH, nc); None for an fp pool.
 
-    Returns: (out (B, S, D), k_new, v_new (B, S, KVH, HD) in pool type).
+    Returns: (out (B, S, D), k_new, v_new (B, S, KVH, HD)).
     """
     b, s, _ = x.shape
     h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -117,15 +123,26 @@ def attention(p: Params, x: torch.Tensor, cfg, qc: QuantConfig, q_offset,
     q = rope(q.reshape(b, s, h, hd), positions, cfg.rope_theta)
     k = rope(k.reshape(b, s, kvh, hd), positions, cfg.rope_theta)
     v = v.reshape(b, s, kvh, hd)
-    k_new, v_new = k.to(k_pages.dtype), v.to(v_pages.dtype)
+    if codebook is None:
+        k_new, v_new = k.to(k_pages.dtype), v.to(v_pages.dtype)
+    else:                   # code pool: the fresh rows stay fp
+        k_new, v_new = k, v
     if s == 1:
         out = flash_decode_paged(q, k_pages, v_pages, k, v, phys, q_offset,
-                                 window=window)
+                                 window=window, codebook=codebook)
     else:
-        k_all = torch.cat([_paged_view(k_pages, phys, q_offset), k_new], 1)
-        v_all = torch.cat([_paged_view(v_pages, phys, q_offset), v_new], 1)
-        out = _sdpa(q, k_all.to(x.dtype), v_all.to(x.dtype), q_offset,
-                    window).reshape(b, s, h * hd)
+        k_old = _paged_view(k_pages, phys, q_offset)
+        v_old = _paged_view(v_pages, phys, q_offset)
+        if codebook is not None:
+            # cached rows of a code pool, dequantized for the chunk: a
+            # plain torch op on the card too, as the JAX package computes
+            # it in XLA (model._paged_view), not in a Pallas kernel. The
+            # chunk's own rows stay fp.
+            k_old = kv_decode(k_old, codebook["zk"], codebook["sk"], x.dtype)
+            v_old = kv_decode(v_old, codebook["zv"], codebook["sv"], x.dtype)
+        k_all = torch.cat([k_old.to(x.dtype), k_new.to(x.dtype)], 1)
+        v_all = torch.cat([v_old.to(x.dtype), v_new.to(x.dtype)], 1)
+        out = _sdpa(q, k_all, v_all, q_offset, window).reshape(b, s, h * hd)
     return proj(p["wo"], out, qc), k_new, v_new
 
 

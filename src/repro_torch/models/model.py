@@ -9,14 +9,18 @@ on a leading axis and scans, this port loops over the list.
 API:
   Model(cfg, device)                                     device="cuda"
   init(generator, qc)                              -> params
-  init_paged_cache(max_seq, page_size, num_pages)  -> {"k", "v"} pool
+  init_paged_cache(max_seq, page_size, num_pages, codebook=None)
+                                                   -> {"k", "v"} pool
   prefill_paged(params, tokens, kv, table, slot, pos, valid, qc) -> logits
   decode_paged(params, tokens, kv, table, positions, qc)         -> logits
 
 The pool ``(L, P+1, page, KVH, HD)`` (last page = trash) is updated in
 place: where the JAX entry points return a new pool (the engine donates
 the old buffer), these write the fresh K/V rows into ``kv`` and return
-only the logits.
+only the logits. With a :class:`~repro_torch.core.kv_codebook.KVCodebook`
+the pool holds uint8 centroid codes ``(L, P+1, page, KVH, nc)`` and the
+cache carries its own copy of the codebook under ``CODEBOOK_KEY``; rows
+are encoded where they are written (:meth:`Model._encode_rows`).
 """
 from __future__ import annotations
 
@@ -24,6 +28,7 @@ from typing import Any, Dict, List
 
 import torch
 
+from repro_torch.core.kv_codebook import CODEBOOK_KEY, kv_encode
 from repro_torch.core.lut import (DENSE, QuantConfig, lut_linear_init,
                                   precompute_layer, strip_for_inference)
 from repro_torch.device import resolve_device
@@ -131,12 +136,16 @@ class Model:
         """The layer loop: attention (reading layer li of the pool) then
         the MLP, with ``write(li, k_new, v_new)`` storing the layer's
         fresh rows once its attention has read the pool."""
+        cb = kv.get(CODEBOOK_KEY)
         for li, (p_l, win) in enumerate(zip(params["blocks"],
                                             self._windows())):
+            cb_l = (None if cb is None
+                    else {key: leaf[li] for key, leaf in cb.items()})
             a, k_new, v_new = attention(p_l["attn"], x, self.cfg, qc,
                                         q_offset, kv["k"][li], kv["v"][li],
-                                        phys, window=win)
-            write(li, k_new, v_new)
+                                        phys, window=win, codebook=cb_l)
+            write(li, self._encode_rows(cb_l, "k", k_new),
+                  self._encode_rows(cb_l, "v", v_new))
             x = x + a
             x = x + mlp(p_l["mlp"], x, self.cfg, qc)
         return x
@@ -145,16 +154,50 @@ class Model:
     # paged serving (continuous batching; see repro_torch/serve/)
     # ------------------------------------------------------------------
     def init_paged_cache(self, max_seq: int, page_size: int,
-                         num_pages: int, dtype=None) -> Params:
+                         num_pages: int, dtype=None,
+                         codebook=None) -> Params:
         """The page pool ``{"k": (L, num_pages+1, page_size, KVH, HD),
         "v": ...}`` on this model's device; the extra last page is the
-        trash page that absorbs writes of lanes that are not live."""
+        trash page that absorbs writes of lanes that are not live.
+
+        codebook: optional :class:`~repro_torch.core.kv_codebook.KVCodebook`
+        -- the pool then holds uint8 codes ``(L, num_pages+1, page_size,
+        KVH, nc)`` and the cache carries its own copy of the codebook's
+        leaves under ``CODEBOOK_KEY``, on this model's device."""
         cfg = self.cfg
-        shape = (cfg.num_layers, num_pages + 1, page_size, cfg.num_kv_heads,
-                 cfg.head_dim)
+        l, kvh, hd = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
+        if codebook is not None:
+            if (codebook.num_layers, codebook.head_dim) != (l, hd):
+                raise ValueError(
+                    f"codebook (L={codebook.num_layers}, "
+                    f"HD={codebook.head_dim}) does not match model "
+                    f"(L={l}, HD={hd})")
+            shape = (l, num_pages + 1, page_size, kvh, codebook.nc)
+            return {
+                "k": torch.zeros(shape, dtype=torch.uint8,
+                                 device=self.device),
+                "v": torch.zeros(shape, dtype=torch.uint8,
+                                 device=self.device),
+                CODEBOOK_KEY: {key: leaf.to(self.device, torch.float32,
+                                            copy=True).contiguous()
+                               for key, leaf in codebook.tree().items()}}
+        shape = (l, num_pages + 1, page_size, kvh, hd)
         dtype = dtype or self.dtype
         return {"k": torch.zeros(shape, dtype=dtype, device=self.device),
                 "v": torch.zeros(shape, dtype=dtype, device=self.device)}
+
+    @staticmethod
+    def _encode_rows(cb_l, key: str, rows: torch.Tensor) -> torch.Tensor:
+        """Fresh K/V rows -> what the pool stores: the rows themselves for
+        an fp pool (cb_l None), their uint8 centroid codes for a code
+        pool. The encode is a plain torch op on the card too: the JAX
+        package computes it in XLA (``kv_encode``), not in a Pallas
+        kernel."""
+        if cb_l is None:
+            return rows
+        z, s = (cb_l["zk"], cb_l["sk"]) if key == "k" else (cb_l["zv"],
+                                                            cb_l["sv"])
+        return kv_encode(rows, z, s)
 
     def prefill_paged(self, params: Params, tokens: torch.Tensor, kv: Params,
                       page_table: torch.Tensor, slot: int, pos: int,

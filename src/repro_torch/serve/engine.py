@@ -18,8 +18,11 @@ after every real token, only real rows are written to the pool, and decode
 masks rows ``>= pos``, so pads are never attended.
 
 The paper's technique enters through ``qc``: with ``mode="lut_infer"``
-every projection runs assignment + LUT lookup (kernel B1) instead of a
-dense GEMM; the LUTs must already be in ``params``.
+every projection runs assignment + LUT lookup (kernel B1, or B3 then B4
+under ``fuse=False``) instead of a dense GEMM; the LUTs must already be in
+``params``. With ``kv_quant="vq"`` the page pool holds uint8 codebook
+indices (kernel B5 reads them); the engine fits the codebook itself from
+a fixed calibration prefill unless the caller passes one.
 
 Not ported yet (ROADMAP.md queue A): prefix caching and copy-on-write,
 deadlines, load shedding and the degradation ladder, observability,
@@ -33,6 +36,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.core.kv_codebook import KVCodebook
 from repro_torch.core.lut import DENSE, QuantConfig
 from .kv_cache import PagedKVCache, PagePoolExhausted
 from .scheduler import FinishReason, Request, SlotPhase, SlotScheduler
@@ -59,6 +63,31 @@ def _sample_tokens(logits: torch.Tensor, temps: Optional[Sequence[float]],
     return out
 
 
+def calibration_rows(model, params, qc: QuantConfig, max_seq: int,
+                     page_size: int):
+    """The K/V rows a KV codebook is fit on: (L, t, KVH, HD) each.
+
+    The fixed token ramp ``(arange(t) * 31 + 7) % vocab``, t = min(128,
+    max_seq), as the JAX engine feeds it, goes through one fp paged
+    prefill chunk into a scratch one-slot pool (the port has no
+    dense-cache prefill); the rows it writes are the sample. No random
+    stream is involved.
+    """
+    cfg, dev = model.cfg, model.device
+    t = min(128, max_seq)
+    n_pages = -(-t // page_size)
+    tokens = (torch.arange(t, dtype=torch.int32, device=dev) * 31 + 7
+              ) % cfg.vocab_size
+    kv = model.init_paged_cache(n_pages * page_size, page_size, n_pages)
+    table = torch.arange(n_pages, dtype=torch.int32, device=dev)[None]
+    model.prefill_paged(params, tokens[None], kv, table, 0, 0, t, qc)
+
+    def rows(pages):               # (L, P+1, page, KVH, HD) -> (L, t, ...)
+        return pages[:, :n_pages].reshape(
+            cfg.num_layers, n_pages * page_size, *pages.shape[3:])[:, :t]
+    return rows(kv["k"]), rows(kv["v"])
+
+
 class Engine:
     """Continuous-batching engine over a paged KV cache.
 
@@ -75,13 +104,17 @@ class Engine:
       num_pages: physical pool size; default ``slots x pages_per_slot``.
         A smaller pool admits fewer concurrent tokens and may preempt.
       prefill_chunk: static prefill chunk width (must divide max_seq).
+      kv_codebook: the KV codebook of a ``kv_quant="vq"`` engine; None
+        fits one (:meth:`_fit_kv_codebook`). Passing one without
+        ``kv_quant="vq"`` is an error.
     """
 
     def __init__(self, model, params, qc: QuantConfig = DENSE,
                  batch_size: int = 8, max_seq: int = 512,
                  eos_id: Optional[int] = None, seed: int = 0,
                  page_size: int = 16, num_pages: Optional[int] = None,
-                 prefill_chunk: int = 32):
+                 prefill_chunk: int = 32,
+                 kv_codebook: Optional[KVCodebook] = None):
         self.model = model
         self.params = params
         self.qc = qc
@@ -95,8 +128,18 @@ class Engine:
             raise ValueError(
                 f"prefill_chunk ({self.prefill_chunk}) must divide "
                 f"max_seq ({max_seq})")
+        self.page_size = page_size
+        self.kv_codebook = kv_codebook
+        if qc.kv_quant == "vq":
+            if self.kv_codebook is None:
+                self.kv_codebook = self._fit_kv_codebook()
+        elif kv_codebook is not None:
+            raise ValueError(
+                "kv_codebook supplied but qc.kv_quant is 'none' — set "
+                "qc = qc.replace(kv_quant='vq') to serve quantized")
         self.kv = PagedKVCache(model, self.num_slots, max_seq,
-                               page_size=page_size, num_pages=num_pages)
+                               page_size=page_size, num_pages=num_pages,
+                               codebook=self.kv_codebook)
         self.scheduler = SlotScheduler(self.num_slots)
         self.step_count = 0
         self.device_reads = 0
@@ -145,6 +188,15 @@ class Engine:
     # ------------------------------------------------------------------
     # internals
     # ------------------------------------------------------------------
+    def _fit_kv_codebook(self) -> KVCodebook:
+        """Fit the KV codebook on :func:`calibration_rows` (k-means seeded
+        with 0: a restart fits the same codebook)."""
+        k_rows, v_rows = calibration_rows(self.model, self.params, self.qc,
+                                          self.max_seq, self.page_size)
+        return KVCodebook.fit(
+            k_rows, v_rows, v=self.qc.kv_v, c=self.qc.kv_c,
+            generator=torch.Generator(device=self.device).manual_seed(0))
+
     def _device_read(self, t: torch.Tensor) -> np.ndarray:
         """THE device -> host transfer of the step loop (one per decode
         step, one per finished prefill), counted in ``device_reads``."""

@@ -1,6 +1,6 @@
 """Paged KV cache for the continuous-batching engine (port of
-``repro.serve.kv_cache``, without prefix caching, copy-on-write or a KV
-codebook; ROADMAP.md queue A lists them).
+``repro.serve.kv_cache``, without prefix caching and copy-on-write;
+ROADMAP.md queue A lists them).
 
   * :class:`PageAllocator` — host-side free list over physical page ids;
     raises :class:`PagePoolExhausted` when a request cannot be satisfied.
@@ -9,7 +9,9 @@ codebook; ROADMAP.md queue A lists them).
     a slot's sequence crosses page boundaries.
   * :class:`PagedKVCache` — the device pool (``Model.init_paged_cache``)
     plus a :class:`PageTable`. KV lives in a shared pool of fixed-size
-    pages, so memory scales with live tokens, not slots x max_seq.
+    pages, so memory scales with live tokens, not slots x max_seq. With a
+    KV codebook the pages hold uint8 centroid codes instead of fp rows;
+    the byte accounting reads the pool arrays, so it follows either.
 
 One extra physical page, the last one, is never handed out: the *trash
 page*. Writes of padded prefill positions and of lanes that are not
@@ -167,19 +169,44 @@ class PageTable:
 class PagedKVCache:
     """The device pool + page table of one engine.
 
-    ``data`` is ``{"k": (L, P+1, page, KVH, HD), "v": ...}``; the final
-    page is the trash page.
+    ``data`` is ``{"k": (L, P+1, page, KVH, HD), "v": ...}``, or with a
+    ``codebook`` uint8 codes ``(L, P+1, page, KVH, nc)`` plus the
+    codebook under ``CODEBOOK_KEY``; the final page is the trash page.
     """
 
     def __init__(self, model, num_slots: int, max_seq: int,
-                 page_size: int = 16, num_pages: Optional[int] = None):
+                 page_size: int = 16, num_pages: Optional[int] = None,
+                 codebook=None):
         self.num_slots = num_slots
         self.max_seq = max_seq
         self.page_size = page_size
         self.device = model.device
         self.table = PageTable(num_slots, max_seq, page_size, num_pages)
         self.data = model.init_paged_cache(
-            max_seq, page_size, self.table.allocator.num_pages)
+            max_seq, page_size, self.table.allocator.num_pages,
+            codebook=codebook)
+
+    @property
+    def bytes_per_token(self) -> int:
+        """Device bytes ONE cached token occupies across k+v and all
+        layers, read from the pool arrays (fp rows or uint8 codes)."""
+        total = 0
+        for key in ("k", "v"):
+            t = self.data[key]                  # (L, P+1, page, KVH, W)
+            l, _, _, kvh, w = t.shape
+            total += l * kvh * w * t.element_size()
+        return total
+
+    @property
+    def page_bytes(self) -> int:
+        """Bytes one physical page pins across k+v and all layers."""
+        return self.bytes_per_token * self.page_size
+
+    @property
+    def pool_bytes(self) -> int:
+        """Allocatable pool capacity in bytes (the trash page excluded:
+        it is never handed out)."""
+        return self.page_bytes * self.table.allocator.num_pages
 
     def table_device(self) -> torch.Tensor:
         return self.table.device(self.device)

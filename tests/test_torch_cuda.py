@@ -1,8 +1,10 @@
-"""Kernels B1 and B2 on the card against their plain versions, beyond the
+"""Kernels B1-B5 on the card against their plain versions, beyond the
 main path's shapes: every metric, x type and LUT type on ragged M, N and
-nc, split-K over several row tiles (B1); GQA, sliding window, kv_start,
-inactive lanes, float32 and bfloat16 pools and a split size that does not
-divide the page count (B2).
+nc, split-K over several row tiles (B1, B3, B4, and B4(B3(x)) == B1(x)
+bit for bit on int8 LUTs); GQA, sliding window, kv_start, inactive lanes,
+float32 and bfloat16 pools and a split size that does not divide the page
+count (B2); the same over uint8 code pools, D of 64, 128 and 256, and
+exact-cover tables above 48 KB, staged or read from L2 (B5).
 
 Needs a CUDA device and ``nvcc``: marked ``cuda``, and skipped when torch
 sees no card. On a machine with an H100, from the repository root:
@@ -25,7 +27,9 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import flash_decode as tfd  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
+from repro_torch.kernels.assign import vq_assign_cuda  # noqa: E402
 from repro_torch.kernels.fused_amm import vq_amm_cuda  # noqa: E402
+from repro_torch.kernels.lut_gemm import lut_gemm_cuda  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -136,6 +140,128 @@ def test_flash_decode_splits_kernel_matches_plain(dev, kv_dtype, h, kvh, d,
     want = tfd.flash_decode_splits(qg, kp, vp, phys, pos, window, ks, split)
     torch.cuda.synchronize()
     assert tfd.flash_decode_splits_cuda.launches == before + 1
+    for a, w in zip(got, want):
+        assert a.shape == w.shape
+        tol = 2e-5 * (1.0 + float(w.abs().max()))
+        torch.testing.assert_close(a, w, rtol=0, atol=tol)
+    neg = torch.tensor(tfd.NEG_INF, dtype=torch.float32, device=dev)
+    m, l, acc = got
+    assert bool((m[:, 1] == neg).all() and (l[:, 1] == 0).all()
+                and (acc[:, 1] == 0).all())          # pos = -1: identity
+
+
+# ---------------------------------------------------------------------------
+# B3 and B4: the two-pass path
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("metric", ["l2", "l1", "chebyshev"])
+def test_vq_assign_kernel_matches_plain_and_b1(dev, metric, x_dtype):
+    for i, shape in enumerate(B1_SHAPES):
+        x, z, _, _ = _b1_inputs(shape, x_dtype, torch.float32, i, dev)
+        before = vq_assign_cuda.launches
+        got = vq_assign_cuda(x, z, metric)
+        torch.cuda.synchronize()
+        assert vq_assign_cuda.launches == before + 1
+        assert got.dtype == torch.int32 and got.shape == x.shape[:2]
+        assert torch.equal(got, tref.assign_ref(x, z, metric))
+        # random x: near-ties, but one distance code with B1
+        xr = torch.randn(x.shape, device=dev).to(x_dtype)
+        nc, c = z.shape[0], z.shape[1]
+        probe = (torch.arange(c, device=dev, dtype=torch.float32)[None, :,
+                                                                 None]
+                 * torch.eye(nc, device=dev)[:, None, :]).contiguous()
+        b1 = torch.round(vq_amm_cuda(xr, z, probe, None, metric))
+        assert torch.equal(vq_assign_cuda(xr, z, metric), b1.to(torch.int32))
+
+
+def test_vq_assign_kernel_ties_take_the_lowest_index(dev):
+    for metric in ("l2", "l1", "chebyshev"):
+        idx = vq_assign_cuda(torch.zeros((5, 7, 4), device=dev),
+                             torch.zeros((7, 16, 4), device=dev), metric)
+        assert int(idx.abs().max()) == 0
+
+
+@pytest.mark.parametrize("lut_dtype", [torch.float32, torch.bfloat16,
+                                       torch.int8])
+def test_lut_gemm_kernel_matches_plain(dev, lut_dtype):
+    for i, shape in enumerate(B1_SHAPES):
+        m, nc, _, c, n = shape
+        _, _, lut, scale = _b1_inputs(shape, torch.float32, lut_dtype, i,
+                                      dev)
+        idx = torch.randint(0, c, (m, nc), device=dev, dtype=torch.int32)
+        before = lut_gemm_cuda.launches
+        got = lut_gemm_cuda(idx, lut, scale)
+        want = tref.lut_gemm_onehot(idx, lut, scale)
+        torch.cuda.synchronize()
+        assert lut_gemm_cuda.launches == before + 1
+        assert got.dtype == torch.float32 and got.shape == want.shape
+        if lut_dtype == torch.int8:
+            torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+        else:
+            torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("metric", ["l2", "l1", "chebyshev"])
+def test_two_pass_equals_fused_bitwise_on_int8(dev, metric, x_dtype):
+    for i, shape in enumerate(B1_SHAPES):
+        x, z, lut, scale = _b1_inputs(shape, x_dtype, torch.int8, i, dev)
+        xr = torch.randn(x.shape, device=dev).to(x_dtype)
+        for xx in (x, xr):
+            two = lut_gemm_cuda(vq_assign_cuda(xx, z, metric), lut, scale)
+            assert torch.equal(two, vq_amm_cuda(xx, z, lut, scale, metric))
+
+
+# ---------------------------------------------------------------------------
+# B5: flash decode over a code pool
+# ---------------------------------------------------------------------------
+
+def _b5_problem(dev, b, h, kvh, d, ps, np_, positions, nc, c, seed):
+    rng = np.random.default_rng(seed)
+    n_pages = b * np_
+    kc = rng.integers(0, c, (n_pages + 1, ps, kvh, nc)).astype(np.uint8)
+    vc = rng.integers(0, c, (n_pages + 1, ps, kvh, nc)).astype(np.uint8)
+    tab = [rng.standard_normal((nc, c, d // nc)).astype(np.float32)
+           for _ in range(2)]
+    tab += [(np.abs(rng.standard_normal(kvh)) + 0.5).astype(np.float32)
+            for _ in range(2)]
+    phys = rng.permutation(n_pages).reshape(b, np_).astype(np.int32)
+    for i, p in enumerate(positions):   # unallocated tail -> trash
+        phys[i, max(0, -(-p // ps)):] = n_pages
+    qg = (rng.standard_normal((b, kvh, h // kvh, d)) * d ** -0.5).astype(
+        np.float32)
+    t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    return (t(qg), t(kc), t(vc), [t(a) for a in tab], t(phys),
+            t(np.asarray(positions, np.int32)))
+
+
+@pytest.mark.parametrize("h,kvh,d,ps,np_,split,window,kv_start,nc,c", [
+    (20, 20, 128, 16, 32, 2, 0, 0, 32, 16),    # the main path's shape
+    (16, 4, 128, 16, 10, 3, 0, 0, 32, 16),     # GQA G=4, split not dividing
+    (8, 1, 64, 8, 9, 2, 20, 5, 16, 16),        # G=8, window, kv_start, D=64
+    (6, 3, 256, 4, 7, 7, 0, 3, 64, 16),        # D=256, one split
+    (8, 2, 128, 16, 6, 4, 0, 0, 1, 128),       # exact cover: 64 KB tables
+    (8, 2, 128, 16, 6, 4, 40, 2, 1, 256),      # 128 KB tables, from L2
+])
+def test_flash_decode_splits_kvq_kernel_matches_plain(
+        dev, h, kvh, d, ps, np_, split, window, kv_start, nc, c):
+    b = 4
+    cap = np_ * ps
+    positions = [cap, -1, ps, min(cap, 3 * ps + 1)]   # full, idle, page edge
+    qg, kc, vc, tab, phys, pos = _b5_problem(dev, b, h, kvh, d, ps, np_,
+                                             positions, nc, c, h + d + c)
+    pad = (-np_) % split
+    phys = torch.nn.functional.pad(phys, (0, pad),
+                                   value=kc.shape[0] - 1).contiguous()
+    ks = torch.full((b,), kv_start, dtype=torch.int32, device=dev)
+    before = tfd.flash_decode_splits_kvq_cuda.launches
+    got = tfd.flash_decode_splits_kvq_cuda(qg, kc, vc, *tab, phys, pos,
+                                           window, ks, split)
+    want = tfd.flash_decode_splits_kvq(qg, kc, vc, *tab, phys, pos, window,
+                                       ks, split)
+    torch.cuda.synchronize()
+    assert tfd.flash_decode_splits_kvq_cuda.launches == before + 1
     for a, w in zip(got, want):
         assert a.shape == w.shape
         tol = 2e-5 * (1.0 + float(w.abs().max()))

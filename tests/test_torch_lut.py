@@ -208,8 +208,7 @@ def test_lut_linear_apply_matches_jax():
                                atol=1e-5)
 
 
-@pytest.mark.parametrize("kw", [{"mode": "lut_train"}, {"fuse": False},
-                                {"kv_quant": "vq"}])
+@pytest.mark.parametrize("kw", [{"mode": "lut_train"}])
 def test_unported_quant_options_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue A"):
         tlut.QuantConfig(**kw)
