@@ -84,12 +84,13 @@ def check(cond: bool, msg: str) -> None:
         raise SmokeFailure(msg)
 
 
-def time_ms(fn, iters: int, flush: torch.Tensor) -> float:
-    """Mean device time of ``fn`` in ms: CUDA events around each launch,
-    the L2 flushed before each (the main path reaches every LUT and page
-    cold: a decode step streams GBs between two visits). A spin kernel
-    ahead of each keeps the card busy while the host enqueues, so the
-    events time the device work, not the wrapper's host time."""
+def device_times(fn, iters: int, flush: torch.Tensor) -> list:
+    """Device time of each of ``iters`` launches of ``fn`` in ms: CUDA
+    events around each launch, the L2 flushed before each (the main path
+    reaches every LUT and page cold: a decode step streams GBs between two
+    visits). A spin kernel ahead of each keeps the card busy while the
+    host enqueues, so the events time the device work, not the wrapper's
+    host time."""
     fn()
     torch.cuda.synchronize()
     pairs = []
@@ -103,7 +104,12 @@ def time_ms(fn, iters: int, flush: torch.Tensor) -> float:
         e.record()
         pairs.append((s, e))
     torch.cuda.synchronize()
-    return sum(s.elapsed_time(e) for s, e in pairs) / iters
+    return [s.elapsed_time(e) for s, e in pairs]
+
+
+def time_ms(fn, iters: int, flush: torch.Tensor) -> float:
+    """Mean device time of ``fn`` in ms over :func:`device_times`."""
+    return float(np.mean(device_times(fn, iters, flush)))
 
 
 def host_us(fn, iters: int = 50) -> float:
@@ -323,11 +329,11 @@ def b34_case(gen, m, k, n, flush):
     return r3, r4
 
 
-def b2_inputs(gen, b, h, kvh, d, np_, positions, kv_start, dev=DEV):
+def b2_inputs(gen, b, h, kvh, d, np_, positions, kv_start, ps, dev=DEV):
     n_pages = b * np_
-    kp = torch.randn((n_pages + 1, PAGE, kvh, d), generator=gen,
+    kp = torch.randn((n_pages + 1, ps, kvh, d), generator=gen,
                      device=dev).to(torch.bfloat16)
-    vp = torch.randn((n_pages + 1, PAGE, kvh, d), generator=gen,
+    vp = torch.randn((n_pages + 1, ps, kvh, d), generator=gen,
                      device=dev).to(torch.bfloat16)
     kp[-1] = 1e4                      # trash page: must never be attended
     vp[-1] = 1e4
@@ -335,7 +341,7 @@ def b2_inputs(gen, b, h, kvh, d, np_, positions, kv_start, dev=DEV):
     phys = perm.reshape(b, np_).to(torch.int32)
     pos = torch.tensor(positions, dtype=torch.int32, device=dev)
     for i, p in enumerate(positions):  # unallocated tail -> trash
-        phys[i, max(0, -(-p // PAGE)):] = n_pages
+        phys[i, max(0, -(-p // ps)):] = n_pages
     q = torch.randn((b, 1, h, d), generator=gen, device=dev).to(
         torch.bfloat16)
     kn = torch.randn((b, 1, kvh, d), generator=gen, device=dev).to(
@@ -346,12 +352,18 @@ def b2_inputs(gen, b, h, kvh, d, np_, positions, kv_start, dev=DEV):
     return q, kp, vp, kn, vn, phys, pos, ks
 
 
+def split_sweep(np_, sp):
+    """Pages per split timed beside the rule's ``sp``: powers of two up to
+    the whole sequence."""
+    return sorted({s for s in (1, 2, 4, 8, 16, 32) if s <= np_} | {sp})
+
+
 def b2_case(gen, name, b, h, kvh, d, np_, positions, window, kv_start,
-            flush, timed):
+            flush, timed, ps=PAGE):
     q, kp, vp, kn, vn, phys, pos, ks = b2_inputs(gen, b, h, kvh, d, np_,
-                                                 positions, kv_start)
+                                                 positions, kv_start, ps)
     g = h // kvh
-    sp = min(fd.SPLIT_PAGES, np_)
+    sp = fd.split_pages_for(b, kvh, np_)
     qg = (q.reshape(b, kvh, g, d).float() * d ** -0.5).contiguous()
     pad = (-np_) % sp
     phys_p = torch.nn.functional.pad(phys, (0, pad),
@@ -383,23 +395,26 @@ def b2_case(gen, name, b, h, kvh, d, np_, positions, window, kv_start,
     if not timed:
         print(f"B2 flash_decode {name}: max abs err {err:.3g} (checked)")
         return {"err": err}
-    ms = time_ms(lambda: fd.flash_decode_splits_cuda(
+    times = device_times(lambda: fd.flash_decode_splits_cuda(
         qg, kp, vp, phys_p, pos, window, ks, sp), 30, flush)
+    ms, med = float(np.mean(times)), float(np.median(times))
     plain_ms = time_ms(lambda: fd.flash_decode_splits(
         qg, kp, vp, phys_p, pos, window, ks, sp), 5, flush)
     host = host_us(lambda: fd.flash_decode_splits_cuda(
         qg, kp, vp, phys_p, pos, window, ks, sp))
+    call_ms = time_ms(lambda: fd.flash_decode_paged(
+        q, kp, vp, kn, vn, phys, pos, window=window, kv_start=ks), 30, flush)
     sweep = []
-    for s in (1, 2, 4, 8, 16):        # pages per split
+    for s in split_sweep(np_, sp):    # pages per split
         ph = torch.nn.functional.pad(phys, (0, (-np_) % s),
                                      value=kp.shape[0] - 1).contiguous()
         t_s = time_ms(lambda: fd.flash_decode_splits_cuda(
             qg, kp, vp, ph, pos, window, ks, s), 30, flush)
         sweep.append(f"{s}: {t_s * 1e3:.1f}")
-    print(f"B2 flash_decode {name}: kernel us by pages per split (the port "
-          f"uses {fd.SPLIT_PAGES}): {', '.join(sweep)}")
+    print(f"B2 flash_decode {name}: kernel us by pages per split (the split "
+          f"rule takes {sp}): {', '.join(sweep)}")
     # yardstick: SDPA over the already gathered, contiguous K/V
-    t = np_ * PAGE
+    t = np_ * ps
     kg = kp[phys.long()].reshape(b, t, kvh, d).transpose(1, 2).contiguous()
     vg = vp[phys.long()].reshape(b, t, kvh, d).transpose(1, 2).contiguous()
     mask = (torch.arange(t, device=DEV)[None] < pos[:, None])[:, None,
@@ -413,16 +428,18 @@ def b2_case(gen, name, b, h, kvh, d, np_, positions, window, kv_start,
     b_ = (2 * live * kvh * d * kp.element_size() + nbytes(qg, phys_p, pos)
           + nbytes(*tk))
     bms, by = bound(b_, 4 * live * h * d)
-    print(f"B2 flash_decode {name}: kernel {ms * 1e3:.1f} us, plain "
-          f"{plain_ms * 1e3:.1f} us, SDPA on gathered K/V "
+    print(f"B2 flash_decode {name}: kernel {ms * 1e3:.1f} us (median "
+          f"{med * 1e3:.1f}; {sp} pages a split), whole flash_decode_paged call {call_ms * 1e3:.1f} us, "
+          f"plain {plain_ms * 1e3:.1f} us, SDPA on gathered K/V "
           f"{library_ms * 1e3:.1f} us, bound {bms * 1e3:.2f} us ({by}; "
           f"{live} live tokens), host {host:.1f} us/call, max abs err "
           f"{err:.3g}")
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-            "library_ms": library_ms, "err": err}
+            "library_ms": library_ms, "err": err, "call_ms": call_ms}
 
 
-def b5_inputs(gen, b, h, kvh, d, np_, positions, kv_start, exact_c=None):
+def b5_inputs(gen, b, h, kvh, d, np_, positions, kv_start, ps,
+              exact_c=None):
     """A code pool of one layer: random fp K/V pages, encoded with a table
     fit on them (nc = d / KV_V, c = KV_C), or with an exact-cover table of
     exact_c rows (nc = 1, v = d) and random codes; the trash page holds
@@ -430,8 +447,8 @@ def b5_inputs(gen, b, h, kvh, d, np_, positions, kv_start, exact_c=None):
     codes stand for (dequantized), for the SDPA yardstick."""
     dev = DEV
     n_pages = b * np_
-    kp = torch.randn((n_pages + 1, PAGE, kvh, d), generator=gen, device=dev)
-    vp = torch.randn((n_pages + 1, PAGE, kvh, d), generator=gen, device=dev)
+    kp = torch.randn((n_pages + 1, ps, kvh, d), generator=gen, device=dev)
+    vp = torch.randn((n_pages + 1, ps, kvh, d), generator=gen, device=dev)
     if exact_c is None:
         cb = KVCodebook.fit(kp[None, :n_pages].reshape(1, -1, kvh, d),
                             vp[None, :n_pages].reshape(1, -1, kvh, d),
@@ -442,16 +459,16 @@ def b5_inputs(gen, b, h, kvh, d, np_, positions, kv_start, exact_c=None):
         rows = torch.randn((2, 1, exact_c // kvh, kvh, d), generator=gen,
                            device=dev)
         cb = KVCodebook.from_rows(rows[0], rows[1])
-        kc = torch.randint(0, exact_c, (n_pages + 1, PAGE, kvh, 1),
+        kc = torch.randint(0, exact_c, (n_pages + 1, ps, kvh, 1),
                            generator=gen, device=dev).to(torch.uint8)
-        vc = torch.randint(0, exact_c, (n_pages + 1, PAGE, kvh, 1),
+        vc = torch.randint(0, exact_c, (n_pages + 1, ps, kvh, 1),
                            generator=gen, device=dev).to(torch.uint8)
     cb_l = {key: leaf[0].contiguous() for key, leaf in cb.tree().items()}
     perm = torch.randperm(n_pages, generator=gen, device=dev)
     phys = perm.reshape(b, np_).to(torch.int32)
     pos = torch.tensor(positions, dtype=torch.int32, device=dev)
     for i, p in enumerate(positions):  # unallocated tail -> trash
-        phys[i, max(0, -(-p // PAGE)):] = n_pages
+        phys[i, max(0, -(-p // ps)):] = n_pages
     q = torch.randn((b, 1, h, d), generator=gen, device=dev)
     kn = torch.randn((b, 1, kvh, d), generator=gen, device=dev)
     vn = torch.randn((b, 1, kvh, d), generator=gen, device=dev)
@@ -460,13 +477,13 @@ def b5_inputs(gen, b, h, kvh, d, np_, positions, kv_start, exact_c=None):
 
 
 def b5_case(gen, name, b, h, kvh, d, np_, positions, window, kv_start,
-            flush, timed, exact_c=None):
+            flush, timed, exact_c=None, ps=PAGE):
     """B5 at one shape, against its plain version (triples and output)
     and the dequantize-then-reference oracle, all in float32."""
     q, kc, vc, cb_l, kn, vn, phys, pos, ks = b5_inputs(
-        gen, b, h, kvh, d, np_, positions, kv_start, exact_c)
+        gen, b, h, kvh, d, np_, positions, kv_start, ps, exact_c)
     g = h // kvh
-    sp = min(fd.SPLIT_PAGES_KVQ, np_)
+    sp = fd.split_pages_for(b, kvh, np_, kvq=True)
     qg = (q.reshape(b, kvh, g, d).float() * d ** -0.5).contiguous()
     tab = (cb_l["zk"], cb_l["zv"], cb_l["sk"], cb_l["sv"])
 
@@ -474,6 +491,8 @@ def b5_case(gen, name, b, h, kvh, d, np_, positions, window, kv_start,
         return torch.nn.functional.pad(phys, (0, (-np_) % s_),
                                        value=kc.shape[0] - 1).contiguous()
     phys_p = pad(sp)
+    nc, c_, v_ = cb_l["zk"].shape
+    form = fd.kvq_form(g, d, ps, sp, nc, c_, v_)
     tk = fd.flash_decode_splits_kvq_cuda(qg, kc, vc, *tab, phys_p, pos,
                                          window, ks, sp)
     tp = fd.flash_decode_splits_kvq(qg, kc, vc, *tab, phys_p, pos, window,
@@ -506,24 +525,29 @@ def b5_case(gen, name, b, h, kvh, d, np_, positions, window, kv_start,
     tables = nbytes(*tab)
     if not timed:
         print(f"B5 flash_decode_kvq {name}: tables {tables / 1024:.0f} KB, "
-              f"max abs err {err:.3g} vs plain and oracle (checked)")
+              f"{form} form, max abs err {err:.3g} vs plain and oracle "
+              f"(checked)")
         return {"err": err}
-    ms = time_ms(lambda: fd.flash_decode_splits_kvq_cuda(
+    times = device_times(lambda: fd.flash_decode_splits_kvq_cuda(
         qg, kc, vc, *tab, phys_p, pos, window, ks, sp), 30, flush)
+    ms, med = float(np.mean(times)), float(np.median(times))
     plain_ms = time_ms(lambda: fd.flash_decode_splits_kvq(
         qg, kc, vc, *tab, phys_p, pos, window, ks, sp), 5, flush)
     host = host_us(lambda: fd.flash_decode_splits_kvq_cuda(
         qg, kc, vc, *tab, phys_p, pos, window, ks, sp))
+    call_ms = time_ms(lambda: fd.flash_decode_paged(
+        q, kc, vc, kn, vn, phys, pos, window=window, kv_start=ks,
+        codebook=cb_l), 30, flush)
     sweep = []
-    for s_ in (1, 2, 4, 8, 16):       # pages per split
+    for s_ in split_sweep(np_, sp):   # pages per split
         ph = pad(s_)
         t_s = time_ms(lambda: fd.flash_decode_splits_kvq_cuda(
             qg, kc, vc, *tab, ph, pos, window, ks, s_), 30, flush)
         sweep.append(f"{s_}: {t_s * 1e3:.1f}")
     print(f"B5 flash_decode_kvq {name}: kernel us by pages per split (the "
-          f"port uses {fd.SPLIT_PAGES_KVQ}): {', '.join(sweep)}")
+          f"split rule takes {sp}): {', '.join(sweep)}")
     # yardstick: SDPA over K/V already dequantized, gathered, contiguous
-    t = np_ * PAGE
+    t = np_ * ps
     kd = (cb_l["zk"][torch.arange(kc.shape[-1], device=DEV),
                      kc[phys.long()].long()].reshape(b, t, kvh, d)
           * cb_l["sk"][:, None]).to(torch.bfloat16)
@@ -541,13 +565,15 @@ def b5_case(gen, name, b, h, kvh, d, np_, positions, window, kv_start,
     b_ = (2 * live_t * kvh * kc.shape[-1] * kc.element_size() + tables
           + nbytes(qg, phys_p, pos, ks) + nbytes(*tk))
     bms, by = bound(b_, 4 * live_t * h * d + 2 * live_t * kvh * d)
-    print(f"B5 flash_decode_kvq {name}: kernel {ms * 1e3:.1f} us, plain "
+    print(f"B5 flash_decode_kvq {name}: kernel {ms * 1e3:.1f} us (median "
+          f"{med * 1e3:.1f}; {form} form, {sp} pages a split), whole flash_decode_paged call "
+          f"{call_ms * 1e3:.1f} us, plain "
           f"{plain_ms * 1e3:.1f} us, SDPA on dequantized bf16 K/V "
           f"{library_ms * 1e3:.1f} us, bound {bms * 1e3:.2f} us ({by}; "
           f"{live_t} live tokens, {kc.shape[-1]} code bytes per token and "
           f"head), host {host:.1f} us/call, max abs err {err:.3g}")
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-            "library_ms": library_ms, "err": err}
+            "library_ms": library_ms, "err": err, "call_ms": call_ms}
 
 
 # ---------------------------------------------------------------------------
@@ -707,9 +733,13 @@ def main(argv=None) -> int:
         b2_full = b2_case(gen, "all 8 slots at 511 tokens", SLOTS, 20, 20,
                           128, MAX_SEQ // PAGE, full_pos, 0, [0] * SLOTS,
                           flush, True)
-        b2_gqa = b2_case(gen, "G=4 window=100 kv_start>0, pos=-1 lanes", 4,
-                         16, 4, 128, 16, [200, -1, 77, 255], 100,
-                         [5, 0, 3, 17], flush, False)
+        b2_checks = [
+            b2_case(gen, "G=4 window=100 kv_start>0, pos=-1 lanes", 4, 16,
+                    4, 128, 16, [200, -1, 77, 255], 100, [5, 0, 3, 17],
+                    flush, False),
+            b2_case(gen, "page 64, window=150 kv_start>0, pos=-1 lanes", 4,
+                    20, 20, 128, 8, [511, -1, 64, 300], 150, [0, 0, 9, 40],
+                    flush, False, ps=64)]
         b5 = b5_case(gen, main_name + " nc=32 c=16", SLOTS, 20, 20, 128,
                      MAX_SEQ // PAGE, main_pos, 0, [0] * SLOTS, flush, True)
         b5_full = b5_case(gen, "all 8 slots at 511 tokens", SLOTS, 20, 20,
@@ -719,12 +749,15 @@ def main(argv=None) -> int:
             b5_case(gen, "G=4 window=100 kv_start>0, pos=-1 lanes", 4, 16,
                     4, 128, 16, [200, -1, 77, 255], 100, [5, 0, 3, 17],
                     flush, False),
-            b5_case(gen, "exact cover c=128 (64 KB tables, staged)", 4, 8,
+            b5_case(gen, "exact cover c=128 (64 KB a table)", 4, 8,
                     2, 128, 8, [100, -1, 37, 128], 0, [0, 0, 4, 0], flush,
                     False, exact_c=128),
-            b5_case(gen, "exact cover c=256 (128 KB tables, read from L2)",
-                    4, 8, 2, 128, 8, [100, 64, -1, 128], 30, [0, 2, 0, 0],
-                    flush, False, exact_c=256)]
+            b5_case(gen, "exact cover c=256 (128 KB a table)", 4, 8, 2, 128,
+                    8, [100, 64, -1, 128], 30, [0, 2, 0, 0], flush, False,
+                    exact_c=256),
+            b5_case(gen, "page 64, window=150 kv_start>0, pos=-1 lanes", 4,
+                    20, 20, 128, 8, [511, -1, 64, 300], 150, [0, 0, 9, 40],
+                    flush, False, ps=64)]
     finally:
         clocks.terminate()
         out = clocks.communicate()[0]
@@ -757,7 +790,9 @@ def main(argv=None) -> int:
           f"fused B1 {per_step(b1):.2f} ms, two-pass B3 {per_step(b3):.2f} + "
           f"B4 {per_step(b4):.2f} ms; attention B2 "
           f"{cfg.num_layers * b2['ms']:.2f} ms, B5 "
-          f"{cfg.num_layers * b5['ms']:.2f} ms")
+          f"{cfg.num_layers * b5['ms']:.2f} ms (whole flash_decode_paged "
+          f"calls {cfg.num_layers * b2['call_ms']:.2f} and "
+          f"{cfg.num_layers * b5['call_ms']:.2f} ms)")
     torch.cuda.reset_peak_memory_stats()
     runs = {
         "fused": (qc, {"b1", "b2"}, {"b3", "b4", "b5"}),
@@ -829,7 +864,7 @@ def main(argv=None) -> int:
                  b1, "src/repro_torch/csrc/fused_amm.cu",
                  "src/repro/kernels/fused_amm.py:87", launches("b1")),
         attn_row("flash_decode_splits (B2, one layer, 8 slots)", b2,
-                 [b2["err"], b2_full["err"], b2_gqa["err"]],
+                 [b2["err"], b2_full["err"]] + [r["err"] for r in b2_checks],
                  "src/repro_torch/csrc/flash_decode.cu",
                  "src/repro/kernels/flash_decode.py:183", launches("b2")),
         proj_row("vq_assign (B3, 7 projections of one layer at decode M=8)",

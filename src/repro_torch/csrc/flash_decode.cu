@@ -18,31 +18,38 @@
 //   pos, kv_start (B,) int32; window (scalar)
 //   out m, l (NS, B, KVH, G) f32; acc (NS, B, KVH, G, D) f32
 //
-// What bounds it on the H100: bytes. Each live K and V row is read once
-// (2 * D * 2 bytes in bf16) for 4 * D * G flops: ~G flops per byte, far
-// below the ~20 flops/byte at which fp32 CUDA-core arithmetic would bind.
+// Its roofline bound on the H100 is bytes: each live K and V row is read
+// once (2 * D * 2 bytes in bf16) for 4 * D * G flops, ~G flops per byte,
+// far below the ~20 flops/byte at which fp32 CUDA-core arithmetic would
+// bind. At decode lengths it runs well above that bound, held back by
+// latency: a launch's fixed cost and each block's chain of dependent
+// steps (page ids, first tile, scores, merge, write), which only many
+// blocks in flight hide.
 //
 // Design:
-//  * One block (128 threads, 4 warps) per (split, kv head, slot). The
-//    block reads its own page ids from phys; the TPU's scalar prefetch has
-//    no counterpart. The TPU carries (m, l, acc) in VMEM output blocks
-//    across a page grid axis; here a loop over the split's pages carries
-//    m and l in shared memory and acc in registers (each thread owns
-//    D / 128 columns for all G heads).
-//  * Pages with no live key are skipped without a read, so masked lanes
-//    (pos = -1), trash pages and unallocated pages cost nothing; the mask
-//    is a contiguous key range, so inside a page only live keys are read.
-//  * Each page's live K and V rows are staged in shared memory first,
-//    with 8 loads in flight per thread, so a page costs one memory round
-//    trip, not one per key. Scores: warp w scores keys w, w+4, ... from
-//    shared memory; a warp shuffle sums each dot product.
-//  * Probabilities are exp(s - m_new) on live keys only, so a masked key
-//    contributes 0 by the mask, never through exp(-inf). K and V are read
-//    in their storage type; all arithmetic is fp32 (expf, not __expf).
+//  * One block (128 threads) per (split, kv head, slot); a split spans
+//    several pages (the wrapper's split rule, split_pages_for, aims at
+//    ten blocks per SM). The block reads its own page ids from phys into
+//    shared memory; the TPU's scalar prefetch has no counterpart. The
+//    TPU carries (m, l, acc) in VMEM across a page grid axis; here each
+//    row group carries them in registers across the block's tiles.
+//  * Only the split's live keys are read: one contiguous token range, so
+//    dead pages, trash pages and pos = -1 lanes cost nothing, and a split
+//    without a live key writes the identity without a load.
+//  * Keys stream through a ring of up to STAGES tiles of TK tokens in
+//    shared memory, in the storage type: each 16-byte chunk of a row is
+//    one cp.async (flashc::load_rows), so the next tiles are in flight
+//    while one is scored. A tile holds TK tokens whatever the page size,
+//    so every page size takes the same shared memory (at most 48 KB for
+//    the ring, less when a split holds fewer tiles than STAGES).
+//  * Scores, online softmax and the value sum: flashc::RowGroup (a group
+//    of lanes per key, D split across its lanes as 16-byte chunks; state
+//    in registers; one merge per block). Arithmetic is fp32 (expf);
+//    masked keys get probability 0 by the mask, never through exp(-inf).
 //  * GQA: the G query heads sharing a kv head share each K/V row load.
-//  * The split loop (flash_split) lives in flash_common.cuh, shared with
-//    B5 (flash_decode_kvq.cu); this file supplies how a page's rows reach
-//    shared memory (FpPages).
+//  * Rows whose byte length is not a multiple of 16 (D * size not 16-byte
+//    aligned) are copied byte by byte instead of by cp.async, and
+//    zero-padded to whole chunks.
 
 #include <cuda_bf16.h>
 
@@ -52,59 +59,99 @@ namespace {
 
 using namespace flashc;
 
-__device__ __forceinline__ float to_f(float a) { return a; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 a) { return __bfloat162float(a); }
-
-// Pages of fp K/V rows (P+1, page, KVH, D): a page's live rows are copied
-// to shared memory, LD loads in flight per thread before any is used, so
-// a page costs one memory round trip per LD * THREADS elements.
-template <typename KT>
-struct FpPages {
-  const KT* kp;
-  const KT* vp;
-  int KVH, D, ps, h;
-
-  __device__ __forceinline__ void stage(size_t page, int tlo, int thi,
-                                        float* k_s, float* v_s) const {
-    const size_t row_stride = (size_t)KVH * D;   // one token of one page
-    const KT* kbase = kp + page * ps * row_stride + (size_t)h * D;
-    const KT* vbase = vp + page * ps * row_stride + (size_t)h * D;
-    const int n_el = (thi - tlo) * D;
-    for (int base = threadIdx.x; base < n_el; base += THREADS * LD) {
-      float kr[LD], vr[LD];
-#pragma unroll
-      for (int u = 0; u < LD; ++u) {
-        const int i = base + u * THREADS;
-        if (i < n_el) {
-          const size_t off = (size_t)(tlo + i / D) * row_stride + i % D;
-          kr[u] = to_f(kbase[off]);
-          vr[u] = to_f(vbase[off]);
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < LD; ++u) {
-        const int i = base + u * THREADS;
-        if (i < n_el) {
-          k_s[tlo * D + i] = kr[u];
-          v_s[tlo * D + i] = vr[u];
-        }
-      }
-    }
-  }
-};
-
-template <typename KT>
+template <typename KT, int G>
 __global__ void __launch_bounds__(THREADS)
 flash_splits_kernel(const float* __restrict__ qg, const KT* __restrict__ kp,
                     const KT* __restrict__ vp, const int* __restrict__ phys,
                     const int* __restrict__ pos, const int* __restrict__ kvs,
                     int window, float* __restrict__ m_out,
                     float* __restrict__ l_out, float* __restrict__ acc_out,
-                    int B, int KVH, int G, int D, int ps, int NP, int sp) {
-  extern __shared__ float smem[];
-  const FpPages<KT> pages{kp, vp, KVH, D, ps, (int)blockIdx.y};
-  flash_split(pages, qg, phys, pos, kvs, window, m_out, l_out, acc_out, B,
-              KVH, G, D, ps, NP, sp, smem);
+                    int B, int KVH, int D, int ps, int NP, int sp, int tk,
+                    int nst, size_t pages_off) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int s = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const size_t o = (((size_t)s * B + b) * KVH + h) * G;
+  const SplitPages pg = fetch_pages(phys, b, NP, s, sp);
+  const Range r = split_range(pos, kvs, window, b, s, sp, ps, NP);
+  if (r.lo >= r.hi) {
+    write_identity(m_out, l_out, acc_out, o, G, D);
+    return;
+  }
+  const RowGeom geom(D, sizeof(KT));
+  const int rb = geom.row_bytes();
+  const size_t stage_bytes = 2 * (size_t)tk * rb;   // K rows, then V rows
+  int* pages_s = reinterpret_cast<int*>(smem + pages_off);
+  store_pages(pg, phys, b, NP, pages_s);
+  const int first = pg.first;
+  const size_t tok_bytes = (size_t)KVH * D * sizeof(KT);
+  const unsigned char* kb =
+      reinterpret_cast<const unsigned char*>(kp + (size_t)h * D);
+  const unsigned char* vb =
+      reinterpret_cast<const unsigned char*>(vp + (size_t)h * D);
+  RowGroup<KT, G> grp;
+  grp.init(qg + ((size_t)b * KVH + h) * G * D, D, geom);
+  __syncthreads();                                  // pages_s
+
+  const int ntiles = (r.hi - r.lo + tk - 1) / tk;
+  auto load_tile = [&](int i) {
+    const int t0 = r.lo + i * tk;
+    unsigned char* st = smem + (size_t)(i % nst) * stage_bytes;
+    load_rows(kb, vb, tok_bytes, ps, pages_s, first, t0, min(tk, r.hi - t0),
+              D * (int)sizeof(KT), st, st + (size_t)tk * rb, rb);
+  };
+  for (int i = 0; i < nst; ++i) {
+    if (i < ntiles) load_tile(i);
+    cp_async_commit();
+  }
+  for (int i = 0; i < ntiles; ++i) {
+    cp_async_wait(nst - 1);                         // tile i has landed
+    __syncthreads();
+    const unsigned char* st = smem + (size_t)(i % nst) * stage_bytes;
+    grp.tile(st, st + (size_t)tk * rb, min(tk, r.hi - r.lo - i * tk), geom);
+    __syncthreads();                                // its stage is free
+    if (i + nst < ntiles) load_tile(i + nst);
+    cp_async_commit();
+  }
+  grp.finish(reinterpret_cast<float*>(smem), geom, m_out, l_out, acc_out, o,
+             D);
+}
+
+// Tokens per tile: the most (a power of two, 8 to 64) whose ring of
+// STAGES tiles of K and V rows fits 48 KB.
+int tile_tokens(int row_bytes) {
+  int tk = 64;
+  while (tk > 8 && (size_t)STAGES * 2 * tk * row_bytes > 48 * 1024) tk /= 2;
+  return tk;
+}
+
+template <typename KT, int G>
+int launch(const void* qg, const void* kp, const void* vp, const int* ph,
+           const int* po, const int* ks, int window, float* mo, float* lo,
+           float* ao, int B, int KVH, int D, int ps, int NP, int sp,
+           cudaStream_t st) {
+  const RowGeom geom(D, sizeof(KT));
+  const int tk = tile_tokens(geom.row_bytes());
+  // stages: no more than the tiles a split can hold
+  const int nst = min(STAGES, (int)(((size_t)sp * ps + tk - 1) / tk));
+  const size_t ring = (size_t)nst * 2 * tk * geom.row_bytes();
+  const size_t merge = sizeof(float) * geom.merge_floats(G, D);
+  const size_t pages_off = round_up((int)(ring > merge ? ring : merge), 16);
+  const size_t smem = pages_off + sizeof(int) * (size_t)sp;
+  if (smem > MAX_DYN_SMEM) return (int)cudaErrorInvalidValue;
+  static bool opted_in = false;     // one attribute call per instantiation
+  if (!opted_in) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_splits_kernel<KT, G>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)MAX_DYN_SMEM);
+    if (err != cudaSuccess) return (int)err;
+    opted_in = true;
+  }
+  const dim3 grid((NP + sp - 1) / sp, KVH, B);
+  flash_splits_kernel<KT, G><<<grid, THREADS, smem, st>>>(
+      static_cast<const float*>(qg), static_cast<const KT*>(kp),
+      static_cast<const KT*>(vp), ph, po, ks, window, mo, lo, ao, B, KVH, D,
+      ps, NP, sp, tk, nst, pages_off);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -116,29 +163,28 @@ extern "C" int flash_decode_splits_launch(
     void* m, void* l, void* acc, int B, int KVH, int G, int D, int ps,
     int NP, int sp, int kv_dtype, void* stream) {
   if (B <= 0 || KVH <= 0 || G < 1 || G > MAX_G || D < 1 || D > MAX_D ||
-      ps < 1 || NP < 1 || sp < 1 || kv_dtype < 0 || kv_dtype > 1)
+      ps < 1 || NP < 1 || sp < 1 || kv_dtype < 0 || kv_dtype > 1 ||
+      KVH > 65535 || B > 65535)
     return (int)cudaErrorInvalidValue;
-  const int ns = (NP + sp - 1) / sp;
-  if (KVH > 65535 || B > 65535) return (int)cudaErrorInvalidValue;
-  const dim3 grid(ns, KVH, B);
-  const size_t smem = sizeof(float) * split_floats(G, D, ps);
-  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* q = static_cast<const float*>(qg);
   const int* ph = static_cast<const int*>(phys);
   const int* po = static_cast<const int*>(pos);
   const int* ks = static_cast<const int*>(kv_start);
   float* mo = static_cast<float*>(m);
   float* lo = static_cast<float*>(l);
   float* ao = static_cast<float*>(acc);
-  if (kv_dtype == 0)
-    flash_splits_kernel<float><<<grid, THREADS, smem, st>>>(
-        q, static_cast<const float*>(k_pages), static_cast<const float*>(v_pages),
-        ph, po, ks, window, mo, lo, ao, B, KVH, G, D, ps, NP, sp);
-  else
-    flash_splits_kernel<__nv_bfloat16><<<grid, THREADS, smem, st>>>(
-        q, static_cast<const __nv_bfloat16*>(k_pages),
-        static_cast<const __nv_bfloat16*>(v_pages),
-        ph, po, ks, window, mo, lo, ao, B, KVH, G, D, ps, NP, sp);
-  return (int)cudaGetLastError();
+#define B2_F32(GG)                                                          \
+  return launch<float, GG>(qg, k_pages, v_pages, ph, po, ks, window, mo, lo, \
+                           ao, B, KVH, D, ps, NP, sp, st)
+#define B2_BF16(GG)                                                          \
+  return launch<__nv_bfloat16, GG>(qg, k_pages, v_pages, ph, po, ks, window, \
+                                   mo, lo, ao, B, KVH, D, ps, NP, sp, st)
+  if (kv_dtype == 0) {
+    FLASHC_DISPATCH_G(G, B2_F32)
+  } else {
+    FLASHC_DISPATCH_G(G, B2_BF16)
+  }
+#undef B2_F32
+#undef B2_BF16
+  return (int)cudaErrorInvalidValue;                // not reached
 }

@@ -11,35 +11,37 @@
 //   zk, zv (nc, c, v) f32 centroids of one layer; sk, sv (KVH,) f32 scales
 //   row[h, s*v + e] = scale[h] * z[s, code[h, s], e]   (D = nc * v)
 //
-// What bounds it on the H100: bytes. Each live token costs 2 * nc code
-// bytes per kv head (64 at the main shape, nc = 32) instead of B2's
-// 2 * D * 2 = 512 in bf16, an 8x cut of the pool traffic; the tables are
-// 2 * nc * c * v * 4 bytes per layer (16 KB) and the dequant is one
-// shared-memory lookup and one multiply per element.
+// Its roofline bound on the H100 is bytes: each live token costs 2 * nc
+// code bytes per kv head (64 at the main shape, nc = 32) instead of B2's
+// 2 * D * 2 = 512 in bf16, an 8x cut of the pool traffic. At decode
+// lengths it runs far above that bound, held back, as B2 is, by a
+// launch's fixed cost and each block's chain of dependent steps.
 //
-// Design:
-//  * Dequantize into shared memory, then run B2's own score / softmax /
-//    value loop on the fp rows (flash_split). The TPU kernel does the
-//    same (_deq_tile, a one-hot matmul on the MXU); the alternative, a
-//    per-query score table q_s . z_s and probability mass pooled per
-//    (subspace, centroid) as _flash_xla_kvq does, saves arithmetic only
-//    when a split holds many more tokens than there are centroids, and
-//    needs its own softmax path. Dequantizing keeps one verified loop for
-//    both pool types and takes every (nc, c, v) the codebook allows. fp
-//    K/V rows never reach device memory: they live in shared memory for
-//    one page.
-//  * The block stages its layer's zk and zv tables in shared memory once
-//    (coalesced), then reads each page's live codes (LD in flight per
-//    thread, one byte per subspace, neighbouring threads on neighbouring
-//    bytes) and writes z[s, code] * scale into the page's K and V rows. A
-//    split with no live key (pos = -1 lanes, splits past the sequence)
-//    stages nothing and reads nothing, and emits exactly (-1e30, 0, 0).
-//  * Tables above 48 KB (the exact-cover codebook: nc = 1, v = D, c up to
-//    256 is 128 KB a table at D = 128) opt into dynamic shared memory up
-//    to 227 KB; when both tables and B2's buffers do not fit even then,
-//    the block reads the tables from device memory (through L1 and L2)
-//    instead of staging them. No shape is refused.
-//  * Everything else (masks, skipped pages, GQA, fp32 arithmetic) is B2's.
+// Two forms in this one source; the launcher takes the first whose
+// shared memory fits the block's 227 KB:
+//  1. LUT form (the form of the JAX package's _flash_xla_kvq and of the
+//     plain version). The block builds a score table
+//       T[g, s, c] = sk * (q_g,s . zk[s, c])        (G x nc x c floats)
+//     once, so a key's score is nc table lookups and adds instead of D
+//     dequantized multiply-adds. q and both tables (16 KB at the main
+//     shape; staged when they take at most 64 KB, else read through
+//     L1/L2) arrive by cp.async while the page ids are read. A warp scores 32
+//     keys at once, one per lane, each lane reading its key's codes as
+//     16-byte vectors. The value side pools probability per (subspace,
+//     centroid) in a per-warp table W[g, c, s] (lane s owns column s, so
+//     the updates never collide), rescaled by the online softmax like
+//     acc; zv is applied once, at the end: acc = sv * sum_c W[., c, s]
+//     zv[s, c, .]. Codes stream through a ring of up to STAGES tiles of
+//     128 tokens (flashc::load_rows: cp.async, 16 bytes each, when nc is
+//     a multiple of 16), so a block spans many pages and builds its table
+//     once for all of them.
+//  2. Dequantize form, for codebooks whose T and W do not fit (G x nc x c
+//     above ~10K entries): each tile's codes become fp32 K and V rows in
+//     shared memory (tables staged there when they fit, else read through
+//     L1/L2), then B2's row loop (flashc::RowGroup) scores them.
+// Both read only the split's live token range; a split without a live
+// key (pos = -1 lanes, splits past the sequence) writes (-1e30, 0, 0)
+// without a load. Arithmetic is fp32 (expf).
 
 #include "flash_common.cuh"
 
@@ -47,89 +49,370 @@ namespace {
 
 using namespace flashc;
 
-constexpr size_t MAX_DYN_SMEM = 227 * 1024;
+constexpr int TKQ = 32 * WARPS;                   // LUT form: tokens a tile
 
-// Pages of uint8 codes (P+1, page, KVH, nc); z tables in shared memory
-// (staged) or in device memory.
-struct CodePages {
-  const uint8_t* kc;
-  const uint8_t* vc;
-  const float* zk;
-  const float* zv;
-  float sk, sv;
-  int KVH, nc, c, v, D, ps, h;
-
-  __device__ __forceinline__ void stage(size_t page, int tlo, int thi,
-                                        float* k_s, float* v_s) const {
-    const size_t row_stride = (size_t)KVH * nc;  // one token of one page
-    const uint8_t* kbase = kc + page * ps * row_stride + (size_t)h * nc;
-    const uint8_t* vbase = vc + page * ps * row_stride + (size_t)h * nc;
-    const int n_el = (thi - tlo) * D;
-    const int cv = c * v;
-    for (int base = threadIdx.x; base < n_el; base += THREADS * LD) {
-      int kcode[LD], vcode[LD], zoff[LD];
-#pragma unroll
-      for (int u = 0; u < LD; ++u) {
-        const int i = base + u * THREADS;
-        if (i < n_el) {
-          const int d = i % D, sub = d / v;
-          const size_t off = (size_t)(tlo + i / D) * row_stride + sub;
-          kcode[u] = kbase[off];
-          vcode[u] = vbase[off];
-          zoff[u] = sub * cv + (d - sub * v);
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < LD; ++u) {
-        const int i = base + u * THREADS;
-        if (i < n_el) {
-          k_s[tlo * D + i] = zk[zoff[u] + kcode[u] * v] * sk;
-          v_s[tlo * D + i] = zv[zoff[u] + vcode[u] * v] * sv;
-        }
-      }
-    }
+// Byte layout of the LUT form's shared memory: a ring of nst code tiles,
+// T, one W per warp, the warps' (m, l), each warp's 32 probabilities, q,
+// the tables when staged, and the split's page ids. The tables are staged when they take at most
+// 64 KB (both), else read through L1/L2.
+struct LutLayout {
+  int rs, nst;                                    // code row stride, stages
+  size_t t_off, w_off, red_off, p_off, q_off, tab_off, pages_off, total;
+  bool staged;
+  __host__ __device__ LutLayout(int G, int D, int nc, int c, int v, int sp,
+                                int ps) {
+    rs = round_up(nc, 16);
+    if ((rs / 16) % 2 == 0) rs += 16;             // odd chunk stride: no bank
+    nst = (int)(((size_t)sp * ps + TKQ - 1) / TKQ); //   conflicts on uint4
+    if (nst > STAGES) nst = STAGES;
+    t_off = (size_t)nst * 2 * TKQ * rs;
+    w_off = t_off + sizeof(float) * (size_t)G * nc * c;
+    red_off = w_off + sizeof(float) * (size_t)WARPS * G * c * nc;
+    p_off = red_off + sizeof(float) * 2 * WARPS * G;
+    q_off = round_up((int)(p_off + sizeof(float) * WARPS * G * 32), 16);
+    tab_off = round_up((int)(q_off + sizeof(float) * (size_t)G * D), 16);
+    const size_t tables = 2 * sizeof(float) * (size_t)nc * c * v;
+    staged = tables <= 64 * 1024 &&
+             tab_off + tables + sizeof(int) * (size_t)sp <= MAX_DYN_SMEM;
+    pages_off = tab_off + (staged ? tables : 0);
+    total = pages_off + sizeof(int) * (size_t)sp;
   }
 };
 
+// Byte layout of the dequantize form's shared memory: one tile of fp32 K
+// and V rows (reused for the group merge), the tables when staged, pages.
+struct DeqLayout {
+  int tk;
+  size_t tab_off, pages_off, total;
+  bool staged;
+  __host__ __device__ DeqLayout(int G, int D, int nc, int c, int v, int sp) {
+    const RowGeom geom(D, sizeof(float));
+    tk = 64;
+    while (tk > 8 && 2 * (size_t)tk * geom.row_bytes() > 32 * 1024) tk /= 2;
+    const size_t tile = 2 * (size_t)tk * geom.row_bytes();
+    const size_t merge = sizeof(float) * geom.merge_floats(G, D);
+    tab_off = round_up((int)(tile > merge ? tile : merge), 16);
+    const size_t tables = 2 * sizeof(float) * (size_t)nc * c * v;
+    staged = tab_off + tables + sizeof(int) * (size_t)sp <= MAX_DYN_SMEM;
+    pages_off = tab_off + (staged ? tables : 0);
+    total = pages_off + sizeof(int) * (size_t)sp;
+  }
+};
+
+template <int G>
 __global__ void __launch_bounds__(THREADS)
-flash_splits_kvq_kernel(
-    const float* __restrict__ qg, const uint8_t* __restrict__ kc,
-    const uint8_t* __restrict__ vc, const float* __restrict__ zk,
-    const float* __restrict__ zv, const float* __restrict__ sk,
-    const float* __restrict__ sv, const int* __restrict__ phys,
-    const int* __restrict__ pos, const int* __restrict__ kvs, int window,
-    float* __restrict__ m_out, float* __restrict__ l_out,
-    float* __restrict__ acc_out, int B, int KVH, int G, int D, int ps,
-    int NP, int sp, int nc, int c, int v, int staged) {
-  extern __shared__ float smem[];
+kvq_lut_kernel(const float* __restrict__ qg, const uint8_t* __restrict__ kc,
+               const uint8_t* __restrict__ vc, const float* __restrict__ zk,
+               const float* __restrict__ zv, const float* __restrict__ sk,
+               const float* __restrict__ sv, const int* __restrict__ phys,
+               const int* __restrict__ pos, const int* __restrict__ kvs,
+               int window, float* __restrict__ m_out,
+               float* __restrict__ l_out, float* __restrict__ acc_out, int B,
+               int KVH, int D, int ps, int NP, int sp, int nc, int c, int v) {
+  extern __shared__ __align__(16) unsigned char smem[];
   const int s = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  // does the split hold a live key? (the same range flash_split masks)
-  const int hi = pos[b];
-  int lo = kvs[b];
-  if (window > 0 && hi - window + 1 > lo) lo = hi - window + 1;
-  const int t_first = s * sp * ps;
-  const int t_end = min(NP, (s + 1) * sp) * ps;
-  const bool live = max(lo, t_first) < min(hi, t_end);
+  const size_t o = (((size_t)s * B + b) * KVH + h) * G;
+  const SplitPages pg = fetch_pages(phys, b, NP, s, sp);
+  const Range r = split_range(pos, kvs, window, b, s, sp, ps, NP);
+  if (r.lo >= r.hi) {
+    write_identity(m_out, l_out, acc_out, o, G, D);
+    return;
+  }
+  const LutLayout lay(G, D, nc, c, v, sp, ps);
+  const int nst = lay.nst;
+  float* T = reinterpret_cast<float*>(smem + lay.t_off);     // [G][nc][c]
+  float* W = reinterpret_cast<float*>(smem + lay.w_off);     // [WARPS][G][c][nc]
+  float* red = reinterpret_cast<float*>(smem + lay.red_off); // m, l [WARPS][G]
+  float* P = reinterpret_cast<float*>(smem + lay.p_off);     // [WARPS][G][32]
+  float* q_s = reinterpret_cast<float*>(smem + lay.q_off);   // [G][D]
+  int* pages_s = reinterpret_cast<int*>(smem + lay.pages_off);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int n_tab = nc * c * v;
+
+  // q and (when staged) both tables: one group of copies, in flight
+  // while the page ids are read
+  copy_async(q_s, qg + ((size_t)b * KVH + h) * G * D, sizeof(float) * G * D);
   const float* zk_t = zk;
   const float* zv_t = zv;
-  if (staged && live) {
+  if (lay.staged) {
+    float* zks = reinterpret_cast<float*>(smem + lay.tab_off);
+    copy_async(zks, zk, sizeof(float) * n_tab);
+    copy_async(zks + n_tab, zv, sizeof(float) * n_tab);
+    zk_t = zks;
+    zv_t = zks + n_tab;
+  }
+  cp_async_commit();
+  store_pages(pg, phys, b, NP, pages_s);
+  const int first = pg.first;
+  for (int i = tid; i < WARPS * G * c * nc; i += THREADS) W[i] = 0.f;
+  __syncthreads();                                // pages_s
+
+  const int ntiles = (r.hi - r.lo + TKQ - 1) / TKQ;
+  const size_t stage_bytes = (size_t)2 * TKQ * lay.rs;
+  auto load_tile = [&](int i) {
+    const int t0 = r.lo + i * TKQ;
+    unsigned char* st = smem + (size_t)(i % nst) * stage_bytes;
+    load_rows(kc + (size_t)h * nc, vc + (size_t)h * nc, (size_t)KVH * nc, ps,
+              pages_s, first, t0, min(TKQ, r.hi - t0), nc, st,
+              st + (size_t)TKQ * lay.rs, lay.rs);
+  };
+  for (int i = 0; i < nst; ++i) {
+    if (i < ntiles) load_tile(i);
+    cp_async_commit();
+  }
+
+  // T from q and zk, scaled by sk
+  cp_async_wait(nst);                             // q and the tables
+  __syncthreads();
+  const float skh = sk[h];
+  for (int i = tid; i < G * nc * c; i += THREADS) {
+    const int g = i / (nc * c), sub = (i / c) % nc, cc = i % c;
+    const float* z = zk_t + ((size_t)sub * c + cc) * v;
+    const float* qq = q_s + g * D + sub * v;
+    float a = 0.f;
+    for (int e = 0; e < v; ++e) a += qq[e] * z[e];
+    T[i] = a * skh;
+  }
+
+  float* Ww = W + (size_t)warp * G * c * nc;
+  const int nch = (nc + 15) / 16;                 // 16-byte chunks a row
+  float m[G], l[G];
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    m[g] = NEG_INF;
+    l[g] = 0.f;
+  }
+  for (int i = 0; i < ntiles; ++i) {
+    cp_async_wait(nst - 1);                       // tile i has landed
+    __syncthreads();                              // (and T, at i = 0)
+    const unsigned char* st = smem + (size_t)(i % nst) * stage_bytes;
+    const int n = min(TKQ, r.hi - r.lo - i * TKQ);
+    const int nk = min(32, n - warp * 32);        // this warp's keys
+    if (nk > 0) {
+      // scores: lane = key, nc lookups each
+      float sc[G];
+#pragma unroll
+      for (int g = 0; g < G; ++g) sc[g] = 0.f;
+      if (lane < nk) {
+        const unsigned char* kr = st + (warp * 32 + lane) * lay.rs;
+        for (int ch = 0; ch < nch; ++ch) {
+          const uint4 u = *reinterpret_cast<const uint4*>(kr + ch * 16);
+          const unsigned w4[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+          for (int bb = 0; bb < 16; ++bb) {
+            const int sub = ch * 16 + bb;
+            if (sub < nc) {
+              const int code = (w4[bb >> 2] >> (8 * (bb & 3))) & 0xff;
+#pragma unroll
+              for (int g = 0; g < G; ++g) sc[g] += T[((size_t)g * nc + sub) * c + code];
+            }
+          }
+        }
+      }
+      // online softmax over the warp's keys
+      float p[G];
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        const float mx = warp_max(lane < nk ? sc[g] : NEG_INF);
+        const float m_new = fmaxf(m[g], mx);
+        const float alpha = expf(m[g] - m_new);
+        p[g] = lane < nk ? expf(sc[g] - m_new) : 0.f;
+        const float sum = warp_sum(p[g]);
+        if (alpha != 1.f && l[g] != 0.f)          // W is all zero while l is
+          for (int e = lane; e < c * nc; e += 32) Ww[(size_t)g * c * nc + e] *= alpha;
+        l[g] = l[g] * alpha + sum;
+        m[g] = m_new;
+      }
+      // values: probability pooled per (centroid, subspace); lane = s.
+      // The lane's codes and the probabilities are read before its
+      // read-modify-writes of W, which then form the only chain.
+      float* Pw = P + warp * G * 32;
+#pragma unroll
+      for (int g = 0; g < G; ++g) Pw[g * 32 + lane] = p[g];
+      __syncwarp();
+      const unsigned char* vt = st + (size_t)TKQ * lay.rs + warp * 32 * lay.rs;
+      for (int sub = lane; sub < nc; sub += 32) {
+        int code[32];
+#pragma unroll
+        for (int k = 0; k < 32; ++k) code[k] = k < nk ? vt[k * lay.rs + sub] : 0;
+#pragma unroll
+        for (int k = 0; k < 32; ++k)
+          if (k < nk)
+#pragma unroll
+            for (int g = 0; g < G; ++g)
+              Ww[((size_t)g * c + code[k]) * nc + sub] += Pw[g * 32 + k];
+      }
+    }
+    __syncthreads();                              // its stage is free
+    if (i + nst < ntiles) load_tile(i + nst);
+    cp_async_commit();
+  }
+
+  // merge the warps: W[0] = sum_w exp(m_w - M) W[w]
+  if (lane == 0) {
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      red[warp * G + g] = m[g];
+      red[(WARPS + warp) * G + g] = l[g];
+    }
+  }
+  __syncthreads();
+  float mt[G], f[WARPS][G];
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    mt[g] = NEG_INF;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) mt[g] = fmaxf(mt[g], red[w * G + g]);
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) f[w][g] = expf(red[w * G + g] - mt[g]);
+  }
+  const int per_g = c * nc;
+  for (int i = tid; i < G * per_g; i += THREADS) {
+    const int g = i / per_g;
+    float a = 0.f;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w)
+#pragma unroll
+      for (int gg = 0; gg < G; ++gg)
+        if (gg == g) a += f[w][gg] * W[(size_t)w * G * per_g + i];
+    W[i] = a;
+  }
+  __syncthreads();
+  // acc = sv * sum_c W[g, c, s] zv[s, c, .]
+  const float svh = sv[h];
+  for (int i = tid; i < G * D; i += THREADS) {
+    const int g = i / D, d = i % D, sub = d / v, e = d % v;
+    const float* wg = W + (size_t)g * per_g + sub;
+    const float* z = zv_t + (size_t)sub * c * v + e;
+    float a = 0.f;
+    for (int cc = 0; cc < c; ++cc) a += wg[(size_t)cc * nc] * z[(size_t)cc * v];
+    acc_out[o * D + i] = a * svh;
+    if (d == 0) {
+      float lt = 0.f;
+#pragma unroll
+      for (int w = 0; w < WARPS; ++w)
+#pragma unroll
+        for (int gg = 0; gg < G; ++gg)
+          if (gg == g) lt += f[w][gg] * red[(WARPS + w) * G + gg];
+#pragma unroll
+      for (int gg = 0; gg < G; ++gg)
+        if (gg == g) m_out[o + g] = mt[gg];
+      l_out[o + g] = lt;
+    }
+  }
+}
+
+template <int G>
+__global__ void __launch_bounds__(THREADS)
+kvq_deq_kernel(const float* __restrict__ qg, const uint8_t* __restrict__ kc,
+               const uint8_t* __restrict__ vc, const float* __restrict__ zk,
+               const float* __restrict__ zv, const float* __restrict__ sk,
+               const float* __restrict__ sv, const int* __restrict__ phys,
+               const int* __restrict__ pos, const int* __restrict__ kvs,
+               int window, float* __restrict__ m_out,
+               float* __restrict__ l_out, float* __restrict__ acc_out, int B,
+               int KVH, int D, int ps, int NP, int sp, int nc, int c, int v) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int s = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const size_t o = (((size_t)s * B + b) * KVH + h) * G;
+  const SplitPages pg = fetch_pages(phys, b, NP, s, sp);
+  const Range r = split_range(pos, kvs, window, b, s, sp, ps, NP);
+  if (r.lo >= r.hi) {
+    write_identity(m_out, l_out, acc_out, o, G, D);
+    return;
+  }
+  const DeqLayout lay(G, D, nc, c, v, sp);
+  const RowGeom geom(D, sizeof(float));
+  const int rb = geom.row_bytes(), rf = rb / 4;   // row floats (padded)
+  int* pages_s = reinterpret_cast<int*>(smem + lay.pages_off);
+  store_pages(pg, phys, b, NP, pages_s);
+  const int first = pg.first;
+  const float* zk_t = zk;
+  const float* zv_t = zv;
+  if (lay.staged) {
     const int n = nc * c * v;
-    float* zks = smem + split_floats(G, D, ps);
+    float* zks = reinterpret_cast<float*>(smem + lay.tab_off);
     float* zvs = zks + n;
     for (int i = threadIdx.x; i < n; i += THREADS) {
       zks[i] = zk[i];
       zvs[i] = zv[i];
     }
-    zk_t = zks;                 // published by flash_split's first barrier
+    zk_t = zks;
     zv_t = zvs;
   }
-  const CodePages pages{kc, vc, zk_t, zv_t, sk[h], sv[h], KVH, nc, c, v,
-                        D, ps, h};
-  flash_split(pages, qg, phys, pos, kvs, window, m_out, l_out, acc_out, B,
-              KVH, G, D, ps, NP, sp, smem);
+  const float skh = sk[h], svh = sv[h];
+  const size_t row_stride = (size_t)KVH * nc;
+  float* k_s = reinterpret_cast<float*>(smem);
+  float* v_s = k_s + (size_t)lay.tk * rf;
+  RowGroup<float, G> grp;
+  grp.init(qg + ((size_t)b * KVH + h) * G * D, D, geom);
+  __syncthreads();                                // pages_s, tables
+
+  for (int t0 = r.lo; t0 < r.hi; t0 += lay.tk) {
+    const int n = min(lay.tk, r.hi - t0);
+    for (int idx = threadIdx.x; idx < 2 * n * nc; idx += THREADS) {
+      const int kv = idx >= n * nc, rem = idx - kv * n * nc;
+      const int row = rem / nc, sub = rem % nc, t = t0 + row;
+      const size_t page = (size_t)pages_s[t / ps - first];
+      const int code = (kv ? vc : kc)[(page * ps + t % ps) * row_stride +
+                                      (size_t)h * nc + sub];
+      const float* z = (kv ? zv_t : zk_t) + ((size_t)sub * c + code) * v;
+      const float scale = kv ? svh : skh;
+      float* dst = (kv ? v_s : k_s) + (size_t)row * rf + sub * v;
+      for (int e = 0; e < v; ++e) dst[e] = z[e] * scale;
+    }
+    for (int idx = threadIdx.x; idx < 2 * n * (rf - D); idx += THREADS) {
+      const int kv = idx >= n * (rf - D), rem = idx - kv * n * (rf - D);
+      (kv ? v_s : k_s)[(size_t)(rem / (rf - D)) * rf + D + rem % (rf - D)] = 0.f;
+    }
+    __syncthreads();
+    grp.tile(reinterpret_cast<const unsigned char*>(k_s),
+             reinterpret_cast<const unsigned char*>(v_s), n, geom);
+    __syncthreads();
+  }
+  grp.finish(reinterpret_cast<float*>(smem), geom, m_out, l_out, acc_out, o,
+             D);
+}
+
+// 1: LUT form, 2: dequantize form, 0: neither fits.
+int pick_form(int G, int D, int ps, int sp, int nc, int c, int v) {
+  if (LutLayout(G, D, nc, c, v, sp, ps).total <= MAX_DYN_SMEM) return 1;
+  return DeqLayout(G, D, nc, c, v, sp).total <= MAX_DYN_SMEM ? 2 : 0;
+}
+
+template <int G>
+int launch(int form, const float* qg, const uint8_t* kc, const uint8_t* vc,
+           const float* zk, const float* zv, const float* sk,
+           const float* sv, const int* ph, const int* po, const int* ks,
+           int window, float* mo, float* lo, float* ao, int B, int KVH,
+           int D, int ps, int NP, int sp, int nc, int c, int v,
+           cudaStream_t st) {
+  const dim3 grid((NP + sp - 1) / sp, KVH, B);
+  static bool opted_in[2] = {false, false};
+  auto kernel = form == 1 ? kvq_lut_kernel<G> : kvq_deq_kernel<G>;
+  const size_t smem = form == 1 ? LutLayout(G, D, nc, c, v, sp, ps).total
+                                : DeqLayout(G, D, nc, c, v, sp).total;
+  if (!opted_in[form - 1]) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)MAX_DYN_SMEM);
+    if (err != cudaSuccess) return (int)err;
+    opted_in[form - 1] = true;
+  }
+  kernel<<<grid, THREADS, smem, st>>>(qg, kc, vc, zk, zv, sk, sv, ph, po,
+                                      ks, window, mo, lo, ao, B, KVH, D, ps,
+                                      NP, sp, nc, c, v);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
+
+// The form a launch with these shapes takes: 1 (LUT) or 2 (dequantize),
+// or 0 when it cannot launch.
+extern "C" int flash_decode_kvq_form(int G, int D, int ps, int sp, int nc,
+                                     int c, int v) {
+  return pick_form(G, D, ps, sp, nc, c, v);
+}
 
 // kc, vc uint8 code pools; zk, zv (nc, c, v) f32; sk, sv (KVH,) f32.
 // Returns a cudaError_t.
@@ -143,26 +426,19 @@ extern "C" int flash_decode_splits_kvq_launch(
       ps < 1 || NP < 1 || sp < 1 || nc < 1 || v < 1 || nc * v != D ||
       c < 1 || c > 256 || KVH > 65535 || B > 65535)
     return (int)cudaErrorInvalidValue;
-  const size_t base = sizeof(float) * split_floats(G, D, ps);
-  const size_t tables = 2 * sizeof(float) * (size_t)nc * c * v;
-  const int staged = base + tables <= MAX_DYN_SMEM;
-  const size_t smem = staged ? base + tables : base;
-  if (smem > MAX_DYN_SMEM) return (int)cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        flash_splits_kvq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const dim3 grid((NP + sp - 1) / sp, KVH, B);
-  flash_splits_kvq_kernel<<<grid, THREADS, smem,
-                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(qg), static_cast<const uint8_t*>(kc),
-      static_cast<const uint8_t*>(vc), static_cast<const float*>(zk),
-      static_cast<const float*>(zv), static_cast<const float*>(sk),
-      static_cast<const float*>(sv), static_cast<const int*>(phys),
-      static_cast<const int*>(pos), static_cast<const int*>(kv_start),
-      window, static_cast<float*>(m), static_cast<float*>(l),
-      static_cast<float*>(acc), B, KVH, G, D, ps, NP, sp, nc, c, v, staged);
-  return (int)cudaGetLastError();
+  const int form = pick_form(G, D, ps, sp, nc, c, v);
+  if (form == 0) return (int)cudaErrorInvalidValue;
+#define B5_LAUNCH(GG)                                                        \
+  return launch<GG>(                                                         \
+      form, static_cast<const float*>(qg), static_cast<const uint8_t*>(kc),  \
+      static_cast<const uint8_t*>(vc), static_cast<const float*>(zk),        \
+      static_cast<const float*>(zv), static_cast<const float*>(sk),          \
+      static_cast<const float*>(sv), static_cast<const int*>(phys),          \
+      static_cast<const int*>(pos), static_cast<const int*>(kv_start),       \
+      window, static_cast<float*>(m), static_cast<float*>(l),                \
+      static_cast<float*>(acc), B, KVH, D, ps, NP, sp, nc, c, v,             \
+      static_cast<cudaStream_t>(stream))
+  FLASHC_DISPATCH_G(G, B5_LAUNCH)
+#undef B5_LAUNCH
+  return (int)cudaErrorInvalidValue;              // not reached
 }

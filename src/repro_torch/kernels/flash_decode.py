@@ -41,19 +41,33 @@ from . import _build
 # is what makes the identity triple compose safely.
 NEG_INF = -1e30
 
-#: Pages per split: 2 pages of 16 tokens is 32 keys a block; at the main
-#: path's 8 slots x 20 kv heads x 32 pages that is 2560 blocks on the
-#: H100's 132 SMs, so a block's serial page loop stays short. Chosen on
-#: an H100 among 1, 2, 4, 8 and 16 (``chip_smoke.py`` prints that sweep);
-#: the port's choice for this card, not the TPU's table.
-SPLIT_PAGES = 2
+#: Blocks a split-KV launch of kernel B2 aims at: ten on each of the
+#: H100's 132 SMs. B2's blocks are short (a few tiles each), and their
+#: time goes to a chain of dependent steps (page ids, then K/V tiles,
+#: then the scores, the merge and the write); many blocks in flight hide
+#: it. Fewer, longer blocks leave an SM with too few warps; more, shorter
+#: ones write more triples. At the main path's 8 slots x 20 kv heads x 32
+#: pages this is 8 splits of 4 pages. Chosen on an H100 from the sweep
+#: ``chip_smoke.py`` prints; the port's choice for this card, not the
+#: TPU's table.
+SPLIT_BLOCKS = 10 * 132
 
-#: Pages per split of kernel B5 over a code pool: 1 page of 16 tokens is
-#: 5120 blocks at the main path's shape. Chosen on an H100 among 1, 2, 4,
-#: 8 and 16 (``chip_smoke.py`` prints the sweep): 1 page was the fastest
-#: both at the main path's mixed lengths and with every slot full, by
-#: 3-7% over 2.
-SPLIT_PAGES_KVQ = 1
+#: The same for kernel B5 over a code pool: four blocks an SM (4 splits
+#: of 8 pages at the main path). A B5 block builds a score table before
+#: its first key, so it wants more keys than a B2 block.
+SPLIT_BLOCKS_KVQ = 4 * 132
+
+
+def split_pages_for(b: int, kvh: int, np_: int, kvq: bool = False) -> int:
+    """Pages per split of a launch over ``b`` slots x ``kvh`` kv heads x
+    ``np_`` pages: the fewest splits that reach :data:`SPLIT_BLOCKS`
+    (:data:`SPLIT_BLOCKS_KVQ` over a code pool) blocks, at most one split
+    per page. The main path's 8 slots x 20 kv heads x 32 pages of 16 take
+    8 splits of 4 pages (B2) or 4 splits of 8 pages (B5)."""
+    blocks = SPLIT_BLOCKS_KVQ if kvq else SPLIT_BLOCKS
+    ns = max(1, min(np_, -(-blocks // max(1, b * kvh))))
+    return -(-np_ // ns)
+
 
 Triple = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -252,11 +266,30 @@ flash_decode_splits_kvq.calls = 0
 
 
 def _lib_kvq():
-    fn = _build.load("flash_decode_kvq").flash_decode_splits_kvq_launch
+    lib = _build.load("flash_decode_kvq")
+    fn = lib.flash_decode_splits_kvq_launch
     if fn.argtypes is None:
         fn.argtypes = [_P] * 10 + [_I, _P, _P, _P] + [_I] * 10 + [_P]
         fn.restype = _I
-    return fn
+        lib.flash_decode_kvq_form.argtypes = [_I] * 7
+        lib.flash_decode_kvq_form.restype = _I
+    return lib
+
+
+# Forms of kernel B5 (``csrc/flash_decode_kvq.cu``): the LUT form (score
+# table and probability pooled per centroid) and the dequantize form (fp
+# rows in shared memory, then B2's row loop). A launch takes the LUT form
+# when its tables fit the block's shared memory, else the other.
+_KVQ_FORMS = {1: "lut", 2: "dequantize"}
+
+
+def kvq_form(g: int, d: int, page: int, split_pages: int, nc: int, c: int,
+             v: int) -> Optional[str]:
+    """The form kernel B5 takes at these shapes ("lut" or "dequantize"),
+    or None when it cannot launch. Builds the kernel."""
+    form = _lib_kvq().flash_decode_kvq_form(g, d, page, split_pages, nc, c,
+                                            v)
+    return _KVQ_FORMS.get(form)
 
 
 def flash_decode_splits_kvq_cuda(qg: torch.Tensor, kc_pages: torch.Tensor,
@@ -306,7 +339,7 @@ def flash_decode_splits_kvq_cuda(qg: torch.Tensor, kc_pages: torch.Tensor,
            f"G={g}, D={d}, c={c} or split_pages={split_pages} out of range")
     np_ = phys.shape[1]
     ns = -(-np_ // split_pages)
-    fn = _lib_kvq()
+    fn = _lib_kvq().flash_decode_splits_kvq_launch
     m = torch.empty((ns, b, kvh, g), dtype=torch.float32, device=qg.device)
     l = torch.empty_like(m)
     acc = torch.empty((ns, b, kvh, g, d), dtype=torch.float32,
@@ -347,8 +380,7 @@ def flash_decode_paged(q: torch.Tensor, k_pages: torch.Tensor,
     (B,). codebook: one layer's slice of the KV codebook ({"zk": (nc, c,
     v), "zv": ..., "sk": (KVH,), "sv": ...}); when given, k_pages/v_pages
     are uint8 code pools (P+1, page, KVH, nc). split_pages: pages per
-    split (default :data:`SPLIT_PAGES`, or :data:`SPLIT_PAGES_KVQ` over a
-    code pool).
+    split (default :func:`split_pages_for`).
     Runs kernel B2 (B5 over codes) for CUDA tensors, its plain version for
     CPU tensors. Returns (B, 1, H*D) in q's dtype.
     """
@@ -365,7 +397,7 @@ def flash_decode_paged(q: torch.Tensor, k_pages: torch.Tensor,
     ks = torch.as_tensor(kv_start, dtype=torch.int32,
                          device=dev).expand(b).contiguous()
     if split_pages is None:
-        split_pages = SPLIT_PAGES if codebook is None else SPLIT_PAGES_KVQ
+        split_pages = split_pages_for(b, kvh, np_, codebook is not None)
     sp = min(split_pages, np_)
     pad = (-np_) % sp
     phys = phys.to(torch.int32)

@@ -2,9 +2,12 @@
 main path's shapes: every metric, x type and LUT type on ragged M, N and
 nc, split-K over several row tiles (B1, B3, B4, and B4(B3(x)) == B1(x)
 bit for bit on int8 LUTs); GQA, sliding window, kv_start, inactive lanes,
-float32 and bfloat16 pools and a split size that does not divide the page
-count (B2); the same over uint8 code pools, D of 64, 128 and 256, and
-exact-cover tables above 48 KB, staged or read from L2 (B5).
+float32 and bfloat16 pools, pages of 4 to 64 tokens, D of 36 to 256 with
+G up to 8, a split over all of a slot's pages, a split size that does not
+divide the page count and the default split rule (B2); the same over
+uint8 code pools, D of 64 to 256, exact-cover tables above 48 KB, and
+codebooks whose tables only B5's dequantize form takes (B5); pools at a
+storage offset that is not 16-byte aligned (B2, B5).
 
 Needs a CUDA device and ``nvcc``: marked ``cuda``, and skipped when torch
 sees no card. On a machine with an H100, from the repository root:
@@ -121,6 +124,15 @@ def _b2_problem(dev, b, h, kvh, d, ps, np_, positions, kv_dtype, seed):
     (16, 4, 128, 16, 10, 3, 0, 0),      # GQA G=4, split does not divide
     (8, 1, 64, 8, 9, 2, 20, 5),         # G=8, window, kv_start
     (6, 3, 256, 4, 7, 7, 0, 3),         # D=256, one split
+    (20, 20, 128, 16, 32, None, 0, 0),  # the default split rule
+    (20, 20, 128, 32, 16, 4, 0, 0),     # page 32, D=128
+    (20, 20, 128, 64, 8, 4, 0, 0),      # page 64, D=128 (66 KB as fp32)
+    (8, 4, 256, 32, 6, 2, 0, 0),        # page 32, D=256, G=2 (gemma3)
+    (8, 1, 256, 32, 5, 2, 0, 0),        # page 32, D=256, G=8 (paligemma)
+    (4, 4, 128, 16, 12, 12, 0, 0),      # one split over all of the pages
+    (8, 2, 128, 16, 10, 4, 0, 0),       # 3 splits of 4 over 10 pages
+    (16, 4, 128, 16, 12, 3, 37, 21),    # live keys start mid-page
+    (4, 2, 36, 16, 5, 2, 0, 0),         # bf16 rows of 72 bytes
 ])
 def test_flash_decode_splits_kernel_matches_plain(dev, kv_dtype, h, kvh, d,
                                                   ps, np_, split, window,
@@ -130,6 +142,8 @@ def test_flash_decode_splits_kernel_matches_plain(dev, kv_dtype, h, kvh, d,
     positions = [cap, -1, ps, min(cap, 3 * ps + 1)]   # full, idle, page edge
     qg, kp, vp, phys, pos = _b2_problem(dev, b, h, kvh, d, ps, np_,
                                         positions, kv_dtype, h + d)
+    if split is None:
+        split = tfd.split_pages_for(b, kvh, np_)
     pad = (-np_) % split
     phys = torch.nn.functional.pad(phys, (0, pad),
                                    value=kp.shape[0] - 1).contiguous()
@@ -243,6 +257,19 @@ def _b5_problem(dev, b, h, kvh, d, ps, np_, positions, nc, c, seed):
     (6, 3, 256, 4, 7, 7, 0, 3, 64, 16),        # D=256, one split
     (8, 2, 128, 16, 6, 4, 0, 0, 1, 128),       # exact cover: 64 KB tables
     (8, 2, 128, 16, 6, 4, 40, 2, 1, 256),      # 128 KB tables, from L2
+    (20, 20, 128, 16, 32, None, 0, 0, 32, 16),  # the default split rule
+    (20, 20, 128, 32, 16, 4, 0, 0, 32, 16),    # page 32
+    (20, 20, 128, 64, 8, 4, 0, 0, 32, 16),     # page 64
+    (8, 4, 256, 32, 6, 2, 0, 0, 64, 16),       # page 32, D=256, G=2
+    (8, 1, 256, 32, 5, 2, 0, 0, 64, 16),       # page 32, D=256, G=8
+    (4, 4, 128, 16, 12, 12, 0, 0, 32, 16),     # one split over all pages
+    (16, 4, 128, 16, 12, 3, 37, 21, 32, 16),   # live keys start mid-page
+    (8, 2, 96, 16, 6, 3, 0, 0, 24, 16),        # code rows of 24 bytes
+    # nc x c = 32768: the score table does not fit, the dequantize form
+    (4, 2, 128, 16, 6, 3, 9, 0, 128, 256),     # G=2, window
+    (8, 1, 128, 16, 6, 3, 20, 5, 128, 256),    # G=8, window, kv_start
+    (4, 2, 128, 16, 12, 3, 37, 21, 128, 256),  # live keys start mid-page
+    (8, 1, 256, 32, 5, 2, 0, 3, 128, 256),     # page 32, D=256, G=8
 ])
 def test_flash_decode_splits_kvq_kernel_matches_plain(
         dev, h, kvh, d, ps, np_, split, window, kv_start, nc, c):
@@ -251,6 +278,8 @@ def test_flash_decode_splits_kvq_kernel_matches_plain(
     positions = [cap, -1, ps, min(cap, 3 * ps + 1)]   # full, idle, page edge
     qg, kc, vc, tab, phys, pos = _b5_problem(dev, b, h, kvh, d, ps, np_,
                                              positions, nc, c, h + d + c)
+    if split is None:
+        split = tfd.split_pages_for(b, kvh, np_, kvq=True)
     pad = (-np_) % split
     phys = torch.nn.functional.pad(phys, (0, pad),
                                    value=kc.shape[0] - 1).contiguous()
@@ -270,3 +299,45 @@ def test_flash_decode_splits_kvq_kernel_matches_plain(
     m, l, acc = got
     assert bool((m[:, 1] == neg).all() and (l[:, 1] == 0).all()
                 and (acc[:, 1] == 0).all())          # pos = -1: identity
+    form = "dequantize" if nc * c > 32 * 256 else "lut"
+    assert tfd.kvq_form(h // kvh, d, ps, split, nc, c, d // nc) == form
+
+
+def _misaligned(t):
+    """A contiguous copy of t whose data starts one element past a 16-byte
+    boundary, as a view into a larger buffer at an odd offset would."""
+    buf = torch.empty(t.numel() + 16, dtype=t.dtype, device=t.device)
+    out = buf[1:1 + t.numel()].view(t.shape)
+    out.copy_(t)
+    assert out.is_contiguous() and out.data_ptr() % 16 != 0
+    return out
+
+
+@pytest.mark.parametrize("pool", ["float32", "bfloat16", "codes"])
+def test_flash_decode_kernels_take_misaligned_pools(dev, pool):
+    """Pools whose base is not 16-byte aligned are read without vector
+    copies and give the same triples."""
+    b, h, kvh, d, ps, np_, split = 4, 16, 4, 128, 16, 8, 4
+    positions = [np_ * ps, -1, ps, 3 * ps + 1]
+    ks = torch.tensor([0, 0, 5, 0], dtype=torch.int32, device=dev)
+    if pool == "codes":
+        nc, c = 32, 16
+        qg, kc, vc, tab, phys, pos = _b5_problem(dev, b, h, kvh, d, ps, np_,
+                                                 positions, nc, c, 3)
+        got = tfd.flash_decode_splits_kvq_cuda(
+            qg, _misaligned(kc), _misaligned(vc), *tab, phys, pos, 30, ks,
+            split)
+        want = tfd.flash_decode_splits_kvq(qg, kc, vc, *tab, phys, pos, 30,
+                                           ks, split)
+    else:
+        qg, kp, vp, phys, pos = _b2_problem(dev, b, h, kvh, d, ps, np_,
+                                            positions,
+                                            getattr(torch, pool), 3)
+        got = tfd.flash_decode_splits_cuda(qg, _misaligned(kp),
+                                           _misaligned(vp), phys, pos, 30,
+                                           ks, split)
+        want = tfd.flash_decode_splits(qg, kp, vp, phys, pos, 30, ks, split)
+    torch.cuda.synchronize()
+    for a, w in zip(got, want):
+        tol = 2e-5 * (1.0 + float(w.abs().max()))
+        torch.testing.assert_close(a, w, rtol=0, atol=tol)

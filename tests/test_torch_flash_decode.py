@@ -104,3 +104,38 @@ def test_reduce_splits_equals_sequential_combine():
     for got, want in zip(red, tri):
         np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5,
                                    atol=1e-6)
+
+
+@pytest.mark.parametrize("b,h,kvh,ps,np_,positions,window,kv_start,impl", [
+    # page 64: the JAX Pallas kernel (interpret mode), G = 4 and G = 1
+    (3, 8, 2, 64, 5, (200, -1, 319), 0, 0, "pallas"),
+    (3, 4, 4, 64, 5, (130, 64, -1), 70, 3, "pallas"),
+    # the default split rule at the main path's 8 slots x 20 kv heads x
+    # 32 pages (8 splits of 4 pages), against the JAX XLA split form
+    (8, 20, 20, 4, 32, (5, 127, 128, -1, 64, 33, 100, 17), 0, 0, "ref"),
+])
+def test_flash_decode_paged_default_split_matches_jax(b, h, kvh, ps, np_,
+                                                      positions, window,
+                                                      kv_start, impl):
+    """flash_decode_paged with its default split (``split_pages_for``)
+    against the JAX package's kernel and oracle, at page 64 and at the
+    main path's slot and head counts."""
+    q, kp, vp, kn, vn, phys, pos = _problem(
+        b * h + ps, b=b, h=h, kvh=kvh, ps=ps, n_pages=b * np_, np_=np_,
+        positions=positions)
+    j = [jnp.asarray(a) for a in (q, kp, vp, kn, vn, phys, pos)]
+    kw = {"interpret": True, "split_pages": 2} if impl == "pallas" else {}
+    out_j = np.asarray(jfd.flash_decode_paged(
+        *j, window=window, kv_start=kv_start, impl=impl, **kw))
+    out_ref = np.asarray(flash_decode_ref(*j, window=window,
+                                          kv_start=kv_start))
+    t = [torch.from_numpy(a) for a in (q, kp, vp, kn, vn, phys, pos)]
+    sp = tfd.split_pages_for(b, kvh, np_)
+    if (b, kvh, np_) == (8, 20, 32):
+        assert sp == 4
+    out_t = tfd.flash_decode_paged(*t, window=window,
+                                   kv_start=kv_start).numpy()
+    assert out_t.shape == (b, 1, h * 16) and np.isfinite(out_t).all()
+    live = pos >= 0
+    np.testing.assert_allclose(out_t[live], out_j[live], atol=ATOL)
+    np.testing.assert_allclose(out_t[live], out_ref[live], atol=ATOL)

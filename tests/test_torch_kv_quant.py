@@ -245,6 +245,42 @@ def test_kvq_flash_matches_jax_kernel_and_oracle(kvh, g, window, kv_start,
     assert np.isfinite(out.numpy()).all()
 
 
+@pytest.mark.parametrize("slots,kvh,g,ps,np_,positions,window,impl", [
+    # page 64: the JAX Pallas kernel (interpret mode)
+    (3, 2, 2, 64, 4, (200, -1, 255), 0, "pallas"),
+    (3, 1, 4, 64, 4, (130, 64, -1), 70, "pallas"),
+    # the default split rule at the main path's 8 slots x 20 kv heads x
+    # 32 pages (4 splits of 8 pages), against the JAX XLA split form
+    (8, 20, 1, 4, 32, (5, 127, 128, -1, 64, 33, 100, 17), 0, "ref"),
+])
+def test_kvq_flash_default_split_matches_jax(slots, kvh, g, ps, np_,
+                                              positions, window, impl):
+    """flash_decode_paged over a code pool with its default split
+    (``split_pages_for(..., kvq=True)``) against the JAX package's kernel
+    and oracle, at page 64 and at the main path's slot and head counts."""
+    q, kc, vc, cb, kn, vn, phys, pos = _kvq_case(
+        slots * kvh + ps, slots=slots, np_=np_, ps=ps, kvh=kvh, g=g,
+        positions=positions)
+    j = [jnp.asarray(a) for a in (q, kc, vc, kn, vn, phys, pos)]
+    cb_j = {k: jnp.asarray(a) for k, a in cb.items()}
+    kw = {"interpret": True, "split_pages": 2} if impl == "pallas" else {}
+    out_j = _np(jfd.flash_decode_paged(
+        j[0], j[1], j[2], j[3], j[4], j[5], j[6], window=window,
+        impl=impl, codebook=cb_j, **kw))
+    out_jref = _np(j_kvq_ref(j[0], j[1], j[2], cb_j, j[3], j[4], j[5], j[6],
+                             window=window))
+    if (slots, kvh, np_) == (8, 20, 32):
+        assert tfd.split_pages_for(slots, kvh, np_, kvq=True) == 8
+    t = [_t(a) for a in (q, kc, vc, kn, vn, phys, pos)]
+    out = tfd.flash_decode_paged(
+        t[0], t[1], t[2], t[3], t[4], t[5], t[6], window=window,
+        codebook={k: _t(a) for k, a in cb.items()}).numpy()
+    assert np.isfinite(out).all()
+    live = pos >= 0                  # pos = -1 lanes: output discarded
+    for want in (out_j, out_jref):
+        np.testing.assert_allclose(out[live], want[live], atol=ATOL)
+
+
 def test_kvq_all_masked_split_is_exactly_the_identity():
     """A pos = -1 lane and splits past a slot's length emit (-1e30, 0, 0)
     exactly, the sentinel compared in its own dtype (float32)."""
