@@ -1,12 +1,16 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA
-H100: builds the hand-written kernels (B1-B5), holds each against its
-plain PyTorch version at the main path's shapes, serves full-width
-qwen1.5-4b (lut_infer, int8 LUTs) through the continuous-batching engine
-three times -- fused projections on an fp KV pool (B1, B2), two-pass
-projections (B3, B4, B2), fused projections on a VQ code pool (B1, B5)
--- and checks one decode step's logits of each through the kernels
-against the plain versions.
+H100: builds the hand-written kernels (B1-B5 and the fold kernel of
+paged decode), holds each against its plain PyTorch version at the main
+path's shapes, serves full-width qwen1.5-4b (lut_infer, int8 LUTs)
+through the continuous-batching engine three times -- fused projections
+on an fp KV pool (B1, B2, fold), two-pass projections (B3, B4, B2, fold),
+fused projections on a VQ code pool (B1, B5, fold) -- and checks one
+decode step's logits of each through the kernels against the plain
+versions. A last phase checks that float-LUT results are the same on
+every run: B1 and B4 with float32 and bfloat16 LUTs launched twice on one
+input, then two engine runs and two decode steps of full-width
+qwen1.5-4b with float32 LUTs, cut to 4 layers.
 
     python3 chip_smoke.py [--seed N]
 
@@ -34,6 +38,7 @@ import torch  # noqa: E402
 
 from repro_torch.configs import qwen1p5_4b  # noqa: E402
 from repro_torch.core.lut import QuantConfig  # noqa: E402
+from repro_torch.device import enqueued  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.core.kv_codebook import KVCodebook, kv_encode  # noqa
 from repro_torch.kernels import flash_decode as fd  # noqa: E402
@@ -142,10 +147,12 @@ DISPATCH = {
     "b4": (ops, "lut_gemm_cuda", ref.lut_gemm_onehot),
     "b2": (fd, "flash_decode_splits_cuda", fd.flash_decode_splits),
     "b5": (fd, "flash_decode_splits_kvq_cuda", fd.flash_decode_splits_kvq),
+    "fold": (fd, "fold_splits_cuda", fd.fold_splits),
 }
 WRAPPERS = {"b1": vq_amm_cuda, "b3": vq_assign_cuda, "b4": lut_gemm_cuda,
             "b2": fd.flash_decode_splits_cuda,
-            "b5": fd.flash_decode_splits_kvq_cuda}
+            "b5": fd.flash_decode_splits_kvq_cuda,
+            "fold": fd.fold_splits_cuda}
 
 
 @contextlib.contextmanager
@@ -329,6 +336,81 @@ def b34_case(gen, m, k, n, flush):
     return r3, r4
 
 
+def float_lut_case(gen, m, k, n, flush):
+    """B1 and B4 with float32 and bfloat16 LUTs (the int8 table times its
+    scale) at one main-path shape, on random unit-scale rows: two
+    launches on one input give the same bits, the result agrees with the
+    plain version, and both are timed beside the int8 kernels. Records
+    whether B4(B3(x)) equals B1(x) bit for bit (not required: B1 narrows
+    its split width to fit its staged tiles)."""
+    _, z, lut8, scale, xr = vq_inputs(gen, m, k, n)
+    idx = vq_assign_cuda(xr, z)
+    res = {}
+    for dt in (torch.float32, torch.bfloat16):
+        lut = (lut8.float() * scale).to(dt).contiguous()
+        b1 = [vq_amm_cuda(xr, z, lut) for _ in range(2)]
+        b4 = [lut_gemm_cuda(idx, lut) for _ in range(2)]
+        torch.cuda.synchronize()
+        check(torch.equal(b1[0], b1[1]),
+              f"B1 {m}x{k}x{n} {dt}: two launches on one input differ")
+        check(torch.equal(b4[0], b4[1]),
+              f"B4 {m}x{k}x{n} {dt}: two launches on one input differ")
+        want = ref.lut_gemm_onehot(idx, lut)
+        for name, got in (("B1", b1[0]), ("B4", b4[0])):
+            check(torch.allclose(got, want, rtol=1e-4, atol=1e-4),
+                  f"{name} {m}x{k}x{n} {dt}: disagrees with the plain sum")
+        key = str(dt).split(".")[-1]
+        res[key] = {
+            "b1_ms": time_ms(lambda: vq_amm_cuda(xr, z, lut), 30, flush),
+            "b4_ms": time_ms(lambda: lut_gemm_cuda(idx, lut), 30, flush),
+            "two_pass_bitwise": torch.equal(b1[0], b4[0])}
+    return res
+
+
+def fold_case(label, tri, qg, kn, vn, q_dtype, pos, flush, timed):
+    """The fold kernel on a case's kernel triples against fold_splits on
+    the same triples: float32 output within the triples' tolerance, q's
+    dtype output within half an ulp more, pos = -1 lanes exactly v_new.
+    Timed: kernel, plain and byte bound at this shape."""
+    b, kvh, g, d = qg.shape
+    want = fd.fold_splits(*tri, qg, kn, vn, torch.float32)
+    err = 0.0
+    for out_dtype in {torch.float32, q_dtype}:
+        got = fd.fold_splits_cuda(*tri, qg, kn, vn, out_dtype)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got).all()), f"fold {label}: non-finite")
+        e = float((got.float() - want).abs().max())
+        half_ulp = 0.0 if out_dtype == torch.float32 else 2.0 ** -8
+        tol = 2e-5 * (1.0 + float(want.abs().max()))
+        check(bool(((got.float() - want).abs()
+                    <= tol + half_ulp * want.abs()).all()),
+              f"fold {label} ({out_dtype}): max abs err {e} > {tol} "
+              f"(+ {half_ulp} relative)")
+        if out_dtype == torch.float32:
+            err = e
+        dead = (pos < 0).nonzero().flatten().tolist()
+        for lane in dead:
+            row = vn[lane, 0, :, None, :].expand(kvh, g, d).reshape(1, -1)
+            check(torch.equal(got[lane], row.to(out_dtype)),
+                  f"fold {label} ({out_dtype}): pos=-1 lane {lane} is not "
+                  "exactly its v_new row")
+    if not timed:
+        return {"err": err}
+    ms = time_ms(lambda: fd.fold_splits_cuda(*tri, qg, kn, vn, q_dtype), 30,
+                 flush)
+    plain_ms = time_ms(lambda: fd.fold_splits(*tri, qg, kn, vn, q_dtype), 5,
+                       flush)
+    out_bytes = b * kvh * g * d * torch.empty((), dtype=q_dtype).element_size()
+    # a multiply-add per split and acc element, ~8 operations per output
+    bms, by = bound(nbytes(*tri, qg, kn, vn) + out_bytes,
+                    2 * tri[2].numel() + 8 * b * kvh * g * d)
+    print(f"fold {label}: kernel {ms * 1e3:.2f} us, plain {plain_ms * 1e3:.1f}"
+          f" us, bound {bms * 1e3:.3f} us ({by}; {tri[0].shape[0]} splits), "
+          f"max abs err {err:.3g} (float32 out)")
+    return {"err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+            "bound_by": by}
+
+
 def b2_inputs(gen, b, h, kvh, d, np_, positions, kv_start, ps, dev=DEV):
     n_pages = b * np_
     kp = torch.randn((n_pages + 1, ps, kvh, d), generator=gen,
@@ -382,6 +464,8 @@ def b2_case(gen, name, b, h, kvh, d, np_, positions, window, kv_start,
                    and (tk[1][:, dead] == 0).all()
                    and (tk[2][:, dead] == 0).all()),
               f"B2 {name}: masked lane is not (-1e30, 0, 0)")
+    fold = fold_case(f"(B2 triples) {name}", tk, qg, kn, vn, q.dtype, pos,
+                     flush, timed)
     out_k = fd.flash_decode_paged(q, kp, vp, kn, vn, phys, pos,
                                   window=window, kv_start=ks)
     with plain_kernels():
@@ -394,7 +478,7 @@ def b2_case(gen, name, b, h, kvh, d, np_, positions, window, kv_start,
     check(err <= 2e-2, f"B2 {name}: output max abs err {err}")
     if not timed:
         print(f"B2 flash_decode {name}: max abs err {err:.3g} (checked)")
-        return {"err": err}
+        return {"err": err, "fold": fold}
     times = device_times(lambda: fd.flash_decode_splits_cuda(
         qg, kp, vp, phys_p, pos, window, ks, sp), 30, flush)
     ms, med = float(np.mean(times)), float(np.median(times))
@@ -404,6 +488,11 @@ def b2_case(gen, name, b, h, kvh, d, np_, positions, window, kv_start,
         qg, kp, vp, phys_p, pos, window, ks, sp))
     call_ms = time_ms(lambda: fd.flash_decode_paged(
         q, kp, vp, kn, vn, phys, pos, window=window, kv_start=ks), 30, flush)
+    call_launches = enqueued(lambda: fd.flash_decode_paged(
+        q, kp, vp, kn, vn, phys, pos, window=window, kv_start=ks))
+    check(call_launches == {"kernels": 3, "copies": 0, "memsets": 0,
+                           "other": 0},
+          f"B2 {name}: flash_decode_paged enqueues {call_launches}")
     sweep = []
     for s in split_sweep(np_, sp):    # pages per split
         ph = torch.nn.functional.pad(phys, (0, (-np_) % s),
@@ -429,13 +518,15 @@ def b2_case(gen, name, b, h, kvh, d, np_, positions, window, kv_start,
           + nbytes(*tk))
     bms, by = bound(b_, 4 * live * h * d)
     print(f"B2 flash_decode {name}: kernel {ms * 1e3:.1f} us (median "
-          f"{med * 1e3:.1f}; {sp} pages a split), whole flash_decode_paged call {call_ms * 1e3:.1f} us, "
+          f"{med * 1e3:.1f}; {sp} pages a split), whole flash_decode_paged "
+          f"call {call_ms * 1e3:.1f} us, enqueues {call_launches}, "
           f"plain {plain_ms * 1e3:.1f} us, SDPA on gathered K/V "
           f"{library_ms * 1e3:.1f} us, bound {bms * 1e3:.2f} us ({by}; "
           f"{live} live tokens), host {host:.1f} us/call, max abs err "
           f"{err:.3g}")
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-            "library_ms": library_ms, "err": err, "call_ms": call_ms}
+            "library_ms": library_ms, "err": err, "call_ms": call_ms,
+            "fold": fold}
 
 
 def b5_inputs(gen, b, h, kvh, d, np_, positions, kv_start, ps,
@@ -509,6 +600,8 @@ def b5_case(gen, name, b, h, kvh, d, np_, positions, window, kv_start,
                    and (tk[1][:, dead] == 0).all()
                    and (tk[2][:, dead] == 0).all()),
               f"B5 {name}: masked lane is not (-1e30, 0, 0) in float32")
+    fold = fold_case(f"(B5 triples) {name}", tk, qg, kn, vn, q.dtype, pos,
+                     flush, timed)
     out_k = fd.flash_decode_paged(q, kc, vc, kn, vn, phys, pos,
                                   window=window, kv_start=ks, codebook=cb_l)
     with plain_kernels():
@@ -527,7 +620,7 @@ def b5_case(gen, name, b, h, kvh, d, np_, positions, window, kv_start,
         print(f"B5 flash_decode_kvq {name}: tables {tables / 1024:.0f} KB, "
               f"{form} form, max abs err {err:.3g} vs plain and oracle "
               f"(checked)")
-        return {"err": err}
+        return {"err": err, "fold": fold}
     times = device_times(lambda: fd.flash_decode_splits_kvq_cuda(
         qg, kc, vc, *tab, phys_p, pos, window, ks, sp), 30, flush)
     ms, med = float(np.mean(times)), float(np.median(times))
@@ -538,6 +631,12 @@ def b5_case(gen, name, b, h, kvh, d, np_, positions, window, kv_start,
     call_ms = time_ms(lambda: fd.flash_decode_paged(
         q, kc, vc, kn, vn, phys, pos, window=window, kv_start=ks,
         codebook=cb_l), 30, flush)
+    call_launches = enqueued(lambda: fd.flash_decode_paged(
+        q, kc, vc, kn, vn, phys, pos, window=window, kv_start=ks,
+        codebook=cb_l))
+    check(call_launches == {"kernels": 3, "copies": 0, "memsets": 0,
+                           "other": 0},
+          f"B5 {name}: flash_decode_paged enqueues {call_launches}")
     sweep = []
     for s_ in split_sweep(np_, sp):   # pages per split
         ph = pad(s_)
@@ -566,14 +665,16 @@ def b5_case(gen, name, b, h, kvh, d, np_, positions, window, kv_start,
           + nbytes(qg, phys_p, pos, ks) + nbytes(*tk))
     bms, by = bound(b_, 4 * live_t * h * d + 2 * live_t * kvh * d)
     print(f"B5 flash_decode_kvq {name}: kernel {ms * 1e3:.1f} us (median "
-          f"{med * 1e3:.1f}; {form} form, {sp} pages a split), whole flash_decode_paged call "
-          f"{call_ms * 1e3:.1f} us, plain "
+          f"{med * 1e3:.1f}; {form} form, {sp} pages a split), whole "
+          f"flash_decode_paged call {call_ms * 1e3:.1f} us, enqueues "
+          f"{call_launches}, plain "
           f"{plain_ms * 1e3:.1f} us, SDPA on dequantized bf16 K/V "
           f"{library_ms * 1e3:.1f} us, bound {bms * 1e3:.2f} us ({by}; "
           f"{live_t} live tokens, {kc.shape[-1]} code bytes per token and "
           f"head), host {host:.1f} us/call, max abs err {err:.3g}")
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-            "library_ms": library_ms, "err": err, "call_ms": call_ms}
+            "library_ms": library_ms, "err": err, "call_ms": call_ms,
+            "fold": fold}
 
 
 # ---------------------------------------------------------------------------
@@ -643,10 +744,9 @@ def serve(model, params, qc, seed, label, launched, idle):
     return counts, [r.out_tokens for r in reqs], eng
 
 
-def logit_check(model, params, qc, seed, label, codebook=None):
-    """One full-width decode_paged step through the kernels and through
-    the plain versions, on the same pool (in the model's dtype, or codes
-    under ``codebook``)."""
+def prefilled_pool(model, params, qc, seed, codebook=None):
+    """A paged pool with SLOTS slots prefilled to random lengths, and one
+    decode step's inputs: (kv, table, tokens, positions, lengths)."""
     rng = np.random.default_rng(seed + 1)
     kv = model.init_paged_cache(MAX_SEQ, PAGE, SLOTS * (MAX_SEQ // PAGE),
                                 codebook=codebook)
@@ -665,6 +765,15 @@ def logit_check(model, params, qc, seed, label, codebook=None):
     toks = torch.from_numpy(rng.integers(0, model.cfg.vocab_size,
                                          (SLOTS, 1)).astype(np.int32)).to(DEV)
     positions = torch.from_numpy(lengths.astype(np.int32)).to(DEV)
+    return kv, table, toks, positions, lengths
+
+
+def logit_check(model, params, qc, seed, label, codebook=None):
+    """One full-width decode_paged step through the kernels and through
+    the plain versions, on the same pool (in the model's dtype, or codes
+    under ``codebook``)."""
+    kv, table, toks, positions, lengths = prefilled_pool(
+        model, params, qc, seed, codebook)
     lg_k = model.decode_paged(params, toks, kv, table, positions, qc).float()
     with plain_kernels():
         lg_p = model.decode_paged(params, toks, kv, table, positions,
@@ -688,6 +797,37 @@ def logit_check(model, params, qc, seed, label, codebook=None):
           f"{agreeing} of "
           f"{SLOTS} rows within relative L2 {LOGIT_ROW_REL_TOL}, at least "
           f"{SLOTS - allowed} required")
+
+
+def float_lut_serve(seed, layers=4):
+    """Full-width qwen1.5-4b with float32 LUTs, cut to ``layers`` layers
+    (~0.63 GB of float32 LUT a layer): two engine runs of the same
+    requests must give the same tokens, and two decode_paged steps on one
+    pool the same logits, bit for bit."""
+    cfg = qwen1p5_4b.config().replace(num_layers=layers)
+    qc = QuantConfig(mode="lut_infer", v=V, c=C, metric="l2",
+                     lut_dtype="float32")
+    model = Model(cfg)
+    params = model.init(torch.Generator(device=DEV).manual_seed(seed), qc)
+    tokens = []
+    for i in (1, 2):
+        _, toks, eng = serve(model, params, qc, seed,
+                             f"float32 LUTs, {layers} layers, run {i}",
+                             {"b1", "b2", "fold"}, {"b3", "b4", "b5"})
+        tokens.append(toks)
+        del eng
+    check(tokens[0] == tokens[1],
+          "float32-LUT engine runs gave different tokens")
+    kv, table, toks, positions, _ = prefilled_pool(model, params, qc, seed)
+    lg = [model.decode_paged(params, toks, kv, table, positions, qc)
+          for _ in range(2)]
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(lg[0]).all()), "float32-LUT logits non-finite")
+    check(torch.equal(lg[0], lg[1]),
+          "float32-LUT decode steps gave different logits")
+    print(f"float32 LUTs ({layers} layers, full width): two engine runs "
+          f"gave identical tokens (10 requests, {sum(map(len, tokens[0]))} "
+          f"tokens) and two decode_paged steps bitwise equal logits")
 
 
 def main(argv=None) -> int:
@@ -758,6 +898,19 @@ def main(argv=None) -> int:
             b5_case(gen, "page 64, window=150 kv_start>0, pos=-1 lanes", 4,
                     20, 20, 128, 8, [511, -1, 64, 300], 150, [0, 0, 9, 40],
                     flush, False, ps=64)]
+        for m in (8, 32):
+            for k, n, _ in PROJ_SHAPES:
+                fl = float_lut_case(gen, m, k, n, flush)
+                print(f"float LUTs M={m} K={k} N={n}: two launches on one "
+                      "input bitwise equal; B1 us float32 / bfloat16 / int8 "
+                      f"{fl['float32']['b1_ms'] * 1e3:.1f} / "
+                      f"{fl['bfloat16']['b1_ms'] * 1e3:.1f} / "
+                      f"{b1[(m, k, n)]['ms'] * 1e3:.1f}, B4 us "
+                      f"{fl['float32']['b4_ms'] * 1e3:.1f} / "
+                      f"{fl['bfloat16']['b4_ms'] * 1e3:.1f} / "
+                      f"{b4[(m, k, n)]['ms'] * 1e3:.1f}; B4(B3(x)) == B1(x) "
+                      f"bitwise: float32 {fl['float32']['two_pass_bitwise']}"
+                      f", bfloat16 {fl['bfloat16']['two_pass_bitwise']}")
     finally:
         clocks.terminate()
         out = clocks.communicate()[0]
@@ -792,14 +945,15 @@ def main(argv=None) -> int:
           f"{cfg.num_layers * b2['ms']:.2f} ms, B5 "
           f"{cfg.num_layers * b5['ms']:.2f} ms (whole flash_decode_paged "
           f"calls {cfg.num_layers * b2['call_ms']:.2f} and "
-          f"{cfg.num_layers * b5['call_ms']:.2f} ms)")
+          f"{cfg.num_layers * b5['call_ms']:.2f} ms; fold kernel "
+          f"{cfg.num_layers * b2['fold']['ms']:.3f} ms)")
     torch.cuda.reset_peak_memory_stats()
     runs = {
-        "fused": (qc, {"b1", "b2"}, {"b3", "b4", "b5"}),
-        "two-pass": (qc.replace(fuse=False), {"b3", "b4", "b2"},
+        "fused": (qc, {"b1", "b2", "fold"}, {"b3", "b4", "b5"}),
+        "two-pass": (qc.replace(fuse=False), {"b3", "b4", "b2", "fold"},
                      {"b1", "b5"}),
         "vq-kv": (qc.replace(kv_quant="vq", kv_v=KV_V, kv_c=KV_C),
-                  {"b1", "b5"}, {"b2", "b3", "b4"}),
+                  {"b1", "b5", "fold"}, {"b2", "b3", "b4"}),
     }
     counts, tokens, codebook, bpt = {}, {}, None, {}
     for label, (qc_r, launched, idle) in runs.items():
@@ -830,6 +984,9 @@ def main(argv=None) -> int:
         # the same step in float32 (LUTs stay int8): what is left of the
         # difference without bf16 rounding
         logit_check(model32, params32, qc_r, args.seed, label, cb)
+    del model, params, model32, params32, codebook, cb
+    torch.cuda.empty_cache()
+    float_lut_serve(args.seed)
 
     def layer_sum(res, key):
         return sum(res[(8, k, n)][key] * cnt for k, n, cnt in PROJ_SHAPES)
@@ -878,6 +1035,17 @@ def main(argv=None) -> int:
                  [b5["err"], b5_full["err"]] + [r["err"] for r in b5_checks],
                  "src/repro_torch/csrc/flash_decode_kvq.cu",
                  "src/repro/kernels/flash_decode.py:294", launches("b5")),
+        {"name": "fold_splits (split reduction + self-term fold of one "
+                 "layer's flash_decode_paged, 8 slots, B2's triples)",
+         "route": "cuda", "source": "src/repro_torch/csrc/flash_fold.cu",
+         "replaces": "src/repro/kernels/flash_decode.py:501",
+         "launches": launches("fold"),
+         "max_abs_err": max(r["fold"]["err"] for r in
+                            [b2, b2_full, b5, b5_full] + b2_checks
+                            + b5_checks),
+         "ms": b2["fold"]["ms"], "plain_ms": b2["fold"]["plain_ms"],
+         "bound_ms": b2["fold"]["bound_ms"],
+         "bound_by": b2["fold"]["bound_by"], "library_ms": None},
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -64,7 +64,7 @@ class QuantConfig:
         if self.mode == "lut_train":
             raise NotImplementedError(
                 "mode='lut_train' (LUTBoost training) is not ported yet: "
-                "ROADMAP.md queue A item 13 (Training)")
+                "ROADMAP.md queue A item 10 (Training)")
         if self.mode not in ("dense", "lut_infer"):
             raise ValueError(f"unknown quant mode: {self.mode}")
         if self.kv_quant not in ("none", "vq"):

@@ -1,6 +1,6 @@
 """Deployment half of LUTBoost (port of ``repro.core.lutboost``): build the
 inference LUT of every LutLinear in a parameter tree. Training (stages
-1-3) is not ported yet (ROADMAP.md queue A item 13)."""
+1-3) is not ported yet (ROADMAP.md queue A item 10)."""
 from __future__ import annotations
 
 from .lut import QuantConfig, precompute_layer

@@ -9,7 +9,7 @@
 // over live keys j: kv_start <= j < pos (and j > pos - window when
 // window > 0), inside the split's token range. An all-masked split gives
 // exactly (-1e30, 0, 0), the identity of the split reduction that follows
-// in plain PyTorch.
+// (the fold kernel, flash_fold.cu).
 //
 // What is here:
 //  * split_range: the block's live keys, one contiguous token range. Only

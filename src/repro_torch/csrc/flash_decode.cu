@@ -9,7 +9,8 @@
 //   m = max_j s_j,  l = sum_j exp(s_j - m),  acc = sum_j exp(s_j - m) v_j
 // over live keys j: kv_start <= j < pos (and j > pos - window when
 // window > 0). An all-masked split gives exactly (-1e30, 0, 0), the
-// identity of the split reduction that follows in plain PyTorch.
+// identity of the split reduction that follows (the fold kernel,
+// flash_fold.cu).
 //
 //   qg (B, KVH, G, D) f32, already scaled by D^-0.5
 //   k_pages, v_pages (P+1, page, KVH, D) f32|bf16 (one layer of the pool;

@@ -20,9 +20,13 @@
 //    The TPU's sequential k grid axis with its VMEM accumulator has no
 //    counterpart here: blocks run in parallel and in no order, so the
 //    k range is split across blocks (split-K) to put ~2 blocks on each of
-//    the 132 SMs even at M = 8, and the partial sums meet with atomicAdd
-//    in a (M, N) accumulator. For int8 LUTs that accumulator is int32, so
-//    the sum is exact and the result does not depend on the order.
+//    the 132 SMs even at M = 8. For int8 LUTs the partial sums meet with
+//    atomicAdd in an (M, N) int32 accumulator: exact, so the result does
+//    not depend on the order. For float LUTs each block stores its tile
+//    into its own split's slice of a (splits, M, N) fp32 buffer, and the
+//    finish kernel sums the splits in split order: no float atomic, so
+//    the same input gives the same bits on every run, as the TPU's
+//    sequential k axis does.
 //  * Phase 1: the block stages its ks subspaces of z and its rows' slices
 //    of x in shared memory (fp32, coalesced, all loads in flight), then
 //    every thread assigns one (row, subspace) pair: it scans the c
@@ -35,9 +39,12 @@
 //    a lane adds 4 consecutive columns of the selected LUT row, so a warp
 //    reads one 128-byte line (int8) per row: a gather-accumulate, not the
 //    TPU's one-hot matmul (an MXU idiom). The warps' partial tiles meet
-//    in shared memory, then one atomicAdd per output element per block.
-//  * The int8 scale is applied once, after all subspaces, by a second
-//    small kernel (the TPU kernel's flush + scale step).
+//    in shared memory (int8: shared atomics; float: warp by warp, in warp
+//    order), then go to the accumulator once per output element.
+//  * The scale is applied once, after all subspaces, by a second small
+//    kernel (the TPU kernel's flush + scale step), which for float LUTs
+//    also sums the splits. Launches a call: int8 three (memset, kernel,
+//    scale), float two (kernel, sum + scale).
 //  * The ragged edges (M, N, nc not multiples of the tiles) are masked in
 //    the kernel; nothing is padded.
 //  * Phase 1 (assign_tile) and phase 2 (lut_tile) live in vq_common.cuh,
@@ -80,17 +87,24 @@ vq_amm_kernel(const XT* __restrict__ x, const XT* __restrict__ z,
                           [&](int mi, int kk, int j) {
                             sidx[mi * ks + kk] = (unsigned char)j;
                           });
-  // phase 2: gather-accumulate, then one global atomic per element
-  lut_tile<LT, AccT>(lut, sidx, red, acc, c, N, ks, m0, mn, k0, kn, n0,
-                     vec_ok);
+  // phase 2: gather-accumulate, then the tile to acc (lut_tile)
+  lut_tile<LT, AccT>(lut, sidx, red, split_slice(acc, M, N), c, N, ks, m0,
+                     mn, k0, kn, n0, vec_ok);
+}
+
+// Subspaces per block: the split rule, cut until the staged tiles fit.
+// The same for every LUT type (the accumulators are 4 bytes each).
+inline int block_width(int M, int nc, int c, int v, int N) {
+  int ks = split_width(M, nc, N);
+  while (ks > 1 && smem_bytes(4, ks, c, v) > MAX_SMEM) --ks;
+  return ks;
 }
 
 template <typename XT, typename LT, typename AccT>
 cudaError_t launch_typed(const void* x, const void* z, const void* lut,
                          AccT* acc, int M, int nc, int c, int v, int N,
                          int metric, cudaStream_t st) {
-  int ks = split_width(M, nc, N);
-  while (ks > 1 && smem_bytes(sizeof(AccT), ks, c, v) > MAX_SMEM) --ks;
+  const int ks = block_width(M, nc, c, v, N);
   const size_t smem = smem_bytes(sizeof(AccT), ks, c, v);
   if (smem > MAX_SMEM) return cudaErrorInvalidValue;
   const int splits = (nc + ks - 1) / ks;
@@ -110,29 +124,41 @@ cudaError_t launch_typed(const void* x, const void* z, const void* lut,
 
 template <typename XT>
 cudaError_t launch_x(const void* x, const void* z, const void* lut,
-                     const float* scale, float* out, int* work, int M,
+                     const float* scale, float* out, void* work, int M,
                      int nc, int c, int v, int N, int lut_dtype, int metric,
                      cudaStream_t st) {
-  cudaError_t err = zero_acc(lut_dtype, out, work, M, N, st);
+  cudaError_t err = zero_acc(lut_dtype, work, M, N, st);
   if (err != cudaSuccess) return err;
+  float* fw = static_cast<float*>(work);
   if (lut_dtype == 2)                  // int8: exact int32 accumulator
-    err = launch_typed<XT, int8_t, int>(x, z, lut, work, M, nc, c, v, N,
-                                        metric, st);
-  else if (lut_dtype == 0)             // float LUT: accumulate in out
-    err = launch_typed<XT, float, float>(x, z, lut, out, M, nc, c, v, N,
+    err = launch_typed<XT, int8_t, int>(x, z, lut, static_cast<int*>(work),
+                                        M, nc, c, v, N, metric, st);
+  else if (lut_dtype == 0)             // float LUT: one tile per split
+    err = launch_typed<XT, float, float>(x, z, lut, fw, M, nc, c, v, N,
                                          metric, st);
   else
-    err = launch_typed<XT, __nv_bfloat16, float>(x, z, lut, out, M, nc, c,
+    err = launch_typed<XT, __nv_bfloat16, float>(x, z, lut, fw, M, nc, c,
                                                  v, N, metric, st);
   if (err != cudaSuccess) return err;
-  return finish(lut_dtype, scale, out, work, M, N, st);
+  const int ks = block_width(M, nc, c, v, N);
+  return finish(lut_dtype, scale, out, work, M, N, (nc + ks - 1) / ks,
+                st);
 }
 
 }  // namespace
 
+// Split-K blocks of a call at these shapes: the float-LUT work buffer
+// holds one (M, N) tile per split.
+extern "C" int vq_amm_splits(int M, int nc, int c, int v, int N) {
+  if (M <= 0 || nc <= 0 || N <= 0 || c < 1 || v < 1) return 0;
+  const int ks = block_width(M, nc, c, v, N);
+  return (nc + ks - 1) / ks;
+}
+
 // x_dtype: 0 f32, 1 bf16. lut_dtype: 0 f32, 1 bf16, 2 int8.
-// metric: 0 l2, 1 l1, 2 chebyshev. scale may be null. work is an (M, N)
-// int32 scratch buffer, used for int8 LUTs only. Returns a cudaError_t.
+// metric: 0 l2, 1 l1, 2 chebyshev. scale may be null. work is the split-K
+// accumulator: (M, N) int32 for int8 LUTs, (vq_amm_splits(...), M, N)
+// float32 for float LUTs. Returns a cudaError_t.
 extern "C" int vq_amm_launch(const void* x, const void* z, const void* lut,
                              const void* scale, void* out, void* work,
                              int M, int nc, int c, int v, int N,
@@ -145,11 +171,10 @@ extern "C" int vq_amm_launch(const void* x, const void* z, const void* lut,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* sp = static_cast<const float*>(scale);
   float* op = static_cast<float*>(out);
-  int* wp = static_cast<int*>(work);
   cudaError_t err = x_dtype == 0
-      ? launch_x<float>(x, z, lut, sp, op, wp, M, nc, c, v, N, lut_dtype,
+      ? launch_x<float>(x, z, lut, sp, op, work, M, nc, c, v, N, lut_dtype,
                         metric, st)
-      : launch_x<__nv_bfloat16>(x, z, lut, sp, op, wp, M, nc, c, v, N,
+      : launch_x<__nv_bfloat16>(x, z, lut, sp, op, work, M, nc, c, v, N,
                                 lut_dtype, metric, st);
   return (int)err;
 }

@@ -19,14 +19,19 @@
 // Design: B1's phase 2 with the indices read in. One block per (128-
 // column tile, group of ks subspaces, 8-row tile); the nc subspaces are
 // split across blocks exactly as B1 splits them (split_width), so M = 8
-// still puts ~2 blocks on each of the 132 SMs, and the partial sums meet
-// with atomics in an (M, N) accumulator: int32 for int8 LUTs (exact and
-// order-free; the TPU kernel's fp32 accumulator over a sequential k axis
-// has no counterpart here), fp32 for float LUTs. The block loads its
-// tile of indices into shared memory (uint8, c <= 256) and runs B1's own
-// gather-accumulate (vq_common.cuh, lut_tile); the scale is applied once
-// at the end by B1's scale kernel. So for int8 LUTs B4(B3(x)) equals
-// B1(x) bit for bit. Ragged M, nc and N are masked; nothing is padded.
+// still puts ~2 blocks on each of the 132 SMs. For int8 LUTs the partial
+// sums meet with atomics in an (M, N) int32 accumulator (exact and
+// order-free). For float LUTs each block stores its tile into its split's
+// slice of a (splits, M, N) fp32 buffer and B1's finish kernel sums the
+// splits in split order, so no float atomic decides the last bits: the
+// same input gives the same output on every run, as the TPU kernel's
+// sequential k axis does. The block loads its tile of indices into shared
+// memory (uint8, c <= 256) and runs B1's own gather-accumulate
+// (vq_common.cuh, lut_tile); the scale is applied once at the end by B1's
+// finish kernel. So for int8 LUTs B4(B3(x)) equals B1(x) bit for bit
+// (float LUTs: only where both take the same split width, as B1 narrows
+// it to fit its staged tiles). Ragged M, nc and N are masked; nothing is
+// padded.
 
 #include "vq_common.cuh"
 
@@ -53,15 +58,21 @@ lut_gemm_kernel(const int* __restrict__ idx, const LT* __restrict__ lut,
         (unsigned char)idx[(size_t)(m0 + mi) * nc + k0 + kk];
   }
   // lut_tile's first barrier (after it zeroes red) publishes sidx
-  lut_tile<LT, AccT>(lut, sidx, red, acc, c, N, ks, m0, mn, k0, kn, n0,
-                     vec_ok);
+  lut_tile<LT, AccT>(lut, sidx, red, split_slice(acc, M, N), c, N, ks, m0,
+                     mn, k0, kn, n0, vec_ok);
+}
+
+// Subspaces per block: the split rule, cut until the tile and the
+// indices fit (4-byte accumulators for every LUT type).
+inline int block_width(int M, int nc, int N) {
+  int ks = split_width(M, nc, N);
+  while (ks > 1 && 4 * BM * BN + (size_t)BM * ks > MAX_SMEM) --ks;
+  return ks;
 }
 
 template <typename LT, typename AccT>
 cudaError_t launch_typed(const int* idx, const void* lut, AccT* acc, int M,
-                         int nc, int c, int N, cudaStream_t st) {
-  int ks = split_width(M, nc, N);
-  while (ks > 1 && sizeof(AccT) * BM * BN + (size_t)BM * ks > MAX_SMEM) --ks;
+                         int nc, int c, int N, int ks, cudaStream_t st) {
   const size_t smem = sizeof(AccT) * BM * BN + (size_t)BM * ks;
   const int vec_ok = (N % VEC == 0) && ((uintptr_t)lut % 16 == 0);
   const dim3 grid((N + BN - 1) / BN, (nc + ks - 1) / ks, (M + BM - 1) / BM);
@@ -72,8 +83,17 @@ cudaError_t launch_typed(const int* idx, const void* lut, AccT* acc, int M,
 
 }  // namespace
 
-// lut_dtype: 0 f32, 1 bf16, 2 int8. scale may be null. work is an (M, N)
-// int32 scratch buffer, used for int8 LUTs only. Returns a cudaError_t.
+// Split-K blocks of a call at these shapes: the float-LUT work buffer
+// holds one (M, N) tile per split.
+extern "C" int lut_gemm_splits(int M, int nc, int N) {
+  if (M <= 0 || nc <= 0 || N <= 0) return 0;
+  const int ks = block_width(M, nc, N);
+  return (nc + ks - 1) / ks;
+}
+
+// lut_dtype: 0 f32, 1 bf16, 2 int8. scale may be null. work is the
+// split-K accumulator: (M, N) int32 for int8 LUTs, (lut_gemm_splits(...),
+// M, N) float32 for float LUTs. Returns a cudaError_t.
 extern "C" int lut_gemm_launch(const void* idx, const void* lut,
                                const void* scale, void* out, void* work,
                                int M, int nc, int c, int N, int lut_dtype,
@@ -85,15 +105,19 @@ extern "C" int lut_gemm_launch(const void* idx, const void* lut,
   const int* ip = static_cast<const int*>(idx);
   const float* sp = static_cast<const float*>(scale);
   float* op = static_cast<float*>(out);
-  int* wp = static_cast<int*>(work);
-  cudaError_t err = zero_acc(lut_dtype, op, wp, M, N, st);
+  float* fw = static_cast<float*>(work);
+  const int ks = block_width(M, nc, N);
+  cudaError_t err = zero_acc(lut_dtype, work, M, N, st);
   if (err != cudaSuccess) return (int)err;
   if (lut_dtype == 2)
-    err = launch_typed<int8_t, int>(ip, lut, wp, M, nc, c, N, st);
+    err = launch_typed<int8_t, int>(ip, lut, static_cast<int*>(work), M, nc,
+                                    c, N, ks, st);
   else if (lut_dtype == 0)
-    err = launch_typed<float, float>(ip, lut, op, M, nc, c, N, st);
+    err = launch_typed<float, float>(ip, lut, fw, M, nc, c, N, ks, st);
   else
-    err = launch_typed<__nv_bfloat16, float>(ip, lut, op, M, nc, c, N, st);
+    err = launch_typed<__nv_bfloat16, float>(ip, lut, fw, M, nc, c, N, ks,
+                                             st);
   if (err != cudaSuccess) return (int)err;
-  return (int)finish(lut_dtype, sp, op, wp, M, N, st);
+  return (int)finish(lut_dtype, sp, op, work, M, N, (nc + ks - 1) / ks,
+                     st);
 }

@@ -16,6 +16,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace vqc {
 
 constexpr int BM = 8;                  // rows of x per block
@@ -136,13 +138,26 @@ __device__ __forceinline__ void assign_tile(
 // n0 .. n0+BN. Each of the 8 warps takes every 8th subspace; a lane adds
 // 4 consecutive columns of the selected LUT row, so a warp reads one
 // 128-byte line (int8) per row. The warps' partial tiles meet in red
-// (BM x BN, shared), then one atomicAdd per output element of the tile
-// goes to acc (M, N). For int8 LUTs AccT is int: exact, order-free.
+// (BM x BN, shared), and the tile goes to acc:
+//  * int8 LUTs (AccT int): shared and global atomicAdd into acc (M, N).
+//    Integer sums are exact, so the order does not matter.
+//  * float LUTs (AccT float): no atomic anywhere, so the result does not
+//    depend on which warp or block finishes first. The warps add their
+//    tiles into red one after another, in warp order, between barriers;
+//    the block then stores its tile into its own split's slice of acc
+//    (split_slice), and finish sums the splits in split order.
+template <typename AccT>
+__device__ __forceinline__ AccT* split_slice(AccT* acc, int M, int N) {
+  if constexpr (std::is_same<AccT, int>::value) return acc;
+  else return acc + (size_t)blockIdx.y * M * N;
+}
+
 template <typename LT, typename AccT>
 __device__ __forceinline__ void lut_tile(
     const LT* __restrict__ lut, const unsigned char* sidx, AccT* red,
     AccT* __restrict__ acc, int c, int N, int ks, int m0, int mn, int k0,
     int kn, int n0, int vec_ok) {
+  constexpr bool EXACT = std::is_same<AccT, int>::value;
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
   for (int i = tid; i < BM * BN; i += THREADS) red[i] = AccT(0);
@@ -171,26 +186,61 @@ __device__ __forceinline__ void lut_tile(
         }
       }
     }
+    if constexpr (EXACT) {
 #pragma unroll
-    for (int mi = 0; mi < BM; ++mi)
+      for (int mi = 0; mi < BM; ++mi)
 #pragma unroll
-      for (int j = 0; j < VEC; ++j)
-        if (mi < mn) atomicAdd(&red[mi * BN + lane * VEC + j], a[mi][j]);
+        for (int j = 0; j < VEC; ++j)
+          if (mi < mn) atomicAdd(&red[mi * BN + lane * VEC + j], a[mi][j]);
+    }
   }
-  __syncthreads();
+  if constexpr (EXACT) {
+    __syncthreads();
+  } else {
+    for (int w = 0; w < WARPS; ++w) {   // fixed order: warp 0, 1, ..., 7
+      if (warp == w && n < N) {
+#pragma unroll
+        for (int mi = 0; mi < BM; ++mi) {
+          if (mi < mn) {
+            float4* r = reinterpret_cast<float4*>(red + mi * BN + lane * VEC);
+            float4 t = *r;
+            t.x += a[mi][0]; t.y += a[mi][1]; t.z += a[mi][2]; t.w += a[mi][3];
+            *r = t;
+          }
+        }
+      }
+      __syncthreads();
+    }
+  }
   for (int i = tid; i < mn * BN; i += THREADS) {
     const int col = n0 + i % BN;
-    if (col < N) atomicAdd(&acc[(size_t)(m0 + i / BN) * N + col], red[i]);
+    if (col < N) {
+      AccT* dst = &acc[(size_t)(m0 + i / BN) * N + col];
+      if constexpr (EXACT) atomicAdd(dst, red[i]);
+      else *dst = red[i];
+    }
   }
 }
 
-// out = acc (x scale); acc may alias out (float LUTs scale in place).
-template <typename AccT>
-__global__ void scale_kernel(const AccT* acc, const float* scale,
-                             float* out, int M, int N) {
+// int8 LUTs: out = acc x scale, acc the exact int32 (M, N) sum.
+__global__ void scale_kernel(const int* acc, const float* scale, float* out,
+                             int M, int N) {
   const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= (size_t)M * N) return;
   float val = (float)acc[i];
+  if (scale != nullptr) val *= scale[i % N];
+  out[i] = val;
+}
+
+// Float LUTs: out = (sum of the splits' tiles, in split order) (x scale),
+// acc the (splits, M, N) work buffer of per-split tiles.
+__global__ void sum_splits_kernel(const float* acc, const float* scale,
+                                  float* out, int M, int N, int splits) {
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const size_t mn = (size_t)M * N;
+  if (i >= mn) return;
+  float val = acc[i];
+  for (int s = 1; s < splits; ++s) val += acc[(size_t)s * mn + i];
   if (scale != nullptr) val *= scale[i % N];
   out[i] = val;
 }
@@ -205,24 +255,28 @@ inline int split_width(int M, int nc, int N) {
   return (nc + splits - 1) / splits;
 }
 
-// The accumulator of the split-K sum: the int32 work buffer for int8
-// LUTs (exact), out itself for float LUTs. zero_acc clears it before the
-// accumulating kernel; finish writes out = acc x scale after it.
-inline cudaError_t zero_acc(int lut_dtype, float* out, int* work, int M,
-                            int N, cudaStream_t st) {
-  return lut_dtype == 2
-             ? cudaMemsetAsync(work, 0, sizeof(int) * (size_t)M * N, st)
-             : cudaMemsetAsync(out, 0, sizeof(float) * (size_t)M * N, st);
+// The accumulator of the split-K sum, `work`: for int8 LUTs an (M, N)
+// int32 buffer that zero_acc clears before the accumulating kernel; for
+// float LUTs a (splits, M, N) float32 buffer that every block writes its
+// tile into once (nothing to clear). finish writes out after the
+// accumulating kernel: one launch either way.
+inline cudaError_t zero_acc(int lut_dtype, void* work, int M, int N,
+                            cudaStream_t st) {
+  if (lut_dtype != 2) return cudaSuccess;
+  return cudaMemsetAsync(work, 0, sizeof(int) * (size_t)M * N, st);
 }
 
 inline cudaError_t finish(int lut_dtype, const float* scale, float* out,
-                          const int* work, int M, int N, cudaStream_t st) {
+                          const void* work, int M, int N, int splits,
+                          cudaStream_t st) {
   const size_t total = (size_t)M * N;
   const int blocks = (int)((total + 255) / 256);
   if (lut_dtype == 2)
-    scale_kernel<int><<<blocks, 256, 0, st>>>(work, scale, out, M, N);
-  else if (scale != nullptr)
-    scale_kernel<float><<<blocks, 256, 0, st>>>(out, scale, out, M, N);
+    scale_kernel<<<blocks, 256, 0, st>>>(static_cast<const int*>(work),
+                                         scale, out, M, N);
+  else
+    sum_splits_kernel<<<blocks, 256, 0, st>>>(
+        static_cast<const float*>(work), scale, out, M, N, splits);
   return cudaGetLastError();
 }
 

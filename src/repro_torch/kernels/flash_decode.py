@@ -25,12 +25,15 @@ The per-split triples come from kernel B2 (``csrc/flash_decode.cu``,
 (``csrc/flash_decode_kvq.cu``, :func:`flash_decode_splits_kvq_cuda`) for
 CUDA tensors, and from the plain versions :func:`flash_decode_splits` /
 :func:`flash_decode_splits_kvq` for CPU tensors. The reduction over
-splits and the self-term fold are plain PyTorch in every case, as they
-are plain XLA in the JAX package.
+splits and the self-term fold (plain XLA in the JAX package, which fuses
+it) run in one hand-written kernel for CUDA tensors
+(``csrc/flash_fold.cu``, :func:`fold_splits_cuda`) and in its plain
+version :func:`fold_splits` for CPU tensors.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -362,6 +365,106 @@ def flash_decode_splits_kvq_cuda(qg: torch.Tensor, kc_pages: torch.Tensor,
 flash_decode_splits_kvq_cuda.launches = 0
 
 
+def fold_splits(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor,
+                qg: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
+                out_dtype: torch.dtype) -> torch.Tensor:
+    """Reduce the split triples and fold in the new token's self term, in
+    plain PyTorch: the plain version of the fold kernel.
+
+    m, l: (NS, B, KVH, G), acc: (NS, B, KVH, G, D) float32 (from B2/B5 or
+    their plain versions); qg (B, KVH, G, D) float32, pre-scaled;
+    k_new/v_new (B, 1, KVH, D). Returns (B, 1, KVH*G*D) in ``out_dtype``.
+    The new token is always live, so the denominator is >= exp(0): never
+    zero, and a lane whose splits are all the identity (pos = -1) returns
+    exactly its v_new row. ``fold_splits.calls`` counts calls.
+    """
+    fold_splits.calls += 1
+    b, kvh, g, d = qg.shape
+    m, l, acc = reduce_splits(m, l, acc)
+    s_new = torch.einsum("bkgd,bkd->bkg", qg, k_new[:, 0].float())
+    m_f = torch.maximum(m, s_new)
+    alpha = torch.exp(m - m_f)
+    p_new = torch.exp(s_new - m_f)
+    denom = l * alpha + p_new
+    out = (acc * alpha[..., None]
+           + p_new[..., None] * v_new[:, 0, :, None, :].float())
+    out = out / denom[..., None]
+    return out.reshape(b, 1, kvh * g * d).to(out_dtype)
+
+
+fold_splits.calls = 0
+
+
+def _lib_fold():
+    fn = _build.load("flash_fold").flash_fold_launch
+    if fn.argtypes is None:
+        fn.argtypes = [_P] * 7 + [_I] * 7 + [_P]
+        fn.restype = _I
+    return fn
+
+
+def fold_splits_cuda(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor,
+                     qg: torch.Tensor, k_new: torch.Tensor,
+                     v_new: torch.Tensor,
+                     out_dtype: torch.dtype) -> torch.Tensor:
+    """The fold kernel (``csrc/flash_fold.cu``): the same contract as
+    :func:`fold_splits`, on the card. All tensors contiguous CUDA tensors
+    on one device; triples and qg float32; k_new/v_new float32 or
+    bfloat16 (one type); out_dtype float32 or bfloat16; G <= 8, D <= 256.
+    ``fold_splits_cuda.launches`` counts launches."""
+    tensors = [m, l, acc, qg, k_new, v_new]
+
+    def check(cond, msg):
+        _check(cond, msg, "fold_splits_cuda")
+    check(all(t.device.type == "cuda" for t in tensors),
+          "all tensors must be CUDA tensors")
+    check(len({t.device for t in tensors}) == 1,
+          "tensors lie on different devices")
+    check(all(t.is_contiguous() for t in tensors),
+          "tensors must be contiguous")
+    check(all(t.dtype == torch.float32 for t in (m, l, acc, qg)),
+          "m, l, acc and qg must be float32")
+    check(k_new.dtype in _KV_DTYPES and v_new.dtype == k_new.dtype,
+          f"k_new and v_new must share one of {list(_KV_DTYPES)}")
+    check(out_dtype in _KV_DTYPES, f"out_dtype {out_dtype}")
+    check(qg.dim() == 4, "qg (B, KVH, G, D) expected")
+    b, kvh, g, d = qg.shape
+    ns = m.shape[0] if m.dim() == 4 else 0
+    check(ns >= 1 and tuple(m.shape) == (ns, b, kvh, g)
+          and l.shape == m.shape and tuple(acc.shape) == (ns, b, kvh, g, d),
+          f"triples m {tuple(m.shape)}, l {tuple(l.shape)}, acc "
+          f"{tuple(acc.shape)} do not match qg {tuple(qg.shape)}")
+    check(tuple(k_new.shape) == (b, 1, kvh, d) and v_new.shape == k_new.shape,
+          f"k_new {tuple(k_new.shape)} / v_new {tuple(v_new.shape)}, "
+          f"expected {(b, 1, kvh, d)}")
+    check(1 <= g <= 8 and 1 <= d <= 256, f"G={g} or D={d} out of range")
+    fn = _lib_fold()
+    out = torch.empty((b, 1, kvh * g * d), dtype=out_dtype, device=qg.device)
+    with torch.cuda.device(qg.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(m.data_ptr(), l.data_ptr(), acc.data_ptr(), qg.data_ptr(),
+                 k_new.data_ptr(), v_new.data_ptr(), out.data_ptr(), ns, b,
+                 kvh, g, d, _KV_DTYPES[k_new.dtype], _KV_DTYPES[out_dtype],
+                 stream)
+    if err != 0:
+        raise RuntimeError(
+            f"fold_splits_cuda: launch failed with cudaError {err}")
+    fold_splits_cuda.launches += 1
+    return out
+
+
+fold_splits_cuda.launches = 0
+
+
+@functools.lru_cache(maxsize=64)
+def _device_const(value, dtype: torch.dtype, n: int,
+                  device: torch.device) -> torch.Tensor:
+    """A constant (n,) tensor on ``device``, made once: the query scale
+    and an int kv_start reach the card without a copy or fill per call.
+    Every caller gets the same tensor, so callers only read it."""
+    return torch.full((n,), value, dtype=dtype, device=device)
+
+
 def flash_decode_paged(q: torch.Tensor, k_pages: torch.Tensor,
                        v_pages: torch.Tensor, k_new: torch.Tensor,
                        v_new: torch.Tensor, phys: torch.Tensor, positions,
@@ -381,8 +484,9 @@ def flash_decode_paged(q: torch.Tensor, k_pages: torch.Tensor,
     v), "zv": ..., "sk": (KVH,), "sv": ...}); when given, k_pages/v_pages
     are uint8 code pools (P+1, page, KVH, nc). split_pages: pages per
     split (default :func:`split_pages_for`).
-    Runs kernel B2 (B5 over codes) for CUDA tensors, its plain version for
-    CPU tensors. Returns (B, 1, H*D) in q's dtype.
+    Runs kernel B2 (B5 over codes) and then the fold kernel for CUDA
+    tensors, their plain versions for CPU tensors. Returns (B, 1, H*D) in
+    q's dtype.
     """
     b, s, h, d = q.shape
     if s != 1:
@@ -391,11 +495,15 @@ def flash_decode_paged(q: torch.Tensor, k_pages: torch.Tensor,
     g = h // kvh
     np_ = phys.shape[1]
     dev = q.device
-    qg = q.reshape(b, kvh, g, d).float() * (d ** -0.5)
+    # one op: a (1,) float32 scale promotes q to float32 in the multiply
+    qg = q.reshape(b, kvh, g, d) * _device_const(d ** -0.5, torch.float32,
+                                                 1, dev)
     pos = torch.as_tensor(positions, dtype=torch.int32,
                           device=dev).expand(b).contiguous()
-    ks = torch.as_tensor(kv_start, dtype=torch.int32,
-                         device=dev).expand(b).contiguous()
+    ks = (_device_const(kv_start, torch.int32, b, dev)
+          if isinstance(kv_start, int) else
+          torch.as_tensor(kv_start, dtype=torch.int32,
+                          device=dev).expand(b).contiguous())
     if split_pages is None:
         split_pages = split_pages_for(b, kvh, np_, codebook is not None)
     sp = min(split_pages, np_)
@@ -415,15 +523,6 @@ def flash_decode_paged(q: torch.Tensor, k_pages: torch.Tensor,
         m, l, acc = splits(qg, k_pages, v_pages, codebook["zk"],
                            codebook["zv"], codebook["sk"], codebook["sv"],
                            phys, pos, window, ks, sp)
-    m, l, acc = reduce_splits(m, l, acc)
-    # fold the self term (qg is pre-scaled). The new token is always live,
-    # so the denominator is >= exp(0): never zero, even for pos = -1 lanes.
-    s_new = torch.einsum("bkgd,bkd->bkg", qg, k_new[:, 0].float())
-    m_f = torch.maximum(m, s_new)
-    alpha = torch.exp(m - m_f)
-    p_new = torch.exp(s_new - m_f)
-    denom = l * alpha + p_new
-    out = (acc * alpha[..., None]
-           + p_new[..., None] * v_new[:, 0, :, None, :].float())
-    out = out / denom[..., None]
-    return out.reshape(b, 1, h * d).to(q.dtype)
+    fold = fold_splits if dev.type == "cpu" else fold_splits_cuda
+    return fold(m, l, acc, qg, k_new.contiguous(), v_new.contiguous(),
+                q.dtype)

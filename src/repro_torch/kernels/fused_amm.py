@@ -3,7 +3,10 @@
 Port of ``repro.kernels.fused_amm.vq_amm_pallas``. The kernel is CUDA C++
 in ``csrc/fused_amm.cu`` (its header says what bounds it and how it is
 built); this module checks the arguments, allocates the output and the
-int32 accumulator, and launches it on the current stream through the
+split-K accumulator (int32 (M, N) for int8 LUTs; one float32 (M, N) tile
+per split for float LUTs, summed in split order by the kernel's finish
+step, so float results are the same on every run), and launches it on
+the current stream through the
 library ``kernels._build`` makes. The plain version is
 ``kernels.ref.vq_amm_ref``; ``kernels.ops.vq_amm`` picks between the two
 by device.
@@ -29,12 +32,23 @@ _I = ctypes.c_int
 
 def _lib():
     lib = _build.load("fused_amm")
-    fn = lib.vq_amm_launch
-    if fn.argtypes is None:
-        fn.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                       _I, _I, _I, _P]
-        fn.restype = _I
-    return fn
+    if lib.vq_amm_launch.argtypes is None:
+        lib.vq_amm_launch.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                      _I, _I, _I, _I, _I, _P]
+        lib.vq_amm_launch.restype = _I
+        lib.vq_amm_splits.argtypes = [_I] * 5
+        lib.vq_amm_splits.restype = _I
+    return lib
+
+
+def work_buffer(splits, lut: torch.Tensor, m: int, n: int) -> torch.Tensor:
+    """The split-K accumulator of B1 and B4: (M, N) int32 for an int8 LUT
+    (exact atomic sums), else (splits(), M, N) float32, one tile per
+    split (``splits`` is called only then)."""
+    if lut.dtype == torch.int8:
+        return torch.empty((m, n), dtype=torch.int32, device=lut.device)
+    return torch.empty((splits(), m, n), dtype=torch.float32,
+                       device=lut.device)
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -81,17 +95,16 @@ def vq_amm_cuda(x: torch.Tensor, z: torch.Tensor, lut: torch.Tensor,
         _check(scale is not None, "an int8 LUT needs its scale")
     _check(m * n < 2 ** 31 and nc * c * n < 2 ** 31 and m * nc * v < 2 ** 31,
            "sizes beyond int32 indexing")
-    fn = _lib()
+    lib = _lib()
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    work = (torch.empty((m, n), dtype=torch.int32, device=x.device)
-            if lut.dtype == torch.int8 else None)
+    work = work_buffer(lambda: lib.vq_amm_splits(m, nc, c, v, n), lut, m, n)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(x.data_ptr(), z.data_ptr(), lut.data_ptr(),
-                 scale.data_ptr() if scale is not None else None,
-                 out.data_ptr(), work.data_ptr() if work is not None else None,
-                 m, nc, c, v, n, _X_DTYPES[x.dtype], _LUT_DTYPES[lut.dtype],
-                 _METRICS[metric], stream)
+        err = lib.vq_amm_launch(
+            x.data_ptr(), z.data_ptr(), lut.data_ptr(),
+            scale.data_ptr() if scale is not None else None, out.data_ptr(),
+            work.data_ptr(), m, nc, c, v, n, _X_DTYPES[x.dtype],
+            _LUT_DTYPES[lut.dtype], _METRICS[metric], stream)
     if err != 0:
         raise RuntimeError(f"vq_amm_cuda: launch failed with cudaError {err}")
     vq_amm_cuda.launches += 1

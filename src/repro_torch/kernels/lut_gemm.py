@@ -6,8 +6,9 @@ in ``csrc/lut_gemm.cu`` (its header says what bounds it); it runs kernel
 B1's own gather-accumulate and scale (``csrc/vq_common.cuh``), so for int8
 LUTs ``lut_gemm_cuda(vq_assign_cuda(x, z), lut, s)`` equals
 ``vq_amm_cuda(x, z, lut, s)`` bit for bit. This module checks the
-arguments, allocates the output and the int32 accumulator and launches the
-kernel on the current stream. The plain version is
+arguments, allocates the output and B1's split-K accumulator
+(``fused_amm.work_buffer``) and launches the kernel on the current
+stream. The plain version is
 ``kernels.ref.lut_gemm_onehot``; ``kernels.ops.lut_matmul`` picks between
 the two by device.
 
@@ -21,18 +22,21 @@ from typing import Optional
 import torch
 
 from . import _build
-from .fused_amm import _LUT_DTYPES
+from .fused_amm import _LUT_DTYPES, work_buffer
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 
 def _lib():
-    fn = _build.load("lut_gemm").lut_gemm_launch
-    if fn.argtypes is None:
-        fn.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
-        fn.restype = _I
-    return fn
+    lib = _build.load("lut_gemm")
+    if lib.lut_gemm_launch.argtypes is None:
+        lib.lut_gemm_launch.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                        _I, _P]
+        lib.lut_gemm_launch.restype = _I
+        lib.lut_gemm_splits.argtypes = [_I] * 3
+        lib.lut_gemm_splits.restype = _I
+    return lib
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -73,16 +77,15 @@ def lut_gemm_cuda(idx: torch.Tensor, lut: torch.Tensor,
         _check(scale is not None, "an int8 LUT needs its scale")
     _check(m * n < 2 ** 31 and nc * c * n < 2 ** 31,
            "sizes beyond int32 indexing")
-    fn = _lib()
+    lib = _lib()
     out = torch.empty((m, n), dtype=torch.float32, device=idx.device)
-    work = (torch.empty((m, n), dtype=torch.int32, device=idx.device)
-            if lut.dtype == torch.int8 else None)
+    work = work_buffer(lambda: lib.lut_gemm_splits(m, nc, n), lut, m, n)
     with torch.cuda.device(idx.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(idx.data_ptr(), lut.data_ptr(),
-                 scale.data_ptr() if scale is not None else None,
-                 out.data_ptr(), work.data_ptr() if work is not None else None,
-                 m, nc, c, n, _LUT_DTYPES[lut.dtype], stream)
+        err = lib.lut_gemm_launch(
+            idx.data_ptr(), lut.data_ptr(),
+            scale.data_ptr() if scale is not None else None, out.data_ptr(),
+            work.data_ptr(), m, nc, c, n, _LUT_DTYPES[lut.dtype], stream)
     if err != 0:
         raise RuntimeError(f"lut_gemm_cuda: launch failed with cudaError {err}")
     lut_gemm_cuda.launches += 1

@@ -46,7 +46,7 @@ class Model:
         if cfg.family != "dense":
             raise NotImplementedError(
                 f"family {cfg.family!r} is not ported yet: ROADMAP.md "
-                "queue A item 12 (Other families)")
+                "queue A item 9 (Other families)")
         if cfg.head_layout != "heads":
             raise NotImplementedError("paged serving requires "
                                       "head_layout='heads'")

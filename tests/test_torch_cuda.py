@@ -1,4 +1,5 @@
-"""Kernels B1-B5 on the card against their plain versions, beyond the
+"""Kernels B1-B5 and the fold kernel on the card against their plain
+versions, beyond the
 main path's shapes: every metric, x type and LUT type on ragged M, N and
 nc, split-K over several row tiles (B1, B3, B4, and B4(B3(x)) == B1(x)
 bit for bit on int8 LUTs); GQA, sliding window, kv_start, inactive lanes,
@@ -7,7 +8,10 @@ G up to 8, a split over all of a slot's pages, a split size that does not
 divide the page count and the default split rule (B2); the same over
 uint8 code pools, D of 64 to 256, exact-cover tables above 48 KB, and
 codebooks whose tables only B5's dequantize form takes (B5); pools at a
-storage offset that is not 16-byte aligned (B2, B5).
+storage offset that is not 16-byte aligned (B2, B5); float-LUT B1 and B4
+launched twice on one input (bit for bit equal) and what a call
+enqueues; the fold kernel on B2's and B5's triples, pages 4 to 64, G up
+to 8, D up to 256, and one flash_decode_paged call as three kernels.
 
 Needs a CUDA device and ``nvcc``: marked ``cuda``, and skipped when torch
 sees no card. On a machine with an H100, from the repository root:
@@ -19,15 +23,19 @@ sees no card. On a machine with an H100, from the repository root:
 Inputs have a clear argmin margin (each sub-vector is a centroid plus
 small noise), so the kernel's indices must equal the plain argmin.
 Tolerances: int8 LUTs are exact int32 sums times the same scale
-(rtol 1e-6); float LUTs meet through float atomics in run-dependent
-order (rtol/atol 1e-4); B2's triples differ by fp32 summation order
-(atol 2e-5 relative to their magnitude).
+(rtol 1e-6); float LUTs are summed in another (fixed) order than the
+plain version's (rtol/atol 1e-4), and two launches on one input give the
+same bits; B2's triples differ by fp32 summation order (atol 2e-5
+relative to their magnitude), and so does the fold kernel's float32
+output, whose bfloat16 output is that value rounded (half a bfloat16 ulp
+more); lanes with pos = -1 are exactly their v_new row.
 """
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.device import enqueued  # noqa: E402
 from repro_torch.kernels import flash_decode as tfd  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.kernels.assign import vq_assign_cuda  # noqa: E402
@@ -341,3 +349,138 @@ def test_flash_decode_kernels_take_misaligned_pools(dev, pool):
     for a, w in zip(got, want):
         tol = 2e-5 * (1.0 + float(w.abs().max()))
         torch.testing.assert_close(a, w, rtol=0, atol=tol)
+
+
+# ---------------------------------------------------------------------------
+# float LUTs: fixed-order sums in B1 and B4
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("lut_dtype", [torch.float32, torch.bfloat16])
+def test_float_lut_sums_are_the_same_on_every_launch(dev, lut_dtype):
+    """B1 and B4 launched twice on one input give the same bits at every
+    shape: no float atomic decides the order of the sums."""
+    for i, shape in enumerate(B1_SHAPES):
+        for x_dtype in (torch.float32, torch.bfloat16):
+            x, z, lut, _ = _b1_inputs(shape, x_dtype, lut_dtype, i, dev)
+            xr = torch.randn(x.shape, device=dev).to(x_dtype)
+            scale = 0.5 + torch.rand(lut.shape[2], device=dev)
+            for sc in (None, scale):
+                first = vq_amm_cuda(xr, z, lut, sc)
+                assert torch.equal(first, vq_amm_cuda(xr, z, lut, sc))
+                idx = vq_assign_cuda(xr, z)
+                two = lut_gemm_cuda(idx, lut, sc)
+                assert torch.equal(two, lut_gemm_cuda(idx, lut, sc))
+                torch.testing.assert_close(two, first, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("lut_dtype", [torch.float32, torch.bfloat16,
+                                       torch.int8])
+def test_vq_amm_and_lut_gemm_launch_counts(dev, lut_dtype):
+    """Float LUTs: two launches a call (the kernel, then the split sum and
+    scale), no memset. int8: memset, kernel, scale."""
+    x, z, lut, scale = _b1_inputs(B1_SHAPES[3], torch.bfloat16, lut_dtype,
+                                  0, dev)
+    idx = vq_assign_cuda(x, z)
+    want = {"kernels": 2, "copies": 0, "other": 0,
+            "memsets": 1 if lut_dtype == torch.int8 else 0}
+    assert enqueued(lambda: vq_amm_cuda(x, z, lut, scale)) == want
+    assert enqueued(lambda: lut_gemm_cuda(idx, lut, scale)) == want
+
+
+# ---------------------------------------------------------------------------
+# the fold kernel: split reduction + self-term fold
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("pool", ["float32", "bfloat16", "codes"])
+@pytest.mark.parametrize("h,kvh,d,ps,np_,split,window,kv_start", [
+    (20, 20, 128, 16, 32, None, 0, 0),  # the main path's shape
+    (16, 4, 128, 16, 10, 3, 0, 0),      # GQA G=4, split does not divide
+    (8, 1, 64, 8, 9, 2, 20, 5),         # G=8, window, kv_start
+    (6, 3, 256, 4, 7, 7, 0, 3),         # D=256, page 4, one split
+    (20, 20, 128, 64, 8, 4, 0, 0),      # page 64
+    (8, 1, 256, 32, 5, 2, 0, 0),        # page 32, D=256, G=8
+    (4, 2, 96, 16, 6, 1, 37, 21),       # D=96 (3 warps), a split a page
+])
+def test_fold_kernel_matches_plain(dev, pool, h, kvh, d, ps, np_, split,
+                                   window, kv_start):
+    b, g = 4, h // kvh
+    cap = np_ * ps
+    positions = [cap, -1, ps, min(cap, 3 * ps + 1)]   # full, idle, page edge
+    ks = torch.full((b,), kv_start, dtype=torch.int32, device=dev)
+    if pool == "codes":
+        nc = d // 4
+        qg, kc, vc, tab, phys, pos = _b5_problem(dev, b, h, kvh, d, ps, np_,
+                                                 positions, nc, 16, h + d)
+        split = split or tfd.split_pages_for(b, kvh, np_, kvq=True)
+        phys = torch.nn.functional.pad(phys, (0, (-np_) % split),
+                                       value=kc.shape[0] - 1).contiguous()
+        tri = tfd.flash_decode_splits_kvq_cuda(qg, kc, vc, *tab, phys, pos,
+                                               window, ks, split)
+        kv_dtypes = (torch.float32, torch.bfloat16)
+    else:
+        qg, kp, vp, phys, pos = _b2_problem(dev, b, h, kvh, d, ps, np_,
+                                            positions, getattr(torch, pool),
+                                            h + d)
+        split = split or tfd.split_pages_for(b, kvh, np_)
+        phys = torch.nn.functional.pad(phys, (0, (-np_) % split),
+                                       value=kp.shape[0] - 1).contiguous()
+        tri = tfd.flash_decode_splits_cuda(qg, kp, vp, phys, pos, window, ks,
+                                           split)
+        kv_dtypes = (kp.dtype,)
+    gen = torch.Generator(device=dev).manual_seed(h * d)
+    for kv_dtype in kv_dtypes:
+        kn, vn = (torch.randn((b, 1, kvh, d), generator=gen,
+                              device=dev).to(kv_dtype) for _ in range(2))
+        want = tfd.fold_splits(*tri, qg, kn, vn, torch.float32)
+        tol = 2e-5 * (1.0 + float(want.abs().max()))
+        dead = vn[1, 0, :, None, :].expand(kvh, g, d).reshape(1, -1)
+        for out_dtype in (torch.float32, torch.bfloat16):
+            before = tfd.fold_splits_cuda.launches
+            got = tfd.fold_splits_cuda(*tri, qg, kn, vn, out_dtype)
+            torch.cuda.synchronize()
+            assert tfd.fold_splits_cuda.launches == before + 1
+            assert got.dtype == out_dtype and got.shape == want.shape
+            rtol = 0.0 if out_dtype == torch.float32 else 2.0 ** -8
+            torch.testing.assert_close(got.float(), want, rtol=rtol,
+                                       atol=tol)
+            assert torch.equal(got[1], dead.to(out_dtype))   # pos = -1
+
+
+@pytest.mark.parametrize("pool", ["bfloat16", "codes"])
+def test_flash_decode_paged_runs_the_kernels_only(dev, pool):
+    """One flash_decode_paged call on the card at the main path's shape:
+    B2 (B5 over codes), then the fold kernel, plus the query's scale; the
+    plain versions never run."""
+    b, h, kvh, d, ps, np_ = 8, 20, 20, 128, 16, 32
+    positions = [511, 300, -1, 17, 128, 255, 64, 400]
+    gen = torch.Generator(device=dev).manual_seed(5)
+    q = torch.randn((b, 1, h, d), generator=gen, device=dev).to(
+        torch.bfloat16)
+    kn, vn = (torch.randn((b, 1, kvh, d), generator=gen, device=dev).to(
+        torch.bfloat16) for _ in range(2))
+    if pool == "codes":
+        _, kp, vp, tab, phys, pos = _b5_problem(dev, b, h, kvh, d, ps, np_,
+                                                positions, 32, 16, 5)
+        cb = dict(zip(("zk", "zv", "sk", "sv"), tab))
+        kernel = tfd.flash_decode_splits_kvq_cuda
+    else:
+        _, kp, vp, phys, pos = _b2_problem(dev, b, h, kvh, d, ps, np_,
+                                           positions, torch.bfloat16, 5)
+        cb = None
+        kernel = tfd.flash_decode_splits_cuda
+
+    def call():
+        return tfd.flash_decode_paged(q, kp, vp, kn, vn, phys, pos,
+                                      codebook=cb)
+    counts = (kernel.launches, tfd.fold_splits_cuda.launches,
+              tfd.fold_splits.calls, tfd.flash_decode_splits.calls,
+              tfd.flash_decode_splits_kvq.calls)
+    out = call()
+    torch.cuda.synchronize()
+    assert (kernel.launches, tfd.fold_splits_cuda.launches,
+            tfd.fold_splits.calls, tfd.flash_decode_splits.calls,
+            tfd.flash_decode_splits_kvq.calls) == (
+        counts[0] + 1, counts[1] + 1) + counts[2:]
+    assert out.dtype == torch.bfloat16 and bool(torch.isfinite(out).all())
+    assert enqueued(call) == {"kernels": 3, "copies": 0, "memsets": 0,
+                              "other": 0}   # scale q, B2 or B5, fold

@@ -139,3 +139,110 @@ def test_flash_decode_paged_default_split_matches_jax(b, h, kvh, ps, np_,
     live = pos >= 0
     np.testing.assert_allclose(out_t[live], out_j[live], atol=ATOL)
     np.testing.assert_allclose(out_t[live], out_ref[live], atol=ATOL)
+
+
+# ---------------------------------------------------------------------------
+# the split reduction + self-term fold (plain version of the fold kernel)
+# ---------------------------------------------------------------------------
+
+def _fp_triples(q, kp, vp, phys, pos, window, kv_start, split):
+    """qg and kernel B2's plain triples, as flash_decode_paged makes them."""
+    b, _, h, d = q.shape
+    kvh = kp.shape[2]
+    qg = torch.from_numpy(q).reshape(b, kvh, h // kvh, d) * d ** -0.5
+    pad = (-phys.shape[1]) % split
+    ph = np.pad(phys, ((0, 0), (0, pad)), constant_values=kp.shape[0] - 1)
+    ks = torch.full((b,), kv_start, dtype=torch.int32)
+    tri = tfd.flash_decode_splits(qg, torch.from_numpy(kp),
+                                  torch.from_numpy(vp), torch.from_numpy(ph),
+                                  torch.from_numpy(pos), window, ks, split)
+    return tri, qg
+
+
+@pytest.mark.parametrize("h,kvh,window,kv_start,split", [
+    (4, 4, 0, 0, 2),      # G = 1, split does not divide NP
+    (8, 2, 5, 3, 3),      # GQA G = 4, window, kv_start > 0
+    (8, 4, 6, 2, 1),      # G = 2, window, kv_start, one page per split
+])
+def test_fold_splits_on_plain_triples_matches_jax(h, kvh, window, kv_start,
+                                                  split):
+    """fold_splits over B2's plain triples equals the JAX package's
+    flash_decode_paged (Pallas kernel in interpret mode, and the oracle)
+    on the same inputs, pos = -1 lane included (1e-5 relative)."""
+    q, kp, vp, kn, vn, phys, pos = _problem(h * 13 + split, h=h, kvh=kvh)
+    j = [jnp.asarray(a) for a in (q, kp, vp, kn, vn, phys, pos)]
+    out_pl = np.asarray(jfd.flash_decode_paged(
+        *j, window=window, kv_start=kv_start, impl="pallas",
+        split_pages=split, interpret=True))
+    out_ref = np.asarray(flash_decode_ref(*j, window=window,
+                                          kv_start=kv_start))
+    (m, l, acc), qg = _fp_triples(q, kp, vp, phys, pos, window, kv_start,
+                                  split)
+    before = tfd.fold_splits.calls
+    out = tfd.fold_splits(m, l, acc, qg, torch.from_numpy(kn),
+                          torch.from_numpy(vn), torch.float32).numpy()
+    assert tfd.fold_splits.calls == before + 1
+    assert out.shape == (3, 1, h * 16) and out.dtype == np.float32
+    np.testing.assert_allclose(out, out_pl, rtol=1e-5, atol=1e-5)
+    live = pos >= 0
+    np.testing.assert_allclose(out[live], out_ref[live], rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_fold_splits_dead_lane_is_exactly_v_new(out_dtype):
+    """A pos = -1 lane (every split the identity) returns its v_new row
+    exactly, cast to the output dtype; so does flash_decode_paged."""
+    q, kp, vp, kn, vn, phys, pos = _problem(21, h=8, kvh=2,
+                                            positions=(11, -1, -1))
+    (m, l, acc), qg = _fp_triples(q, kp, vp, phys, pos, 4, 1, 2)
+    vn_t = torch.from_numpy(vn).to(out_dtype)
+    out = tfd.fold_splits(m, l, acc, qg, torch.from_numpy(kn).to(out_dtype),
+                          vn_t, out_dtype)
+    assert out.dtype == out_dtype
+    g = 4                                  # each kv head's row, G times
+    want = vn_t[:, 0, :, None, :].expand(3, 2, g, 16).reshape(3, 1, 128)
+    for lane in (1, 2):
+        assert torch.equal(out[lane], want[lane])
+    assert not torch.equal(out[0], want[0])
+    t = [torch.from_numpy(a) for a in (q, kp, vp, kn, vn, phys, pos)]
+    t[0], t[3], t[4] = t[0].to(out_dtype), t[3].to(out_dtype), vn_t
+    full = tfd.flash_decode_paged(*t, window=4, kv_start=1, split_pages=2)
+    for lane in (1, 2):
+        assert torch.equal(full[lane], want[lane])
+
+
+class _CudaLooking(torch.Tensor):
+    """A CPU tensor that reports a CUDA device, so the fold wrapper's
+    checks run past the device test on a machine without a card."""
+
+    @property
+    def device(self):
+        return torch.device("cuda", 0)
+
+
+@pytest.mark.parametrize("case", ["cpu", "acc", "k_new", "dtype", "g"])
+def test_fold_splits_cuda_raises_value_error(case):
+    b, kvh, g, d, ns = 2, 2, 2, 8, 3
+    t = {"m": torch.zeros((ns, b, kvh, g)), "l": torch.zeros((ns, b, kvh, g)),
+         "acc": torch.zeros((ns, b, kvh, g, d)),
+         "qg": torch.zeros((b, kvh, g, d)),
+         "k_new": torch.zeros((b, 1, kvh, d)),
+         "v_new": torch.zeros((b, 1, kvh, d))}
+    if case == "acc":
+        t["acc"] = torch.zeros((ns, b, kvh, g, d + 1))
+    elif case == "k_new":
+        t["k_new"] = torch.zeros((b, 1, kvh + 1, d))
+    elif case == "dtype":
+        t["v_new"] = t["v_new"].to(torch.bfloat16)
+    elif case == "g":
+        t = {k: torch.zeros(v.shape[:-2] + (9,) + v.shape[-1:])
+             if k in ("acc", "qg") else v for k, v in t.items()}
+        t["m"] = torch.zeros((ns, b, kvh, 9))
+        t["l"] = torch.zeros((ns, b, kvh, 9))
+    if case != "cpu":
+        t = {k: v.as_subclass(_CudaLooking) for k, v in t.items()}
+    launches = tfd.fold_splits_cuda.launches
+    with pytest.raises(ValueError, match="fold_splits_cuda"):
+        tfd.fold_splits_cuda(*t.values(), torch.float32)
+    assert tfd.fold_splits_cuda.launches == launches

@@ -281,6 +281,46 @@ def test_kvq_flash_default_split_matches_jax(slots, kvh, g, ps, np_,
         np.testing.assert_allclose(out[live], want[live], atol=ATOL)
 
 
+@pytest.mark.parametrize("kvh,g,window,kv_start,split", [
+    (2, 1, 0, 0, 2),      # split of 2 pages does not divide NP = 5
+    (2, 3, 11, 5, 3),     # GQA G = 3, window and kv_start
+    (1, 4, 6, 2, 1),      # G = 4, window, kv_start, one page per split
+])
+def test_fold_splits_on_plain_kvq_triples_matches_jax(kvh, g, window,
+                                                      kv_start, split):
+    """fold_splits over B5's plain triples equals the JAX package's
+    flash_decode_paged over the same code pool (Pallas kernel in interpret
+    mode, and the dequantize-then-reference oracle), 1e-5 relative; the
+    pos = -1 lane returns exactly its v_new row."""
+    q, kc, vc, cb, kn, vn, phys, pos = _kvq_case(kvh * 5 + g + split + 40,
+                                                 kvh=kvh, g=g)
+    j = [jnp.asarray(a) for a in (q, kc, vc, kn, vn, phys, pos)]
+    cb_j = {k: jnp.asarray(a) for k, a in cb.items()}
+    out_pl = _np(jfd.flash_decode_paged(
+        j[0], j[1], j[2], j[3], j[4], j[5], j[6], window=window,
+        kv_start=kv_start, impl="pallas", codebook=cb_j, split_pages=split,
+        interpret=True))
+    out_jref = _np(j_kvq_ref(j[0], j[1], j[2], cb_j, j[3], j[4], j[5], j[6],
+                             window=window, kv_start=kv_start))
+    b, d = q.shape[0], q.shape[-1]
+    qg = _t(q).reshape(b, kvh, g, d) * d ** -0.5
+    ph = np.pad(phys, ((0, 0), (0, (-phys.shape[1]) % split)),
+                constant_values=kc.shape[0] - 1)
+    m, l, acc = tfd.flash_decode_splits_kvq(
+        qg, _t(kc), _t(vc), _t(cb["zk"]), _t(cb["zv"]), _t(cb["sk"]),
+        _t(cb["sv"]), _t(ph), _t(pos), window,
+        torch.full((b,), kv_start, dtype=torch.int32), split)
+    out = tfd.fold_splits(m, l, acc, qg, _t(kn), _t(vn), torch.float32)
+    assert out.shape == (b, 1, kvh * g * d)
+    np.testing.assert_allclose(out.numpy(), out_pl, rtol=1e-5, atol=1e-5)
+    live = pos >= 0
+    np.testing.assert_allclose(out.numpy()[live], out_jref[live], rtol=1e-5,
+                               atol=1e-5)
+    dead = int(np.flatnonzero(~live)[0])
+    want = _t(vn)[dead, 0, :, None, :].expand(kvh, g, d).reshape(1, -1)
+    assert torch.equal(out[dead], want)
+
+
 def test_kvq_all_masked_split_is_exactly_the_identity():
     """A pos = -1 lane and splits past a slot's length emit (-1e30, 0, 0)
     exactly, the sentinel compared in its own dtype (float32)."""
