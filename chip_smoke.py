@@ -2,7 +2,9 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA
 H100: builds the hand-written kernels (B1-B5 and the fold kernel of
 paged decode), holds each against its plain PyTorch version at the main
-path's shapes, serves full-width qwen1.5-4b (lut_infer, int8 LUTs)
+path's shapes (B1 also: one kernel a call and nothing else, its time
+flushed and warm in a CUDA graph, its host time, and a sweep of nc at
+M=8, N=6912 beside B3), serves full-width qwen1.5-4b (lut_infer, int8 LUTs)
 through the continuous-batching engine three times -- fused projections
 on an fp KV pool (B1, B2, fold), two-pass projections (B3, B4, B2, fold),
 fused projections on a VQ code pool (B1, B5, fold) -- and checks one
@@ -43,7 +45,8 @@ from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.core.kv_codebook import KVCodebook, kv_encode  # noqa
 from repro_torch.kernels import flash_decode as fd  # noqa: E402
 from repro_torch.kernels.assign import vq_assign_cuda  # noqa: E402
-from repro_torch.kernels.fused_amm import vq_amm_cuda  # noqa: E402
+from repro_torch.kernels.fused_amm import (  # noqa: E402
+    vq_amm_cuda, vq_amm_geometry)
 from repro_torch.kernels.lut_gemm import lut_gemm_cuda  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
 from repro_torch.serve.engine import Engine  # noqa: E402
@@ -115,6 +118,29 @@ def device_times(fn, iters: int, flush: torch.Tensor) -> list:
 def time_ms(fn, iters: int, flush: torch.Tensor) -> float:
     """Mean device time of ``fn`` in ms over :func:`device_times`."""
     return float(np.mean(device_times(fn, iters, flush)))
+
+
+def graph_ms(fn, calls: int = 30) -> float:
+    """Warm device time per call of ``fn`` in ms: ``calls`` back-to-back
+    calls captured in one CUDA graph and replayed, so neither the host
+    nor a launch gap between calls is timed and the L2 stays warm."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    s.record()
+    graph.replay()
+    e.record()
+    torch.cuda.synchronize()
+    ms = s.elapsed_time(e) / calls
+    graph.reset()
+    return ms
 
 
 def host_us(fn, iters: int = 50) -> float:
@@ -249,21 +275,52 @@ def b1_case(gen, m, k, n, flush):
           "assignments differ (a near-tie flip rate is ~1e-4)")
 
     ms = time_ms(lambda: vq_amm_cuda(x, z, lut, scale), 30, flush)
+    warm_ms = graph_ms(lambda: vq_amm_cuda(x, z, lut, scale))
     plain_ms = time_ms(lambda: ref.vq_amm_ref(x, z, lut, scale), 5, flush)
     host = host_us(lambda: vq_amm_cuda(x, z, lut, scale))
+    calls = enqueued(lambda: vq_amm_cuda(x, z, lut, scale))
+    check(calls == {"kernels": 1, "copies": 0, "memsets": 0, "other": 0},
+          f"B1 {m}x{k}x{n}: a call enqueues {calls}")
+    geo = vq_amm_geometry(x, z, lut)
     # bytes this data needs: x, z, the LUT rows some row selects, scale, out
     lut_bytes = selected_lut_bytes(idx_plain, n)
     b = nbytes(x, z, scale) + lut_bytes + m * n * 4
     o = m * nc * C * (4 * V + 2) + m * nc * n + m * n
     bms, by = bound(b, o)
-    print(f"B1 vq_amm M={m} K={k} N={n}: kernel {ms * 1e3:.1f} us, plain "
-          f"{plain_ms * 1e3:.1f} us, bound {bms * 1e3:.2f} us ({by}; "
+    print(f"B1 vq_amm M={m} K={k} N={n}: kernel {ms * 1e3:.1f} us "
+          f"(warm, 30 calls in one graph: {warm_ms * 1e3:.1f} us a call), "
+          f"plain {plain_ms * 1e3:.1f} us, bound {bms * 1e3:.2f} us ({by}; "
           f"{lut_bytes / 1e6:.2f} MB of LUT rows selected of "
-          f"{nbytes(lut) / 1e6:.2f}), host {host:.1f} us/call, max abs "
-          f"err {err:.3g}; random x: "
+          f"{nbytes(lut) / 1e6:.2f}), host {host:.1f} us/call, enqueues "
+          f"{calls}, cluster {geo['cluster']} x {geo['tiles']} column tiles "
+          f"x {geo['row_groups']} row groups ({geo['subspaces']} subspaces "
+          f"and {geo['smem']} B of shared memory a block), max abs err "
+          f"{err:.3g}; random x: "
           f"{flips:.2e} index flips, {off:.2%} of outputs off by >1e-3")
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-            "err": err}
+            "err": err, "warm_ms": warm_ms, "host": host}
+
+
+def nc_sweep(gen, flush, m=8, n=6912, full_nc=320):
+    """B1 and B3 at M=8, N=6912 with nc cut to 1/4, 1/2 and all of the
+    2560 -> 6912 projection's 320 subspaces: flushed (time_ms) and warm
+    (graph_ms). If time barely follows nc, a fixed cost per block or per
+    launch holds the kernel back; if it follows nc, bytes in flight do."""
+    rows = []
+    for nc in (full_nc // 4, full_nc // 2, full_nc):
+        x, z, lut, scale, _ = vq_inputs(gen, m, nc * V, n)
+        rows.append((nc, {
+            "b1_ms": time_ms(lambda: vq_amm_cuda(x, z, lut, scale), 30,
+                             flush),
+            "b1_graph_ms": graph_ms(lambda: vq_amm_cuda(x, z, lut, scale)),
+            "b3_ms": time_ms(lambda: vq_assign_cuda(x, z), 30, flush),
+            "b3_graph_ms": graph_ms(lambda: vq_assign_cuda(x, z))}))
+    for nc, r in rows:
+        print(f"nc sweep M={m} N={n} nc={nc}: B1 {r['b1_ms'] * 1e3:.1f} us "
+              f"flushed, {r['b1_graph_ms'] * 1e3:.1f} us warm in a graph; "
+              f"B3 {r['b3_ms'] * 1e3:.1f} us flushed, "
+              f"{r['b3_graph_ms'] * 1e3:.1f} us warm in a graph")
+    return rows
 
 
 def b34_case(gen, m, k, n, flush):
@@ -339,10 +396,10 @@ def b34_case(gen, m, k, n, flush):
 def float_lut_case(gen, m, k, n, flush):
     """B1 and B4 with float32 and bfloat16 LUTs (the int8 table times its
     scale) at one main-path shape, on random unit-scale rows: two
-    launches on one input give the same bits, the result agrees with the
-    plain version, and both are timed beside the int8 kernels. Records
-    whether B4(B3(x)) equals B1(x) bit for bit (not required: B1 narrows
-    its split width to fit its staged tiles)."""
+    launches on one input give the same bits, a B1 call enqueues one
+    kernel, the result agrees with the plain version, and both are timed
+    beside the int8 kernels. Records whether B4(B3(x)) equals B1(x) bit
+    for bit (not required: the two split the float sums differently)."""
     _, z, lut8, scale, xr = vq_inputs(gen, m, k, n)
     idx = vq_assign_cuda(xr, z)
     res = {}
@@ -355,6 +412,10 @@ def float_lut_case(gen, m, k, n, flush):
               f"B1 {m}x{k}x{n} {dt}: two launches on one input differ")
         check(torch.equal(b4[0], b4[1]),
               f"B4 {m}x{k}x{n} {dt}: two launches on one input differ")
+        calls = enqueued(lambda: vq_amm_cuda(xr, z, lut))
+        check(calls == {"kernels": 1, "copies": 0, "memsets": 0,
+                        "other": 0},
+              f"B1 {m}x{k}x{n} {dt}: a call enqueues {calls}")
         want = ref.lut_gemm_onehot(idx, lut)
         for name, got in (("B1", b1[0]), ("B4", b4[0])):
             check(torch.allclose(got, want, rtol=1e-4, atol=1e-4),
@@ -864,6 +925,7 @@ def main(argv=None) -> int:
             for k, n, _ in PROJ_SHAPES:
                 b1[(m, k, n)] = b1_case(gen, m, k, n, flush)
                 b3[(m, k, n)], b4[(m, k, n)] = b34_case(gen, m, k, n, flush)
+        nc_sweep(gen, flush)
         rng = np.random.default_rng(args.seed)
         main_pos = sorted(rng.integers(32, MAX_SEQ, SLOTS).tolist())
         full_pos = [MAX_SEQ - 1] * SLOTS
@@ -939,6 +1001,15 @@ def main(argv=None) -> int:
     def per_step(res):
         return cfg.num_layers * sum(res[(8, k, n)]["ms"] * cnt
                                     for k, n, cnt in PROJ_SHAPES)
+    for m in (8, 32):
+        lay = {key: sum(b1[(m, k, n)][key] * cnt for k, n, cnt in PROJ_SHAPES)
+               for key in ("ms", "warm_ms", "bound_ms")}
+        print(f"B1 int8 per layer (7 projections) at M={m}: "
+              f"{lay['ms'] * 1e3:.1f} us flushed, {lay['warm_ms'] * 1e3:.1f} "
+              f"us warm in a graph, bound {lay['bound_ms'] * 1e3:.1f} us; "
+              "host us a call "
+              + ", ".join(f"{b1[(m, k, n)]['host']:.1f}"
+                          for k, n, _ in PROJ_SHAPES))
     print(f"kernel device time per decode step (from the kernel phase): "
           f"fused B1 {per_step(b1):.2f} ms, two-pass B3 {per_step(b3):.2f} + "
           f"B4 {per_step(b4):.2f} ms; attention B2 "

@@ -17,11 +17,12 @@
 // a small fraction of a microsecond on the CUDA cores. So at the main shapes a launch costs
 // what any launch costs, and the design keeps every load in flight.
 //
-// Design: B1's phase 1 with the indices written out (the two-pass
+// Design: B1's assignment with the indices written out (the two-pass
 // baseline's whole point). One block of 256 threads per (group of ks
 // subspaces, 8-row tile) stages its z and x slices in shared memory as
-// fp32 (vq_common.cuh, assign_tile, the code B1 runs), then each thread
-// assigns one (row, subspace) pair and writes its int32 index. ks is 32
+// fp32 (vq_common.cuh, assign_tile), then each thread assigns one (row,
+// subspace) pair with the nearest that B1 runs and writes its int32
+// index. ks is 32
 // (256 threads / 8 rows), fewer when the staged tiles would not fit in
 // 48 KB; when even one subspace needs more (c * v above ~11,900 floats)
 // the block opts into up to 227 KB of dynamic shared memory. Ragged M and

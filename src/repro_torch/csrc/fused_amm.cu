@@ -1,5 +1,5 @@
 // Kernel B1: fused VQ-AMM (nearest-centroid assignment + LUT
-// gather-accumulate) for Hopper (sm_90a).
+// gather-accumulate) for Hopper (sm_90a), one launch a call.
 //
 // Replaces: src/repro/kernels/fused_amm.py::vq_amm_pallas (body
 // _fused_kernel), the TPU kernel behind every lut_infer projection.
@@ -8,162 +8,308 @@
 //
 //   x (M, nc, v) f32|bf16, z (nc, c, v) same type, lut (nc, c, N)
 //   f32|bf16|int8, scale (N,) f32 or null, out (M, N) f32.
-//   d is L2 (|x|^2 - 2 x.z + |z|^2), L1 or Chebyshev, in fp32.
+//   d is L2 (|x|^2 - 2 x.z + |z|^2), L1 or Chebyshev, in fp32; the lowest
+//   index wins a tie.
 //
-// What bounds it on the H100: bytes. At decode (M = 8) a projection must
-// read each LUT row that some row of x selects, once: for c = 16 about
-// 40% of the table, one byte per entry in int8, for one integer add per
-// byte. The distance work (M * nc * c * v multiply-adds) is noise beside.
+// What bounds it on the H100: bytes. A projection must read each LUT row
+// that some row of x selects, once: at decode (M = 8, c = 16) about 40%
+// of the table, at the prefill chunk (M = 32) about 87%, one byte per
+// entry in int8, for one integer add per byte and row of x. The distance
+// work (M * nc * c * v multiply-adds) is small beside it. What held the
+// first version back was not the bytes (PERF.md, PR 18): three launches
+// a call, one chain of dependent small loads a block with <= 8 KB in
+// flight, and an 8-row tile that re-read every LUT row once per 8 rows.
 //
-// Design:
-//  * One block per (128-column tile, group of ks subspaces, 8-row tile).
-//    The TPU's sequential k grid axis with its VMEM accumulator has no
-//    counterpart here: blocks run in parallel and in no order, so the
-//    k range is split across blocks (split-K) to put ~2 blocks on each of
-//    the 132 SMs even at M = 8. For int8 LUTs the partial sums meet with
-//    atomicAdd in an (M, N) int32 accumulator: exact, so the result does
-//    not depend on the order. For float LUTs each block stores its tile
-//    into its own split's slice of a (splits, M, N) fp32 buffer, and the
-//    finish kernel sums the splits in split order: no float atomic, so
-//    the same input gives the same bits on every run, as the TPU's
-//    sequential k axis does.
-//  * Phase 1: the block stages its ks subspaces of z and its rows' slices
-//    of x in shared memory (fp32, coalesced, all loads in flight), then
-//    every thread assigns one (row, subspace) pair: it scans the c
-//    centroids in order and keeps the first strict minimum, so the lowest
-//    index wins a tie, as jnp.argmin and torch.argmin do. The indices go
-//    to shared memory (uint8, c <= 256); the (M, nc) indices never reach
-//    device memory -- the point of the fusion. ks is capped so the staged
-//    tiles fit in 48 KB.
-//  * Phase 2: each of the 8 warps takes every 8th subspace of the group;
-//    a lane adds 4 consecutive columns of the selected LUT row, so a warp
-//    reads one 128-byte line (int8) per row: a gather-accumulate, not the
-//    TPU's one-hot matmul (an MXU idiom). The warps' partial tiles meet
-//    in shared memory (int8: shared atomics; float: warp by warp, in warp
-//    order), then go to the accumulator once per output element.
-//  * The scale is applied once, after all subspaces, by a second small
-//    kernel (the TPU kernel's flush + scale step), which for float LUTs
-//    also sums the splits. Launches a call: int8 three (memset, kernel,
-//    scale), float two (kernel, sum + scale).
-//  * The ragged edges (M, N, nc not multiples of the tiles) are masked in
-//    the kernel; nothing is padded.
-//  * Phase 1 (assign_tile) and phase 2 (lut_tile) live in vq_common.cuh,
-//    shared with the two-pass kernels B3 (assign.cu) and B4 (lut_gemm.cu),
-//    so that B4(B3(x)) is this kernel's result bit for bit on int8 LUTs.
+// Design (device code in vq_gather.cuh, for B4 to share):
+//  * One launch, one kernel: no memset, no work buffer, no second pass.
+//    One block per (256-byte column tile, k range, group of up to 64
+//    rows); the k ranges of one column tile form a thread block cluster
+//    (grid y). The host picks the cluster size (1-16) from the card's own
+//    occupancy report for this launch (cudaOccupancyMaxActiveClusters):
+//    the least estimated time, waves of resident clusters x (subspaces a
+//    block + a fixed cost), so the grid fits in one wave of the H100's
+//    132 SMs at every main-path shape. The choice is cached per shape.
+//  * A block stages its x rows and z slice with 16-byte loads, then
+//    assigns every (row, subspace) pair with vq_common.cuh's nearest
+//    (distance code, scan order and tie rule unchanged), so B3's indices
+//    are these bit for bit. The indices stay in shared memory.
+//  * Then every thread gathers its 16-byte column chunk of the selected
+//    LUT rows straight into registers, 16 loads in flight (two batches,
+//    one added while the next lands); up to 8 rows of x, the threads
+//    split the subspaces into two halves so all 8 warps gather. Rows that
+//    select the same LUT row load the same line at about the same time,
+//    so each selected row comes from device memory once per (column
+//    tile, k range) for every row of x: the first version read it once
+//    per 8 rows.
+//  * Sums stay in registers (int8: dp4a into exact int32; float: fp32,
+//    subspace order). Each block pushes its partial tile into the shared
+//    memory of the ranks that own its parts (distributed shared memory),
+//    and after one cluster barrier each rank sums its share over the
+//    ranks in rank order, applies the scale and writes out. No atomic
+//    touches a sum: a float result is the same on every launch, and an
+//    int8 result is (float)(int32 sum) * scale[n], B4's expression, so
+//    B4(B3(x)) == B1(x) bit for bit on int8 LUTs.
+//  * A shared-memory ring of selected rows fed by 16-byte cp.async, then
+//    by one TMA bulk copy a row, was tried first and measured slower:
+//    the copies stalled at issue (PERF.md, PR 18).
+//  * The general path lives in the same kernel: any M (row groups in grid
+//    z), c up to 256, any v (x and z rows that are not 16-byte aligned
+//    take element loads), ragged N (masked) and LUTs whose rows are not
+//    16-byte aligned (element loads).
 
-#include "vq_common.cuh"
+#include <map>
+#include <mutex>
+#include <tuple>
+
+#ifdef VQG_PROFILE
+namespace { __device__ __forceinline__ void stamp(int i); }
+#define VQG_STAMP(i) stamp(i)
+#endif
+#include "vq_gather.cuh"
 
 namespace {
 
-using namespace vqc;
+using namespace vqg;
 
-// Shared memory of one block: the (BM, BN) partial tile, then the staged
-// z and x (vq_common.cuh), then the indices.
-inline size_t smem_bytes(size_t acc_size, int ks, int c, int v) {
-  return acc_size * BM * BN + sizeof(float) * stage_floats(ks, c, v) +
-         (size_t)BM * ks;
+// Phase timestamps of each block, for scripts/b1_phases.py: built only
+// with -DVQG_PROFILE; thread 0 of each block writes clock64() at phase i
+// to slot i of its 16 slots, and the global timer at start and end to
+// slots 14 and 15.
+#ifdef VQG_PROFILE
+__device__ long long* vqg_prof = nullptr;
+__device__ __forceinline__ void stamp(int i) {
+  if (threadIdx.x == 0 && vqg_prof != nullptr) {
+    long long* p = vqg_prof + 16 * (blockIdx.x + gridDim.x *
+                                     (blockIdx.y + gridDim.y * blockIdx.z));
+    p[i] = clock64();
+    if (i == 0 || i == 6) {
+      unsigned long long t;
+      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+      p[i == 0 ? 14 : 15] = (long long)t;
+    }
+  }
 }
+#else
+__device__ __forceinline__ void stamp(int) {}
+#endif
 
-template <typename XT, typename LT, typename AccT, int METRIC>
+template <typename XT, typename LT, int R>
 __global__ void __launch_bounds__(THREADS)
 vq_amm_kernel(const XT* __restrict__ x, const XT* __restrict__ z,
-              const LT* __restrict__ lut, AccT* __restrict__ acc,
-              int M, int nc, int c, int v, int N, int ks, int vec_ok) {
+              const LT* __restrict__ lut, const float* __restrict__ scale,
+              float* __restrict__ out, int M, int nc, int c, int v, int N,
+              int metric, Geometry g) {
+  using AccT = typename Acc<LT>::T;
   extern __shared__ __align__(16) unsigned char smem[];
-  AccT* red = reinterpret_cast<AccT*>(smem);             // [BM][BN]
-  float* zs = reinterpret_cast<float*>(red + BM * BN);   // [ks][c*v + 1]
-  float* xs = zs + (size_t)ks * z_stride(c, v);          // [BM][ks*v + 1]
-  unsigned char* sidx =
-      reinterpret_cast<unsigned char*>(xs + (size_t)BM * x_stride(ks, v));
+  AccT* recv = reinterpret_cast<AccT*>(smem + g.off_recv);
+  float* tile_scale = reinterpret_cast<float*>(smem + g.off_scale);
+  unsigned char* idx = smem + g.off_idx;
+  unsigned char* stage = smem + g.off_stage;
+  const int rs = idx_rows(R);
+  const int n0 = blockIdx.x * tile_cols<LT>();
+  // the cluster spans grid y, so blockIdx.y is the block's cluster rank
+  const int k0 = (int)((long)blockIdx.y * nc / g.cs);
+  const int kn = (int)((long)(blockIdx.y + 1) * nc / g.cs) - k0;
+  const int m0 = blockIdx.z * ROW_CAP;
+  const int mt = min(ROW_CAP, M - m0);
 
-  const int n0 = blockIdx.x * BN;
-  const int k0 = blockIdx.y * ks;
-  const int m0 = blockIdx.z * BM;
-  const int kn = min(ks, nc - k0);
-  const int mn = min(BM, M - m0);
-
-  // phase 1: indices into shared memory only
-  assign_tile<XT, METRIC>(x, z, zs, xs, nc, c, v, ks, m0, mn, k0, kn,
-                          [&](int mi, int kk, int j) {
-                            sidx[mi * ks + kk] = (unsigned char)j;
-                          });
-  // phase 2: gather-accumulate, then the tile to acc (lut_tile)
-  lut_tile<LT, AccT>(lut, sidx, red, split_slice(acc, M, N), c, N, ks, m0,
-                     mn, k0, kn, n0, vec_ok);
+  stamp(0);
+  // the tile's scale columns go to shared memory now; the finish reads
+  // them
+  if (scale != nullptr && threadIdx.x < tile_cols<LT>() &&
+      n0 + (int)threadIdx.x < N)
+    cp_async4(tile_scale + threadIdx.x, scale + n0 + threadIdx.x);
+  assign_block<XT>(x, z, stage, idx, g, metric, nc, c, v, m0, mt, k0, kn,
+                   rs);
+  stamp(2);                            // assigned (1: x and z staged)
+  AccT a[R][epc<LT>()];
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int e = 0; e < epc<LT>(); ++e) a[i][e] = AccT(0);
+  const Lane ln = lane_of(g);
+  const int half = (kn + 1) / 2;        // partition 0 takes the lower half
+  const int kbeg = g.parts == 1 || ln.part == 0 ? 0 : half;
+  const int kend = g.parts == 1 || ln.part == 1 ? kn : half;
+  gather_block<LT, R>(lut, idx, g, c, N, k0, kbeg, kend, n0, mt, rs, ln, a);
+  stamp(3);                            // gathered
+  if constexpr (R == 1) {
+    if (g.parts == 2)
+      merge_partitions<LT>(reinterpret_cast<AccT*>(stage), mt, ln, a);
+  }
+  push_partial<LT, R>(recv, g, N, n0, mt, ln, a);
+  stamp(5);                            // past the cluster barrier (4: pushed)
+  finish_share<LT>(recv, g, scale, tile_scale, out, N, m0, mt, n0);
+  stamp(6);
 }
 
-// Subspaces per block: the split rule, cut until the staged tiles fit.
-// The same for every LUT type (the accumulators are 4 bytes each).
-inline int block_width(int M, int nc, int c, int v, int N) {
-  int ks = split_width(M, nc, N);
-  while (ks > 1 && smem_bytes(4, ks, c, v) > MAX_SMEM) --ks;
-  return ks;
+// Fixed cost of a block (assignment, partition and cluster sums) in
+// units of one subspace's LUT rows, for the cluster-size estimate.
+constexpr int FIXED_SUBSPACES = 16;
+
+using PlanKey = std::tuple<const void*, int, int, int, int, int, int, int,
+                           int>;
+std::mutex plan_mutex;
+std::map<PlanKey, Geometry> plans;
+
+// The geometry of a launch: the cluster size with the least estimated
+// time among those the card can co-schedule at this shared memory.
+template <typename XT, typename LT, int R>
+cudaError_t plan(Geometry& out, int M, int nc, int c, int v, int N,
+                 bool vec_x, bool vec_lut) {
+  const void* kern = (const void*)vq_amm_kernel<XT, LT, R>;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const PlanKey key{kern, dev, M, nc, c, v, N, (int)vec_x, (int)vec_lut};
+  std::lock_guard<std::mutex> lock(plan_mutex);
+  auto it = plans.find(key);
+  if (it != plans.end()) {
+    out = it->second;
+    return cudaSuccess;
+  }
+  int max_smem = 0;
+  err = cudaDeviceGetAttribute(&max_smem,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             max_smem);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return err;
+  const int tiles = (N + tile_cols<LT>() - 1) / tile_cols<LT>();
+  const int groups = (M + ROW_CAP - 1) / ROW_CAP;
+  const long clusters = (long)tiles * groups;
+  long best = -1;
+  for (int cs = 1; cs <= MAX_CLUSTER && cs <= nc; ++cs) {
+    Geometry g;
+    if (!make_geometry(g, M, nc, c, v, cs, R, (int)sizeof(LT), vec_x,
+                       vec_lut, max_smem))
+      continue;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(tiles, cs, groups);
+    cfg.blockDim = dim3(THREADS);
+    cfg.dynamicSmemBytes = g.smem;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = 1;
+    attr[0].val.clusterDim.y = cs;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    int active = 0;
+    if (cudaOccupancyMaxActiveClusters(&active, kern, &cfg) != cudaSuccess) {
+      cudaGetLastError();               // a size this card refuses
+      continue;
+    }
+    if (active < 1) continue;
+    const long waves = (clusters + active - 1) / active;
+    const long cost = waves * ((nc + cs - 1) / cs + FIXED_SUBSPACES);
+    if (best < 0 || cost < best) {
+      best = cost;
+      out = g;
+    }
+  }
+  if (best < 0) return cudaErrorInvalidValue;
+  plans[key] = out;
+  return cudaSuccess;
 }
 
-template <typename XT, typename LT, typename AccT>
-cudaError_t launch_typed(const void* x, const void* z, const void* lut,
-                         AccT* acc, int M, int nc, int c, int v, int N,
-                         int metric, cudaStream_t st) {
-  const int ks = block_width(M, nc, c, v, N);
-  const size_t smem = smem_bytes(sizeof(AccT), ks, c, v);
-  if (smem > MAX_SMEM) return cudaErrorInvalidValue;
-  const int splits = (nc + ks - 1) / ks;
-  const int vec_ok = (N % VEC == 0) && ((uintptr_t)lut % 16 == 0);
-  const dim3 grid((N + BN - 1) / BN, splits, (M + BM - 1) / BM);
-  const XT* xp = static_cast<const XT*>(x);
-  const XT* zp = static_cast<const XT*>(z);
-  const LT* lp = static_cast<const LT*>(lut);
-  if (metric == 0)
-    vq_amm_kernel<XT, LT, AccT, 0><<<grid, THREADS, smem, st>>>(xp, zp, lp, acc, M, nc, c, v, N, ks, vec_ok);
-  else if (metric == 1)
-    vq_amm_kernel<XT, LT, AccT, 1><<<grid, THREADS, smem, st>>>(xp, zp, lp, acc, M, nc, c, v, N, ks, vec_ok);
-  else
-    vq_amm_kernel<XT, LT, AccT, 2><<<grid, THREADS, smem, st>>>(xp, zp, lp, acc, M, nc, c, v, N, ks, vec_ok);
+// With info non-null: write the launch's cluster size, column tiles, row
+// groups, subspaces a block and shared memory bytes to info[0..4] and
+// launch nothing.
+template <typename XT, typename LT, int R>
+cudaError_t launch_r(const void* x, const void* z, const void* lut,
+                     const float* scale, float* out, int M, int nc, int c,
+                     int v, int N, int metric, cudaStream_t st, int* info) {
+  const bool vec_x = (uintptr_t)x % 16 == 0 && (uintptr_t)z % 16 == 0 &&
+                     (v * sizeof(XT)) % 16 == 0;
+  const bool vec_lut = (uintptr_t)lut % 16 == 0 &&
+                       ((size_t)N * sizeof(LT)) % 16 == 0;
+  Geometry g;
+  cudaError_t err = plan<XT, LT, R>(g, M, nc, c, v, N, vec_x, vec_lut);
+  if (err != cudaSuccess) return err;
+  const int tiles = (N + tile_cols<LT>() - 1) / tile_cols<LT>();
+  const int groups = (M + ROW_CAP - 1) / ROW_CAP;
+  if (groups > 65535) return cudaErrorInvalidValue;
+  if (info != nullptr) {
+    info[0] = g.cs; info[1] = tiles; info[2] = groups; info[3] = g.kmax;
+    info[4] = g.smem;
+    return cudaSuccess;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(tiles, g.cs, groups);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = g.smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = g.cs;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, vq_amm_kernel<XT, LT, R>,
+                           static_cast<const XT*>(x),
+                           static_cast<const XT*>(z),
+                           static_cast<const LT*>(lut), scale, out, M, nc,
+                           c, v, N, metric, g);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
+}
+
+// Rows a thread sums: 1, 2 or 4 (up to 16, 32 or 64 rows a block).
+template <typename XT, typename LT>
+cudaError_t launch_lt(const void* x, const void* z, const void* lut,
+                      const float* scale, float* out, int M, int nc, int c,
+                      int v, int N, int metric, cudaStream_t st,
+                      int* info) {
+  const int rows = M < ROW_CAP ? M : ROW_CAP;
+  if (rows <= SLOTS)
+    return launch_r<XT, LT, 1>(x, z, lut, scale, out, M, nc, c, v, N,
+                               metric, st, info);
+  if (rows <= 2 * SLOTS)
+    return launch_r<XT, LT, 2>(x, z, lut, scale, out, M, nc, c, v, N,
+                               metric, st, info);
+  return launch_r<XT, LT, 4>(x, z, lut, scale, out, M, nc, c, v, N, metric,
+                             st, info);
 }
 
 template <typename XT>
 cudaError_t launch_x(const void* x, const void* z, const void* lut,
-                     const float* scale, float* out, void* work, int M,
-                     int nc, int c, int v, int N, int lut_dtype, int metric,
-                     cudaStream_t st) {
-  cudaError_t err = zero_acc(lut_dtype, work, M, N, st);
-  if (err != cudaSuccess) return err;
-  float* fw = static_cast<float*>(work);
-  if (lut_dtype == 2)                  // int8: exact int32 accumulator
-    err = launch_typed<XT, int8_t, int>(x, z, lut, static_cast<int*>(work),
-                                        M, nc, c, v, N, metric, st);
-  else if (lut_dtype == 0)             // float LUT: one tile per split
-    err = launch_typed<XT, float, float>(x, z, lut, fw, M, nc, c, v, N,
-                                         metric, st);
-  else
-    err = launch_typed<XT, __nv_bfloat16, float>(x, z, lut, fw, M, nc, c,
-                                                 v, N, metric, st);
-  if (err != cudaSuccess) return err;
-  const int ks = block_width(M, nc, c, v, N);
-  return finish(lut_dtype, scale, out, work, M, N, (nc + ks - 1) / ks,
-                st);
+                     const float* scale, float* out, int M, int nc, int c,
+                     int v, int N, int lut_dtype, int metric,
+                     cudaStream_t st, int* info) {
+  if (lut_dtype == 2)
+    return launch_lt<XT, int8_t>(x, z, lut, scale, out, M, nc, c, v, N,
+                                 metric, st, info);
+  if (lut_dtype == 0)
+    return launch_lt<XT, float>(x, z, lut, scale, out, M, nc, c, v, N,
+                                metric, st, info);
+  return launch_lt<XT, __nv_bfloat16>(x, z, lut, scale, out, M, nc, c, v,
+                                      N, metric, st, info);
 }
 
 }  // namespace
 
-// Split-K blocks of a call at these shapes: the float-LUT work buffer
-// holds one (M, N) tile per split.
-extern "C" int vq_amm_splits(int M, int nc, int c, int v, int N) {
-  if (M <= 0 || nc <= 0 || N <= 0 || c < 1 || v < 1) return 0;
-  const int ks = block_width(M, nc, c, v, N);
-  return (nc + ks - 1) / ks;
+#ifdef VQG_PROFILE
+// Where the phase timestamps go (16 int64 a block), or null for none.
+extern "C" int vq_amm_set_prof(long long* p) {
+  return (int)cudaMemcpyToSymbol(vqg_prof, &p, sizeof(p));
 }
+#endif
 
 // x_dtype: 0 f32, 1 bf16. lut_dtype: 0 f32, 1 bf16, 2 int8.
-// metric: 0 l2, 1 l1, 2 chebyshev. scale may be null. work is the split-K
-// accumulator: (M, N) int32 for int8 LUTs, (vq_amm_splits(...), M, N)
-// float32 for float LUTs. Returns a cudaError_t.
+// metric: 0 l2, 1 l1, 2 chebyshev. scale may be null. Enqueues one
+// kernel on stream and nothing else; with info non-null it launches
+// nothing and writes the launch's geometry (launch_r). Returns a
+// cudaError_t.
 extern "C" int vq_amm_launch(const void* x, const void* z, const void* lut,
-                             const void* scale, void* out, void* work,
-                             int M, int nc, int c, int v, int N,
-                             int x_dtype, int lut_dtype, int metric,
-                             void* stream) {
+                             const void* scale, void* out, int M, int nc,
+                             int c, int v, int N, int x_dtype,
+                             int lut_dtype, int metric, void* stream,
+                             int* info) {
   if (M <= 0 || nc <= 0 || N <= 0 || c < 1 || c > 256 || v < 1 ||
       x_dtype < 0 || x_dtype > 1 || lut_dtype < 0 ||
       lut_dtype > 2 || metric < 0 || metric > 2)
@@ -172,9 +318,9 @@ extern "C" int vq_amm_launch(const void* x, const void* z, const void* lut,
   const float* sp = static_cast<const float*>(scale);
   float* op = static_cast<float*>(out);
   cudaError_t err = x_dtype == 0
-      ? launch_x<float>(x, z, lut, sp, op, work, M, nc, c, v, N, lut_dtype,
-                        metric, st)
-      : launch_x<__nv_bfloat16>(x, z, lut, sp, op, work, M, nc, c, v, N,
-                                lut_dtype, metric, st);
+      ? launch_x<float>(x, z, lut, sp, op, M, nc, c, v, N, lut_dtype,
+                        metric, st, info)
+      : launch_x<__nv_bfloat16>(x, z, lut, sp, op, M, nc, c, v, N,
+                                lut_dtype, metric, st, info);
   return (int)err;
 }

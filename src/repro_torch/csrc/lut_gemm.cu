@@ -16,21 +16,21 @@
 // add per byte -- the same LUT traffic as B1, plus the (M, nc) indices
 // that the fused kernel never writes or reads.
 //
-// Design: B1's phase 2 with the indices read in. One block per (128-
-// column tile, group of ks subspaces, 8-row tile); the nc subspaces are
-// split across blocks exactly as B1 splits them (split_width), so M = 8
-// still puts ~2 blocks on each of the 132 SMs. For int8 LUTs the partial
-// sums meet with atomics in an (M, N) int32 accumulator (exact and
-// order-free). For float LUTs each block stores its tile into its split's
-// slice of a (splits, M, N) fp32 buffer and B1's finish kernel sums the
-// splits in split order, so no float atomic decides the last bits: the
-// same input gives the same output on every run, as the TPU kernel's
-// sequential k axis does. The block loads its tile of indices into shared
-// memory (uint8, c <= 256) and runs B1's own gather-accumulate
-// (vq_common.cuh, lut_tile); the scale is applied once at the end by B1's
-// finish kernel. So for int8 LUTs B4(B3(x)) equals B1(x) bit for bit
-// (float LUTs: only where both take the same split width, as B1 narrows
-// it to fit its staged tiles). Ragged M, nc and N are masked; nothing is
+// Design: the first version of B1's gather-accumulate (vq_common.cuh,
+// lut_tile) with the indices read in. One block per (128-column tile,
+// group of ks subspaces, 8-row tile); the nc subspaces are split across
+// blocks by split_width, so M = 8 still puts ~2 blocks on each of the 132
+// SMs. For int8 LUTs the partial sums meet with atomics in an (M, N)
+// int32 accumulator (exact and order-free). For float LUTs each block
+// stores its tile into its split's slice of a (splits, M, N) fp32 buffer
+// and the finish kernel sums the splits in split order, so no float
+// atomic decides the last bits: the same input gives the same output on
+// every run, as the TPU kernel's sequential k axis does. The block loads
+// its tile of indices into shared memory (uint8, c <= 256); the scale is
+// applied once at the end by the finish kernel. For int8 LUTs the output
+// is (float)(exact int32 sum) * scale, the expression B1 writes, so
+// B4(B3(x)) equals B1(x) bit for bit (float LUTs: not in general, the two
+// sum in different orders). Ragged M, nc and N are masked; nothing is
 // padded.
 
 #include "vq_common.cuh"

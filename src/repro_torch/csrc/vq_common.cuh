@@ -1,11 +1,12 @@
-// Device code shared by the VQ-AMM kernels: B1 (fused_amm.cu), B3
-// (assign.cu) and B4 (lut_gemm.cu).
+// Device code shared by the VQ-AMM kernels: B1 (fused_amm.cu, through
+// vq_gather.cuh), B3 (assign.cu) and B4 (lut_gemm.cu).
 //
-// B3 is B1's assignment with the indices written out, B4 is B1's LUT
-// gather-accumulate with the indices read in. All three include this one
-// header, so that B3's indices are B1's indices bit for bit (the same
-// distance code in the same fp32 order, the first strict minimum) and
-// B4's int8 sums and scale are B1's. The distance sums use explicit
+// B1 and B3 assign with the one distance and nearest code below, so B3's
+// indices are B1's bit for bit (the same fp32 order, the first strict
+// minimum). B3 stages its tiles with assign_tile; B4 is the first
+// version's LUT gather-accumulate (lut_tile, split_width, zero_acc,
+// finish) with the indices read in; its int8 output, (float)(int32 sum) *
+// scale, is the expression B1 writes. The distance sums use explicit
 // round-to-nearest intrinsics, so nvcc cannot contract them into FMAs in
 // one kernel and not in another.
 

@@ -1,0 +1,484 @@
+// Device code of the one-launch VQ-AMM gather-accumulate for Hopper:
+// kernel B1 (fused_amm.cu) runs it after its assignment; B4 (lut_gemm.cu)
+// can run it on indices it reads in.
+//
+// A block owns one tile of 256 bytes of output columns (256 int8, 128
+// bfloat16 or 64 float32 LUT columns), a range of the nc subspaces, and
+// up to ROW_CAP rows of x. The blocks of one column tile split the
+// subspaces between them and form one thread block cluster along the k
+// axis (grid y = cluster size cs):
+//  1. The block's indices idx[kk, m] sit in shared memory (uint8); they
+//     never reach device memory.
+//  2. Thread t owns 16-byte column chunk t % CH of its rows (lane_of) and
+//     gathers lut[k, idx[kk, m], its chunk] straight into registers with
+//     16-byte loads, 16 in flight (two batches of LOADS, one added while
+//     the next lands). Rows of x that select the same LUT row in one
+//     subspace load the same line at about the same time, which the
+//     caches serve after its first load: device memory sees each
+//     selected row once per (column tile, k range). A shared-memory ring
+//     fed by 16-byte cp.async, or by one TMA bulk copy a row, was slower
+//     on the H100: its copies stalled at issue (PERF.md, PR 18).
+//  3. Sums stay in registers in subspace order: int8 with dp4a into int32
+//     (exact), float32 and bfloat16 in fp32.
+//  4. Each block pushes its partial tile into the shared memory of the
+//     ranks that own its parts (push_partial, distributed shared memory);
+//     after one cluster barrier, rank r sums its share over the ranks in
+//     rank order, applies the scale and writes out (finish_share). No
+//     atomic touches a sum, so a float result is the same on every
+//     launch, and an int8 result is (float)(exact int32 sum) * scale[n],
+//     which is B4's expression.
+
+#pragma once
+
+#include <cooperative_groups.h>
+
+#include "vq_common.cuh"
+
+#ifndef VQG_STAMP
+#define VQG_STAMP(i)
+#endif
+
+namespace vqg {
+
+namespace cg = cooperative_groups;
+
+constexpr int THREADS = 256;
+constexpr int CHUNK = 16;                 // bytes a lane sums at once
+constexpr int CH = 16;                    // chunks across a tile row
+constexpr int TILE_BYTES = CH * CHUNK;    // 256 bytes of columns a tile
+constexpr int SLOTS = THREADS / CH;       // row slots of the threads
+constexpr int ROW_CAP = 4 * SLOTS;        // rows of x a block sums
+constexpr int LOADS = 8;                  // 16-byte loads a batch
+// Shared memory the assignment's staging may take: the rest of the SM
+// stays L1, which serves the repeated LUT lines.
+constexpr int STAGING_BYTES = 48 * 1024;
+constexpr int MAX_CLUSTER = 16;           // non-portable cluster size
+static_assert(CH * CHUNK <= THREADS, "a tile's scale columns: one a thread");
+
+template <typename LT> struct Acc { using T = float; };
+template <> struct Acc<int8_t> { using T = int; };
+
+// LUT elements in one 16-byte chunk, and tile width in elements.
+template <typename LT>
+__host__ __device__ constexpr int epc() { return CHUNK / (int)sizeof(LT); }
+template <typename LT>
+__host__ __device__ constexpr int tile_cols() { return CH * epc<LT>(); }
+
+// The floats of one 16-byte load of float32 or bfloat16 values (bf16 ->
+// f32 by a shift, which is what __bfloat162float does).
+__device__ __forceinline__ void unpack(const uint4& q, float (&f)[4]) {
+  f[0] = __uint_as_float(q.x); f[1] = __uint_as_float(q.y);
+  f[2] = __uint_as_float(q.z); f[3] = __uint_as_float(q.w);
+}
+__device__ __forceinline__ void unpack(const uint4& q, float (&f)[8]) {
+  const unsigned w[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[2 * i] = __uint_as_float(w[i] << 16);
+    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
+// Add one 16-byte chunk of LUT row into a thread's accumulators: int8
+// with dp4a and a one-hot vector (one signed byte added an instruction,
+// exact), float32 and bfloat16 in fp32.
+__device__ __forceinline__ void add_chunk(const uint4& q, int* a) {
+  const int w[4] = {(int)q.x, (int)q.y, (int)q.z, (int)q.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    a[4 * i + 0] = __dp4a(w[i], 0x00000001, a[4 * i + 0]);
+    a[4 * i + 1] = __dp4a(w[i], 0x00000100, a[4 * i + 1]);
+    a[4 * i + 2] = __dp4a(w[i], 0x00010000, a[4 * i + 2]);
+    a[4 * i + 3] = __dp4a(w[i], 0x01000000, a[4 * i + 3]);
+  }
+}
+template <typename LT>
+__device__ __forceinline__ void add_any(const uint4& q,
+                                        typename Acc<LT>::T* a) {
+  if constexpr (std::is_same<LT, int8_t>::value) {
+    add_chunk(q, a);
+  } else {
+    float f[epc<LT>()];
+    unpack(q, f);
+#pragma unroll
+    for (int e = 0; e < epc<LT>(); ++e) a[e] += f[e];
+  }
+}
+
+__device__ __forceinline__ unsigned bits(int a) { return (unsigned)a; }
+__device__ __forceinline__ unsigned bits(float a) { return __float_as_uint(a); }
+__device__ __forceinline__ void from_bits(unsigned b, int& a) { a = (int)b; }
+__device__ __forceinline__ void from_bits(unsigned b, float& a) {
+  a = __uint_as_float(b);
+}
+
+// 4-byte asynchronous copy to shared memory, and its wait (PTX).
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_addr(dst)), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+// What the host decides for one launch; every block of the grid gets the
+// same copy, so every block has the same shared-memory layout (the
+// ranks of a cluster write into each other's memory at their own
+// offsets).
+struct Geometry {
+  int cs;          // cluster size = k splits = grid y
+  int kmax;        // most subspaces a block takes, ceil(nc / cs)
+  int rows;        // rows of x a block takes, min(M, ROW_CAP)
+  int parts;       // k partitions of a block: 2 up to 8 rows, else 1
+  int ka;          // subspaces staged at once for the assignment
+  int vec_x;       // x and z take 16-byte loads
+  int vec_lut;     // LUT rows take 16-byte loads
+  // byte offsets in shared memory: the partials the other ranks push
+  // here, the tile's scale, the indices, then the assignment's staging
+  int off_recv, off_scale, off_idx, off_stage;
+  int smem;        // dynamic shared memory bytes
+};
+
+// Row stride of the index array: SLOTS per row a thread sums.
+__host__ __device__ inline int idx_rows(int r) { return SLOTS * r; }
+
+// Host: the geometry at a cluster size, for rows-per-thread r and LUT
+// element size le. Returns false when one block's shared memory would
+// exceed max_smem.
+inline bool make_geometry(Geometry& g, int M, int nc, int c, int v,
+                          int cs, int r, int le, bool vec_x, bool vec_lut,
+                          int max_smem) {
+  auto up16 = [](size_t b) { return (b + 15) / 16 * 16; };
+  g.cs = cs;
+  g.kmax = (nc + cs - 1) / cs;
+  g.rows = M < ROW_CAP ? M : ROW_CAP;
+  g.parts = g.rows <= SLOTS / 2 ? 2 : 1;
+  g.vec_x = vec_x;
+  g.vec_lut = vec_lut;
+  size_t off = 0;
+  g.off_recv = 0;
+  const size_t slen = ((size_t)g.rows * (TILE_BYTES / le) / 4 + cs - 1) / cs;
+  off += (size_t)cs * slen * 16;
+  g.off_scale = (int)off;
+  off += up16(4 * (size_t)(TILE_BYTES / le));
+  g.off_idx = (int)off;
+  off += up16((size_t)g.kmax * idx_rows(r));
+  g.off_stage = (int)off;
+  const size_t per_sub = 4 * ((size_t)vqc::z_stride(c, v) +
+                              (size_t)g.rows * v);
+  long ka = ((long)STAGING_BYTES - 4L * g.rows) / (long)per_sub;
+  if (ka < 1) ka = 1;
+  if (ka > g.kmax) ka = g.kmax;
+  g.ka = (int)ka;
+  const size_t staging = 4 * ((size_t)g.ka * vqc::z_stride(c, v) +
+                               (size_t)g.rows * vqc::x_stride(g.ka, v));
+  // after the assignment the staging area holds partition 1's tile
+  const size_t merge = g.parts == 2 ? (size_t)g.rows * TILE_BYTES / le * 4
+                                    : 0;
+  off += staging > merge ? staging : merge;
+  g.smem = (int)off;
+  return off <= (size_t)max_smem;
+}
+
+__device__ __forceinline__ int nearest_any(const float* xr, const float* zk,
+                                           int c, int v, int metric) {
+  return metric == 0 ? vqc::nearest<0>(xr, zk, c, v, v)
+       : metric == 1 ? vqc::nearest<1>(xr, zk, c, v, v)
+                     : vqc::nearest<2>(xr, zk, c, v, v);
+}
+
+// The assignment of a block: rows m0 .. m0+mt, subspaces k0 .. k0+kn,
+// staged ka subspaces at a time (fp32, in the staging area), one thread
+// per (row, subspace) pair running vq_common's nearest, so the indices
+// are B3's bit for bit. x and z come in with 16-byte loads, eight in
+// flight a thread, where their rows are 16-byte aligned. Writes
+// idx[kk * rs + m]. Ends with a __syncthreads.
+template <typename XT>
+__device__ __forceinline__ void assign_block(
+    const XT* __restrict__ x, const XT* __restrict__ z,
+    unsigned char* stage, unsigned char* idx, const Geometry& g,
+    int metric, int nc, int c, int v, int m0, int mt,
+    int k0, int kn, int rs) {
+  const int tid = threadIdx.x;
+  const int cv = c * v, zst = vqc::z_stride(c, v);
+  const int xst = vqc::x_stride(g.ka, v);
+  float* zs = reinterpret_cast<float*>(stage);
+  float* xs = zs + (size_t)g.ka * zst;
+  constexpr int EX = 16 / (int)sizeof(XT);   // elements a 16-byte load
+  for (int a0 = 0; a0 < kn; a0 += g.ka) {
+    const int an = min(g.ka, kn - a0);
+    const XT* zsrc = z + (size_t)(k0 + a0) * cv;
+    if (g.vec_x) {
+      // z's and x's 16-byte loads of this chunk all go out before any
+      // is stored: one round trip to memory, eight loads a thread
+      const int nz = an * cv / EX;
+      const int rowq = an * v / EX;          // 16-byte loads a row of x
+      const int nall = nz + mt * rowq;
+      const uint4* zq = reinterpret_cast<const uint4*>(zsrc);
+      for (int b = tid; b < nall; b += 8 * THREADS) {
+        uint4 buf[8];
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          const int i = b + u * THREADS;
+          if (i < nz) {
+            buf[u] = __ldg(zq + i);
+          } else if (i < nall) {
+            const int mi = (i - nz) / rowq, q = (i - nz) % rowq;
+            buf[u] = __ldg(reinterpret_cast<const uint4*>(
+                x + ((size_t)(m0 + mi) * nc + k0 + a0) * v) + q);
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          const int i = b + u * THREADS;
+          float f[EX];
+          unpack(buf[u], f);
+          if (i < nz) {
+            const int e0 = i * EX, kk = e0 / cv, r = e0 % cv;
+#pragma unroll
+            for (int q = 0; q < EX; ++q) zs[kk * zst + r + q] = f[q];
+          } else if (i < nall) {
+            const int mi = (i - nz) / rowq, q = (i - nz) % rowq;
+#pragma unroll
+            for (int t = 0; t < EX; ++t) xs[mi * xst + q * EX + t] = f[t];
+          }
+        }
+      }
+    } else {
+      for (int i = tid; i < an * cv; i += THREADS)
+        zs[(i / cv) * zst + i % cv] = vqc::to_f(zsrc[i]);
+      const int xw = an * v;
+      for (int i = tid; i < mt * xw; i += THREADS) {
+        const int mi = i / xw, j = i % xw;
+        xs[mi * xst + j] =
+            vqc::to_f(x[((size_t)(m0 + mi) * nc + k0 + a0) * v + j]);
+      }
+    }
+    __syncthreads();
+    if (a0 == 0) VQG_STAMP(1);
+    // neighbouring threads share a subspace: their z reads broadcast
+    const int pairs = an * mt;
+    if (v == 8) {        // the main path: v a literal, x in registers
+      for (int t = tid; t < pairs; t += THREADS) {
+        const int kk = t / mt, mi = t % mt;
+        float xv[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) xv[i] = xs[mi * xst + kk * 8 + i];
+        const int j = nearest_any(xv, zs + kk * zst, c, 8, metric);
+        idx[(a0 + kk) * rs + mi] = (unsigned char)j;
+      }
+    } else {
+      for (int t = tid; t < pairs; t += THREADS) {
+        const int kk = t / mt, mi = t % mt;
+        const int j = nearest_any(xs + mi * xst + kk * v, zs + kk * zst, c,
+                                  v, metric);
+        idx[(a0 + kk) * rs + mi] = (unsigned char)j;
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// The rows a thread sums: up to 8 rows of x, the block's threads split
+// into two k partitions (slot / 8), each taking one row (slot % 8) and
+// half of the subspaces, so all 8 warps gather; above 8 rows, one
+// partition and rows slot + SLOTS * i.
+struct Lane {
+  int rbase, mrow, part;
+};
+__device__ __forceinline__ Lane lane_of(const Geometry& g) {
+  const int slot = threadIdx.x / CH;
+  if (g.parts == 2) return {slot % (SLOTS / 2), SLOTS / 2, slot / (SLOTS / 2)};
+  return {slot, SLOTS, 0};
+}
+
+// One batch: the BK subspaces from kb on (below kend), R rows each, into
+// buf.
+template <typename LT, int R, int BK>
+__device__ __forceinline__ void load_batch(
+    uint4 (&buf)[BK][R], const LT* __restrict__ base,
+    const unsigned char* idx, int kb, int kend, int c, int N, Lane ln,
+    int mt, int rs) {
+#pragma unroll
+  for (int u = 0; u < BK; ++u) {
+    const int kk = kb + u;
+    if (kk < kend) {
+      const LT* rowk = base + (size_t)kk * c * N;
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const int m = ln.rbase + ln.mrow * i;
+        if (m < mt)
+          buf[u][i] = __ldg(reinterpret_cast<const uint4*>(
+              rowk + (size_t)idx[kk * rs + m] * N));
+      }
+    }
+  }
+}
+
+template <typename LT, int R, int BK>
+__device__ __forceinline__ void add_batch(
+    const uint4 (&buf)[BK][R], int kb, int kend, Lane ln, int mt,
+    typename Acc<LT>::T (&a)[R][epc<LT>()]) {
+#pragma unroll
+  for (int u = 0; u < BK; ++u)
+    if (kb + u < kend)
+#pragma unroll
+      for (int i = 0; i < R; ++i)
+        if (ln.rbase + ln.mrow * i < mt) add_any<LT>(buf[u][i], a[i]);
+}
+
+// Gather-accumulate of subspaces k0 + [kbeg, kend) for the thread's rows
+// and column chunk, in subspace order. 16-byte aligned LUT rows: two
+// batches of LOADS 16-byte loads in flight, the next loading while the
+// current is added. Otherwise element loads (columns past N skipped).
+template <typename LT, int R>
+__device__ __forceinline__ void gather_block(
+    const LT* __restrict__ lut, const unsigned char* idx, const Geometry& g,
+    int c, int N, int k0, int kbeg, int kend, int n0, int mt, int rs,
+    Lane ln, typename Acc<LT>::T (&a)[R][epc<LT>()]) {
+  constexpr int E = epc<LT>();
+  constexpr int BK = LOADS / R > 0 ? LOADS / R : 1;
+  const int col = n0 + (int)(threadIdx.x % CH) * E;
+  if (col >= N || ln.rbase >= mt) return;
+  const LT* base = lut + (size_t)k0 * c * N + col;
+  if (g.vec_lut) {
+    uint4 b0[BK][R], b1[BK][R];
+    load_batch<LT, R, BK>(b0, base, idx, kbeg, kend, c, N, ln, mt, rs);
+    for (int kb = kbeg; kb < kend; kb += 2 * BK) {
+      load_batch<LT, R, BK>(b1, base, idx, kb + BK, kend, c, N, ln, mt, rs);
+      add_batch<LT, R, BK>(b0, kb, kend, ln, mt, a);
+      load_batch<LT, R, BK>(b0, base, idx, kb + 2 * BK, kend, c, N, ln, mt,
+                            rs);
+      add_batch<LT, R, BK>(b1, kb + BK, kend, ln, mt, a);
+    }
+  } else {
+    for (int kk = kbeg; kk < kend; ++kk) {
+      const LT* rowk = base + (size_t)kk * c * N;
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const int m = ln.rbase + ln.mrow * i;
+        if (m < mt) {
+          const LT* p = rowk + (size_t)idx[kk * rs + m] * N;
+#pragma unroll
+          for (int e = 0; e < E; ++e)
+            if (col + e < N) a[i][e] += vqc::to_acc(p[e]);
+        }
+      }
+    }
+  }
+}
+
+// Quads (4 accumulators, 16 bytes) of the (mt, BNE) tile that one rank
+// finishes: rank r owns quads r * slen .. (r + 1) * slen.
+template <typename LT>
+__device__ __forceinline__ int share_len(int mt, int cs) {
+  const int quads = mt * tile_cols<LT>() / 4;
+  return (quads + cs - 1) / cs;
+}
+
+// With two k partitions: partition 1 leaves its tile in shared memory
+// (scratch, the staging area) and partition 0 adds it to its own, in
+// that order (lower subspaces first). Ends with a __syncthreads.
+template <typename LT>
+__device__ __forceinline__ void merge_partitions(
+    typename Acc<LT>::T* scratch, int mt, Lane ln,
+    typename Acc<LT>::T (&a)[1][epc<LT>()]) {
+  using AccT = typename Acc<LT>::T;
+  constexpr int E = epc<LT>(), BNE = tile_cols<LT>();
+  AccT* t = scratch + (size_t)ln.rbase * BNE + (threadIdx.x % CH) * E;
+  const bool row = ln.rbase < mt;       // scratch holds mt rows
+  if (row && ln.part == 1)
+#pragma unroll
+    for (int e = 0; e < E; e += 4)
+      *reinterpret_cast<uint4*>(t + e) =
+          make_uint4(bits(a[0][e]), bits(a[0][e + 1]), bits(a[0][e + 2]),
+                     bits(a[0][e + 3]));
+  __syncthreads();
+  if (row && ln.part == 0)
+#pragma unroll
+    for (int e = 0; e < E; ++e) a[0][e] += t[e];
+}
+
+// Partition 0's threads store the block's partial sums straight into the
+// shared memory of the rank that owns them (distributed shared memory),
+// in this rank's slot: recv[rank * slen + l] on the owner. Then the
+// cluster barrier: after it, each rank holds every partial of its share
+// and no rank touches another's memory again.
+template <typename LT, int R>
+__device__ __forceinline__ void push_partial(
+    typename Acc<LT>::T* recv, const Geometry& g, int N, int n0, int mt,
+    Lane ln, typename Acc<LT>::T (&a)[R][epc<LT>()]) {
+  using AccT = typename Acc<LT>::T;
+  constexpr int E = epc<LT>(), BNE = tile_cols<LT>();
+  cg::cluster_group cluster = cg::this_cluster();
+  const int ch = threadIdx.x % CH;
+  const int slen = share_len<LT>(mt, g.cs);
+  if (ln.part == 0 && n0 + ch * E < N) {
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const int m = ln.rbase + ln.mrow * i;
+      if (m >= mt) continue;
+#pragma unroll
+      for (int w = 0; w < E / 4; ++w) {
+        const int u = (m * BNE + ch * E) / 4 + w;
+        const int owner = u / slen;
+        AccT* dst = cluster.map_shared_rank(recv, owner) +
+                    4 * ((size_t)blockIdx.y * slen + (u - owner * slen));
+        *reinterpret_cast<uint4*>(dst) = make_uint4(
+            bits(a[i][4 * w]), bits(a[i][4 * w + 1]), bits(a[i][4 * w + 2]),
+            bits(a[i][4 * w + 3]));
+      }
+    }
+  }
+  VQG_STAMP(4);
+  cp_async_wait_all();               // this thread's scale column
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// Rank r's share of the tile: the partials of every rank in rank order
+// -- subspace order -- summed from its own shared memory,
+// scaled (tile_scale: the tile's scale columns, copied into shared
+// memory at the start) and written to out.
+template <typename LT>
+__device__ __forceinline__ void finish_share(
+    const typename Acc<LT>::T* recv, const Geometry& g,
+    const float* __restrict__ scale, const float* tile_scale,
+    float* __restrict__ out, int N, int m0, int mt, int n0) {
+  using AccT = typename Acc<LT>::T;
+  constexpr int BNE = tile_cols<LT>();
+  const int slen = share_len<LT>(mt, g.cs);
+  const int quads = mt * BNE / 4;
+  const int srcs = g.cs;
+  for (int l = threadIdx.x; l < slen; l += THREADS) {
+    const int u = (int)blockIdx.y * slen + l;
+    if (u >= quads) break;
+    const int e = 4 * u, m = e / BNE, col = e % BNE, n = n0 + col;
+    if (n >= N) continue;
+    AccT s[4], t4[4];
+    uint4 q = *reinterpret_cast<const uint4*>(recv + 4 * (size_t)l);
+    from_bits(q.x, s[0]); from_bits(q.y, s[1]);
+    from_bits(q.z, s[2]); from_bits(q.w, s[3]);
+#pragma unroll 4
+    for (int k = 1; k < srcs; ++k) {
+      q = *reinterpret_cast<const uint4*>(recv + 4 * ((size_t)k * slen + l));
+      from_bits(q.x, t4[0]); from_bits(q.y, t4[1]);
+      from_bits(q.z, t4[2]); from_bits(q.w, t4[3]);
+#pragma unroll
+      for (int t = 0; t < 4; ++t) s[t] += t4[t];
+    }
+    float* o = out + (size_t)(m0 + m) * N + n;
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      if (n + t < N) {
+        float val = (float)s[t];
+        if (scale != nullptr) val *= tile_scale[col + t];
+        o[t] = val;
+      }
+    }
+  }
+}
+
+}  // namespace vqg

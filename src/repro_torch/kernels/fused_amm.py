@@ -1,15 +1,14 @@
 """Kernel B1 wrapper: fused VQ-assign + LUT gather-accumulate on Hopper.
 
 Port of ``repro.kernels.fused_amm.vq_amm_pallas``. The kernel is CUDA C++
-in ``csrc/fused_amm.cu`` (its header says what bounds it and how it is
-built); this module checks the arguments, allocates the output and the
-split-K accumulator (int32 (M, N) for int8 LUTs; one float32 (M, N) tile
-per split for float LUTs, summed in split order by the kernel's finish
-step, so float results are the same on every run), and launches it on
-the current stream through the
-library ``kernels._build`` makes. The plain version is
-``kernels.ref.vq_amm_ref``; ``kernels.ops.vq_amm`` picks between the two
-by device.
+in ``csrc/fused_amm.cu`` and ``csrc/vq_gather.cuh`` (their headers say
+what bounds it and how it is built); this module checks the arguments,
+allocates the output, and makes one C call that enqueues one kernel on
+the current stream (no memset, no work buffer: the split-K sums meet in
+a thread block cluster, in a fixed order, so float results are the same
+on every run) through the library ``kernels._build`` makes. The plain
+version is ``kernels.ref.vq_amm_ref``; ``kernels.ops.vq_amm`` picks
+between the two by device.
 
 ``vq_amm_cuda.launches`` counts launches.
 """
@@ -33,22 +32,10 @@ _I = ctypes.c_int
 def _lib():
     lib = _build.load("fused_amm")
     if lib.vq_amm_launch.argtypes is None:
-        lib.vq_amm_launch.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                      _I, _I, _I, _I, _I, _P]
+        lib.vq_amm_launch.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                      _I, _I, _I, _I, _P, _P]
         lib.vq_amm_launch.restype = _I
-        lib.vq_amm_splits.argtypes = [_I] * 5
-        lib.vq_amm_splits.restype = _I
     return lib
-
-
-def work_buffer(splits, lut: torch.Tensor, m: int, n: int) -> torch.Tensor:
-    """The split-K accumulator of B1 and B4: (M, N) int32 for an int8 LUT
-    (exact atomic sums), else (splits(), M, N) float32, one tile per
-    split (``splits`` is called only then)."""
-    if lut.dtype == torch.int8:
-        return torch.empty((m, n), dtype=torch.int32, device=lut.device)
-    return torch.empty((splits(), m, n), dtype=torch.float32,
-                       device=lut.device)
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -97,14 +84,13 @@ def vq_amm_cuda(x: torch.Tensor, z: torch.Tensor, lut: torch.Tensor,
            "sizes beyond int32 indexing")
     lib = _lib()
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    work = work_buffer(lambda: lib.vq_amm_splits(m, nc, c, v, n), lut, m, n)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.vq_amm_launch(
             x.data_ptr(), z.data_ptr(), lut.data_ptr(),
             scale.data_ptr() if scale is not None else None, out.data_ptr(),
-            work.data_ptr(), m, nc, c, v, n, _X_DTYPES[x.dtype],
-            _LUT_DTYPES[lut.dtype], _METRICS[metric], stream)
+            m, nc, c, v, n, _X_DTYPES[x.dtype],
+            _LUT_DTYPES[lut.dtype], _METRICS[metric], stream, None)
     if err != 0:
         raise RuntimeError(f"vq_amm_cuda: launch failed with cudaError {err}")
     vq_amm_cuda.launches += 1
@@ -112,3 +98,21 @@ def vq_amm_cuda(x: torch.Tensor, z: torch.Tensor, lut: torch.Tensor,
 
 
 vq_amm_cuda.launches = 0
+
+
+def vq_amm_geometry(x: torch.Tensor, z: torch.Tensor,
+                    lut: torch.Tensor) -> dict:
+    """The launch that ``vq_amm_cuda`` makes for these CUDA operands,
+    without making it: cluster size (k splits), column tiles, row groups,
+    subspaces a block and shared memory bytes a block."""
+    m, nc, v = x.shape
+    info = (ctypes.c_int * 5)()
+    with torch.cuda.device(x.device):
+        err = _lib().vq_amm_launch(
+            x.data_ptr(), z.data_ptr(), lut.data_ptr(), None, None, m, nc,
+            z.shape[1], v, lut.shape[2], _X_DTYPES[x.dtype],
+            _LUT_DTYPES[lut.dtype], 0, None, info)
+    if err != 0:
+        raise RuntimeError(f"vq_amm_geometry: cudaError {err}")
+    return dict(zip(("cluster", "tiles", "row_groups", "subspaces", "smem"),
+                    info))

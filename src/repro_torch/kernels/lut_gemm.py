@@ -2,13 +2,13 @@
 the two passes that ``QuantConfig(fuse=False)`` runs.
 
 Port of ``repro.kernels.lut_gemm.lut_gemm_pallas``. The kernel is CUDA C++
-in ``csrc/lut_gemm.cu`` (its header says what bounds it); it runs kernel
-B1's own gather-accumulate and scale (``csrc/vq_common.cuh``), so for int8
-LUTs ``lut_gemm_cuda(vq_assign_cuda(x, z), lut, s)`` equals
+in ``csrc/lut_gemm.cu`` (its header says what bounds it); its int8 sums
+are exact int32 sums times the scale, B1's expression, so for int8 LUTs
+``lut_gemm_cuda(vq_assign_cuda(x, z), lut, s)`` equals
 ``vq_amm_cuda(x, z, lut, s)`` bit for bit. This module checks the
-arguments, allocates the output and B1's split-K accumulator
-(``fused_amm.work_buffer``) and launches the kernel on the current
-stream. The plain version is
+arguments, allocates the output and the split-K accumulator
+(``work_buffer``) and launches the kernel on the current stream. The
+plain version is
 ``kernels.ref.lut_gemm_onehot``; ``kernels.ops.lut_matmul`` picks between
 the two by device.
 
@@ -22,7 +22,7 @@ from typing import Optional
 import torch
 
 from . import _build
-from .fused_amm import _LUT_DTYPES, work_buffer
+from .fused_amm import _LUT_DTYPES
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -37,6 +37,16 @@ def _lib():
         lib.lut_gemm_splits.argtypes = [_I] * 3
         lib.lut_gemm_splits.restype = _I
     return lib
+
+
+def work_buffer(splits, lut: torch.Tensor, m: int, n: int) -> torch.Tensor:
+    """The split-K accumulator: (M, N) int32 for an int8 LUT (exact
+    atomic sums), else (splits(), M, N) float32, one tile per split
+    (``splits`` is called only then)."""
+    if lut.dtype == torch.int8:
+        return torch.empty((m, n), dtype=torch.int32, device=lut.device)
+    return torch.empty((splits(), m, n), dtype=torch.float32,
+                       device=lut.device)
 
 
 def _check(cond: bool, msg: str) -> None:

@@ -8,10 +8,13 @@ G up to 8, a split over all of a slot's pages, a split size that does not
 divide the page count and the default split rule (B2); the same over
 uint8 code pools, D of 64 to 256, exact-cover tables above 48 KB, and
 codebooks whose tables only B5's dequantize form takes (B5); pools at a
-storage offset that is not 16-byte aligned (B2, B5); float-LUT B1 and B4
-launched twice on one input (bit for bit equal) and what a call
-enqueues; the fold kernel on B2's and B5's triples, pages 4 to 64, G up
-to 8, D up to 256, and one flash_decode_paged call as three kernels.
+storage offset that is not 16-byte aligned (B1's LUT, B2, B5); B1 at
+shapes that cross its tiling's edges (1 to 300 rows, c of 2 to 256,
+subspaces that do not divide into its cluster's ranks); float-LUT B1 and
+B4 launched twice on one input (bit for bit equal) and what a call
+enqueues (B1: one kernel); the fold kernel on B2's and B5's triples,
+pages 4 to 64, G up to 8, D up to 256, and one flash_decode_paged call
+as three kernels.
 
 Needs a CUDA device and ``nvcc``: marked ``cuda``, and skipped when torch
 sees no card. On a machine with an H100, from the repository root:
@@ -44,10 +47,18 @@ from repro_torch.kernels.lut_gemm import lut_gemm_cuda  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
-# (M, nc, v, c, N): ragged everywhere; the last two need several k splits
-# and several 8-row tiles
+# (M, nc, v, c, N): ragged everywhere; the 40-row and 9-row shapes need
+# several k splits and several 8-row tiles of B3 and B4; the rest cross
+# B1's edges: rows a block sums (1-16, 17-32, 33-64 and above 64, so
+# several row groups), subspaces that do not divide into the cluster's
+# ranks, c of 2, 16 and 256, and N not a multiple of B1's column tile
+# (256 int8, 128 bfloat16, 64 float32 columns) or of 16
 B1_SHAPES = [(17, 5, 3, 7, 33), (1, 3, 4, 9, 50), (23, 11, 8, 16, 130),
-             (40, 700, 8, 16, 300), (9, 90, 8, 256, 70)]
+             (40, 700, 8, 16, 300), (9, 90, 8, 256, 70),
+             (8, 320, 8, 16, 6912), (31, 37, 8, 2, 257),
+             (32, 101, 8, 16, 1000), (33, 64, 4, 16, 520),
+             (64, 45, 8, 256, 300), (65, 29, 3, 16, 130),
+             (300, 53, 8, 16, 777)]
 
 
 @pytest.fixture
@@ -170,6 +181,23 @@ def test_flash_decode_splits_kernel_matches_plain(dev, kv_dtype, h, kvh, d,
     m, l, acc = got
     assert bool((m[:, 1] == neg).all() and (l[:, 1] == 0).all()
                 and (acc[:, 1] == 0).all())          # pos = -1: identity
+
+
+@pytest.mark.parametrize("lut_dtype", [torch.float32, torch.bfloat16,
+                                       torch.int8])
+def test_vq_amm_kernel_takes_misaligned_luts(dev, lut_dtype):
+    """A LUT whose data starts one element past a 16-byte boundary takes
+    B1's element loads and gives the plain version's result."""
+    for i in (2, 5, 7, 9):
+        x, z, lut, scale = _b1_inputs(B1_SHAPES[i], torch.bfloat16,
+                                      lut_dtype, i, dev)
+        got = vq_amm_cuda(x, z, _misaligned(lut), scale)
+        want = tref.vq_amm_ref(x, z, lut, scale)
+        torch.cuda.synchronize()
+        if lut_dtype == torch.int8:
+            torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+        else:
+            torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
 
 
 # ---------------------------------------------------------------------------
@@ -376,14 +404,16 @@ def test_float_lut_sums_are_the_same_on_every_launch(dev, lut_dtype):
 @pytest.mark.parametrize("lut_dtype", [torch.float32, torch.bfloat16,
                                        torch.int8])
 def test_vq_amm_and_lut_gemm_launch_counts(dev, lut_dtype):
-    """Float LUTs: two launches a call (the kernel, then the split sum and
-    scale), no memset. int8: memset, kernel, scale."""
+    """B1: one kernel a call, no memset, no copy, for every LUT type.
+    B4, float LUTs: two launches (the kernel, then the split sum and
+    scale), no memset; int8: memset, kernel, scale."""
     x, z, lut, scale = _b1_inputs(B1_SHAPES[3], torch.bfloat16, lut_dtype,
                                   0, dev)
     idx = vq_assign_cuda(x, z)
+    assert enqueued(lambda: vq_amm_cuda(x, z, lut, scale)) == {
+        "kernels": 1, "copies": 0, "memsets": 0, "other": 0}
     want = {"kernels": 2, "copies": 0, "other": 0,
             "memsets": 1 if lut_dtype == torch.int8 else 0}
-    assert enqueued(lambda: vq_amm_cuda(x, z, lut, scale)) == want
     assert enqueued(lambda: lut_gemm_cuda(idx, lut, scale)) == want
 
 
