@@ -2,16 +2,18 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA
 H100: builds the hand-written kernels (B1-B5 and the fold kernel of
 paged decode), holds each against its plain PyTorch version at the main
-path's shapes (B1 also: one kernel a call and nothing else, its time
-flushed and warm in a CUDA graph, its host time, and a sweep of nc at
-M=8, N=6912 beside B3), serves full-width qwen1.5-4b (lut_infer, int8 LUTs)
+path's shapes (B1, B3, B4 also: one kernel a call and nothing else,
+their times flushed and warm in a CUDA graph, their host time and launch
+geometry, and a sweep of nc at M=8, N=6912, with B3's subspaces a block
+swept beside it), serves full-width qwen1.5-4b (lut_infer, int8 LUTs)
 through the continuous-batching engine three times -- fused projections
 on an fp KV pool (B1, B2, fold), two-pass projections (B3, B4, B2, fold),
 fused projections on a VQ code pool (B1, B5, fold) -- and checks one
 decode step's logits of each through the kernels against the plain
 versions. A last phase checks that float-LUT results are the same on
 every run: B1 and B4 with float32 and bfloat16 LUTs launched twice on one
-input, then two engine runs and two decode steps of full-width
+input (and B4(B3(x)) == B1(x) bit for bit wherever the two launches take
+one geometry), then two engine runs and two decode steps of full-width
 qwen1.5-4b with float32 LUTs, cut to 4 layers.
 
     python3 chip_smoke.py [--seed N]
@@ -44,10 +46,12 @@ from repro_torch.device import enqueued  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.core.kv_codebook import KVCodebook, kv_encode  # noqa
 from repro_torch.kernels import flash_decode as fd  # noqa: E402
-from repro_torch.kernels.assign import vq_assign_cuda  # noqa: E402
+from repro_torch.kernels.assign import (  # noqa: E402
+    vq_assign_cuda, vq_assign_geometry)
 from repro_torch.kernels.fused_amm import (  # noqa: E402
     vq_amm_cuda, vq_amm_geometry)
-from repro_torch.kernels.lut_gemm import lut_gemm_cuda  # noqa: E402
+from repro_torch.kernels.lut_gemm import (  # noqa: E402
+    lut_gemm_cuda, lut_gemm_geometry)
 from repro_torch.models.model import Model  # noqa: E402
 from repro_torch.serve.engine import Engine  # noqa: E402
 from repro_torch.serve.scheduler import Request  # noqa: E402
@@ -64,6 +68,9 @@ V, C = 8, 16
 KV_V, KV_C = 4, 16                    # the VQ-KV run's codebook
 # (K, N, launches per layer) of the 7 projections: wq wk wv wo, wg wu, wd
 PROJ_SHAPES = [(2560, 2560, 4), (2560, 6912, 2), (6912, 2560, 1)]
+
+# What one call of B1, B3 or B4 must enqueue (device.enqueued)
+ONE_KERNEL = {"kernels": 1, "copies": 0, "memsets": 0, "other": 0}
 
 # Logit check tolerance. Both sides compute every projection as an exact
 # int8 sum times the same scale, and attention with fp32 sums in another
@@ -279,8 +286,7 @@ def b1_case(gen, m, k, n, flush):
     plain_ms = time_ms(lambda: ref.vq_amm_ref(x, z, lut, scale), 5, flush)
     host = host_us(lambda: vq_amm_cuda(x, z, lut, scale))
     calls = enqueued(lambda: vq_amm_cuda(x, z, lut, scale))
-    check(calls == {"kernels": 1, "copies": 0, "memsets": 0, "other": 0},
-          f"B1 {m}x{k}x{n}: a call enqueues {calls}")
+    check(calls == ONE_KERNEL, f"B1 {m}x{k}x{n}: a call enqueues {calls}")
     geo = vq_amm_geometry(x, z, lut)
     # bytes this data needs: x, z, the LUT rows some row selects, scale, out
     lut_bytes = selected_lut_bytes(idx_plain, n)
@@ -301,25 +307,74 @@ def b1_case(gen, m, k, n, flush):
             "err": err, "warm_ms": warm_ms, "host": host}
 
 
+def cluster_text(geo):
+    return (f"cluster {geo['cluster']} x {geo['tiles']} column tiles x "
+            f"{geo['row_groups']} row groups, {geo['subspaces']} subspaces "
+            f"and {geo['smem']} B of shared memory a block")
+
+
+def assign_text(geo):
+    return (f"{geo['k_blocks']} x {geo['row_groups']} blocks of "
+            f"{geo['subspaces']} subspaces x {geo['rows']} rows, "
+            f"{geo['smem']} B of shared memory a block")
+
+
+B3_BLOCK_SUBSPACES = (4, 8, 16, 32, 64)
+
+
 def nc_sweep(gen, flush, m=8, n=6912, full_nc=320):
-    """B1 and B3 at M=8, N=6912 with nc cut to 1/4, 1/2 and all of the
+    """B1, B3 and B4 at M=8, N=6912 with nc cut to 1/4, 1/2 and all of the
     2560 -> 6912 projection's 320 subspaces: flushed (time_ms) and warm
     (graph_ms). If time barely follows nc, a fixed cost per block or per
-    launch holds the kernel back; if it follows nc, bytes in flight do."""
+    launch holds the kernel back; if it follows nc, bytes in flight do.
+    B3 also at each of B3_BLOCK_SUBSPACES subspaces a block (flushed /
+    warm), beside its rule's choice, and so at M=32, nc=320."""
     rows = []
     for nc in (full_nc // 4, full_nc // 2, full_nc):
         x, z, lut, scale, _ = vq_inputs(gen, m, nc * V, n)
-        rows.append((nc, {
-            "b1_ms": time_ms(lambda: vq_amm_cuda(x, z, lut, scale), 30,
-                             flush),
-            "b1_graph_ms": graph_ms(lambda: vq_amm_cuda(x, z, lut, scale)),
-            "b3_ms": time_ms(lambda: vq_assign_cuda(x, z), 30, flush),
-            "b3_graph_ms": graph_ms(lambda: vq_assign_cuda(x, z))}))
+        idx = vq_assign_cuda(x, z)
+        r = {"b1_ms": time_ms(lambda: vq_amm_cuda(x, z, lut, scale), 30,
+                              flush),
+             "b1_graph_ms": graph_ms(lambda: vq_amm_cuda(x, z, lut, scale)),
+             "b1_geo": vq_amm_geometry(x, z, lut),
+             "b4_ms": time_ms(lambda: lut_gemm_cuda(idx, lut, scale), 30,
+                              flush),
+             "b4_graph_ms": graph_ms(lambda: lut_gemm_cuda(idx, lut, scale)),
+             "b4_geo": lut_gemm_geometry(idx, lut),
+             "b3_ms": time_ms(lambda: vq_assign_cuda(x, z), 30, flush),
+             "b3_graph_ms": graph_ms(lambda: vq_assign_cuda(x, z)),
+             "b3_geo": vq_assign_geometry(x, z), "b3_sweep": []}
+        for kb in B3_BLOCK_SUBSPACES:
+            def call(kb=kb):
+                return vq_assign_cuda(x, z, block_subspaces=kb)
+            check(torch.equal(call(), idx),
+                  f"B3 nc={nc} at {kb} subspaces a block: indices differ")
+            r["b3_sweep"].append((kb, time_ms(call, 30, flush),
+                                  graph_ms(call)))
+        rows.append((nc, r))
+    # the block size at the prefill chunk's rows too (M=32, nc=320)
+    x, z, _, _, _ = vq_inputs(gen, 32, full_nc * V, n)
+    big = []
+    for kb in B3_BLOCK_SUBSPACES:
+        def call(kb=kb):
+            return vq_assign_cuda(x, z, block_subspaces=kb)
+        big.append((kb, time_ms(call, 30, flush), graph_ms(call)))
     for nc, r in rows:
         print(f"nc sweep M={m} N={n} nc={nc}: B1 {r['b1_ms'] * 1e3:.1f} us "
-              f"flushed, {r['b1_graph_ms'] * 1e3:.1f} us warm in a graph; "
-              f"B3 {r['b3_ms'] * 1e3:.1f} us flushed, "
-              f"{r['b3_graph_ms'] * 1e3:.1f} us warm in a graph")
+              f"flushed, {r['b1_graph_ms'] * 1e3:.1f} us warm in a graph "
+              f"({cluster_text(r['b1_geo'])}); B4 {r['b4_ms'] * 1e3:.1f} us "
+              f"flushed, {r['b4_graph_ms'] * 1e3:.1f} us warm "
+              f"({cluster_text(r['b4_geo'])}); B3 {r['b3_ms'] * 1e3:.1f} us "
+              f"flushed, {r['b3_graph_ms'] * 1e3:.1f} us warm "
+              f"({assign_text(r['b3_geo'])}); B3 at "
+              + ", ".join(f"{kb}: {a * 1e3:.1f} / {b * 1e3:.1f}"
+                          for kb, a, b in r["b3_sweep"])
+              + " subspaces a block: us flushed / warm")
+    print(f"B3 at M=32 nc={full_nc} ({assign_text(vq_assign_geometry(x, z))}"
+          " by its rule): "
+          + ", ".join(f"{kb}: {a * 1e3:.1f} / {b * 1e3:.1f}"
+                      for kb, a, b in big)
+          + " subspaces a block: us flushed / warm")
     return rows
 
 
@@ -362,11 +417,18 @@ def b34_case(gen, m, k, n, flush):
     lib = torch.nn.functional.embedding_bag(offs, lut_f, mode="sum")
     check(torch.allclose(lib * scale, out_k, rtol=1e-6, atol=0.0),
           f"B4 {m}x{k}x{n}: embedding_bag yardstick disagrees")
+    calls3 = enqueued(lambda: vq_assign_cuda(x, z))
+    check(calls3 == ONE_KERNEL, f"B3 {m}x{k}: a call enqueues {calls3}")
+    calls4 = enqueued(lambda: lut_gemm_cuda(idx_k, lut, scale))
+    check(calls4 == ONE_KERNEL,
+          f"B4 {m}x{k}x{n}: a call enqueues {calls4}")
     r3 = {"ms": time_ms(lambda: vq_assign_cuda(x, z), 30, flush),
+          "warm_ms": graph_ms(lambda: vq_assign_cuda(x, z)),
           "plain_ms": time_ms(lambda: ref.assign_ref(x, z), 5, flush),
           "host": host_us(lambda: vq_assign_cuda(x, z)), "err": 0.0,
           "library_ms": None}
     r4 = {"ms": time_ms(lambda: lut_gemm_cuda(idx_k, lut, scale), 30, flush),
+          "warm_ms": graph_ms(lambda: lut_gemm_cuda(idx_k, lut, scale)),
           "plain_ms": time_ms(lambda: ref.lut_gemm_onehot(idx_k, lut, scale),
                               5, flush),
           "host": host_us(lambda: lut_gemm_cuda(idx_k, lut, scale)),
@@ -380,16 +442,23 @@ def b34_case(gen, m, k, n, flush):
     lut_bytes = selected_lut_bytes(idx_k, n)
     r4["bound_ms"], r4["bound_by"] = bound(
         nbytes(idx_k, scale) + lut_bytes + m * n * 4, m * nc * n + m * n)
-    print(f"B3 vq_assign M={m} K={k}: kernel {r3['ms'] * 1e3:.1f} us, plain "
-          f"{r3['plain_ms'] * 1e3:.1f} us, bound {r3['bound_ms'] * 1e3:.3f} "
-          f"us ({r3['bound_by']}), host {r3['host']:.1f} us/call; random x: "
+    print(f"B3 vq_assign M={m} K={k}: kernel {r3['ms'] * 1e3:.1f} us (warm, "
+          f"30 calls in one graph: {r3['warm_ms'] * 1e3:.1f} us a call), "
+          f"plain {r3['plain_ms'] * 1e3:.1f} us, bound "
+          f"{r3['bound_ms'] * 1e3:.3f} us ({r3['bound_by']}), host "
+          f"{r3['host']:.1f} us/call, enqueues {calls3}, "
+          f"{assign_text(vq_assign_geometry(x, z))}; random x: "
           f"{flips:.2e} flips vs plain, indices equal to B1's")
-    print(f"B4 lut_gemm M={m} K={k} N={n}: kernel {r4['ms'] * 1e3:.1f} us, "
-          f"plain {r4['plain_ms'] * 1e3:.1f} us, embedding_bag (float32 copy "
-          f"of the int8 table, no scale) {r4['library_ms'] * 1e3:.1f} us, "
-          f"bound {r4['bound_ms'] * 1e3:.2f} us ({r4['bound_by']}), host "
-          f"{r4['host']:.1f} us/call, max abs err {err:.3g}; B4(B3(x)) == "
-          f"B1(x) bitwise")
+    print(f"B4 lut_gemm M={m} K={k} N={n}: kernel {r4['ms'] * 1e3:.1f} us "
+          f"(warm, 30 calls in one graph: {r4['warm_ms'] * 1e3:.1f} us a "
+          f"call), plain {r4['plain_ms'] * 1e3:.1f} us, embedding_bag "
+          f"(float32 copy of the int8 table, no scale) "
+          f"{r4['library_ms'] * 1e3:.1f} us, bound "
+          f"{r4['bound_ms'] * 1e3:.2f} us ({r4['bound_by']}), host "
+          f"{r4['host']:.1f} us/call, enqueues {calls4}, "
+          f"{cluster_text(lut_gemm_geometry(idx_k, lut))} (B1: "
+          f"{cluster_text(vq_amm_geometry(x, z, lut))}), max abs err "
+          f"{err:.3g}; B4(B3(x)) == B1(x) bitwise")
     return r3, r4
 
 
@@ -398,8 +467,9 @@ def float_lut_case(gen, m, k, n, flush):
     scale) at one main-path shape, on random unit-scale rows: two
     launches on one input give the same bits, a B1 call enqueues one
     kernel, the result agrees with the plain version, and both are timed
-    beside the int8 kernels. Records whether B4(B3(x)) equals B1(x) bit
-    for bit (not required: the two split the float sums differently)."""
+    beside the int8 kernels. B4(B3(x)) must equal B1(x) bit for bit where
+    the two launches take one cluster size and row groups (then they sum
+    in one order); elsewhere whether it does is recorded."""
     _, z, lut8, scale, xr = vq_inputs(gen, m, k, n)
     idx = vq_assign_cuda(xr, z)
     res = {}
@@ -412,10 +482,18 @@ def float_lut_case(gen, m, k, n, flush):
               f"B1 {m}x{k}x{n} {dt}: two launches on one input differ")
         check(torch.equal(b4[0], b4[1]),
               f"B4 {m}x{k}x{n} {dt}: two launches on one input differ")
-        calls = enqueued(lambda: vq_amm_cuda(xr, z, lut))
-        check(calls == {"kernels": 1, "copies": 0, "memsets": 0,
-                        "other": 0},
-              f"B1 {m}x{k}x{n} {dt}: a call enqueues {calls}")
+        for name, fn in (("B1", lambda: vq_amm_cuda(xr, z, lut)),
+                         ("B4", lambda: lut_gemm_cuda(idx, lut))):
+            calls = enqueued(fn)
+            check(calls == ONE_KERNEL,
+                  f"{name} {m}x{k}x{n} {dt}: a call enqueues {calls}")
+        g1, g4 = vq_amm_geometry(xr, z, lut), lut_gemm_geometry(idx, lut)
+        same = (g1["cluster"], g1["row_groups"]) == (g4["cluster"],
+                                                     g4["row_groups"])
+        bitwise = torch.equal(b1[0], b4[0])
+        check(bitwise or not same,
+              f"B4(B3(x)) != B1(x) at {m}x{k}x{n} {dt} though both launch "
+              f"cluster {g1['cluster']}")
         want = ref.lut_gemm_onehot(idx, lut)
         for name, got in (("B1", b1[0]), ("B4", b4[0])):
             check(torch.allclose(got, want, rtol=1e-4, atol=1e-4),
@@ -424,7 +502,8 @@ def float_lut_case(gen, m, k, n, flush):
         res[key] = {
             "b1_ms": time_ms(lambda: vq_amm_cuda(xr, z, lut), 30, flush),
             "b4_ms": time_ms(lambda: lut_gemm_cuda(idx, lut), 30, flush),
-            "two_pass_bitwise": torch.equal(b1[0], b4[0])}
+            "two_pass_bitwise": bitwise, "clusters": (g1["cluster"],
+                                                      g4["cluster"])}
     return res
 
 
@@ -971,8 +1050,11 @@ def main(argv=None) -> int:
                       f"{fl['float32']['b4_ms'] * 1e3:.1f} / "
                       f"{fl['bfloat16']['b4_ms'] * 1e3:.1f} / "
                       f"{b4[(m, k, n)]['ms'] * 1e3:.1f}; B4(B3(x)) == B1(x) "
-                      f"bitwise: float32 {fl['float32']['two_pass_bitwise']}"
-                      f", bfloat16 {fl['bfloat16']['two_pass_bitwise']}")
+                      "bitwise (clusters B1, B4): float32 "
+                      f"{fl['float32']['two_pass_bitwise']} "
+                      f"{fl['float32']['clusters']}, bfloat16 "
+                      f"{fl['bfloat16']['two_pass_bitwise']} "
+                      f"{fl['bfloat16']['clusters']}")
     finally:
         clocks.terminate()
         out = clocks.communicate()[0]
@@ -1001,15 +1083,17 @@ def main(argv=None) -> int:
     def per_step(res):
         return cfg.num_layers * sum(res[(8, k, n)]["ms"] * cnt
                                     for k, n, cnt in PROJ_SHAPES)
-    for m in (8, 32):
-        lay = {key: sum(b1[(m, k, n)][key] * cnt for k, n, cnt in PROJ_SHAPES)
-               for key in ("ms", "warm_ms", "bound_ms")}
-        print(f"B1 int8 per layer (7 projections) at M={m}: "
-              f"{lay['ms'] * 1e3:.1f} us flushed, {lay['warm_ms'] * 1e3:.1f} "
-              f"us warm in a graph, bound {lay['bound_ms'] * 1e3:.1f} us; "
-              "host us a call "
-              + ", ".join(f"{b1[(m, k, n)]['host']:.1f}"
-                          for k, n, _ in PROJ_SHAPES))
+    for name, res in (("B1", b1), ("B3", b3), ("B4", b4)):
+        for m in (8, 32):
+            lay = {key: sum(res[(m, k, n)][key] * cnt
+                            for k, n, cnt in PROJ_SHAPES)
+                   for key in ("ms", "warm_ms", "bound_ms")}
+            print(f"{name} int8 per layer (7 projections) at M={m}: "
+                  f"{lay['ms'] * 1e3:.1f} us flushed, "
+                  f"{lay['warm_ms'] * 1e3:.1f} us warm in a graph, bound "
+                  f"{lay['bound_ms'] * 1e3:.2f} us; host us a call "
+                  + ", ".join(f"{res[(m, k, n)]['host']:.1f}"
+                              for k, n, _ in PROJ_SHAPES))
     print(f"kernel device time per decode step (from the kernel phase): "
           f"fused B1 {per_step(b1):.2f} ms, two-pass B3 {per_step(b3):.2f} + "
           f"B4 {per_step(b4):.2f} ms; attention B2 "

@@ -1,5 +1,5 @@
 // Kernel B3: VQ centroid assignment (the CCM stage of the two-pass path)
-// for Hopper (sm_90a).
+// for Hopper (sm_90a), one launch a call.
 //
 // Replaces: src/repro/kernels/assign.py::vq_assign_pallas (body
 // _assign_kernel), which lut_infer projections run under
@@ -14,93 +14,138 @@
 // the indices: at decode (M = 8, K = 2560, v = 8, c = 16, bf16) that is
 // 41 KB of x, 82 KB of z and 10 KB of indices, 0.04 us at 3.35 TB/s; the
 // distance work (M * nc * c * v * 3 multiply-adds, about a million) takes
-// a small fraction of a microsecond on the CUDA cores. So at the main shapes a launch costs
-// what any launch costs, and the design keeps every load in flight.
+// a small fraction of a microsecond on the CUDA cores. So at the main
+// shapes a launch costs a launch plus one block's chain of dependent
+// steps, and the design keeps that chain short.
 //
-// Design: B1's assignment with the indices written out (the two-pass
-// baseline's whole point). One block of 256 threads per (group of ks
-// subspaces, 8-row tile) stages its z and x slices in shared memory as
-// fp32 (vq_common.cuh, assign_tile), then each thread assigns one (row,
-// subspace) pair with the nearest that B1 runs and writes its int32
-// index. ks is 32
-// (256 threads / 8 rows), fewer when the staged tiles would not fit in
-// 48 KB; when even one subspace needs more (c * v above ~11,900 floats)
-// the block opts into up to 227 KB of dynamic shared memory. Ragged M and
-// nc are masked; nothing is padded.
+// Design: kernel B1's assignment (vq_gather.cuh, assign_block) with the
+// indices written out.
+//  * One block of 256 threads per (k range, group of up to 64 rows). By
+//    default a block takes 8 subspaces, fewer above 32 rows so that a
+//    thread has at most one (row, subspace) pair: at M = 8, 4-8 measured
+//    ~0.5 us faster than 16-64 on the H100 (PERF.md, nc sweep); the
+//    caller may name another count.
+//  * The block stages its z and x slices in shared memory as fp32 with
+//    16-byte loads, all of them in flight at once (eight a thread), then
+//    each thread assigns its pairs with vq_common.cuh's nearest (x in
+//    registers when v = 8), so the indices are B1's bit for bit. The
+//    uint8 indices then go from shared memory to idx, neighbouring
+//    threads on neighbouring subspaces (coalesced).
+//  * The general path lives in the same kernel: any M, c up to 256, any
+//    v (rows of x and z that are not 16-byte aligned take element
+//    loads), ragged nc. Subspaces whose slices do not fit the 48 KB
+//    staging area go ka at a time; when one subspace needs more, the
+//    block opts into up to the card's 227 KB, with fewer rows a block if
+//    even that is short.
 
-#include "vq_common.cuh"
+#include "vq_gather.cuh"
 
 namespace {
 
-using namespace vqc;
+using namespace vqg;
 
-constexpr size_t MAX_DYN_SMEM = 227 * 1024;
+constexpr int SMEM_DEFAULT = 48 * 1024;   // no opt-in needed below this
+constexpr int BLOCK_SUBSPACES = 8;        // the default, see above
 
-template <typename XT, int METRIC>
+template <typename XT>
 __global__ void __launch_bounds__(THREADS)
 assign_kernel(const XT* __restrict__ x, const XT* __restrict__ z,
-              int* __restrict__ idx, int M, int nc, int c, int v, int ks) {
+              int* __restrict__ out, int M, int nc, int c, int v,
+              int metric, Geometry g) {
   extern __shared__ __align__(16) unsigned char smem[];
-  float* zs = reinterpret_cast<float*>(smem);            // [ks][c*v + 1]
-  float* xs = zs + (size_t)ks * z_stride(c, v);          // [BM][ks*v + 1]
-  const int k0 = blockIdx.x * ks;
-  const int m0 = blockIdx.y * BM;
-  const int kn = min(ks, nc - k0);
-  const int mn = min(BM, M - m0);
-  assign_tile<XT, METRIC>(x, z, zs, xs, nc, c, v, ks, m0, mn, k0, kn,
-                          [&](int mi, int kk, int j) {
-                            idx[(size_t)(m0 + mi) * nc + k0 + kk] = j;
-                          });
+  const unsigned char* idx = smem + g.off_idx;
+  const int k0 = blockIdx.x * g.kmax;
+  const int kn = min(g.kmax, nc - k0);
+  const int m0 = blockIdx.y * g.rows;
+  const int mt = min(g.rows, M - m0);
+  const int rs = g.rows;
+  assign_block<XT>(x, z, smem + g.off_stage, smem + g.off_idx, g, metric,
+                   nc, c, v, m0, mt, k0, kn, rs);
+  for (int i = threadIdx.x; i < mt * kn; i += THREADS) {
+    const int m = i / kn, kk = i % kn;
+    out[(size_t)(m0 + m) * nc + k0 + kk] = idx[kk * rs + m];
+  }
 }
 
-template <typename XT, int METRIC>
-cudaError_t launch_metric(const XT* x, const XT* z, int* idx, int M, int nc,
-                          int c, int v, int ks, size_t smem,
-                          cudaStream_t st) {
-  if (smem > MAX_SMEM) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        assign_kernel<XT, METRIC>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
+// The block layout: rows and subspaces a block (kb, or the default when
+// kb is 0), the subspaces staged at once and the shared memory. Returns
+// false when no layout fits max_smem.
+inline bool assign_geometry(Geometry& g, int M, int nc, int c, int v,
+                            int kb, bool vec_x, int max_smem) {
+  g = Geometry{};
+  g.vec_x = vec_x;
+  for (int rows = M < ROW_CAP ? M : ROW_CAP; rows >= 1; rows /= 2) {
+    int kmax = kb > 0 ? kb : THREADS / rows;
+    if (kb == 0 && kmax > BLOCK_SUBSPACES) kmax = BLOCK_SUBSPACES;
+    if (kmax > nc) kmax = nc;
+    g.rows = rows;
+    g.kmax = kmax;
+    g.ka = staged_subspaces(kmax, rows, c, v, STAGING_BYTES);
+    g.off_idx = 0;
+    g.off_stage = (int)up16((size_t)kmax * rows);
+    const size_t smem = g.off_stage + staging_bytes(g.ka, rows, c, v);
+    g.smem = (int)smem;
+    if (smem <= (size_t)max_smem) return true;
   }
-  const dim3 grid((nc + ks - 1) / ks, (M + BM - 1) / BM);
-  assign_kernel<XT, METRIC><<<grid, THREADS, smem, st>>>(x, z, idx, M, nc,
-                                                         c, v, ks);
-  return cudaGetLastError();
+  return false;
 }
 
 template <typename XT>
 cudaError_t launch_x(const void* x, const void* z, int* idx, int M, int nc,
-                     int c, int v, int metric, cudaStream_t st) {
-  int ks = THREADS / BM;
-  if (ks > nc) ks = nc;
-  while (ks > 1 && sizeof(float) * stage_floats(ks, c, v) > MAX_SMEM) --ks;
-  const size_t smem = sizeof(float) * stage_floats(ks, c, v);
-  if (smem > MAX_DYN_SMEM) return cudaErrorInvalidValue;
-  const XT* xp = static_cast<const XT*>(x);
-  const XT* zp = static_cast<const XT*>(z);
-  if (metric == 0)
-    return launch_metric<XT, 0>(xp, zp, idx, M, nc, c, v, ks, smem, st);
-  if (metric == 1)
-    return launch_metric<XT, 1>(xp, zp, idx, M, nc, c, v, ks, smem, st);
-  return launch_metric<XT, 2>(xp, zp, idx, M, nc, c, v, ks, smem, st);
+                     int c, int v, int metric, int kb, cudaStream_t st,
+                     int* info) {
+  const bool vec_x = (uintptr_t)x % 16 == 0 && (uintptr_t)z % 16 == 0 &&
+                     (v * sizeof(XT)) % 16 == 0;
+  Geometry g;
+  if (!assign_geometry(g, M, nc, c, v, kb, vec_x, SMEM_DEFAULT)) {
+    // one subspace needs more than 48 KB: opt into the card's maximum
+    int dev = 0, max_smem = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(
+          &max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err != cudaSuccess) return err;
+    if (!assign_geometry(g, M, nc, c, v, kb, vec_x, max_smem))
+      return cudaErrorInvalidValue;
+    err = cudaFuncSetAttribute(assign_kernel<XT>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               g.smem);
+    if (err != cudaSuccess) return err;
+  }
+  const dim3 grid((nc + g.kmax - 1) / g.kmax, (M + g.rows - 1) / g.rows);
+  if (grid.y > 65535) return cudaErrorInvalidValue;
+  if (info != nullptr) {
+    info[0] = (int)grid.x; info[1] = (int)grid.y; info[2] = g.kmax;
+    info[3] = g.rows; info[4] = g.smem;
+    return cudaSuccess;
+  }
+  assign_kernel<XT><<<grid, THREADS, g.smem, st>>>(
+      static_cast<const XT*>(x), static_cast<const XT*>(z), idx, M, nc, c,
+      v, metric, g);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 // x_dtype: 0 f32, 1 bf16. metric: 0 l2, 1 l1, 2 chebyshev. idx is an
-// (M, nc) int32 output. Returns a cudaError_t.
+// (M, nc) int32 output. kb: subspaces a block, or 0 for the default.
+// Enqueues one kernel on stream and nothing else; with info non-null it
+// launches nothing and writes the launch's k ranges, row groups,
+// subspaces a block, rows a block and shared memory bytes to info[0..4].
+// Returns a cudaError_t.
 extern "C" int vq_assign_launch(const void* x, const void* z, void* idx,
                                 int M, int nc, int c, int v, int x_dtype,
-                                int metric, void* stream) {
+                                int metric, int kb, void* stream,
+                                int* info) {
   if (M <= 0 || nc <= 0 || c < 1 || c > 256 || v < 1 || x_dtype < 0 ||
-      x_dtype > 1 || metric < 0 || metric > 2 || (M + BM - 1) / BM > 65535)
+      x_dtype > 1 || metric < 0 || metric > 2 || kb < 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int* ip = static_cast<int*>(idx);
   const cudaError_t err =
       x_dtype == 0
-          ? launch_x<float>(x, z, ip, M, nc, c, v, metric, st)
-          : launch_x<__nv_bfloat16>(x, z, ip, M, nc, c, v, metric, st);
+          ? launch_x<float>(x, z, ip, M, nc, c, v, metric, kb, st, info)
+          : launch_x<__nv_bfloat16>(x, z, ip, M, nc, c, v, metric, kb, st,
+                                    info);
   return (int)err;
 }

@@ -20,7 +20,7 @@
 // a call, one chain of dependent small loads a block with <= 8 KB in
 // flight, and an 8-row tile that re-read every LUT row once per 8 rows.
 //
-// Design (device code in vq_gather.cuh, for B4 to share):
+// Design (device and host code in vq_gather.cuh, which B3 and B4 share):
 //  * One launch, one kernel: no memset, no work buffer, no second pass.
 //    One block per (256-byte column tile, k range, group of up to 64
 //    rows); the k ranges of one column tile form a thread block cluster
@@ -56,10 +56,6 @@
 //    z), c up to 256, any v (x and z rows that are not 16-byte aligned
 //    take element loads), ragged N (masked) and LUTs whose rows are not
 //    16-byte aligned (element loads).
-
-#include <map>
-#include <mutex>
-#include <tuple>
 
 #ifdef VQG_PROFILE
 namespace { __device__ __forceinline__ void stamp(int i); }
@@ -99,164 +95,35 @@ vq_amm_kernel(const XT* __restrict__ x, const XT* __restrict__ z,
               const LT* __restrict__ lut, const float* __restrict__ scale,
               float* __restrict__ out, int M, int nc, int c, int v, int N,
               int metric, Geometry g) {
-  using AccT = typename Acc<LT>::T;
   extern __shared__ __align__(16) unsigned char smem[];
-  AccT* recv = reinterpret_cast<AccT*>(smem + g.off_recv);
-  float* tile_scale = reinterpret_cast<float*>(smem + g.off_scale);
-  unsigned char* idx = smem + g.off_idx;
-  unsigned char* stage = smem + g.off_stage;
-  const int rs = idx_rows(R);
-  const int n0 = blockIdx.x * tile_cols<LT>();
-  // the cluster spans grid y, so blockIdx.y is the block's cluster rank
-  const int k0 = (int)((long)blockIdx.y * nc / g.cs);
-  const int kn = (int)((long)(blockIdx.y + 1) * nc / g.cs) - k0;
-  const int m0 = blockIdx.z * ROW_CAP;
-  const int mt = min(ROW_CAP, M - m0);
-
+  const Tile t = tile_of<LT>(g, M, nc);
   stamp(0);
-  // the tile's scale columns go to shared memory now; the finish reads
-  // them
-  if (scale != nullptr && threadIdx.x < tile_cols<LT>() &&
-      n0 + (int)threadIdx.x < N)
-    cp_async4(tile_scale + threadIdx.x, scale + n0 + threadIdx.x);
-  assign_block<XT>(x, z, stage, idx, g, metric, nc, c, v, m0, mt, k0, kn,
-                   rs);
+  copy_scale<LT>(smem, g, scale, t.n0, N);
+  assign_block<XT>(x, z, smem + g.off_stage, smem + g.off_idx, g, metric,
+                   nc, c, v, t.m0, t.mt, t.k0, t.kn, idx_rows(R));
   stamp(2);                            // assigned (1: x and z staged)
-  AccT a[R][epc<LT>()];
-#pragma unroll
-  for (int i = 0; i < R; ++i)
-#pragma unroll
-    for (int e = 0; e < epc<LT>(); ++e) a[i][e] = AccT(0);
-  const Lane ln = lane_of(g);
-  const int half = (kn + 1) / 2;        // partition 0 takes the lower half
-  const int kbeg = g.parts == 1 || ln.part == 0 ? 0 : half;
-  const int kend = g.parts == 1 || ln.part == 1 ? kn : half;
-  gather_block<LT, R>(lut, idx, g, c, N, k0, kbeg, kend, n0, mt, rs, ln, a);
-  stamp(3);                            // gathered
-  if constexpr (R == 1) {
-    if (g.parts == 2)
-      merge_partitions<LT>(reinterpret_cast<AccT*>(stage), mt, ln, a);
-  }
-  push_partial<LT, R>(recv, g, N, n0, mt, ln, a);
-  stamp(5);                            // past the cluster barrier (4: pushed)
-  finish_share<LT>(recv, g, scale, tile_scale, out, N, m0, mt, n0);
-  stamp(6);
+  sum_block<LT, R>(lut, scale, out, smem, g, c, N, t);
+  stamp(6);                            // (3 gathered, 4 pushed, 5 barrier)
 }
 
 // Fixed cost of a block (assignment, partition and cluster sums) in
-// units of one subspace's LUT rows, for the cluster-size estimate.
+// units of one subspace's LUT rows, for plan's cluster-size estimate.
 constexpr int FIXED_SUBSPACES = 16;
 
-using PlanKey = std::tuple<const void*, int, int, int, int, int, int, int,
-                           int>;
-std::mutex plan_mutex;
-std::map<PlanKey, Geometry> plans;
-
-// The geometry of a launch: the cluster size with the least estimated
-// time among those the card can co-schedule at this shared memory.
-template <typename XT, typename LT, int R>
-cudaError_t plan(Geometry& out, int M, int nc, int c, int v, int N,
-                 bool vec_x, bool vec_lut) {
-  const void* kern = (const void*)vq_amm_kernel<XT, LT, R>;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  const PlanKey key{kern, dev, M, nc, c, v, N, (int)vec_x, (int)vec_lut};
-  std::lock_guard<std::mutex> lock(plan_mutex);
-  auto it = plans.find(key);
-  if (it != plans.end()) {
-    out = it->second;
-    return cudaSuccess;
-  }
-  int max_smem = 0;
-  err = cudaDeviceGetAttribute(&max_smem,
-                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             max_smem);
-  if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  if (err != cudaSuccess) return err;
-  const int tiles = (N + tile_cols<LT>() - 1) / tile_cols<LT>();
-  const int groups = (M + ROW_CAP - 1) / ROW_CAP;
-  const long clusters = (long)tiles * groups;
-  long best = -1;
-  for (int cs = 1; cs <= MAX_CLUSTER && cs <= nc; ++cs) {
-    Geometry g;
-    if (!make_geometry(g, M, nc, c, v, cs, R, (int)sizeof(LT), vec_x,
-                       vec_lut, max_smem))
-      continue;
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(tiles, cs, groups);
-    cfg.blockDim = dim3(THREADS);
-    cfg.dynamicSmemBytes = g.smem;
-    cudaLaunchAttribute attr[1];
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = 1;
-    attr[0].val.clusterDim.y = cs;
-    attr[0].val.clusterDim.z = 1;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-    int active = 0;
-    if (cudaOccupancyMaxActiveClusters(&active, kern, &cfg) != cudaSuccess) {
-      cudaGetLastError();               // a size this card refuses
-      continue;
-    }
-    if (active < 1) continue;
-    const long waves = (clusters + active - 1) / active;
-    const long cost = waves * ((nc + cs - 1) / cs + FIXED_SUBSPACES);
-    if (best < 0 || cost < best) {
-      best = cost;
-      out = g;
-    }
-  }
-  if (best < 0) return cudaErrorInvalidValue;
-  plans[key] = out;
-  return cudaSuccess;
-}
-
-// With info non-null: write the launch's cluster size, column tiles, row
-// groups, subspaces a block and shared memory bytes to info[0..4] and
-// launch nothing.
 template <typename XT, typename LT, int R>
 cudaError_t launch_r(const void* x, const void* z, const void* lut,
                      const float* scale, float* out, int M, int nc, int c,
                      int v, int N, int metric, cudaStream_t st, int* info) {
-  const bool vec_x = (uintptr_t)x % 16 == 0 && (uintptr_t)z % 16 == 0 &&
-                     (v * sizeof(XT)) % 16 == 0;
-  const bool vec_lut = (uintptr_t)lut % 16 == 0 &&
-                       ((size_t)N * sizeof(LT)) % 16 == 0;
-  Geometry g;
-  cudaError_t err = plan<XT, LT, R>(g, M, nc, c, v, N, vec_x, vec_lut);
-  if (err != cudaSuccess) return err;
-  const int tiles = (N + tile_cols<LT>() - 1) / tile_cols<LT>();
-  const int groups = (M + ROW_CAP - 1) / ROW_CAP;
-  if (groups > 65535) return cudaErrorInvalidValue;
-  if (info != nullptr) {
-    info[0] = g.cs; info[1] = tiles; info[2] = groups; info[3] = g.kmax;
-    info[4] = g.smem;
-    return cudaSuccess;
-  }
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(tiles, g.cs, groups);
-  cfg.blockDim = dim3(THREADS);
-  cfg.dynamicSmemBytes = g.smem;
-  cfg.stream = st;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = 1;
-  attr[0].val.clusterDim.y = g.cs;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, vq_amm_kernel<XT, LT, R>,
-                           static_cast<const XT*>(x),
-                           static_cast<const XT*>(z),
-                           static_cast<const LT*>(lut), scale, out, M, nc,
-                           c, v, N, metric, g);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
+  const Shape s{M, nc, c, v, N, R,
+                (uintptr_t)x % 16 == 0 && (uintptr_t)z % 16 == 0 &&
+                    (v * sizeof(XT)) % 16 == 0,
+                (uintptr_t)lut % 16 == 0 &&
+                    ((size_t)N * sizeof(LT)) % 16 == 0};
+  return launch_cluster<LT>(vq_amm_kernel<XT, LT, R>, FIXED_SUBSPACES, s,
+                            st, info, static_cast<const XT*>(x),
+                            static_cast<const XT*>(z),
+                            static_cast<const LT*>(lut), scale, out, M, nc,
+                            c, v, N, metric);
 }
 
 // Rows a thread sums: 1, 2 or 4 (up to 16, 32 or 64 rows a block).

@@ -1,14 +1,15 @@
-// Device code of the one-launch VQ-AMM gather-accumulate for Hopper:
-// kernel B1 (fused_amm.cu) runs it after its assignment; B4 (lut_gemm.cu)
-// can run it on indices it reads in.
+// Device and host code of the one-launch VQ-AMM kernels for Hopper:
+// B1 (fused_amm.cu) assigns its indices with assign_block and then runs
+// sum_block; B4 (lut_gemm.cu) reads its indices in with load_indices and
+// runs the same sum_block; B3 (assign.cu) runs assign_block alone and
+// writes the indices out.
 //
-// A block owns one tile of 256 bytes of output columns (256 int8, 128
-// bfloat16 or 64 float32 LUT columns), a range of the nc subspaces, and
-// up to ROW_CAP rows of x. The blocks of one column tile split the
-// subspaces between them and form one thread block cluster along the k
-// axis (grid y = cluster size cs):
-//  1. The block's indices idx[kk, m] sit in shared memory (uint8); they
-//     never reach device memory.
+// A block of B1 or B4 owns one tile of 256 bytes of output columns (256
+// int8, 128 bfloat16 or 64 float32 LUT columns), a range of the nc
+// subspaces, and up to ROW_CAP rows of x. The blocks of one column tile
+// split the subspaces between them and form one thread block cluster
+// along the k axis (grid y = cluster size cs):
+//  1. The block's indices idx[kk, m] sit in shared memory (uint8).
 //  2. Thread t owns 16-byte column chunk t % CH of its rows (lane_of) and
 //     gathers lut[k, idx[kk, m], its chunk] straight into registers with
 //     16-byte loads, 16 in flight (two batches of LOADS, one added while
@@ -25,12 +26,21 @@
 //     after one cluster barrier, rank r sums its share over the ranks in
 //     rank order, applies the scale and writes out (finish_share). No
 //     atomic touches a sum, so a float result is the same on every
-//     launch, and an int8 result is (float)(exact int32 sum) * scale[n],
-//     which is B4's expression.
+//     launch, and an int8 result is (float)(exact int32 sum) * scale[n].
+//     B1 and B4 run this one code, so at one geometry (cluster size and
+//     partitions) they sum in one order: B4(B3(x)) == B1(x) bit for bit
+//     on int8 LUTs always, and on float LUTs where their planned
+//     geometries coincide.
+// The host side (plan, launch_cluster) picks the cluster size per shape
+// from the card's occupancy report and caches it.
 
 #pragma once
 
 #include <cooperative_groups.h>
+
+#include <map>
+#include <mutex>
+#include <tuple>
 
 #include "vq_common.cuh"
 
@@ -49,8 +59,8 @@ constexpr int TILE_BYTES = CH * CHUNK;    // 256 bytes of columns a tile
 constexpr int SLOTS = THREADS / CH;       // row slots of the threads
 constexpr int ROW_CAP = 4 * SLOTS;        // rows of x a block sums
 constexpr int LOADS = 8;                  // 16-byte loads a batch
-// Shared memory the assignment's staging may take: the rest of the SM
-// stays L1, which serves the repeated LUT lines.
+// Shared memory the assignment's staging takes when one subspace fits in
+// it: the rest of the SM stays L1, which serves B1's repeated LUT lines.
 constexpr int STAGING_BYTES = 48 * 1024;
 constexpr int MAX_CLUSTER = 16;           // non-portable cluster size
 static_assert(CH * CHUNK <= THREADS, "a tile's scale columns: one a thread");
@@ -132,11 +142,12 @@ struct Geometry {
   int kmax;        // most subspaces a block takes, ceil(nc / cs)
   int rows;        // rows of x a block takes, min(M, ROW_CAP)
   int parts;       // k partitions of a block: 2 up to 8 rows, else 1
-  int ka;          // subspaces staged at once for the assignment
+  int ka;          // subspaces staged at once for the assignment (B4: 0)
   int vec_x;       // x and z take 16-byte loads
   int vec_lut;     // LUT rows take 16-byte loads
   // byte offsets in shared memory: the partials the other ranks push
   // here, the tile's scale, the indices, then the assignment's staging
+  // (which then holds partition 1's tile for the merge)
   int off_recv, off_scale, off_idx, off_stage;
   int smem;        // dynamic shared memory bytes
 };
@@ -144,13 +155,32 @@ struct Geometry {
 // Row stride of the index array: SLOTS per row a thread sums.
 __host__ __device__ inline int idx_rows(int r) { return SLOTS * r; }
 
-// Host: the geometry at a cluster size, for rows-per-thread r and LUT
-// element size le. Returns false when one block's shared memory would
-// exceed max_smem.
+// Host: bytes of the assignment's staging area for ka subspaces and rows
+// rows of x (fp32: ka centroid slices, then the rows' x slices), and how
+// many of kmax subspaces fit in budget bytes at once (at least one).
+inline size_t staging_bytes(int ka, int rows, int c, int v) {
+  return 4 * ((size_t)ka * vqc::z_stride(c, v) +
+              (size_t)rows * vqc::x_stride(ka, v));
+}
+inline int staged_subspaces(int kmax, int rows, int c, int v,
+                            size_t budget) {
+  const size_t per_sub = 4 * ((size_t)vqc::z_stride(c, v) +
+                              (size_t)rows * v);
+  long ka = ((long)budget - 4L * rows) / (long)per_sub;
+  if (ka < 1) ka = 1;
+  if (ka > kmax) ka = kmax;
+  return (int)ka;
+}
+
+inline size_t up16(size_t b) { return (b + 15) / 16 * 16; }
+
+// Host: the geometry of B1 (v > 0) or B4 (v = 0: no assignment, so no
+// staging area but partition 1's merge tile) at a cluster size, for
+// rows-per-thread r and LUT element size le. Returns false when one
+// block's shared memory would exceed max_smem.
 inline bool make_geometry(Geometry& g, int M, int nc, int c, int v,
                           int cs, int r, int le, bool vec_x, bool vec_lut,
                           int max_smem) {
-  auto up16 = [](size_t b) { return (b + 15) / 16 * 16; };
   g.cs = cs;
   g.kmax = (nc + cs - 1) / cs;
   g.rows = M < ROW_CAP ? M : ROW_CAP;
@@ -166,15 +196,8 @@ inline bool make_geometry(Geometry& g, int M, int nc, int c, int v,
   g.off_idx = (int)off;
   off += up16((size_t)g.kmax * idx_rows(r));
   g.off_stage = (int)off;
-  const size_t per_sub = 4 * ((size_t)vqc::z_stride(c, v) +
-                              (size_t)g.rows * v);
-  long ka = ((long)STAGING_BYTES - 4L * g.rows) / (long)per_sub;
-  if (ka < 1) ka = 1;
-  if (ka > g.kmax) ka = g.kmax;
-  g.ka = (int)ka;
-  const size_t staging = 4 * ((size_t)g.ka * vqc::z_stride(c, v) +
-                               (size_t)g.rows * vqc::x_stride(g.ka, v));
-  // after the assignment the staging area holds partition 1's tile
+  g.ka = v > 0 ? staged_subspaces(g.kmax, g.rows, c, v, STAGING_BYTES) : 0;
+  const size_t staging = v > 0 ? staging_bytes(g.ka, g.rows, c, v) : 0;
   const size_t merge = g.parts == 2 ? (size_t)g.rows * TILE_BYTES / le * 4
                                     : 0;
   off += staging > merge ? staging : merge;
@@ -189,12 +212,13 @@ __device__ __forceinline__ int nearest_any(const float* xr, const float* zk,
                      : vqc::nearest<2>(xr, zk, c, v, v);
 }
 
-// The assignment of a block: rows m0 .. m0+mt, subspaces k0 .. k0+kn,
-// staged ka subspaces at a time (fp32, in the staging area), one thread
-// per (row, subspace) pair running vq_common's nearest, so the indices
-// are B3's bit for bit. x and z come in with 16-byte loads, eight in
-// flight a thread, where their rows are 16-byte aligned. Writes
-// idx[kk * rs + m]. Ends with a __syncthreads.
+// The assignment of a block (B1 and B3): rows m0 .. m0+mt, subspaces
+// k0 .. k0+kn, staged ka subspaces at a time (fp32, in the staging area),
+// one thread per (row, subspace) pair running vq_common's nearest, so
+// B1's and B3's indices are the same bits. x and z come in with 16-byte
+// loads, eight in flight a thread, where their rows are 16-byte aligned;
+// with v = 8 the x row sits in registers. Writes idx[kk * rs + m]. Ends
+// with a __syncthreads.
 template <typename XT>
 __device__ __forceinline__ void assign_block(
     const XT* __restrict__ x, const XT* __restrict__ z,
@@ -479,6 +503,212 @@ __device__ __forceinline__ void finish_share(
       }
     }
   }
+}
+
+// Where a block of B1 or B4 sits: columns n0 .., subspaces k0 .. k0+kn
+// (the cluster spans grid y, so blockIdx.y is the block's rank), rows
+// m0 .. m0+mt.
+struct Tile {
+  int n0, k0, kn, m0, mt;
+};
+template <typename LT>
+__device__ __forceinline__ Tile tile_of(const Geometry& g, int M, int nc) {
+  Tile t;
+  t.n0 = blockIdx.x * tile_cols<LT>();
+  t.k0 = (int)((long)blockIdx.y * nc / g.cs);
+  t.kn = (int)((long)(blockIdx.y + 1) * nc / g.cs) - t.k0;
+  t.m0 = blockIdx.z * ROW_CAP;
+  t.mt = min(ROW_CAP, M - t.m0);
+  return t;
+}
+
+// The tile's scale columns go to shared memory by cp.async now;
+// push_partial waits for them and finish_share reads them.
+template <typename LT>
+__device__ __forceinline__ void copy_scale(unsigned char* smem,
+                                           const Geometry& g,
+                                           const float* __restrict__ scale,
+                                           int n0, int N) {
+  float* tile_scale = reinterpret_cast<float*>(smem + g.off_scale);
+  if (scale != nullptr && threadIdx.x < tile_cols<LT>() &&
+      n0 + (int)threadIdx.x < N)
+    cp_async4(tile_scale + threadIdx.x, scale + n0 + threadIdx.x);
+}
+
+// B4: the block's indices src[m0 + m, k0 + kk] (int32, row stride nc)
+// into idx[kk * rs + m] (uint8, c <= 256). Neighbouring threads read
+// neighbouring subspaces of one row (coalesced), eight loads in flight a
+// thread before any is stored. Ends with a __syncthreads.
+__device__ __forceinline__ void load_indices(const int* __restrict__ src,
+                                             unsigned char* idx, int nc,
+                                             const Tile& t, int rs) {
+  const int total = t.mt * t.kn;
+  for (int b = threadIdx.x; b < total; b += 8 * THREADS) {
+    int q[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int i = b + u * THREADS;
+      if (i < total)
+        q[u] = __ldg(src + (size_t)(t.m0 + i / t.kn) * nc + t.k0 + i % t.kn);
+    }
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int i = b + u * THREADS;
+      if (i < total) idx[(i % t.kn) * rs + i / t.kn] = (unsigned char)q[u];
+    }
+  }
+  __syncthreads();
+}
+
+// Everything of a B1 or B4 block after its indices are in shared memory:
+// the gather-accumulate (two k partitions up to 8 rows, merged in
+// order), the push to the owning ranks, the cluster barrier and the
+// finish of this rank's share.
+template <typename LT, int R>
+__device__ __forceinline__ void sum_block(
+    const LT* __restrict__ lut, const float* __restrict__ scale,
+    float* __restrict__ out, unsigned char* smem, const Geometry& g, int c,
+    int N, const Tile& t) {
+  using AccT = typename Acc<LT>::T;
+  const int rs = idx_rows(R);
+  AccT a[R][epc<LT>()];
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int e = 0; e < epc<LT>(); ++e) a[i][e] = AccT(0);
+  const Lane ln = lane_of(g);
+  const int half = (t.kn + 1) / 2;      // partition 0 takes the lower half
+  const int kbeg = g.parts == 1 || ln.part == 0 ? 0 : half;
+  const int kend = g.parts == 1 || ln.part == 1 ? t.kn : half;
+  gather_block<LT, R>(lut, smem + g.off_idx, g, c, N, t.k0, kbeg, kend,
+                      t.n0, t.mt, rs, ln, a);
+  VQG_STAMP(3);                         // gathered
+  if constexpr (R == 1) {
+    if (g.parts == 2)
+      merge_partitions<LT>(reinterpret_cast<AccT*>(smem + g.off_stage), t.mt,
+                           ln, a);
+  }
+  AccT* recv = reinterpret_cast<AccT*>(smem + g.off_recv);
+  push_partial<LT, R>(recv, g, N, t.n0, t.mt, ln, a);
+  VQG_STAMP(5);                         // past the cluster barrier
+  finish_share<LT>(recv, g, scale,
+                   reinterpret_cast<const float*>(smem + g.off_scale), out,
+                   N, t.m0, t.mt, t.n0);
+}
+
+// Host: the launch configuration of a grid of clusters along y.
+inline void cluster_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute* attr,
+                           dim3 grid, int cs, int smem, cudaStream_t st) {
+  cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = cs;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+}
+
+// What a launch of B1 or B4 computes: v = 0 for B4 (no assignment); r
+// rows a thread sums.
+struct Shape {
+  int M, nc, c, v, N, r;
+  bool vec_x, vec_lut;
+};
+
+using PlanKey = std::tuple<const void*, int, int, int, int, int, int, int,
+                           int>;
+inline std::mutex plan_mutex;
+inline std::map<PlanKey, Geometry> plans;
+
+// Host: the geometry of a launch of kern: the cluster size with the least
+// estimated time among those the card can co-schedule at its shared
+// memory. The estimate is waves of resident clusters x (subspaces a
+// block + fixed), where fixed is the kernel's cost a block beyond its
+// gather (staging, assignment or index load, partition and cluster
+// sums) in units of one subspace's LUT rows. Cached per kernel, device
+// and shape.
+template <typename LT>
+cudaError_t plan(Geometry& out, const void* kern, int fixed, const Shape& s) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const PlanKey key{kern, dev, s.M, s.nc, s.c, s.v, s.N, (int)s.vec_x,
+                    (int)s.vec_lut};
+  std::lock_guard<std::mutex> lock(plan_mutex);
+  auto it = plans.find(key);
+  if (it != plans.end()) {
+    out = it->second;
+    return cudaSuccess;
+  }
+  int max_smem = 0;
+  err = cudaDeviceGetAttribute(&max_smem,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             max_smem);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return err;
+  const int tiles = (s.N + tile_cols<LT>() - 1) / tile_cols<LT>();
+  const int groups = (s.M + ROW_CAP - 1) / ROW_CAP;
+  const long clusters = (long)tiles * groups;
+  long best = -1;
+  for (int cs = 1; cs <= MAX_CLUSTER && cs <= s.nc; ++cs) {
+    Geometry g;
+    if (!make_geometry(g, s.M, s.nc, s.c, s.v, cs, s.r, (int)sizeof(LT),
+                       s.vec_x, s.vec_lut, max_smem))
+      continue;
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute attr[1];
+    cluster_config(cfg, attr, dim3(tiles, cs, groups), cs, g.smem, 0);
+    int active = 0;
+    if (cudaOccupancyMaxActiveClusters(&active, kern, &cfg) != cudaSuccess) {
+      cudaGetLastError();               // a size this card refuses
+      continue;
+    }
+    if (active < 1) continue;
+    const long waves = (clusters + active - 1) / active;
+    const long cost = waves * ((s.nc + cs - 1) / cs + fixed);
+    if (best < 0 || cost < best) {
+      best = cost;
+      out = g;
+    }
+  }
+  if (best < 0) return cudaErrorInvalidValue;
+  plans[key] = out;
+  return cudaSuccess;
+}
+
+// Host: plan kern at this shape and launch it as one grid of clusters
+// with args followed by the geometry. With info non-null: write the
+// launch's cluster size, column tiles, row groups, subspaces a block and
+// shared memory bytes to info[0..4] and launch nothing.
+template <typename LT, typename... Params, typename... Args>
+cudaError_t launch_cluster(void (*kern)(Params...), int fixed,
+                           const Shape& s, cudaStream_t st, int* info,
+                           Args... args) {
+  Geometry g;
+  cudaError_t err = plan<LT>(g, (const void*)kern, fixed, s);
+  if (err != cudaSuccess) return err;
+  const int tiles = (s.N + tile_cols<LT>() - 1) / tile_cols<LT>();
+  const int groups = (s.M + ROW_CAP - 1) / ROW_CAP;
+  if (groups > 65535) return cudaErrorInvalidValue;
+  if (info != nullptr) {
+    info[0] = g.cs; info[1] = tiles; info[2] = groups; info[3] = g.kmax;
+    info[4] = g.smem;
+    return cudaSuccess;
+  }
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  cluster_config(cfg, attr, dim3(tiles, g.cs, groups), g.cs, g.smem, st);
+  err = cudaLaunchKernelEx(&cfg, kern, args..., g);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
 }
 
 }  // namespace vqg

@@ -2,13 +2,15 @@
 the two passes that ``QuantConfig(fuse=False)`` runs.
 
 Port of ``repro.kernels.lut_gemm.lut_gemm_pallas``. The kernel is CUDA C++
-in ``csrc/lut_gemm.cu`` (its header says what bounds it); its int8 sums
-are exact int32 sums times the scale, B1's expression, so for int8 LUTs
+in ``csrc/lut_gemm.cu``, on kernel B1's device code (``csrc/vq_gather.cuh``;
+their headers say what bounds it and how it is built); its int8 sums are
+exact int32 sums times the scale, B1's expression, so for int8 LUTs
 ``lut_gemm_cuda(vq_assign_cuda(x, z), lut, s)`` equals
-``vq_amm_cuda(x, z, lut, s)`` bit for bit. This module checks the
-arguments, allocates the output and the split-K accumulator
-(``work_buffer``) and launches the kernel on the current stream. The
-plain version is
+``vq_amm_cuda(x, z, lut, s)`` bit for bit, and for float LUTs wherever
+``lut_gemm_geometry`` and ``fused_amm.vq_amm_geometry`` give the same
+cluster size and row groups. This module checks the arguments, allocates
+the output, and makes one C call that enqueues one kernel on the current
+stream (no memset, no work buffer). The plain version is
 ``kernels.ref.lut_gemm_onehot``; ``kernels.ops.lut_matmul`` picks between
 the two by device.
 
@@ -29,24 +31,11 @@ _I = ctypes.c_int
 
 
 def _lib():
-    lib = _build.load("lut_gemm")
-    if lib.lut_gemm_launch.argtypes is None:
-        lib.lut_gemm_launch.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                        _I, _P]
-        lib.lut_gemm_launch.restype = _I
-        lib.lut_gemm_splits.argtypes = [_I] * 3
-        lib.lut_gemm_splits.restype = _I
-    return lib
-
-
-def work_buffer(splits, lut: torch.Tensor, m: int, n: int) -> torch.Tensor:
-    """The split-K accumulator: (M, N) int32 for an int8 LUT (exact
-    atomic sums), else (splits(), M, N) float32, one tile per split
-    (``splits`` is called only then)."""
-    if lut.dtype == torch.int8:
-        return torch.empty((m, n), dtype=torch.int32, device=lut.device)
-    return torch.empty((splits(), m, n), dtype=torch.float32,
-                       device=lut.device)
+    fn = _build.load("lut_gemm").lut_gemm_launch
+    if fn.argtypes is None:
+        fn.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P]
+        fn.restype = _I
+    return fn
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -87,15 +76,14 @@ def lut_gemm_cuda(idx: torch.Tensor, lut: torch.Tensor,
         _check(scale is not None, "an int8 LUT needs its scale")
     _check(m * n < 2 ** 31 and nc * c * n < 2 ** 31,
            "sizes beyond int32 indexing")
-    lib = _lib()
+    fn = _lib()
     out = torch.empty((m, n), dtype=torch.float32, device=idx.device)
-    work = work_buffer(lambda: lib.lut_gemm_splits(m, nc, n), lut, m, n)
     with torch.cuda.device(idx.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.lut_gemm_launch(
-            idx.data_ptr(), lut.data_ptr(),
-            scale.data_ptr() if scale is not None else None, out.data_ptr(),
-            work.data_ptr(), m, nc, c, n, _LUT_DTYPES[lut.dtype], stream)
+        err = fn(idx.data_ptr(), lut.data_ptr(),
+                 scale.data_ptr() if scale is not None else None,
+                 out.data_ptr(), m, nc, c, n, _LUT_DTYPES[lut.dtype], stream,
+                 None)
     if err != 0:
         raise RuntimeError(f"lut_gemm_cuda: launch failed with cudaError {err}")
     lut_gemm_cuda.launches += 1
@@ -103,3 +91,20 @@ def lut_gemm_cuda(idx: torch.Tensor, lut: torch.Tensor,
 
 
 lut_gemm_cuda.launches = 0
+
+
+def lut_gemm_geometry(idx: torch.Tensor, lut: torch.Tensor) -> dict:
+    """The launch that ``lut_gemm_cuda`` makes for these CUDA operands,
+    without making it: cluster size (k splits), column tiles, row groups,
+    subspaces a block and shared memory bytes a block (the keys of
+    ``fused_amm.vq_amm_geometry``)."""
+    m, nc = idx.shape
+    _, c, n = lut.shape
+    info = (ctypes.c_int * 5)()
+    with torch.cuda.device(idx.device):
+        err = _lib()(idx.data_ptr(), lut.data_ptr(), None, None, m, nc, c,
+                     n, _LUT_DTYPES[lut.dtype], None, info)
+    if err != 0:
+        raise RuntimeError(f"lut_gemm_geometry: cudaError {err}")
+    return dict(zip(("cluster", "tiles", "row_groups", "subspaces", "smem"),
+                    info))

@@ -13,7 +13,15 @@ from repro_torch.kernels import _build  # noqa: E402
 
 
 def _includes(src):
-    return set(re.findall(r'#include "([^"]+\.cuh)"', src.read_text()))
+    """The headers src includes, directly or through another header."""
+    found, todo = set(), [src]
+    while todo:
+        text = todo.pop().read_text()
+        for h in re.findall(r'#include "([^"]+\.cuh)"', text):
+            if h not in found:
+                found.add(h)
+                todo.append(src.parent / h)
+    return found
 
 
 def test_every_source_is_listed_and_built_by_default():
@@ -23,7 +31,8 @@ def test_every_source_is_listed_and_built_by_default():
         assert name in _build.SOURCES
 
 
-@pytest.mark.parametrize("header", ["vq_common.cuh", "flash_common.cuh"])
+@pytest.mark.parametrize("header", ["vq_common.cuh", "vq_gather.cuh",
+                                    "flash_common.cuh"])
 def test_editing_a_shared_header_renames_every_library_that_includes_it(
         monkeypatch, tmp_path, header):
     csrc = tmp_path / "csrc"

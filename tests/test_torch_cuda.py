@@ -10,9 +10,12 @@ uint8 code pools, D of 64 to 256, exact-cover tables above 48 KB, and
 codebooks whose tables only B5's dequantize form takes (B5); pools at a
 storage offset that is not 16-byte aligned (B1's LUT, B2, B5); B1 at
 shapes that cross its tiling's edges (1 to 300 rows, c of 2 to 256,
-subspaces that do not divide into its cluster's ranks); float-LUT B1 and
-B4 launched twice on one input (bit for bit equal) and what a call
-enqueues (B1: one kernel); the fold kernel on B2's and B5's triples,
+subspaces that do not divide into its cluster's ranks); B3 and B4 on
+misaligned operands (element loads), B3 with one subspace above 48 KB of
+staging; float-LUT B1 and B4 launched twice on one input (bit for bit
+equal), B4(B3(x)) == B1(x) bit for bit on float LUTs wherever the two
+launches take one geometry, and what a call enqueues (B1, B3, B4: one
+kernel); the fold kernel on B2's and B5's triples,
 pages 4 to 64, G up to 8, D up to 256, and one flash_decode_paged call
 as three kernels.
 
@@ -42,8 +45,10 @@ from repro_torch.device import enqueued  # noqa: E402
 from repro_torch.kernels import flash_decode as tfd  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.kernels.assign import vq_assign_cuda  # noqa: E402
-from repro_torch.kernels.fused_amm import vq_amm_cuda  # noqa: E402
-from repro_torch.kernels.lut_gemm import lut_gemm_cuda  # noqa: E402
+from repro_torch.kernels.fused_amm import (  # noqa: E402
+    vq_amm_cuda, vq_amm_geometry)
+from repro_torch.kernels.lut_gemm import (  # noqa: E402
+    lut_gemm_cuda, lut_gemm_geometry)
 
 pytestmark = pytest.mark.cuda
 
@@ -200,6 +205,25 @@ def test_vq_amm_kernel_takes_misaligned_luts(dev, lut_dtype):
             torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.parametrize("lut_dtype", [torch.float32, torch.bfloat16,
+                                       torch.int8])
+def test_lut_gemm_kernel_takes_misaligned_luts(dev, lut_dtype):
+    """A LUT whose data starts one element past a 16-byte boundary takes
+    B4's element loads and gives the plain version's result."""
+    for i in (2, 5, 7, 9):
+        m, nc, _, c, _ = B1_SHAPES[i]
+        _, _, lut, scale = _b1_inputs(B1_SHAPES[i], torch.bfloat16,
+                                      lut_dtype, i, dev)
+        idx = torch.randint(0, c, (m, nc), device=dev, dtype=torch.int32)
+        got = lut_gemm_cuda(idx, _misaligned(lut), scale)
+        want = tref.lut_gemm_onehot(idx, lut, scale)
+        torch.cuda.synchronize()
+        if lut_dtype == torch.int8:
+            torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+        else:
+            torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
 # ---------------------------------------------------------------------------
 # B3 and B4: the two-pass path
 # ---------------------------------------------------------------------------
@@ -230,6 +254,29 @@ def test_vq_assign_kernel_ties_take_the_lowest_index(dev):
         idx = vq_assign_cuda(torch.zeros((5, 7, 4), device=dev),
                              torch.zeros((7, 16, 4), device=dev), metric)
         assert int(idx.abs().max()) == 0
+
+
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("v", [3, 4, 8])
+def test_vq_assign_kernel_takes_misaligned_x(dev, x_dtype, v):
+    """x whose data starts one element past a 16-byte boundary, and rows
+    of 3 or 4 elements (not 16-byte multiples in bfloat16), take B3's
+    element loads and give the plain argmin."""
+    for i, (m, nc, c) in enumerate([(8, 40, 16), (33, 21, 7), (70, 9, 256)]):
+        x, z, _, _ = _b1_inputs((m, nc, v, c, 4), x_dtype, torch.float32, i,
+                                dev)
+        for metric in ("l2", "l1", "chebyshev"):
+            got = vq_assign_cuda(_misaligned(x), z, metric)
+            torch.cuda.synchronize()
+            assert torch.equal(got, tref.assign_ref(x, z, metric))
+
+
+def test_vq_assign_kernel_takes_a_subspace_above_48kb(dev):
+    """c = 256, v = 220: one subspace's staged centroids take 220 KB, so
+    the block opts into the card's 227 KB and takes fewer rows."""
+    x, z, _, _ = _b1_inputs((20, 3, 220, 256, 4), torch.float32,
+                            torch.float32, 0, dev)
+    assert torch.equal(vq_assign_cuda(x, z), tref.assign_ref(x, z))
 
 
 @pytest.mark.parametrize("lut_dtype", [torch.float32, torch.bfloat16,
@@ -404,17 +451,39 @@ def test_float_lut_sums_are_the_same_on_every_launch(dev, lut_dtype):
 @pytest.mark.parametrize("lut_dtype", [torch.float32, torch.bfloat16,
                                        torch.int8])
 def test_vq_amm_and_lut_gemm_launch_counts(dev, lut_dtype):
-    """B1: one kernel a call, no memset, no copy, for every LUT type.
-    B4, float LUTs: two launches (the kernel, then the split sum and
-    scale), no memset; int8: memset, kernel, scale."""
-    x, z, lut, scale = _b1_inputs(B1_SHAPES[3], torch.bfloat16, lut_dtype,
-                                  0, dev)
-    idx = vq_assign_cuda(x, z)
-    assert enqueued(lambda: vq_amm_cuda(x, z, lut, scale)) == {
-        "kernels": 1, "copies": 0, "memsets": 0, "other": 0}
-    want = {"kernels": 2, "copies": 0, "other": 0,
-            "memsets": 1 if lut_dtype == torch.int8 else 0}
-    assert enqueued(lambda: lut_gemm_cuda(idx, lut, scale)) == want
+    """B1, B3 and B4: one kernel a call, no memset, no copy, for every
+    LUT and x type."""
+    one = {"kernels": 1, "copies": 0, "memsets": 0, "other": 0}
+    for x_dtype in (torch.float32, torch.bfloat16):
+        x, z, lut, scale = _b1_inputs(B1_SHAPES[3], x_dtype, lut_dtype, 0,
+                                      dev)
+        idx = vq_assign_cuda(x, z)
+        assert enqueued(lambda: vq_amm_cuda(x, z, lut, scale)) == one
+        assert enqueued(lambda: vq_assign_cuda(x, z)) == one
+        assert enqueued(lambda: lut_gemm_cuda(idx, lut, scale)) == one
+
+
+@pytest.mark.parametrize("lut_dtype", [torch.float32, torch.bfloat16])
+def test_two_pass_equals_fused_bitwise_on_float_luts_at_one_geometry(
+        dev, lut_dtype):
+    """Where B4's launch takes B1's cluster size and row groups, the two
+    run one sum in one order, so B4(B3(x)) == B1(x) bit for bit on float
+    LUTs too; at least one B1_SHAPES entry must be such a shape."""
+    same = 0
+    for i, shape in enumerate(B1_SHAPES):
+        x, z, lut, _ = _b1_inputs(shape, torch.bfloat16, lut_dtype, i, dev)
+        xr = torch.randn(x.shape, device=dev).to(x.dtype)
+        idx = vq_assign_cuda(xr, z)
+        g1, g4 = vq_amm_geometry(xr, z, lut), lut_gemm_geometry(idx, lut)
+        if (g1["cluster"], g1["row_groups"]) != (g4["cluster"],
+                                                 g4["row_groups"]):
+            continue
+        same += 1
+        scale = 0.5 + torch.rand(lut.shape[2], device=dev)
+        for sc in (None, scale):
+            assert torch.equal(lut_gemm_cuda(idx, lut, sc),
+                               vq_amm_cuda(xr, z, lut, sc))
+    assert same >= 1
 
 
 # ---------------------------------------------------------------------------
