@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA
-H100: builds the hand-written kernels (B1-B5 and the fold kernel of
-paged decode), holds each against its plain PyTorch version at the main
-path's shapes (B1, B3, B4 also: one kernel a call and nothing else,
-their times flushed and warm in a CUDA graph, their host time and launch
-geometry, and a sweep of nc at M=8, N=6912, with B3's subspaces a block
-swept beside it), serves full-width qwen1.5-4b (lut_infer, int8 LUTs)
+H100: builds the hand-written kernels (B1-B5), holds each against its
+plain PyTorch version at the main path's shapes (B1, B3, B4 also: one
+kernel a call and nothing else, their times flushed and warm in a CUDA
+graph, their host time and launch geometry, and a sweep of nc at M=8,
+N=6912, with B3's subspaces a block swept beside it; B2 and B5 in both
+forms -- triples out, and fused with the split reduction and self-term
+fold, one kernel for a whole flash_decode_paged call -- also at one slot
+of 4096 tokens), serves full-width qwen1.5-4b (lut_infer, int8 LUTs)
 through the continuous-batching engine three times -- fused projections
-on an fp KV pool (B1, B2, fold), two-pass projections (B3, B4, B2, fold),
-fused projections on a VQ code pool (B1, B5, fold) -- and checks one
+on an fp KV pool (B1, B2), two-pass projections (B3, B4, B2), fused
+projections on a VQ code pool (B1, B5) -- and checks one
 decode step's logits of each through the kernels against the plain
 versions. A last phase checks that float-LUT results are the same on
 every run: B1 and B4 with float32 and bfloat16 LUTs launched twice on one
@@ -178,14 +180,13 @@ DISPATCH = {
     "b1": (ops, "vq_amm_cuda", ref.vq_amm_ref),
     "b3": (ops, "vq_assign_cuda", ref.assign_ref),
     "b4": (ops, "lut_gemm_cuda", ref.lut_gemm_onehot),
-    "b2": (fd, "flash_decode_splits_cuda", fd.flash_decode_splits),
-    "b5": (fd, "flash_decode_splits_kvq_cuda", fd.flash_decode_splits_kvq),
-    "fold": (fd, "fold_splits_cuda", fd.fold_splits),
+    "b2": (fd, "flash_decode_paged_cuda", fd.flash_decode_paged_plain),
+    "b5": (fd, "flash_decode_paged_kvq_cuda",
+           fd.flash_decode_paged_kvq_plain),
 }
 WRAPPERS = {"b1": vq_amm_cuda, "b3": vq_assign_cuda, "b4": lut_gemm_cuda,
-            "b2": fd.flash_decode_splits_cuda,
-            "b5": fd.flash_decode_splits_kvq_cuda,
-            "fold": fd.fold_splits_cuda}
+            "b2": fd.flash_decode_paged_cuda,
+            "b5": fd.flash_decode_paged_kvq_cuda}
 
 
 @contextlib.contextmanager
@@ -507,48 +508,65 @@ def float_lut_case(gen, m, k, n, flush):
     return res
 
 
-def fold_case(label, tri, qg, kn, vn, q_dtype, pos, flush, timed):
-    """The fold kernel on a case's kernel triples against fold_splits on
-    the same triples: float32 output within the triples' tolerance, q's
-    dtype output within half an ulp more, pos = -1 lanes exactly v_new.
-    Timed: kernel, plain and byte bound at this shape."""
-    b, kvh, g, d = qg.shape
-    want = fd.fold_splits(*tri, qg, kn, vn, torch.float32)
+def fused_case(label, fused, plain_triples, q, kn, vn, pos, kvh):
+    """The fused kernel (B2 or B5 with the fold epilogue: one launch, the
+    whole flash_decode_paged call) against the plain pair on the same
+    inputs (the plain triples, then fold_splits), with q, k_new and v_new
+    in float32 and in bfloat16: float32 output within 2e-5 (1 + max|ref|)
+    (the fold tests' tolerance), bfloat16 output within half a bfloat16
+    ulp more; pos = -1 lanes exactly their v_new row; two launches bitwise
+    equal. ``fused(q, kn, vn)`` launches it; ``plain_triples(qg)`` gives
+    the plain triples. Returns the float32 output's max abs error."""
+    b, _, h, d = q.shape
+    g = h // kvh
+    dead = (pos < 0).nonzero().flatten().tolist()
     err = 0.0
-    for out_dtype in {torch.float32, q_dtype}:
-        got = fd.fold_splits_cuda(*tri, qg, kn, vn, out_dtype)
+    for dt in (torch.float32, torch.bfloat16):
+        qc, knc, vnc = (t.to(dt).contiguous() for t in (q, kn, vn))
+        got = fused(qc, knc, vnc)
+        again = fused(qc, knc, vnc)
+        qg = (qc.reshape(b, kvh, g, d).float() * d ** -0.5).contiguous()
+        want = fd.fold_splits(*plain_triples(qg), qg, knc, vnc,
+                              torch.float32)
         torch.cuda.synchronize()
-        check(bool(torch.isfinite(got).all()), f"fold {label}: non-finite")
+        check(got.dtype == dt and got.shape == want.shape,
+              f"{label} ({dt}): output {got.dtype} {tuple(got.shape)}")
+        check(bool(torch.isfinite(got).all()), f"{label} ({dt}): non-finite")
+        check(torch.equal(got, again), f"{label} ({dt}): two launches differ")
         e = float((got.float() - want).abs().max())
-        half_ulp = 0.0 if out_dtype == torch.float32 else 2.0 ** -8
+        half_ulp = 0.0 if dt == torch.float32 else 2.0 ** -8
         tol = 2e-5 * (1.0 + float(want.abs().max()))
         check(bool(((got.float() - want).abs()
                     <= tol + half_ulp * want.abs()).all()),
-              f"fold {label} ({out_dtype}): max abs err {e} > {tol} "
-              f"(+ {half_ulp} relative)")
-        if out_dtype == torch.float32:
+              f"{label} ({dt}): max abs err {e} > {tol} (+ {half_ulp} "
+              "relative) against the plain triples + fold_splits")
+        if dt == torch.float32:
             err = e
-        dead = (pos < 0).nonzero().flatten().tolist()
         for lane in dead:
-            row = vn[lane, 0, :, None, :].expand(kvh, g, d).reshape(1, -1)
-            check(torch.equal(got[lane], row.to(out_dtype)),
-                  f"fold {label} ({out_dtype}): pos=-1 lane {lane} is not "
-                  "exactly its v_new row")
-    if not timed:
-        return {"err": err}
-    ms = time_ms(lambda: fd.fold_splits_cuda(*tri, qg, kn, vn, q_dtype), 30,
-                 flush)
-    plain_ms = time_ms(lambda: fd.fold_splits(*tri, qg, kn, vn, q_dtype), 5,
-                       flush)
-    out_bytes = b * kvh * g * d * torch.empty((), dtype=q_dtype).element_size()
-    # a multiply-add per split and acc element, ~8 operations per output
-    bms, by = bound(nbytes(*tri, qg, kn, vn) + out_bytes,
-                    2 * tri[2].numel() + 8 * b * kvh * g * d)
-    print(f"fold {label}: kernel {ms * 1e3:.2f} us, plain {plain_ms * 1e3:.1f}"
-          f" us, bound {bms * 1e3:.3f} us ({by}; {tri[0].shape[0]} splits), "
-          f"max abs err {err:.3g} (float32 out)")
-    return {"err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
-            "bound_by": by}
+            row = vnc[lane, 0, :, None, :].expand(kvh, g, d).reshape(1, -1)
+            check(torch.equal(got[lane], row),
+                  f"{label} ({dt}): pos=-1 lane {lane} is not exactly its "
+                  "v_new row")
+    return err
+
+
+def geometry_text(geo):
+    return (f"{geo['clusters']} clusters of {geo['cluster']} blocks, "
+            f"{geo['resident']} resident at once ({geo['smem']} B of shared "
+            f"memory, {geo['registers']} registers a thread)")
+
+
+def call_timings(label, call, plain, flush):
+    """A whole flash_decode_paged call: flushed (mean and median of 30),
+    warm in a graph of 30 calls, host us a call, what it enqueues (one
+    kernel), and the plain pair's time."""
+    times = device_times(call, 30, flush)
+    calls = enqueued(call)
+    check(calls == ONE_KERNEL,
+          f"{label}: flash_decode_paged enqueues {calls}")
+    return {"ms": float(np.mean(times)), "med_ms": float(np.median(times)),
+            "warm_ms": graph_ms(call), "host": host_us(call),
+            "plain_ms": time_ms(plain, 5, flush), "enqueues": calls}
 
 
 def b2_inputs(gen, b, h, kvh, d, np_, positions, kv_start, ps, dev=DEV):
@@ -604,8 +622,12 @@ def b2_case(gen, name, b, h, kvh, d, np_, positions, window, kv_start,
                    and (tk[1][:, dead] == 0).all()
                    and (tk[2][:, dead] == 0).all()),
               f"B2 {name}: masked lane is not (-1e30, 0, 0)")
-    fold = fold_case(f"(B2 triples) {name}", tk, qg, kn, vn, q.dtype, pos,
-                     flush, timed)
+    fused_err = fused_case(
+        f"B2 fused {name}",
+        lambda qc, knc, vnc: fd.flash_decode_paged_cuda(
+            qc, kp, vp, knc, vnc, phys, pos, window, ks, sp),
+        lambda qg_: fd.flash_decode_splits(qg_, kp, vp, phys_p, pos, window,
+                                           ks, sp), q, kn, vn, pos, kvh)
     out_k = fd.flash_decode_paged(q, kp, vp, kn, vn, phys, pos,
                                   window=window, kv_start=ks)
     with plain_kernels():
@@ -617,31 +639,38 @@ def b2_case(gen, name, b, h, kvh, d, np_, positions, window, kv_start,
     # the two differ only in fp32 summation order before the bf16 cast
     check(err <= 2e-2, f"B2 {name}: output max abs err {err}")
     if not timed:
-        print(f"B2 flash_decode {name}: max abs err {err:.3g} (checked)")
-        return {"err": err, "fold": fold}
+        print(f"B2 flash_decode {name}: max abs err {err:.3g} (bf16 out), "
+              f"fused vs plain pair {fused_err:.3g} (float32 out; checked)")
+        return {"err": fused_err}
+
+    def call():
+        return fd.flash_decode_paged(q, kp, vp, kn, vn, phys, pos,
+                                     window=window, kv_start=ks)
+
+    def plain():
+        return fd.flash_decode_paged_plain(q, kp, vp, kn, vn, phys, pos,
+                                           window, ks, sp)
+    ct = call_timings(f"B2 {name}", call, plain, flush)
+    geo = fd.fused_geometry(q, kp, phys, sp)
     times = device_times(lambda: fd.flash_decode_splits_cuda(
         qg, kp, vp, phys_p, pos, window, ks, sp), 30, flush)
     ms, med = float(np.mean(times)), float(np.median(times))
-    plain_ms = time_ms(lambda: fd.flash_decode_splits(
-        qg, kp, vp, phys_p, pos, window, ks, sp), 5, flush)
-    host = host_us(lambda: fd.flash_decode_splits_cuda(
-        qg, kp, vp, phys_p, pos, window, ks, sp))
-    call_ms = time_ms(lambda: fd.flash_decode_paged(
-        q, kp, vp, kn, vn, phys, pos, window=window, kv_start=ks), 30, flush)
-    call_launches = enqueued(lambda: fd.flash_decode_paged(
-        q, kp, vp, kn, vn, phys, pos, window=window, kv_start=ks))
-    check(call_launches == {"kernels": 3, "copies": 0, "memsets": 0,
-                           "other": 0},
-          f"B2 {name}: flash_decode_paged enqueues {call_launches}")
-    sweep = []
+    sweep, fsweep = [], []
     for s in split_sweep(np_, sp):    # pages per split
         ph = torch.nn.functional.pad(phys, (0, (-np_) % s),
                                      value=kp.shape[0] - 1).contiguous()
         t_s = time_ms(lambda: fd.flash_decode_splits_cuda(
             qg, kp, vp, ph, pos, window, ks, s), 30, flush)
         sweep.append(f"{s}: {t_s * 1e3:.1f}")
-    print(f"B2 flash_decode {name}: kernel us by pages per split (the split "
-          f"rule takes {sp}): {', '.join(sweep)}")
+        if -(-np_ // s) <= fd.MAX_SPLITS:
+            t_f = time_ms(lambda: fd.flash_decode_paged_cuda(
+                q, kp, vp, kn, vn, phys, pos, window, ks, s), 30, flush)
+            g_s = fd.fused_geometry(q, kp, phys, s)
+            fsweep.append(f"{s}: {t_f * 1e3:.1f} ({g_s['resident']} of "
+                          f"{g_s['clusters']} clusters resident)")
+    print(f"B2 flash_decode {name}: us by pages per split (the split rule "
+          f"takes {sp}), triples form {', '.join(sweep)}; fused "
+          f"{', '.join(fsweep)}")
     # yardstick: SDPA over the already gathered, contiguous K/V
     t = np_ * ps
     kg = kp[phys.long()].reshape(b, t, kvh, d).transpose(1, 2).contiguous()
@@ -654,19 +683,25 @@ def b2_case(gen, name, b, h, kvh, d, np_, positions, window, kv_start,
                                                       attn_mask=mask),
                          30, flush)
     live = int(pos.clamp_min(0).sum())
-    b_ = (2 * live * kvh * d * kp.element_size() + nbytes(qg, phys_p, pos)
-          + nbytes(*tk))
-    bms, by = bound(b_, 4 * live * h * d)
-    print(f"B2 flash_decode {name}: kernel {ms * 1e3:.1f} us (median "
-          f"{med * 1e3:.1f}; {sp} pages a split), whole flash_decode_paged "
-          f"call {call_ms * 1e3:.1f} us, enqueues {call_launches}, "
-          f"plain {plain_ms * 1e3:.1f} us, SDPA on gathered K/V "
-          f"{library_ms * 1e3:.1f} us, bound {bms * 1e3:.2f} us ({by}; "
-          f"{live} live tokens), host {host:.1f} us/call, max abs err "
-          f"{err:.3g}")
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-            "library_ms": library_ms, "err": err, "call_ms": call_ms,
-            "fold": fold}
+    rows = 2 * live * kvh * d * kp.element_size()
+    tms, tby = bound(rows + nbytes(qg, phys_p, pos) + nbytes(*tk),
+                     4 * live * h * d)
+    # the whole call: K/V rows, q, the new token's rows, page ids, out
+    bms, by = bound(rows + nbytes(q, kn, vn, phys, pos, ks) + nbytes(q),
+                    4 * live * h * d + 10 * b * h * d)
+    print(f"B2 flash_decode {name}: whole flash_decode_paged call (fused "
+          f"kernel) {ct['ms'] * 1e3:.1f} us flushed (median "
+          f"{ct['med_ms'] * 1e3:.1f}), {ct['warm_ms'] * 1e3:.1f} us warm in "
+          f"a graph, host {ct['host']:.1f} us/call, enqueues "
+          f"{ct['enqueues']}, bound {bms * 1e3:.2f} us ({by}; {live} live "
+          f"tokens, {sp} pages a split), {geometry_text(geo)}; triples "
+          f"form {ms * 1e3:.1f} us (median {med * 1e3:.1f}; bound "
+          f"{tms * 1e3:.2f} us, {tby}); plain pair {ct['plain_ms'] * 1e3:.1f}"
+          f" us; SDPA on gathered K/V {library_ms * 1e3:.1f} us; max abs err "
+          f"{fused_err:.3g} (float32 out), {err:.3g} (bf16 out)")
+    return {"ms": ct["ms"], "plain_ms": ct["plain_ms"], "bound_ms": bms,
+            "bound_by": by, "library_ms": library_ms, "err": fused_err,
+            "warm_ms": ct["warm_ms"], "triples_ms": ms}
 
 
 def b5_inputs(gen, b, h, kvh, d, np_, positions, kv_start, ps,
@@ -724,6 +759,7 @@ def b5_case(gen, name, b, h, kvh, d, np_, positions, window, kv_start,
     phys_p = pad(sp)
     nc, c_, v_ = cb_l["zk"].shape
     form = fd.kvq_form(g, d, ps, sp, nc, c_, v_)
+    fform = fd.kvq_form(g, d, ps, sp, nc, c_, v_, fused=True)
     tk = fd.flash_decode_splits_kvq_cuda(qg, kc, vc, *tab, phys_p, pos,
                                          window, ks, sp)
     tp = fd.flash_decode_splits_kvq(qg, kc, vc, *tab, phys_p, pos, window,
@@ -740,8 +776,13 @@ def b5_case(gen, name, b, h, kvh, d, np_, positions, window, kv_start,
                    and (tk[1][:, dead] == 0).all()
                    and (tk[2][:, dead] == 0).all()),
               f"B5 {name}: masked lane is not (-1e30, 0, 0) in float32")
-    fold = fold_case(f"(B5 triples) {name}", tk, qg, kn, vn, q.dtype, pos,
-                     flush, timed)
+    fused_err = fused_case(
+        f"B5 fused {name}",
+        lambda qc, knc, vnc: fd.flash_decode_paged_kvq_cuda(
+            qc, kc, vc, *tab, knc, vnc, phys, pos, window, ks, sp),
+        lambda qg_: fd.flash_decode_splits_kvq(qg_, kc, vc, *tab, phys_p,
+                                               pos, window, ks, sp),
+        q, kn, vn, pos, kvh)
     out_k = fd.flash_decode_paged(q, kc, vc, kn, vn, phys, pos,
                                   window=window, kv_start=ks, codebook=cb_l)
     with plain_kernels():
@@ -758,33 +799,39 @@ def b5_case(gen, name, b, h, kvh, d, np_, positions, window, kv_start,
     tables = nbytes(*tab)
     if not timed:
         print(f"B5 flash_decode_kvq {name}: tables {tables / 1024:.0f} KB, "
-              f"{form} form, max abs err {err:.3g} vs plain and oracle "
-              f"(checked)")
-        return {"err": err, "fold": fold}
+              f"{form} form ({fform} fused), max abs err {err:.3g} vs plain and oracle, "
+              f"fused vs plain pair {fused_err:.3g} (checked)")
+        return {"err": max(err, fused_err)}
+
+    def call():
+        return fd.flash_decode_paged(q, kc, vc, kn, vn, phys, pos,
+                                     window=window, kv_start=ks,
+                                     codebook=cb_l)
+
+    def plain():
+        return fd.flash_decode_paged_kvq_plain(q, kc, vc, *tab, kn, vn, phys,
+                                               pos, window, ks, sp)
+    ct = call_timings(f"B5 {name}", call, plain, flush)
+    geo = fd.fused_geometry(q, kc, phys, sp, cb_l)
     times = device_times(lambda: fd.flash_decode_splits_kvq_cuda(
         qg, kc, vc, *tab, phys_p, pos, window, ks, sp), 30, flush)
     ms, med = float(np.mean(times)), float(np.median(times))
-    plain_ms = time_ms(lambda: fd.flash_decode_splits_kvq(
-        qg, kc, vc, *tab, phys_p, pos, window, ks, sp), 5, flush)
-    host = host_us(lambda: fd.flash_decode_splits_kvq_cuda(
-        qg, kc, vc, *tab, phys_p, pos, window, ks, sp))
-    call_ms = time_ms(lambda: fd.flash_decode_paged(
-        q, kc, vc, kn, vn, phys, pos, window=window, kv_start=ks,
-        codebook=cb_l), 30, flush)
-    call_launches = enqueued(lambda: fd.flash_decode_paged(
-        q, kc, vc, kn, vn, phys, pos, window=window, kv_start=ks,
-        codebook=cb_l))
-    check(call_launches == {"kernels": 3, "copies": 0, "memsets": 0,
-                           "other": 0},
-          f"B5 {name}: flash_decode_paged enqueues {call_launches}")
-    sweep = []
+    sweep, fsweep = [], []
     for s_ in split_sweep(np_, sp):   # pages per split
         ph = pad(s_)
         t_s = time_ms(lambda: fd.flash_decode_splits_kvq_cuda(
             qg, kc, vc, *tab, ph, pos, window, ks, s_), 30, flush)
         sweep.append(f"{s_}: {t_s * 1e3:.1f}")
-    print(f"B5 flash_decode_kvq {name}: kernel us by pages per split (the "
-          f"split rule takes {sp}): {', '.join(sweep)}")
+        if -(-np_ // s_) <= fd.MAX_SPLITS:
+            t_f = time_ms(lambda: fd.flash_decode_paged_kvq_cuda(
+                q, kc, vc, *tab, kn, vn, phys, pos, window, ks, s_), 30,
+                flush)
+            g_s = fd.fused_geometry(q, kc, phys, s_, cb_l)
+            fsweep.append(f"{s_}: {t_f * 1e3:.1f} ({g_s['resident']} of "
+                          f"{g_s['clusters']} clusters resident)")
+    print(f"B5 flash_decode_kvq {name}: us by pages per split (the split "
+          f"rule takes {sp}), triples form {', '.join(sweep)}; fused "
+          f"{', '.join(fsweep)}")
     # yardstick: SDPA over K/V already dequantized, gathered, contiguous
     t = np_ * ps
     kd = (cb_l["zk"][torch.arange(kc.shape[-1], device=DEV),
@@ -801,20 +848,27 @@ def b5_case(gen, name, b, h, kvh, d, np_, positions, window, kv_start,
                                                       attn_mask=mask),
                          30, flush)
     live_t = int(pos.clamp_min(0).sum())
-    b_ = (2 * live_t * kvh * kc.shape[-1] * kc.element_size() + tables
-          + nbytes(qg, phys_p, pos, ks) + nbytes(*tk))
-    bms, by = bound(b_, 4 * live_t * h * d + 2 * live_t * kvh * d)
-    print(f"B5 flash_decode_kvq {name}: kernel {ms * 1e3:.1f} us (median "
-          f"{med * 1e3:.1f}; {form} form, {sp} pages a split), whole "
-          f"flash_decode_paged call {call_ms * 1e3:.1f} us, enqueues "
-          f"{call_launches}, plain "
-          f"{plain_ms * 1e3:.1f} us, SDPA on dequantized bf16 K/V "
-          f"{library_ms * 1e3:.1f} us, bound {bms * 1e3:.2f} us ({by}; "
-          f"{live_t} live tokens, {kc.shape[-1]} code bytes per token and "
-          f"head), host {host:.1f} us/call, max abs err {err:.3g}")
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-            "library_ms": library_ms, "err": err, "call_ms": call_ms,
-            "fold": fold}
+    codes = 2 * live_t * kvh * kc.shape[-1] * kc.element_size() + tables
+    ops = 4 * live_t * h * d + 2 * live_t * kvh * d
+    tms, tby = bound(codes + nbytes(qg, phys_p, pos, ks) + nbytes(*tk), ops)
+    bms, by = bound(codes + nbytes(q, kn, vn, phys, pos, ks) + nbytes(q),
+                    ops + 10 * b * h * d)
+    print(f"B5 flash_decode_kvq {name}: whole flash_decode_paged call "
+          f"(fused kernel, {fform} form) {ct['ms'] * 1e3:.1f} us flushed "
+          f"(median {ct['med_ms'] * 1e3:.1f}), {ct['warm_ms'] * 1e3:.1f} us "
+          f"warm in a graph, host {ct['host']:.1f} us/call, enqueues "
+          f"{ct['enqueues']}, bound {bms * 1e3:.2f} us ({by}; {live_t} live "
+          f"tokens, {kc.shape[-1]} code bytes per token and head, {sp} pages"
+          f" a split), {geometry_text(geo)}; triples form ({form}) "
+          f"{ms * 1e3:.1f} us (median {med * 1e3:.1f}; bound "
+          f"{tms * 1e3:.2f} us, {tby}); "
+          f"plain pair {ct['plain_ms'] * 1e3:.1f} us; SDPA on dequantized "
+          f"bf16 K/V {library_ms * 1e3:.1f} us; max abs err {err:.3g} vs "
+          f"plain and oracle, fused vs plain pair {fused_err:.3g}")
+    return {"ms": ct["ms"], "plain_ms": ct["plain_ms"], "bound_ms": bms,
+            "bound_by": by, "library_ms": library_ms,
+            "err": max(err, fused_err), "warm_ms": ct["warm_ms"],
+            "triples_ms": ms}
 
 
 # ---------------------------------------------------------------------------
@@ -953,7 +1007,7 @@ def float_lut_serve(seed, layers=4):
     for i in (1, 2):
         _, toks, eng = serve(model, params, qc, seed,
                              f"float32 LUTs, {layers} layers, run {i}",
-                             {"b1", "b2", "fold"}, {"b3", "b4", "b5"})
+                             {"b1", "b2"}, {"b3", "b4", "b5"})
         tokens.append(toks)
         del eng
     check(tokens[0] == tokens[1],
@@ -1014,6 +1068,8 @@ def main(argv=None) -> int:
         b2_full = b2_case(gen, "all 8 slots at 511 tokens", SLOTS, 20, 20,
                           128, MAX_SEQ // PAGE, full_pos, 0, [0] * SLOTS,
                           flush, True)
+        b2_one = b2_case(gen, "one slot at 4096 tokens", 1, 20, 20, 128,
+                         4096 // PAGE, [4095], 0, [0], flush, True)
         b2_checks = [
             b2_case(gen, "G=4 window=100 kv_start>0, pos=-1 lanes", 4, 16,
                     4, 128, 16, [200, -1, 77, 255], 100, [5, 0, 3, 17],
@@ -1026,6 +1082,8 @@ def main(argv=None) -> int:
         b5_full = b5_case(gen, "all 8 slots at 511 tokens", SLOTS, 20, 20,
                           128, MAX_SEQ // PAGE, full_pos, 0, [0] * SLOTS,
                           flush, True)
+        b5_one = b5_case(gen, "one slot at 4096 tokens", 1, 20, 20, 128,
+                         4096 // PAGE, [4095], 0, [0], flush, True)
         b5_checks = [
             b5_case(gen, "G=4 window=100 kv_start>0, pos=-1 lanes", 4, 16,
                     4, 128, 16, [200, -1, 77, 255], 100, [5, 0, 3, 17],
@@ -1096,19 +1154,18 @@ def main(argv=None) -> int:
                               for k, n, _ in PROJ_SHAPES))
     print(f"kernel device time per decode step (from the kernel phase): "
           f"fused B1 {per_step(b1):.2f} ms, two-pass B3 {per_step(b3):.2f} + "
-          f"B4 {per_step(b4):.2f} ms; attention B2 "
-          f"{cfg.num_layers * b2['ms']:.2f} ms, B5 "
-          f"{cfg.num_layers * b5['ms']:.2f} ms (whole flash_decode_paged "
-          f"calls {cfg.num_layers * b2['call_ms']:.2f} and "
-          f"{cfg.num_layers * b5['call_ms']:.2f} ms; fold kernel "
-          f"{cfg.num_layers * b2['fold']['ms']:.3f} ms)")
+          f"B4 {per_step(b4):.2f} ms; attention, one flash_decode_paged call"
+          f" (one kernel) a layer: fp pool {cfg.num_layers * b2['ms']:.2f} "
+          f"ms flushed ({cfg.num_layers * b2['warm_ms']:.2f} warm), codes "
+          f"{cfg.num_layers * b5['ms']:.2f} ms "
+          f"({cfg.num_layers * b5['warm_ms']:.2f} warm)")
     torch.cuda.reset_peak_memory_stats()
     runs = {
-        "fused": (qc, {"b1", "b2", "fold"}, {"b3", "b4", "b5"}),
-        "two-pass": (qc.replace(fuse=False), {"b3", "b4", "b2", "fold"},
+        "fused": (qc, {"b1", "b2"}, {"b3", "b4", "b5"}),
+        "two-pass": (qc.replace(fuse=False), {"b3", "b4", "b2"},
                      {"b1", "b5"}),
         "vq-kv": (qc.replace(kv_quant="vq", kv_v=KV_V, kv_c=KV_C),
-                  {"b1", "b5", "fold"}, {"b2", "b3", "b4"}),
+                  {"b1", "b5"}, {"b2", "b3", "b4"}),
     }
     counts, tokens, codebook, bpt = {}, {}, None, {}
     for label, (qc_r, launched, idle) in runs.items():
@@ -1175,8 +1232,10 @@ def main(argv=None) -> int:
         proj_row("vq_amm (B1, 7 projections of one layer at decode M=8)",
                  b1, "src/repro_torch/csrc/fused_amm.cu",
                  "src/repro/kernels/fused_amm.py:87", launches("b1")),
-        attn_row("flash_decode_splits (B2, one layer, 8 slots)", b2,
-                 [b2["err"], b2_full["err"]] + [r["err"] for r in b2_checks],
+        attn_row("flash_decode_paged_cuda (B2 fused with the split "
+                 "reduction and self-term fold: one layer's whole decode "
+                 "attention, 8 slots)", b2,
+                 [r["err"] for r in [b2, b2_full, b2_one] + b2_checks],
                  "src/repro_torch/csrc/flash_decode.cu",
                  "src/repro/kernels/flash_decode.py:183", launches("b2")),
         proj_row("vq_assign (B3, 7 projections of one layer at decode M=8)",
@@ -1185,22 +1244,12 @@ def main(argv=None) -> int:
         proj_row("lut_gemm (B4, 7 projections of one layer at decode M=8)",
                  b4, "src/repro_torch/csrc/lut_gemm.cu",
                  "src/repro/kernels/lut_gemm.py:61", launches("b4")),
-        attn_row("flash_decode_splits_kvq (B5, one layer, 8 slots, "
-                 "nc=32 c=16)", b5,
-                 [b5["err"], b5_full["err"]] + [r["err"] for r in b5_checks],
+        attn_row("flash_decode_paged_kvq_cuda (B5 fused with the split "
+                 "reduction and self-term fold, one layer, 8 slots, nc=32 "
+                 "c=16)", b5,
+                 [r["err"] for r in [b5, b5_full, b5_one] + b5_checks],
                  "src/repro_torch/csrc/flash_decode_kvq.cu",
                  "src/repro/kernels/flash_decode.py:294", launches("b5")),
-        {"name": "fold_splits (split reduction + self-term fold of one "
-                 "layer's flash_decode_paged, 8 slots, B2's triples)",
-         "route": "cuda", "source": "src/repro_torch/csrc/flash_fold.cu",
-         "replaces": "src/repro/kernels/flash_decode.py:501",
-         "launches": launches("fold"),
-         "max_abs_err": max(r["fold"]["err"] for r in
-                            [b2, b2_full, b5, b5_full] + b2_checks
-                            + b5_checks),
-         "ms": b2["fold"]["ms"], "plain_ms": b2["fold"]["plain_ms"],
-         "bound_ms": b2["fold"]["bound_ms"],
-         "bound_by": b2["fold"]["bound_by"], "library_ms": None},
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

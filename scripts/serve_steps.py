@@ -11,12 +11,17 @@ Everything comes from the named tree's own ``chip_smoke.py`` and
 process per tree and turn, without the kernel phase before them:
 
     python3 scripts/serve_steps.py [--tree DIR] [--configs two-pass,fused]
+                                   [--save TOKENS.json]
+
+``--save`` writes each configuration's generated tokens, for comparing
+two trees' greedy tokens.
 
 Exits 2 without a CUDA device.
 """
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import sys
 import time
@@ -34,6 +39,7 @@ def main(argv=None) -> int:
     ap.add_argument("--configs", default="two-pass,fused",
                     help="comma list of fused, two-pass, vq-kv")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--save", help="JSON file for the generated tokens")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("serve_steps: no CUDA device visible to torch",
@@ -52,6 +58,7 @@ def main(argv=None) -> int:
             "two-pass": (qc.replace(fuse=False), {"b3", "b4"}, {"b1"}),
             "vq-kv": (qc.replace(kv_quant="vq", kv_v=cs.KV_V,
                                  kv_c=cs.KV_C), {"b1", "b5"}, {"b3", "b4"})}
+    tokens = {}
     for label in args.configs.split(","):
         qc_r, launched, idle = runs[label]
         steps = []
@@ -65,11 +72,15 @@ def main(argv=None) -> int:
             return out
         cs.Engine._decode_step = timed
         try:
-            cs.serve(model, params, qc_r, args.seed, label, launched, idle)
+            _, tokens[label], _ = cs.serve(model, params, qc_r, args.seed,
+                                           label, launched, idle)
         finally:
             cs.Engine._decode_step = real
         print(f"serve [{label}] tree {args.tree}: median decode step "
               f"{1e3 * float(np.median(steps)):.1f} ms over {len(steps)}")
+    if args.save:
+        with open(args.save, "w") as f:
+            json.dump(tokens, f)
     return 0
 
 

@@ -8,8 +8,19 @@
 //   m = max_j s_j,  l = sum_j exp(s_j - m),  acc = sum_j exp(s_j - m) v_j
 // over live keys j: kv_start <= j < pos (and j > pos - window when
 // window > 0), inside the split's token range. An all-masked split gives
-// exactly (-1e30, 0, 0), the identity of the split reduction that follows
-// (the fold kernel, flash_fold.cu).
+// exactly (-1e30, 0, 0), the identity of the split reduction that follows.
+//
+// Each kernel has two forms, one template flag (FOLD) apart:
+//  * the triples form writes the triple to device memory, (NS, B, KVH,
+//    G[, D]) f32: the contract of the TPU kernels, held against their
+//    plain versions;
+//  * the fused form, the one flash_decode_paged launches, keeps it in the
+//    block's shared memory. The NS split blocks of one (slot, kv head)
+//    form a thread block cluster along grid x, and fold_end reduces
+//    their triples over distributed shared memory and folds in the new
+//    token's self term: one kernel a call, no triple in device memory.
+//    Its q is the raw query (f32 or bf16), scaled by D^-0.5 as it is read.
+//    A split without a live key leaves at once (fold_begin).
 //
 // What is here:
 //  * split_range: the block's live keys, one contiguous token range. Only
@@ -26,12 +37,17 @@
 //    keys at once, and a dot product costs log2(LPK) shuffles. Each group
 //    keeps its own (m, l, acc) across the tiles; groups merge once per
 //    block, at the end, through shared memory.
+//  * fold_begin / fold_end: the fused form's start and end (see there).
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "cluster.cuh"
 
 namespace flashc {
 
@@ -42,6 +58,25 @@ constexpr int MAX_D = 256;
 constexpr int STAGES = 3;              // depth of the cp.async rings
 constexpr float NEG_INF = -1e30f;
 constexpr size_t MAX_DYN_SMEM = 227 * 1024;
+constexpr int MAX_SPLITS = clus::MAX_CLUSTER;  // the fused form's cluster
+constexpr int FOLD_CH = 8;             // splits the fold merges at a time
+
+__device__ __forceinline__ float to_f(float a) { return a; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 a) {
+  return __bfloat162float(a);
+}
+__device__ __forceinline__ void store(float* p, float a) { *p = a; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float a) {
+  *p = __float2bfloat16_rn(a);
+}
+// A query element times its scale: one rounded f32 multiply, never fused
+// into the dot product that follows, so it is the value the plain
+// version forms (f32 q times the f32 scale). The triples form takes q
+// already scaled, with scale 1.
+template <typename QT>
+__device__ __forceinline__ float scaled(QT q, float scale) {
+  return __fmul_rn(to_f(q), scale);
+}
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -113,15 +148,67 @@ __device__ __forceinline__ Range split_range(const int* pos, const int* kvs,
   return {max(lo, t_first), min(p, t_end)};
 }
 
-// (-1e30, 0, 0) for the G heads of triple o (all threads of the block).
-__device__ __forceinline__ void write_identity(float* m_out, float* l_out,
-                                               float* acc_out, size_t o,
-                                               int G, int D) {
-  for (int i = threadIdx.x; i < G; i += THREADS) {
-    m_out[o + i] = NEG_INF;
-    l_out[o + i] = 0.f;
+// Where a block's triple goes: device memory (the triples form) or the
+// block's own shared memory (the fused form). m and l hold G floats, acc
+// G x D.
+struct TripleDst {
+  float* m;
+  float* l;
+  float* acc;
+};
+
+// What a launch writes: the triples form, m and l (NS, B, KVH, G) and acc
+// (NS, B, KVH, G, D) f32; the fused form, out (B, 1, KVH * G * D) in q's
+// type, from the new token's k_new and v_new (B, 1, KVH, D) in q's type.
+template <typename QT>
+struct Dest {
+  float* m;
+  float* l;
+  float* acc;
+  const QT* k_new;
+  const QT* v_new;
+  QT* out;
+};
+
+// Floats of the fused form's regions of shared memory (the triples form
+// has neither):
+//  * the block's triple (m, l: G each; acc: G x D), written once its keys
+//    are scored, over the space its key ring took;
+__host__ __device__ inline size_t triple_floats(int G, int D) {
+  return (size_t)G * (D + 2);
+}
+//  * a region the key loop never touches: an mbarrier (4 floats' room),
+//    the partial self scores (G x MAX_D / 32), then the slots the
+//    cluster's live ranks push their triples' slices into: acc (at most
+//    G x D + MAX_SPLITS floats), then m and l (G x MAX_SPLITS each).
+__host__ __device__ inline size_t fold_floats(int G, int D) {
+  return 4 + (size_t)G * (MAX_D / 32) + (size_t)G * D + MAX_SPLITS +
+         2 * (size_t)G * MAX_SPLITS;
+}
+
+// Block (s, h, b)'s triple: triple o = ((s * B + b) * KVH + h) * G of
+// io's arrays, or the region at trip_off of shared memory.
+template <bool FOLD, typename QT>
+__device__ __forceinline__ TripleDst triple_dst(const Dest<QT>& io,
+                                                unsigned char* smem,
+                                                size_t trip_off, size_t o,
+                                                int G, int D) {
+  if constexpr (FOLD) {
+    float* t = reinterpret_cast<float*>(smem + trip_off);
+    return {t, t + G, t + 2 * G};
+  } else {
+    return {io.m + o, io.l + o, io.acc + o * D};
   }
-  for (int i = threadIdx.x; i < G * D; i += THREADS) acc_out[o * D + i] = 0.f;
+}
+
+// (-1e30, 0, 0) for the G heads (all threads of the block).
+__device__ __forceinline__ void write_identity(const TripleDst& t, int G,
+                                               int D) {
+  for (int i = threadIdx.x; i < G; i += THREADS) {
+    t.m[i] = NEG_INF;
+    t.l[i] = 0.f;
+  }
+  for (int i = threadIdx.x; i < G * D; i += THREADS) t.acc[i] = 0.f;
 }
 
 // The page ids of split s, phys[b, s*sp ..], read before the split's
@@ -260,8 +347,10 @@ struct RowGroup {
   float q[G][8], acc[G][8], m[G], l[G];
   int j, gid;                                      // lane in group, group
 
-  // q (G x D) f32 of this (b, h), already scaled
-  __device__ __forceinline__ void init(const float* __restrict__ qbh, int D,
+  // q (G x D) of this (b, h), times scale
+  template <typename QT>
+  __device__ __forceinline__ void init(const QT* __restrict__ qbh,
+                                       float scale, int D,
                                        const RowGeom& geom) {
     j = threadIdx.x % geom.lpk;
     gid = threadIdx.x / geom.lpk;
@@ -274,7 +363,8 @@ struct RowGroup {
 #pragma unroll
         for (int e = 0; e < EPC; ++e) {
           const int d = (j + geom.lpk * c) * EPC + e;
-          q[g][c * EPC + e] = (c < geom.cpl && d < D) ? qbh[g * D + d] : 0.f;
+          q[g][c * EPC + e] =
+              (c < geom.cpl && d < D) ? scaled(qbh[g * D + d], scale) : 0.f;
           acc[g][c * EPC + e] = 0.f;
         }
     }
@@ -356,10 +446,10 @@ struct RowGroup {
 
   // Merge the groups' states through shared memory (geom.merge_floats
   // floats at red, free for this use: the caller syncs before) and write
-  // triple o. Each group's weight exp(m_k - max_k m_k) is computed once.
+  // the triple to dst. Each group's weight exp(m_k - max_k m_k) is
+  // computed once.
   __device__ __forceinline__ void finish(float* red, const RowGeom& geom,
-                                         float* m_out, float* l_out,
-                                         float* acc_out, size_t o, int D) {
+                                         const TripleDst& dst, int D) {
     float* rm = red;                                // [ng][G]
     float* rl = rm + geom.ng * G;                   // [ng][G]
     float* ra = rl + geom.ng * G;                   // [ng][G][D]
@@ -384,7 +474,7 @@ struct RowGroup {
       float mt = NEG_INF;
       for (int k = 0; k < geom.ng; ++k) mt = fmaxf(mt, rm[k * G + g]);
       rmt[g] = mt;
-      m_out[o + g] = mt;
+      dst.m[g] = mt;
     }
     __syncthreads();
     for (int i = threadIdx.x; i < geom.ng * G; i += THREADS)
@@ -397,23 +487,237 @@ struct RowGroup {
         a += rw[k * G + g] * ra[((size_t)k * G + g) * D + d];
         lt += rw[k * G + g] * rl[k * G + g];
       }
-      acc_out[o * D + i] = a;
-      if (d == 0) l_out[o + g] = lt;
+      dst.acc[i] = a;
+      if (d == 0) dst.l[g] = lt;
     }
   }
 };
 
-// Instantiate body<G> for the runtime G in 1..MAX_G.
-#define FLASHC_DISPATCH_G(G_RT, BODY) \
-  switch (G_RT) {                     \
-    case 1: BODY(1); break;           \
-    case 2: BODY(2); break;           \
-    case 3: BODY(3); break;           \
-    case 4: BODY(4); break;           \
-    case 5: BODY(5); break;           \
-    case 6: BODY(6); break;           \
-    case 7: BODY(7); break;           \
-    default: BODY(8); break;          \
+// The fused form's plan for one block, made at its start (fold_begin)
+// and carried out at its end (fold_end). The cluster is the NS split
+// blocks of one (slot b, kv head h), bh = b * KVH + h; rank = split =
+// blockIdx.x. Which splits hold live keys follows from pos, kv_start and
+// the window alone, so every block knows it without a message:
+//  * a split without a live key leaves at once, before any barrier (a
+//    cluster barrier waits for the threads that have not exited), and no
+//    rank reads or writes its shared memory: its triple is the identity,
+//    which the fold merges as it merges the padding. So a cluster's empty
+//    splits hold no SM while its live ones run, as in the triples form.
+//    When no split is live (pos = -1, or all keys masked), rank 0 stays
+//    and folds alone;
+//  * the live ranks (or rank 0 alone) own the G x D outputs, in rank
+//    order, as contiguous slices of `per`; slot k of the push slots is
+//    the k-th live rank;
+//  * each staying block initializes its mbarrier and, with more than one
+//    live rank, arrives (relaxed, after a release fence) at the cluster
+//    barrier, so that the wait in fold_end finds every live rank started
+//    and its mbarrier ready: only then may one write into another's
+//    memory;
+//  * k_new at the thread's self-score columns and v_new at its first
+//    output are loaded here, so their latency hides behind the keys'.
+struct FoldPlan {
+  unsigned live;                  // bit j: split j has a live key
+  int per, me;                    // outputs a slot; this rank's slot
+  float kd[MAX_D / 32 / WARPS];   // k_new at columns (warp + WARPS i) * 32
+  float vd;                       //   + lane; v_new at output me*per + tid
+  bool leave, sync;
+};
+
+__device__ __forceinline__ int nth_bit(unsigned m, int k) {
+  for (; k > 0; --k) m &= m - 1u;
+  return __ffs(m) - 1;
+}
+
+template <typename QT>
+__device__ __forceinline__ FoldPlan fold_begin(
+    const int* __restrict__ pos, const int* __restrict__ kvs, int window,
+    int b, int ns, int sp, int ps, int NP, int G, int D,
+    const QT* __restrict__ k_new, const QT* __restrict__ v_new, size_t bh,
+    float* fold_s) {
+  FoldPlan f;
+  const int p = pos[b];
+  int lo = kvs[b];
+  if (window > 0 && p - window + 1 > lo) lo = p - window + 1;
+  f.live = 0;
+  for (int j = 0; j < ns; ++j) {  // split_range's test, for every split
+    const int t_first = j * sp * ps, t_end = min(NP, (j + 1) * sp) * ps;
+    if (max(lo, t_first) < min(p, t_end)) f.live |= 1u << j;
   }
+  const int rank = blockIdx.x;
+  f.leave = f.live != 0 ? !((f.live >> rank) & 1u) : rank != 0;
+  f.sync = __popc(f.live) > 1;
+  if (f.leave) return f;
+  if (threadIdx.x == 0) {
+    clus::mbar_init(reinterpret_cast<uint64_t*>(fold_s));
+    clus::fence_init();
+  }
+  if (f.sync) clus::arrive_relaxed();
+  const int owners = f.live != 0 ? __popc(f.live) : 1;
+  f.per = (G * D + owners - 1) / owners;
+  f.me = __popc(f.live & ((1u << rank) - 1u));
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+#pragma unroll
+  for (int i = 0; i < MAX_D / 32 / WARPS; ++i) {
+    const int d = (warp + WARPS * i) * 32 + lane;
+    f.kd[i] = d < D ? to_f(k_new[bh * D + d]) : 0.f;
+  }
+  const int o = f.me * f.per + threadIdx.x;
+  f.vd = o < min(G * D, (f.me + 1) * f.per) ? to_f(v_new[bh * D + o % D])
+                                              : 0.f;
+  return f;
+}
+
+// The partial self scores of the fused form into part (G x MAX_D / 32):
+// q_g * D^-0.5 . k_new over each 32 columns, a warp shuffle tree (k_new
+// was loaded by fold_begin; q sits in L1 since the block read it).
+template <typename QT, int G>
+__device__ __forceinline__ void self_scores(const FoldPlan& f,
+                                            const QT* __restrict__ q,
+                                            float q_scale, float* part,
+                                            size_t bh, int D) {
+  constexpr int PW = MAX_D / 32;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int groups = (D + 31) / 32;
+#pragma unroll
+  for (int i = 0; i < MAX_D / 32 / WARPS; ++i) {
+    const int cg = warp + WARPS * i;
+    if (cg < groups) {
+      const int d = cg * 32 + lane;
+      const bool live = d < D;
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        float p =
+            live ? scaled(q[(bh * G + g) * D + d], q_scale) * f.kd[i] : 0.f;
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+          p += __shfl_xor_sync(0xffffffffu, p, off);
+        if (lane == 0) part[g * PW + cg] = p;
+      }
+    }
+  }
+}
+
+// The fused form's end, after the block has put its triple at trip.
+// fold_s holds fold_floats(G, D) floats: the mbarrier, the partial self
+// scores, the push slots. Per head g of the group:
+//   M = max_s m[s],  L = sum_s l[s] w_s,  A = sum_s acc[s] w_s,
+//     w_s = exp(m[s] - M), in split order, FOLD_CH splits at a time from
+//     the identity (an empty split, and the padding, is the identity)
+//   s_new = (q_g * D^-0.5) . k_new (the column groups' partials in
+//     order),  m_f = max(M, s_new),  alpha = exp(M - m_f),
+//   p_new = exp(s_new - m_f),  out = (A alpha + p_new v_new)
+//                                    / (L alpha + p_new)
+// The new token is always live, so the denominator is at least exp(0): a
+// lane whose splits are all the identity (pos = -1) gets alpha = 0 and
+// p_new = 1, exactly its v_new row.
+//  1. The block's mbarrier expects the bytes its slots will receive: its
+//     slice of acc and all of m and l, from each live rank.
+//  2. Wait for every live rank to have started (the relaxed arrivals of
+//     fold_begin). Push: each slice of this block's acc, and its m and l,
+//     go into the owning rank's slots at slot `me` by st.async, each
+//     store completing its bytes on the owner's mbarrier.
+//  3. The self scores, while the pushes fly; then wait on the mbarrier
+//     for every byte of the slots and fold this rank's slice from them,
+//     in rank order. Once its bytes have landed nothing more writes into
+//     a block, and it reads no other block's memory: blocks leave
+//     without a second barrier.
+// Every sum runs in a fixed order, so the result does not depend on
+// scheduling; expf is the accurate one (no fast-math), so exp(0) is 1.
+template <typename QT, int G>
+__device__ __forceinline__ void fold_end(
+    const FoldPlan& f, const TripleDst& trip, float* fold_s,
+    const QT* __restrict__ q, float q_scale, const QT* __restrict__ v_new,
+    QT* __restrict__ out, size_t bh, int D, int ns) {
+  constexpr int PW = MAX_D / 32;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(fold_s);
+  float* part = fold_s + 4;                         // [G][PW]
+  float* slot_acc = part + G * PW;                  // [owners][per]
+  float* slot_m = slot_acc + G * D + MAX_SPLITS;    // [owners][G]
+  float* slot_l = slot_m + G * MAX_SPLITS;          // [owners][G]
+  const int tid = threadIdx.x;
+  const int n_out = G * D, per = f.per;
+  const unsigned owners_mask = f.live != 0 ? f.live : 1u;
+  const int owners = __popc(owners_mask);
+  const int lo = f.me * per, hi = min(n_out, lo + per);
+  if (tid == 0)
+    clus::mbar_expect(bar, 4u * owners * (max(0, hi - lo) + 2 * G));
+  __syncthreads();                                  // the triple
+  if (f.sync) clus::wait();
+  for (int i = tid; i < n_out; i += THREADS) {
+    const int k = i / per, rk = nth_bit(owners_mask, k);
+    clus::store_async(
+        clus::map_rank(slot_acc + f.me * per + (i - k * per), rk),
+        trip.acc[i], clus::map_rank(bar, rk));
+  }
+  for (int t = tid; t < owners * G; t += THREADS) {
+    const int k = t / G, g = t % G, rk = nth_bit(owners_mask, k);
+    const uint32_t rbar = clus::map_rank(bar, rk);
+    clus::store_async(clus::map_rank(slot_m + f.me * G + g, rk), trip.m[g],
+                      rbar);
+    clus::store_async(clus::map_rank(slot_l + f.me * G + g, rk), trip.l[g],
+                      rbar);
+  }
+  self_scores<QT, G>(f, q, q_scale, part, bh, D);
+  __syncthreads();                                  // part
+  clus::mbar_wait(bar);
+
+  const int groups = (D + 31) / 32;
+  float vd = f.vd;
+  for (int i = lo + tid; i < hi; i += THREADS) {
+    const int g = i / D;
+    float mx = NEG_INF, ls = 0.f, as = 0.f;
+    for (int s0 = 0; s0 < ns; s0 += FOLD_CH) {
+      float mv[FOLD_CH], lv[FOLD_CH], av[FOLD_CH];
+#pragma unroll
+      for (int j = 0; j < FOLD_CH; ++j) {         // the identity unless live
+        const int s = s0 + j;
+        const bool live = s < ns && ((f.live >> s) & 1u);
+        const int k = __popc(f.live & ((1u << s) - 1u));
+        mv[j] = live ? slot_m[k * G + g] : NEG_INF;
+        lv[j] = live ? slot_l[k * G + g] : 0.f;
+        av[j] = live ? slot_acc[k * per + (i - lo)] : 0.f;
+      }
+      float mc = mx;
+#pragma unroll
+      for (int j = 0; j < FOLD_CH; ++j) mc = fmaxf(mc, mv[j]);
+      const float w0 = expf(mx - mc);
+      float lsum = ls * w0, asum = as * w0;
+#pragma unroll
+      for (int j = 0; j < FOLD_CH; ++j) {
+        const float w = expf(mv[j] - mc);
+        lsum += lv[j] * w;
+        asum += av[j] * w;
+      }
+      mx = mc;
+      ls = lsum;
+      as = asum;
+    }
+    float sn = 0.f;
+    for (int cg = 0; cg < groups; ++cg) sn += part[g * PW + cg];
+    const float mf = fmaxf(mx, sn);
+    const float alpha = expf(mx - mf);
+    const float pn = expf(sn - mf);
+    const float denom = ls * alpha + pn;
+    // the contraction written out (p_new v_new fused): no compiler
+    // choice of the other order moves a bit
+    store(out + bh * n_out + i, __fmaf_rn(pn, vd, as * alpha) / denom);
+    if (i + THREADS < hi) vd = to_f(v_new[bh * D + (i + THREADS) % D]);
+  }
+}
+
+// f(std::integral_constant<int, G>) for the runtime G in 1..MAX_G.
+template <typename F>
+int with_g(int G, F&& f) {
+  switch (G) {
+    case 1: return f(std::integral_constant<int, 1>{});
+    case 2: return f(std::integral_constant<int, 2>{});
+    case 3: return f(std::integral_constant<int, 3>{});
+    case 4: return f(std::integral_constant<int, 4>{});
+    case 5: return f(std::integral_constant<int, 5>{});
+    case 6: return f(std::integral_constant<int, 6>{});
+    case 7: return f(std::integral_constant<int, 7>{});
+    default: return f(std::integral_constant<int, 8>{});
+  }
+}
 
 }  // namespace flashc

@@ -42,6 +42,18 @@
 // Both read only the split's live token range; a split without a live
 // key (pos = -1 lanes, splits past the sequence) writes (-1e30, 0, 0)
 // without a load. Arithmetic is fp32 (expf).
+//
+// Each form has B2's two forms (flash_common.cuh): the triples form (qg
+// f32, already scaled; triples to device memory) and the fused form, the
+// one flash_decode_paged launches (q f32|bf16, scaled as the score table
+// is built; the NS <= 16 splits of one (slot, kv head) form a thread
+// block cluster and fold their triples with the new token's self term in
+// shared memory, flashc::fold_begin / fold_end; out (B, 1, KVH * G * D)
+// in q's type). Also replaces, in the fused form, the XLA tail of
+// flash_decode_paged (src/repro/kernels/flash_decode.py:501, 516-527).
+// The fused form's triple sits over the ring and T when they hold it,
+// its push slots after the page ids; at shapes where those slots tip the
+// LUT form over the block's shared memory it takes the dequantize form.
 
 #include "flash_common.cuh"
 
@@ -57,10 +69,11 @@ constexpr int TKQ = 32 * WARPS;                   // LUT form: tokens a tile
 // 64 KB (both), else read through L1/L2.
 struct LutLayout {
   int rs, nst;                                    // code row stride, stages
-  size_t t_off, w_off, red_off, p_off, q_off, tab_off, pages_off, total;
+  size_t t_off, w_off, red_off, p_off, q_off, tab_off, pages_off, trip_off,
+      fold_off, total;
   bool staged;
   __host__ __device__ LutLayout(int G, int D, int nc, int c, int v, int sp,
-                                int ps) {
+                                int ps, bool fold) {
     rs = round_up(nc, 16);
     if ((rs / 16) % 2 == 0) rs += 16;             // odd chunk stride: no bank
     nst = (int)(((size_t)sp * ps + TKQ - 1) / TKQ); //   conflicts on uint4
@@ -76,62 +89,72 @@ struct LutLayout {
              tab_off + tables + sizeof(int) * (size_t)sp <= MAX_DYN_SMEM;
     pages_off = tab_off + (staged ? tables : 0);
     total = pages_off + sizeof(int) * (size_t)sp;
+    trip_off = fold_off = 0;
+    if (!fold) return;
+    // the fused form's triple: over the ring and T, free once the keys
+    // are scored, when they hold it; else behind the page ids. Its push
+    // slots last.
+    const size_t trip = sizeof(float) * triple_floats(G, D);
+    trip_off = w_off >= trip ? 0 : round_up((int)total, 16);
+    if (trip_off != 0) total = trip_off + trip;
+    fold_off = round_up((int)total, 16);
+    total = fold_off + sizeof(float) * fold_floats(G, D);
   }
 };
 
 // Byte layout of the dequantize form's shared memory: one tile of fp32 K
-// and V rows (reused for the group merge), the tables when staged, pages.
+// and V rows (reused for the group merge and, behind it, the fused form's
+// triple), the tables when staged, pages.
 struct DeqLayout {
   int tk;
-  size_t tab_off, pages_off, total;
+  size_t trip_off, tab_off, pages_off, fold_off, total;
   bool staged;
-  __host__ __device__ DeqLayout(int G, int D, int nc, int c, int v, int sp) {
+  __host__ __device__ DeqLayout(int G, int D, int nc, int c, int v, int sp,
+                                bool fold) {
     const RowGeom geom(D, sizeof(float));
     tk = 64;
     while (tk > 8 && 2 * (size_t)tk * geom.row_bytes() > 32 * 1024) tk /= 2;
     const size_t tile = 2 * (size_t)tk * geom.row_bytes();
     const size_t merge = sizeof(float) * geom.merge_floats(G, D);
-    tab_off = round_up((int)(tile > merge ? tile : merge), 16);
+    trip_off = round_up((int)merge, 16);
+    const size_t trip_end =
+        fold ? trip_off + sizeof(float) * triple_floats(G, D) : merge;
+    tab_off = round_up((int)(tile > trip_end ? tile : trip_end), 16);
     const size_t tables = 2 * sizeof(float) * (size_t)nc * c * v;
-    staged = tab_off + tables + sizeof(int) * (size_t)sp <= MAX_DYN_SMEM;
+    const size_t slots = fold ? sizeof(float) * fold_floats(G, D) + 16 : 0;
+    staged =
+        tab_off + tables + sizeof(int) * (size_t)sp + slots <= MAX_DYN_SMEM;
     pages_off = tab_off + (staged ? tables : 0);
-    total = pages_off + sizeof(int) * (size_t)sp;
+    fold_off = round_up((int)(pages_off + sizeof(int) * (size_t)sp), 16);
+    total = fold ? fold_off + sizeof(float) * fold_floats(G, D)
+                 : pages_off + sizeof(int) * (size_t)sp;
   }
 };
 
-template <int G>
-__global__ void __launch_bounds__(THREADS)
-kvq_lut_kernel(const float* __restrict__ qg, const uint8_t* __restrict__ kc,
-               const uint8_t* __restrict__ vc, const float* __restrict__ zk,
-               const float* __restrict__ zv, const float* __restrict__ sk,
-               const float* __restrict__ sv, const int* __restrict__ phys,
-               const int* __restrict__ pos, const int* __restrict__ kvs,
-               int window, float* __restrict__ m_out,
-               float* __restrict__ l_out, float* __restrict__ acc_out, int B,
-               int KVH, int D, int ps, int NP, int sp, int nc, int c, int v) {
+// The LUT form's triple over the live range r of a split (not empty).
+template <typename QT, int G>
+__device__ __forceinline__ void lut_body(
+    const QT* __restrict__ qbh, float q_scale,
+    const uint8_t* __restrict__ kc, const uint8_t* __restrict__ vc,
+    const float* __restrict__ zk, const float* __restrict__ zv,
+    const float* __restrict__ sk, const float* __restrict__ sv,
+    const int* __restrict__ phys, int b, int h, int KVH, int D, int ps,
+    int NP, int nc, int c, int v, const LutLayout& lay, const SplitPages& pg,
+    const Range& r, const TripleDst& dst) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int s = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const size_t o = (((size_t)s * B + b) * KVH + h) * G;
-  const SplitPages pg = fetch_pages(phys, b, NP, s, sp);
-  const Range r = split_range(pos, kvs, window, b, s, sp, ps, NP);
-  if (r.lo >= r.hi) {
-    write_identity(m_out, l_out, acc_out, o, G, D);
-    return;
-  }
-  const LutLayout lay(G, D, nc, c, v, sp, ps);
   const int nst = lay.nst;
   float* T = reinterpret_cast<float*>(smem + lay.t_off);     // [G][nc][c]
   float* W = reinterpret_cast<float*>(smem + lay.w_off);     // [WARPS][G][c][nc]
   float* red = reinterpret_cast<float*>(smem + lay.red_off); // m, l [WARPS][G]
   float* P = reinterpret_cast<float*>(smem + lay.p_off);     // [WARPS][G][32]
-  float* q_s = reinterpret_cast<float*>(smem + lay.q_off);   // [G][D]
+  const QT* q_s = reinterpret_cast<const QT*>(smem + lay.q_off);  // [G][D]
   int* pages_s = reinterpret_cast<int*>(smem + lay.pages_off);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int n_tab = nc * c * v;
 
   // q and (when staged) both tables: one group of copies, in flight
   // while the page ids are read
-  copy_async(q_s, qg + ((size_t)b * KVH + h) * G * D, sizeof(float) * G * D);
+  copy_async(smem + lay.q_off, qbh, sizeof(QT) * G * D);
   const float* zk_t = zk;
   const float* zv_t = zv;
   if (lay.staged) {
@@ -161,16 +184,16 @@ kvq_lut_kernel(const float* __restrict__ qg, const uint8_t* __restrict__ kc,
     cp_async_commit();
   }
 
-  // T from q and zk, scaled by sk
+  // T from q (times q_scale) and zk, scaled by sk
   cp_async_wait(nst);                             // q and the tables
   __syncthreads();
   const float skh = sk[h];
   for (int i = tid; i < G * nc * c; i += THREADS) {
     const int g = i / (nc * c), sub = (i / c) % nc, cc = i % c;
     const float* z = zk_t + ((size_t)sub * c + cc) * v;
-    const float* qq = q_s + g * D + sub * v;
+    const QT* qq = q_s + g * D + sub * v;
     float a = 0.f;
-    for (int e = 0; e < v; ++e) a += qq[e] * z[e];
+    for (int e = 0; e < v; ++e) a += scaled(qq[e], q_scale) * z[e];
     T[i] = a * skh;
   }
 
@@ -286,7 +309,7 @@ kvq_lut_kernel(const float* __restrict__ qg, const uint8_t* __restrict__ kc,
     const float* z = zv_t + (size_t)sub * c * v + e;
     float a = 0.f;
     for (int cc = 0; cc < c; ++cc) a += wg[(size_t)cc * nc] * z[(size_t)cc * v];
-    acc_out[o * D + i] = a * svh;
+    dst.acc[i] = a * svh;
     if (d == 0) {
       float lt = 0.f;
 #pragma unroll
@@ -296,32 +319,59 @@ kvq_lut_kernel(const float* __restrict__ qg, const uint8_t* __restrict__ kc,
           if (gg == g) lt += f[w][gg] * red[(WARPS + w) * G + gg];
 #pragma unroll
       for (int gg = 0; gg < G; ++gg)
-        if (gg == g) m_out[o + g] = mt[gg];
-      l_out[o + g] = lt;
+        if (gg == g) dst.m[g] = mt[gg];
+      dst.l[g] = lt;
     }
   }
 }
 
-template <int G>
+template <typename QT, int G, bool FOLD>
 __global__ void __launch_bounds__(THREADS)
-kvq_deq_kernel(const float* __restrict__ qg, const uint8_t* __restrict__ kc,
-               const uint8_t* __restrict__ vc, const float* __restrict__ zk,
-               const float* __restrict__ zv, const float* __restrict__ sk,
-               const float* __restrict__ sv, const int* __restrict__ phys,
-               const int* __restrict__ pos, const int* __restrict__ kvs,
-               int window, float* __restrict__ m_out,
-               float* __restrict__ l_out, float* __restrict__ acc_out, int B,
+kvq_lut_kernel(const QT* __restrict__ q, float q_scale,
+               const uint8_t* __restrict__ kc, const uint8_t* __restrict__ vc,
+               const float* __restrict__ zk, const float* __restrict__ zv,
+               const float* __restrict__ sk, const float* __restrict__ sv,
+               const int* __restrict__ phys, const int* __restrict__ pos,
+               const int* __restrict__ kvs, int window, Dest<QT> io, int B,
                int KVH, int D, int ps, int NP, int sp, int nc, int c, int v) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int s = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const size_t o = (((size_t)s * B + b) * KVH + h) * G;
+  const size_t bh = (size_t)b * KVH + h;
+  const LutLayout lay(G, D, nc, c, v, sp, ps, FOLD);
+  const TripleDst dst = triple_dst<FOLD>(
+      io, smem, lay.trip_off, (((size_t)s * B + b) * KVH + h) * G, G, D);
   const SplitPages pg = fetch_pages(phys, b, NP, s, sp);
   const Range r = split_range(pos, kvs, window, b, s, sp, ps, NP);
-  if (r.lo >= r.hi) {
-    write_identity(m_out, l_out, acc_out, o, G, D);
-    return;
+  float* fold_s = reinterpret_cast<float*>(smem + lay.fold_off);
+  [[maybe_unused]] FoldPlan plan;
+  if constexpr (FOLD) {
+    plan = fold_begin(pos, kvs, window, b, (int)gridDim.x, sp, ps, NP, G, D,
+                      io.k_new, io.v_new, bh, fold_s);
+    if (plan.leave) return;
   }
-  const DeqLayout lay(G, D, nc, c, v, sp);
+  if (r.lo >= r.hi) {
+    write_identity(dst, G, D);
+  } else {
+    lut_body<QT, G>(q + bh * G * D, q_scale, kc, vc, zk, zv, sk, sv, phys, b,
+                    h, KVH, D, ps, NP, nc, c, v, lay, pg, r, dst);
+  }
+  if constexpr (FOLD)
+    fold_end<QT, G>(plan, dst, fold_s, q, q_scale, io.v_new, io.out, bh,
+                    D, (int)gridDim.x);
+}
+
+// The dequantize form's triple over the live range r of a split (not
+// empty).
+template <typename QT, int G>
+__device__ __forceinline__ void deq_body(
+    const QT* __restrict__ qbh, float q_scale,
+    const uint8_t* __restrict__ kc, const uint8_t* __restrict__ vc,
+    const float* __restrict__ zk, const float* __restrict__ zv,
+    const float* __restrict__ sk, const float* __restrict__ sv,
+    const int* __restrict__ phys, int b, int h, int KVH, int D, int ps,
+    int NP, int nc, int c, int v, const DeqLayout& lay, const SplitPages& pg,
+    const Range& r, const TripleDst& tri) {
+  extern __shared__ __align__(16) unsigned char smem[];
   const RowGeom geom(D, sizeof(float));
   const int rb = geom.row_bytes(), rf = rb / 4;   // row floats (padded)
   int* pages_s = reinterpret_cast<int*>(smem + lay.pages_off);
@@ -345,7 +395,7 @@ kvq_deq_kernel(const float* __restrict__ qg, const uint8_t* __restrict__ kc,
   float* k_s = reinterpret_cast<float*>(smem);
   float* v_s = k_s + (size_t)lay.tk * rf;
   RowGroup<float, G> grp;
-  grp.init(qg + ((size_t)b * KVH + h) * G * D, D, geom);
+  grp.init(qbh, q_scale, D, geom);
   __syncthreads();                                // pages_s, tables
 
   for (int t0 = r.lo; t0 < r.hi; t0 += lay.tk) {
@@ -370,75 +420,166 @@ kvq_deq_kernel(const float* __restrict__ qg, const uint8_t* __restrict__ kc,
              reinterpret_cast<const unsigned char*>(v_s), n, geom);
     __syncthreads();
   }
-  grp.finish(reinterpret_cast<float*>(smem), geom, m_out, l_out, acc_out, o,
-             D);
+  grp.finish(reinterpret_cast<float*>(smem), geom, tri, D);
 }
 
-// 1: LUT form, 2: dequantize form, 0: neither fits.
-int pick_form(int G, int D, int ps, int sp, int nc, int c, int v) {
-  if (LutLayout(G, D, nc, c, v, sp, ps).total <= MAX_DYN_SMEM) return 1;
-  return DeqLayout(G, D, nc, c, v, sp).total <= MAX_DYN_SMEM ? 2 : 0;
-}
-
-template <int G>
-int launch(int form, const float* qg, const uint8_t* kc, const uint8_t* vc,
-           const float* zk, const float* zv, const float* sk,
-           const float* sv, const int* ph, const int* po, const int* ks,
-           int window, float* mo, float* lo, float* ao, int B, int KVH,
-           int D, int ps, int NP, int sp, int nc, int c, int v,
-           cudaStream_t st) {
-  const dim3 grid((NP + sp - 1) / sp, KVH, B);
-  static bool opted_in[2] = {false, false};
-  auto kernel = form == 1 ? kvq_lut_kernel<G> : kvq_deq_kernel<G>;
-  const size_t smem = form == 1 ? LutLayout(G, D, nc, c, v, sp, ps).total
-                                : DeqLayout(G, D, nc, c, v, sp).total;
-  if (!opted_in[form - 1]) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)MAX_DYN_SMEM);
-    if (err != cudaSuccess) return (int)err;
-    opted_in[form - 1] = true;
+template <typename QT, int G, bool FOLD>
+__global__ void __launch_bounds__(THREADS)
+kvq_deq_kernel(const QT* __restrict__ q, float q_scale,
+               const uint8_t* __restrict__ kc, const uint8_t* __restrict__ vc,
+               const float* __restrict__ zk, const float* __restrict__ zv,
+               const float* __restrict__ sk, const float* __restrict__ sv,
+               const int* __restrict__ phys, const int* __restrict__ pos,
+               const int* __restrict__ kvs, int window, Dest<QT> io, int B,
+               int KVH, int D, int ps, int NP, int sp, int nc, int c, int v) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int s = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const size_t bh = (size_t)b * KVH + h;
+  const DeqLayout lay(G, D, nc, c, v, sp, FOLD);
+  const TripleDst tri = triple_dst<FOLD>(
+      io, smem, lay.trip_off, (((size_t)s * B + b) * KVH + h) * G, G, D);
+  const SplitPages pg = fetch_pages(phys, b, NP, s, sp);
+  const Range r = split_range(pos, kvs, window, b, s, sp, ps, NP);
+  float* fold_s = reinterpret_cast<float*>(smem + lay.fold_off);
+  [[maybe_unused]] FoldPlan plan;
+  if constexpr (FOLD) {
+    plan = fold_begin(pos, kvs, window, b, (int)gridDim.x, sp, ps, NP, G, D,
+                      io.k_new, io.v_new, bh, fold_s);
+    if (plan.leave) return;
   }
-  kernel<<<grid, THREADS, smem, st>>>(qg, kc, vc, zk, zv, sk, sv, ph, po,
-                                      ks, window, mo, lo, ao, B, KVH, D, ps,
-                                      NP, sp, nc, c, v);
-  return (int)cudaGetLastError();
+  if (r.lo >= r.hi) {
+    write_identity(tri, G, D);
+  } else {
+    deq_body<QT, G>(q + bh * G * D, q_scale, kc, vc, zk, zv, sk, sv, phys, b,
+                    h, KVH, D, ps, NP, nc, c, v, lay, pg, r, tri);
+  }
+  if constexpr (FOLD)
+    fold_end<QT, G>(plan, tri, fold_s, q, q_scale, io.v_new, io.out, bh,
+                    D, (int)gridDim.x);
+}
+
+// 1: LUT form, 2: dequantize form, 0: neither fits (fold: the fused
+// form, whose push slots may tip a shape into the dequantize form).
+int pick_form(int G, int D, int ps, int sp, int nc, int c, int v, bool fold) {
+  if (LutLayout(G, D, nc, c, v, sp, ps, fold).total <= MAX_DYN_SMEM)
+    return 1;
+  return DeqLayout(G, D, nc, c, v, sp, fold).total <= MAX_DYN_SMEM ? 2 : 0;
+}
+
+template <typename QT, int G, bool FOLD>
+int launch(int form, const QT* q, float q_scale, const uint8_t* kc,
+           const uint8_t* vc, const float* zk, const float* zv,
+           const float* sk, const float* sv, const int* ph, const int* po,
+           const int* ks, int window, const Dest<QT>& io, int B, int KVH,
+           int D, int ps, int NP, int sp, int nc, int c, int v,
+           cudaStream_t st, int* info) {
+  const int ns = (NP + sp - 1) / sp;
+  const dim3 grid(ns, KVH, B);
+  auto kernel = form == 1 ? kvq_lut_kernel<QT, G, FOLD>
+                          : kvq_deq_kernel<QT, G, FOLD>;
+  const size_t smem = form == 1
+                          ? LutLayout(G, D, nc, c, v, sp, ps, FOLD).total
+                          : DeqLayout(G, D, nc, c, v, sp, FOLD).total;
+  if constexpr (FOLD) {
+    if (ns > MAX_SPLITS) return (int)cudaErrorInvalidValue;
+    return (int)clus::launch_x(kernel, grid, THREADS, ns, smem,
+                               (int)MAX_DYN_SMEM, st, info, q, q_scale, kc,
+                               vc, zk, zv, sk, sv, ph, po, ks, window, io, B,
+                               KVH, D, ps, NP, sp, nc, c, v);
+  } else {
+    static bool opted_in[2] = {false, false};
+    if (!opted_in[form - 1]) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          (int)MAX_DYN_SMEM);
+      if (err != cudaSuccess) return (int)err;
+      opted_in[form - 1] = true;
+    }
+    kernel<<<grid, THREADS, smem, st>>>(q, q_scale, kc, vc, zk, zv, sk, sv,
+                                        ph, po, ks, window, io, B, KVH, D, ps,
+                                        NP, sp, nc, c, v);
+    return (int)cudaGetLastError();
+  }
+}
+
+bool bad_shape(int B, int KVH, int G, int D, int ps, int NP, int sp, int nc,
+               int c, int v) {
+  return B <= 0 || KVH <= 0 || G < 1 || G > MAX_G || D < 1 || D > MAX_D ||
+         ps < 1 || NP < 1 || sp < 1 || nc < 1 || v < 1 || nc * v != D ||
+         c < 1 || c > 256 || KVH > 65535 || B > 65535;
+}
+
+template <typename QT, bool FOLD>
+int launch_typed(const void* q, float q_scale, const void* kc,
+                 const void* vc, const void* zk, const void* zv,
+                 const void* sk, const void* sv, const void* phys,
+                 const void* pos, const void* kv_start, int window,
+                 const Dest<QT>& io, int B, int KVH, int G, int D, int ps,
+                 int NP, int sp, int nc, int c, int v, void* stream,
+                 int* info = nullptr) {
+  const int form = pick_form(G, D, ps, sp, nc, c, v, FOLD);
+  if (form == 0) return (int)cudaErrorInvalidValue;
+  return with_g(G, [&](auto gg) {
+    return launch<QT, decltype(gg)::value, FOLD>(
+        form, static_cast<const QT*>(q), q_scale,
+        static_cast<const uint8_t*>(kc), static_cast<const uint8_t*>(vc),
+        static_cast<const float*>(zk), static_cast<const float*>(zv),
+        static_cast<const float*>(sk), static_cast<const float*>(sv),
+        static_cast<const int*>(phys), static_cast<const int*>(pos),
+        static_cast<const int*>(kv_start), window, io, B, KVH, D, ps, NP, sp,
+        nc, c, v, static_cast<cudaStream_t>(stream), info);
+  });
 }
 
 }  // namespace
 
 // The form a launch with these shapes takes: 1 (LUT) or 2 (dequantize),
-// or 0 when it cannot launch.
+// or 0 when it cannot launch; fused: the fused form's launch.
 extern "C" int flash_decode_kvq_form(int G, int D, int ps, int sp, int nc,
-                                     int c, int v) {
-  return pick_form(G, D, ps, sp, nc, c, v);
+                                     int c, int v, int fused) {
+  return pick_form(G, D, ps, sp, nc, c, v, fused != 0);
 }
 
-// kc, vc uint8 code pools; zk, zv (nc, c, v) f32; sk, sv (KVH,) f32.
-// Returns a cudaError_t.
+// The triples form. kc, vc uint8 code pools; zk, zv (nc, c, v) f32; sk,
+// sv (KVH,) f32. Returns a cudaError_t.
 extern "C" int flash_decode_splits_kvq_launch(
     const void* qg, const void* kc, const void* vc, const void* zk,
     const void* zv, const void* sk, const void* sv, const void* phys,
     const void* pos, const void* kv_start, int window, void* m, void* l,
     void* acc, int B, int KVH, int G, int D, int ps, int NP, int sp,
     int nc, int c, int v, void* stream) {
-  if (B <= 0 || KVH <= 0 || G < 1 || G > MAX_G || D < 1 || D > MAX_D ||
-      ps < 1 || NP < 1 || sp < 1 || nc < 1 || v < 1 || nc * v != D ||
-      c < 1 || c > 256 || KVH > 65535 || B > 65535)
+  if (bad_shape(B, KVH, G, D, ps, NP, sp, nc, c, v))
     return (int)cudaErrorInvalidValue;
-  const int form = pick_form(G, D, ps, sp, nc, c, v);
-  if (form == 0) return (int)cudaErrorInvalidValue;
-#define B5_LAUNCH(GG)                                                        \
-  return launch<GG>(                                                         \
-      form, static_cast<const float*>(qg), static_cast<const uint8_t*>(kc),  \
-      static_cast<const uint8_t*>(vc), static_cast<const float*>(zk),        \
-      static_cast<const float*>(zv), static_cast<const float*>(sk),          \
-      static_cast<const float*>(sv), static_cast<const int*>(phys),          \
-      static_cast<const int*>(pos), static_cast<const int*>(kv_start),       \
-      window, static_cast<float*>(m), static_cast<float*>(l),                \
-      static_cast<float*>(acc), B, KVH, D, ps, NP, sp, nc, c, v,             \
-      static_cast<cudaStream_t>(stream))
-  FLASHC_DISPATCH_G(G, B5_LAUNCH)
-#undef B5_LAUNCH
-  return (int)cudaErrorInvalidValue;              // not reached
+  const Dest<float> io{static_cast<float*>(m), static_cast<float*>(l),
+                       static_cast<float*>(acc), nullptr, nullptr, nullptr};
+  return launch_typed<float, false>(qg, 1.f, kc, vc, zk, zv, sk, sv, phys,
+                                    pos, kv_start, window, io, B, KVH, G, D,
+                                    ps, NP, sp, nc, c, v, stream);
+}
+
+// The fused form: q (B, 1, KVH * G, D), k_new, v_new (B, 1, KVH, D) and
+// out (B, 1, KVH * G * D) in q's type (q_dtype: 0 f32, 1 bf16); q_scale
+// multiplies q as it is read. More than MAX_SPLITS splits, or a cluster
+// the card cannot hold, launch nothing. With info non-null: the launch's
+// geometry (clus::launch_x) and no launch. Returns a cudaError_t.
+extern "C" int flash_decode_paged_kvq_launch(
+    const void* q, const void* kc, const void* vc, const void* zk,
+    const void* zv, const void* sk, const void* sv, const void* k_new,
+    const void* v_new, const void* phys, const void* pos,
+    const void* kv_start, int window, void* out, float q_scale, int B,
+    int KVH, int G, int D, int ps, int NP, int sp, int nc, int c, int v,
+    int q_dtype, void* stream, int* info) {
+  if (bad_shape(B, KVH, G, D, ps, NP, sp, nc, c, v) || q_dtype < 0 ||
+      q_dtype > 1 || (NP + sp - 1) / sp > MAX_SPLITS)
+    return (int)cudaErrorInvalidValue;
+  auto run = [&](auto qt) {
+    using QT = decltype(qt);
+    const Dest<QT> io{nullptr, nullptr, nullptr,
+                      static_cast<const QT*>(k_new),
+                      static_cast<const QT*>(v_new), static_cast<QT*>(out)};
+    return launch_typed<QT, true>(q, q_scale, kc, vc, zk, zv, sk, sv, phys,
+                                  pos, kv_start, window, io, B, KVH, G, D,
+                                  ps, NP, sp, nc, c, v, stream, info);
+  };
+  return q_dtype == 0 ? run(float{}) : run(__nv_bfloat16{});
 }

@@ -42,6 +42,7 @@
 #include <mutex>
 #include <tuple>
 
+#include "cluster.cuh"
 #include "vq_common.cuh"
 
 #ifndef VQG_STAMP
@@ -62,7 +63,7 @@ constexpr int LOADS = 8;                  // 16-byte loads a batch
 // Shared memory the assignment's staging takes when one subspace fits in
 // it: the rest of the SM stays L1, which serves B1's repeated LUT lines.
 constexpr int STAGING_BYTES = 48 * 1024;
-constexpr int MAX_CLUSTER = 16;           // non-portable cluster size
+constexpr int MAX_CLUSTER = clus::MAX_CLUSTER;
 static_assert(CH * CHUNK <= THREADS, "a tile's scale columns: one a thread");
 
 template <typename LT> struct Acc { using T = float; };
@@ -458,8 +459,8 @@ __device__ __forceinline__ void push_partial(
   }
   VQG_STAMP(4);
   cp_async_wait_all();               // this thread's scale column
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+  clus::arrive();
+  clus::wait();
 }
 
 // Rank r's share of the tile: the partials of every rank in rank order
@@ -599,17 +600,7 @@ __device__ __forceinline__ void sum_block(
 // Host: the launch configuration of a grid of clusters along y.
 inline void cluster_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute* attr,
                            dim3 grid, int cs, int smem, cudaStream_t st) {
-  cfg = {};
-  cfg.gridDim = grid;
-  cfg.blockDim = dim3(THREADS);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = st;
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = 1;
-  attr[0].val.clusterDim.y = cs;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
+  clus::config(cfg, attr, grid, THREADS, dim3(1, cs, 1), smem, st);
 }
 
 // What a launch of B1 or B4 computes: v = 0 for B4 (no assignment); r
@@ -648,11 +639,7 @@ cudaError_t plan(Geometry& out, const void* kern, int fixed, const Shape& s) {
   err = cudaDeviceGetAttribute(&max_smem,
                                cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             max_smem);
-  if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  err = clus::opt_in(kern, max_smem);
   if (err != cudaSuccess) return err;
   const int tiles = (s.N + tile_cols<LT>() - 1) / tile_cols<LT>();
   const int groups = (s.M + ROW_CAP - 1) / ROW_CAP;
@@ -666,12 +653,8 @@ cudaError_t plan(Geometry& out, const void* kern, int fixed, const Shape& s) {
     cudaLaunchConfig_t cfg;
     cudaLaunchAttribute attr[1];
     cluster_config(cfg, attr, dim3(tiles, cs, groups), cs, g.smem, 0);
-    int active = 0;
-    if (cudaOccupancyMaxActiveClusters(&active, kern, &cfg) != cudaSuccess) {
-      cudaGetLastError();               // a size this card refuses
-      continue;
-    }
-    if (active < 1) continue;
+    const int active = clus::max_active(kern, cfg);
+    if (active < 1) continue;           // a size this card refuses
     const long waves = (clusters + active - 1) / active;
     const long cost = waves * ((s.nc + cs - 1) / cs + fixed);
     if (best < 0 || cost < best) {

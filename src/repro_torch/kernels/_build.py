@@ -24,7 +24,7 @@ from typing import Dict, Iterable
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("fused_amm", "flash_decode", "assign", "lut_gemm",
-           "flash_decode_kvq", "flash_fold")
+           "flash_decode_kvq")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

@@ -90,11 +90,13 @@ def test_cuda_tensors_never_fall_back_to_the_plain_versions():
         np.float32))
     new = _cuda_looking(rng.standard_normal((2, 1, 4, 8)).astype(np.float32))
     phys = _cuda_looking(np.zeros((2, 2), np.int32))
-    plain = tfd.flash_decode_splits.calls
+    plain = (tfd.flash_decode_splits.calls,
+             tfd.flash_decode_paged_plain.calls, tfd.fold_splits.calls)
     with pytest.raises((RuntimeError, AssertionError)):
         tfd.flash_decode_paged(q, pages, pages, new, new, phys,
                                np.array([3, 4], np.int32))
-    assert tfd.flash_decode_splits.calls == plain
+    assert (tfd.flash_decode_splits.calls, tfd.flash_decode_paged_plain.calls,
+            tfd.fold_splits.calls) == plain
 
 
 def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):

@@ -32,7 +32,7 @@ def test_every_source_is_listed_and_built_by_default():
 
 
 @pytest.mark.parametrize("header", ["vq_common.cuh", "vq_gather.cuh",
-                                    "flash_common.cuh"])
+                                    "flash_common.cuh", "cluster.cuh"])
 def test_editing_a_shared_header_renames_every_library_that_includes_it(
         monkeypatch, tmp_path, header):
     csrc = tmp_path / "csrc"

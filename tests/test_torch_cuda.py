@@ -1,5 +1,4 @@
-"""Kernels B1-B5 and the fold kernel on the card against their plain
-versions, beyond the
+"""Kernels B1-B5 on the card against their plain versions, beyond the
 main path's shapes: every metric, x type and LUT type on ragged M, N and
 nc, split-K over several row tiles (B1, B3, B4, and B4(B3(x)) == B1(x)
 bit for bit on int8 LUTs); GQA, sliding window, kv_start, inactive lanes,
@@ -15,9 +14,12 @@ misaligned operands (element loads), B3 with one subspace above 48 KB of
 staging; float-LUT B1 and B4 launched twice on one input (bit for bit
 equal), B4(B3(x)) == B1(x) bit for bit on float LUTs wherever the two
 launches take one geometry, and what a call enqueues (B1, B3, B4: one
-kernel); the fold kernel on B2's and B5's triples,
-pages 4 to 64, G up to 8, D up to 256, and one flash_decode_paged call
-as three kernels.
+kernel); B2 and B5 in their fused form (the split reduction and self-term
+fold as a thread-block-cluster epilogue) against the plain triples then
+fold_splits, pages 4 to 64, G up to 8, D up to 256, q in float32 and
+bfloat16, both B5 forms, its scaled query bit for bit the plain
+version's, 16 splits at one slot of 4096 tokens, and one
+flash_decode_paged call as one kernel.
 
 Needs a CUDA device and ``nvcc``: marked ``cuda``, and skipped when torch
 sees no card. On a machine with an H100, from the repository root:
@@ -32,9 +34,10 @@ Tolerances: int8 LUTs are exact int32 sums times the same scale
 (rtol 1e-6); float LUTs are summed in another (fixed) order than the
 plain version's (rtol/atol 1e-4), and two launches on one input give the
 same bits; B2's triples differ by fp32 summation order (atol 2e-5
-relative to their magnitude), and so does the fold kernel's float32
+relative to their magnitude), and so does the fused form's float32
 output, whose bfloat16 output is that value rounded (half a bfloat16 ulp
-more); lanes with pos = -1 are exactly their v_new row.
+more); lanes with pos = -1 are exactly their v_new row; two launches of
+the fused form give the same bits.
 """
 import numpy as np
 import pytest
@@ -487,10 +490,64 @@ def test_two_pass_equals_fused_bitwise_on_float_luts_at_one_geometry(
 
 
 # ---------------------------------------------------------------------------
-# the fold kernel: split reduction + self-term fold
+# the fused forms: B2 / B5 with the split reduction and self-term fold as a
+# thread-block-cluster epilogue, one kernel a flash_decode_paged call
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("pool", ["float32", "bfloat16", "codes"])
+# pool -> (nc, c) of a code pool as a function of D: "codes" takes B5's
+# LUT form at these shapes or its dequantize form, "codes_deq" (nc x c
+# of 256 x D) always the dequantize form
+_CODEBOOKS = {"codes": lambda d: (d // 4, 16), "codes_deq": lambda d: (d, 256)}
+
+
+def _fused_problem(dev, pool, b, h, kvh, d, ps, np_, positions, split,
+                   seed):
+    """A pool of one layer, the wrapper of its fused kernel and its plain
+    triples. Returns (fused(q, kn, vn, phys), plain_triples(qg), wrapper,
+    phys (B, NP) unpadded, split)."""
+    if pool in _CODEBOOKS:
+        nc, c = _CODEBOOKS[pool](d)
+        _, kc, vc, tab, phys, pos = _b5_problem(dev, b, h, kvh, d, ps, np_,
+                                                positions, nc, c, seed)
+        split = split or tfd.split_pages_for(b, kvh, np_, kvq=True)
+
+        def fused(q, kn, vn, ph, ks, window):
+            return tfd.flash_decode_paged_kvq_cuda(q, kc, vc, *tab, kn, vn,
+                                                   ph, pos, window, ks,
+                                                   split)
+
+        def plain(qg, ph, ks, window):
+            return tfd.flash_decode_splits_kvq(qg, kc, vc, *tab, ph, pos,
+                                               window, ks, split)
+        wrapper, trash = tfd.flash_decode_paged_kvq_cuda, kc.shape[0] - 1
+    else:
+        _, kp, vp, phys, pos = _b2_problem(dev, b, h, kvh, d, ps, np_,
+                                           positions, getattr(torch, pool),
+                                           seed)
+        split = split or tfd.split_pages_for(b, kvh, np_)
+
+        def fused(q, kn, vn, ph, ks, window):
+            return tfd.flash_decode_paged_cuda(q, kp, vp, kn, vn, ph, pos,
+                                               window, ks, split)
+
+        def plain(qg, ph, ks, window):
+            return tfd.flash_decode_splits(qg, kp, vp, ph, pos, window, ks,
+                                           split)
+        wrapper, trash = tfd.flash_decode_paged_cuda, kp.shape[0] - 1
+    padded = torch.nn.functional.pad(phys, (0, (-np_) % split),
+                                     value=trash).contiguous()
+    return fused, lambda qg, ks, w: plain(qg, padded, ks, w), wrapper, \
+        phys, split
+
+
+def _query(dev, b, h, kvh, d, dtype, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(shape, generator=gen, device=dev).to(dtype)
+            for shape in ((b, 1, h, d), (b, 1, kvh, d), (b, 1, kvh, d))]
+
+
+@pytest.mark.parametrize("pool", ["float32", "bfloat16", "codes",
+                                  "codes_deq"])
 @pytest.mark.parametrize("h,kvh,d,ps,np_,split,window,kv_start", [
     (20, 20, 128, 16, 32, None, 0, 0),  # the main path's shape
     (16, 4, 128, 16, 10, 3, 0, 0),      # GQA G=4, split does not divide
@@ -498,88 +555,156 @@ def test_two_pass_equals_fused_bitwise_on_float_luts_at_one_geometry(
     (6, 3, 256, 4, 7, 7, 0, 3),         # D=256, page 4, one split
     (20, 20, 128, 64, 8, 4, 0, 0),      # page 64
     (8, 1, 256, 32, 5, 2, 0, 0),        # page 32, D=256, G=8
-    (4, 2, 96, 16, 6, 1, 37, 21),       # D=96 (3 warps), a split a page
+    (4, 2, 96, 16, 6, 1, 37, 21),       # D=96 (3 column groups), a page
+                                        # a split
+    (4, 2, 36, 16, 5, 2, 0, 0),         # D=36: bf16 rows of 72 bytes
 ])
-def test_fold_kernel_matches_plain(dev, pool, h, kvh, d, ps, np_, split,
-                                   window, kv_start):
+def test_fused_kernel_matches_plain_pair(dev, pool, h, kvh, d, ps, np_,
+                                         split, window, kv_start):
+    """One launch of the fused kernel against the plain triples then
+    fold_splits, q, k_new and v_new in float32 and in bfloat16: float32
+    output within 2e-5 (1 + max|ref|), bfloat16 within half a bfloat16
+    ulp more; the pos = -1 lane exactly its v_new row; two launches
+    bitwise equal."""
     b, g = 4, h // kvh
     cap = np_ * ps
     positions = [cap, -1, ps, min(cap, 3 * ps + 1)]   # full, idle, page edge
     ks = torch.full((b,), kv_start, dtype=torch.int32, device=dev)
-    if pool == "codes":
-        nc = d // 4
-        qg, kc, vc, tab, phys, pos = _b5_problem(dev, b, h, kvh, d, ps, np_,
-                                                 positions, nc, 16, h + d)
-        split = split or tfd.split_pages_for(b, kvh, np_, kvq=True)
-        phys = torch.nn.functional.pad(phys, (0, (-np_) % split),
-                                       value=kc.shape[0] - 1).contiguous()
-        tri = tfd.flash_decode_splits_kvq_cuda(qg, kc, vc, *tab, phys, pos,
-                                               window, ks, split)
-        kv_dtypes = (torch.float32, torch.bfloat16)
-    else:
-        qg, kp, vp, phys, pos = _b2_problem(dev, b, h, kvh, d, ps, np_,
-                                            positions, getattr(torch, pool),
-                                            h + d)
-        split = split or tfd.split_pages_for(b, kvh, np_)
-        phys = torch.nn.functional.pad(phys, (0, (-np_) % split),
-                                       value=kp.shape[0] - 1).contiguous()
-        tri = tfd.flash_decode_splits_cuda(qg, kp, vp, phys, pos, window, ks,
-                                           split)
-        kv_dtypes = (kp.dtype,)
-    gen = torch.Generator(device=dev).manual_seed(h * d)
-    for kv_dtype in kv_dtypes:
-        kn, vn = (torch.randn((b, 1, kvh, d), generator=gen,
-                              device=dev).to(kv_dtype) for _ in range(2))
-        want = tfd.fold_splits(*tri, qg, kn, vn, torch.float32)
+    fused, plain, wrapper, phys, split = _fused_problem(
+        dev, pool, b, h, kvh, d, ps, np_, positions, split, h + d)
+    for q_dtype in (torch.float32, torch.bfloat16):
+        q, kn, vn = _query(dev, b, h, kvh, d, q_dtype, h * d)
+        qg = tfd._scaled_query(q, kvh)
+        want = tfd.fold_splits(*plain(qg, ks, window), qg, kn, vn,
+                               torch.float32)
+        before = wrapper.launches
+        got = fused(q, kn, vn, phys, ks, window)
+        again = fused(q, kn, vn, phys, ks, window)
+        torch.cuda.synchronize()
+        assert wrapper.launches == before + 2
+        assert got.dtype == q_dtype and got.shape == want.shape
+        assert torch.equal(got, again)
         tol = 2e-5 * (1.0 + float(want.abs().max()))
+        rtol = 0.0 if q_dtype == torch.float32 else 2.0 ** -8
+        torch.testing.assert_close(got.float(), want, rtol=rtol, atol=tol)
         dead = vn[1, 0, :, None, :].expand(kvh, g, d).reshape(1, -1)
-        for out_dtype in (torch.float32, torch.bfloat16):
-            before = tfd.fold_splits_cuda.launches
-            got = tfd.fold_splits_cuda(*tri, qg, kn, vn, out_dtype)
-            torch.cuda.synchronize()
-            assert tfd.fold_splits_cuda.launches == before + 1
-            assert got.dtype == out_dtype and got.shape == want.shape
-            rtol = 0.0 if out_dtype == torch.float32 else 2.0 ** -8
-            torch.testing.assert_close(got.float(), want, rtol=rtol,
-                                       atol=tol)
-            assert torch.equal(got[1], dead.to(out_dtype))   # pos = -1
+        assert torch.equal(got[1], dead)                   # pos = -1
+    if pool == "codes_deq":
+        nc, c = _CODEBOOKS[pool](d)
+        assert tfd.kvq_form(g, d, ps, split, nc, c, d // nc,
+                            fused=True) == "dequantize"
+
+
+@pytest.mark.parametrize("pool", ["bfloat16", "codes", "codes_deq"])
+def test_fused_kernel_scales_q_as_the_plain_version(dev, pool,
+                                                    monkeypatch):
+    """The fused kernel's scaled query is, bit for bit, the one the plain
+    version forms (float32 q times the float32 D**-0.5): a launch on raw
+    bfloat16 q equals, rounded to bfloat16, a launch of the same kernel
+    with q_scale 1 on the plain version's float32 scaled query."""
+    b, h, kvh, d, ps, np_ = 8, 20, 20, 128, 16, 32
+    positions = [511, 300, -1, 17, 128, 255, 64, 400]
+    ks = torch.zeros((b,), dtype=torch.int32, device=dev)
+    fused, _, _, phys, split = _fused_problem(dev, pool, b, h, kvh, d, ps,
+                                              np_, positions, None, 11)
+    q, kn, vn = _query(dev, b, h, kvh, d, torch.bfloat16, 12)
+    got = fused(q, kn, vn, phys, ks, 0)
+    qg = tfd._scaled_query(q, kvh).reshape(b, 1, h, d)
+    launch = tfd._launch_fused
+    monkeypatch.setattr(tfd, "_launch_fused",
+                        lambda *a: launch(*a[:-1], 1.0))   # q_scale 1
+    pre = fused(qg, kn.float(), vn.float(), phys, ks, 0)
+    torch.cuda.synchronize()
+    assert pre.dtype == torch.float32
+    assert not torch.equal(got.float(), pre)
+    assert torch.equal(got, pre.to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("pool", ["float32", "bfloat16", "codes"])
+def test_fused_kernel_takes_misaligned_pools(dev, pool):
+    """A pool whose base is not 16-byte aligned is read without vector
+    copies and gives the same output, bit for bit."""
+    b, h, kvh, d, ps, np_ = 4, 16, 4, 128, 16, 8
+    positions = [np_ * ps, -1, ps, 3 * ps + 1]
+    ks = torch.tensor([0, 0, 5, 0], dtype=torch.int32, device=dev)
+    q, kn, vn = _query(dev, b, h, kvh, d, torch.float32, 3)
+    if pool == "codes":
+        nc, c = 32, 16
+        _, kc, vc, tab, phys, pos = _b5_problem(dev, b, h, kvh, d, ps, np_,
+                                                positions, nc, c, 3)
+        got = tfd.flash_decode_paged_kvq_cuda(
+            q, _misaligned(kc), _misaligned(vc), *tab, kn, vn, phys, pos, 30,
+            ks, 4)
+        want = tfd.flash_decode_paged_kvq_cuda(q, kc, vc, *tab, kn, vn, phys,
+                                               pos, 30, ks, 4)
+    else:
+        _, kp, vp, phys, pos = _b2_problem(dev, b, h, kvh, d, ps, np_,
+                                           positions, getattr(torch, pool), 3)
+        got = tfd.flash_decode_paged_cuda(q, _misaligned(kp), _misaligned(vp),
+                                          kn, vn, phys, pos, 30, ks, 4)
+        want = tfd.flash_decode_paged_cuda(q, kp, vp, kn, vn, phys, pos, 30,
+                                           ks, 4)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("pool", ["bfloat16", "codes"])
+def test_fused_kernel_at_sixteen_splits(dev, pool):
+    """One slot at 4096 tokens: the split rule's cap gives 16 splits of 16
+    pages, one cluster of 16 blocks per kv head, against the plain pair."""
+    b, h, kvh, d, ps, np_ = 1, 20, 20, 128, 16, 256
+    ks = torch.zeros((b,), dtype=torch.int32, device=dev)
+    fused, plain, _, phys, split = _fused_problem(dev, pool, b, h, kvh, d,
+                                                  ps, np_, [4095], None, 16)
+    assert -(-np_ // split) == tfd.MAX_SPLITS
+    geo = tfd.fused_geometry(torch.empty((b, 1, h, d), device=dev),
+                             torch.empty((1, ps, kvh, d), device=dev),
+                             torch.empty((b, np_), device=dev), split)
+    assert (geo["cluster"], geo["clusters"]) == (16, kvh)
+    assert geo["resident"] >= 1 and geo["registers"] > 0
+    q, kn, vn = _query(dev, b, h, kvh, d, torch.float32, 16)
+    qg = tfd._scaled_query(q, kvh)
+    want = tfd.fold_splits(*plain(qg, ks, 0), qg, kn, vn, torch.float32)
+    got = fused(q, kn, vn, phys, ks, 0)
+    torch.cuda.synchronize()
+    tol = 2e-5 * (1.0 + float(want.abs().max()))
+    torch.testing.assert_close(got, want, rtol=0.0, atol=tol)
+
+
+@pytest.mark.parametrize("pool", ["float32", "bfloat16", "codes",
+                                  "codes_deq"])
 def test_flash_decode_paged_runs_the_kernels_only(dev, pool):
-    """One flash_decode_paged call on the card at the main path's shape:
-    B2 (B5 over codes), then the fold kernel, plus the query's scale; the
-    plain versions never run."""
+    """One flash_decode_paged call on the card at the main path's shape is
+    one kernel: B2 (B5 over codes) in its fused form, no query scale, no
+    fold launch, no copy; the plain versions never run."""
     b, h, kvh, d, ps, np_ = 8, 20, 20, 128, 16, 32
     positions = [511, 300, -1, 17, 128, 255, 64, 400]
-    gen = torch.Generator(device=dev).manual_seed(5)
-    q = torch.randn((b, 1, h, d), generator=gen, device=dev).to(
-        torch.bfloat16)
-    kn, vn = (torch.randn((b, 1, kvh, d), generator=gen, device=dev).to(
-        torch.bfloat16) for _ in range(2))
-    if pool == "codes":
+    dtype = torch.float32 if pool == "float32" else torch.bfloat16
+    q, kn, vn = _query(dev, b, h, kvh, d, dtype, 5)
+    if pool in _CODEBOOKS:
+        nc, c = _CODEBOOKS[pool](d)
         _, kp, vp, tab, phys, pos = _b5_problem(dev, b, h, kvh, d, ps, np_,
-                                                positions, 32, 16, 5)
+                                                positions, nc, c, 5)
         cb = dict(zip(("zk", "zv", "sk", "sv"), tab))
-        kernel = tfd.flash_decode_splits_kvq_cuda
+        kernel = tfd.flash_decode_paged_kvq_cuda
     else:
         _, kp, vp, phys, pos = _b2_problem(dev, b, h, kvh, d, ps, np_,
-                                           positions, torch.bfloat16, 5)
+                                           positions, dtype, 5)
         cb = None
-        kernel = tfd.flash_decode_splits_cuda
+        kernel = tfd.flash_decode_paged_cuda
 
     def call():
         return tfd.flash_decode_paged(q, kp, vp, kn, vn, phys, pos,
                                       codebook=cb)
-    counts = (kernel.launches, tfd.fold_splits_cuda.launches,
-              tfd.fold_splits.calls, tfd.flash_decode_splits.calls,
-              tfd.flash_decode_splits_kvq.calls)
+    plain = (tfd.flash_decode_paged_plain, tfd.flash_decode_paged_kvq_plain,
+             tfd.fold_splits, tfd.flash_decode_splits,
+             tfd.flash_decode_splits_kvq)
+    counts = [f.calls for f in plain]
+    launches = kernel.launches
     out = call()
     torch.cuda.synchronize()
-    assert (kernel.launches, tfd.fold_splits_cuda.launches,
-            tfd.fold_splits.calls, tfd.flash_decode_splits.calls,
-            tfd.flash_decode_splits_kvq.calls) == (
-        counts[0] + 1, counts[1] + 1) + counts[2:]
-    assert out.dtype == torch.bfloat16 and bool(torch.isfinite(out).all())
-    assert enqueued(call) == {"kernels": 3, "copies": 0, "memsets": 0,
-                              "other": 0}   # scale q, B2 or B5, fold
+    assert kernel.launches == launches + 1
+    assert [f.calls for f in plain] == counts
+    assert out.dtype == dtype and bool(torch.isfinite(out).all())
+    assert enqueued(call) == {"kernels": 1, "copies": 0, "memsets": 0,
+                              "other": 0}

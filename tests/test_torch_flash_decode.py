@@ -142,7 +142,8 @@ def test_flash_decode_paged_default_split_matches_jax(b, h, kvh, ps, np_,
 
 
 # ---------------------------------------------------------------------------
-# the split reduction + self-term fold (plain version of the fold kernel)
+# the split reduction + self-term fold (plain version of the fused form's
+# epilogue) and the fused wrappers' refusals
 # ---------------------------------------------------------------------------
 
 def _fp_triples(q, kp, vp, phys, pos, window, kv_start, split):
@@ -213,7 +214,7 @@ def test_fold_splits_dead_lane_is_exactly_v_new(out_dtype):
 
 
 class _CudaLooking(torch.Tensor):
-    """A CPU tensor that reports a CUDA device, so the fold wrapper's
+    """A CPU tensor that reports a CUDA device, so a fused wrapper's
     checks run past the device test on a machine without a card."""
 
     @property
@@ -221,28 +222,96 @@ class _CudaLooking(torch.Tensor):
         return torch.device("cuda", 0)
 
 
-@pytest.mark.parametrize("case", ["cpu", "acc", "k_new", "dtype", "g"])
-def test_fold_splits_cuda_raises_value_error(case):
-    b, kvh, g, d, ns = 2, 2, 2, 8, 3
-    t = {"m": torch.zeros((ns, b, kvh, g)), "l": torch.zeros((ns, b, kvh, g)),
-         "acc": torch.zeros((ns, b, kvh, g, d)),
-         "qg": torch.zeros((b, kvh, g, d)),
-         "k_new": torch.zeros((b, 1, kvh, d)),
-         "v_new": torch.zeros((b, 1, kvh, d))}
-    if case == "acc":
-        t["acc"] = torch.zeros((ns, b, kvh, g, d + 1))
-    elif case == "k_new":
-        t["k_new"] = torch.zeros((b, 1, kvh + 1, d))
-    elif case == "dtype":
-        t["v_new"] = t["v_new"].to(torch.bfloat16)
-    elif case == "g":
-        t = {k: torch.zeros(v.shape[:-2] + (9,) + v.shape[-1:])
-             if k in ("acc", "qg") else v for k, v in t.items()}
-        t["m"] = torch.zeros((ns, b, kvh, 9))
-        t["l"] = torch.zeros((ns, b, kvh, 9))
+# fault -> what the refusal names
+_BAD_CALLS = {"cpu": "must be CUDA tensors", "q_dtype": "q must be one of",
+              "k_new_shape": r"k_new \(2, 1, 3, 8\)",
+              "v_new_dtype": "must be in q's dtype", "g": "G=9",
+              "d": "D=264", "splits": "at most MAX_SPLITS = 16"}
+
+
+def _bad_call(case, kvq):
+    """Arguments of a fused wrapper (B=2, KVH=2, G=2, D=8, 3 pages of 4)
+    with one fault, as CUDA-looking tensors (real CPU ones for "cpu")."""
+    b, kvh, g, d, ps, np_, sp = 2, 2, 2, 8, 4, 3, 2
+    if case == "g":
+        g = 9
+    elif case == "d":
+        d = 264
+    elif case == "splits":
+        np_, sp = 17, 1                 # 17 splits of one page
+    nc = d // 2
+    q = torch.zeros((b, 1, kvh * g, d))
+    kn, vn = torch.zeros((b, 1, kvh, d)), torch.zeros((b, 1, kvh, d))
+    if case == "q_dtype":
+        q = q.to(torch.float16)
+    elif case == "k_new_shape":
+        kn = torch.zeros((b, 1, kvh + 1, d))
+    elif case == "v_new_dtype":
+        vn = vn.to(torch.bfloat16)
+    ints = [torch.zeros((b, np_), dtype=torch.int32),
+            torch.zeros((b,), dtype=torch.int32),
+            torch.zeros((b,), dtype=torch.int32)]
+    if kvq:
+        pool = [torch.zeros((b * np_ + 1, ps, kvh, nc), dtype=torch.uint8)
+                for _ in range(2)]
+        pool += [torch.zeros((nc, 16, 2)), torch.zeros((nc, 16, 2)),
+                 torch.ones(kvh), torch.ones(kvh)]
+    else:
+        pool = [torch.zeros((b * np_ + 1, ps, kvh, d)) for _ in range(2)]
+    ts = [q, *pool, kn, vn, *ints]
     if case != "cpu":
-        t = {k: v.as_subclass(_CudaLooking) for k, v in t.items()}
-    launches = tfd.fold_splits_cuda.launches
-    with pytest.raises(ValueError, match="fold_splits_cuda"):
-        tfd.fold_splits_cuda(*t.values(), torch.float32)
-    assert tfd.fold_splits_cuda.launches == launches
+        ts = [t.as_subclass(_CudaLooking) for t in ts]
+    phys, pos, ks = ts[-3:]
+    return ts[:-3] + [phys, pos, 0, ks, sp]
+
+
+@pytest.mark.parametrize("kvq", [False, True], ids=["b2", "b5"])
+@pytest.mark.parametrize("case", _BAD_CALLS)
+def test_fused_wrappers_raise_value_error(case, kvq):
+    """The fused wrappers refuse what their kernel does not take (CPU
+    tensors, q not float32 or bfloat16, k_new / v_new of another shape or
+    dtype, G > 8, D > 256, more than MAX_SPLITS splits) with a ValueError
+    naming the wrapper, and launch nothing."""
+    fn = (tfd.flash_decode_paged_kvq_cuda if kvq
+          else tfd.flash_decode_paged_cuda)
+    launches = fn.launches
+    with pytest.raises(ValueError,
+                       match=f"^{fn.__name__}: .*{_BAD_CALLS[case]}"):
+        fn(*_bad_call(case, kvq))
+    assert fn.launches == launches
+
+
+def test_split_pages_for_caps_the_splits_at_one_cluster():
+    """At most MAX_SPLITS = 16 splits whatever the shape; the main path's
+    8 slots x 20 kv heads x 32 pages still take 8 splits (B2) and 4 (B5),
+    and one slot at 4096 tokens (256 pages of 16) takes 16."""
+    assert tfd.MAX_SPLITS == 16
+    for kvq in (False, True):
+        for b in (1, 2, 8, 64):
+            for kvh in (1, 4, 20):
+                for np_ in (1, 5, 16, 17, 32, 100, 256, 1024):
+                    sp = tfd.split_pages_for(b, kvh, np_, kvq)
+                    assert 1 <= sp <= np_
+                    assert -(-np_ // sp) <= tfd.MAX_SPLITS
+    assert -(-32 // tfd.split_pages_for(8, 20, 32)) == 8
+    assert -(-32 // tfd.split_pages_for(8, 20, 32, kvq=True)) == 4
+    for kvq in (False, True):
+        assert -(-256 // tfd.split_pages_for(1, 20, 256, kvq)) == 16
+
+
+def test_flash_decode_paged_takes_the_plain_pair_on_the_cpu():
+    """On CPU tensors flash_decode_paged is the plain pair (triples, then
+    fold_splits) through flash_decode_paged_plain, whatever the split
+    count: 17 splits of one page are fine there."""
+    q, kp, vp, kn, vn, phys, pos = _problem(9, np_=5, n_pages=20,
+                                            positions=(17, 3, 20))
+    phys = np.concatenate([phys] * 4, axis=1)[:, :17]   # 17 pages a slot
+    t = [torch.from_numpy(a) for a in (q, kp, vp, kn, vn, phys, pos)]
+    calls = (tfd.flash_decode_paged_plain.calls, tfd.fold_splits.calls)
+    out = tfd.flash_decode_paged(*t, split_pages=1)
+    assert (tfd.flash_decode_paged_plain.calls,
+            tfd.fold_splits.calls) == (calls[0] + 1, calls[1] + 1)
+    (m, l, acc), qg = _fp_triples(q, kp, vp, phys, pos, 0, 0, 1)
+    assert m.shape[0] == 17
+    want = tfd.fold_splits(m, l, acc, qg, t[3], t[4], torch.float32)
+    assert torch.equal(out, want)
