@@ -16,20 +16,38 @@ versions. A last phase checks that float-LUT results are the same on
 every run: B1 and B4 with float32 and bfloat16 LUTs launched twice on one
 input (and B4(B3(x)) == B1(x) bit for bit wherever the two launches take
 one geometry), then two engine runs and two decode steps of full-width
-qwen1.5-4b with float32 LUTs, cut to 4 layers.
+qwen1.5-4b with float32 LUTs, cut to 4 layers. Every projection shape
+the serve runs reach is held at every row count they give it (decode:
+the slots; prefill: the chunk; a speculative verify: slots x (k+1)):
+B1, B3 and B4 at qwen1.5-4b's, yi-9b's, gemma3-4b's and gemma3-27b's
+shapes, and B2 / B5 at each config's decode attention (GQA, window) and
+at one slot of 4096 tokens at G=8 D=128 and G=2 D=256. A speculative
+phase serves full-width qwen1.5-4b plainly, with an n-gram drafter and
+with a 10-layer model drafter (every emitted token must be its verify
+row's argmax; in float32, cut to 4 layers, every speculative stream must
+equal the plain one). Then yi-9b (fp pool), gemma3-4b (fp and VQ code
+pools, prompts past its 1024-token window) and a short gemma3-27b serve
+run at full width and depth, each freed before the next, each with a
+logit check. In float32, one verify_paged call must give the logits of
+a chain of decode_paged steps over the same tokens (qwen1.5-4b, yi-9b,
+gemma3-4b, at full depth).
 
     python3 chip_smoke.py [--seed N]
 
 Imports nothing of JAX and nothing of the JAX package. Exits non-zero,
 without a result line, when there is no CUDA device or any check fails.
-Its last line is ``{"ok": true, "device": {...}}``; the line before it
-is the per-kernel JSON record (times in ms, measured in this run, with
-the bound computed from this run's inputs).
+Its last line is ``{"ok": true, "device": {...}}``; the two before it
+are the per-kernel JSON record (times in ms, measured in this run, with
+the bound computed from this run's inputs; launches of the main path,
+qwen1.5-4b's three serve runs) and the card's name and power limit.
+Every serve run's launches are printed before them, by run.
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -42,7 +60,8 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from repro_torch.configs import qwen1p5_4b  # noqa: E402
+from repro_torch.configs import (  # noqa: E402
+    gemma3_4b, gemma3_27b, qwen1p5_4b, yi_9b)
 from repro_torch.core.lut import QuantConfig  # noqa: E402
 from repro_torch.device import enqueued  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
@@ -57,6 +76,7 @@ from repro_torch.kernels.lut_gemm import (  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
 from repro_torch.serve.engine import Engine  # noqa: E402
 from repro_torch.serve.scheduler import Request  # noqa: E402
+from repro_torch.serve.speculative import Drafter, SpecConfig  # noqa
 
 # Published H100 SXM peaks (NVIDIA data sheet), at a 700 W power limit.
 HBM_BYTES_PER_S = 3.35e12
@@ -70,6 +90,21 @@ V, C = 8, 16
 KV_V, KV_C = 4, 16                    # the VQ-KV run's codebook
 # (K, N, launches per layer) of the 7 projections: wq wk wv wo, wg wu, wd
 PROJ_SHAPES = [(2560, 2560, 4), (2560, 6912, 2), (6912, 2560, 1)]
+# the same for yi-9b (wq wo, wk wv, wg wu, wd) and gemma3-4b (wq, wk wv,
+# wo, wg wu, wd)
+YI_PROJ_SHAPES = [(4096, 4096, 2), (4096, 512, 2), (4096, 11008, 2),
+                  (11008, 4096, 1)]
+GEMMA_PROJ_SHAPES = [(2560, 2048, 1), (2560, 1024, 2), (2048, 2560, 1),
+                     (2560, 10240, 2), (10240, 2560, 1)]
+# and gemma3-27b (wq, wk wv, wo, wg wu, wd)
+GEMMA27_PROJ_SHAPES = [(5376, 4096, 1), (5376, 2048, 2), (4096, 5376, 1),
+                       (5376, 21504, 2), (21504, 5376, 1)]
+# rows of a projection call: decode (the slots), the prefill chunk, and a
+# speculative verify of SLOTS slots x (k+1) tokens at k = SPEC_K
+SPEC_K = 4
+VERIFY_M = SLOTS * (SPEC_K + 1)
+QWEN_MS = (SLOTS, CHUNK, VERIFY_M)
+DENSE_MS = (8, 32, VERIFY_M)
 
 # What one call of B1, B3 or B4 must enqueue (device.enqueued)
 ONE_KERNEL = {"kernels": 1, "copies": 0, "memsets": 0, "other": 0}
@@ -92,6 +127,10 @@ LOGIT_ROW_REL_TOL = 1e-3
 LOGIT_ROWS_OFF = {"bfloat16": 2, "float32": 1}
 
 
+# each serve run's kernel launches, by the run's label (filled by serve)
+PATH_LAUNCHES: dict = {}
+
+
 class SmokeFailure(RuntimeError):
     pass
 
@@ -99,6 +138,15 @@ class SmokeFailure(RuntimeError):
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise SmokeFailure(msg)
+
+
+@contextlib.contextmanager
+def phase(name: str):
+    """Print a phase's wall time (host clock, the card synchronised)."""
+    t0 = time.perf_counter()
+    yield
+    torch.cuda.synchronize()
+    print(f"phase [{name}]: {time.perf_counter() - t0:.1f} s")
 
 
 def device_times(fn, iters: int, flush: torch.Tensor) -> list:
@@ -679,8 +727,9 @@ def b2_case(gen, name, b, h, kvh, d, np_, positions, window, kv_start,
                                                                 None]
     qs = q.transpose(1, 2).contiguous()
     library_ms = time_ms(lambda: torch.nn.functional.
-                         scaled_dot_product_attention(qs, kg, vg,
-                                                      attn_mask=mask),
+                         scaled_dot_product_attention(
+                             qs, kg, vg, attn_mask=mask,
+                             enable_gqa=h != kvh),
                          30, flush)
     live = int(pos.clamp_min(0).sum())
     rows = 2 * live * kvh * d * kp.element_size()
@@ -844,8 +893,9 @@ def b5_case(gen, name, b, h, kvh, d, np_, positions, window, kv_start,
     mask = (torch.arange(t, device=DEV)[None] < pos[:, None])[:, None, None]
     qs = q.to(torch.bfloat16).transpose(1, 2).contiguous()
     library_ms = time_ms(lambda: torch.nn.functional.
-                         scaled_dot_product_attention(qs, kd, vd,
-                                                      attn_mask=mask),
+                         scaled_dot_product_attention(
+                             qs, kd, vd, attn_mask=mask,
+                             enable_gqa=h != kvh),
                          30, flush)
     live_t = int(pos.clamp_min(0).sum())
     codes = 2 * live_t * kvh * kc.shape[-1] * kc.element_size() + tables
@@ -875,22 +925,66 @@ def b5_case(gen, name, b, h, kvh, d, np_, positions, window, kv_start,
 # serve phase + logit check
 # ---------------------------------------------------------------------------
 
-def serve(model, params, qc, seed, label, launched, idle):
-    """Serve the 10 requests through the engine under ``qc``; every
-    kernel in ``launched`` must launch, none in ``idle``, and no plain
-    version may run. Returns (counts, tokens, engine)."""
+@dataclasses.dataclass(frozen=True)
+class Load:
+    """One serve run's workload: ``n`` requests of ``prompt`` (lo, hi)
+    random prompt tokens and ``new`` new tokens each, all submitted at
+    once to an engine of ``slots`` slots, ``max_seq`` tokens a slot, page
+    PAGE and prefill chunk ``chunk``; request ``hot`` samples at
+    temperature 0.8 (-1: all greedy). The logit check prefills its slots
+    to ``check`` (lo, hi) tokens."""
+    slots: int = SLOTS
+    max_seq: int = MAX_SEQ
+    chunk: int = CHUNK
+    n: int = 10
+    prompt: tuple = (32, 257)
+    new: int = 32
+    hot: int = 3
+    check: tuple = (40, 300)
+
+
+MAIN_LOAD = Load()
+# gemma3: prompts past the 1024-token window of its local layers, so the
+# window masks in prefill and in decode (at max_seq 512 it never would)
+GEMMA_LOAD = Load(max_seq=2048, chunk=256, prompt=(1100, 1801),
+                  check=(1100, 1800))
+GEMMA27_LOAD = Load(slots=4, max_seq=2048, chunk=256, n=4,
+                    prompt=(1100, 1301), new=16, hot=-1, check=(1100, 1300))
+# (projection shapes, rows of a call) of each dense config's kernel
+# checks: every M its serve runs give B1 (decode: the slots; prefill: the
+# chunk), and yi-9b and gemma3-4b also at DENSE_MS
+DENSE_PATHS = {
+    "yi-9b": (YI_PROJ_SHAPES, sorted({*DENSE_MS, MAIN_LOAD.slots,
+                                      MAIN_LOAD.chunk})),
+    "gemma3-4b": (GEMMA_PROJ_SHAPES, sorted({*DENSE_MS, GEMMA_LOAD.slots,
+                                             GEMMA_LOAD.chunk})),
+    "gemma3-27b": (GEMMA27_PROJ_SHAPES, sorted({GEMMA27_LOAD.slots,
+                                                GEMMA27_LOAD.chunk})),
+}
+
+
+def serve(model, params, qc, seed, label, launched, idle, load=MAIN_LOAD,
+          spec=None, hook=None):
+    """Serve ``load`` through the engine under ``qc`` (speculatively with
+    ``spec``); every kernel in ``launched`` must launch, none in ``idle``,
+    and no plain version may run. ``hook(eng)``, when given, may wrap the
+    engine's methods before the run (after the step timers). Returns
+    (counts, tokens, engine)."""
     rng = np.random.default_rng(seed)
     vocab = model.cfg.vocab_size
     reqs = [Request(tokens=rng.integers(0, vocab, int(n)).tolist(),
-                    max_new_tokens=32, temperature=0.8 if i == 3 else 0.0)
-            for i, n in enumerate(rng.integers(32, 257, 10))]
+                    max_new_tokens=load.new,
+                    temperature=0.8 if i == load.hot else 0.0)
+            for i, n in enumerate(rng.integers(*load.prompt, load.n))]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    eng = Engine(model, params, qc, batch_size=SLOTS, max_seq=MAX_SEQ,
-                 page_size=PAGE, prefill_chunk=CHUNK, seed=seed)
+    eng = Engine(model, params, qc, batch_size=load.slots,
+                 max_seq=load.max_seq, page_size=PAGE,
+                 prefill_chunk=load.chunk, seed=seed, spec_decode=spec)
     torch.cuda.synchronize()
     setup = time.perf_counter() - t0
-    times = {"_prefill_chunk_step": [], "_decode_step": []}
+    step = "_decode_step" if spec is None else "_spec_decode_step"
+    times = {"_prefill_chunk_step": [], step: []}
 
     def timed(name):
         fn = getattr(eng, name)
@@ -903,6 +997,8 @@ def serve(model, params, qc, seed, label, launched, idle):
         return wrapper
     for name in times:
         setattr(eng, name, timed(name))
+    if hook is not None:
+        hook(eng)
     reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -910,8 +1006,9 @@ def serve(model, params, qc, seed, label, launched, idle):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = read_counts()
+    PATH_LAUNCHES[label] = {k: counts[k] for k in WRAPPERS}
     for r in reqs:
-        check(r.done and len(r.out_tokens) == 32,
+        check(r.done and len(r.out_tokens) == load.new,
               f"{label}: request not served in full: {len(r.out_tokens)} "
               "tokens")
         check(all(0 <= t < vocab for t in r.out_tokens),
@@ -924,50 +1021,59 @@ def serve(model, params, qc, seed, label, launched, idle):
           f"{label}: the path took a plain version: {counts}")
     gen_tokens = sum(len(r.out_tokens) for r in reqs)
     prompt_tokens = sum(len(r.tokens) for r in reqs)
-    dec, pre = times["_decode_step"], times["_prefill_chunk_step"]
+    dec, pre = times[step], times["_prefill_chunk_step"]
     fit = (f"codebook fit + pool in {setup:.2f} s, "
            if qc.kv_quant == "vq" else "")
+    what = "decode steps" if spec is None else "speculative rounds"
     print(f"serve [{label}]: {len(reqs)} requests ({prompt_tokens} prompt "
           f"tokens, {gen_tokens} generated) in {wall:.2f} s: "
           f"{gen_tokens / wall:.1f} generated tokens/s; "
-          f"{len(dec)} decode steps, mean {1e3 * np.mean(dec):.1f} ms; "
-          f"{len(pre)} prefill chunks, mean {1e3 * np.mean(pre):.1f} ms; "
+          f"{len(dec)} {what}, mean {1e3 * np.mean(dec):.1f} ms; "
+          f"{len(pre)} prefill chunks of {load.chunk}, mean "
+          f"{1e3 * np.mean(pre):.1f} ms; "
           f"{eng.device_reads} host reads; {fit}KV pool "
           f"{eng.kv.bytes_per_token} B per token "
           f"({eng.kv.data['k'].dtype}); launches {counts}")
+    eng.stats = {"wall": wall, "tokens_per_s": gen_tokens / wall,
+                 "step_ms": 1e3 * float(np.mean(dec))}
+    eng.requests = reqs
     return counts, [r.out_tokens for r in reqs], eng
 
 
-def prefilled_pool(model, params, qc, seed, codebook=None):
-    """A paged pool with SLOTS slots prefilled to random lengths, and one
-    decode step's inputs: (kv, table, tokens, positions, lengths)."""
+def prefilled_pool(model, params, qc, seed, codebook=None, load=MAIN_LOAD):
+    """A paged pool with ``load.slots`` slots prefilled to random lengths
+    in ``load.check``, and one decode step's inputs: (kv, table, tokens,
+    positions, lengths)."""
     rng = np.random.default_rng(seed + 1)
-    kv = model.init_paged_cache(MAX_SEQ, PAGE, SLOTS * (MAX_SEQ // PAGE),
+    slots, c = load.slots, load.chunk
+    npg = load.max_seq // PAGE
+    kv = model.init_paged_cache(load.max_seq, PAGE, slots * npg,
                                 codebook=codebook)
-    npg = MAX_SEQ // PAGE
-    table = torch.arange(SLOTS * npg, dtype=torch.int32,
-                         device=DEV).reshape(SLOTS, npg)
-    lengths = rng.integers(40, 300, SLOTS)
+    table = torch.arange(slots * npg, dtype=torch.int32,
+                         device=DEV).reshape(slots, npg)
+    lengths = rng.integers(*load.check, slots)
     for slot, n in enumerate(lengths):
         prompt = rng.integers(0, model.cfg.vocab_size, int(n))
-        for pos in range(0, int(n), CHUNK):
-            chunk = prompt[pos:pos + CHUNK]
-            toks = np.zeros((1, CHUNK), np.int32)
+        for pos in range(0, int(n), c):
+            chunk = prompt[pos:pos + c]
+            toks = np.zeros((1, c), np.int32)
             toks[0, :len(chunk)] = chunk
             model.prefill_paged(params, torch.from_numpy(toks).to(DEV), kv,
                                 table, slot, pos, len(chunk), qc)
     toks = torch.from_numpy(rng.integers(0, model.cfg.vocab_size,
-                                         (SLOTS, 1)).astype(np.int32)).to(DEV)
+                                         (slots, 1)).astype(np.int32)).to(DEV)
     positions = torch.from_numpy(lengths.astype(np.int32)).to(DEV)
     return kv, table, toks, positions, lengths
 
 
-def logit_check(model, params, qc, seed, label, codebook=None):
+def logit_check(model, params, qc, seed, label, codebook=None,
+                load=MAIN_LOAD):
     """One full-width decode_paged step through the kernels and through
     the plain versions, on the same pool (in the model's dtype, or codes
     under ``codebook``)."""
     kv, table, toks, positions, lengths = prefilled_pool(
-        model, params, qc, seed, codebook)
+        model, params, qc, seed, codebook, load)
+    slots = load.slots
     lg_k = model.decode_paged(params, toks, kv, table, positions, qc).float()
     with plain_kernels():
         lg_p = model.decode_paged(params, toks, kv, table, positions,
@@ -980,17 +1086,77 @@ def logit_check(model, params, qc, seed, label, codebook=None):
     agree = int((lg_k.argmax(-1) == lg_p.argmax(-1)).sum())
     agreeing = sum(r <= LOGIT_ROW_REL_TOL for r in rel)
     print(f"logit check [{label}], {model.cfg.dtype} (one decode step, "
-          f"{SLOTS} slots at lengths {lengths.tolist()}): {agreeing}/{SLOTS} "
+          f"{slots} slots at lengths {lengths.tolist()}): {agreeing}/{slots} "
           f"rows agree (relative L2 <= {LOGIT_ROW_REL_TOL}); row relative "
           f"L2 {[round(r, 4) for r in rel]}, mean |diff| {mean_frac:.4f} of "
           f"std {float(lg_p.std()):.4g}, max |diff| "
-          f"{float(delta.abs().max()):.4g}, argmax agrees on {agree}/{SLOTS}")
+          f"{float(delta.abs().max()):.4g}, argmax agrees on {agree}/{slots}")
     allowed = LOGIT_ROWS_OFF[model.cfg.dtype]
-    check(agreeing >= SLOTS - allowed,
+    check(agreeing >= slots - allowed,
           f"kernel vs plain logits [{label}] ({model.cfg.dtype}): "
           f"{agreeing} of "
-          f"{SLOTS} rows within relative L2 {LOGIT_ROW_REL_TOL}, at least "
-          f"{SLOTS - allowed} required")
+          f"{slots} rows within relative L2 {LOGIT_ROW_REL_TOL}, at least "
+          f"{slots - allowed} required")
+
+
+VERIFY_ROW_REL_TOL = 1e-4
+
+
+def verify_check(model, params, qc, seed, label, load=MAIN_LOAD):
+    """One verify_paged call of SPEC_K + 1 tokens a slot against a chain of
+    SPEC_K + 1 decode_paged steps over the same tokens, each on its own
+    copy of one prefilled fp pool, in float32: the verify's row (b, t)
+    must give step t's logits of slot b. Slot 1 has 2 live columns and
+    slot 2 sits out (-1); only live rows are compared. The verify attends
+    in plain torch, the chain through B2, and both sum the int8 LUTs
+    exactly, so a live row differs only by float32 summation order, or by
+    a near-tie argmin flip that follows it (which moves that row and its
+    slot's later rows); a wrong mask, window or per-row position moves
+    every slot. A slot agrees when each of its live rows is within
+    relative L2 VERIFY_ROW_REL_TOL; all but LOGIT_ROWS_OFF["float32"] of
+    the live slots must."""
+    check(model.cfg.dtype == "float32" and qc.kv_quant != "vq",
+          "verify_check takes a float32 model over an fp pool")
+    kv, table, _, positions, lengths = prefilled_pool(model, params, qc,
+                                                      seed, None, load)
+    t_v, slots = SPEC_K + 1, load.slots
+    rng = np.random.default_rng(seed + 2)
+    toks = torch.from_numpy(rng.integers(
+        0, model.cfg.vocab_size, (slots, t_v)).astype(np.int32)).to(DEV)
+    n_live = torch.full((slots,), t_v, dtype=torch.int32, device=DEV)
+    n_live[1], n_live[2] = 2, 0
+    positions[2] = -1
+    kv_v = {k: v.clone() for k, v in kv.items()}
+    lg_v = model.verify_paged(params, toks, kv_v, table, positions, n_live,
+                              qc).float()
+    del kv_v
+    chain = [model.decode_paged(
+        params, toks[:, t:t + 1], kv, table,
+        torch.where(positions >= 0, positions + t, positions), qc).float()
+        for t in range(t_v)]
+    lg_d = torch.stack(chain, 1)                          # (B, T, V)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(lg_v).all()), f"{label}: non-finite verify "
+          "logits")
+    rel = ((lg_v - lg_d).norm(dim=-1) / lg_d.norm(dim=-1)).cpu()
+    live = [(b, int(n_live[b])) for b in range(slots) if n_live[b] > 0]
+    worst = {b: float(rel[b, :n].max()) for b, n in live}
+    agreeing = sum(w <= VERIFY_ROW_REL_TOL for w in worst.values())
+    argmax = sum(int((lg_v[b, :n].argmax(-1) == lg_d[b, :n].argmax(-1))
+                     .sum()) for b, n in live)
+    rows = sum(n for _, n in live)
+    print(f"verify check [{label}], {model.cfg.dtype} (one verify_paged "
+          f"call of {t_v} tokens against {t_v} decode_paged steps; slots at "
+          f"lengths {lengths.tolist()}, slot 1 with 2 live columns, slot 2 "
+          f"out): {agreeing}/{len(live)} slots agree (every live row within "
+          f"relative L2 {VERIFY_ROW_REL_TOL}); worst row per slot "
+          f"{[f'{w:.2e}' for w in worst.values()]}; argmax agrees on "
+          f"{argmax}/{rows} live rows")
+    allowed = LOGIT_ROWS_OFF["float32"]
+    check(agreeing >= len(live) - allowed,
+          f"verify_paged vs decode_paged logits [{label}]: {agreeing} of "
+          f"{len(live)} slots within relative L2 {VERIFY_ROW_REL_TOL}, at "
+          f"least {len(live) - allowed} required")
 
 
 def float_lut_serve(seed, layers=4):
@@ -1024,6 +1190,236 @@ def float_lut_serve(seed, layers=4):
           f"tokens) and two decode_paged steps bitwise equal logits")
 
 
+class VerifyTap:
+    """Stands in for the engine's model: records, for each decode step,
+    each row's top-2 logit gap (``gaps``, on the device), and for each
+    verify call its rows' argmax (``verify_ids``, read to the host here,
+    apart from the engine's own reads)."""
+
+    def __init__(self, model):
+        self._model = model
+        self.gaps = []
+        self.verify_ids = None
+
+    def __getattr__(self, name):
+        return getattr(self._model, name)
+
+    def decode_paged(self, *a):
+        lg = self._model.decode_paged(*a)
+        top = torch.topk(lg.float(), 2, dim=-1).values
+        self.gaps.append(top[:, 0] - top[:, 1])
+        return lg
+
+    def verify_paged(self, *a):
+        lg = self._model.verify_paged(*a)
+        self.verify_ids = torch.argmax(lg, dim=-1).cpu()
+        return lg
+
+
+def tap_steps(eng, attr, after):
+    """Wrap ``eng.<attr>`` (a decode step or a speculative round): before
+    it, note each decoding slot's (idx, request, tokens so far); after
+    it, call ``after(notes)``."""
+    fn = getattr(eng, attr)
+
+    def wrapper():
+        notes = [(s.idx, s.req, len(s.req.out_tokens))
+                 for s in eng.scheduler.decode_slots()]
+        fn()
+        after(notes)
+    setattr(eng, attr, wrapper)
+
+
+class ShiftDrafter(Drafter):
+    """Proposes the slot's pending token + 1, k times: on the repeating
+    greedy streams of a random-weight model the target rejects every
+    proposal, so each round rolls back (``PagedKVCache.trim``)."""
+
+    def propose(self, engine, dslots, k_slot, k):
+        vocab = engine.model.cfg.vocab_size
+        g = np.zeros((engine.num_slots, k), np.int32)
+        n_prop = np.zeros((engine.num_slots,), np.int32)
+        for s in dslots:
+            g[s.idx] = (s.next_token + 1) % vocab
+            n_prop[s.idx] = k_slot[s.idx]
+        return g, n_prop, None
+
+
+def spec_runs(model, params, qc, seed, label, specs, load):
+    """The non-speculative engine, then one speculative engine per entry
+    of ``specs`` ((name, SpecConfig, kernels it launches, a drafter that
+    replaces the config's or None)), on the same requests (``load``, all
+    greedy). Check (a): every token a round emits
+    is the argmax of its verify row (the bonus token included). Returns
+    the streams, each run's engine stats, and where each speculative
+    stream parts from the non-speculative one: (name, request, token
+    index, the non-speculative top-2 logit gap at that step)."""
+    idle = {"b3", "b4", "b5"}
+    base_tap = VerifyTap(model)
+    gap_at = {}
+    steps = []
+
+    def note_gaps(notes):            # a step that decoded: its gaps
+        if len(base_tap.gaps) > len(steps):
+            steps.append((notes, base_tap.gaps[-1]))
+
+    def base_hook(eng):
+        eng.model = base_tap
+        tap_steps(eng, "_decode_step", note_gaps)
+    _, base, eng = serve(model, params, qc, seed, f"{label} non-spec",
+                         {"b1", "b2"}, idle, load, hook=base_hook)
+    stats = {"non-spec": eng.stats}
+    index = {id(r): i for i, r in enumerate(eng.requests)}
+    del eng
+    for notes, gap in steps:
+        gap = gap.cpu()
+        for idx, req, n0 in notes:         # the step emitted token n0
+            gap_at[(index[id(req)], n0)] = float(gap[idx])
+    streams, parted = {"non-spec": base}, []
+    for name, spec, launched, drafter in specs:
+        tap = VerifyTap(model)
+        rounds = []
+
+        def check_round(notes, name=name):
+            ids = tap.verify_ids
+            for idx, req, n0 in notes:
+                got = req.out_tokens[n0:]
+                want = ids[idx, :len(got)].tolist()
+                check(got == want, f"{label} {name}: a round emitted {got}, "
+                      f"its verify rows' argmax is {want}")
+            rounds.append(len(notes))
+
+        def hook(eng, drafter=drafter):
+            eng.model = tap
+            if drafter is not None:
+                eng.drafter = drafter
+                drafter.bind(eng)
+            tap_steps(eng, "_spec_decode_step", check_round)
+        _, toks, eng = serve(model, params, qc, seed, f"{label} {name}",
+                             launched, idle, load, spec=spec, hook=hook)
+        check(eng.spec_rounds == len(rounds) and eng.spec_rounds > 0,
+              f"{label} {name}: {eng.spec_rounds} rounds, {len(rounds)} "
+              "checked")
+        check(eng.kv.table.live_pages == 0,
+              f"{label} {name}: {eng.kv.table.live_pages} pages left live")
+        stats[name] = dict(eng.stats, acceptance=eng.acceptance_rate,
+                           per_verify=eng.tokens_per_verify,
+                           reads=eng.device_reads)
+        del eng
+        streams[name] = toks
+        same = sum(a == b for sa, sb in zip(toks, base)
+                   for a, b in zip(sa, sb))
+        whole = sum(sa == sb for sa, sb in zip(toks, base))
+        stats[name]["same"], stats[name]["whole"] = same, whole
+        for i, (sa, sb) in enumerate(zip(toks, base)):
+            j = next((j for j, (a, b) in enumerate(zip(sa, sb)) if a != b),
+                     None)
+            if j is not None:
+                parted.append((name, i, j, gap_at.get((i, j))))
+    n_tok = sum(map(len, base))
+    print(f"spec [{label}]: distinct tokens in each non-spec stream "
+          f"{[len(set(t)) for t in base]} (of {len(base[0])})")
+    for name, st in stats.items():
+        extra = "" if name == "non-spec" else (
+            f", acceptance rate {st['acceptance']:.3f}, "
+            f"{st['per_verify']:.2f} tokens per verify, "
+            f"{st['reads']} host reads, {st['same']} of {n_tok} emitted "
+            f"tokens equal the non-spec stream's ({st['whole']} of "
+            f"{len(base)} requests whole)")
+        print(f"spec [{label}] {name}: {st['tokens_per_s']:.1f} generated "
+              f"tokens/s, decode round {st['step_ms']:.1f} ms{extra}")
+    for name, i, j, gap in parted:
+        print(f"spec [{label}] {name}: request {i} parts from the "
+              f"non-spec stream at token {j}; non-spec top-2 logit gap "
+              f"there {gap}")
+    return streams, stats, parted
+
+
+def free() -> None:
+    """Return the freed models' memory to the card before the next."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def spec_float32(seed, layers=4):
+    """Check (b): full-width qwen1.5-4b in float32 (dtype and LUTs), cut
+    to ``layers`` layers: the speculative streams (ngram, and the model
+    drafter over the first half of the layers) must equal the
+    non-speculative stream token for token; and one verify_paged call
+    must give a chain of decode_paged steps' logits (``verify_check``)."""
+    cfg = qwen1p5_4b.config().replace(num_layers=layers, dtype="float32")
+    qc = QuantConfig(mode="lut_infer", v=V, c=C, metric="l2",
+                     lut_dtype="float32")
+    model = Model(cfg)
+    params = model.init(torch.Generator(device=DEV).manual_seed(seed), qc)
+    streams, _, parted = spec_runs(
+        model, params, qc, seed, f"float32, {layers} layers", [
+            (f"ngram k={SPEC_K}", SpecConfig(k=SPEC_K, drafter="ngram"),
+             {"b1"}, None),
+            (f"model k={SPEC_K} draft_layers={layers // 2}",
+             SpecConfig(k=SPEC_K, draft_layers=layers // 2), {"b1", "b2"},
+             None),
+            (f"rejected drafter k={SPEC_K}", SpecConfig(k=SPEC_K), {"b1"},
+             ShiftDrafter())],
+        Load(hot=-1))
+    check(not parted, f"float32 speculative streams part from the "
+          f"non-speculative stream: {parted}")
+    print(f"float32 ({layers} layers, full width): every speculative "
+          f"stream equals the non-speculative one "
+          f"({sum(map(len, streams['non-spec']))} tokens each)")
+    verify_check(model, params, qc, seed, f"float32 LUTs, {layers} layers")
+    del model, params
+    free()
+
+
+def dense_config(cfg, qc, seed, load, runs,
+                 logits=("bfloat16", "float32")):
+    """A full-width, full-depth config from a seed: serve ``load`` once
+    per entry of ``runs`` (label -> (qc, launched, idle)); its peak device
+    memory; then a logit check of each run's path in each dtype of
+    ``logits``, and in float32 a verify check of each fp-pool run
+    (``verify_check``); the model freed."""
+    torch.cuda.reset_peak_memory_stats()
+    model = Model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=DEV).manual_seed(seed), qc)
+    torch.cuda.synchronize()
+    pbytes = sum(nbytes(t) for t in _leaves(params))
+    window = (f"window {cfg.sliding_window} on all but one layer in "
+              f"{cfg.global_every}, " if cfg.sliding_window else "")
+    print(f"init: full-width {cfg.name} ({cfg.num_layers} layers, "
+          f"{cfg.num_heads} heads / {cfg.num_kv_heads} kv, head_dim "
+          f"{cfg.head_dim}, {window}lut_infer int8 v={V} c={C}) built on "
+          f"the card in {time.perf_counter() - t0:.1f} s, "
+          f"{pbytes / 1e9:.2f} GB of params")
+    if cfg.sliding_window:
+        check(load.prompt[0] > cfg.sliding_window,
+              f"{cfg.name}: prompts must run past the window")
+    codebook = None
+    for label, (qc_r, launched, idle) in runs.items():
+        _, _, eng = serve(model, params, qc_r, seed, f"{cfg.name} {label}",
+                          launched, idle, load)
+        if qc_r.kv_quant == "vq":
+            codebook = eng.kv_codebook
+        del eng
+    print(f"peak device memory, {cfg.name} (init and serving): "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    models = {"bfloat16": (model, params)}
+    if "float32" in logits:
+        models["float32"] = (Model(cfg.replace(dtype="float32")),
+                             _map_float(params, torch.float32))
+    for label, (qc_r, _, _) in runs.items():
+        cb = codebook if qc_r.kv_quant == "vq" else None
+        for dt in logits:
+            logit_check(*models[dt], qc_r, seed, f"{cfg.name} {label}", cb,
+                        load)
+        if "float32" in logits and cb is None:
+            verify_check(*models["float32"], qc_r, seed,
+                         f"{cfg.name} {label}", load)
+    del model, params, codebook, models
+    free()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1052,9 +1448,10 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
          "--format=csv,noheader,nounits", "-lms", "200"],
         stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    t_kernels = time.perf_counter()
     try:
         b1, b3, b4 = {}, {}, {}
-        for m in (8, 32):
+        for m in QWEN_MS:
             for k, n, _ in PROJ_SHAPES:
                 b1[(m, k, n)] = b1_case(gen, m, k, n, flush)
                 b3[(m, k, n)], b4[(m, k, n)] = b34_case(gen, m, k, n, flush)
@@ -1097,7 +1494,53 @@ def main(argv=None) -> int:
             b5_case(gen, "page 64, window=150 kv_start>0, pos=-1 lanes", 4,
                     20, 20, 128, 8, [511, -1, 64, 300], 150, [0, 0, 9, 40],
                     flush, False, ps=64)]
-        for m in (8, 32):
+        dense = {"b1": {}, "b3": {}, "b4": {}}
+        for shapes, ms in DENSE_PATHS.values():
+            for k, n, _ in shapes:
+                for m in ms:
+                    if (m, k, n) in dense["b1"]:
+                        continue
+                    dense["b1"][(m, k, n)] = b1_case(gen, m, k, n, flush)
+                    dense["b3"][(m, k, n)], dense["b4"][(m, k, n)] = (
+                        b34_case(gen, m, k, n, flush))
+        # each dense config's decode attention as its serve run calls it
+        # (gemma3: a local layer, window 1024, contexts past it)
+        g_pos = sorted(rng.integers(*GEMMA_LOAD.check, SLOTS).tolist())
+        g27_pos = sorted(rng.integers(*GEMMA27_LOAD.check,
+                                      GEMMA27_LOAD.slots).tolist())
+        g_np = GEMMA_LOAD.max_seq // PAGE
+        b2_checks += [
+            b2_case(gen, "yi-9b decode B=8 KVH=4 G=8 D=128 NP=32", SLOTS,
+                    32, 4, 128, MAX_SEQ // PAGE, main_pos, 0, [0] * SLOTS,
+                    flush, False),
+            b2_case(gen, "gemma3-4b decode B=8 KVH=4 G=2 D=256 NP=128 "
+                    "window=1024", SLOTS, 8, 4, 256, g_np, g_pos, 1024,
+                    [0] * SLOTS, flush, False),
+            b2_case(gen, "gemma3-27b decode B=4 KVH=16 G=2 D=128 NP=128 "
+                    "window=1024", GEMMA27_LOAD.slots, 32, 16, 128, g_np,
+                    g27_pos, 1024, [0] * GEMMA27_LOAD.slots, flush, False)]
+        b5_checks.append(
+            b5_case(gen, "gemma3-4b decode B=8 KVH=4 G=2 D=256 NP=128 "
+                    "window=1024 nc=64 c=16", SLOTS, 8, 4, 256, g_np, g_pos,
+                    1024, [0] * SLOTS, flush, False))
+        # one slot at 4096 tokens (16 splits, one cluster of 16 blocks a
+        # kv head) at yi-9b's G=8 D=128 and gemma3-4b's G=2 D=256
+        wide = [
+            b2_case(gen, "one slot at 4096 tokens, yi-9b G=8 D=128 (32 "
+                    "heads / 4 kv)", 1, 32, 4, 128, 4096 // PAGE, [4095], 0,
+                    [0], flush, True),
+            b2_case(gen, "one slot at 4096 tokens, gemma3-4b G=2 D=256 (8 "
+                    "heads / 4 kv)", 1, 8, 4, 256, 4096 // PAGE, [4095], 0,
+                    [0], flush, True),
+            b5_case(gen, "one slot at 4096 tokens, yi-9b G=8 D=128 nc=32 "
+                    "c=16", 1, 32, 4, 128, 4096 // PAGE, [4095], 0, [0],
+                    flush, True),
+            b5_case(gen, "one slot at 4096 tokens, gemma3-4b G=2 D=256 "
+                    "nc=64 c=16", 1, 8, 4, 256, 4096 // PAGE, [4095], 0,
+                    [0], flush, True)]
+        b2_checks += wide[:2]
+        b5_checks += wide[2:]
+        for m in QWEN_MS:
             for k, n, _ in PROJ_SHAPES:
                 fl = float_lut_case(gen, m, k, n, flush)
                 print(f"float LUTs M={m} K={k} N={n}: two launches on one "
@@ -1117,6 +1560,7 @@ def main(argv=None) -> int:
         clocks.terminate()
         out = clocks.communicate()[0]
     del flush
+    print(f"phase [kernels]: {time.perf_counter() - t_kernels:.1f} s")
     samples = [[float(f) for f in line.split(",")]
                for line in out.splitlines() if line.count(",") == 1]
     if samples:
@@ -1128,6 +1572,7 @@ def main(argv=None) -> int:
     cfg = qwen1p5_4b.config()
     qc = QuantConfig(mode="lut_infer", v=V, c=C, metric="l2",
                      lut_dtype="int8")
+    t_qwen = time.perf_counter()
     model = Model(cfg)
     t0 = time.perf_counter()
     params = model.init(torch.Generator(device=DEV).manual_seed(
@@ -1142,7 +1587,7 @@ def main(argv=None) -> int:
         return cfg.num_layers * sum(res[(8, k, n)]["ms"] * cnt
                                     for k, n, cnt in PROJ_SHAPES)
     for name, res in (("B1", b1), ("B3", b3), ("B4", b4)):
-        for m in (8, 32):
+        for m in QWEN_MS:
             lay = {key: sum(res[(m, k, n)][key] * cnt
                             for k, n, cnt in PROJ_SHAPES)
                    for key in ("ms", "warm_ms", "bound_ms")}
@@ -1152,6 +1597,14 @@ def main(argv=None) -> int:
                   f"{lay['bound_ms'] * 1e3:.2f} us; host us a call "
                   + ", ".join(f"{res[(m, k, n)]['host']:.1f}"
                               for k, n, _ in PROJ_SHAPES))
+    for arch, (shapes, ms) in DENSE_PATHS.items():
+        for name in ("b1", "b3", "b4"):
+            res = dense[name]
+            print(f"{name.upper()} int8 per {arch} layer (7 projections): "
+                  + "; ".join(
+                      f"M={m} {1e3 * sum(res[(m, k, n)]['ms'] * c for k, n, c in shapes):.1f} us flushed, bound "  # noqa: E501
+                      f"{1e3 * sum(res[(m, k, n)]['bound_ms'] * c for k, n, c in shapes):.2f} us"  # noqa: E501
+                      for m in ms))
     print(f"kernel device time per decode step (from the kernel phase): "
           f"fused B1 {per_step(b1):.2f} ms, two-pass B3 {per_step(b3):.2f} + "
           f"B4 {per_step(b4):.2f} ms; attention, one flash_decode_paged call"
@@ -1196,9 +1649,41 @@ def main(argv=None) -> int:
         # the same step in float32 (LUTs stay int8): what is left of the
         # difference without bf16 rounding
         logit_check(model32, params32, qc_r, args.seed, label, cb)
-    del model, params, model32, params32, codebook, cb
-    torch.cuda.empty_cache()
-    float_lut_serve(args.seed)
+        if cb is None:
+            verify_check(model32, params32, qc_r, args.seed, label)
+    del model32, params32, codebook, cb
+    print(f"phase [qwen1.5-4b serve]: {time.perf_counter() - t_qwen:.1f} s")
+    with phase("speculative, qwen1.5-4b int8"):
+        spec_runs(
+            model, params, qc, args.seed, "qwen1.5-4b int8", [
+                (f"ngram k={SPEC_K}", SpecConfig(k=SPEC_K, drafter="ngram"),
+                 {"b1"}, None),
+                (f"model k={SPEC_K} draft_layers=10",
+                 SpecConfig(k=SPEC_K, drafter="model", draft_layers=10),
+                 {"b1", "b2"}, None),
+                (f"rejected drafter k={SPEC_K}", SpecConfig(k=SPEC_K),
+                 {"b1"}, ShiftDrafter())], Load(hot=-1))
+    del model, params
+    free()
+    with phase("float32 LUTs, qwen1.5-4b cut to 4 layers"):
+        float_lut_serve(args.seed)
+        spec_float32(args.seed)
+    with phase("yi-9b"):
+        dense_config(
+            yi_9b.config(), qc, args.seed, MAIN_LOAD,
+            {"fused": (qc, {"b1", "b2"}, {"b3", "b4", "b5"})})
+    with phase("gemma3-4b"):
+        dense_config(
+            gemma3_4b.config(), qc, args.seed, GEMMA_LOAD,
+            {"fused": (qc, {"b1", "b2"}, {"b3", "b4", "b5"}),
+             "vq-kv": (qc.replace(kv_quant="vq", kv_v=KV_V, kv_c=KV_C),
+                       {"b1", "b5"}, {"b2", "b3", "b4"})})
+    with phase("gemma3-27b"):
+        # bf16 logit check only: a float32 copy of 54 GB does not fit
+        dense_config(
+            gemma3_27b.config(), qc, args.seed, GEMMA27_LOAD,
+            {"fused": (qc, {"b1", "b2"}, {"b3", "b4", "b5"})},
+            logits=("bfloat16",))
 
     def layer_sum(res, key):
         return sum(res[(8, k, n)][key] * cnt for k, n, cnt in PROJ_SHAPES)
@@ -1224,7 +1709,7 @@ def main(argv=None) -> int:
                 "bound_by": res["bound_by"],
                 "library_ms": res["library_ms"]}
 
-    def launches(key):
+    def launches(key):               # the main path: qwen's three runs
         return sum(c[key] for c in counts.values())
     for r in b1.values():
         r["library_ms"] = None
@@ -1251,6 +1736,7 @@ def main(argv=None) -> int:
                  "src/repro_torch/csrc/flash_decode_kvq.cu",
                  "src/repro/kernels/flash_decode.py:294", launches("b5")),
     ]
+    print(f"launches by serve run: {json.dumps(PATH_LAUNCHES)}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

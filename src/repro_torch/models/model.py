@@ -13,6 +13,7 @@ API:
                                                    -> {"k", "v"} pool
   prefill_paged(params, tokens, kv, table, slot, pos, valid, qc) -> logits
   decode_paged(params, tokens, kv, table, positions, qc)         -> logits
+  verify_paged(params, tokens, kv, table, positions, n_live, qc) -> logits
 
 The pool ``(L, P+1, page, KVH, HD)`` (last page = trash) is updated in
 place: where the JAX entry points return a new pool (the engine donates
@@ -275,3 +276,57 @@ class Model:
                              positions, kv, phys, write)
         x = rms_norm(x, params["final_norm"], self.cfg.norm_eps)
         return self._head(params, x)[:, 0]
+
+    def verify_paged(self, params: Params, tokens: torch.Tensor, kv: Params,
+                     page_table: torch.Tensor, positions: torch.Tensor,
+                     n_live: torch.Tensor, qc: QuantConfig = DENSE
+                     ) -> torch.Tensor:
+        """Score T proposed tokens per slot in ONE call (speculative
+        verify).
+
+        Row b feeds tokens[b, 0:T] at absolute positions positions[b] ..
+        positions[b]+T-1: column 0 is the slot's committed but not yet
+        decoded token, columns 1.. are draft proposals. Token t's query
+        attends the committed rows < positions[b] plus proposed tokens
+        0..t (their K/V computed fresh in this call), so logits[b, t] is
+        the target's distribution after tokens[b, :t+1].
+
+        Args:
+          tokens: (num_slots, T) int32 proposals; dead columns carry dummy
+            ids.
+          positions: (num_slots,) int32 committed length of each verifying
+            slot; -1 = lane not in this verify (free or mid-prefill).
+          n_live: (num_slots,) int32 live columns per row (0 for -1
+            lanes). Columns >= n_live[b] write their K/V to the trash page
+            and their logits are garbage the caller ignores.
+
+        Returns logits (num_slots, T, V). Live columns' fresh K/V rows
+        are written in place at positions[b]+t (encoded on a code pool);
+        pages covering positions[b]+n_live[b] tokens must be allocated.
+        The caller commits the accepted prefix by advancing its position
+        and rolls back the rejected tail by not advancing over it: rows
+        >= the position are never attended and are overwritten before
+        the position crosses them again.
+        """
+        b, t_v = tokens.shape
+        trash = kv["k"].shape[1] - 1
+        ps = kv["k"].shape[2]
+        max_seq = page_table.shape[1] * ps
+        phys = torch.where(page_table >= 0, page_table,
+                           torch.full_like(page_table, trash))
+        cols = torch.arange(t_v, device=self.device)
+        tok_pos = torch.clamp_min(positions, 0).long()[:, None] + cols[None]
+        live = (positions >= 0)[:, None] & (cols[None] < n_live[:, None])
+        tok_pos = torch.clamp_max(tok_pos, max_seq - 1)  # dead cols: clamp
+        page = torch.gather(phys.long(), 1, tok_pos // ps)
+        tgt = torch.where(live, page, torch.full_like(page, trash))
+        off = tok_pos % ps
+
+        def write(li, k_new, v_new):
+            kv["k"][li, tgt, off] = k_new
+            kv["v"][li, tgt, off] = v_new
+
+        x = self._run_blocks(params, self._embed(params, tokens), qc,
+                             positions, kv, phys, write)
+        x = rms_norm(x, params["final_norm"], self.cfg.norm_eps)
+        return self._head(params, x)

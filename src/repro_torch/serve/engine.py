@@ -24,14 +24,19 @@ under ``fuse=False``) instead of a dense GEMM; the LUTs must already be in
 indices (kernel B5 reads them); the engine fits the codebook itself from
 a fixed calibration prefill unless the caller passes one.
 
+With ``spec_decode=SpecConfig(...)`` the engine decodes speculatively
+(``serve/speculative.py``): a drafter proposes up to ``k`` tokens per
+decoding slot, one ``verify_paged`` call scores them, and the accepted
+prefix plus one target token is emitted; greedy output stays
+token-identical to non-speculative decoding.
+
 Not ported yet (ROADMAP.md queue A): prefix caching and copy-on-write,
-deadlines, load shedding and the degradation ladder, observability,
-speculative decoding, the tensor-parallel mesh, and the batch-to-completion
-baseline engine.
+deadlines, load shedding and the degradation ladder, observability, the
+tensor-parallel mesh, and the batch-to-completion baseline engine.
 """
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -40,6 +45,7 @@ from repro_torch.core.kv_codebook import KVCodebook
 from repro_torch.core.lut import DENSE, QuantConfig
 from .kv_cache import PagedKVCache, PagePoolExhausted
 from .scheduler import FinishReason, Request, SlotPhase, SlotScheduler
+from .speculative import SpecConfig, accept_tokens
 
 
 def _sample_tokens(logits: torch.Tensor, temps: Optional[Sequence[float]],
@@ -107,6 +113,19 @@ class Engine:
       kv_codebook: the KV codebook of a ``kv_quant="vq"`` engine; None
         fits one (:meth:`_fit_kv_codebook`). Passing one without
         ``kv_quant="vq"`` is an error.
+      spec_decode: optional :class:`~repro_torch.serve.speculative.
+        SpecConfig` enabling self-speculative decoding: a drafter (the
+        target's own weights through a draft operating point or an
+        early-exit prefix, or host-side n-gram lookup) proposes up to
+        ``k`` tokens per decoding slot and ONE ``verify_paged`` call
+        scores them, emitting 1 to ``k+1`` tokens per round. Greedy
+        output stays token-identical to non-speculative decoding;
+        temperature slots take rejection sampling with the residual
+        correction. The degradation ladder that turns speculation off
+        under page pressure (``MODE_NO_SPEC``) is not ported yet
+        (ROADMAP.md queue A item 6): a speculative engine speculates
+        every round, and shrinks a slot's lookahead only when the pool
+        cannot hold it.
     """
 
     def __init__(self, model, params, qc: QuantConfig = DENSE,
@@ -114,7 +133,8 @@ class Engine:
                  eos_id: Optional[int] = None, seed: int = 0,
                  page_size: int = 16, num_pages: Optional[int] = None,
                  prefill_chunk: int = 32,
-                 kv_codebook: Optional[KVCodebook] = None):
+                 kv_codebook: Optional[KVCodebook] = None,
+                 spec_decode: Optional[SpecConfig] = None):
         self.model = model
         self.params = params
         self.qc = qc
@@ -145,6 +165,19 @@ class Engine:
         self.device_reads = 0
         self._gens = [torch.Generator(device=self.device).manual_seed(
             seed * 1_000_003 + i) for i in range(self.num_slots)]
+        # speculative decoding: verify calls, proposals scored, proposals
+        # accepted, tokens emitted by rounds
+        self.spec = spec_decode
+        self.drafter = None
+        self.spec_rounds = self.spec_drafted = 0
+        self.spec_accepted = self.spec_emitted = 0
+        if spec_decode is not None:
+            if spec_decode.k < 1:
+                raise ValueError(f"spec_decode.k must be >= 1, got "
+                                 f"{spec_decode.k}")
+            self._spec_rng = np.random.default_rng(seed)
+            self.drafter = spec_decode.build_drafter()
+            self.drafter.bind(self)
 
     # ------------------------------------------------------------------
     # public API
@@ -180,7 +213,10 @@ class Engine:
             self._prefill_chunk_step(slot)
             progressed = True
         if self.scheduler.decode_slots():
-            self._decode_step()
+            if self.spec is not None:
+                self._spec_decode_step()
+            else:
+                self._decode_step()
             progressed = True
         self.step_count += 1
         return progressed
@@ -197,11 +233,27 @@ class Engine:
             k_rows, v_rows, v=self.qc.kv_v, c=self.qc.kv_c,
             generator=torch.Generator(device=self.device).manual_seed(0))
 
-    def _device_read(self, t: torch.Tensor) -> np.ndarray:
+    def _device_read(self, t: Union[torch.Tensor, Tuple[torch.Tensor, ...]]):
         """THE device -> host transfer of the step loop (one per decode
-        step, one per finished prefill), counted in ``device_reads``."""
+        step, one per finished prefill; a speculative round's draft ids
+        and verify ids), counted in ``device_reads``. A tuple of tensors
+        is one read and gives a tuple of arrays."""
         self.device_reads += 1
+        if isinstance(t, tuple):
+            return tuple(x.cpu().numpy() for x in t)
         return t.cpu().numpy()
+
+    def _reserve_lookahead(self, slot_idx: int, pos: int, kk: int) -> int:
+        """Reserve pages for ``kk`` draft tokens past the pending one,
+        shrinking ``kk`` instead of preempting when the pool runs short
+        (speculation is opportunistic). Returns the reserved lookahead."""
+        while kk > 0:
+            try:
+                self.kv.table.ensure(slot_idx, pos + kk + 1)
+                return kk
+            except PagePoolExhausted:
+                kk -= 1
+        return 0
 
     def _ensure_pages(self, slot_idx: int, n_tokens: int) -> None:
         """Grow a slot to n_tokens, preempting other slots if needed."""
@@ -272,6 +324,103 @@ class Engine:
         for s in dslots:
             s.pos += 1
             self._record_token(s, int(nxt[s.idx]))
+
+    # ------------------------------------------------------------------
+    # speculative decoding
+    # ------------------------------------------------------------------
+    @property
+    def acceptance_rate(self) -> float:
+        """Fraction of draft proposals the target accepted (0.0 before any
+        verify round)."""
+        return self.spec_accepted / self.spec_drafted \
+            if self.spec_drafted else 0.0
+
+    @property
+    def tokens_per_verify(self) -> float:
+        """Mean tokens emitted per verify call, summed over the call's
+        slots (as many as decoding slots = no speculation win; 0.0 before
+        any round)."""
+        return self.spec_emitted / self.spec_rounds \
+            if self.spec_rounds else 0.0
+
+    def _spec_decode_step(self) -> None:
+        """One draft / verify round over every decoding slot, in place of
+        :meth:`_decode_step`: the drafter proposes up to ``k`` tokens per
+        slot, ONE ``verify_paged`` call scores them (k+1 columns; slots
+        that drafted fewer pad with trash-bound columns), and the accepted
+        prefix plus one target token is recorded. The argmax is taken on
+        the device: a greedy round reads only the draft ids (model
+        drafter) and the verify ids; the logits come to the host only
+        when a slot samples. Rejected rows roll back: ``slot.pos`` does
+        not advance over them and :meth:`PagedKVCache.trim` frees the
+        tail pages the rejected lookahead no longer needs."""
+        for s in list(self.scheduler.decode_slots()):
+            if s.phase is not SlotPhase.DECODE:
+                continue
+            self._grow_or_shed(s)
+        dslots = self.scheduler.decode_slots()
+        if not dslots:
+            return
+        k = self.spec.k
+        # the lookahead is capped by the slot's room and remaining budget;
+        # a drafter that writes draft K/V needs its pages before drafting,
+        # host-side drafters reserve after proposing
+        k_slot = {}
+        for s in dslots:
+            room = self.max_seq - s.pos - 1
+            budget = s.req.max_new_tokens - len(s.req.out_tokens) - 1
+            kk = max(0, min(k, room, budget))
+            if self.drafter.writes_kv:
+                kk = self._reserve_lookahead(s.idx, s.pos, kk)
+            k_slot[s.idx] = kk
+        g, n_prop, q_rows = self.drafter.propose(self, dslots, k_slot, k)
+        if not self.drafter.writes_kv:
+            for s in dslots:
+                n_prop[s.idx] = self._reserve_lookahead(
+                    s.idx, s.pos, int(n_prop[s.idx]))
+        b = self.num_slots
+        toks = np.zeros((b, k + 1), np.int32)
+        posv = np.full((b,), -1, np.int32)
+        nlive = np.zeros((b,), np.int32)
+        for s in dslots:
+            n = int(n_prop[s.idx])
+            toks[s.idx, 0] = s.next_token
+            toks[s.idx, 1:1 + n] = g[s.idx, :n]
+            posv[s.idx] = s.pos
+            nlive[s.idx] = n + 1
+        dev = self.device
+        logits = self.model.verify_paged(
+            self.params, torch.from_numpy(toks).to(dev), self.kv.data,
+            self.kv.table_device(), torch.from_numpy(posv).to(dev),
+            torch.from_numpy(nlive).to(dev), self.qc)
+        ids = torch.argmax(logits, dim=-1).to(torch.int32)
+        if any(s.req.temperature > 0.0 for s in dslots):
+            ids_h, lg = self._device_read((ids, logits.float()))
+        else:
+            ids_h, lg = self._device_read(ids), None
+        self.spec_rounds += 1
+        for s in dslots:
+            n = int(n_prop[s.idx])
+            draft = [int(t) for t in g[s.idx, :n]]
+            rows = None if q_rows is None else \
+                [q_rows[t][s.idx] for t in range(n)]
+            accepted, out = accept_tokens(
+                draft, None if lg is None else lg[s.idx, :n + 1],
+                s.req.temperature, self._spec_rng, rows,
+                targets=ids_h[s.idx, :n + 1])
+            self.spec_drafted += n
+            self.spec_accepted += accepted
+            req = s.req              # _record_token may evict (slot.req=None)
+            for tok in out:
+                s.pos += 1
+                self._record_token(s, tok)
+                self.spec_emitted += 1
+                if req.done:         # EOS / budget / truncation: drop the rest
+                    break
+            if not req.done:
+                # roll back the rejected lookahead: pages wholly past the
+                # committed rows and the pending token's write row return
+                self.kv.trim(s.idx, s.pos + 1)
 
     def _record_token(self, slot, tok: int) -> None:
         """Append a sampled token and apply the eviction rules."""

@@ -6,7 +6,8 @@ ROADMAP.md queue A lists them).
     raises :class:`PagePoolExhausted` when a request cannot be satisfied.
   * :class:`PageTable` — host-side slot -> page bookkeeping: one row of
     logical -> physical page ids per slot (``-1`` = unallocated), grown as
-    a slot's sequence crosses page boundaries.
+    a slot's sequence crosses page boundaries and trimmed back when a
+    speculative round rejects draft rows.
   * :class:`PagedKVCache` — the device pool (``Model.init_paged_cache``)
     plus a :class:`PageTable`. KV lives in a shared pool of fixed-size
     pages, so memory scales with live tokens, not slots x max_seq. With a
@@ -159,6 +160,22 @@ class PageTable:
             self.table[slot, :] = -1
             self._dev = None
 
+    def trim(self, slot: int, n_tokens: int) -> int:
+        """Shrink slot ``slot`` to the pages covering ``n_tokens`` tokens
+        (speculative-decoding rollback: rejected draft rows past the
+        accepted position may leave whole tail pages unused). Only pages
+        wholly above the keep mark are freed. Returns how many."""
+        keep = 0 if n_tokens <= 0 else self.pages_for(n_tokens)
+        row = self._slot_pages[slot]
+        if len(row) <= keep:
+            return 0
+        dropped = row[keep:]
+        del row[keep:]
+        self.allocator.free(dropped)
+        self.table[slot, keep:] = -1
+        self._dev = None
+        return len(dropped)
+
     def device(self, device) -> torch.Tensor:
         """(num_slots, pages_per_slot) int32 copy on ``device`` (cached)."""
         if self._dev is None:
@@ -207,6 +224,11 @@ class PagedKVCache:
         """Allocatable pool capacity in bytes (the trash page excluded:
         it is never handed out)."""
         return self.page_bytes * self.table.allocator.num_pages
+
+    def trim(self, slot: int, n_tokens: int) -> int:
+        """Speculative rollback: free the slot's tail pages past
+        ``n_tokens`` (:meth:`PageTable.trim`)."""
+        return self.table.trim(slot, n_tokens)
 
     def table_device(self) -> torch.Tensor:
         return self.table.device(self.device)

@@ -18,8 +18,10 @@ kernel); B2 and B5 in their fused form (the split reduction and self-term
 fold as a thread-block-cluster epilogue) against the plain triples then
 fold_splits, pages 4 to 64, G up to 8, D up to 256, q in float32 and
 bfloat16, both B5 forms, its scaled query bit for bit the plain
-version's, 16 splits at one slot of 4096 tokens, and one
-flash_decode_paged call as one kernel.
+version's, 16 splits at one slot of 4096 tokens (G=1 D=128, G=8 D=128,
+G=2 D=256), and one flash_decode_paged call as one kernel; B1, B3 and B4
+at the projection shapes of yi-9b and gemma3-4b (M = 8, 32, 40); one
+``Model.verify_paged`` call through the kernels against its plain run.
 
 Needs a CUDA device and ``nvcc``: marked ``cuda``, and skipped when torch
 sees no card. On a machine with an H100, from the repository root:
@@ -44,7 +46,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.configs import gemma3_4b  # noqa: E402
+from repro_torch.core.lut import QuantConfig  # noqa: E402
 from repro_torch.device import enqueued  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import flash_decode as tfd  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.kernels.assign import vq_assign_cuda  # noqa: E402
@@ -52,6 +57,7 @@ from repro_torch.kernels.fused_amm import (  # noqa: E402
     vq_amm_cuda, vq_amm_geometry)
 from repro_torch.kernels.lut_gemm import (  # noqa: E402
     lut_gemm_cuda, lut_gemm_geometry)
+from repro_torch.models.model import Model  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -648,11 +654,18 @@ def test_fused_kernel_takes_misaligned_pools(dev, pool):
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("h,kvh,d", [
+    (20, 20, 128),     # qwen1.5-4b: G=1
+    (32, 4, 128),      # yi-9b: G=8
+    (8, 4, 256),       # gemma3-4b: G=2, D=256
+])
 @pytest.mark.parametrize("pool", ["bfloat16", "codes"])
-def test_fused_kernel_at_sixteen_splits(dev, pool):
+def test_fused_kernel_at_sixteen_splits(dev, pool, h, kvh, d):
     """One slot at 4096 tokens: the split rule's cap gives 16 splits of 16
-    pages, one cluster of 16 blocks per kv head, against the plain pair."""
-    b, h, kvh, d, ps, np_ = 1, 20, 20, 128, 16, 256
+    pages, one cluster of 16 blocks per kv head, against the plain pair;
+    at each dense config's group and head size (a cluster the card cannot
+    schedule raises)."""
+    b, ps, np_ = 1, 16, 256
     ks = torch.zeros((b,), dtype=torch.int32, device=dev)
     fused, plain, _, phys, split = _fused_problem(dev, pool, b, h, kvh, d,
                                                   ps, np_, [4095], None, 16)
@@ -708,3 +721,78 @@ def test_flash_decode_paged_runs_the_kernels_only(dev, pool):
     assert out.dtype == dtype and bool(torch.isfinite(out).all())
     assert enqueued(call) == {"kernels": 1, "copies": 0, "memsets": 0,
                               "other": 0}
+
+
+# ---------------------------------------------------------------------------
+# the dense configs' projection shapes, and the speculative verify
+# ---------------------------------------------------------------------------
+
+# (K, N) of yi-9b's (wq/wo, wk/wv, wg/wu, wd) and gemma3-4b's (wq, wk/wv,
+# wo, wg/wu, wd) projections
+DENSE_PROJ_SHAPES = [(4096, 4096), (4096, 512), (4096, 11008),
+                     (11008, 4096), (2560, 2048), (2560, 1024),
+                     (2048, 2560), (2560, 10240), (10240, 2560)]
+
+
+@pytest.mark.parametrize("k,n", DENSE_PROJ_SHAPES)
+def test_projection_kernels_at_the_dense_configs_shapes(dev, k, n):
+    """B1, B3 and B4 at decode (M=8), the prefill chunk (M=32) and a
+    speculative verify of 8 slots x 5 tokens (M=40), int8 LUTs: B1 and B4
+    against the plain sum, B3 against the plain argmin, and B4(B3(x)) ==
+    B1(x) bit for bit on margin and random x."""
+    nc = k // 8
+    for m in (8, 32, 40):
+        x, z, lut, scale = _b1_inputs((m, nc, 8, 16, n), torch.bfloat16,
+                                      torch.int8, m + k + n, dev)
+        idx = vq_assign_cuda(x, z)
+        assert torch.equal(idx, tref.assign_ref(x, z))
+        want = tref.vq_amm_ref(x, z, lut, scale)
+        torch.testing.assert_close(vq_amm_cuda(x, z, lut, scale), want,
+                                   rtol=1e-6, atol=1e-6)
+        torch.testing.assert_close(lut_gemm_cuda(idx, lut, scale), want,
+                                   rtol=1e-6, atol=1e-6)
+        xr = torch.randn(x.shape, device=dev).to(x.dtype)
+        for xx in (x, xr):
+            assert torch.equal(
+                lut_gemm_cuda(vq_assign_cuda(xx, z), lut, scale),
+                vq_amm_cuda(xx, z, lut, scale))
+
+
+def test_verify_paged_through_the_kernels_matches_its_plain_run(
+        dev, monkeypatch):
+    """One Model.verify_paged call (gemma3-4b smoke: G=2, window 8, int8
+    LUTs) on a prefilled pool, with a pos = -1 lane and dead columns: B1
+    launches for every projection and its logits and written rows equal
+    the same call through the plain versions (exact int8 sums; attention
+    is plain torch on both sides)."""
+    model = Model(gemma3_4b.smoke_config(), device=dev)
+    qc = QuantConfig(mode="lut_infer", lut_dtype="int8")
+    params = model.init(torch.Generator(device=dev).manual_seed(0), qc)
+    ps, npg = 8, 4
+    kv = model.init_paged_cache(ps * npg, ps, 3 * npg)
+    table = torch.arange(3 * npg, dtype=torch.int32,
+                         device=dev).reshape(3, npg)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    vocab = model.cfg.vocab_size
+    for slot, n in enumerate((13, 9, 3)):
+        toks = torch.randint(0, vocab, (1, 16), generator=gen, device=dev,
+                             dtype=torch.int32)
+        model.prefill_paged(params, toks, kv, table, slot, 0, n, qc)
+    toks = torch.randint(0, vocab, (3, 5), generator=gen, device=dev,
+                         dtype=torch.int32)
+    pos = torch.tensor([13, 9, -1], dtype=torch.int32, device=dev)
+    n_live = torch.tensor([5, 2, 0], dtype=torch.int32, device=dev)
+    kv_p = {key: t.clone() for key, t in kv.items()}
+    launches, plain = vq_amm_cuda.launches, tref.vq_amm_ref.calls
+    got = model.verify_paged(params, toks, kv, table, pos, n_live, qc)
+    torch.cuda.synchronize()
+    assert vq_amm_cuda.launches == launches + 7 * model.cfg.num_layers
+    assert tref.vq_amm_ref.calls == plain
+    monkeypatch.setattr(ops, "vq_amm_cuda", tref.vq_amm_ref)
+    want = model.verify_paged(params, toks, kv_p, table, pos, n_live, qc)
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(got[1, :2], want[1, :2], rtol=1e-5,
+                               atol=1e-5)
+    for key in ("k", "v"):
+        torch.testing.assert_close(kv[key][:, :-1], kv_p[key][:, :-1],
+                                   rtol=1e-5, atol=1e-5)

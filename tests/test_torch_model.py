@@ -1,7 +1,11 @@
-"""Port parity at model level: the qwen1.5-4b smoke model in lut_infer
-(int8 LUTs), JAX params carried over with ``params_from_numpy``, through
-chunked ``prefill_paged`` and a 4-step greedy ``decode_paged`` chain,
-against the JAX package with its Pallas flash-decode kernel (interpret).
+"""Port parity at model level: the smoke models in lut_infer (int8 LUTs),
+JAX params carried over with ``params_from_numpy``, through chunked
+``prefill_paged`` and a greedy ``decode_paged`` chain, against the JAX
+package with its Pallas flash-decode kernel (interpret): qwen1.5-4b
+(G=1, tied head), and yi-9b (G=4, untied head), gemma3-4b (G=2, D=16,
+window 8, one global layer in 6) and gemma3-27b (window 8, one global
+layer in 3) at contexts past their window. The config copies and the
+port's registry are held against the JAX package's.
 
 Tolerance: logits at atol 1e-4 (float32; every projection is an exact
 int8 sum, the difference comes from attention/norm sums in another order);
@@ -17,10 +21,12 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+from repro import configs as jconfigs  # noqa: E402
 from repro.configs import qwen1p5_4b as jcfg  # noqa: E402
 from repro.core import precompute_model  # noqa: E402
 from repro.core.lut import QuantConfig as JQC  # noqa: E402
 from repro.models.model import Model as JModel  # noqa: E402
+from repro_torch import configs as tconfigs  # noqa: E402
 from repro_torch.configs import qwen1p5_4b as tcfg  # noqa: E402
 from repro_torch.convert import params_from_numpy  # noqa: E402
 from repro_torch.core.lut import QuantConfig as TQC  # noqa: E402
@@ -44,11 +50,29 @@ def pair():
     return jm, params_j, qc_j, tm, params_t, qc_t
 
 
+PORTED = ("qwen1.5-4b", "yi-9b", "gemma3-4b", "gemma3-27b")
+
+
 def test_config_copies_match_jax_field_for_field():
+    for arch in PORTED:
+        for name in ("get_config", "get_smoke_config"):
+            want = dataclasses.asdict(getattr(jconfigs, name)(arch))
+            got = dataclasses.asdict(getattr(tconfigs, name)(arch))
+            assert got == want, (arch, name)
     for name in ("config", "smoke_config"):
-        want = dataclasses.asdict(getattr(jcfg, name)())
-        got = dataclasses.asdict(getattr(tcfg, name)())
-        assert got == want
+        assert dataclasses.asdict(getattr(tcfg, name)()) == \
+            dataclasses.asdict(getattr(jcfg, name)())
+
+
+def test_registry_names_the_roadmap_item_of_unported_configs():
+    assert tuple(tconfigs.ARCH_NAMES) == PORTED
+    assert set(PORTED) < set(jconfigs.ARCH_NAMES)
+    for arch in set(jconfigs.ARCH_NAMES) - set(PORTED):
+        for fn in (tconfigs.get_config, tconfigs.get_smoke_config):
+            with pytest.raises(NotImplementedError, match="item 9"):
+                fn(arch)
+    with pytest.raises(KeyError):
+        tconfigs.get_config("no-such-model")
 
 
 def test_params_from_numpy_unstacks_layers(pair):
@@ -81,7 +105,6 @@ def test_port_init_builds_the_same_tree_as_jax(pair):
 
 
 def test_prefill_and_decode_chain_match_jax(pair):
-    jm, params_j, qc_j, tm, params_t, qc_t = pair
     # slot 0: 11-token prompt, slot 1: 6 tokens, slot 2: holds prompt KV
     # but is NOT decoding (positions = -1): its pages must stay untouched
     table = np.full((3, MAX_SEQ // PS), -1, np.int32)
@@ -89,6 +112,49 @@ def test_prefill_and_decode_chain_match_jax(pair):
     table[1, :2] = [0, 7]
     table[2, :1] = [9]
     prompts = [list(range(3, 14)), [40, 41, 42, 43, 44, 45], [7, 8, 9]]
+    _chain(*pair, table, prompts, steps=4)
+
+
+def _carry(arch, seed):
+    """A JAX smoke model of ``arch`` in lut_infer (int8), its params
+    carried over to the port's model on the CPU."""
+    jm = JModel(jconfigs.get_smoke_config(arch))
+    qc_j = JQC(mode="lut_infer", lut_dtype="int8", flash="pallas")
+    params_j = precompute_model(
+        jm.init(jax.random.PRNGKey(seed), JQC(mode="lut_train")), qc_j)
+    tm = TModel(tconfigs.get_smoke_config(arch), device="cpu")
+    params_t = params_from_numpy(jax.tree_util.tree_map(np.asarray,
+                                                        params_j),
+                                 tm.cfg, device="cpu")
+    return jm, params_j, qc_j, tm, params_t, TQC(mode="lut_infer",
+                                                 lut_dtype="int8")
+
+
+@pytest.mark.parametrize("arch", ["yi-9b", "gemma3-4b", "gemma3-27b"])
+def test_gqa_and_window_configs_prefill_and_decode_chain_match_jax(arch):
+    """GQA groups, an untied head (yi), head_dim != d_model / heads and
+    sliding-window layers (gemma3): prompts of 19 and 13 tokens and a
+    5-step decode chain run past the smoke configs' window of 8, so the
+    window masks in prefill and in decode."""
+    models = _carry(arch, 5)
+    cfg = models[3].cfg
+    assert cfg.num_heads > cfg.num_kv_heads
+    assert cfg.tie_embeddings == ("head" not in models[4])
+    table = np.full((3, MAX_SEQ // PS), -1, np.int32)
+    table[0, :4] = [5, 2, 8, 1]
+    table[1, :3] = [0, 7, 3]
+    table[2, :1] = [9]
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in (19, 13, 3)]
+    _chain(*models, table, prompts, steps=5)
+
+
+def _chain(jm, params_j, qc_j, tm, params_t, qc_t, table, prompts, steps):
+    """Chunked prefill of every prompt into its slot, then a greedy decode
+    chain of the first two slots (slot 2 not decoding: positions = -1),
+    through the JAX package and the port: logits to ATOL, argmax equal,
+    the pools equal outside the trash page, slot 2's pages untouched."""
     kv_j = jm.init_paged_cache(3, MAX_SEQ, PS, num_pages=N_PAGES)
     kv_t = tm.init_paged_cache(MAX_SEQ, PS, N_PAGES)
     pf_j = jax.jit(lambda p, t, kv, pt, s, pos, v: jm.prefill_paged(
@@ -118,7 +184,7 @@ def test_prefill_and_decode_chain_match_jax(pair):
     slot2_pages = kv_t["k"][:, 9].clone()
     positions = np.array([len(prompts[0]), len(prompts[1]), -1], np.int32)
     toks = np.array([[last[0]], [last[1]], [0]], np.int32)
-    for _ in range(4):
+    for _ in range(steps):
         lg_j, kv_j = dec_j(params_j, jnp.asarray(toks), kv_j,
                            jnp.asarray(table), jnp.asarray(positions))
         lg_t = tm.decode_paged(params_t, torch.from_numpy(toks), kv_t,

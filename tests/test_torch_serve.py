@@ -1,5 +1,6 @@
 """Port parity at serving level: the port's continuous-batching Engine
-against the JAX Engine on the same lut_infer (int8) smoke params, plus
+against the JAX Engine on the same lut_infer (int8) smoke params (qwen1.5-4b,
+and yi-9b and gemma3-4b: GQA, an untied head, sliding-window layers), plus
 host-side units of the page allocator, page table and scheduler.
 
 Greedy requests must give identical tokens: mixed prompt lengths, a
@@ -14,12 +15,14 @@ torch = pytest.importorskip("torch")
 
 import jax  # noqa: E402
 
+from repro import configs as jconfigs  # noqa: E402
 from repro.configs import qwen1p5_4b as jcfg  # noqa: E402
 from repro.core import precompute_model  # noqa: E402
 from repro.core.lut import QuantConfig as JQC  # noqa: E402
 from repro.models.model import Model as JModel  # noqa: E402
 from repro.serve import Engine as JEngine  # noqa: E402
 from repro.serve import Request as JRequest  # noqa: E402
+from repro_torch import configs as tconfigs  # noqa: E402
 from repro_torch.configs import qwen1p5_4b as tcfg  # noqa: E402
 from repro_torch.convert import params_from_numpy  # noqa: E402
 from repro_torch.core.lut import QuantConfig as TQC  # noqa: E402
@@ -135,6 +138,48 @@ def test_engine_greedy_tokens_match_jax_engine(models):
         assert rt.out_tokens == rj.out_tokens
     assert t_eng.kv.table.live_pages == 0
     assert all(s.free for s in t_eng.scheduler.slots)
+
+
+@pytest.mark.parametrize("arch", ["yi-9b", "gemma3-4b"])
+def test_gqa_and_window_engine_greedy_tokens_match_jax_engine(arch):
+    """yi-9b (G=4, untied head) and gemma3-4b (G=2, window 8) smoke: the
+    port's engine emits the JAX engine's greedy tokens, with prompts and
+    generations past the window, mid-decode admission and preemption."""
+    jm = JModel(jconfigs.get_smoke_config(arch))
+    qc_j = JQC(mode="lut_infer", lut_dtype="int8", flash="pallas")
+    params_j = precompute_model(
+        jm.init(jax.random.PRNGKey(2), JQC(mode="lut_train")), qc_j)
+    tm = TModel(tconfigs.get_smoke_config(arch), device="cpu")
+    params_t = params_from_numpy(jax.tree_util.tree_map(np.asarray, params_j),
+                                 tm.cfg, device="cpu")
+    qc_t = TQC(mode="lut_infer", lut_dtype="int8")
+    rng = np.random.default_rng(3)
+    vocab = tm.cfg.vocab_size
+    plan = [(rng.integers(0, vocab, n).tolist(), m)
+            for n, m in ((13, 12), (10, 11), (9, 6))]
+    late_plan = (rng.integers(0, vocab, 11).tolist(), 7)
+
+    def serve(engine, make_req):
+        reqs = [make_req(p, n) for p, n in plan]
+        for r in reqs:
+            engine.submit(r)
+        for _ in range(6):
+            engine.step()
+        late = make_req(*late_plan)
+        engine.submit(late)
+        engine.run_until_idle()
+        return reqs + [late]
+    j_eng = JEngine(jm, params_j, qc_j, num_pages=5, prefix_cache=False,
+                    degradation=None, **ENGINE_KW)
+    t_eng = TEngine(tm, params_t, qc_t, num_pages=5, **ENGINE_KW)
+    j_reqs = serve(j_eng, lambda p, n: JRequest(tokens=p, max_new_tokens=n))
+    t_reqs = serve(t_eng, lambda p, n: Request(tokens=p, max_new_tokens=n))
+    assert j_eng.scheduler.preemptions >= 1
+    assert t_eng.scheduler.preemptions == j_eng.scheduler.preemptions
+    for rj, rt in zip(j_reqs, t_reqs):
+        assert rt.done and rt.finish_reason.name == rj.finish_reason.name
+        assert rt.out_tokens == rj.out_tokens
+    assert max(len(r.tokens) + len(r.out_tokens) for r in t_reqs) > 16
 
 
 def test_one_device_read_per_decode_step(models):
