@@ -30,7 +30,16 @@ pools, prompts past its 1024-token window) and a short gemma3-27b serve
 run at full width and depth, each freed before the next, each with a
 logit check. In float32, one verify_paged call must give the logits of
 a chain of decode_paged steps over the same tokens (qwen1.5-4b, yi-9b,
-gemma3-4b, at full depth).
+gemma3-4b, at full depth). Five serving phases run full-width qwen1.5-4b
+through the rest of the serving stack, each also in float32 cut to 4
+layers where streams must be identical: prefix (a shared system prompt,
+copy-on-write forks, a resumed chunk past max_seq; cold and warm on the
+fp and the code pool; one decode step over slots sharing physical pages
+against the plain versions), policy (a bounded priority queue,
+deadlines, the degradation ladder on a speculative engine), chaos (two
+replicas on one card under the canned fault schedule), baseline (the
+batch-to-completion engine beside the continuous one; B1 at its prefill
+rows) and obs (timers and tracer on).
 
     python3 chip_smoke.py [--seed N]
 
@@ -74,8 +83,10 @@ from repro_torch.kernels.fused_amm import (  # noqa: E402
 from repro_torch.kernels.lut_gemm import (  # noqa: E402
     lut_gemm_cuda, lut_gemm_geometry)
 from repro_torch.models.model import Model  # noqa: E402
-from repro_torch.serve.engine import Engine  # noqa: E402
-from repro_torch.serve.scheduler import Request  # noqa: E402
+from repro_torch.obs import Obs, Tracer, validate_trace  # noqa: E402
+from repro_torch.serve import (  # noqa: E402
+    BatchToCompletionEngine, Engine, FaultInjector, FaultSchedule,
+    FinishReason, ReplicaHealth, ReplicaRouter, Request)
 from repro_torch.serve.speculative import Drafter, SpecConfig  # noqa
 
 # Published H100 SXM peaks (NVIDIA data sheet), at a 700 W power limit.
@@ -129,6 +140,9 @@ LOGIT_ROWS_OFF = {"bfloat16": 2, "float32": 1}
 
 # each serve run's kernel launches, by the run's label (filled by serve)
 PATH_LAUNCHES: dict = {}
+# the card's name and power limit (nvidia-smi), set by main(): printed
+# beside every number of the serving policy phases
+SMI = ""
 
 
 class SmokeFailure(RuntimeError):
@@ -963,28 +977,20 @@ DENSE_PATHS = {
 }
 
 
-def serve(model, params, qc, seed, label, launched, idle, load=MAIN_LOAD,
-          spec=None, hook=None):
-    """Serve ``load`` through the engine under ``qc`` (speculatively with
-    ``spec``); every kernel in ``launched`` must launch, none in ``idle``,
-    and no plain version may run. ``hook(eng)``, when given, may wrap the
-    engine's methods before the run (after the step timers). Returns
-    (counts, tokens, engine)."""
+def load_requests(load, seed, vocab):
+    """``load``'s requests, their prompts drawn from ``seed``."""
     rng = np.random.default_rng(seed)
-    vocab = model.cfg.vocab_size
-    reqs = [Request(tokens=rng.integers(0, vocab, int(n)).tolist(),
+    return [Request(tokens=rng.integers(0, vocab, int(n)).tolist(),
                     max_new_tokens=load.new,
                     temperature=0.8 if i == load.hot else 0.0)
             for i, n in enumerate(rng.integers(*load.prompt, load.n))]
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    eng = Engine(model, params, qc, batch_size=load.slots,
-                 max_seq=load.max_seq, page_size=PAGE,
-                 prefill_chunk=load.chunk, seed=seed, spec_decode=spec)
-    torch.cuda.synchronize()
-    setup = time.perf_counter() - t0
-    step = "_decode_step" if spec is None else "_spec_decode_step"
-    times = {"_prefill_chunk_step": [], step: []}
+
+
+def timed_steps(eng, names) -> dict:
+    """Wrap each ``eng.<name>`` (a prefill chunk, a decode step) to time
+    every call, the card synchronised after it; returns {name: [s, ...]}
+    filled as the engine runs."""
+    times = {name: [] for name in names}
 
     def timed(name):
         fn = getattr(eng, name)
@@ -995,30 +1001,39 @@ def serve(model, params, qc, seed, label, launched, idle, load=MAIN_LOAD,
             torch.cuda.synchronize()
             times[name].append(time.perf_counter() - t0)
         return wrapper
-    for name in times:
+    for name in names:
         setattr(eng, name, timed(name))
-    if hook is not None:
-        hook(eng)
-    reset_counts()
+    return times
+
+
+def serve(model, params, qc, seed, label, launched, idle, load=MAIN_LOAD,
+          spec=None, hook=None):
+    """Serve ``load`` through the engine under ``qc`` (speculatively with
+    ``spec``); every kernel in ``launched`` must launch, none in ``idle``,
+    and no plain version may run. ``hook(eng)``, when given, may wrap the
+    engine's methods before the run (after the step timers). Returns
+    (counts, tokens, engine)."""
+    vocab = model.cfg.vocab_size
+    reqs = load_requests(load, seed, vocab)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    eng.run(reqs)
+    eng = Engine(model, params, qc, batch_size=load.slots,
+                 max_seq=load.max_seq, page_size=PAGE,
+                 prefill_chunk=load.chunk, seed=seed, spec_decode=spec)
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = read_counts()
-    PATH_LAUNCHES[label] = {k: counts[k] for k in WRAPPERS}
+    setup = time.perf_counter() - t0
+    step = "_decode_step" if spec is None else "_spec_decode_step"
+    times = timed_steps(eng, ("_prefill_chunk_step", step))
+    if hook is not None:
+        hook(eng)
+    _, wall, counts = path_run(label, in_stages(eng, [reqs]), launched,
+                               idle)
     for r in reqs:
         check(r.done and len(r.out_tokens) == load.new,
               f"{label}: request not served in full: {len(r.out_tokens)} "
               "tokens")
         check(all(0 <= t < vocab for t in r.out_tokens),
               f"{label}: token out of range")
-    check(all(counts[k] > 0 for k in launched),
-          f"{label}: the path did not launch {launched}: {counts}")
-    check(all(counts[k] == 0 for k in idle),
-          f"{label}: the path launched one of {idle}: {counts}")
-    check(all(counts[k + "_plain"] == 0 for k in DISPATCH),
-          f"{label}: the path took a plain version: {counts}")
     gen_tokens = sum(len(r.out_tokens) for r in reqs)
     prompt_tokens = sum(len(r.tokens) for r in reqs)
     dec, pre = times[step], times["_prefill_chunk_step"]
@@ -1073,7 +1088,16 @@ def logit_check(model, params, qc, seed, label, codebook=None,
     under ``codebook``)."""
     kv, table, toks, positions, lengths = prefilled_pool(
         model, params, qc, seed, codebook, load)
-    slots = load.slots
+    decode_logit_check(model, params, qc, kv, table, toks, positions, label,
+                       f"{load.slots} slots at lengths {lengths.tolist()}")
+
+
+def decode_logit_check(model, params, qc, kv, table, toks, positions, label,
+                       what):
+    """One decode_paged step on ``kv`` through the kernels and through
+    the plain versions; all but LOGIT_ROWS_OFF[dtype] rows must agree
+    within LOGIT_ROW_REL_TOL (relative L2)."""
+    slots = toks.shape[0]
     lg_k = model.decode_paged(params, toks, kv, table, positions, qc).float()
     with plain_kernels():
         lg_p = model.decode_paged(params, toks, kv, table, positions,
@@ -1086,7 +1110,7 @@ def logit_check(model, params, qc, seed, label, codebook=None,
     agree = int((lg_k.argmax(-1) == lg_p.argmax(-1)).sum())
     agreeing = sum(r <= LOGIT_ROW_REL_TOL for r in rel)
     print(f"logit check [{label}], {model.cfg.dtype} (one decode step, "
-          f"{slots} slots at lengths {lengths.tolist()}): {agreeing}/{slots} "
+          f"{what}): {agreeing}/{slots} "
           f"rows agree (relative L2 <= {LOGIT_ROW_REL_TOL}); row relative "
           f"L2 {[round(r, 4) for r in rel]}, mean |diff| {mean_frac:.4f} of "
           f"std {float(lg_p.std()):.4g}, max |diff| "
@@ -1420,6 +1444,542 @@ def dense_config(cfg, qc, seed, load, runs,
     free()
 
 
+# ---------------------------------------------------------------------------
+# serving policy phases: prefix cache, policy and the ladder, chaos,
+# the batch-to-completion baseline, observability
+# ---------------------------------------------------------------------------
+
+def path_run(label, drive, launched, idle):
+    """Run ``drive()`` (one path's serving) with every kernel count set to
+    0 just before and read just after. The path must launch each kernel
+    of ``launched``, none of ``idle``, and no plain version; its launches
+    are kept in PATH_LAUNCHES[label]. Returns (drive's result, the wall
+    time in s, the counts)."""
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = drive()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    PATH_LAUNCHES[label] = {k: counts[k] for k in WRAPPERS}
+    check(all(counts[k] > 0 for k in launched),
+          f"{label}: the path did not launch {launched}: {counts}")
+    check(all(counts[k] == 0 for k in idle),
+          f"{label}: the path launched one of {idle}: {counts}")
+    check(all(counts[k + "_plain"] == 0 for k in DISPATCH),
+          f"{label}: the path took a plain version: {counts}")
+    return out, wall, counts
+
+
+def in_stages(target, stages):
+    """A ``drive`` for :func:`path_run`: each list of requests submitted to
+    ``target`` (an engine or a router), then run until idle. Returns the
+    requests in order."""
+    def drive():
+        for stage in stages:
+            for r in stage:
+                target.submit(r)
+            target.run_until_idle()
+        return [r for stage in stages for r in stage]
+    return drive
+
+
+def f32_model(seed, layers=4):
+    """Full-width qwen1.5-4b in float32 (dtype and LUTs) cut to ``layers``
+    layers: where float32 streams must be identical."""
+    cfg = qwen1p5_4b.config().replace(num_layers=layers, dtype="float32")
+    qc = QuantConfig(mode="lut_infer", v=V, c=C, metric="l2",
+                     lut_dtype="float32")
+    model = Model(cfg)
+    return model, model.init(torch.Generator(device=DEV).manual_seed(seed),
+                             qc), qc
+
+
+def engine_kw(**kw):
+    return dict(dict(batch_size=SLOTS, max_seq=MAX_SEQ, page_size=PAGE,
+                     prefill_chunk=CHUNK), **kw)
+
+
+def streams_agree(label, got, want, gap_at=None):
+    """Print how many streams of ``got`` equal ``want`` and, where one
+    parts, its token index (and the reference's top-2 logit gap there
+    when ``gap_at`` has it). Returns the number of equal streams."""
+    same = sum(a == b for a, b in zip(got, want))
+    print(f"{label}: {same} of {len(want)} streams equal [{SMI}]")
+    for i, (a, b) in enumerate(zip(got, want)):
+        j = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if j is not None:
+            gap = None if gap_at is None else gap_at.get((i, j))
+            print(f"{label}: request {i} parts at token {j}; top-2 logit "
+                  f"gap of the reference there {gap}")
+    return same
+
+
+def gap_tap(eng, reqs):
+    """Record, for each decode step of ``eng``, each decoding request's
+    top-2 logit gap at the token the step emits, keyed (index in
+    ``reqs``, token index): where a stream parts from this one."""
+    tap = VerifyTap(eng.model)
+    eng.model = tap
+    index = {id(r): i for i, r in enumerate(reqs)}
+    gap_at = {}
+
+    def after(notes):
+        if tap.gaps:
+            gap = tap.gaps.pop().cpu()
+            for idx, req, n0 in notes:
+                gap_at[(index[id(req)], n0)] = float(gap[idx])
+    tap_steps(eng, "_decode_step", after)
+    return gap_at
+
+
+PREFIX_SYS = 224                       # 7 prefill chunks of 32
+PREFIX_SUFFIX = (16, 17, 20, 23, 27, 30, 32, 35, 39, 42, 45, 48)
+PREFIX_REPEAT = (6, 11)                # suffix 32 and 48: page-aligned
+PREFIX_LONG = 497                      # 31 pages + 1: resumes at 496
+
+
+def prefix_stages(vocab, seed):
+    """The prefix phase's traffic, as stages served one after another: one
+    request of a shared 224-token system prompt + its suffix (served
+    alone: it fills the index), the 11 others (distinct 16-48-token
+    suffixes, 32 new tokens each), two whole-prompt repeats of
+    page-aligned prompts (copy-on-write forks), then a 497-token prompt
+    and its repeat (the repeat resumes prefill at 496: its chunk [496,
+    528) runs past max_seq 512). Returns (stages, the cached_tokens each
+    request must get, forks)."""
+    rng = np.random.default_rng(seed + 10)
+    system = rng.integers(0, vocab, PREFIX_SYS).tolist()
+    prompts = [system + rng.integers(0, vocab, s).tolist()
+               for s in PREFIX_SUFFIX]
+    long = rng.integers(0, vocab, PREFIX_LONG).tolist()
+
+    def req(p, n):
+        return Request(tokens=list(p), max_new_tokens=n)
+    stages = [[req(prompts[0], 32)], [req(p, 32) for p in prompts[1:]],
+              [req(prompts[i], 32) for i in PREFIX_REPEAT],
+              [req(long, 8)], [req(long, 8)]]
+    want = ([0] + [PREFIX_SYS] * (len(prompts) - 1)
+            + [len(prompts[i]) - 1 for i in PREFIX_REPEAT]
+            + [0, PREFIX_LONG // PAGE * PAGE])
+    return stages, want, len(PREFIX_REPEAT)
+
+
+def prefix_run(model, params, qc, seed, label, warm, codebook, launched,
+               idle, gaps=False):
+    """Serve the prefix traffic cold or warm; returns (engine, requests,
+    wall s, step times, gap_at)."""
+    stages, want, forks = prefix_stages(model.cfg.vocab_size, seed)
+    eng = Engine(model, params, qc, prefix_cache=warm, kv_codebook=codebook,
+                 seed=seed, **engine_kw())
+    times = timed_steps(eng, ("_prefill_chunk_step", "_decode_step"))
+    reqs = [r for st in stages for r in st]
+    gap_at = gap_tap(eng, reqs) if gaps else None
+    _, wall, _ = path_run(label, in_stages(eng, stages), launched, idle)
+    check(all(r.done and r.finish_reason is FinishReason.COMPLETED
+              for r in reqs), f"{label}: a request did not complete")
+    check(eng.kv.live_pages == 0,
+          f"{label}: {eng.kv.live_pages} pages left live")
+    got = [r.cached_tokens for r in reqs]
+    if warm:
+        check(got == want and eng.kv.cow_forks == forks,
+              f"{label}: cached tokens {got} (expected {want}), "
+              f"{eng.kv.cow_forks} forks (expected {forks})")
+    else:
+        check(not any(got) and eng.kv.cow_forks == 0,
+              f"{label}: a cold engine served cached tokens {got}")
+    return eng, reqs, wall, times, gap_at
+
+
+def shared_pool_check(model, params, qc, seed, label, codebook):
+    """One decode step of a warm pool whose slots share physical pages
+    (the system prompt's): 8 requests of the prefix traffic admitted
+    after the first, stepped until all 8 decode, then the step through
+    the kernels against the plain versions (``decode_logit_check``)."""
+    stages, _, _ = prefix_stages(model.cfg.vocab_size, seed)
+    eng = Engine(model, params, qc, kv_codebook=codebook, seed=seed,
+                 **engine_kw())
+    stages[0][0].max_new_tokens = 1     # its prefill fills the index
+    eng.run(stages[0])
+    for r in stages[1][:SLOTS]:
+        eng.submit(r)
+    while eng.scheduler.waiting or eng.scheduler.prefill_slots():
+        eng.step()
+    slots = eng.scheduler.decode_slots()
+    check(len(slots) == SLOTS, f"{label}: {len(slots)} slots decoding")
+    rows = eng.kv.table.table
+    live = rows[rows >= 0]
+    shared = int((np.bincount(live) > 1).sum())
+    check(shared >= PREFIX_SYS // PAGE,
+          f"{label}: only {shared} physical pages are shared")
+    toks = torch.tensor([[s.next_token] for s in slots], dtype=torch.int32,
+                        device=DEV)
+    positions = torch.tensor([s.pos for s in slots], dtype=torch.int32,
+                             device=DEV)
+    decode_logit_check(model, params, qc, eng.kv.data, eng.kv.table_device(),
+                       toks, positions, label,
+                       f"{SLOTS} slots at lengths {positions.tolist()} "
+                       f"sharing {shared} physical pages")
+
+
+def prefix_phase(model, params, qc, f32, seed):
+    """Cold and warm on the fp pool (B1, B2) and the code pool (B1, B5) at
+    full depth; the shared-page decode check on each; in float32 cut to
+    4 layers, warm streams must equal cold ones."""
+    pools = {"fp": (qc, {"b1", "b2"}, {"b3", "b4", "b5"}),
+             "codes": (qc.replace(kv_quant="vq", kv_v=KV_V, kv_c=KV_C),
+                       {"b1", "b5"}, {"b2", "b3", "b4"})}
+    for pool, (qc_p, launched, idle) in pools.items():
+        codebook = None
+        if qc_p.kv_quant == "vq":
+            codebook = Engine(model, params, qc_p, **engine_kw(
+                batch_size=1)).kv_codebook
+        res = {}
+        for warm in (False, True):
+            tag = "warm" if warm else "cold"
+            eng, reqs, wall, times, gap_at = prefix_run(
+                model, params, qc_p, seed, f"prefix {pool} {tag}", warm,
+                codebook, launched, idle, gaps=not warm)
+            gen = sum(len(r.out_tokens) for r in reqs)
+            dec, pre = times["_decode_step"], times["_prefill_chunk_step"]
+            res[tag] = [r.out_tokens for r in reqs]
+            if not warm:
+                cold_gaps = gap_at
+            print(f"prefix [{pool} {tag}]: {len(reqs)} requests "
+                  f"({eng.prompt_tokens} prompt tokens, {eng.cached_tokens}"
+                  f" served from shared pages, {eng.prefilled_tokens} "
+                  f"prefilled; hit rate {eng.prefix_hit_rate:.3f}; "
+                  f"{eng.kv.cow_forks} copy-on-write forks) in {wall:.2f} "
+                  f"s: {gen / wall:.1f} generated tokens/s; {len(dec)} "
+                  f"decode steps, mean {1e3 * np.mean(dec):.1f} ms; "
+                  f"{len(pre)} prefill chunks, mean {1e3 * np.mean(pre):.1f}"
+                  f" ms [{SMI}]")
+            del eng
+        streams_agree(f"prefix [{pool}] bf16 warm vs cold", res["warm"],
+                      res["cold"], cold_gaps)
+        shared_pool_check(model, params, qc_p, seed,
+                          f"prefix {pool}, shared pages", codebook)
+        del codebook
+    fm, fp, fqc = f32
+    for pool, qc_p in (("fp", fqc), ("codes", fqc.replace(
+            kv_quant="vq", kv_v=KV_V, kv_c=KV_C))):
+        launched = {"b1", "b5"} if pool == "codes" else {"b1", "b2"}
+        codebook = (Engine(fm, fp, qc_p, **engine_kw(batch_size=1))
+                    .kv_codebook if pool == "codes" else None)
+        runs = [prefix_run(fm, fp, qc_p, seed, f"prefix {pool} float32 "
+                           f"{tag}", tag == "warm", codebook, launched,
+                           {"b3", "b4"})[1] for tag in ("cold", "warm")]
+        same = streams_agree(f"prefix [{pool}] float32 (4 layers) warm vs "
+                             "cold", [r.out_tokens for r in runs[1]],
+                             [r.out_tokens for r in runs[0]])
+        check(same == len(runs[0]), f"prefix {pool} float32: warm streams "
+              "differ from cold ones")
+
+
+# the policy traffic's pool: 48 pages (768 tokens) against a demand of
+# ~8 x 10 pages, so decode growth fills it again and again (the ladder's
+# top rung needs >= 47 live pages at a step's start)
+POLICY_POOL = 48
+POLICY_PROMPT = (24, 65)               # prompt tokens of the 18 requests
+POLICY_NEW = 112
+
+
+def policy_plan(vocab, seed):
+    """The policy phase's traffic: two priority-2 requests with a
+    10-step deadline (40-token prompts, 64 new tokens: they expire
+    mid-decode), then 18 requests of priorities 0-2 (24-64-token
+    prompts, 112 new tokens), three a step over six steps, into a queue
+    bounded at 4 and a POLICY_POOL-page pool. Returns {step: requests}."""
+    rng = np.random.default_rng(seed + 20)
+    plan = {0: [Request(tokens=rng.integers(0, vocab, 40).tolist(),
+                        max_new_tokens=64, priority=2, deadline_steps=10)
+                for _ in range(2)]}
+    for step in range(6):
+        plan.setdefault(step, []).extend(
+            Request(tokens=rng.integers(0, vocab, int(n)).tolist(),
+                    max_new_tokens=POLICY_NEW, priority=int(p))
+            for n, p in zip(rng.integers(*POLICY_PROMPT, 3),
+                            rng.integers(0, 3, 3)))
+    return plan
+
+
+def policy_run(model, params, qc, seed, label, launched):
+    """Serve the policy traffic on a speculative engine (ngram, k=4) with
+    the default ladder. Hard checks: every shed request is the lowest
+    priority, newest of the queue it overflowed, and finishes LoadShedded
+    with no output; the deadline requests finish DEADLINE with partial
+    output; no verify call runs in mode 1 or above. Returns (requests,
+    modes by step, engine)."""
+    plan = policy_plan(model.cfg.vocab_size, seed)
+    eng = Engine(model, params, qc, num_pages=POLICY_POOL, max_queue=4,
+                 spec_decode=SpecConfig(k=SPEC_K, drafter="ngram"),
+                 seed=seed, **engine_kw())
+    verify_modes, modes, shed = [], [], []
+    verify = eng._verify_call
+
+    def spy(*a):
+        verify_modes.append(eng.mode)
+        return verify(*a)
+    eng._verify_call = spy
+    reqs = [r for step in sorted(plan) for r in plan[step]]
+
+    def drive():
+        step = 0
+        while step in plan or eng.scheduler.has_work:
+            for r in plan.get(step, []):
+                before = list(eng.scheduler.waiting)
+                victim = eng.submit(r)
+                if victim is not None:
+                    check(victim is min(before + [r], key=lambda q: (
+                        q.priority, -q._seq)), f"{label}: shed a request "
+                        "that is not the lowest priority, newest of the "
+                        "queue")
+                    shed.append(victim)
+            eng.step()
+            modes.append(eng.mode)
+            step += 1
+        return step
+    step, wall, _ = path_run(label, drive, launched, {"b3", "b4", "b5"})
+    check(shed and all(r.finish_reason is FinishReason.LOAD_SHED
+                       and not r.out_tokens for r in shed),
+          f"{label}: {len(shed)} shed requests, not all clean LoadShedded")
+    expired = [r for r in reqs if r.finish_reason is FinishReason.DEADLINE]
+    check(len(expired) >= 2 and all(
+        0 < len(r.out_tokens) < r.max_new_tokens for r in reqs[:2]),
+        f"{label}: the deadline requests did not expire mid-decode: "
+        f"{[(r.finish_reason, len(r.out_tokens)) for r in reqs[:2]]}")
+    check(verify_modes and set(verify_modes) == {0},
+          f"{label}: verify ran in modes {sorted(set(verify_modes))}")
+    check(all(r.done for r in reqs), f"{label}: a request was lost")
+    check(eng.kv.live_pages == 0, f"{label}: pages left live")
+    done = sum(r.finish_reason is FinishReason.COMPLETED for r in reqs)
+    print(f"policy [{label}]: {len(reqs)} requests in {wall:.2f} s, "
+          f"{step} steps: {done} completed, {len(shed)} shed (lowest "
+          f"priority, newest first), {len(expired)} expired with "
+          f"{[len(r.out_tokens) for r in expired]} tokens; steps by mode "
+          f"{eng.mode_steps}, {eng.scheduler.preemptions} preemptions, "
+          f"{eng.spec_rounds} verify calls (all in mode 0), acceptance "
+          f"{eng.acceptance_rate:.3f} [{SMI}]")
+    return reqs, modes, eng
+
+
+def policy_phase(model, params, qc, f32, seed):
+    """The policy traffic at full depth (bf16): the ladder must reach
+    modes 1-3 and come back to 0; then in float32 cut to 4 layers, every
+    completed request's stream must equal a roomy-pool engine's (an
+    expired one's partial output its prefix)."""
+    _, modes, eng = policy_run(model, params, qc, seed, "policy bf16",
+                               {"b1", "b2"})
+    check({1, 2, 3} <= set(modes) and modes[-1] == 0,
+          f"policy: the ladder went through modes {sorted(set(modes))} "
+          f"and ended in {modes[-1]}")
+    del eng
+    fm, fp, fqc = f32
+    reqs, _, _ = policy_run(fm, fp, fqc, seed, "policy float32 4 layers",
+                            {"b1"})
+    roomy = [Request(tokens=list(r.tokens), max_new_tokens=r.max_new_tokens)
+             for r in reqs]
+    Engine(fm, fp, fqc, seed=seed, **engine_kw()).run(roomy)
+    for r, w in zip(reqs, roomy):
+        if r.finish_reason is FinishReason.COMPLETED:
+            check(r.out_tokens == w.out_tokens, "policy float32: a "
+                  "completed stream differs from the roomy engine's")
+        elif r.finish_reason is FinishReason.DEADLINE:
+            check(r.out_tokens == w.out_tokens[:len(r.out_tokens)],
+                  "policy float32: an expired request's partial output "
+                  "is not the roomy engine's prefix")
+    print("policy float32 (4 layers): every completed stream equals the "
+          "roomy-pool engine's, every expired one is its prefix")
+
+
+def chaos_run(model, params, qc, seed, label):
+    """ReplicaRouter.build(replicas=2) on one card (shared params), the
+    canned fault schedule attached, 12 requests; and the same requests on
+    one fault-free engine. Returns (router streams, fault-free streams)."""
+    load = Load(n=12, hot=-1)
+    rng = np.random.default_rng(seed + 30)
+    prompts = [rng.integers(0, model.cfg.vocab_size, int(n)).tolist()
+               for n in rng.integers(*load.prompt, load.n)]
+    router = ReplicaRouter.build(model, params, qc, replicas=2, seed=seed,
+                                 **engine_kw())
+    check(all(e.params is params for e in router.engines),
+          f"{label}: the replicas do not share one params dict")
+    inj = FaultInjector(FaultSchedule.canned(2)).attach(router)
+    reqs, wall, _ = path_run(label, in_stages(router, [[
+        Request(tokens=p, max_new_tokens=load.new) for p in prompts]]),
+        {"b1", "b2"}, {"b3", "b4", "b5"})
+    check(all(r.done and not r.shed and r.finish_reason is
+              FinishReason.COMPLETED and len(r.out_tokens) == load.new
+              for r in reqs), f"{label}: a request was lost or shed")
+    check(router.status[1].health is ReplicaHealth.DEAD,
+          f"{label}: replica 1 is {router.status[1].health}")
+    check(router.retried_requests > 0, f"{label}: nothing was retried")
+    fired = inj.report()["by_kind"]
+    print(f"chaos [{label}]: {len(reqs)} requests in {wall:.2f} s over 2 "
+          f"replicas, {router.step_count} router steps; faults fired "
+          f"{fired}; replica health "
+          f"{[st.health.value for st in router.status]}, "
+          f"{router.retried_requests} requests retried, "
+          f"{router.status[1].recovered_requests} recovered from the dead "
+          f"replica [{SMI}]")
+    free_reqs = [Request(tokens=p, max_new_tokens=load.new) for p in prompts]
+    eng = Engine(model, params, qc, seed=seed, **engine_kw())
+    gap_at = gap_tap(eng, free_reqs)
+    eng.run(free_reqs)
+    return ([r.out_tokens for r in reqs], [r.out_tokens for r in free_reqs],
+            gap_at)
+
+
+def chaos_phase(model, params, qc, f32, seed):
+    got, want, gap_at = chaos_run(model, params, qc, seed, "chaos bf16")
+    streams_agree("chaos bf16 router vs fault-free engine", got, want,
+                  gap_at)
+    got, want, _ = chaos_run(*f32[:2], f32[2], seed,
+                             "chaos float32 4 layers")
+    check(streams_agree("chaos float32 (4 layers) router vs fault-free "
+                        "engine", got, want) == len(want),
+          "chaos float32: the router's streams differ from a fault-free "
+          "engine's")
+
+
+def batch_rows(load, seed, vocab):
+    """The prefill rows of the batch engine at ``load``: each batch of
+    SLOTS requests (left-padded to its longest prompt) is one call of
+    SLOTS x longest rows."""
+    reqs = load_requests(load, seed, vocab)
+    return sorted({SLOTS * max(len(r.tokens) for r in reqs[i:i + SLOTS])
+                   for i in range(0, len(reqs), SLOTS)})
+
+
+def baseline_run(model, params, qc, seed, label):
+    """The batch engine and the continuous engine (obs off) on the main
+    load (all greedy); returns both streams."""
+    load = Load(hot=-1)
+    vocab = model.cfg.vocab_size
+    out = {}
+    for name in ("batch", "continuous"):
+        reqs = load_requests(load, seed, vocab)
+        eng = (BatchToCompletionEngine(model, params, qc, batch_size=SLOTS,
+                                       max_seq=MAX_SEQ, seed=seed)
+               if name == "batch" else
+               Engine(model, params, qc, seed=seed, obs=Obs.disabled(),
+                      **engine_kw()))
+        launched = {"b1"} if name == "batch" else {"b1", "b2"}
+        idle = {"b2", "b3", "b4", "b5"} - launched
+        reqs, wall, _ = path_run(f"{label} {name}", lambda: eng.run(reqs),
+                                 launched, idle)
+        gen = sum(len(r.out_tokens) for r in reqs)
+        check(all(r.done and len(r.out_tokens) == load.new for r in reqs),
+              f"{label} {name}: a request was not served in full")
+        step_ms = 1e3 * wall / eng.step_count
+        print(f"baseline [{label} {name}]: {len(reqs)} requests, {gen} "
+              f"generated tokens in {wall:.2f} s: {gen / wall:.1f} "
+              f"tokens/s, {eng.step_count} steps, {step_ms:.1f} ms a step "
+              f"[{SMI}]")
+        out[name] = [r.out_tokens for r in reqs]
+    return out
+
+
+def baseline_phase(model, params, qc, f32, seed, gen, flush):
+    """B1 at the batch engine's prefill rows against its plain version
+    (int8 timed and bounded; float32 LUTs checked), then both engines at
+    full depth (bf16 agreement printed) and in float32 cut to 4 layers
+    (greedy streams must be equal). Returns the full-depth continuous
+    engine's streams (obs off: the obs phase's reference)."""
+    for m in batch_rows(Load(hot=-1), seed, model.cfg.vocab_size):
+        lay = {"ms": 0.0, "bound_ms": 0.0, "plain_ms": 0.0}
+        for k, n, cnt in PROJ_SHAPES:
+            r = b1_case(gen, m, k, n, flush)
+            for key in lay:
+                lay[key] += r[key] * cnt
+            x, z, lut8, scale, xr = vq_inputs(gen, m, k, n)
+            lut = (lut8.float() * scale).contiguous()
+            got, want = vq_amm_cuda(xr, z, lut), ref.vq_amm_ref(xr, z, lut)
+            torch.cuda.synchronize()
+            check(torch.allclose(got, want, rtol=1e-4, atol=1e-4),
+                  f"B1 float32 LUT M={m} K={k} N={n}: disagrees with the "
+                  "plain version")
+        print(f"B1 int8 per layer (7 projections) at the batch engine's "
+              f"prefill rows M={m}: {lay['ms'] * 1e3:.1f} us flushed, bound "
+              f"{lay['bound_ms'] * 1e3:.2f} us, plain "
+              f"{lay['plain_ms'] * 1e3:.1f} us; float32 LUTs agree with the "
+              f"plain version [{SMI}]")
+    out = baseline_run(model, params, qc, seed, "baseline bf16")
+    streams_agree("baseline bf16 batch vs continuous", out["batch"],
+                  out["continuous"])
+    f32_out = baseline_run(*f32[:2], f32[2], seed,
+                           "baseline float32 4 layers")
+    check(streams_agree("baseline float32 (4 layers) batch vs continuous",
+                        f32_out["batch"], f32_out["continuous"])
+          == len(f32_out["continuous"]),
+          "baseline float32: the batch engine's streams differ from the "
+          "continuous engine's")
+    return out["continuous"]
+
+
+def serving_phases(model, params, qc, seed, gen):
+    """The prefix, policy, chaos, baseline and obs phases on full-width
+    qwen1.5-4b (``model``, int8 LUTs), each with its float32 runs on one
+    4-layer float32 model."""
+    f32 = f32_model(seed)
+    flush = torch.ones(L2_FLUSH_BYTES // 4, dtype=torch.int32, device=DEV)
+    with phase("prefix"):
+        prefix_phase(model, params, qc, f32, seed)
+    with phase("policy"):
+        policy_phase(model, params, qc, f32, seed)
+    with phase("chaos"):
+        chaos_phase(model, params, qc, f32, seed)
+    with phase("baseline"):
+        off_streams = baseline_phase(model, params, qc, f32, seed, gen,
+                                     flush)
+    with phase("obs"):
+        obs_phase(model, params, qc, seed, off_streams)
+    del f32, flush
+    free()
+
+
+OBS_PHASES = ("admit", "prefill_chunk", "decode", "sample", "device_read")
+
+
+def obs_phase(model, params, qc, seed, off_streams):
+    """The main load (all greedy) with obs fully on (timers and tracer):
+    tokens equal ``off_streams`` (the baseline phase's run of the same
+    load with obs off), one device read a decode step (plus one a
+    finished prefill), a valid exported trace; prints each phase's p50
+    host time."""
+    obs = Obs(tracer=Tracer(enabled=True))
+    reqs = load_requests(Load(hot=-1), seed, model.cfg.vocab_size)
+    eng = Engine(model, params, qc, seed=seed, obs=obs, **engine_kw())
+    reqs, wall, _ = path_run("obs on", in_stages(eng, [reqs]), {"b1", "b2"},
+                             {"b3", "b4", "b5"})
+    check(eng.scheduler.preemptions == 0, "obs: a request was preempted")
+    check([r.out_tokens for r in reqs] == off_streams,
+          "obs: tokens differ with obs on")
+    met = obs.metrics
+    steps = met.get_histogram("engine.phase.decode_s").count
+    check(eng.device_reads == steps + len(reqs),
+          f"obs: {eng.device_reads} device reads for {steps} decode steps "
+          f"and {len(reqs)} prefills")
+    path = os.path.join(ROOT, "build", "obs_trace.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    doc = obs.tracer.export(path)
+    problems = validate_trace(doc)
+    check(problems == [], f"obs: exported trace invalid: {problems[:3]}")
+    p50 = {ph: met.get_histogram(f"engine.phase.{ph}_s").percentile(0.5)
+           * 1e3 for ph in OBS_PHASES}
+    lat = {fam: met.get_histogram(f"req.{fam}").percentile(0.5)
+           for fam in ("ttft_s", "tpot_s", "latency_s")}
+    print(f"obs [on]: {len(reqs)} requests in {wall:.2f} s, tokens equal "
+          f"obs off, {eng.device_reads} device reads ({steps} decode steps "
+          f"+ {len(reqs)} prefills), trace of {len(doc['traceEvents'])} "
+          f"events valid; phase p50 ms "
+          + ", ".join(f"{k} {v:.2f}" for k, v in p50.items())
+          + "; request p50 s "
+          + ", ".join(f"{k} {v:.3f}" for k, v in lat.items())
+          + f" [{SMI}]")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1429,9 +1989,11 @@ def main(argv=None) -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False   # plain fp32 versions
     torch.backends.cudnn.allow_tf32 = False
+    global SMI
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
+    SMI = smi
     print(smi)
     t0 = time.perf_counter()
     logs = _build.build()
@@ -1663,6 +2225,7 @@ def main(argv=None) -> int:
                  {"b1", "b2"}, None),
                 (f"rejected drafter k={SPEC_K}", SpecConfig(k=SPEC_K),
                  {"b1"}, ShiftDrafter())], Load(hot=-1))
+    serving_phases(model, params, qc, args.seed, gen)
     del model, params
     free()
     with phase("float32 LUTs, qwen1.5-4b cut to 4 layers"):

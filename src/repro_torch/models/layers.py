@@ -10,7 +10,10 @@ straight off the page pool (``kernels.flash_decode.flash_decode_paged``,
 kernel B2, or B5 over a pool of centroid codes); and the speculative
 verify, T proposed tokens per slot at per-slot positions over the
 committed rows (``_sdpa_verify``, plain torch as the JAX package's XLA
-form).
+form). The batch-to-completion engine's dense cache takes the prefill
+path for its prefill and its decode steps, with a ``kv_start`` mask over
+the left padding of each row (plain torch, as the JAX package's dense
+``_sdpa``; its projections still run B1).
 """
 from __future__ import annotations
 
@@ -67,10 +70,14 @@ def _attend(qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_offset: int,
-          window: int) -> torch.Tensor:
+          window: int, kv_start: Optional[torch.Tensor] = None
+          ) -> torch.Tensor:
     """Grouped-query attention of a chunk: q (B,S,H,D) at absolute
     positions q_offset.., k/v (B,T,KVH,D) at positions 0..T-1
-    (``_attend`` under a causal, optionally windowed mask)."""
+    (``_attend`` under a causal, optionally windowed mask). kv_start:
+    optional (B,) first valid key position of each row; keys before it
+    are masked (the left-padded prompts of the batch-to-completion
+    engine)."""
     b, s, h, d = q.shape
     t, kvh = k.shape[1], k.shape[2]
     qi = torch.arange(s, device=q.device) + q_offset
@@ -78,6 +85,10 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_offset: int,
     mask = kj[None, :] <= qi[:, None]                            # (s, t)
     if window > 0:
         mask = mask & (kj[None, :] > qi[:, None] - window)
+    if kv_start is not None:                                     # (B, s, t)
+        mask = mask[None] & (kj[None, None, :]
+                             >= kv_start.to(q.device).long()[:, None, None])
+        mask = mask[:, None, None]
     out = _attend(q.reshape(b, s, kvh, h // kvh, d), k, v, mask)
     return out.reshape(b, s, h, d)
 
@@ -131,14 +142,16 @@ def _paged_view(pages: torch.Tensor, phys: torch.Tensor,
 
 def attention(p: Params, x: torch.Tensor, cfg, qc: QuantConfig, q_offset,
               k_pages: torch.Tensor, v_pages: torch.Tensor,
-              phys: torch.Tensor, window: int = 0,
-              codebook: Optional[Params] = None
+              phys: Optional[torch.Tensor], window: int = 0,
+              codebook: Optional[Params] = None,
+              kv_start: Optional[torch.Tensor] = None
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Pre-norm GQA attention over one layer of the paged pool.
+    """Pre-norm GQA attention over one layer of the paged pool, or of a
+    dense cache.
 
-    The pool is read only; the fresh K/V rows come back for the caller to
-    write: in the pool's type for an fp pool, in x's type for a code pool
-    (the caller encodes them).
+    The pool (or cache) is read only; the fresh K/V rows come back for
+    the caller to write: in the pool's type for an fp pool, in x's type
+    for a code pool (the caller encodes them).
 
     Args:
       p: layer params {"wq","wk","wv","wo","norm"}.
@@ -150,12 +163,19 @@ def attention(p: Params, x: torch.Tensor, cfg, qc: QuantConfig, q_offset,
         (B,) int32 tensor): token t of row b sits at q_offset[b] + t and
         attends the committed rows < q_offset[b] plus fresh tokens 0..t
         (``_sdpa_verify``; -1 = lane not verifying).
-      k_pages/v_pages: (P+1, page, KVH, HD) one layer of the pool.
-      phys: (B, NP) trash-redirected physical page ids.
+      k_pages/v_pages: (P+1, page, KVH, HD) one layer of the pool; with
+        ``phys`` None, one layer of a dense cache (B, T, KVH, HD) instead
+        (the batch-to-completion engine): every row sits at the int
+        ``q_offset``, rows [0, q_offset) come from the cache and the
+        chunk's own K/V are fresh, as a prefill chunk's (decode too: S
+        == 1 attends in plain torch, as the JAX package's dense decode).
+      phys: (B, NP) trash-redirected physical page ids, or None.
       window: 0 = global attention, >0 = sliding window.
       codebook: this layer's slice of the KV codebook ({"zk": (nc, c, v),
         "zv", "sk": (KVH,), "sv"}) when the pool holds uint8 codes
         (P+1, page, KVH, nc); None for an fp pool.
+      kv_start: optional (B,) first valid cache row of each row (dense
+        cache only): rows before it hold left padding and are masked.
 
     Returns: (out (B, S, D), k_new, v_new (B, S, KVH, HD)).
     """
@@ -166,9 +186,7 @@ def attention(p: Params, x: torch.Tensor, cfg, qc: QuantConfig, q_offset,
     k = proj(p["wk"], xn, qc)
     v = proj(p["wv"], xn, qc)
     verify = s > 1 and torch.is_tensor(q_offset)
-    if s == 1:
-        positions = q_offset[:, None]                            # (B, 1)
-    elif verify:                                                 # (B, S)
+    if torch.is_tensor(q_offset):       # per-slot: decode (S = 1) or verify
         positions = q_offset[:, None] + torch.arange(s, device=x.device)
     else:
         positions = (torch.arange(s, device=x.device) + q_offset)[None]
@@ -179,7 +197,14 @@ def attention(p: Params, x: torch.Tensor, cfg, qc: QuantConfig, q_offset,
         k_new, v_new = k.to(k_pages.dtype), v.to(v_pages.dtype)
     else:                   # code pool: the fresh rows stay fp
         k_new, v_new = k, v
-    if s == 1:
+    if phys is None:        # dense cache: rows [0, q_offset) + the chunk
+        k_all = torch.cat([k_pages[:, :q_offset].to(x.dtype),
+                           k_new.to(x.dtype)], 1)
+        v_all = torch.cat([v_pages[:, :q_offset].to(x.dtype),
+                           v_new.to(x.dtype)], 1)
+        out = _sdpa(q, k_all, v_all, q_offset, window, kv_start).reshape(
+            b, s, h * hd)
+    elif s == 1:
         out = flash_decode_paged(q, k_pages, v_pages, k, v, phys, q_offset,
                                  window=window, codebook=codebook)
     else:

@@ -1,5 +1,7 @@
 """The dense decoder served through the paged KV pool (port of
-``repro.models.model``, dense family; paged serving entry points only).
+``repro.models.model``, dense family; the serving entry points: paged for
+the continuous-batching engine, dense for the batch-to-completion one;
+``forward`` and ``loss`` wait for training, ROADMAP.md queue A item 10).
 
 Params are a plain dict: ``embed``, ``final_norm`` (and ``head`` when
 embeddings are untied), and ``blocks``, a list with one dict per layer
@@ -9,6 +11,9 @@ on a leading axis and scans, this port loops over the list.
 API:
   Model(cfg, device)                                     device="cuda"
   init(generator, qc)                              -> params
+  init_cache(batch_size, max_seq)                  -> dense cache
+  prefill(params, {"tokens"}, cache, qc, pad_lens=None) -> (logits, cache)
+  decode(params, tokens, cache, qc, pad_lens=None)      -> (logits, cache)
   init_paged_cache(max_seq, page_size, num_pages, codebook=None)
                                                    -> {"k", "v"} pool
   prefill_paged(params, tokens, kv, table, slot, pos, valid, qc) -> logits
@@ -25,7 +30,7 @@ are encoded where they are written (:meth:`Model._encode_rows`).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 import torch
 
@@ -132,11 +137,13 @@ class Model:
                 for i in range(cfg.num_layers)]
 
     def _run_blocks(self, params: Params, x: torch.Tensor, qc: QuantConfig,
-                    q_offset, kv: Params, phys: torch.Tensor, write
+                    q_offset, kv: Params, phys: Optional[torch.Tensor],
+                    write, kv_start: Optional[torch.Tensor] = None
                     ) -> torch.Tensor:
-        """The layer loop: attention (reading layer li of the pool) then
-        the MLP, with ``write(li, k_new, v_new)`` storing the layer's
-        fresh rows once its attention has read the pool."""
+        """The layer loop: attention (reading layer li of the pool, or of
+        a dense cache when ``phys`` is None) then the MLP, with
+        ``write(li, k_new, v_new)`` storing the layer's fresh rows once
+        its attention has read the pool."""
         cb = kv.get(CODEBOOK_KEY)
         for li, (p_l, win) in enumerate(zip(params["blocks"],
                                             self._windows())):
@@ -144,12 +151,79 @@ class Model:
                     else {key: leaf[li] for key, leaf in cb.items()})
             a, k_new, v_new = attention(p_l["attn"], x, self.cfg, qc,
                                         q_offset, kv["k"][li], kv["v"][li],
-                                        phys, window=win, codebook=cb_l)
+                                        phys, window=win, codebook=cb_l,
+                                        kv_start=kv_start)
             write(li, self._encode_rows(cb_l, "k", k_new),
                   self._encode_rows(cb_l, "v", v_new))
             x = x + a
             x = x + mlp(p_l["mlp"], x, self.cfg, qc)
         return x
+
+    # ------------------------------------------------------------------
+    # dense-cache serving (the batch-to-completion engine)
+    # ------------------------------------------------------------------
+    def init_cache(self, batch_size: int, max_seq: int,
+                   dtype=None) -> Params:
+        """A dense cache ``{"layers": {"k": (L, B, T, KVH, HD), "v": ...},
+        "pos": 0}`` on this model's device."""
+        cfg = self.cfg
+        shape = (cfg.num_layers, batch_size, max_seq, cfg.num_kv_heads,
+                 cfg.head_dim)
+        dtype = dtype or self.dtype
+        return {"layers": {
+            "k": torch.zeros(shape, dtype=dtype, device=self.device),
+            "v": torch.zeros(shape, dtype=dtype, device=self.device)},
+            "pos": 0}
+
+    def prefill(self, params: Params, batch: Dict, cache: Params,
+                qc: QuantConfig = DENSE, pad_lens=None):
+        """Prefill whole prompts into a dense cache from row 0.
+
+        Args:
+          batch: ``{"tokens": (B, S) int32}``; prompts LEFT-padded
+            (right-aligned) to S, the batch-to-completion convention.
+          cache: from :meth:`init_cache`; rows [0, S) are written in place.
+          pad_lens: optional (B,) int32 pad width of each row; cache rows
+            < pad_lens[b] are masked out of row b's attention.
+
+        Returns (logits (B, V) at the last position, cache with pos = S).
+        """
+        tokens = batch["tokens"]
+        s = tokens.shape[1]
+        layers = cache["layers"]
+
+        def write(li, k_new, v_new):
+            layers["k"][li, :, :s] = k_new
+            layers["v"][li, :, :s] = v_new
+
+        x = self._run_blocks(params, self._embed(params, tokens), qc, 0,
+                             layers, None, write, kv_start=pad_lens)
+        x = rms_norm(x[:, -1:], params["final_norm"], self.cfg.norm_eps)
+        return self._head(params, x)[:, 0], {"layers": layers, "pos": s}
+
+    def decode(self, params: Params, tokens: torch.Tensor, cache: Params,
+               qc: QuantConfig = DENSE, pad_lens=None):
+        """One decode step of every row at the cache's position.
+
+        tokens (B, 1) int32; pad_lens as in :meth:`prefill` (the left
+        padding stays masked). The new row is written in place at
+        ``cache["pos"]``. Returns (logits (B, V), cache with pos + 1).
+        """
+        pos = cache["pos"]
+        layers = cache["layers"]
+        if pos >= layers["k"].shape[2]:
+            raise ValueError(f"decode at row {pos} runs past the cache's "
+                             f"{layers['k'].shape[2]} rows")
+
+        def write(li, k_new, v_new):
+            layers["k"][li, :, pos] = k_new[:, 0]
+            layers["v"][li, :, pos] = v_new[:, 0]
+
+        x = self._run_blocks(params, self._embed(params, tokens), qc, pos,
+                             layers, None, write, kv_start=pad_lens)
+        x = rms_norm(x, params["final_norm"], self.cfg.norm_eps)
+        return self._head(params, x)[:, 0], {"layers": layers,
+                                             "pos": pos + 1}
 
     # ------------------------------------------------------------------
     # paged serving (continuous batching; see repro_torch/serve/)
@@ -215,16 +289,20 @@ class Model:
             Pages covering positions [0, pos + valid_len) of ``slot`` must
             be allocated.
           slot, pos, valid_len: host ints; pos is the chunk's absolute
-            start position.
+            start position (any position: the chunk's pad rows may run
+            past max_seq, its real rows may not).
 
         Returns logits (1, V) at the last real token.
         """
-        c = tokens.shape[1]
         trash = kv["k"].shape[1] - 1
         ps = kv["k"].shape[2]
-        if pos + c > page_table.shape[1] * ps:
-            raise ValueError(f"chunk [{pos}, {pos + c}) runs past max_seq "
-                             f"{page_table.shape[1] * ps}")
+        # a chunk may start anywhere (a prefix hit, a shrunk prefill
+        # budget), so its padded width may run past max_seq: its real rows
+        # are computed as a cold prefill would and its pad rows are
+        # written nowhere; only real rows past max_seq are an error
+        if pos + valid_len > page_table.shape[1] * ps:
+            raise ValueError(f"rows [{pos}, {pos + valid_len}) run past "
+                             f"max_seq {page_table.shape[1] * ps}")
         row = page_table[slot]
         phys = torch.where(row >= 0, row, torch.full_like(row, trash))[None]
         tok_pos = pos + torch.arange(valid_len, device=self.device)

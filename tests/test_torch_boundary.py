@@ -43,13 +43,14 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     n, bad = res.stdout.split(" ", 1)
-    assert int(n) >= 19                 # every module of the package
+    assert int(n) >= 24                 # every module of the package
     assert bad.strip() == "[]"
 
 
 def test_new_modules_are_in_the_boundary_walk():
-    """The speculative-decoding module and the dense configs are among
-    the modules the boundary check imports."""
+    """The speculative-decoding module, the dense configs, and the
+    observability, fault-injection and router modules are among the
+    modules the boundary check imports."""
     import pkgutil
 
     import repro_torch
@@ -57,7 +58,9 @@ def test_new_modules_are_in_the_boundary_walk():
                                                    "repro_torch.")}
     assert {"repro_torch.serve.speculative", "repro_torch.configs.yi_9b",
             "repro_torch.configs.gemma3_4b",
-            "repro_torch.configs.gemma3_27b"} <= names
+            "repro_torch.configs.gemma3_27b", "repro_torch.obs",
+            "repro_torch.obs.metrics", "repro_torch.obs.tracing",
+            "repro_torch.serve.faults", "repro_torch.serve.router"} <= names
 
 
 def test_default_device_entry_points_raise_without_a_card():

@@ -1,7 +1,11 @@
 """Port parity at serving level: the port's continuous-batching Engine
 against the JAX Engine on the same lut_infer (int8) smoke params (qwen1.5-4b,
 and yi-9b and gemma3-4b: GQA, an untied head, sliding-window layers), plus
-host-side units of the page allocator, page table and scheduler.
+host-side units of the page allocator, page table and scheduler; and the
+dense-cache serving API (``Model.init_cache`` / ``prefill`` / ``decode``
+with ``pad_lens``), ``BatchToCompletionEngine`` and ``greedy_generate``
+against the JAX package (logits within 1e-4 of their scale: float32, the
+same int8 sums, attention sums in another order; tokens identical).
 
 Greedy requests must give identical tokens: mixed prompt lengths, a
 request admitted mid-decode, and a page pool small enough to preempt.
@@ -20,8 +24,12 @@ from repro.configs import qwen1p5_4b as jcfg  # noqa: E402
 from repro.core import precompute_model  # noqa: E402
 from repro.core.lut import QuantConfig as JQC  # noqa: E402
 from repro.models.model import Model as JModel  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.serve import BatchToCompletionEngine as JBatch  # noqa: E402
 from repro.serve import Engine as JEngine  # noqa: E402
 from repro.serve import Request as JRequest  # noqa: E402
+from repro.serve import greedy_generate as j_greedy_generate  # noqa: E402
 from repro_torch import configs as tconfigs  # noqa: E402
 from repro_torch.configs import qwen1p5_4b as tcfg  # noqa: E402
 from repro_torch.convert import params_from_numpy  # noqa: E402
@@ -31,6 +39,8 @@ from repro_torch.serve.engine import Engine as TEngine  # noqa: E402
 from repro_torch.serve.kv_cache import (PageAllocator,  # noqa: E402
                                         PagedKVCache, PagePoolExhausted,
                                         PageTable)
+from repro_torch.serve.engine import (  # noqa: E402
+    BatchToCompletionEngine, greedy_generate)
 from repro_torch.serve.scheduler import Request, SlotScheduler  # noqa: E402
 
 ENGINE_KW = dict(batch_size=2, max_seq=32, page_size=8, prefill_chunk=4)
@@ -212,3 +222,93 @@ def test_engine_rejects_impossible_requests(models):
     eng = TEngine(tm, params_t, qc_t, **ENGINE_KW)
     with pytest.raises(PagePoolExhausted, match="max_seq"):
         eng.submit(Request(tokens=list(range(40)), max_new_tokens=2))
+
+
+# ---------------------------------------------------------------------------
+# dense-cache serving: the batch-to-completion baseline
+# ---------------------------------------------------------------------------
+
+def _left_padded(prompts, width):
+    toks = np.zeros((len(prompts), width), np.int32)
+    pads = np.zeros((len(prompts),), np.int32)
+    for j, p in enumerate(prompts):
+        toks[j, width - len(p):] = p
+        pads[j] = width - len(p)
+    return toks, pads
+
+
+def test_dense_prefill_and_decode_logits_match_jax(models):
+    """Left-padded prompts of three lengths (and a uniform batch, no
+    mask) through prefill and three decode steps: logits within 1e-4 of
+    their scale of the JAX package's, and the same argmax."""
+    jm, params_j, qc_j, tm, params_t, qc_t = models
+    prompts = [[5, 6, 7, 8, 9, 10], [11, 12, 13], [14]]
+    for batch, mask in ((prompts, True), ([p[:3] for p in prompts[:2]],
+                                          False)):
+        toks, pads = _left_padded(batch, max(map(len, batch)))
+        pl_j = jnp.asarray(pads) if mask else None
+        pl_t = torch.from_numpy(pads) if mask else None
+        lg_j, c_j = jm.prefill(params_j, {"tokens": jnp.asarray(toks)},
+                               jm.init_cache(len(batch), 16), qc_j,
+                               pad_lens=pl_j)
+        lg_t, c_t = tm.prefill(params_t, {"tokens": torch.from_numpy(toks)},
+                               tm.init_cache(len(batch), 16), qc_t,
+                               pad_lens=pl_t)
+        for _ in range(4):
+            a, b = np.asarray(lg_j), lg_t.numpy()
+            np.testing.assert_allclose(b, a, atol=1e-4 * np.abs(a).max())
+            assert (a.argmax(-1) == b.argmax(-1)).all()
+            nxt = a.argmax(-1).astype(np.int32)[:, None]
+            lg_j, c_j = jm.decode(params_j, jnp.asarray(nxt), c_j, qc_j,
+                                  pad_lens=pl_j)
+            lg_t, c_t = tm.decode(params_t, torch.from_numpy(nxt), c_t,
+                                  qc_t, pad_lens=pl_t)
+        assert c_t["pos"] == int(c_j["pos"]) == toks.shape[1] + 4
+
+
+def test_batch_engine_tokens_match_jax_and_the_continuous_engine(models):
+    """Mixed-length prompts in two batches (the second one short of a
+    full batch): the port's batch engine gives the JAX batch engine's
+    tokens, step stamps and finish reasons, and the continuous engine's
+    tokens (the JAX package's test_lut_infer_engine_matches_dense_cache_
+    engine, for the port)."""
+    jm, params_j, qc_j, tm, params_t, qc_t = models
+    rng = np.random.default_rng(9)
+    plan = [(rng.integers(0, 256, n).tolist(), m)
+            for n, m in ((7, 6), (3, 9), (11, 4), (5, 5), (2, 7))]
+
+    def stamps(reqs):
+        return [(r.finish_reason.name, r.out_tokens, r.first_token_step,
+                 r.finish_step) for r in reqs]
+    t_reqs = [Request(tokens=p, max_new_tokens=n) for p, n in plan]
+    eng = BatchToCompletionEngine(tm, params_t, qc_t, batch_size=2,
+                                  max_seq=32)
+    eng.run(t_reqs)
+    j_reqs = [JRequest(tokens=p, max_new_tokens=n) for p, n in plan]
+    JBatch(jm, params_j, qc_j, batch_size=2, max_seq=32).run(j_reqs)
+    assert stamps(t_reqs) == stamps(j_reqs)
+    c_reqs = [Request(tokens=p, max_new_tokens=n) for p, n in plan]
+    TEngine(tm, params_t, qc_t, **ENGINE_KW).run(c_reqs)
+    assert [r.out_tokens for r in t_reqs] == [r.out_tokens for r in c_reqs]
+    assert eng.obs.metrics.counters()["req.finish.completed"] == len(plan)
+
+
+def test_batch_engine_truncates_at_max_seq(models):
+    *_, tm, params_t, qc_t = models
+    big = Request(tokens=list(range(2, 14)), max_new_tokens=12)
+    BatchToCompletionEngine(tm, params_t, qc_t, batch_size=1,
+                            max_seq=64).run([big])
+    small = Request(tokens=list(range(2, 14)), max_new_tokens=12)
+    BatchToCompletionEngine(tm, params_t, qc_t, batch_size=1,
+                            max_seq=16).run([small])
+    n = len(small.out_tokens)
+    assert 0 < n < 12 and small.finish_reason.name == "TRUNCATED"
+    assert small.out_tokens == big.out_tokens[:n]
+    assert small.finish_step is not None
+
+
+def test_greedy_generate_matches_jax(models):
+    jm, params_j, qc_j, tm, params_t, qc_t = models
+    prompt = [3, 4, 5, 6, 7]
+    assert greedy_generate(tm, params_t, prompt, 8, qc_t, max_seq=32) == \
+        j_greedy_generate(jm, params_j, prompt, 8, qc_j, max_seq=32)

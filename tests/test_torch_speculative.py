@@ -3,8 +3,11 @@
 ``Engine(spec_decode=)``) against the JAX package on the same numpy
 inputs and carried-over params (float32, CPU).
 
-Ported from ``tests/test_speculative.py``, without the tests that need
-the prefix cache (ROADMAP.md queue A item 5) or a mesh (item 11).
+Ported from ``tests/test_speculative.py``, without the test that needs
+a mesh (ROADMAP.md queue A item 11); the prefix-cache tests came with
+the prefix cache (rollback over shared pages keeps every refcount equal
+to the rows mapping the page; a warm start under speculation equals a
+cold plain run).
 
 Tolerances: ``accept_tokens`` and the ngram lookup equal the JAX
 package's exactly (same inputs, same numpy seed); ``verify_paged`` logits
@@ -14,6 +17,8 @@ identical: to the port's non-speculative engine and to the JAX
 speculative engine. Sampling streams differ between the frameworks by
 design, so temperature spec streams are checked for reproducibility.
 """
+from collections import Counter
+
 import numpy as np
 import pytest
 
@@ -39,7 +44,7 @@ from repro_torch.core.lut import DENSE as TDENSE  # noqa: E402
 from repro_torch.core.lut import QuantConfig as TQC  # noqa: E402
 from repro_torch.models.model import Model as TModel  # noqa: E402
 from repro_torch.serve.engine import Engine as TEngine  # noqa: E402
-from repro_torch.serve.kv_cache import PageTable  # noqa: E402
+from repro_torch.serve.kv_cache import PageTable, _chunk_keys  # noqa: E402
 from repro_torch.serve.scheduler import Request  # noqa: E402
 from repro_torch.serve.speculative import (Drafter, NgramDrafter,  # noqa
                                            SpecConfig, accept_tokens)
@@ -350,6 +355,76 @@ def test_verify_reject_rollback_identical_stream(dense):
     assert eng.spec_accepted < eng.spec_drafted   # rejections happened
     assert sum(trims) > 0                         # tail pages came back
     assert eng.kv.table.live_pages == 0
+
+
+def _refcounts_match_rows(pt):
+    """Every physical page's refcount == the number of slot rows mapping
+    it (parked prefix pages: 0). A rollback that leaked a page or dropped
+    a shared page's count below its rows breaks this."""
+    mapped = Counter(p for row in pt._slot_pages for p in row)
+    for p in range(pt.allocator.num_pages):
+        assert pt.allocator.refcount(p) == mapped.get(p, 0), p
+
+
+@pytest.mark.parametrize("drafter", ["wrong", "ngram", "model"])
+def test_rollback_never_corrupts_shared_page_refcounts(dense, drafter):
+    """Two slots share a prefix (read-shared pages) while both speculate:
+    after every step each page's refcount equals the rows mapping it, and
+    the shared pages stay indexed for the next hit."""
+    *_, tm, params_t = dense
+    system = [(5 * j) % 60 + 2 for j in range(16)]      # 2 full pages
+    eng = TEngine(tm, params_t, TDENSE, spec_decode=SpecConfig(
+        k=3, drafter="ngram" if drafter == "ngram" else "model"),
+        batch_size=2, max_seq=64, page_size=8, prefill_chunk=8)
+    if drafter == "wrong":
+        eng.drafter = WrongDrafter()
+        eng.drafter.bind(eng)
+    eng.run([Request(tokens=system + [7], max_new_tokens=4)])
+    _refcounts_match_rows(eng.kv.table)
+    a = Request(tokens=system + [11, 12], max_new_tokens=16)
+    b = Request(tokens=system + [13, 14], max_new_tokens=16)
+    eng.submit(a)
+    eng.submit(b)
+    shared = [eng.kv.table.prefix.lookup(key)
+              for key in _chunk_keys(system, 8)]
+    assert all(p is not None for p in shared)
+    seen_both_live = False
+    while eng.scheduler.has_work:
+        eng.step()
+        _refcounts_match_rows(eng.kv.table)
+        if all(eng.kv.table.allocator.refcount(p) == 2 for p in shared):
+            seen_both_live = True
+    assert seen_both_live and eng.spec_rounds > 0
+    assert len(a.out_tokens) == 16 and len(b.out_tokens) == 16
+    assert all(eng.kv.table.prefix.is_registered(p) for p in shared)
+
+
+def test_spec_prefix_warm_start_identical(dense):
+    """Prefix-cache warm start + speculation == cold non-speculative, on
+    the port and on the JAX package alike."""
+    jm, params_j, tm, params_t = dense
+    system = [(3 * j) % 50 + 2 for j in range(16)]
+
+    def reqs(make=Request):
+        return [make(tokens=system + [10 + i], max_new_tokens=10)
+                for i in range(3)]
+    kw = dict(batch_size=2, max_seq=64, page_size=8, prefill_chunk=8)
+    base = reqs()
+    TEngine(tm, params_t, TDENSE, prefix_cache=False, **kw).run(base)
+    runs = []
+    for eng, make in ((TEngine(tm, params_t, TDENSE,
+                               spec_decode=SpecConfig(k=3), **kw), Request),
+                      (JEngine(jm, params_j, JDENSE,
+                               spec_decode=JSpecConfig(k=3), **kw),
+                       JRequest)):
+        warm = reqs(make)
+        eng.run([warm[0]])              # warms the index
+        eng.submit(warm[1])
+        eng.submit(warm[2])
+        eng.run_until_idle()
+        assert eng.cached_tokens > 0    # the warm starts actually hit
+        runs.append(streams(warm))
+    assert runs[0] == runs[1] == streams(base)
 
 
 def test_trim_releases_only_tail_pages():
