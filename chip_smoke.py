@@ -20,10 +20,11 @@ qwen1.5-4b with float32 LUTs, cut to 4 layers. Every projection shape
 the serve runs reach is held at every row count they give it (decode:
 the slots; prefill: the chunk; a speculative verify: slots x (k+1)):
 B1, B3 and B4 at qwen1.5-4b's, yi-9b's, gemma3-4b's and gemma3-27b's
-shapes, and B2 / B5 at each config's decode attention (GQA, window) and
-at one slot of 4096 tokens at G=8 D=128 and G=2 D=256. A speculative
-phase serves full-width qwen1.5-4b plainly, with an n-gram drafter and
-with a 10-layer model drafter (every emitted token must be its verify
+shapes and at deepseek-moe-16b's attention (float LUTs too), and B2 /
+B5 at each config's decode attention (GQA, window) and at one slot of
+4096 tokens at G=8 D=128 and G=2 D=256. A speculative phase serves
+full-width qwen1.5-4b plainly, with an n-gram drafter and with a
+10-layer model drafter (every emitted token must be its verify
 row's argmax; in float32, cut to 4 layers, every speculative stream must
 equal the plain one). Then yi-9b (fp pool), gemma3-4b (fp and VQ code
 pools, prompts past its 1024-token window) and a short gemma3-27b serve
@@ -39,7 +40,18 @@ against the plain versions), policy (a bounded priority queue,
 deadlines, the degradation ladder on a speculative engine), chaos (two
 replicas on one card under the canned fault schedule), baseline (the
 batch-to-completion engine beside the continuous one; B1 at its prefill
-rows) and obs (timers and tracer on).
+rows) and obs (timers and tracer on). A last phase, moe, holds B1, B3 and
+B4 in their grouped form (a leading expert axis, one launch for all
+experts) at deepseek-moe-16b's routed and shared expert shapes and at
+dbrx-132b's expert layer (and 18 of its experts, whose int8 table passes
+2^31 bytes) against their plain versions, then serves full-width,
+full-depth deepseek-moe-16b three times (fused fp pool, two-pass, fused
+code pool: one decode step's launches by kernel, a bf16 logit check of
+each against the plain versions, how many routed pairs overflow their
+expert's capacity: real tokens and pad rows apart, by layer, with the
+experts a call chose, its largest load and the share of its router
+logits that its tokens have in common) and a float32-LUT copy cut to 4
+layers twice (tokens and logits bitwise equal).
 
     python3 chip_smoke.py [--seed N]
 
@@ -48,7 +60,8 @@ without a result line, when there is no CUDA device or any check fails.
 Its last line is ``{"ok": true, "device": {...}}``; the two before it
 are the per-kernel JSON record (times in ms, measured in this run, with
 the bound computed from this run's inputs; launches of the main path,
-qwen1.5-4b's three serve runs) and the card's name and power limit.
+qwen1.5-4b's three serve runs, and for the grouped rows the grouped
+launches of deepseek-moe-16b's three) and the card's name and power limit.
 Every serve run's launches are printed before them, by run.
 """
 from __future__ import annotations
@@ -57,7 +70,9 @@ import argparse
 import contextlib
 import dataclasses
 import gc
+import inspect
 import json
+import math
 import os
 import subprocess
 import sys
@@ -70,7 +85,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch.configs import (  # noqa: E402
-    gemma3_4b, gemma3_27b, qwen1p5_4b, yi_9b)
+    deepseek_moe_16b, gemma3_4b, gemma3_27b, qwen1p5_4b, yi_9b)
 from repro_torch.core.lut import QuantConfig  # noqa: E402
 from repro_torch.device import enqueued  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
@@ -82,6 +97,7 @@ from repro_torch.kernels.fused_amm import (  # noqa: E402
     vq_amm_cuda, vq_amm_geometry)
 from repro_torch.kernels.lut_gemm import (  # noqa: E402
     lut_gemm_cuda, lut_gemm_geometry)
+from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
 from repro_torch.obs import Obs, Tracer, validate_trace  # noqa: E402
 from repro_torch.serve import (  # noqa: E402
@@ -265,14 +281,22 @@ def plain_kernels():
             setattr(mod, attr, saved[k])
 
 
+# the kernels that also take a leading expert axis: their grouped launches
+# are counted on their own too (``<kernel>_grouped``)
+GROUPED = ("b1", "b3", "b4")
+
+
 def reset_counts() -> None:
     for k, (_, _, plain) in DISPATCH.items():
         WRAPPERS[k].launches = 0
         plain.calls = 0
+    for k in GROUPED:
+        WRAPPERS[k].grouped = 0
 
 
 def read_counts() -> dict:
     out = {k: w.launches for k, w in WRAPPERS.items()}
+    out.update({k + "_grouped": WRAPPERS[k].grouped for k in GROUPED})
     out.update({k + "_plain": plain.calls
                 for k, (_, _, plain) in DISPATCH.items()})
     return out
@@ -282,50 +306,78 @@ def read_counts() -> dict:
 # kernels phase
 # ---------------------------------------------------------------------------
 
-def vq_inputs(gen, m, k, n):
+def vq_inputs(gen, m, k, n, e=None):
     """One projection's operands at a main-path shape: x = a centroid +
     small noise (every argmin has a clear margin), an int8 LUT and its
     scale, and random unit-scale rows xr (as after RMSNorm; near-ties may
-    flip between two orders of summation)."""
+    flip between two orders of summation). With ``e``, every operand
+    leads with an expert axis of e (x (e, m, nc, v), scale (e, n))."""
     dev = DEV
     nc = k // V
-    z = (0.02 * torch.randn((nc, C, V), generator=gen, device=dev)).to(
-        torch.bfloat16)
-    pick = torch.randint(0, C, (m, nc), generator=gen, device=dev)
-    noise = 0.002 * torch.randn((m, nc, V), generator=gen, device=dev)
-    x = (z.float()[torch.arange(nc, device=dev)[None], pick] + noise).to(
-        torch.bfloat16)
-    lut = torch.randint(-127, 128, (nc, C, n), generator=gen, device=dev,
-                        dtype=torch.int32).to(torch.int8)
-    scale = 1e-3 + 1e-2 * torch.rand((n,), generator=gen, device=dev)
-    xr = torch.randn((m, nc, V), generator=gen, device=dev).to(
+    lead = () if e is None else (e,)
+    z = (0.02 * torch.randn(lead + (nc, C, V), generator=gen,
+                            device=dev)).to(torch.bfloat16)
+    pick = torch.randint(0, C, lead + (m, nc), generator=gen, device=dev)
+    noise = 0.002 * torch.randn(lead + (m, nc, V), generator=gen, device=dev)
+    # x[..., i, j] = z[..., j, pick[..., i, j]]
+    x = z.float().unsqueeze(-4).expand(lead + (m, nc, C, V)).gather(
+        -2, pick[..., None, None].expand(lead + (m, nc, 1, V))).squeeze(-2)
+    x = (x + noise).to(torch.bfloat16)
+    lut = torch.randint(-127, 128, lead + (nc, C, n), generator=gen,
+                        device=dev, dtype=torch.int32).to(torch.int8)
+    scale = 1e-3 + 1e-2 * torch.rand(lead + (n,), generator=gen, device=dev)
+    xr = torch.randn(lead + (m, nc, V), generator=gen, device=dev).to(
         torch.bfloat16)
     return x, z, lut, scale, xr
 
 
 def selected_lut_bytes(idx, n):
-    """Bytes of the int8 LUT rows that some row of idx (M, nc) selects:
-    what a gather-accumulate must read."""
-    rows = torch.zeros((idx.shape[1], C), device=DEV)
-    rows.scatter_(1, idx.T.long(), 1.0)
+    """Bytes of the int8 LUT rows that some row of idx (M, nc) selects,
+    summed over the experts of a leading expert axis (E, M, nc): what a
+    gather-accumulate must read."""
+    idx = idx.reshape((-1,) + tuple(idx.shape[-2:]))
+    rows = torch.zeros((idx.shape[0], idx.shape[2], C), device=idx.device)
+    rows.scatter_(2, idx.transpose(1, 2).long(), 1.0)
     return float(rows.sum()) * n
 
 
-def b1_case(gen, m, k, n, flush):
-    """B1 at one main-path shape. Returns a result dict."""
-    dev = DEV
+def case_text(m, k, n=None, e=None):
+    """A kernel case's shape, with its expert count when grouped."""
+    return (("" if e is None else f"E={e} ") + f"M={m} K={k}"
+            + ("" if n is None else f" N={n}"))
+
+
+def case_tags(label):
+    """A grouped case's lines open with ``moe [label]`` and end with the
+    card's name and power limit; a 3-d case's lines carry neither."""
+    return ("", "") if label is None else (f"moe [{label}] ", f" [{SMI}]")
+
+
+def index_probe(nc, lead):
+    """A LUT (and its unit scale) whose output column j is the index
+    selected in subspace j: lut[j, i, col] = i * [col == j]. B1 on it
+    reads each selected index back through its own argmin and gather."""
+    probe = (torch.arange(C, device=DEV)[None, :, None]
+             * torch.eye(nc, device=DEV)[:, None, :]).to(torch.int8)
+    return (probe.expand(lead + (nc, C, nc)).contiguous(),
+            torch.ones(lead + (nc,), device=DEV))
+
+
+def b1_case(gen, m, k, n, flush, e=None, label=None):
+    """B1 at one main-path shape (with ``e``: its grouped form, one launch
+    for e experts, ``label`` naming the expert projection). Returns a
+    result dict."""
     nc = k // V
-    x, z, lut, scale, xr = vq_inputs(gen, m, k, n)
+    lead = () if e is None else (e,)
+    what = case_text(m, k, n, e)
+    head, tail = case_tags(label)
+    x, z, lut, scale, xr = vq_inputs(gen, m, k, n, e)
 
     idx_plain = ref.assign_ref(x, z)
-    # index probe: lut[k, j, col] = j * [col == k] reads each selected
-    # index back through the kernel's own argmin and gather
-    probe = (torch.arange(C, device=dev)[None, :, None]
-             * torch.eye(nc, device=dev)[:, None, :]).to(torch.int8)
-    idx_kernel = vq_amm_cuda(x, z, probe, torch.ones(nc, device=dev))
-    idx_kernel = torch.round(idx_kernel).to(torch.int32)
+    probe, ones = index_probe(nc, lead)
+    idx_kernel = torch.round(vq_amm_cuda(x, z, probe, ones)).to(torch.int32)
     check(torch.equal(idx_kernel, idx_plain),
-          f"B1 {m}x{k}x{n}: kernel indices differ from the plain argmin at "
+          f"B1 {what}: kernel indices differ from the plain argmin at "
           f"{int((idx_kernel != idx_plain).sum())} of {idx_plain.numel()}")
     out_k = vq_amm_cuda(x, z, lut, scale)
     out_p = ref.vq_amm_ref(x, z, lut, scale)
@@ -333,30 +385,32 @@ def b1_case(gen, m, k, n, flush):
     err = float((out_k - out_p).abs().max())
     # both sides are exact int32/fp32 integer sums times the same scale
     tol = 1e-5 * max(1.0, float(out_p.abs().max()))
-    check(err <= tol, f"B1 {m}x{k}x{n}: max abs err {err} > {tol}")
+    check(err <= tol, f"B1 {what}: max abs err {err} > {tol}")
 
-    flips = float((torch.round(vq_amm_cuda(xr, z, probe, torch.ones(
-        nc, device=dev))).to(torch.int32) != ref.assign_ref(xr, z)).float()
-        .mean())
+    flips = float((torch.round(vq_amm_cuda(xr, z, probe, ones)).to(
+        torch.int32) != ref.assign_ref(xr, z)).float().mean())
     off = float(((vq_amm_cuda(xr, z, lut, scale)
                   - ref.vq_amm_ref(xr, z, lut, scale)).abs() > 1e-3)
                 .float().mean())
-    check(flips < 1e-3, f"B1 {m}x{k}x{n}: {flips:.2%} of random-x "
+    check(flips < 1e-3, f"B1 {what}: {flips:.2%} of random-x "
           "assignments differ (a near-tie flip rate is ~1e-4)")
+    del probe, ones
 
     ms = time_ms(lambda: vq_amm_cuda(x, z, lut, scale), 30, flush)
     warm_ms = graph_ms(lambda: vq_amm_cuda(x, z, lut, scale))
     plain_ms = time_ms(lambda: ref.vq_amm_ref(x, z, lut, scale), 5, flush)
     host = host_us(lambda: vq_amm_cuda(x, z, lut, scale))
     calls = enqueued(lambda: vq_amm_cuda(x, z, lut, scale))
-    check(calls == ONE_KERNEL, f"B1 {m}x{k}x{n}: a call enqueues {calls}")
+    check(calls == ONE_KERNEL, f"B1 {what}: a call enqueues {calls}")
     geo = vq_amm_geometry(x, z, lut)
-    # bytes this data needs: x, z, the LUT rows some row selects, scale, out
+    # bytes this data needs: x, z, the LUT rows some row selects (of each
+    # expert), scale, out
+    ne = 1 if e is None else e
     lut_bytes = selected_lut_bytes(idx_plain, n)
-    b = nbytes(x, z, scale) + lut_bytes + m * n * 4
-    o = m * nc * C * (4 * V + 2) + m * nc * n + m * n
+    b = nbytes(x, z, scale) + lut_bytes + ne * m * n * 4
+    o = ne * (m * nc * C * (4 * V + 2) + m * nc * n + m * n)
     bms, by = bound(b, o)
-    print(f"B1 vq_amm M={m} K={k} N={n}: kernel {ms * 1e3:.1f} us "
+    print(f"{head}B1 vq_amm {what}: kernel {ms * 1e3:.1f} us "
           f"(warm, 30 calls in one graph: {warm_ms * 1e3:.1f} us a call), "
           f"plain {plain_ms * 1e3:.1f} us, bound {bms * 1e3:.2f} us ({by}; "
           f"{lut_bytes / 1e6:.2f} MB of LUT rows selected of "
@@ -365,7 +419,7 @@ def b1_case(gen, m, k, n, flush):
           f"x {geo['row_groups']} row groups ({geo['subspaces']} subspaces "
           f"and {geo['smem']} B of shared memory a block), max abs err "
           f"{err:.3g}; random x: "
-          f"{flips:.2e} index flips, {off:.2%} of outputs off by >1e-3")
+          f"{flips:.2e} index flips, {off:.2%} of outputs off by >1e-3{tail}")
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
             "err": err, "warm_ms": warm_ms, "host": host}
 
@@ -441,50 +495,58 @@ def nc_sweep(gen, flush, m=8, n=6912, full_nc=320):
     return rows
 
 
-def b34_case(gen, m, k, n, flush):
-    """B3 then B4 (the two-pass path) at one main-path shape: B3's indices
-    equal the plain argmin on margin inputs and B1's own on random ones
-    (they share one distance and argmin code), B4's int8 sums are exact,
-    and B4(B3(x)) equals B1(x) bit for bit. Returns two result dicts."""
+def b34_case(gen, m, k, n, flush, e=None, label=None):
+    """B3 then B4 (the two-pass path) at one main-path shape (with ``e``:
+    their grouped forms, as in :func:`b1_case`): B3's indices equal the
+    plain argmin on margin inputs and B1's own on random ones (they share
+    one distance and argmin code), B4's int8 sums are exact, and
+    B4(B3(x)) equals B1(x) bit for bit. Returns two result dicts."""
     dev = DEV
     nc = k // V
-    x, z, lut, scale, xr = vq_inputs(gen, m, k, n)
+    lead = () if e is None else (e,)
+    ne = 1 if e is None else e
+    what, whatk = case_text(m, k, n, e), case_text(m, k, None, e)
+    head, tail = case_tags(label)
+    x, z, lut, scale, xr = vq_inputs(gen, m, k, n, e)
     idx_k = vq_assign_cuda(x, z)
     idx_p = ref.assign_ref(x, z)
     check(torch.equal(idx_k, idx_p),
-          f"B3 {m}x{k}: kernel indices differ from the plain argmin at "
+          f"B3 {whatk}: kernel indices differ from the plain argmin at "
           f"{int((idx_k != idx_p).sum())} of {idx_p.numel()}")
     out_k = lut_gemm_cuda(idx_k, lut, scale)
     out_p = ref.lut_gemm_onehot(idx_p, lut, scale)
     torch.cuda.synchronize()
     err = float((out_k - out_p).abs().max())
     tol = 1e-5 * max(1.0, float(out_p.abs().max()))
-    check(err <= tol, f"B4 {m}x{k}x{n}: max abs err {err} > {tol}")
-    probe = (torch.arange(C, device=dev)[None, :, None]
-             * torch.eye(nc, device=dev)[:, None, :]).to(torch.int8)
-    ones = torch.ones(nc, device=dev)
+    check(err <= tol, f"B4 {what}: max abs err {err} > {tol}")
     for name, xx in (("margin", x), ("random", xr)):
         two = lut_gemm_cuda(vq_assign_cuda(xx, z), lut, scale)
         check(torch.equal(two, vq_amm_cuda(xx, z, lut, scale)),
-              f"B4(B3(x)) != B1(x) at {m}x{k}x{n} on {name} x")
+              f"B4(B3(x)) != B1(x) at {what} on {name} x")
     idx_r = vq_assign_cuda(xr, z)
+    probe, ones = index_probe(nc, lead)
     b1_r = torch.round(vq_amm_cuda(xr, z, probe, ones)).to(torch.int32)
+    del probe, ones
     check(torch.equal(idx_r, b1_r),
-          f"B3 {m}x{k}: indices differ from B1's on random x")
+          f"B3 {whatk}: indices differ from B1's on random x")
     flips = float((idx_r != ref.assign_ref(xr, z)).float().mean())
-    check(flips < 1e-3, f"B3 {m}x{k}: {flips:.2%} of random-x "
+    check(flips < 1e-3, f"B3 {whatk}: {flips:.2%} of random-x "
           "assignments differ from the plain argmin")
 
-    lut_f = lut.float().reshape(nc * C, n)       # embedding_bag's table
-    offs = (idx_k.long() + C * torch.arange(nc, device=dev)[None])
+    # embedding_bag's table: every (expert, subspace, centroid) row
+    lut_f = lut.float().reshape(-1, n)
+    offs = idx_k.long() + C * torch.arange(nc, device=dev)
+    if e is not None:
+        offs = offs + (nc * C * torch.arange(e, device=dev))[:, None, None]
+    offs = offs.reshape(-1, nc)
     lib = torch.nn.functional.embedding_bag(offs, lut_f, mode="sum")
-    check(torch.allclose(lib * scale, out_k, rtol=1e-6, atol=0.0),
-          f"B4 {m}x{k}x{n}: embedding_bag yardstick disagrees")
+    check(torch.allclose(lib.reshape(out_k.shape) * scale[..., None, :],
+                         out_k, rtol=1e-6, atol=0.0),
+          f"B4 {what}: embedding_bag yardstick disagrees")
     calls3 = enqueued(lambda: vq_assign_cuda(x, z))
-    check(calls3 == ONE_KERNEL, f"B3 {m}x{k}: a call enqueues {calls3}")
+    check(calls3 == ONE_KERNEL, f"B3 {whatk}: a call enqueues {calls3}")
     calls4 = enqueued(lambda: lut_gemm_cuda(idx_k, lut, scale))
-    check(calls4 == ONE_KERNEL,
-          f"B4 {m}x{k}x{n}: a call enqueues {calls4}")
+    check(calls4 == ONE_KERNEL, f"B4 {what}: a call enqueues {calls4}")
     r3 = {"ms": time_ms(lambda: vq_assign_cuda(x, z), 30, flush),
           "warm_ms": graph_ms(lambda: vq_assign_cuda(x, z)),
           "plain_ms": time_ms(lambda: ref.assign_ref(x, z), 5, flush),
@@ -498,21 +560,24 @@ def b34_case(gen, m, k, n, flush):
           "library_ms": time_ms(lambda: torch.nn.functional.embedding_bag(
               offs, lut_f, mode="sum"), 30, flush),
           "err": err}
+    del lut_f, lib
     # B3 must read x and z and write the indices; B4 read the indices,
-    # the LUT rows they select and the scale, and write out
+    # the LUT rows they select (of each expert) and the scale, and write
+    # out
     r3["bound_ms"], r3["bound_by"] = bound(
-        nbytes(x, z, idx_k), m * nc * C * (4 * V + 2))
+        nbytes(x, z, idx_k), ne * m * nc * C * (4 * V + 2))
     lut_bytes = selected_lut_bytes(idx_k, n)
     r4["bound_ms"], r4["bound_by"] = bound(
-        nbytes(idx_k, scale) + lut_bytes + m * n * 4, m * nc * n + m * n)
-    print(f"B3 vq_assign M={m} K={k}: kernel {r3['ms'] * 1e3:.1f} us (warm, "
-          f"30 calls in one graph: {r3['warm_ms'] * 1e3:.1f} us a call), "
+        nbytes(idx_k, scale) + lut_bytes + ne * m * n * 4,
+        ne * (m * nc * n + m * n))
+    print(f"{head}B3 vq_assign {whatk}: kernel {r3['ms'] * 1e3:.1f} us (warm,"
+          f" 30 calls in one graph: {r3['warm_ms'] * 1e3:.1f} us a call), "
           f"plain {r3['plain_ms'] * 1e3:.1f} us, bound "
           f"{r3['bound_ms'] * 1e3:.3f} us ({r3['bound_by']}), host "
           f"{r3['host']:.1f} us/call, enqueues {calls3}, "
           f"{assign_text(vq_assign_geometry(x, z))}; random x: "
-          f"{flips:.2e} flips vs plain, indices equal to B1's")
-    print(f"B4 lut_gemm M={m} K={k} N={n}: kernel {r4['ms'] * 1e3:.1f} us "
+          f"{flips:.2e} flips vs plain, indices equal to B1's{tail}")
+    print(f"{head}B4 lut_gemm {what}: kernel {r4['ms'] * 1e3:.1f} us "
           f"(warm, 30 calls in one graph: {r4['warm_ms'] * 1e3:.1f} us a "
           f"call), plain {r4['plain_ms'] * 1e3:.1f} us, embedding_bag "
           f"(float32 copy of the int8 table, no scale) "
@@ -521,53 +586,70 @@ def b34_case(gen, m, k, n, flush):
           f"{r4['host']:.1f} us/call, enqueues {calls4}, "
           f"{cluster_text(lut_gemm_geometry(idx_k, lut))} (B1: "
           f"{cluster_text(vq_amm_geometry(x, z, lut))}), max abs err "
-          f"{err:.3g}; B4(B3(x)) == B1(x) bitwise")
+          f"{err:.3g}; B4(B3(x)) == B1(x) bitwise{tail}")
     return r3, r4
 
 
-def float_lut_case(gen, m, k, n, flush):
+def float_lut_case(gen, m, k, n, flush, e=None):
     """B1 and B4 with float32 and bfloat16 LUTs (the int8 table times its
-    scale) at one main-path shape, on random unit-scale rows: two
-    launches on one input give the same bits, a B1 call enqueues one
-    kernel, the result agrees with the plain version, and both are timed
-    beside the int8 kernels. B4(B3(x)) must equal B1(x) bit for bit where
-    the two launches take one cluster size and row groups (then they sum
-    in one order); elsewhere whether it does is recorded."""
-    _, z, lut8, scale, xr = vq_inputs(gen, m, k, n)
+    scale) at one main-path shape (with ``e``: their grouped forms), on
+    random unit-scale rows: two launches on one input give the same bits,
+    a B1 call enqueues one kernel, the result agrees with the plain
+    version, and both are timed beside the int8 kernels. B4(B3(x)) must
+    equal B1(x) bit for bit where the two launches take one cluster size
+    and row groups (then they sum in one order); elsewhere whether it
+    does is recorded."""
+    what = case_text(m, k, n, e)
+    _, z, lut8, scale, xr = vq_inputs(gen, m, k, n, e)
     idx = vq_assign_cuda(xr, z)
     res = {}
     for dt in (torch.float32, torch.bfloat16):
-        lut = (lut8.float() * scale).to(dt).contiguous()
+        lut = (lut8.float() * scale[..., None, None, :]).to(dt).contiguous()
         b1 = [vq_amm_cuda(xr, z, lut) for _ in range(2)]
         b4 = [lut_gemm_cuda(idx, lut) for _ in range(2)]
         torch.cuda.synchronize()
         check(torch.equal(b1[0], b1[1]),
-              f"B1 {m}x{k}x{n} {dt}: two launches on one input differ")
+              f"B1 {what} {dt}: two launches on one input differ")
         check(torch.equal(b4[0], b4[1]),
-              f"B4 {m}x{k}x{n} {dt}: two launches on one input differ")
+              f"B4 {what} {dt}: two launches on one input differ")
         for name, fn in (("B1", lambda: vq_amm_cuda(xr, z, lut)),
                          ("B4", lambda: lut_gemm_cuda(idx, lut))):
             calls = enqueued(fn)
             check(calls == ONE_KERNEL,
-                  f"{name} {m}x{k}x{n} {dt}: a call enqueues {calls}")
+                  f"{name} {what} {dt}: a call enqueues {calls}")
         g1, g4 = vq_amm_geometry(xr, z, lut), lut_gemm_geometry(idx, lut)
         same = (g1["cluster"], g1["row_groups"]) == (g4["cluster"],
                                                      g4["row_groups"])
         bitwise = torch.equal(b1[0], b4[0])
         check(bitwise or not same,
-              f"B4(B3(x)) != B1(x) at {m}x{k}x{n} {dt} though both launch "
+              f"B4(B3(x)) != B1(x) at {what} {dt} though both launch "
               f"cluster {g1['cluster']}")
         want = ref.lut_gemm_onehot(idx, lut)
         for name, got in (("B1", b1[0]), ("B4", b4[0])):
             check(torch.allclose(got, want, rtol=1e-4, atol=1e-4),
-                  f"{name} {m}x{k}x{n} {dt}: disagrees with the plain sum")
+                  f"{name} {what} {dt}: disagrees with the plain sum")
         key = str(dt).split(".")[-1]
         res[key] = {
             "b1_ms": time_ms(lambda: vq_amm_cuda(xr, z, lut), 30, flush),
             "b4_ms": time_ms(lambda: lut_gemm_cuda(idx, lut), 30, flush),
             "two_pass_bitwise": bitwise, "clusters": (g1["cluster"],
                                                       g4["cluster"])}
+        del lut, b1, b4, want
     return res
+
+
+def float_lut_text(fl, b1_int8_ms, b4_int8_ms) -> str:
+    """float_lut_case's result beside the int8 kernels' times."""
+    return ("two launches on one input bitwise equal; B1 us float32 / "
+            f"bfloat16 / int8 {fl['float32']['b1_ms'] * 1e3:.1f} / "
+            f"{fl['bfloat16']['b1_ms'] * 1e3:.1f} / {b1_int8_ms * 1e3:.1f}, "
+            f"B4 us {fl['float32']['b4_ms'] * 1e3:.1f} / "
+            f"{fl['bfloat16']['b4_ms'] * 1e3:.1f} / {b4_int8_ms * 1e3:.1f}; "
+            "B4(B3(x)) == B1(x) bitwise (clusters B1, B4): float32 "
+            f"{fl['float32']['two_pass_bitwise']} "
+            f"{fl['float32']['clusters']}, bfloat16 "
+            f"{fl['bfloat16']['two_pass_bitwise']} "
+            f"{fl['bfloat16']['clusters']}")
 
 
 def fused_case(label, fused, plain_triples, q, kn, vn, pos, kvh):
@@ -964,7 +1046,7 @@ GEMMA_LOAD = Load(max_seq=2048, chunk=256, prompt=(1100, 1801),
                   check=(1100, 1800))
 GEMMA27_LOAD = Load(slots=4, max_seq=2048, chunk=256, n=4,
                     prompt=(1100, 1301), new=16, hot=-1, check=(1100, 1300))
-# (projection shapes, rows of a call) of each dense config's kernel
+# (projection shapes, rows of a call) of each config's 3-d kernel
 # checks: every M its serve runs give B1 (decode: the slots; prefill: the
 # chunk), and yi-9b and gemma3-4b also at DENSE_MS
 DENSE_PATHS = {
@@ -974,6 +1056,10 @@ DENSE_PATHS = {
                                              GEMMA_LOAD.chunk})),
     "gemma3-27b": (GEMMA27_PROJ_SHAPES, sorted({GEMMA27_LOAD.slots,
                                                 GEMMA27_LOAD.chunk})),
+    # deepseek-moe-16b's attention (wq wk wv wo, 3-d calls); its expert
+    # projections are the moe phase's grouped cases (MOE_CASES)
+    "deepseek-moe-16b": ([(2048, 2048, 4)], sorted({MAIN_LOAD.slots,
+                                                    MAIN_LOAD.chunk})),
 }
 
 
@@ -1007,12 +1093,12 @@ def timed_steps(eng, names) -> dict:
 
 
 def serve(model, params, qc, seed, label, launched, idle, load=MAIN_LOAD,
-          spec=None, hook=None):
+          spec=None, hook=None, tag="serve"):
     """Serve ``load`` through the engine under ``qc`` (speculatively with
     ``spec``); every kernel in ``launched`` must launch, none in ``idle``,
     and no plain version may run. ``hook(eng)``, when given, may wrap the
-    engine's methods before the run (after the step timers). Returns
-    (counts, tokens, engine)."""
+    engine's methods before the run (after the step timers). The result
+    line starts ``{tag} [{label}]``. Returns (counts, tokens, engine)."""
     vocab = model.cfg.vocab_size
     reqs = load_requests(load, seed, vocab)
     torch.cuda.synchronize()
@@ -1040,7 +1126,7 @@ def serve(model, params, qc, seed, label, launched, idle, load=MAIN_LOAD,
     fit = (f"codebook fit + pool in {setup:.2f} s, "
            if qc.kv_quant == "vq" else "")
     what = "decode steps" if spec is None else "speculative rounds"
-    print(f"serve [{label}]: {len(reqs)} requests ({prompt_tokens} prompt "
+    print(f"{tag} [{label}]: {len(reqs)} requests ({prompt_tokens} prompt "
           f"tokens, {gen_tokens} generated) in {wall:.2f} s: "
           f"{gen_tokens / wall:.1f} generated tokens/s; "
           f"{len(dec)} {what}, mean {1e3 * np.mean(dec):.1f} ms; "
@@ -1048,7 +1134,7 @@ def serve(model, params, qc, seed, label, launched, idle, load=MAIN_LOAD,
           f"{1e3 * np.mean(pre):.1f} ms; "
           f"{eng.device_reads} host reads; {fit}KV pool "
           f"{eng.kv.bytes_per_token} B per token "
-          f"({eng.kv.data['k'].dtype}); launches {counts}")
+          f"({eng.kv.data['k'].dtype}); launches {counts} [{SMI}]")
     eng.stats = {"wall": wall, "tokens_per_s": gen_tokens / wall,
                  "step_ms": 1e3 * float(np.mean(dec))}
     eng.requests = reqs
@@ -1093,10 +1179,11 @@ def logit_check(model, params, qc, seed, label, codebook=None,
 
 
 def decode_logit_check(model, params, qc, kv, table, toks, positions, label,
-                       what):
+                       what, tag="logit check"):
     """One decode_paged step on ``kv`` through the kernels and through
     the plain versions; all but LOGIT_ROWS_OFF[dtype] rows must agree
-    within LOGIT_ROW_REL_TOL (relative L2)."""
+    within LOGIT_ROW_REL_TOL (relative L2). The line starts ``{tag}
+    [{label}]``."""
     slots = toks.shape[0]
     lg_k = model.decode_paged(params, toks, kv, table, positions, qc).float()
     with plain_kernels():
@@ -1109,12 +1196,13 @@ def decode_logit_check(model, params, qc, kv, table, toks, positions, label,
     mean_frac = float(delta.abs().mean() / lg_p.std())
     agree = int((lg_k.argmax(-1) == lg_p.argmax(-1)).sum())
     agreeing = sum(r <= LOGIT_ROW_REL_TOL for r in rel)
-    print(f"logit check [{label}], {model.cfg.dtype} (one decode step, "
+    print(f"{tag} [{label}], {model.cfg.dtype} (one decode step, "
           f"{what}): {agreeing}/{slots} "
           f"rows agree (relative L2 <= {LOGIT_ROW_REL_TOL}); row relative "
           f"L2 {[round(r, 4) for r in rel]}, mean |diff| {mean_frac:.4f} of "
           f"std {float(lg_p.std()):.4g}, max |diff| "
-          f"{float(delta.abs().max()):.4g}, argmax agrees on {agree}/{slots}")
+          f"{float(delta.abs().max()):.4g}, argmax agrees on {agree}/{slots}"
+          f" [{SMI}]")
     allowed = LOGIT_ROWS_OFF[model.cfg.dtype]
     check(agreeing >= slots - allowed,
           f"kernel vs plain logits [{label}] ({model.cfg.dtype}): "
@@ -1183,12 +1271,13 @@ def verify_check(model, params, qc, seed, label, load=MAIN_LOAD):
           f"least {len(live) - allowed} required")
 
 
-def float_lut_serve(seed, layers=4):
-    """Full-width qwen1.5-4b with float32 LUTs, cut to ``layers`` layers
-    (~0.63 GB of float32 LUT a layer): two engine runs of the same
-    requests must give the same tokens, and two decode_paged steps on one
-    pool the same logits, bit for bit."""
-    cfg = qwen1p5_4b.config().replace(num_layers=layers)
+def float_lut_serve(seed, layers=4, cfg=None, tag=None):
+    """A full-width config (qwen1.5-4b unless ``cfg``) with float32 LUTs,
+    cut to ``layers`` layers (~0.63 GB of float32 LUT a qwen layer, ~4.5
+    GB a deepseek-moe-16b one): two engine runs of the same requests must
+    give the same tokens, and two decode_paged steps on one pool the same
+    logits, bit for bit. Its lines start with ``tag`` when given."""
+    cfg = (cfg or qwen1p5_4b.config()).replace(num_layers=layers)
     qc = QuantConfig(mode="lut_infer", v=V, c=C, metric="l2",
                      lut_dtype="float32")
     model = Model(cfg)
@@ -1196,8 +1285,9 @@ def float_lut_serve(seed, layers=4):
     tokens = []
     for i in (1, 2):
         _, toks, eng = serve(model, params, qc, seed,
-                             f"float32 LUTs, {layers} layers, run {i}",
-                             {"b1", "b2"}, {"b3", "b4", "b5"})
+                             f"{cfg.name} float32 LUTs, {layers} layers, "
+                             f"run {i}", {"b1", "b2"}, {"b3", "b4", "b5"},
+                             tag=tag or "serve")
         tokens.append(toks)
         del eng
     check(tokens[0] == tokens[1],
@@ -1209,9 +1299,13 @@ def float_lut_serve(seed, layers=4):
     check(bool(torch.isfinite(lg[0]).all()), "float32-LUT logits non-finite")
     check(torch.equal(lg[0], lg[1]),
           "float32-LUT decode steps gave different logits")
-    print(f"float32 LUTs ({layers} layers, full width): two engine runs "
-          f"gave identical tokens (10 requests, {sum(map(len, tokens[0]))} "
-          f"tokens) and two decode_paged steps bitwise equal logits")
+    print(f"{tag or 'float32 LUTs'} [{cfg.name} float32 LUTs, {layers} "
+          f"layers, full width]: "
+          f"two engine runs gave identical tokens (10 requests, "
+          f"{sum(map(len, tokens[0]))} tokens) and two decode_paged steps "
+          f"bitwise equal logits [{SMI}]")
+    del model, params, kv
+    free()
 
 
 class VerifyTap:
@@ -1462,7 +1556,9 @@ def path_run(label, drive, launched, idle):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = read_counts()
-    PATH_LAUNCHES[label] = {k: counts[k] for k in WRAPPERS}
+    PATH_LAUNCHES[label] = {k: n for k, n in counts.items()
+                            if k in WRAPPERS
+                            or (k.endswith("_grouped") and n)}
     check(all(counts[k] > 0 for k in launched),
           f"{label}: the path did not launch {launched}: {counts}")
     check(all(counts[k] == 0 for k in idle),
@@ -1980,6 +2076,260 @@ def obs_phase(model, params, qc, seed, off_streams):
           + f" [{SMI}]")
 
 
+# ---------------------------------------------------------------------------
+# MoE phase: grouped B1 / B3 / B4 at the expert shapes, then full-width
+# deepseek-moe-16b through the engine
+# ---------------------------------------------------------------------------
+
+# (label, experts, rows, K, N, launches per deepseek-moe-16b layer) of the
+# grouped cases: the routed experts (64, capacity 8 at decode and at the
+# 32-token chunk), the shared experts (2, the step's rows: 8 at decode, 32
+# a chunk), one dbrx-132b expert layer (16 experts; its int8 w1 table is
+# 2.11e9 bytes, just below 2^31), and 18 experts of dbrx's w1 shape, whose
+# table (2.38e9 bytes) passes 2^31: the 64-bit expert offsets
+MOE_CASES = [
+    ("routed wg/wu", 64, 8, 2048, 1408, 2),
+    ("routed wd", 64, 8, 1408, 2048, 1),
+    ("shared wg/wu", 2, 8, 2048, 1408, 2), ("shared wd", 2, 8, 1408, 2048, 1),
+    ("shared wg/wu chunk", 2, 32, 2048, 1408, 0),
+    ("shared wd chunk", 2, 32, 1408, 2048, 0),
+    ("dbrx-132b w1", 16, 8, 6144, 10752, 0),
+    ("dbrx-132b w2", 16, 8, 10752, 6144, 0),
+    ("dbrx-132b w1 x 18 experts, past 2^31", 18, 8, 6144, 10752, 0)]
+
+
+@contextlib.contextmanager
+def drop_tally(model, calls):
+    """Record each MoE layer call's routing while ``model`` serves through
+    prefill_paged and decode_paged: (layer, T, capacity, counts) appended
+    to ``calls``, counts a device vector (real pairs dropped, pad pairs
+    dropped, real pairs, pad pairs, experts some real token chose, the
+    largest real load of an expert, and the share of the real tokens'
+    router logits, centred over the experts, that they have in common:
+    |mean_t l_t|^2 / mean_t |l_t|^2, about 1/T for independent tokens
+    and 1 when all route alike). Real rows are a chunk's first
+    valid_len and a decode step's live slots (position >= 0); pad rows
+    come after the real ones in (token, choice) order, so they take the
+    last slots and never push a real pair out. Nothing here reads the
+    device."""
+    orig_route = moe_mod.route
+    orig_pre, orig_dec = model.prefill_paged, model.decode_paged
+    pre_sig = inspect.signature(orig_pre)
+    dec_sig = inspect.signature(orig_dec)
+    state = {"layer": 0, "real": None}
+
+    def prefill_paged(*a, **kw):
+        arg = pre_sig.bind(*a, **kw).arguments
+        width = arg["tokens"].shape[1]
+        state.update(layer=0, real=torch.arange(
+            width, device=arg["tokens"].device) < arg["valid_len"])
+        return orig_pre(*a, **kw)
+
+    def decode_paged(*a, **kw):
+        state.update(layer=0,
+                     real=dec_sig.bind(*a, **kw).arguments["positions"] >= 0)
+        return orig_dec(*a, **kw)
+
+    def route(probs, k, cap):
+        out = orig_route(probs, k, cap)
+        eid, keep = out[0], out[2]
+        t, e = probs.shape
+        real = state["real"].repeat_interleave(k)
+        load = torch.zeros(e, device=probs.device).scatter_add_(
+            0, eid, real.float())
+        # log-softmax is the logits less a per-token constant: centred
+        # over the experts, both give the same vector
+        lg = torch.log(probs.clamp_min(1e-30))
+        lg = lg - lg.mean(-1, keepdim=True)
+        w = state["real"].float()
+        n = w.sum().clamp_min(1.0)
+        common = ((lg * w[:, None]).sum(0) / n).square().sum() / (
+            (lg.square().sum(-1) * w).sum() / n).clamp_min(1e-30)
+        calls.append((state["layer"], t, cap, torch.stack([
+            (~keep & real).sum().float(), (~keep & ~real).sum().float(),
+            real.sum().float(), (~real).sum().float(),
+            (load > 0).sum().float(), load.max(), common])))
+        state["layer"] += 1
+        return out
+    moe_mod.route = route
+    model.prefill_paged, model.decode_paged = prefill_paged, decode_paged
+    try:
+        yield
+    finally:
+        moe_mod.route = orig_route
+        del model.prefill_paged, model.decode_paged
+
+
+def uniform_overflow(t, k, e, cap) -> float:
+    """Pairs a call of t real tokens would drop, on average, if each token
+    chose its k experts uniformly at random: E[sum_e (L_e - cap)+], L_e ~
+    Binomial(t, k / e)."""
+    p = k / e
+    return e * sum(math.comb(t, j) * p ** j * (1 - p) ** (t - j) * (j - cap)
+                   for j in range(cap + 1, t + 1))
+
+
+def drop_text(calls, k, e) -> str:
+    """What drop_tally recorded, by token count T of a call: real and pad
+    pairs dropped, the experts chosen and the largest load of a call,
+    beside uniform routing's expected drops; layer 0 on its own, and the
+    real drop rate of every layer."""
+    groups = {}
+    for layer, t, cap, row in calls:
+        groups.setdefault((t, cap), []).append((layer, row.tolist()))
+    out = []
+    for (t, cap), rows in sorted(groups.items()):
+        def stats(sel):
+            r = np.array([row for _, row in sel])
+            common = r[:, 6].mean()
+            r = r[:, :6].round().astype(np.int64)
+            uni = sum(uniform_overflow(int(n) // k, k, e, cap)
+                      for n in r[:, 2])
+            real, dropped = r[:, 2].sum(), r[:, 0].sum()
+            return (f"{len(r)} calls, real pairs dropped {dropped} of {real} "
+                    f"({dropped / max(1, real):.2%}; uniform routing would "
+                    f"drop {uni:.1f}), {int((r[:, 0] > 0).sum())} calls with "
+                    f"a real drop, pad pairs dropped {r[:, 1].sum()} of "
+                    f"{r[:, 3].sum()}, experts chosen a call "
+                    f"{r[:, 4].mean():.1f} (min {r[:, 4].min()}), "
+                    f"largest load a call mean {r[:, 5].mean():.1f} max "
+                    f"{r[:, 5].max()}, common share of the router logits "
+                    f"{common:.3f} (independent tokens: about "
+                    f"{1 / max(1.0, r[:, 2].mean() / k):.3f})")
+        layers = sorted({layer for layer, _ in rows})
+        per_layer = []
+        for li in layers:
+            r = np.array([row for lay, row in rows if lay == li])
+            per_layer.append(f"{r[:, 0].sum() / max(1, r[:, 2].sum()):.0%}"
+                             f" ({r[:, 6].mean():.2f})")
+        out.append(f"T={t} (capacity {cap}): all layers: "
+                   f"{stats(rows)}; layer 0: "
+                   f"{stats([x for x in rows if x[0] == 0])}; real drop "
+                   f"rate (common share) by layer {' '.join(per_layer)}")
+    return "; ".join(out)
+
+
+def step_launches(model, params, qc, kv, table, toks, positions):
+    """Each kernel's launches in one decode_paged step (grouped ones also
+    on their own, under ``<kernel>_grouped``)."""
+    reset_counts()
+    model.decode_paged(params, toks, kv, table, positions, qc)
+    torch.cuda.synchronize()
+    return {key: n for key, n in read_counts().items()
+            if n and not key.endswith("_plain")}
+
+
+def moe_serve(seed):
+    """Full-width, full-depth deepseek-moe-16b (int8 LUTs) through the
+    engine on MAIN_LOAD: fused on an fp pool (B1 grouped, B2), two-pass
+    (B3 + B4 grouped; tokens must equal the fused run's) and fused on a
+    VQ code pool (B5); each run's launches in one decode step (fused: 280
+    B1, 168 of them grouped, and 28 B2) and a bf16 logit check of one
+    decode_paged step through the kernels against the plain versions;
+    then a fourth, fused run with its routing tallied (drop_tally)."""
+    cfg = deepseek_moe_16b.config()
+    qc = QuantConfig(mode="lut_infer", v=V, c=C, metric="l2",
+                     lut_dtype="int8")
+    torch.cuda.reset_peak_memory_stats()
+    model = Model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=DEV).manual_seed(seed), qc)
+    torch.cuda.synchronize()
+    pbytes = sum(nbytes(t) for t in _leaves(params))
+    print(f"moe [init]: full-width {cfg.name} ({cfg.num_layers} layers, "
+          f"{cfg.num_experts} routed experts top-{cfg.top_k} + "
+          f"{cfg.num_shared_experts} shared, d_ff {cfg.d_ff}, lut_infer "
+          f"int8 v={V} c={C}) built on the card in "
+          f"{time.perf_counter() - t0:.1f} s, {pbytes / 1e9:.2f} GB of "
+          f"params [{SMI}]")
+    runs = {
+        "fused": (qc, {"b1", "b2"}, {"b3", "b4", "b5"}),
+        "two-pass": (qc.replace(fuse=False), {"b3", "b4", "b2"},
+                     {"b1", "b5"}),
+        "vq-kv": (qc.replace(kv_quant="vq", kv_v=KV_V, kv_c=KV_C),
+                  {"b1", "b5"}, {"b2", "b3", "b4"}),
+    }
+    experts = 3 + 3 * bool(cfg.num_shared_experts)   # grouped a layer
+    proj, attn = cfg.num_layers * (4 + experts), cfg.num_layers
+    grouped = cfg.num_layers * experts
+    want_step = {"fused": {"b1": proj, "b1_grouped": grouped, "b2": attn},
+                 "two-pass": {"b3": proj, "b4": proj, "b3_grouped": grouped,
+                              "b4_grouped": grouped, "b2": attn},
+                 "vq-kv": {"b1": proj, "b1_grouped": grouped, "b5": attn}}
+    tokens, codebook, drops = {}, None, []
+    for label, (qc_r, launched, idle) in runs.items():
+        counts, tokens[label], eng = serve(
+            model, params, qc_r, seed, f"{cfg.name} {label}", launched,
+            idle, tag="moe")
+        if qc_r.kv_quant == "vq":
+            codebook = eng.kv_codebook
+        del eng
+        kv, table, toks, positions, lengths = prefilled_pool(
+            model, params, qc_r, seed, codebook if qc_r.kv_quant == "vq"
+            else None)
+        got = step_launches(model, params, qc_r, kv, table, toks,
+                            positions)
+        print(f"moe [{cfg.name} {label}]: one decode step launches {got} "
+              f"(expected {want_step[label]}) [{SMI}]")
+        check(got == want_step[label],
+              f"moe {label}: one decode step launches {got}, expected "
+              f"{want_step[label]}")
+        decode_logit_check(model, params, qc_r, kv, table, toks, positions,
+                           f"logit check, {cfg.name} {label}",
+                           f"{SLOTS} slots at lengths {lengths.tolist()}",
+                           tag="moe")
+        del kv
+    check(tokens["two-pass"] == tokens["fused"],
+          "moe: two-pass tokens differ from the fused run's")
+    # the routing, tallied in a fourth fused run (so the tally's ops stay
+    # out of the three runs' times): its tokens must equal the fused run's
+    with drop_tally(model, drops):
+        _, tallied, eng = serve(model, params, qc, seed,
+                                f"{cfg.name} fused, routing tallied",
+                                *runs["fused"][1:], tag="moe")
+    del eng
+    check(tallied == tokens["fused"],
+          "moe: the tallied run's tokens differ from the fused run's")
+    print(f"moe [{cfg.name} routing, a fused run]: "
+          f"{drop_text(drops, cfg.top_k, cfg.num_experts)} [{SMI}]")
+    print(f"moe [{cfg.name}]: two-pass tokens identical to the fused run's "
+          f"(10 requests, {sum(map(len, tokens['fused']))} tokens); peak "
+          f"device memory (init and serving) "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; "
+          f"{pbytes / 1e9:.2f} GB of params [{SMI}]")
+    del model, params, codebook
+    free()
+
+
+def moe_phase(gen, seed):
+    """The MoE phase: the grouped kernel cases, the deepseek-moe-16b serve
+    runs, and the float32-LUT copy cut to 4 layers served twice. Returns
+    the kernel cases' results by label."""
+    flush = torch.ones(L2_FLUSH_BYTES // 4, dtype=torch.int32, device=DEV)
+    cases = {}
+    for label, e, m, k, n, _ in MOE_CASES:
+        r1 = b1_case(gen, m, k, n, flush, e, label)
+        r3, r4 = b34_case(gen, m, k, n, flush, e, label)
+        free()
+        fl = float_lut_case(gen, m, k, n, flush, e)
+        print(f"moe [{label}] float LUTs {case_text(m, k, n, e)}: "
+              + float_lut_text(fl, r1["ms"], r4["ms"]) + f" [{SMI}]")
+        cases[label] = {"b1": r1, "b3": r3, "b4": r4}
+        free()
+    del flush
+    for key in ("b1", "b3", "b4"):
+        lay = {f: sum(cases[label][key][f] * cnt
+                      for label, *_, cnt in MOE_CASES)
+               for f in ("ms", "warm_ms", "bound_ms")}
+        print(f"moe [{key.upper()} grouped per deepseek-moe-16b layer at "
+              f"decode, 3 routed + 3 shared expert projections]: "
+              f"{lay['ms'] * 1e3:.1f} us flushed, {lay['warm_ms'] * 1e3:.1f}"
+              f" us warm, bound {lay['bound_ms'] * 1e3:.2f} us [{SMI}]")
+    moe_serve(seed)
+    float_lut_serve(seed, cfg=deepseek_moe_16b.config(), tag="moe")
+    return cases
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2102,22 +2452,18 @@ def main(argv=None) -> int:
                     [0], flush, True)]
         b2_checks += wide[:2]
         b5_checks += wide[2:]
-        for m in QWEN_MS:
-            for k, n, _ in PROJ_SHAPES:
-                fl = float_lut_case(gen, m, k, n, flush)
-                print(f"float LUTs M={m} K={k} N={n}: two launches on one "
-                      "input bitwise equal; B1 us float32 / bfloat16 / int8 "
-                      f"{fl['float32']['b1_ms'] * 1e3:.1f} / "
-                      f"{fl['bfloat16']['b1_ms'] * 1e3:.1f} / "
-                      f"{b1[(m, k, n)]['ms'] * 1e3:.1f}, B4 us "
-                      f"{fl['float32']['b4_ms'] * 1e3:.1f} / "
-                      f"{fl['bfloat16']['b4_ms'] * 1e3:.1f} / "
-                      f"{b4[(m, k, n)]['ms'] * 1e3:.1f}; B4(B3(x)) == B1(x) "
-                      "bitwise (clusters B1, B4): float32 "
-                      f"{fl['float32']['two_pass_bitwise']} "
-                      f"{fl['float32']['clusters']}, bfloat16 "
-                      f"{fl['bfloat16']['two_pass_bitwise']} "
-                      f"{fl['bfloat16']['clusters']}")
+        # float LUTs at qwen's shapes, and at deepseek-moe-16b's attention
+        # (its float32-LUT run cut to 4 layers; its grouped expert shapes
+        # are held in the moe phase)
+        int8 = {**dense["b1"], **b1}, {**dense["b4"], **b4}
+        moe_attn, moe_ms = DENSE_PATHS["deepseek-moe-16b"]
+        for m, k, n in ([(m, k, n) for m in QWEN_MS
+                         for k, n, _ in PROJ_SHAPES]
+                        + [(m, k, n) for k, n, _ in moe_attn
+                           for m in moe_ms]):
+            fl = float_lut_case(gen, m, k, n, flush)
+            print(f"float LUTs M={m} K={k} N={n}: " + float_lut_text(
+                fl, int8[0][(m, k, n)]["ms"], int8[1][(m, k, n)]["ms"]))
     finally:
         clocks.terminate()
         out = clocks.communicate()[0]
@@ -2162,7 +2508,8 @@ def main(argv=None) -> int:
     for arch, (shapes, ms) in DENSE_PATHS.items():
         for name in ("b1", "b3", "b4"):
             res = dense[name]
-            print(f"{name.upper()} int8 per {arch} layer (7 projections): "
+            print(f"{name.upper()} int8 per {arch} layer "
+                  f"({sum(c for *_, c in shapes)} projections): "
                   + "; ".join(
                       f"M={m} {1e3 * sum(res[(m, k, n)]['ms'] * c for k, n, c in shapes):.1f} us flushed, bound "  # noqa: E501
                       f"{1e3 * sum(res[(m, k, n)]['bound_ms'] * c for k, n, c in shapes):.2f} us"  # noqa: E501
@@ -2247,6 +2594,8 @@ def main(argv=None) -> int:
             gemma3_27b.config(), qc, args.seed, GEMMA27_LOAD,
             {"fused": (qc, {"b1", "b2"}, {"b3", "b4", "b5"})},
             logits=("bfloat16",))
+    with phase("moe"):
+        moe = moe_phase(gen, args.seed)
 
     def layer_sum(res, key):
         return sum(res[(8, k, n)][key] * cnt for k, n, cnt in PROJ_SHAPES)
@@ -2274,6 +2623,28 @@ def main(argv=None) -> int:
 
     def launches(key):               # the main path: qwen's three runs
         return sum(c[key] for c in counts.values())
+
+    def moe_launches(key):           # deepseek-moe-16b's three runs
+        name = deepseek_moe_16b.config().name
+        return sum(PATH_LAUNCHES[f"{name} {run}"].get(key + "_grouped", 0)
+                   for run in ("fused", "two-pass", "vq-kv"))
+
+    def moe_row(name, key, source, replaces):
+        """A grouped kernel over one deepseek-moe-16b layer's six expert
+        projections at decode (MOE_CASES' counts)."""
+        def layer(f):
+            return sum(moe[label][key][f] * cnt
+                       for label, *_, cnt in MOE_CASES)
+        lib = None if key != "b4" else layer("library_ms")
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": moe_launches(key),
+                "max_abs_err": max(r[key]["err"] for r in moe.values()),
+                "ms": layer("ms"), "plain_ms": layer("plain_ms"),
+                "bound_ms": layer("bound_ms"),
+                "bound_by": "bytes" if all(
+                    moe[label][key]["bound_by"] == "bytes"
+                    for label, *_, cnt in MOE_CASES if cnt)
+                else "operations", "library_ms": lib}
     for r in b1.values():
         r["library_ms"] = None
     kernels = [
@@ -2298,6 +2669,20 @@ def main(argv=None) -> int:
                  [r["err"] for r in [b5, b5_full, b5_one] + b5_checks],
                  "src/repro_torch/csrc/flash_decode_kvq.cu",
                  "src/repro/kernels/flash_decode.py:294", launches("b5")),
+        moe_row("vq_amm grouped (B1 with a leading expert axis, one "
+                "deepseek-moe-16b layer's 3 routed (E=64) + 3 shared (E=2) "
+                "expert projections at decode M=8; launches: its grouped "
+                "launches in the three MoE serve runs)", "b1",
+                "src/repro_torch/csrc/fused_amm.cu",
+                "src/repro/kernels/fused_amm.py:87"),
+        moe_row("vq_assign grouped (B3 with a leading expert axis, the same "
+                "6 expert projections)", "b3",
+                "src/repro_torch/csrc/assign.cu",
+                "src/repro/kernels/assign.py:54"),
+        moe_row("lut_gemm grouped (B4 with a leading expert axis, the same "
+                "6 expert projections)", "b4",
+                "src/repro_torch/csrc/lut_gemm.cu",
+                "src/repro/kernels/lut_gemm.py:61"),
     ]
     print(f"launches by serve run: {json.dumps(PATH_LAUNCHES)}")
     print(json.dumps({"kernels": kernels}))

@@ -48,7 +48,7 @@ def build_profiled() -> ctypes.CDLL:
         raise RuntimeError("nvcc failed:\n" + r.stdout + r.stderr)
     lib = ctypes.CDLL(str(out))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.vq_amm_launch.argtypes = [p] * 5 + [i] * 8 + [p, p]
+    lib.vq_amm_launch.argtypes = [p] * 5 + [i] * 9 + [p, p]
     lib.vq_amm_set_prof.argtypes = [p]
     return lib
 
@@ -75,7 +75,7 @@ def main() -> int:
             def launch():
                 err = lib.vq_amm_launch(
                     x.data_ptr(), z.data_ptr(), lut.data_ptr(),
-                    scale.data_ptr(), out.data_ptr(), m, k // cs.V, cs.C,
+                    scale.data_ptr(), out.data_ptr(), 1, m, k // cs.V, cs.C,
                     cs.V, n, 1, 2, 0, torch.cuda.current_stream().cuda_stream,
                     None)
                 if err:

@@ -9,23 +9,27 @@ from __future__ import annotations
 
 from repro_torch.models.config import ModelConfig
 
-from . import gemma3_4b, gemma3_27b, qwen1p5_4b, yi_9b
+from . import (dbrx_132b, deepseek_moe_16b, gemma3_4b, gemma3_27b,
+               qwen1p5_4b, yi_9b)
 
-__all__ = ["gemma3_4b", "gemma3_27b", "qwen1p5_4b", "yi_9b",
-           "ARCH_NAMES", "get_config", "get_smoke_config"]
+__all__ = ["dbrx_132b", "deepseek_moe_16b", "gemma3_4b", "gemma3_27b",
+           "qwen1p5_4b", "yi_9b", "ARCH_NAMES", "get_config",
+           "get_smoke_config"]
 
 _MODULES = {
     "qwen1.5-4b": qwen1p5_4b,
     "yi-9b": yi_9b,
     "gemma3-4b": gemma3_4b,
     "gemma3-27b": gemma3_27b,
+    "deepseek-moe-16b": deepseek_moe_16b,
+    "dbrx-132b": dbrx_132b,
 }
 
 #: The JAX registry's names this port does not serve yet, by the
 #: ROADMAP.md queue A item that ports them.
 _NOT_PORTED = {
-    "zamba2-1.2b": 9, "mamba2-2.7b": 9, "dbrx-132b": 9,
-    "deepseek-moe-16b": 9, "musicgen-large": 9, "paligemma-3b": 9,
+    "zamba2-1.2b": 9, "mamba2-2.7b": 9, "musicgen-large": 9,
+    "paligemma-3b": 9,
 }
 
 ARCH_NAMES = list(_MODULES)

@@ -22,6 +22,10 @@ Parameters of one LutLinear (a plain dict of tensors):
   z  (nc, c, v)        centroids
   lut (nc, c, N)       precomputed table      (inference only)
   lut_scale (N,)       dequant scale          (int8 inference only)
+An MoE layer's expert projections carry a leading expert axis on each
+(``w (E, K, N)``, ``z (E, nc, c, v)``, ``lut (E, nc, c, N)``,
+``lut_scale (E, N)``: one scale per expert and column); the functions
+below take any leading axes, as the JAX package vmaps them.
 """
 from __future__ import annotations
 
@@ -112,13 +116,15 @@ def lut_linear_init(generator: torch.Generator, k: int, n: int,
 
 def build_lut(w: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
     """LUT[k, j, n] = z[k, j, :] . w[k*v:(k+1)*v, n] (paper step-2), in
-    float32. w (K, N), z (nc, c, v) -> (nc, c, N)."""
-    nc, c, v = z.shape
-    k, n = w.shape
-    if nc * v != k:
+    float32. w (..., K, N), z (..., nc, c, v) -> (..., nc, c, N), over
+    any leading (expert) axes."""
+    nc, c, v = z.shape[-3:]
+    k, n = w.shape[-2:]
+    if nc * v != k or w.shape[:-2] != z.shape[:-3]:
         raise ValueError(f"w {tuple(w.shape)} does not match z "
                          f"{tuple(z.shape)}")
-    return torch.bmm(z.float(), w.float().reshape(nc, v, n))
+    return torch.matmul(z.float(),
+                        w.float().reshape(*w.shape[:-2], nc, v, n))
 
 
 def quantize_lut_int8(lut: torch.Tensor
@@ -127,15 +133,20 @@ def quantize_lut_int8(lut: torch.Tensor
 
     The scale is shared across subspaces so the integer accumulation
     ``sum_k lut8[k, idx, n]`` dequantises with one multiply per column.
+    lut (..., nc, c, N) -> (int8 table, scale (..., N)): the amax runs
+    over the two axes before N only, so experts keep their own scales.
     """
-    amax = torch.amax(torch.abs(lut), dim=(0, 1))                  # (N,)
+    amax = torch.amax(torch.abs(lut), dim=(-3, -2))            # (..., N)
     scale = torch.clamp_min(amax, 1e-8) / 127.0
-    lut8 = torch.clamp(torch.round(lut / scale[None, None, :]), -127, 127)
+    lut8 = torch.clamp(torch.round(lut / scale[..., None, None, :]), -127,
+                       127)
     return lut8.to(torch.int8), scale.to(torch.float32)
 
 
 def precompute_layer(p: Params, qc: QuantConfig) -> Params:
-    """Turn a LutLinear into its inference form (adds lut / lut_scale)."""
+    """Turn a LutLinear into its inference form (adds lut / lut_scale);
+    expert leaves (a leading expert axis on w and z) give one table and
+    one scale per expert."""
     if "z" not in p:
         return p
     lut = build_lut(p["w"], p["z"])

@@ -7,7 +7,11 @@
 //
 //   idx[m, k] = argmin_j d(x[m, k, :], z[k, j, :])
 //
-//   x (M, nc, v) f32|bf16, z (nc, c, v) same type, idx (M, nc) int32.
+//   x (M, nc, v) f32|bf16, z (nc, c, v) same type, idx (M, nc) int32;
+//   or E such problems in one launch, each operand with a leading expert
+//   axis (x (E, M, nc, v), z (E, nc, c, v), idx (E, M, nc)):
+//   src/repro/models/moe.py::expert_proj runs vq_assign_pallas vmapped
+//   over the experts under fuse=False.
 //   d is L2 (|x|^2 - 2 x.z + |z|^2), L1 or Chebyshev, in fp32.
 //
 // What bounds it on the H100: bytes. It must read x and z once and write
@@ -31,6 +35,9 @@
 //    registers when v = 8), so the indices are B1's bit for bit. The
 //    uint8 indices then go from shared memory to idx, neighbouring
 //    threads on neighbouring subspaces (coalesced).
+//  * A grouped launch (E experts) is one grid: grid z is the expert, and
+//    each block moves its operand pointers to its expert's (64-bit
+//    offsets). At E = 1 it is the ungrouped launch.
 //  * The general path lives in the same kernel: any M, c up to 256, any
 //    v (rows of x and z that are not 16-byte aligned take element
 //    loads), ragged nc. Subspaces whose slices do not fit the 48 KB
@@ -54,6 +61,9 @@ assign_kernel(const XT* __restrict__ x, const XT* __restrict__ z,
               int metric, Geometry g) {
   extern __shared__ __align__(16) unsigned char smem[];
   const unsigned char* idx = smem + g.off_idx;
+  x = expert_ptr(x, blockIdx.z, (size_t)M * nc * v);
+  z = expert_ptr(z, blockIdx.z, (size_t)nc * c * v);
+  out = expert_ptr(out, blockIdx.z, (size_t)M * nc);
   const int k0 = blockIdx.x * g.kmax;
   const int kn = min(g.kmax, nc - k0);
   const int m0 = blockIdx.y * g.rows;
@@ -91,9 +101,9 @@ inline bool assign_geometry(Geometry& g, int M, int nc, int c, int v,
 }
 
 template <typename XT>
-cudaError_t launch_x(const void* x, const void* z, int* idx, int M, int nc,
-                     int c, int v, int metric, int kb, cudaStream_t st,
-                     int* info) {
+cudaError_t launch_x(const void* x, const void* z, int* idx, int E, int M,
+                     int nc, int c, int v, int metric, int kb,
+                     cudaStream_t st, int* info) {
   const bool vec_x = (uintptr_t)x % 16 == 0 && (uintptr_t)z % 16 == 0 &&
                      (v * sizeof(XT)) % 16 == 0;
   Geometry g;
@@ -112,8 +122,9 @@ cudaError_t launch_x(const void* x, const void* z, int* idx, int M, int nc,
                                g.smem);
     if (err != cudaSuccess) return err;
   }
-  const dim3 grid((nc + g.kmax - 1) / g.kmax, (M + g.rows - 1) / g.rows);
-  if (grid.y > 65535) return cudaErrorInvalidValue;
+  const dim3 grid((nc + g.kmax - 1) / g.kmax, (M + g.rows - 1) / g.rows,
+                  E);
+  if (grid.y > 65535 || E > 65535) return cudaErrorInvalidValue;
   if (info != nullptr) {
     info[0] = (int)grid.x; info[1] = (int)grid.y; info[2] = g.kmax;
     info[3] = g.rows; info[4] = g.smem;
@@ -127,25 +138,27 @@ cudaError_t launch_x(const void* x, const void* z, int* idx, int M, int nc,
 
 }  // namespace
 
-// x_dtype: 0 f32, 1 bf16. metric: 0 l2, 1 l1, 2 chebyshev. idx is an
-// (M, nc) int32 output. kb: subspaces a block, or 0 for the default.
-// Enqueues one kernel on stream and nothing else; with info non-null it
-// launches nothing and writes the launch's k ranges, row groups,
-// subspaces a block, rows a block and shared memory bytes to info[0..4].
-// Returns a cudaError_t.
+// E experts (1: no expert axis), each with its own x (M, nc, v), z and
+// (M, nc) int32 output idx, stored one after another. x_dtype: 0 f32,
+// 1 bf16. metric: 0 l2, 1 l1, 2 chebyshev. kb: subspaces a block, or 0
+// for the default. Enqueues one kernel on stream and nothing else; with
+// info non-null it launches nothing and writes the launch's k ranges,
+// row groups (of one expert), subspaces a block, rows a block and shared
+// memory bytes to info[0..4]. Returns a cudaError_t.
 extern "C" int vq_assign_launch(const void* x, const void* z, void* idx,
-                                int M, int nc, int c, int v, int x_dtype,
-                                int metric, int kb, void* stream,
-                                int* info) {
-  if (M <= 0 || nc <= 0 || c < 1 || c > 256 || v < 1 || x_dtype < 0 ||
+                                int E, int M, int nc, int c, int v,
+                                int x_dtype, int metric, int kb,
+                                void* stream, int* info) {
+  if (E <= 0 || M <= 0 || nc <= 0 || c < 1 || c > 256 || v < 1 ||
+      x_dtype < 0 ||
       x_dtype > 1 || metric < 0 || metric > 2 || kb < 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int* ip = static_cast<int*>(idx);
   const cudaError_t err =
       x_dtype == 0
-          ? launch_x<float>(x, z, ip, M, nc, c, v, metric, kb, st, info)
-          : launch_x<__nv_bfloat16>(x, z, ip, M, nc, c, v, metric, kb, st,
-                                    info);
+          ? launch_x<float>(x, z, ip, E, M, nc, c, v, metric, kb, st, info)
+          : launch_x<__nv_bfloat16>(x, z, ip, E, M, nc, c, v, metric, kb,
+                                    st, info);
   return (int)err;
 }

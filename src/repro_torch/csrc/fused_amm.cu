@@ -7,7 +7,12 @@
 //   out[m, n] = scale[n] * sum_k lut[k, argmin_j d(x[m, k, :], z[k, j, :]), n]
 //
 //   x (M, nc, v) f32|bf16, z (nc, c, v) same type, lut (nc, c, N)
-//   f32|bf16|int8, scale (N,) f32 or null, out (M, N) f32.
+//   f32|bf16|int8, scale (N,) f32 or null, out (M, N) f32; or E such
+//   problems in one launch, each operand with a leading expert axis
+//   (x (E, M, nc, v), ..., out (E, M, N)): the per-expert projections of
+//   an MoE layer, which src/repro/models/moe.py::expert_proj runs as
+//   vq_amm_pallas vmapped over the experts (one pallas_call with the
+//   expert as one more grid axis).
 //   d is L2 (|x|^2 - 2 x.z + |z|^2), L1 or Chebyshev, in fp32; the lowest
 //   index wins a tie.
 //
@@ -28,7 +33,14 @@
 //    occupancy report for this launch (cudaOccupancyMaxActiveClusters):
 //    the least estimated time, waves of resident clusters x (subspaces a
 //    block + a fixed cost), so the grid fits in one wave of the H100's
-//    132 SMs at every main-path shape. The choice is cached per shape.
+//    132 SMs at every dense main-path shape. The choice is cached per
+//    shape.
+//  * A grouped launch (E experts) is one grid: grid z holds E x the row
+//    groups, and each block moves its operand pointers to its expert's
+//    (64-bit offsets). The cluster-size estimate counts the clusters of
+//    all E experts, so at E = 64 and M = 8 it picks far smaller clusters
+//    (often 1: the grid already fills the card) than at E = 1. At E = 1
+//    the launch is the ungrouped one, bit for bit.
 //  * A block stages its x rows and z slice with 16-byte loads, then
 //    assigns every (row, subspace) pair with vq_common.cuh's nearest
 //    (distance code, scan order and tie rule unchanged), so B3's indices
@@ -97,6 +109,11 @@ vq_amm_kernel(const XT* __restrict__ x, const XT* __restrict__ z,
               int metric, Geometry g) {
   extern __shared__ __align__(16) unsigned char smem[];
   const Tile t = tile_of<LT>(g, M, nc);
+  x = expert_ptr(x, t.e, (size_t)M * nc * v);
+  z = expert_ptr(z, t.e, (size_t)nc * c * v);
+  lut = expert_ptr(lut, t.e, (size_t)nc * c * N);
+  scale = expert_ptr(scale, t.e, (size_t)N);
+  out = expert_ptr(out, t.e, (size_t)M * N);
   stamp(0);
   copy_scale<LT>(smem, g, scale, t.n0, N);
   assign_block<XT>(x, z, smem + g.off_stage, smem + g.off_idx, g, metric,
@@ -112,9 +129,10 @@ constexpr int FIXED_SUBSPACES = 16;
 
 template <typename XT, typename LT, int R>
 cudaError_t launch_r(const void* x, const void* z, const void* lut,
-                     const float* scale, float* out, int M, int nc, int c,
-                     int v, int N, int metric, cudaStream_t st, int* info) {
-  const Shape s{M, nc, c, v, N, R,
+                     const float* scale, float* out, int E, int M, int nc,
+                     int c, int v, int N, int metric, cudaStream_t st,
+                     int* info) {
+  const Shape s{E, M, nc, c, v, N, R,
                 (uintptr_t)x % 16 == 0 && (uintptr_t)z % 16 == 0 &&
                     (v * sizeof(XT)) % 16 == 0,
                 (uintptr_t)lut % 16 == 0 &&
@@ -129,33 +147,33 @@ cudaError_t launch_r(const void* x, const void* z, const void* lut,
 // Rows a thread sums: 1, 2 or 4 (up to 16, 32 or 64 rows a block).
 template <typename XT, typename LT>
 cudaError_t launch_lt(const void* x, const void* z, const void* lut,
-                      const float* scale, float* out, int M, int nc, int c,
-                      int v, int N, int metric, cudaStream_t st,
+                      const float* scale, float* out, int E, int M, int nc,
+                      int c, int v, int N, int metric, cudaStream_t st,
                       int* info) {
   const int rows = M < ROW_CAP ? M : ROW_CAP;
   if (rows <= SLOTS)
-    return launch_r<XT, LT, 1>(x, z, lut, scale, out, M, nc, c, v, N,
+    return launch_r<XT, LT, 1>(x, z, lut, scale, out, E, M, nc, c, v, N,
                                metric, st, info);
   if (rows <= 2 * SLOTS)
-    return launch_r<XT, LT, 2>(x, z, lut, scale, out, M, nc, c, v, N,
+    return launch_r<XT, LT, 2>(x, z, lut, scale, out, E, M, nc, c, v, N,
                                metric, st, info);
-  return launch_r<XT, LT, 4>(x, z, lut, scale, out, M, nc, c, v, N, metric,
-                             st, info);
+  return launch_r<XT, LT, 4>(x, z, lut, scale, out, E, M, nc, c, v, N,
+                             metric, st, info);
 }
 
 template <typename XT>
 cudaError_t launch_x(const void* x, const void* z, const void* lut,
-                     const float* scale, float* out, int M, int nc, int c,
-                     int v, int N, int lut_dtype, int metric,
+                     const float* scale, float* out, int E, int M, int nc,
+                     int c, int v, int N, int lut_dtype, int metric,
                      cudaStream_t st, int* info) {
   if (lut_dtype == 2)
-    return launch_lt<XT, int8_t>(x, z, lut, scale, out, M, nc, c, v, N,
+    return launch_lt<XT, int8_t>(x, z, lut, scale, out, E, M, nc, c, v, N,
                                  metric, st, info);
   if (lut_dtype == 0)
-    return launch_lt<XT, float>(x, z, lut, scale, out, M, nc, c, v, N,
+    return launch_lt<XT, float>(x, z, lut, scale, out, E, M, nc, c, v, N,
                                 metric, st, info);
-  return launch_lt<XT, __nv_bfloat16>(x, z, lut, scale, out, M, nc, c, v,
-                                      N, metric, st, info);
+  return launch_lt<XT, __nv_bfloat16>(x, z, lut, scale, out, E, M, nc, c,
+                                      v, N, metric, st, info);
 }
 
 }  // namespace
@@ -167,17 +185,18 @@ extern "C" int vq_amm_set_prof(long long* p) {
 }
 #endif
 
-// x_dtype: 0 f32, 1 bf16. lut_dtype: 0 f32, 1 bf16, 2 int8.
-// metric: 0 l2, 1 l1, 2 chebyshev. scale may be null. Enqueues one
-// kernel on stream and nothing else; with info non-null it launches
-// nothing and writes the launch's geometry (launch_r). Returns a
-// cudaError_t.
+// E experts (1: no expert axis), each with its own x (M, nc, v), z, lut
+// and scale, stored one after another. x_dtype: 0 f32, 1 bf16.
+// lut_dtype: 0 f32, 1 bf16, 2 int8. metric: 0 l2, 1 l1, 2 chebyshev.
+// scale may be null. Enqueues one kernel on stream and nothing else;
+// with info non-null it launches nothing and writes the launch's
+// geometry (launch_cluster). Returns a cudaError_t.
 extern "C" int vq_amm_launch(const void* x, const void* z, const void* lut,
-                             const void* scale, void* out, int M, int nc,
-                             int c, int v, int N, int x_dtype,
+                             const void* scale, void* out, int E, int M,
+                             int nc, int c, int v, int N, int x_dtype,
                              int lut_dtype, int metric, void* stream,
                              int* info) {
-  if (M <= 0 || nc <= 0 || N <= 0 || c < 1 || c > 256 || v < 1 ||
+  if (E <= 0 || M <= 0 || nc <= 0 || N <= 0 || c < 1 || c > 256 || v < 1 ||
       x_dtype < 0 || x_dtype > 1 || lut_dtype < 0 ||
       lut_dtype > 2 || metric < 0 || metric > 2)
     return (int)cudaErrorInvalidValue;
@@ -185,9 +204,9 @@ extern "C" int vq_amm_launch(const void* x, const void* z, const void* lut,
   const float* sp = static_cast<const float*>(scale);
   float* op = static_cast<float*>(out);
   cudaError_t err = x_dtype == 0
-      ? launch_x<float>(x, z, lut, sp, op, M, nc, c, v, N, lut_dtype,
+      ? launch_x<float>(x, z, lut, sp, op, E, M, nc, c, v, N, lut_dtype,
                         metric, st, info)
-      : launch_x<__nv_bfloat16>(x, z, lut, sp, op, M, nc, c, v, N,
+      : launch_x<__nv_bfloat16>(x, z, lut, sp, op, E, M, nc, c, v, N,
                                 lut_dtype, metric, st, info);
   return (int)err;
 }

@@ -8,7 +8,10 @@
 //   out[m, n] = scale[n] * sum_k lut[k, idx[m, k], n]
 //
 //   idx (M, nc) int32 in [0, c), lut (nc, c, N) f32|bf16|int8, scale (N,)
-//   f32 or null, out (M, N) f32.
+//   f32 or null, out (M, N) f32; or E such problems in one launch, each
+//   operand with a leading expert axis (idx (E, M, nc), lut (E, nc, c, N),
+//   scale (E, N), out (E, M, N)): src/repro/models/moe.py::expert_proj
+//   runs lut_gemm_pallas vmapped over the experts under fuse=False.
 //
 // What bounds it on the H100: bytes. It must read the index tensor and
 // each LUT row that some index selects, once: at decode (M = 8, c = 16)
@@ -36,6 +39,10 @@
 //    an int8 result is (float)(int32 sum) * scale[n], B1's expression,
 //    so B4(B3(x)) == B1(x) bit for bit on int8 LUTs, and on float LUTs
 //    wherever this launch's cluster size and partitions are B1's.
+//  * A grouped launch (E experts) is one grid, as B1's: grid z holds E x
+//    the row groups, each block moves its operand pointers to its
+//    expert's (64-bit offsets), and the cluster size is planned over the
+//    clusters of all E experts. At E = 1 it is the ungrouped launch.
 //  * The general path lives in the same kernel: any M (row groups in grid
 //    z), c up to 256, ragged nc and N (masked), and LUTs whose rows are
 //    not 16-byte aligned (element loads).
@@ -53,6 +60,10 @@ lut_gemm_kernel(const int* __restrict__ idx, const LT* __restrict__ lut,
                 int M, int nc, int c, int N, Geometry g) {
   extern __shared__ __align__(16) unsigned char smem[];
   const Tile t = tile_of<LT>(g, M, nc);
+  idx = expert_ptr(idx, t.e, (size_t)M * nc);
+  lut = expert_ptr(lut, t.e, (size_t)nc * c * N);
+  scale = expert_ptr(scale, t.e, (size_t)N);
+  out = expert_ptr(out, t.e, (size_t)M * N);
   copy_scale<LT>(smem, g, scale, t.n0, N);
   load_indices(idx, smem + g.off_idx, nc, t, idx_rows(R));
   sum_block<LT, R>(lut, scale, out, smem, g, c, N, t);
@@ -69,9 +80,9 @@ constexpr int FIXED_SUBSPACES = 12;
 
 template <typename LT, int R>
 cudaError_t launch_r(const int* idx, const void* lut, const float* scale,
-                     float* out, int M, int nc, int c, int N,
+                     float* out, int E, int M, int nc, int c, int N,
                      cudaStream_t st, int* info) {
-  const Shape s{M, nc, c, 0, N, R, false,
+  const Shape s{E, M, nc, c, 0, N, R, false,
                 (uintptr_t)lut % 16 == 0 &&
                     ((size_t)N * sizeof(LT)) % 16 == 0};
   return launch_cluster<LT>(lut_gemm_kernel<LT, R>, FIXED_SUBSPACES, s, st,
@@ -82,27 +93,29 @@ cudaError_t launch_r(const int* idx, const void* lut, const float* scale,
 // Rows a thread sums: 1, 2 or 4 (up to 16, 32 or 64 rows a block).
 template <typename LT>
 cudaError_t launch_lt(const int* idx, const void* lut, const float* scale,
-                      float* out, int M, int nc, int c, int N,
+                      float* out, int E, int M, int nc, int c, int N,
                       cudaStream_t st, int* info) {
   const int rows = M < ROW_CAP ? M : ROW_CAP;
   if (rows <= SLOTS)
-    return launch_r<LT, 1>(idx, lut, scale, out, M, nc, c, N, st, info);
+    return launch_r<LT, 1>(idx, lut, scale, out, E, M, nc, c, N, st, info);
   if (rows <= 2 * SLOTS)
-    return launch_r<LT, 2>(idx, lut, scale, out, M, nc, c, N, st, info);
-  return launch_r<LT, 4>(idx, lut, scale, out, M, nc, c, N, st, info);
+    return launch_r<LT, 2>(idx, lut, scale, out, E, M, nc, c, N, st, info);
+  return launch_r<LT, 4>(idx, lut, scale, out, E, M, nc, c, N, st, info);
 }
 
 }  // namespace
 
-// lut_dtype: 0 f32, 1 bf16, 2 int8. scale may be null. Enqueues one
-// kernel on stream and nothing else; with info non-null it launches
-// nothing and writes the launch's geometry (vq_gather.cuh,
-// launch_cluster). Returns a cudaError_t.
+// E experts (1: no expert axis), each with its own idx (M, nc), lut and
+// scale, stored one after another. lut_dtype: 0 f32, 1 bf16, 2 int8.
+// scale may be null. Enqueues one kernel on stream and nothing else;
+// with info non-null it launches nothing and writes the launch's
+// geometry (vq_gather.cuh, launch_cluster). Returns a cudaError_t.
 extern "C" int lut_gemm_launch(const void* idx, const void* lut,
-                               const void* scale, void* out, int M, int nc,
-                               int c, int N, int lut_dtype, void* stream,
-                               int* info) {
-  if (M <= 0 || nc <= 0 || N <= 0 || c < 1 || c > 256 || lut_dtype < 0 ||
+                               const void* scale, void* out, int E, int M,
+                               int nc, int c, int N, int lut_dtype,
+                               void* stream, int* info) {
+  if (E <= 0 || M <= 0 || nc <= 0 || N <= 0 || c < 1 || c > 256 ||
+      lut_dtype < 0 ||
       lut_dtype > 2)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -111,10 +124,11 @@ extern "C" int lut_gemm_launch(const void* idx, const void* lut,
   float* op = static_cast<float*>(out);
   cudaError_t err;
   if (lut_dtype == 2)
-    err = launch_lt<int8_t>(ip, lut, sp, op, M, nc, c, N, st, info);
+    err = launch_lt<int8_t>(ip, lut, sp, op, E, M, nc, c, N, st, info);
   else if (lut_dtype == 0)
-    err = launch_lt<float>(ip, lut, sp, op, M, nc, c, N, st, info);
+    err = launch_lt<float>(ip, lut, sp, op, E, M, nc, c, N, st, info);
   else
-    err = launch_lt<__nv_bfloat16>(ip, lut, sp, op, M, nc, c, N, st, info);
+    err = launch_lt<__nv_bfloat16>(ip, lut, sp, op, E, M, nc, c, N, st,
+                                   info);
   return (int)err;
 }

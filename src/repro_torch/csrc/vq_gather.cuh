@@ -33,6 +33,16 @@
 //     geometries coincide.
 // The host side (plan, launch_cluster) picks the cluster size per shape
 // from the card's occupancy report and caches it.
+//
+// Grouped launches (a leading expert axis, as the JAX package vmaps the
+// Pallas kernels over the experts of an MoE layer): E independent
+// problems of one shape in one launch. Grid z holds E x the row groups;
+// a block takes its expert e = blockIdx.z / groups and moves every
+// operand pointer by e times that operand's expert stride, in 64-bit
+// arithmetic (a dbrx-132b expert table is 2.11e9 bytes); all indexing
+// inside one expert stays as for E = 1, so a launch at E = 1 is the
+// ungrouped kernel bit for bit. plan counts the clusters of all E
+// experts when it sizes the cluster.
 
 #pragma once
 
@@ -506,21 +516,30 @@ __device__ __forceinline__ void finish_share(
   }
 }
 
-// Where a block of B1 or B4 sits: columns n0 .., subspaces k0 .. k0+kn
-// (the cluster spans grid y, so blockIdx.y is the block's rank), rows
-// m0 .. m0+mt.
+// Where a block of B1 or B4 sits: expert e, columns n0 .., subspaces
+// k0 .. k0+kn (the cluster spans grid y, so blockIdx.y is the block's
+// rank), rows m0 .. m0+mt of its expert (grid z = E x row groups).
 struct Tile {
-  int n0, k0, kn, m0, mt;
+  int e, n0, k0, kn, m0, mt;
 };
 template <typename LT>
 __device__ __forceinline__ Tile tile_of(const Geometry& g, int M, int nc) {
   Tile t;
+  const int groups = (M + ROW_CAP - 1) / ROW_CAP;
+  t.e = (int)blockIdx.z / groups;
   t.n0 = blockIdx.x * tile_cols<LT>();
   t.k0 = (int)((long)blockIdx.y * nc / g.cs);
   t.kn = (int)((long)(blockIdx.y + 1) * nc / g.cs) - t.k0;
-  t.m0 = blockIdx.z * ROW_CAP;
+  t.m0 = ((int)blockIdx.z - t.e * groups) * ROW_CAP;
   t.mt = min(ROW_CAP, M - t.m0);
   return t;
+}
+
+// An expert's operand: p moved by expert e's stride of `per` elements,
+// in 64-bit arithmetic.
+template <typename T>
+__device__ __forceinline__ T* expert_ptr(T* p, int e, size_t per) {
+  return p == nullptr ? p : p + (size_t)e * per;
 }
 
 // The tile's scale columns go to shared memory by cp.async now;
@@ -603,15 +622,15 @@ inline void cluster_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute* attr,
   clus::config(cfg, attr, grid, THREADS, dim3(1, cs, 1), smem, st);
 }
 
-// What a launch of B1 or B4 computes: v = 0 for B4 (no assignment); r
-// rows a thread sums.
+// What a launch of B1 or B4 computes: E experts of M rows each; v = 0
+// for B4 (no assignment); r rows a thread sums.
 struct Shape {
-  int M, nc, c, v, N, r;
+  int E, M, nc, c, v, N, r;
   bool vec_x, vec_lut;
 };
 
 using PlanKey = std::tuple<const void*, int, int, int, int, int, int, int,
-                           int>;
+                           int, int>;
 inline std::mutex plan_mutex;
 inline std::map<PlanKey, Geometry> plans;
 
@@ -620,15 +639,15 @@ inline std::map<PlanKey, Geometry> plans;
 // memory. The estimate is waves of resident clusters x (subspaces a
 // block + fixed), where fixed is the kernel's cost a block beyond its
 // gather (staging, assignment or index load, partition and cluster
-// sums) in units of one subspace's LUT rows. Cached per kernel, device
-// and shape.
+// sums) in units of one subspace's LUT rows; the clusters are those of
+// all E experts. Cached per kernel, device and shape.
 template <typename LT>
 cudaError_t plan(Geometry& out, const void* kern, int fixed, const Shape& s) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  const PlanKey key{kern, dev, s.M, s.nc, s.c, s.v, s.N, (int)s.vec_x,
-                    (int)s.vec_lut};
+  const PlanKey key{kern, dev, s.E, s.M, s.nc, s.c, s.v, s.N,
+                    (int)s.vec_x, (int)s.vec_lut};
   std::lock_guard<std::mutex> lock(plan_mutex);
   auto it = plans.find(key);
   if (it != plans.end()) {
@@ -643,7 +662,7 @@ cudaError_t plan(Geometry& out, const void* kern, int fixed, const Shape& s) {
   if (err != cudaSuccess) return err;
   const int tiles = (s.N + tile_cols<LT>() - 1) / tile_cols<LT>();
   const int groups = (s.M + ROW_CAP - 1) / ROW_CAP;
-  const long clusters = (long)tiles * groups;
+  const long clusters = (long)tiles * groups * s.E;
   long best = -1;
   for (int cs = 1; cs <= MAX_CLUSTER && cs <= s.nc; ++cs) {
     Geometry g;
@@ -652,7 +671,8 @@ cudaError_t plan(Geometry& out, const void* kern, int fixed, const Shape& s) {
       continue;
     cudaLaunchConfig_t cfg;
     cudaLaunchAttribute attr[1];
-    cluster_config(cfg, attr, dim3(tiles, cs, groups), cs, g.smem, 0);
+    cluster_config(cfg, attr, dim3(tiles, cs, groups * s.E), cs, g.smem,
+                   0);
     const int active = clus::max_active(kern, cfg);
     if (active < 1) continue;           // a size this card refuses
     const long waves = (clusters + active - 1) / active;
@@ -668,9 +688,10 @@ cudaError_t plan(Geometry& out, const void* kern, int fixed, const Shape& s) {
 }
 
 // Host: plan kern at this shape and launch it as one grid of clusters
-// with args followed by the geometry. With info non-null: write the
-// launch's cluster size, column tiles, row groups, subspaces a block and
-// shared memory bytes to info[0..4] and launch nothing.
+// (grid z: E x row groups) with args followed by the geometry. With info
+// non-null: write the launch's cluster size, column tiles, row groups
+// (of one expert), subspaces a block and shared memory bytes to
+// info[0..4] and launch nothing.
 template <typename LT, typename... Params, typename... Args>
 cudaError_t launch_cluster(void (*kern)(Params...), int fixed,
                            const Shape& s, cudaStream_t st, int* info,
@@ -680,7 +701,7 @@ cudaError_t launch_cluster(void (*kern)(Params...), int fixed,
   if (err != cudaSuccess) return err;
   const int tiles = (s.N + tile_cols<LT>() - 1) / tile_cols<LT>();
   const int groups = (s.M + ROW_CAP - 1) / ROW_CAP;
-  if (groups > 65535) return cudaErrorInvalidValue;
+  if ((long)groups * s.E > 65535) return cudaErrorInvalidValue;
   if (info != nullptr) {
     info[0] = g.cs; info[1] = tiles; info[2] = groups; info[3] = g.kmax;
     info[4] = g.smem;
@@ -688,7 +709,8 @@ cudaError_t launch_cluster(void (*kern)(Params...), int fixed,
   }
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
-  cluster_config(cfg, attr, dim3(tiles, g.cs, groups), g.cs, g.smem, st);
+  cluster_config(cfg, attr, dim3(tiles, g.cs, groups * s.E), g.cs, g.smem,
+                 st);
   err = cudaLaunchKernelEx(&cfg, kern, args..., g);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();

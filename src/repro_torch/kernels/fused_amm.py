@@ -10,7 +10,14 @@ on every run) through the library ``kernels._build`` makes. The plain
 version is ``kernels.ref.vq_amm_ref``; ``kernels.ops.vq_amm`` picks
 between the two by device.
 
-``vq_amm_cuda.launches`` counts launches.
+Every operand may carry a leading expert axis (x ``(E, M, nc, v)``, z
+``(E, nc, c, v)``, lut ``(E, nc, c, N)``, scale ``(E, N)``): the E
+per-expert projections of an MoE layer in one launch, as the JAX package
+vmaps ``vq_amm_pallas`` over the experts. The size limits hold per
+expert; the kernel moves between experts with 64-bit offsets.
+
+``vq_amm_cuda.launches`` counts launches (a grouped call is one);
+``vq_amm_cuda.grouped`` counts those with a leading expert axis.
 """
 from __future__ import annotations
 
@@ -33,7 +40,7 @@ def _lib():
     lib = _build.load("fused_amm")
     if lib.vq_amm_launch.argtypes is None:
         lib.vq_amm_launch.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                      _I, _I, _I, _I, _P, _P]
+                                      _I, _I, _I, _I, _I, _P, _P]
         lib.vq_amm_launch.restype = _I
     return lib
 
@@ -43,6 +50,31 @@ def _check(cond: bool, msg: str) -> None:
         raise ValueError(f"vq_amm_cuda: {msg}")
 
 
+def expert_count(name: str, lead: torch.Tensor, dims: int,
+                 others) -> int:
+    """The expert count E of a kernel call: 1 when ``lead`` is
+    ``dims``-d, its leading axis when it is ``dims + 1``-d, and then
+    every tensor of ``others`` (pairs of a tensor and its ungrouped rank)
+    must lead with the same E. Raises ``ValueError`` naming ``name``
+    otherwise."""
+    def check(cond, msg):
+        if not cond:
+            raise ValueError(f"{name}: {msg}")
+    check(lead.dim() in (dims, dims + 1),
+          f"expected {dims} dims, or {dims + 1} with a leading expert axis; "
+          f"got {tuple(lead.shape)}")
+    grouped = lead.dim() == dims + 1
+    e = lead.shape[0] if grouped else 1
+    for t, rank in others:
+        check(t.dim() == rank + grouped,
+              "operands must all have a leading expert axis or none: "
+              f"{tuple(lead.shape)} against {tuple(t.shape)}")
+        check(not grouped or t.shape[0] == e,
+              f"expert counts differ: {e} against {tuple(t.shape)}")
+    check(e >= 1, "no experts")
+    return e
+
+
 def vq_amm_cuda(x: torch.Tensor, z: torch.Tensor, lut: torch.Tensor,
                 scale: Optional[torch.Tensor] = None,
                 metric: Metric = "l2") -> torch.Tensor:
@@ -50,8 +82,11 @@ def vq_amm_cuda(x: torch.Tensor, z: torch.Tensor, lut: torch.Tensor,
 
     x (M, nc, v) f32|bf16, z (nc, c, v) of x's type, lut (nc, c, N)
     f32|bf16|int8, scale (N,) f32 or None; all contiguous CUDA tensors on
-    one device. Returns out (M, N) float32. Raises on anything else, and
-    when the kernel cannot be built or launched.
+    one device. Returns out (M, N) float32. With a leading expert axis on
+    every operand (x (E, M, nc, v), z (E, nc, c, v), lut (E, nc, c, N),
+    scale (E, N)) it returns (E, M, N), one launch for all experts.
+    Raises on anything else, and when the kernel cannot be built or
+    launched.
     """
     tensors = [x, z, lut] + ([scale] if scale is not None else [])
     _check(all(t.device.type == "cuda" for t in tensors),
@@ -65,54 +100,60 @@ def vq_amm_cuda(x: torch.Tensor, z: torch.Tensor, lut: torch.Tensor,
            f"(got {x.dtype}, {z.dtype})")
     _check(lut.dtype in _LUT_DTYPES, f"lut dtype {lut.dtype}")
     _check(metric in _METRICS, f"unknown metric {metric!r}")
-    _check(x.dim() == 3 and z.dim() == 3 and lut.dim() == 3,
-           "x, z and lut must be 3-d")
-    m, nc, v = x.shape
-    n = lut.shape[2]
-    _check(tuple(z.shape) == (nc, z.shape[1], v)
-           and tuple(lut.shape) == (nc, z.shape[1], n),
+    e = expert_count("vq_amm_cuda", x, 3, [(z, 3), (lut, 3)] + (
+        [(scale, 1)] if scale is not None else []))
+    m, nc, v = x.shape[-3:]
+    n = lut.shape[-1]
+    c = z.shape[-2]
+    _check(tuple(z.shape[-3:]) == (nc, c, v)
+           and tuple(lut.shape[-3:]) == (nc, c, n),
            f"shapes x {tuple(x.shape)}, z {tuple(z.shape)}, "
            f"lut {tuple(lut.shape)} do not match")
-    c = z.shape[1]
     _check(1 <= c <= 256, f"c={c} out of range (uint8 indices)")
     if scale is not None:
-        _check(scale.dtype == torch.float32 and tuple(scale.shape) == (n,),
-               "scale must be float32 of shape (N,)")
+        _check(scale.dtype == torch.float32 and scale.shape[-1] == n,
+               "scale must be float32 of shape (N,), or (E, N)")
     if lut.dtype == torch.int8:
         _check(scale is not None, "an int8 LUT needs its scale")
+    # per expert: the kernel moves between experts with 64-bit offsets
     _check(m * n < 2 ** 31 and nc * c * n < 2 ** 31 and m * nc * v < 2 ** 31,
-           "sizes beyond int32 indexing")
+           "sizes of one expert beyond int32 indexing")
     lib = _lib()
-    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    out = torch.empty(x.shape[:-2] + (n,), dtype=torch.float32,
+                      device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.vq_amm_launch(
             x.data_ptr(), z.data_ptr(), lut.data_ptr(),
             scale.data_ptr() if scale is not None else None, out.data_ptr(),
-            m, nc, c, v, n, _X_DTYPES[x.dtype],
+            e, m, nc, c, v, n, _X_DTYPES[x.dtype],
             _LUT_DTYPES[lut.dtype], _METRICS[metric], stream, None)
     if err != 0:
         raise RuntimeError(f"vq_amm_cuda: launch failed with cudaError {err}")
     vq_amm_cuda.launches += 1
+    vq_amm_cuda.grouped += x.dim() == 4
     return out
 
 
 vq_amm_cuda.launches = 0
+vq_amm_cuda.grouped = 0
 
 
 def vq_amm_geometry(x: torch.Tensor, z: torch.Tensor,
                     lut: torch.Tensor) -> dict:
-    """The launch that ``vq_amm_cuda`` makes for these CUDA operands,
-    without making it: cluster size (k splits), column tiles, row groups,
-    subspaces a block and shared memory bytes a block."""
-    m, nc, v = x.shape
+    """The launch that ``vq_amm_cuda`` makes for these CUDA operands
+    (with or without an expert axis), without making it: experts, cluster
+    size (k splits), column tiles, row groups of one expert, subspaces a
+    block and shared memory bytes a block."""
+    e = x.shape[0] if x.dim() == 4 else 1
+    m, nc, v = x.shape[-3:]
     info = (ctypes.c_int * 5)()
     with torch.cuda.device(x.device):
         err = _lib().vq_amm_launch(
-            x.data_ptr(), z.data_ptr(), lut.data_ptr(), None, None, m, nc,
-            z.shape[1], v, lut.shape[2], _X_DTYPES[x.dtype],
+            x.data_ptr(), z.data_ptr(), lut.data_ptr(), None, None, e, m, nc,
+            z.shape[-2], v, lut.shape[-1], _X_DTYPES[x.dtype],
             _LUT_DTYPES[lut.dtype], 0, None, info)
     if err != 0:
         raise RuntimeError(f"vq_amm_geometry: cudaError {err}")
-    return dict(zip(("cluster", "tiles", "row_groups", "subspaces", "smem"),
-                    info))
+    return dict(experts=e, **dict(zip(
+        ("cluster", "tiles", "row_groups", "subspaces", "smem"), info)))

@@ -14,7 +14,13 @@ stream (no memset, no work buffer). The plain version is
 ``kernels.ref.lut_gemm_onehot``; ``kernels.ops.lut_matmul`` picks between
 the two by device.
 
-``lut_gemm_cuda.launches`` counts launches.
+Every operand may carry a leading expert axis (idx ``(E, M, nc)``, lut
+``(E, nc, c, N)``, scale ``(E, N)`` -> ``(E, M, N)``): all experts in one
+launch, as the JAX package vmaps ``lut_gemm_pallas`` over the experts of
+an MoE layer. The size limits hold per expert.
+
+``lut_gemm_cuda.launches`` counts launches (a grouped call is one);
+``lut_gemm_cuda.grouped`` counts those with a leading expert axis.
 """
 from __future__ import annotations
 
@@ -24,7 +30,7 @@ from typing import Optional
 import torch
 
 from . import _build
-from .fused_amm import _LUT_DTYPES
+from .fused_amm import _LUT_DTYPES, expert_count
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -33,7 +39,7 @@ _I = ctypes.c_int
 def _lib():
     fn = _build.load("lut_gemm").lut_gemm_launch
     if fn.argtypes is None:
-        fn.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P]
+        fn.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P]
         fn.restype = _I
     return fn
 
@@ -50,7 +56,9 @@ def lut_gemm_cuda(idx: torch.Tensor, lut: torch.Tensor,
     idx (M, nc) int32 with entries in [0, c), lut (nc, c, N)
     f32|bf16|int8, scale (N,) f32 or None (required for int8); all
     contiguous CUDA tensors on one device. Returns out (M, N) float32,
-    ``sum_k lut[k, idx[m, k], :]`` (x scale). Raises on anything else, and
+    ``sum_k lut[k, idx[m, k], :]`` (x scale); with a leading expert axis
+    on every operand (idx (E, M, nc), lut (E, nc, c, N), scale (E, N)),
+    (E, M, N) in one launch. Raises on anything else, and
     when the kernel cannot be built or launched. Entries of idx are not
     range-checked (that would cost a device read).
     """
@@ -63,48 +71,55 @@ def lut_gemm_cuda(idx: torch.Tensor, lut: torch.Tensor,
            "tensors must be contiguous")
     _check(idx.dtype == torch.int32, f"idx must be int32 (got {idx.dtype})")
     _check(lut.dtype in _LUT_DTYPES, f"lut dtype {lut.dtype}")
-    _check(idx.dim() == 2 and lut.dim() == 3, "idx 2-d and lut 3-d")
-    m, nc = idx.shape
-    _, c, n = lut.shape
-    _check(lut.shape[0] == nc, f"shapes idx {tuple(idx.shape)}, lut "
+    e = expert_count("lut_gemm_cuda", idx, 2, [(lut, 3)] + (
+        [(scale, 1)] if scale is not None else []))
+    m, nc = idx.shape[-2:]
+    c, n = lut.shape[-2:]
+    _check(lut.shape[-3] == nc, f"shapes idx {tuple(idx.shape)}, lut "
            f"{tuple(lut.shape)} do not match")
     _check(1 <= c <= 256, f"c={c} out of range (uint8 indices)")
     if scale is not None:
-        _check(scale.dtype == torch.float32 and tuple(scale.shape) == (n,),
-               "scale must be float32 of shape (N,)")
+        _check(scale.dtype == torch.float32 and scale.shape[-1] == n,
+               "scale must be float32 of shape (N,), or (E, N)")
     if lut.dtype == torch.int8:
         _check(scale is not None, "an int8 LUT needs its scale")
+    # per expert: the kernel moves between experts with 64-bit offsets
     _check(m * n < 2 ** 31 and nc * c * n < 2 ** 31,
-           "sizes beyond int32 indexing")
+           "sizes of one expert beyond int32 indexing")
     fn = _lib()
-    out = torch.empty((m, n), dtype=torch.float32, device=idx.device)
+    out = torch.empty(idx.shape[:-1] + (n,), dtype=torch.float32,
+                      device=idx.device)
     with torch.cuda.device(idx.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(idx.data_ptr(), lut.data_ptr(),
                  scale.data_ptr() if scale is not None else None,
-                 out.data_ptr(), m, nc, c, n, _LUT_DTYPES[lut.dtype], stream,
-                 None)
+                 out.data_ptr(), e, m, nc, c, n, _LUT_DTYPES[lut.dtype],
+                 stream, None)
     if err != 0:
         raise RuntimeError(f"lut_gemm_cuda: launch failed with cudaError {err}")
     lut_gemm_cuda.launches += 1
+    lut_gemm_cuda.grouped += idx.dim() == 3
     return out
 
 
 lut_gemm_cuda.launches = 0
+lut_gemm_cuda.grouped = 0
 
 
 def lut_gemm_geometry(idx: torch.Tensor, lut: torch.Tensor) -> dict:
-    """The launch that ``lut_gemm_cuda`` makes for these CUDA operands,
-    without making it: cluster size (k splits), column tiles, row groups,
-    subspaces a block and shared memory bytes a block (the keys of
+    """The launch that ``lut_gemm_cuda`` makes for these CUDA operands
+    (with or without an expert axis), without making it: experts, cluster
+    size (k splits), column tiles, row groups of one expert, subspaces a
+    block and shared memory bytes a block (the keys of
     ``fused_amm.vq_amm_geometry``)."""
-    m, nc = idx.shape
-    _, c, n = lut.shape
+    e = idx.shape[0] if idx.dim() == 3 else 1
+    m, nc = idx.shape[-2:]
+    c, n = lut.shape[-2:]
     info = (ctypes.c_int * 5)()
     with torch.cuda.device(idx.device):
-        err = _lib()(idx.data_ptr(), lut.data_ptr(), None, None, m, nc, c,
+        err = _lib()(idx.data_ptr(), lut.data_ptr(), None, None, e, m, nc, c,
                      n, _LUT_DTYPES[lut.dtype], None, info)
     if err != 0:
         raise RuntimeError(f"lut_gemm_geometry: cudaError {err}")
-    return dict(zip(("cluster", "tiles", "row_groups", "subspaces", "smem"),
-                    info))
+    return dict(experts=e, **dict(zip(
+        ("cluster", "tiles", "row_groups", "subspaces", "smem"), info)))

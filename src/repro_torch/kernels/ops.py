@@ -11,6 +11,11 @@ Dispatch is by the tensors' device alone: CPU tensors take the plain
 PyTorch version (``kernels.ref``), CUDA tensors take the kernel, which
 raises on anything it cannot run. No option selects between them and
 nothing falls back.
+
+Each also takes a leading expert axis on every operand, the per-expert
+projections of an MoE layer (``models/moe.py``), where the JAX package
+vmaps these entry points over the experts: on the card that is one
+launch of the kernel for all experts.
 """
 from __future__ import annotations
 
@@ -33,11 +38,11 @@ def vq_amm(x: torch.Tensor, z: torch.Tensor, lut: torch.Tensor,
     Args:
       x: (M, nc, v) inputs; z: (nc, c, v) centroids;
       lut: (nc, c, N) precomputed table; scale: optional (N,) dequant
-        scale (int8 LUTs).
+        scale (int8 LUTs); or each with a leading expert axis E.
       metric: "l2" | "l1" | "chebyshev".
 
-    Returns: (M, N) float32, ``sum_k lut[k, argmin_j d(x[m,k], z[k,j]), :]``
-    (x scale).
+    Returns: (M, N) float32 (grouped: (E, M, N)),
+    ``sum_k lut[k, argmin_j d(x[m,k], z[k,j]), :]`` (x scale).
     """
     if x.device.type == "cpu":
         return _ref.vq_amm_ref(x, z, lut, scale, metric)
@@ -49,7 +54,8 @@ def vq_assign(x: torch.Tensor, z: torch.Tensor,
     """CCM stage: nearest-centroid assignment per subspace.
 
     x (M, nc, v) inputs, z (nc, c, v) centroids -> (M, nc) int32 indices
-    (the lowest index wins a tie).
+    (the lowest index wins a tie); grouped: (E, M, nc, v), (E, nc, c, v)
+    -> (E, M, nc).
     """
     if x.device.type == "cpu":
         return _ref.assign_ref(x, z, metric)
@@ -62,7 +68,8 @@ def lut_matmul(idx: torch.Tensor, lut: torch.Tensor,
 
     idx (M, nc) int32 from :func:`vq_assign`, lut (nc, c, N), scale
     optional (N,) dequant scale (int8 LUTs) -> (M, N) float32,
-    ``sum_k lut[k, idx[m, k], :]`` (x scale).
+    ``sum_k lut[k, idx[m, k], :]`` (x scale); grouped: (E, M, nc),
+    (E, nc, c, N), (E, N) -> (E, M, N).
     """
     if idx.device.type == "cpu":
         return _ref.lut_gemm_onehot(idx, lut, scale)

@@ -8,7 +8,9 @@ CUDA kernels against on the card:
   * ``vq_amm_ref``      kernel B1 (``kernels/fused_amm.py``)
 Each counts its calls (``.calls``), so a run on the card can show that its
 main path never took a plain version. Distances are taken in float32
-whatever the input type, as the kernels compute them.
+whatever the input type, as the kernels compute them. Each also takes a
+leading expert axis on every operand (the grouped form an MoE layer
+calls): a loop over the experts of the ungrouped form, stacked.
 
 Oracles, for tests only: ``flash_decode_ref`` (whole-softmax paged decode)
 and ``flash_decode_kvq_ref`` (dequantize the code pool, then the same).
@@ -36,36 +38,52 @@ def _lut_gemm(idx, lut, scale):
     return out
 
 
+def _per_expert(fn, grouped: bool, *args):
+    """fn over the experts of a grouped call (every non-None argument
+    with a leading expert axis), stacked; fn itself otherwise."""
+    if not grouped:
+        return fn(*args)
+    return torch.stack([fn(*(a if a is None else a[i] for a in args))
+                        for i in range(args[0].shape[0])])
+
+
 def assign_ref(x: torch.Tensor, z: torch.Tensor,
                metric: Metric = "l2") -> torch.Tensor:
     """Nearest-centroid assignment per subspace (plain version of B3).
 
     x (M, nc, v) inputs, z (nc, c, v) centroids -> (M, nc) int32; the
-    lowest index wins a tie.
+    lowest index wins a tie. Grouped: x (E, M, nc, v), z (E, nc, c, v)
+    -> (E, M, nc).
     """
     assign_ref.calls += 1
-    return _assign(x, z, metric)
+    return _per_expert(lambda xx, zz: _assign(xx, zz, metric), x.dim() == 4,
+                       x, z)
 
 
 def lut_gemm_onehot(idx: torch.Tensor, lut: torch.Tensor,
                     scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """out[m, n] = sum_k lut[k, idx[m, k], n] (x scale[n]) as a one-hot
     contraction in float32 (plain version of B4). idx (M, nc) int32,
-    lut (nc, c, N) float or int8 -> (M, N) float32."""
+    lut (nc, c, N) float or int8 -> (M, N) float32. Grouped: idx
+    (E, M, nc), lut (E, nc, c, N), scale (E, N) -> (E, M, N)."""
     lut_gemm_onehot.calls += 1
-    return _lut_gemm(idx, lut, scale)
+    return _per_expert(_lut_gemm, idx.dim() == 3, idx, lut, scale)
 
 
 def vq_amm_ref(x: torch.Tensor, z: torch.Tensor, lut: torch.Tensor,
                scale: Optional[torch.Tensor] = None,
                metric: Metric = "l2") -> torch.Tensor:
     """Plain version of the fused assign + lookup: x (M, nc, v),
-    z (nc, c, v), lut (nc, c, N) -> (M, N) float32.
+    z (nc, c, v), lut (nc, c, N) -> (M, N) float32. Grouped: x
+    (E, M, nc, v), z (E, nc, c, v), lut (E, nc, c, N), scale (E, N)
+    -> (E, M, N).
 
     ``vq_amm_ref.calls`` counts calls, so a run on the card can show that
     its main path never took the plain version."""
     vq_amm_ref.calls += 1
-    return _lut_gemm(_assign(x, z, metric), lut, scale)
+    return _per_expert(
+        lambda xx, zz, ll, ss: _lut_gemm(_assign(xx, zz, metric), ll, ss),
+        x.dim() == 4, x, z, lut, scale)
 
 
 assign_ref.calls = 0

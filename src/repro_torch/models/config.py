@@ -2,7 +2,8 @@
 
 Kept field for field identical to the JAX package's ``ModelConfig`` (a
 test holds the two against each other), so configurations carry over
-unchanged. Only the dense family is served by this port so far.
+unchanged. The port serves the dense and MoE families so far; the
+others raise in ``Model`` (ROADMAP.md queue A item 9).
 """
 from __future__ import annotations
 

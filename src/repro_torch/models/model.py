@@ -1,12 +1,14 @@
-"""The dense decoder served through the paged KV pool (port of
-``repro.models.model``, dense family; the serving entry points: paged for
-the continuous-batching engine, dense for the batch-to-completion one;
-``forward`` and ``loss`` wait for training, ROADMAP.md queue A item 10).
+"""The decoder served through the paged KV pool (port of
+``repro.models.model``, dense and MoE families; the serving entry points:
+paged for the continuous-batching engine, dense for the batch-to-completion
+one; ``forward`` and ``loss`` wait for training, ROADMAP.md queue A item
+10).
 
 Params are a plain dict: ``embed``, ``final_norm`` (and ``head`` when
 embeddings are untied), and ``blocks``, a list with one dict per layer
-(``{"attn": {...}, "mlp": {...}}``). Where the JAX package stacks layers
-on a leading axis and scans, this port loops over the list.
+(``{"attn": {...}, "mlp": {...}}``, or ``{"attn": {...}, "moe": {...}}``
+for the MoE family, ``models/moe.py``). Where the JAX package stacks
+layers on a leading axis and scans, this port loops over the list.
 
 API:
   Model(cfg, device)                                     device="cuda"
@@ -40,16 +42,22 @@ from repro_torch.core.lut import (DENSE, QuantConfig, lut_linear_init,
 from repro_torch.device import resolve_device
 from .config import ModelConfig
 from .layers import attention, mlp, rms_norm
+from .moe import init_moe, moe_ffn
 
 Params = Dict[str, Any]
 
 
+#: The families this port serves: attention blocks with an MLP or an MoE
+#: FFN. The others (ssm, hybrid, audio, vlm) wait for queue A item 9.
+FAMILIES = ("dense", "moe")
+
+
 class Model:
-    """A dense decoder on ``device`` (default the CUDA card; raises when
-    there is none)."""
+    """A dense or MoE decoder on ``device`` (default the CUDA card; raises
+    when there is none)."""
 
     def __init__(self, cfg: ModelConfig, device="cuda"):
-        if cfg.family != "dense":
+        if cfg.family not in FAMILIES:
             raise NotImplementedError(
                 f"family {cfg.family!r} is not ported yet: ROADMAP.md "
                 "queue A item 9 (Other families)")
@@ -82,21 +90,24 @@ class Model:
         d, hd, f = cfg.d_model, cfg.head_dim, cfg.d_ff
         h, kvh = cfg.num_heads, cfg.num_kv_heads
         zeros = torch.zeros((d,), dtype=self.dtype, device=self.device)
-        return {
+        block = {
             "attn": {
                 "wq": self._init_proj(gen, d, h * hd, qc, cfg.qkv_bias),
                 "wk": self._init_proj(gen, d, kvh * hd, qc, cfg.qkv_bias),
                 "wv": self._init_proj(gen, d, kvh * hd, qc, cfg.qkv_bias),
                 "wo": self._init_proj(gen, h * hd, d, qc),
                 "norm": zeros.clone(),
-            },
-            "mlp": {
+            }}
+        if cfg.family == "moe":
+            block["moe"] = init_moe(gen, cfg, qc, self.dtype, self.device)
+        else:
+            block["mlp"] = {
                 "wg": self._init_proj(gen, d, f, qc),
                 "wu": self._init_proj(gen, d, f, qc),
                 "wd": self._init_proj(gen, f, d, qc),
                 "norm": zeros.clone(),
-            },
-        }
+            }
+        return block
 
     def init(self, generator: torch.Generator,
              qc: QuantConfig = DENSE) -> Params:
@@ -141,9 +152,10 @@ class Model:
                     write, kv_start: Optional[torch.Tensor] = None
                     ) -> torch.Tensor:
         """The layer loop: attention (reading layer li of the pool, or of
-        a dense cache when ``phys`` is None) then the MLP, with
-        ``write(li, k_new, v_new)`` storing the layer's fresh rows once
-        its attention has read the pool."""
+        a dense cache when ``phys`` is None) then the MLP or the MoE FFN
+        (whose load-balancing loss serving drops, as the JAX entry points
+        do), with ``write(li, k_new, v_new)`` storing the layer's fresh
+        rows once its attention has read the pool."""
         cb = kv.get(CODEBOOK_KEY)
         for li, (p_l, win) in enumerate(zip(params["blocks"],
                                             self._windows())):
@@ -156,7 +168,10 @@ class Model:
             write(li, self._encode_rows(cb_l, "k", k_new),
                   self._encode_rows(cb_l, "v", v_new))
             x = x + a
-            x = x + mlp(p_l["mlp"], x, self.cfg, qc)
+            if "moe" in p_l:
+                x = x + moe_ffn(p_l["moe"], x, self.cfg, qc)[0]
+            else:
+                x = x + mlp(p_l["mlp"], x, self.cfg, qc)
         return x
 
     # ------------------------------------------------------------------

@@ -21,7 +21,15 @@ bfloat16, both B5 forms, its scaled query bit for bit the plain
 version's, 16 splits at one slot of 4096 tokens (G=1 D=128, G=8 D=128,
 G=2 D=256), and one flash_decode_paged call as one kernel; B1, B3 and B4
 at the projection shapes of yi-9b and gemma3-4b (M = 8, 32, 40); one
-``Model.verify_paged`` call through the kernels against its plain run.
+``Model.verify_paged`` call through the kernels against its plain run;
+grouped B1, B3 and B4 (a leading expert axis, one launch for all
+experts) against their plain versions at E of 1, 2 and 64, E = 1 bit for
+bit the ungrouped launch, one kernel a grouped call, B4(B3(x)) == B1(x)
+bit for bit on float LUTs, 18 experts of a dbrx-132b expert shape whose
+int8 tables pass 2^31 bytes, the wrappers' refusals of mismatched
+experts, and one
+deepseek-moe-16b smoke decode step with one grouped launch per expert
+projection.
 
 Needs a CUDA device and ``nvcc``: marked ``cuda``, and skipped when torch
 sees no card. On a machine with an H100, from the repository root:
@@ -46,7 +54,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.configs import gemma3_4b  # noqa: E402
+from repro_torch.configs import deepseek_moe_16b, gemma3_4b  # noqa: E402
 from repro_torch.core.lut import QuantConfig  # noqa: E402
 from repro_torch.device import enqueued  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
@@ -796,3 +804,235 @@ def test_verify_paged_through_the_kernels_matches_its_plain_run(
     for key in ("k", "v"):
         torch.testing.assert_close(kv[key][:, :-1], kv_p[key][:, :-1],
                                    rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# grouped launches: a leading expert axis on every operand (MoE experts)
+# ---------------------------------------------------------------------------
+
+# (M, nc, v, c, N) of one expert: ragged N, rows past one row group, v of
+# 3 (element loads), c of 9 and 256
+GROUPED_SHAPES = [(8, 32, 8, 16, 200), (23, 11, 8, 16, 130),
+                  (1, 3, 4, 9, 50), (65, 29, 3, 16, 130),
+                  (9, 12, 8, 256, 70)]
+
+
+def _grouped_inputs(e, shape, x_dtype, lut_dtype, seed, dev):
+    """E experts' operands of one shape, each from _b1_inputs, stacked:
+    x (E, M, nc, v), z (E, nc, c, v), lut (E, nc, c, N), scale (E, N) or
+    None."""
+    parts = [_b1_inputs(shape, x_dtype, lut_dtype, seed + i, dev)
+             for i in range(e)]
+    x, z, lut = (torch.stack([p[j] for p in parts]) for j in range(3))
+    scale = None if parts[0][3] is None else torch.stack(
+        [p[3] for p in parts])
+    return x, z, lut, scale
+
+
+@pytest.mark.parametrize("lut_dtype", [torch.float32, torch.bfloat16,
+                                       torch.int8])
+@pytest.mark.parametrize("metric", ["l2", "l1", "chebyshev"])
+def test_grouped_kernels_match_plain(dev, metric, lut_dtype):
+    """B1, B3 and B4 with E of 1, 2 and 64 experts in one launch against
+    their plain versions (a loop over the experts), x in float32 and
+    bfloat16: indices exact, int8 sums exact, float sums to 1e-4. Each
+    call counts one launch, and one grouped launch."""
+    for e in (1, 2, 64):
+        for i, shape in enumerate(GROUPED_SHAPES):
+            for x_dtype in (torch.float32, torch.bfloat16):
+                x, z, lut, scale = _grouped_inputs(e, shape, x_dtype,
+                                                   lut_dtype, 10 * i, dev)
+                wrappers = (vq_amm_cuda, vq_assign_cuda, lut_gemm_cuda)
+                launches = [(w.launches, w.grouped) for w in wrappers]
+                out = vq_amm_cuda(x, z, lut, scale, metric)
+                idx = vq_assign_cuda(x, z, metric)
+                two = lut_gemm_cuda(idx, lut, scale)
+                assert [(w.launches, w.grouped) for w in wrappers] == [
+                    (n + 1, g + 1) for n, g in launches]
+                assert out.shape == (e, shape[0], shape[4])
+                assert torch.equal(idx, tref.assign_ref(x, z, metric))
+                want = tref.vq_amm_ref(x, z, lut, scale, metric)
+                tol = 1e-6 if lut_dtype == torch.int8 else 1e-4
+                torch.testing.assert_close(out, want, rtol=tol, atol=tol)
+                torch.testing.assert_close(two, want, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("lut_dtype", [torch.float32, torch.bfloat16,
+                                       torch.int8])
+def test_grouped_launch_of_one_expert_is_the_ungrouped_one(dev, lut_dtype):
+    """E = 1: the grouped launch gives the 3-d call's bits, and takes its
+    geometry; E = 64: each expert's slice of the output is the 3-d call on
+    that expert's operands, bit for bit, where the two launches take one
+    cluster size."""
+    for i, shape in enumerate(GROUPED_SHAPES):
+        x, z, lut, scale = _grouped_inputs(1, shape, torch.bfloat16,
+                                           lut_dtype, i, dev)
+        xr = torch.randn(x.shape, device=dev).to(x.dtype)
+        s0 = None if scale is None else scale[0]
+        assert torch.equal(vq_amm_cuda(xr, z, lut, scale)[0],
+                           vq_amm_cuda(xr[0], z[0], lut[0], s0))
+        idx = vq_assign_cuda(xr, z)
+        assert torch.equal(idx[0], vq_assign_cuda(xr[0], z[0]))
+        assert torch.equal(lut_gemm_cuda(idx, lut, scale)[0],
+                           lut_gemm_cuda(idx[0], lut[0], s0))
+        g = vq_amm_geometry(xr, z, lut)
+        assert g.pop("experts") == 1
+        assert g == {k: v for k, v in vq_amm_geometry(
+            xr[0], z[0], lut[0]).items() if k != "experts"}
+    x, z, lut, scale = _grouped_inputs(64, GROUPED_SHAPES[0], torch.bfloat16,
+                                       lut_dtype, 3, dev)
+    out = vq_amm_cuda(x, z, lut, scale)
+    g64 = vq_amm_geometry(x, z, lut)
+    for i in range(64):
+        s = None if scale is None else scale[i]
+        if lut_dtype == torch.int8 or vq_amm_geometry(
+                x[i], z[i], lut[i])["cluster"] == g64["cluster"]:
+            assert torch.equal(out[i], vq_amm_cuda(x[i], z[i], lut[i], s))
+
+
+@pytest.mark.parametrize("lut_dtype", [torch.float32, torch.bfloat16,
+                                       torch.int8])
+def test_grouped_calls_are_one_kernel(dev, lut_dtype):
+    """A grouped call of B1, B3 or B4 at deepseek-moe-16b's routed shape
+    (64 experts, 8 rows, 2048 -> 1408) enqueues one kernel and nothing
+    else, and two launches give the same bits."""
+    one = {"kernels": 1, "copies": 0, "memsets": 0, "other": 0}
+    x, z, lut, scale = _grouped_inputs(64, (8, 256, 8, 16, 1408),
+                                       torch.bfloat16, lut_dtype, 0, dev)
+    xr = torch.randn(x.shape, device=dev).to(x.dtype)
+    idx = vq_assign_cuda(xr, z)
+    assert enqueued(lambda: vq_amm_cuda(xr, z, lut, scale)) == one
+    assert enqueued(lambda: vq_assign_cuda(xr, z)) == one
+    assert enqueued(lambda: lut_gemm_cuda(idx, lut, scale)) == one
+    assert torch.equal(vq_amm_cuda(xr, z, lut, scale),
+                       vq_amm_cuda(xr, z, lut, scale))
+    assert torch.equal(lut_gemm_cuda(idx, lut, scale),
+                       lut_gemm_cuda(idx, lut, scale))
+
+
+@pytest.mark.parametrize("lut_dtype", [torch.float32, torch.bfloat16])
+def test_grouped_two_pass_equals_fused_bitwise_on_float_luts(dev, lut_dtype):
+    """B4(B3(x)) == B1(x) bit for bit on float LUTs with an expert axis,
+    wherever the two grouped launches take one cluster size and row
+    groups; at least one shape must."""
+    same = 0
+    for e in (2, 64):
+        for i, shape in enumerate(GROUPED_SHAPES):
+            x, z, lut, _ = _grouped_inputs(e, shape, torch.bfloat16,
+                                           lut_dtype, i, dev)
+            xr = torch.randn(x.shape, device=dev).to(x.dtype)
+            idx = vq_assign_cuda(xr, z)
+            g1, g4 = vq_amm_geometry(xr, z, lut), lut_gemm_geometry(idx, lut)
+            if (g1["cluster"], g1["row_groups"]) != (g4["cluster"],
+                                                     g4["row_groups"]):
+                continue
+            same += 1
+            assert torch.equal(lut_gemm_cuda(idx, lut, None),
+                               vq_amm_cuda(xr, z, lut, None))
+    assert same >= 1
+
+
+def test_grouped_kernels_beyond_2gb_of_expert_tables(dev):
+    """Expert tables past 2^31 elements: 18 experts of dbrx-132b's
+    6144 -> 10752 at 8 rows (a dbrx layer's 16 hold 2.11e9 bytes, just
+    below 2^31 = 2.147e9), an int8 table of 2.38e9 bytes whose last
+    expert starts at 2.25e9: its outputs, and those of experts below the
+    line, must equal the plain version's (64-bit expert offsets)."""
+    e, m, nc, c, n = 18, 8, 768, 16, 10752
+    gen = torch.Generator(device=dev).manual_seed(0)
+    z = (0.02 * torch.randn((e, nc, c, 8), generator=gen, device=dev)).to(
+        torch.bfloat16)
+    pick = torch.randint(0, c, (e, m, nc), generator=gen, device=dev)
+    x = z.float()[torch.arange(e, device=dev)[:, None, None],
+                  torch.arange(nc, device=dev)[None, None], pick]
+    x = (x + 0.002 * torch.randn(x.shape, generator=gen, device=dev)).to(
+        torch.bfloat16)
+    lut = torch.randint(-127, 128, (e, nc, c, n), generator=gen, device=dev,
+                        dtype=torch.int8)
+    scale = 1e-3 + 1e-2 * torch.rand((e, n), generator=gen, device=dev)
+    assert (e - 1) * nc * c * n > 2 ** 31
+    out = vq_amm_cuda(x, z, lut, scale)
+    idx = vq_assign_cuda(x, z)
+    two = lut_gemm_cuda(idx, lut, scale)
+    for i in (0, 8, 15, 16, 17):         # 17 starts past 2^31 elements
+        assert torch.equal(idx[i], tref.assign_ref(x[i], z[i]))
+        want = tref.vq_amm_ref(x[i], z[i], lut[i], scale[i])
+        torch.testing.assert_close(out[i], want, rtol=1e-6, atol=1e-6)
+        assert torch.equal(two[i], out[i])
+
+
+def test_grouped_wrappers_refuse_mismatched_experts(dev):
+    """Mismatched expert counts, a missing expert axis on one operand and
+    a non-contiguous expert slice: ValueError, and no launch."""
+    x, z, lut, scale = _grouped_inputs(4, GROUPED_SHAPES[0], torch.bfloat16,
+                                       torch.int8, 0, dev)
+    idx = vq_assign_cuda(x, z)
+    launches = (vq_amm_cuda.launches, vq_assign_cuda.launches,
+                lut_gemm_cuda.launches)
+    bad_b1 = [(x[:3], z, lut, scale), (x, z, lut[:3], scale),
+              (x, z, lut, scale[:3]), (x, z[0], lut, scale),
+              (x, z, lut, scale[0]), (x[::2], z[::2], lut[::2], scale[::2]),
+              (x, z, lut[:, ::2], scale)]
+    for args in bad_b1:
+        with pytest.raises(ValueError):
+            vq_amm_cuda(*args)
+    for args in [(x[:3], z), (x, z[0]), (x[::2], z[::2])]:
+        with pytest.raises(ValueError):
+            vq_assign_cuda(*args)
+    for args in [(idx[:3], lut, scale), (idx, lut[0], scale[0]),
+                 (idx[::2], lut[::2], scale[::2])]:
+        with pytest.raises(ValueError):
+            lut_gemm_cuda(*args)
+    assert (vq_amm_cuda.launches, vq_assign_cuda.launches,
+            lut_gemm_cuda.launches) == launches
+
+
+@pytest.mark.parametrize("fuse", [True, False], ids=["fused", "two-pass"])
+def test_moe_decode_runs_one_grouped_launch_per_expert_projection(dev,
+                                                                  fuse):
+    """deepseek-moe-16b smoke on the card (int8 LUTs): one decode_paged
+    step launches B1 (or B3 and B4) once for each of a layer's 4
+    attention, 3 routed and 3 shared-expert projections (the 6 expert ones
+    grouped), and never a plain version; its logits equal the same step through the plain versions
+    (exact int8 sums; routing and attention are the same torch ops)."""
+    model = Model(deepseek_moe_16b.smoke_config(), device=dev)
+    qc = QuantConfig(mode="lut_infer", lut_dtype="int8", fuse=fuse)
+    params = model.init(torch.Generator(device=dev).manual_seed(0), qc)
+    ps, npg = 8, 4
+    kv = model.init_paged_cache(ps * npg, ps, 3 * npg)
+    table = torch.arange(3 * npg, dtype=torch.int32,
+                         device=dev).reshape(3, npg)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    vocab = model.cfg.vocab_size
+    for slot, n in enumerate((13, 9, 3)):
+        toks = torch.randint(0, vocab, (1, 16), generator=gen, device=dev,
+                             dtype=torch.int32)
+        model.prefill_paged(params, toks, kv, table, slot, 0, n, qc)
+    toks = torch.randint(0, vocab, (3, 1), generator=gen, device=dev,
+                         dtype=torch.int32)
+    pos = torch.tensor([13, 9, 3], dtype=torch.int32, device=dev)
+    kv_p = {key: t.clone() for key, t in kv.items()}
+    wrappers = (vq_amm_cuda, vq_assign_cuda, lut_gemm_cuda)
+    plain = (tref.vq_amm_ref, tref.assign_ref, tref.lut_gemm_onehot)
+    launches = [w.launches for w in wrappers]
+    grouped = [w.grouped for w in wrappers]
+    calls = [p.calls for p in plain]
+    got = model.decode_paged(params, toks, kv, table, pos, qc)
+    torch.cuda.synchronize()
+    per_step = 10 * model.cfg.num_layers
+    want_launches = ([per_step, 0, 0] if fuse else [0, per_step, per_step])
+    assert [w.launches - n for w, n in zip(wrappers, launches)] == \
+        want_launches
+    assert [w.grouped - n for w, n in zip(wrappers, grouped)] == [
+        n * 6 // 10 for n in want_launches]
+    assert [p.calls for p in plain] == calls
+    for w, p in zip(("vq_amm_cuda", "vq_assign_cuda", "lut_gemm_cuda"),
+                    plain):
+        setattr(ops, w, p)
+    try:
+        want = model.decode_paged(params, toks, kv_p, table, pos, qc)
+    finally:
+        for w, k in zip(("vq_amm_cuda", "vq_assign_cuda", "lut_gemm_cuda"),
+                        wrappers):
+            setattr(ops, w, k)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)

@@ -50,7 +50,8 @@ def pair():
     return jm, params_j, qc_j, tm, params_t, qc_t
 
 
-PORTED = ("qwen1.5-4b", "yi-9b", "gemma3-4b", "gemma3-27b")
+PORTED = ("qwen1.5-4b", "yi-9b", "gemma3-4b", "gemma3-27b",
+          "deepseek-moe-16b", "dbrx-132b")
 
 
 def test_config_copies_match_jax_field_for_field():
