@@ -32,15 +32,17 @@ run at full width and depth, each freed before the next, each with a
 logit check. In float32, one verify_paged call must give the logits of
 a chain of decode_paged steps over the same tokens (qwen1.5-4b, yi-9b,
 gemma3-4b, at full depth). Five serving phases run full-width qwen1.5-4b
-through the rest of the serving stack, each also in float32 cut to 4
-layers where streams must be identical: prefix (a shared system prompt,
+cut to its first SERVING_LAYERS layers (its weights shared; the phases
+check policy, not depth, and are host-bound, so their time is the
+depth's) through the rest of the serving stack, each also in float32 cut
+to 4 layers where streams must be identical: prefix (a shared system prompt,
 copy-on-write forks, a resumed chunk past max_seq; cold and warm on the
 fp and the code pool; one decode step over slots sharing physical pages
 against the plain versions), policy (a bounded priority queue,
 deadlines, the degradation ladder on a speculative engine), chaos (two
 replicas on one card under the canned fault schedule), baseline (the
 batch-to-completion engine beside the continuous one; B1 at its prefill
-rows) and obs (timers and tracer on). A last phase, moe, holds B1, B3 and
+rows) and obs (timers and tracer on). Then a phase, moe, holds B1, B3 and
 B4 in their grouped form (a leading expert axis, one launch for all
 experts) at deepseek-moe-16b's routed and shared expert shapes and at
 dbrx-132b's expert layer (and 18 of its experts, whose int8 table passes
@@ -51,7 +53,14 @@ each against the plain versions, how many routed pairs overflow their
 expert's capacity: real tokens and pad rows apart, by layer, with the
 experts a call chose, its largest load and the share of its router
 logits that its tokens have in common) and a float32-LUT copy cut to 4
-layers twice (tokens and logits bitwise equal).
+layers twice (tokens and logits bitwise equal). A last phase, ssm, holds
+B1, B3 and B4 at the projection shapes mamba2-2.7b and zamba2-1.2b add
+(their in_proj's dt columns, which the last column tile holds, on their
+own too), serves full-width, full-depth mamba2-2.7b twice (fused,
+two-pass) and zamba2-1.2b once (fused), each with one decode step's
+launches and a bf16 logit check, and a float32-LUT copy of each cut in
+depth twice (bitwise) and with 8 concurrent requests on 4 slots (each
+stream equal to the request served alone).
 
     python3 chip_smoke.py [--seed N]
 
@@ -60,8 +69,9 @@ without a result line, when there is no CUDA device or any check fails.
 Its last line is ``{"ok": true, "device": {...}}``; the two before it
 are the per-kernel JSON record (times in ms, measured in this run, with
 the bound computed from this run's inputs; launches of the main path,
-qwen1.5-4b's three serve runs, and for the grouped rows the grouped
-launches of deepseek-moe-16b's three) and the card's name and power limit.
+qwen1.5-4b's three serve runs, for the grouped rows the grouped
+launches of deepseek-moe-16b's three, for the SSM rows the launches of
+the three recurrent runs) and the card's name and power limit.
 Every serve run's launches are printed before them, by run.
 """
 from __future__ import annotations
@@ -85,7 +95,8 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch.configs import (  # noqa: E402
-    deepseek_moe_16b, gemma3_4b, gemma3_27b, qwen1p5_4b, yi_9b)
+    deepseek_moe_16b, gemma3_4b, gemma3_27b, mamba2_2p7b, qwen1p5_4b, yi_9b,
+    zamba2_1p2b)
 from repro_torch.core.lut import QuantConfig  # noqa: E402
 from repro_torch.device import enqueued  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
@@ -98,7 +109,7 @@ from repro_torch.kernels.fused_amm import (  # noqa: E402
 from repro_torch.kernels.lut_gemm import (  # noqa: E402
     lut_gemm_cuda, lut_gemm_geometry)
 from repro_torch.models import moe as moe_mod  # noqa: E402
-from repro_torch.models.model import Model  # noqa: E402
+from repro_torch.models.model import RECURRENT, Model  # noqa: E402
 from repro_torch.obs import Obs, Tracer, validate_trace  # noqa: E402
 from repro_torch.serve import (  # noqa: E402
     BatchToCompletionEngine, Engine, FaultInjector, FaultSchedule,
@@ -347,10 +358,12 @@ def case_text(m, k, n=None, e=None):
             + ("" if n is None else f" N={n}"))
 
 
-def case_tags(label):
-    """A grouped case's lines open with ``moe [label]`` and end with the
-    card's name and power limit; a 3-d case's lines carry neither."""
-    return ("", "") if label is None else (f"moe [{label}] ", f" [{SMI}]")
+def case_tags(label, tag="moe"):
+    """A labelled case's lines open with ``{tag} [label]`` (a grouped
+    case's with ``moe``, an SSM projection's with ``ssm``) and end with
+    the card's name and power limit; the other 3-d cases' carry
+    neither."""
+    return ("", "") if label is None else (f"{tag} [{label}] ", f" [{SMI}]")
 
 
 def index_probe(nc, lead):
@@ -363,14 +376,14 @@ def index_probe(nc, lead):
             torch.ones(lead + (nc,), device=DEV))
 
 
-def b1_case(gen, m, k, n, flush, e=None, label=None):
+def b1_case(gen, m, k, n, flush, e=None, label=None, tag="moe"):
     """B1 at one main-path shape (with ``e``: its grouped form, one launch
-    for e experts, ``label`` naming the expert projection). Returns a
-    result dict."""
+    for e experts, ``label`` naming the expert projection; lines tagged
+    ``tag``). Returns a result dict."""
     nc = k // V
     lead = () if e is None else (e,)
     what = case_text(m, k, n, e)
-    head, tail = case_tags(label)
+    head, tail = case_tags(label, tag)
     x, z, lut, scale, xr = vq_inputs(gen, m, k, n, e)
 
     idx_plain = ref.assign_ref(x, z)
@@ -495,7 +508,7 @@ def nc_sweep(gen, flush, m=8, n=6912, full_nc=320):
     return rows
 
 
-def b34_case(gen, m, k, n, flush, e=None, label=None):
+def b34_case(gen, m, k, n, flush, e=None, label=None, tag="moe"):
     """B3 then B4 (the two-pass path) at one main-path shape (with ``e``:
     their grouped forms, as in :func:`b1_case`): B3's indices equal the
     plain argmin on margin inputs and B1's own on random ones (they share
@@ -506,7 +519,7 @@ def b34_case(gen, m, k, n, flush, e=None, label=None):
     lead = () if e is None else (e,)
     ne = 1 if e is None else e
     what, whatk = case_text(m, k, n, e), case_text(m, k, None, e)
-    head, tail = case_tags(label)
+    head, tail = case_tags(label, tag)
     x, z, lut, scale, xr = vq_inputs(gen, m, k, n, e)
     idx_k = vq_assign_cuda(x, z)
     idx_p = ref.assign_ref(x, z)
@@ -1132,13 +1145,22 @@ def serve(model, params, qc, seed, label, launched, idle, load=MAIN_LOAD,
           f"{len(dec)} {what}, mean {1e3 * np.mean(dec):.1f} ms; "
           f"{len(pre)} prefill chunks of {load.chunk}, mean "
           f"{1e3 * np.mean(pre):.1f} ms; "
-          f"{eng.device_reads} host reads; {fit}KV pool "
-          f"{eng.kv.bytes_per_token} B per token "
-          f"({eng.kv.data['k'].dtype}); launches {counts} [{SMI}]")
+          f"{eng.device_reads} host reads; {fit}{pool_text(eng.kv)}; "
+          f"launches {counts} [{SMI}]")
     eng.stats = {"wall": wall, "tokens_per_s": gen_tokens / wall,
                  "step_ms": 1e3 * float(np.mean(dec))}
     eng.requests = reqs
     return counts, [r.out_tokens for r in reqs], eng
+
+
+def pool_text(kv) -> str:
+    """A serve line's account of the engine's cache: bytes a token of a
+    page pool, or the size of the slot state of a recurrent family."""
+    if kv.paged:
+        return (f"KV pool {kv.bytes_per_token} B per token "
+                f"({kv.data['k'].dtype})")
+    return (f"slot state {sum(nbytes(t) for t in _leaves(kv.data)) / 1e6:.1f}"
+            f" MB for {kv.num_slots} slots (no pages)")
 
 
 def prefilled_pool(model, params, qc, seed, codebook=None, load=MAIN_LOAD):
@@ -1149,7 +1171,7 @@ def prefilled_pool(model, params, qc, seed, codebook=None, load=MAIN_LOAD):
     slots, c = load.slots, load.chunk
     npg = load.max_seq // PAGE
     kv = model.init_paged_cache(load.max_seq, PAGE, slots * npg,
-                                codebook=codebook)
+                                codebook=codebook, num_slots=slots)
     table = torch.arange(slots * npg, dtype=torch.int32,
                          device=DEV).reshape(slots, npg)
     lengths = rng.integers(*load.check, slots)
@@ -1185,7 +1207,12 @@ def decode_logit_check(model, params, qc, kv, table, toks, positions, label,
     within LOGIT_ROW_REL_TOL (relative L2). The line starts ``{tag}
     [{label}]``."""
     slots = toks.shape[0]
+    # a recurrent family's decode step moves its state in place: the plain
+    # step starts from the state the kernel step started from
+    saved = _clone(kv) if model.cfg.family in RECURRENT else None
     lg_k = model.decode_paged(params, toks, kv, table, positions, qc).float()
+    if saved is not None:
+        _restore(kv, saved)
     with plain_kernels():
         lg_p = model.decode_paged(params, toks, kv, table, positions,
                                   qc).float()
@@ -1271,12 +1298,16 @@ def verify_check(model, params, qc, seed, label, load=MAIN_LOAD):
           f"least {len(live) - allowed} required")
 
 
-def float_lut_serve(seed, layers=4, cfg=None, tag=None):
+def float_lut_serve(seed, layers=4, cfg=None, tag=None,
+                    kernels=({"b1", "b2"}, {"b3", "b4", "b5"}), after=None):
     """A full-width config (qwen1.5-4b unless ``cfg``) with float32 LUTs,
     cut to ``layers`` layers (~0.63 GB of float32 LUT a qwen layer, ~4.5
     GB a deepseek-moe-16b one): two engine runs of the same requests must
-    give the same tokens, and two decode_paged steps on one pool the same
-    logits, bit for bit. Its lines start with ``tag`` when given."""
+    give the same tokens, and two decode_paged steps on one pool (a
+    recurrent family: from one state) the same logits, bit for bit. The
+    runs launch the kernels of ``kernels`` (launched, idle). Its lines
+    start with ``tag`` when given. ``after(model, params, qc)``, when
+    given, runs on the model before it is freed."""
     cfg = (cfg or qwen1p5_4b.config()).replace(num_layers=layers)
     qc = QuantConfig(mode="lut_infer", v=V, c=C, metric="l2",
                      lut_dtype="float32")
@@ -1286,15 +1317,18 @@ def float_lut_serve(seed, layers=4, cfg=None, tag=None):
     for i in (1, 2):
         _, toks, eng = serve(model, params, qc, seed,
                              f"{cfg.name} float32 LUTs, {layers} layers, "
-                             f"run {i}", {"b1", "b2"}, {"b3", "b4", "b5"},
-                             tag=tag or "serve")
+                             f"run {i}", *kernels, tag=tag or "serve")
         tokens.append(toks)
         del eng
     check(tokens[0] == tokens[1],
           "float32-LUT engine runs gave different tokens")
     kv, table, toks, positions, _ = prefilled_pool(model, params, qc, seed)
-    lg = [model.decode_paged(params, toks, kv, table, positions, qc)
-          for _ in range(2)]
+    saved = _clone(kv)
+    lg = []
+    for _ in range(2):
+        _restore(kv, saved)
+        lg.append(model.decode_paged(params, toks, kv, table, positions, qc))
+    del saved
     torch.cuda.synchronize()
     check(bool(torch.isfinite(lg[0]).all()), "float32-LUT logits non-finite")
     check(torch.equal(lg[0], lg[1]),
@@ -1304,6 +1338,8 @@ def float_lut_serve(seed, layers=4, cfg=None, tag=None):
           f"two engine runs gave identical tokens (10 requests, "
           f"{sum(map(len, tokens[0]))} tokens) and two decode_paged steps "
           f"bitwise equal logits [{SMI}]")
+    if after is not None:
+        after(model, params, qc)
     del model, params, kv
     free()
 
@@ -2014,10 +2050,23 @@ def baseline_phase(model, params, qc, f32, seed, gen, flush):
     return out["continuous"]
 
 
+# the serving phases' depth: the first 8 of qwen1.5-4b's 40 layers
+SERVING_LAYERS = 8
+
+
+def cut_depth(model, params, layers):
+    """``model`` and ``params`` cut to their first ``layers`` layers, at
+    full width: a new Model over the same weight tensors (nothing is
+    copied)."""
+    return (Model(model.cfg.replace(num_layers=layers)),
+            {**params, "blocks": params["blocks"][:layers]})
+
+
 def serving_phases(model, params, qc, seed, gen):
     """The prefix, policy, chaos, baseline and obs phases on full-width
-    qwen1.5-4b (``model``, int8 LUTs), each with its float32 runs on one
-    4-layer float32 model."""
+    qwen1.5-4b (``model``, int8 LUTs) cut to SERVING_LAYERS layers, each
+    with its float32 runs on one 4-layer float32 model."""
+    model, params = cut_depth(model, params, SERVING_LAYERS)
     f32 = f32_model(seed)
     flush = torch.ones(L2_FLUSH_BYTES // 4, dtype=torch.int32, device=DEV)
     with phase("prefix"):
@@ -2330,6 +2379,233 @@ def moe_phase(gen, seed):
     return cases
 
 
+# ---------------------------------------------------------------------------
+# ssm phase: mamba2-2.7b (SSM) and zamba2-1.2b (hybrid)
+# ---------------------------------------------------------------------------
+
+# (label, K, N, launches in one decode step of its model, the first dt
+# column of an in_proj or None) of the projections the two recurrent
+# models add: each Mamba2 block's in_proj (z, xBC, dt: 2 d_inner + 2 N +
+# heads columns) and out_proj, and zamba2's shared MLP (its shared
+# attention, 2048 -> 2048 x 4, is deepseek-moe-16b's DENSE_PATHS shape)
+SSM_CASES = [
+    ("mamba2-2.7b in_proj", 2560, 10576, 64, 10496),
+    ("mamba2-2.7b out_proj", 5120, 2560, 64, None),
+    ("zamba2-1.2b in_proj", 2048, 8384, 38, 8320),
+    ("zamba2-1.2b out_proj", 4096, 2048, 38, None),
+    ("zamba2-1.2b shared wg/wu", 2048, 8192, 12, None),
+    ("zamba2-1.2b shared wd", 8192, 2048, 6, None),
+]
+# rows of a projection call on MAIN_LOAD: a decode step, a prefill chunk
+SSM_MS = (MAIN_LOAD.slots, MAIN_LOAD.chunk)
+# the recurrent float32 copies: zamba2 keeps 6 layers, so that its
+# shared block (after every 6th) runs once
+SSM_F32_LAYERS = {"mamba2-2.7b": 4, "zamba2-1.2b": 6}
+
+
+def tail_case(gen, m, k, n, lo, label):
+    """The columns [lo, n) of one projection alone (an in_proj's dt
+    slice, which the last column tile of B1 and B4 holds, or shares with
+    B and C) through B1, B4(B3), and B1 / B4 with float32 and bfloat16
+    LUTs, against the plain versions on the same margin inputs (int8:
+    within 1e-5 of the largest output, float LUTs within 1e-4)."""
+    x, z, lut, scale, _ = vq_inputs(gen, m, k, n)
+    idx = vq_assign_cuda(x, z)
+    want = ref.vq_amm_ref(x, z, lut, scale)[..., lo:]
+    tol = 1e-5 * max(1.0, float(want.abs().max()))
+    errs = {}
+    for name, got in (("B1 int8", vq_amm_cuda(x, z, lut, scale)),
+                      ("B4(B3) int8", lut_gemm_cuda(idx, lut, scale))):
+        errs[name] = float((got[..., lo:] - want).abs().max())
+        check(errs[name] <= tol, f"{name} {label} M={m}: dt columns "
+              f"[{lo}, {n}) max abs err {errs[name]} > {tol}")
+    for dt in (torch.float32, torch.bfloat16):
+        lutf = (lut.float() * scale[..., None, None, :]).to(dt).contiguous()
+        wantf = ref.lut_gemm_onehot(idx, lutf)[..., lo:]
+        key = str(dt).split(".")[-1]
+        for name, got in ((f"B1 {key}", vq_amm_cuda(x, z, lutf)),
+                          (f"B4 {key}", lut_gemm_cuda(idx, lutf))):
+            errs[name] = float((got[..., lo:] - wantf).abs().max())
+            check(torch.allclose(got[..., lo:], wantf, rtol=1e-4, atol=1e-4),
+                  f"{name} {label} M={m}: dt columns [{lo}, {n}) disagree "
+                  f"with the plain sum (max abs err {errs[name]})")
+        del lutf
+    torch.cuda.synchronize()
+    tiles = ", ".join(f"{name} [{(n - 1) // cols * cols}, {n})"
+                      for name, cols in (("int8", 256), ("bfloat16", 128),
+                                         ("float32", 64)))
+    print(f"ssm [{label} dt columns [{lo}, {n})] M={m} K={k} N={n}: max abs "
+          f"err " + ", ".join(f"{k_} {v:.3g}" for k_, v in errs.items())
+          + f" (int8 tolerance {tol:.3g}); last column tile {tiles} [{SMI}]")
+
+
+def ssm_serve(cfg, runs, seed):
+    """A full-width, full-depth recurrent config (int8 LUTs) through the
+    engine on MAIN_LOAD, once per entry of ``runs`` (label -> (qc,
+    launched, idle, one decode step's launches)): each run's one decode
+    step launches, counted on a state prefilled to MAIN_LOAD.check
+    lengths, and a bf16 logit check of one decode_paged step through the
+    kernels against the plain versions; two-pass tokens must equal the
+    fused run's."""
+    torch.cuda.reset_peak_memory_stats()
+    model = Model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=DEV).manual_seed(seed),
+                        next(iter(runs.values()))[0])
+    torch.cuda.synchronize()
+    pbytes = sum(nbytes(t) for t in _leaves(params))
+    shared = (f", one shared attention + MLP block ({cfg.num_heads} heads, "
+              f"d_ff {cfg.d_ff}) after every {cfg.shared_attn_every} layers"
+              if cfg.family == "hybrid" else "")
+    print(f"ssm [init]: full-width {cfg.name} ({cfg.num_layers} Mamba2 "
+          f"layers, d_inner {cfg.d_inner}, {cfg.ssm_nheads} heads of "
+          f"{cfg.ssm_headdim}, state {cfg.ssm_state}{shared}; lut_infer "
+          f"int8 v={V} c={C}) built on the card in "
+          f"{time.perf_counter() - t0:.1f} s, {pbytes / 1e9:.2f} GB of "
+          f"params [{SMI}]")
+    tokens, stats = {}, {}
+    for label, (qc_r, launched, idle, want) in runs.items():
+        _, tokens[label], eng = serve(model, params, qc_r, seed,
+                                      f"{cfg.name} {label}", launched, idle,
+                                      tag="ssm")
+        stats[label] = eng.stats
+        del eng
+        kv, table, toks, positions, lengths = prefilled_pool(
+            model, params, qc_r, seed)
+        got = step_launches(model, params, qc_r, kv, table, toks, positions)
+        print(f"ssm [{cfg.name} {label}]: one decode step launches {got} "
+              f"(expected {want}) [{SMI}]")
+        check(got == want, f"ssm {cfg.name} {label}: one decode step "
+              f"launches {got}, expected {want}")
+        decode_logit_check(model, params, qc_r, kv, table, toks, positions,
+                           f"logit check, {cfg.name} {label}",
+                           f"{SLOTS} slots at lengths {lengths.tolist()}",
+                           tag="ssm")
+        del kv
+    if "two-pass" in tokens:
+        check(tokens["two-pass"] == tokens["fused"],
+              f"ssm {cfg.name}: two-pass tokens differ from the fused run's")
+    print(f"ssm [{cfg.name}]: "
+          + ("two-pass tokens identical to the fused run's; "
+             if "two-pass" in tokens else "")
+          + f"peak device memory (init and serving) "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; "
+          f"{pbytes / 1e9:.2f} GB of params [{SMI}]")
+    del model, params
+    free()
+    return stats
+
+
+def recurrent_streams(model, params, qc, seed, label, slots=4):
+    """Eight greedy requests on an engine of ``slots`` slots (so slots
+    recycle): seven short prompts, and after 12 steps, while they decode,
+    a 200-token prompt (7 prefill chunks). Each request's stream must
+    equal the one it gets served alone on an engine of the same shape
+    (the decode step computes every lane at the same shapes, so a lane's
+    result does not depend on the others)."""
+    rng = np.random.default_rng(seed + 3)
+    vocab = model.cfg.vocab_size
+    prompts = [rng.integers(0, vocab, int(n)).tolist()
+               for n in rng.integers(20, 70, 7)]
+    long_prompt = rng.integers(0, vocab, 200).tolist()
+    kw = dict(batch_size=slots, max_seq=MAX_SEQ, page_size=PAGE,
+              prefill_chunk=CHUNK, seed=seed)
+
+    def make(p):
+        return Request(tokens=p, max_new_tokens=24)
+    eng = Engine(model, params, qc, **kw)
+    reqs = [make(p) for p in prompts]
+    decoding = []
+
+    def drive():
+        for r in reqs:
+            eng.submit(r)
+        for _ in range(12):
+            eng.step()
+        decoding.append(len(eng.scheduler.decode_slots()))
+        reqs.append(make(long_prompt))
+        eng.submit(reqs[-1])
+        eng.run_until_idle()
+        return reqs
+    path_run(f"{label}, concurrent", drive, {"b1"}, {"b2", "b3", "b4", "b5"})
+    check(decoding[0] > 0, f"{label}: no slot decodes when the long prompt "
+          "is submitted")
+    alone = []
+    for r in reqs:
+        e1 = Engine(model, params, qc, **kw)
+        r1 = make(r.tokens)
+        e1.submit(r1)
+        e1.run_until_idle()
+        alone.append(r1.out_tokens)
+        del e1
+    same = streams_agree(f"ssm [{label}] {len(reqs)} concurrent requests on "
+                         f"{slots} slots ({decoding[0]} decoding when the "
+                         f"200-token prompt arrives) vs each served alone",
+                         [r.out_tokens for r in reqs], alone)
+    check(same == len(reqs), f"{label}: concurrent streams differ from "
+          "the streams served alone")
+
+
+def ssm_phase(gen, seed):
+    """The SSM phase: B1, B3 and B4 at the recurrent models' new projection
+    shapes (SSM_CASES, at SSM_MS rows; the dt columns on their own), the
+    full-width serve runs of mamba2-2.7b (fused, two-pass) and zamba2-1.2b
+    (fused), and a float32-LUT copy of each cut in depth, served twice
+    (bitwise) and concurrently against each request alone. Returns the
+    kernel cases' results by (label, M) and the serve runs' stats."""
+    flush = torch.ones(L2_FLUSH_BYTES // 4, dtype=torch.int32, device=DEV)
+    cases = {}
+    for label, k, n, _, dt0 in SSM_CASES:
+        for m in SSM_MS:
+            r1 = b1_case(gen, m, k, n, flush, label=label, tag="ssm")
+            r3, r4 = b34_case(gen, m, k, n, flush, label=label, tag="ssm")
+            free()
+            fl = float_lut_case(gen, m, k, n, flush)
+            print(f"ssm [{label}] float LUTs {case_text(m, k, n)}: "
+                  + float_lut_text(fl, r1["ms"], r4["ms"]) + f" [{SMI}]")
+            if dt0 is not None:
+                tail_case(gen, m, k, n, dt0, label)
+            cases[(label, m)] = {"b1": r1, "b3": r3, "b4": r4}
+            free()
+    del flush
+    for arch in ("mamba2-2.7b", "zamba2-1.2b"):
+        for key in ("b1", "b3", "b4"):
+            lay = {f: sum(cases[(label, SLOTS)][key][f] * cnt
+                          for label, _, _, cnt, _ in SSM_CASES
+                          if label.startswith(arch))
+                   for f in ("ms", "warm_ms", "bound_ms")}
+            print(f"ssm [{key.upper()} int8, every new projection of one "
+                  f"{arch} decode step at M={SLOTS}]: "
+                  f"{lay['ms']:.3f} ms flushed, {lay['warm_ms']:.3f} ms "
+                  f"warm, bound {lay['bound_ms']:.3f} ms [{SMI}]")
+    qc = QuantConfig(mode="lut_infer", v=V, c=C, metric="l2",
+                     lut_dtype="int8")
+    m2 = mamba2_2p7b.config()
+    z2 = zamba2_1p2b.config()
+    m2_proj = 2 * m2.num_layers
+    z2_proj = 2 * z2.num_layers + 7 * sum(
+        1 for i in range(z2.num_layers)
+        if i % z2.shared_attn_every == z2.shared_attn_every - 1)
+    stats = {}
+    stats["mamba2-2.7b"] = ssm_serve(m2, {
+        "fused": (qc, {"b1"}, {"b2", "b3", "b4", "b5"}, {"b1": m2_proj}),
+        "two-pass": (qc.replace(fuse=False), {"b3", "b4"},
+                     {"b1", "b2", "b5"}, {"b3": m2_proj, "b4": m2_proj})},
+        seed)
+    stats["zamba2-1.2b"] = ssm_serve(z2, {
+        "fused": (qc, {"b1"}, {"b2", "b3", "b4", "b5"}, {"b1": z2_proj})},
+        seed)
+    for cfg in (m2, z2):
+        layers = SSM_F32_LAYERS[cfg.name]
+        float_lut_serve(
+            seed, layers, cfg, tag="ssm",
+            kernels=({"b1"}, {"b2", "b3", "b4", "b5"}),
+            after=lambda model, params, qc_f, cfg=cfg, layers=layers:
+            recurrent_streams(model, params, qc_f, seed,
+                              f"{cfg.name} float32 LUTs, {layers} layers"))
+    return cases, stats
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2596,6 +2872,8 @@ def main(argv=None) -> int:
             logits=("bfloat16",))
     with phase("moe"):
         moe = moe_phase(gen, args.seed)
+    with phase("ssm"):
+        ssm, _ = ssm_phase(gen, args.seed)
 
     def layer_sum(res, key):
         return sum(res[(8, k, n)][key] * cnt for k, n, cnt in PROJ_SHAPES)
@@ -2645,6 +2923,28 @@ def main(argv=None) -> int:
                     moe[label][key]["bound_by"] == "bytes"
                     for label, *_, cnt in MOE_CASES if cnt)
                 else "operations", "library_ms": lib}
+    def ssm_launches(key):           # the three recurrent serve runs
+        return sum(PATH_LAUNCHES[f"{name} {run}"][key]
+                   for name, run in (("mamba2-2.7b", "fused"),
+                                     ("mamba2-2.7b", "two-pass"),
+                                     ("zamba2-1.2b", "fused")))
+
+    def ssm_row(name, key, source, replaces):
+        """A kernel over one mamba2-2.7b layer's in_proj + out_proj at
+        decode (M=8)."""
+        rows = [ssm[(label, SLOTS)][key] for label, *_ in SSM_CASES
+                if label.startswith("mamba2-2.7b")]
+        lib = (None if key != "b4"
+               else sum(r["library_ms"] for r in rows))
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": ssm_launches(key),
+                "max_abs_err": max(r[key]["err"] for r in ssm.values()),
+                "ms": sum(r["ms"] for r in rows),
+                "plain_ms": sum(r["plain_ms"] for r in rows),
+                "bound_ms": sum(r["bound_ms"] for r in rows),
+                "bound_by": "bytes" if all(r["bound_by"] == "bytes"
+                                           for r in rows)
+                else "operations", "library_ms": lib}
     for r in b1.values():
         r["library_ms"] = None
     kernels = [
@@ -2683,6 +2983,17 @@ def main(argv=None) -> int:
                 "6 expert projections)", "b4",
                 "src/repro_torch/csrc/lut_gemm.cu",
                 "src/repro/kernels/lut_gemm.py:61"),
+        ssm_row("vq_amm (B1, one mamba2-2.7b layer's in_proj 2560->10576 + "
+                "out_proj 5120->2560 at decode M=8; launches: the mamba2-2.7b "
+                "fused and two-pass and zamba2-1.2b fused serve runs)", "b1",
+                "src/repro_torch/csrc/fused_amm.cu",
+                "src/repro/kernels/fused_amm.py:87"),
+        ssm_row("vq_assign (B3, the same 2 mamba2-2.7b projections)", "b3",
+                "src/repro_torch/csrc/assign.cu",
+                "src/repro/kernels/assign.py:54"),
+        ssm_row("lut_gemm (B4, the same 2 mamba2-2.7b projections)", "b4",
+                "src/repro_torch/csrc/lut_gemm.cu",
+                "src/repro/kernels/lut_gemm.py:61"),
     ]
     print(f"launches by serve run: {json.dumps(PATH_LAUNCHES)}")
     print(json.dumps({"kernels": kernels}))
@@ -2691,6 +3002,21 @@ def main(argv=None) -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def _clone(tree):
+    if isinstance(tree, dict):
+        return {k: _clone(v) for k, v in tree.items()}
+    return tree.clone()
+
+
+def _restore(tree, saved):
+    """Copy ``saved`` (a :func:`_clone` of ``tree``) back in place."""
+    if isinstance(tree, dict):
+        for k in tree:
+            _restore(tree[k], saved[k])
+    else:
+        tree.copy_(saved)
 
 
 def _map_float(tree, dtype):

@@ -2,8 +2,8 @@
 
 Kept field for field identical to the JAX package's ``ModelConfig`` (a
 test holds the two against each other), so configurations carry over
-unchanged. The port serves the dense and MoE families so far; the
-others raise in ``Model`` (ROADMAP.md queue A item 9).
+unchanged. The port serves the dense, MoE, SSM and hybrid families; the
+audio and vlm families raise in ``Model`` (ROADMAP.md queue A item 9).
 """
 from __future__ import annotations
 
@@ -73,6 +73,26 @@ class ModelConfig:
         if self.head_dim is None:
             object.__setattr__(self, "head_dim",
                                self.d_model // max(self.num_heads, 1))
+
+    @property
+    def is_attention_free(self) -> bool:
+        return self.family == "ssm"
+
+    @property
+    def pure_full_attention(self) -> bool:
+        """True if every layer is unwindowed full attention (no SSM or
+        local structure)."""
+        if self.family in ("ssm", "hybrid"):
+            return False
+        return self.global_every == 0 or self.sliding_window == 0
+
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_nheads(self) -> int:
+        return self.d_inner // self.ssm_headdim
 
     def layer_is_global(self, i: int) -> bool:
         if self.global_every <= 0:

@@ -1,5 +1,6 @@
 """Model building blocks: RMSNorm, RoPE, paged attention, SwiGLU MLP
-(port of ``repro.models.layers``, dense family, ``head_layout="heads"``).
+(port of ``repro.models.layers``, ``head_layout="heads"``; used by the
+dense and MoE families' blocks and by the hybrid family's shared block).
 
 Every projection routes through :func:`proj`, a LutLinear, so the paper's
 VQ-AMM technique is a switch for every projection (``QuantConfig.mode``).
@@ -13,7 +14,13 @@ committed rows (``_sdpa_verify``, plain torch as the JAX package's XLA
 form). The batch-to-completion engine's dense cache takes the prefill
 path for its prefill and its decode steps, with a ``kv_start`` mask over
 the left padding of each row (plain torch, as the JAX package's dense
-``_sdpa``; its projections still run B1).
+``_sdpa``; its projections still run B1). The hybrid family's shared
+block reads a slot-dense cache: its prefill chunk takes the same dense
+path, and its decode step, one token a slot at per-slot positions, the
+two-part softmax ``_sdpa_decode_combine`` (plain torch, as the JAX
+package's XLA form). Where the JAX package switches to a chunked
+online softmax past ``attn_chunk`` key rows (``attn_impl="chunked"``),
+the port computes the same function in one softmax.
 """
 from __future__ import annotations
 
@@ -129,6 +136,45 @@ def _sdpa_verify(q: torch.Tensor, k_cache: torch.Tensor,
     return out.reshape(b, s, h * d).to(q.dtype)
 
 
+def _sdpa_decode_combine(q: torch.Tensor, k_cache: torch.Tensor,
+                         v_cache: torch.Tensor, k_new: torch.Tensor,
+                         v_new: torch.Tensor, pos: torch.Tensor,
+                         window: int) -> torch.Tensor:
+    """One-token decode over a read-only dense cache plus the new token.
+
+    Row b attends its cache rows < pos[b] (windowed against pos[b]) and
+    its own fresh token, in two parts combined by an online softmax: the
+    cache is never updated here (the caller writes the new row). A pos =
+    -1 lane masks every cache row and attends only its fresh token.
+
+    q (B,1,H,D); k_cache/v_cache (B,T,KVH,D); k_new/v_new (B,1,KVH,D);
+    pos (B,) int. Scores, probabilities times V and the combine are
+    float32 (probabilities rounded to V's type first). Returns (B, 1,
+    H*D) in q's type.
+    """
+    b, _, h, d = q.shape
+    t, kvh = k_cache.shape[1], k_cache.shape[2]
+    qg = q.reshape(b, kvh, h // kvh, d).float()
+    scale = d ** -0.5
+    kj = torch.arange(t, device=q.device)
+    pos = pos.to(q.device).long()
+    mask = kj[None, :] < pos[:, None]                            # (B, T)
+    if window > 0:
+        mask = mask & (kj[None, :] > pos[:, None] - window)
+    sc = torch.einsum("bkgd,btkd->bkgt", qg, k_cache.float()) * scale
+    sc = torch.where(mask[:, None, None, :], sc, torch.full_like(sc, -1e30))
+    s_new = torch.einsum("bkgd,bkd->bkg", qg, k_new[:, 0].float()) * scale
+    m = torch.maximum(sc.amax(-1), s_new)                        # (B,KVH,G)
+    p_old = torch.exp(sc - m[..., None])
+    p_new = torch.exp(s_new - m)
+    denom = p_old.sum(-1) + p_new
+    out = (torch.einsum("bkgt,btkd->bkgd",
+                        p_old.to(v_cache.dtype).float(), v_cache.float())
+           + p_new[..., None] * v_new[:, 0, :, None, :].float())
+    out = out / denom[..., None]
+    return out.reshape(b, 1, h * d).to(q.dtype)
+
+
 def _paged_view(pages: torch.Tensor, phys: torch.Tensor,
                 n_tokens: int) -> torch.Tensor:
     """Rows [0, n_tokens) of each slot, gathered from one layer's pool.
@@ -165,10 +211,13 @@ def attention(p: Params, x: torch.Tensor, cfg, qc: QuantConfig, q_offset,
         (``_sdpa_verify``; -1 = lane not verifying).
       k_pages/v_pages: (P+1, page, KVH, HD) one layer of the pool; with
         ``phys`` None, one layer of a dense cache (B, T, KVH, HD) instead
-        (the batch-to-completion engine): every row sits at the int
-        ``q_offset``, rows [0, q_offset) come from the cache and the
-        chunk's own K/V are fresh, as a prefill chunk's (decode too: S
-        == 1 attends in plain torch, as the JAX package's dense decode).
+        (the batch-to-completion engine, the hybrid's shared block): at
+        an int ``q_offset`` every row sits there, rows [0, q_offset) come
+        from the cache and the chunk's own K/V are fresh, as a prefill
+        chunk's (decode too: S == 1 attends in plain torch, as the JAX
+        package's dense decode); at a (B,) ``q_offset`` with S == 1 each
+        row decodes at its own position over its rows < q_offset[b]
+        (``_sdpa_decode_combine``).
       phys: (B, NP) trash-redirected physical page ids, or None.
       window: 0 = global attention, >0 = sliding window.
       codebook: this layer's slice of the KV codebook ({"zk": (nc, c, v),
@@ -197,7 +246,15 @@ def attention(p: Params, x: torch.Tensor, cfg, qc: QuantConfig, q_offset,
         k_new, v_new = k.to(k_pages.dtype), v.to(v_pages.dtype)
     else:                   # code pool: the fresh rows stay fp
         k_new, v_new = k, v
-    if phys is None:        # dense cache: rows [0, q_offset) + the chunk
+    if phys is None and torch.is_tensor(q_offset):
+        # dense cache, one token a row at per-row positions
+        if s != 1:
+            raise NotImplementedError("a dense cache takes per-row "
+                                      "positions for one-token decode only")
+        out = _sdpa_decode_combine(q, k_pages.to(x.dtype),
+                                   v_pages.to(x.dtype), k.to(x.dtype),
+                                   v.to(x.dtype), q_offset, window)
+    elif phys is None:      # dense cache: rows [0, q_offset) + the chunk
         k_all = torch.cat([k_pages[:, :q_offset].to(x.dtype),
                            k_new.to(x.dtype)], 1)
         v_all = torch.cat([v_pages[:, :q_offset].to(x.dtype),

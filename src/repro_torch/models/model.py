@@ -1,14 +1,17 @@
 """The decoder served through the paged KV pool (port of
-``repro.models.model``, dense and MoE families; the serving entry points:
-paged for the continuous-batching engine, dense for the batch-to-completion
-one; ``forward`` and ``loss`` wait for training, ROADMAP.md queue A item
-10).
+``repro.models.model``: the dense, MoE, SSM and hybrid families; the
+serving entry points: paged for the continuous-batching engine, dense for
+the batch-to-completion one; ``forward`` and ``loss`` wait for training,
+ROADMAP.md queue A item 10).
 
 Params are a plain dict: ``embed``, ``final_norm`` (and ``head`` when
 embeddings are untied), and ``blocks``, a list with one dict per layer
 (``{"attn": {...}, "mlp": {...}}``, or ``{"attn": {...}, "moe": {...}}``
-for the MoE family, ``models/moe.py``). Where the JAX package stacks
-layers on a leading axis and scans, this port loops over the list.
+for the MoE family, ``models/moe.py``; a Mamba2 block for the SSM and
+hybrid families, ``models/mamba2.py``). The hybrid family adds
+``shared_attn`` (``{"attn", "mlp"}``), one attention + MLP block applied
+after every ``shared_attn_every``-th Mamba2 block. Where the JAX package
+stacks layers on a leading axis and scans, this port loops over the list.
 
 API:
   Model(cfg, device)                                     device="cuda"
@@ -16,8 +19,8 @@ API:
   init_cache(batch_size, max_seq)                  -> dense cache
   prefill(params, {"tokens"}, cache, qc, pad_lens=None) -> (logits, cache)
   decode(params, tokens, cache, qc, pad_lens=None)      -> (logits, cache)
-  init_paged_cache(max_seq, page_size, num_pages, codebook=None)
-                                                   -> {"k", "v"} pool
+  init_paged_cache(max_seq, page_size, num_pages, codebook=None,
+                   num_slots=None)                 -> pool or slot state
   prefill_paged(params, tokens, kv, table, slot, pos, valid, qc) -> logits
   decode_paged(params, tokens, kv, table, positions, qc)         -> logits
   verify_paged(params, tokens, kv, table, positions, n_live, qc) -> logits
@@ -29,6 +32,15 @@ only the logits. With a :class:`~repro_torch.core.kv_codebook.KVCodebook`
 the pool holds uint8 centroid codes ``(L, P+1, page, KVH, nc)`` and the
 cache carries its own copy of the codebook under ``CODEBOOK_KEY``; rows
 are encoded where they are written (:meth:`Model._encode_rows`).
+
+The SSM and hybrid families keep their recurrent state slot by slot, not
+in pages (``{"conv": (L, S, K-1, C), "h": (L, S, H, P, N) float32}``; the
+hybrid's is ``{"mamba": {...}, "attn": {"k", "v": (n_inv, S, max_seq+1,
+KVH, HD)}}``, a slot-dense cache for the shared block's invocations whose
+last row is the trash row). It is updated in place as well: a prefill
+chunk writes its slot's state, a decode step a per-lane select that keeps
+the state of every lane that is not decoding. The dense-cache API and
+``verify_paged`` refuse these families, as the JAX package's engines do.
 """
 from __future__ import annotations
 
@@ -42,19 +54,23 @@ from repro_torch.core.lut import (DENSE, QuantConfig, lut_linear_init,
 from repro_torch.device import resolve_device
 from .config import ModelConfig
 from .layers import attention, mlp, rms_norm
+from .mamba2 import init_mamba2, mamba2_block, mamba2_decode
 from .moe import init_moe, moe_ffn
 
 Params = Dict[str, Any]
 
 
 #: The families this port serves: attention blocks with an MLP or an MoE
-#: FFN. The others (ssm, hybrid, audio, vlm) wait for queue A item 9.
-FAMILIES = ("dense", "moe")
+#: FFN, Mamba2 blocks (ssm), and Mamba2 blocks with one shared attention
+#: block (hybrid). audio and vlm wait for queue A item 9.
+FAMILIES = ("dense", "moe", "ssm", "hybrid")
+#: The families whose state is recurrent and kept slot by slot.
+RECURRENT = ("ssm", "hybrid")
 
 
 class Model:
-    """A dense or MoE decoder on ``device`` (default the CUDA card; raises
-    when there is none)."""
+    """A dense, MoE, SSM or hybrid decoder on ``device`` (default the CUDA
+    card; raises when there is none)."""
 
     def __init__(self, cfg: ModelConfig, device="cuda"):
         if cfg.family not in FAMILIES:
@@ -85,28 +101,36 @@ class Model:
             p = strip_for_inference(precompute_layer(p, qc))
         return p
 
+    def _init_attn(self, gen, qc: QuantConfig) -> Params:
+        cfg = self.cfg
+        d, hd = cfg.d_model, cfg.head_dim
+        h, kvh = cfg.num_heads, cfg.num_kv_heads
+        return {
+            "wq": self._init_proj(gen, d, h * hd, qc, cfg.qkv_bias),
+            "wk": self._init_proj(gen, d, kvh * hd, qc, cfg.qkv_bias),
+            "wv": self._init_proj(gen, d, kvh * hd, qc, cfg.qkv_bias),
+            "wo": self._init_proj(gen, h * hd, d, qc),
+            "norm": torch.zeros((d,), dtype=self.dtype, device=self.device),
+        }
+
+    def _init_mlp(self, gen, qc: QuantConfig) -> Params:
+        d, f = self.cfg.d_model, self.cfg.d_ff
+        return {
+            "wg": self._init_proj(gen, d, f, qc),
+            "wu": self._init_proj(gen, d, f, qc),
+            "wd": self._init_proj(gen, f, d, qc),
+            "norm": torch.zeros((d,), dtype=self.dtype, device=self.device),
+        }
+
     def _init_block(self, gen, qc: QuantConfig) -> Params:
         cfg = self.cfg
-        d, hd, f = cfg.d_model, cfg.head_dim, cfg.d_ff
-        h, kvh = cfg.num_heads, cfg.num_kv_heads
-        zeros = torch.zeros((d,), dtype=self.dtype, device=self.device)
-        block = {
-            "attn": {
-                "wq": self._init_proj(gen, d, h * hd, qc, cfg.qkv_bias),
-                "wk": self._init_proj(gen, d, kvh * hd, qc, cfg.qkv_bias),
-                "wv": self._init_proj(gen, d, kvh * hd, qc, cfg.qkv_bias),
-                "wo": self._init_proj(gen, h * hd, d, qc),
-                "norm": zeros.clone(),
-            }}
+        if cfg.family in RECURRENT:
+            return init_mamba2(gen, cfg, qc, self.dtype, self.device)
+        block = {"attn": self._init_attn(gen, qc)}
         if cfg.family == "moe":
             block["moe"] = init_moe(gen, cfg, qc, self.dtype, self.device)
         else:
-            block["mlp"] = {
-                "wg": self._init_proj(gen, d, f, qc),
-                "wu": self._init_proj(gen, d, f, qc),
-                "wd": self._init_proj(gen, f, d, qc),
-                "norm": zeros.clone(),
-            }
+            block["mlp"] = self._init_mlp(gen, qc)
         return block
 
     def init(self, generator: torch.Generator,
@@ -127,6 +151,9 @@ class Model:
         }
         params["blocks"] = [self._init_block(generator, qc)
                             for _ in range(cfg.num_layers)]
+        if cfg.family == "hybrid":
+            params["shared_attn"] = {"attn": self._init_attn(generator, qc),
+                                     "mlp": self._init_mlp(generator, qc)}
         if not cfg.tie_embeddings:
             params["head"] = normal((cfg.d_model, cfg.vocab_size), 0.02)
         return params
@@ -174,6 +201,60 @@ class Model:
                 x = x + mlp(p_l["mlp"], x, self.cfg, qc)
         return x
 
+    def _attn_slot_list(self) -> List[int]:
+        """Hybrid: the shared block's invocation index after each layer
+        (-1 = none): after every ``shared_attn_every``-th layer."""
+        cfg = self.cfg
+        slots, s = [], 0
+        for i in range(cfg.num_layers):
+            if cfg.shared_attn_every and (i % cfg.shared_attn_every
+                                          == cfg.shared_attn_every - 1):
+                slots.append(s)
+                s += 1
+            else:
+                slots.append(-1)
+        return slots
+
+    @property
+    def num_attn_slots(self) -> int:
+        return sum(1 for s in self._attn_slot_list() if s >= 0)
+
+    def _run_recurrent(self, params: Params, x: torch.Tensor,
+                       qc: QuantConfig, read_state, merge, attn_rows=None,
+                       write_attn=None, valid_len: Optional[int] = None,
+                       q_offset=None) -> torch.Tensor:
+        """The SSM / hybrid layer loop over slot state.
+
+        ``read_state(li)`` gives layer li's {"conv": (B, K-1, C), "h": (B,
+        H, P, N)} for the lanes of this call and ``merge(li, new)`` stores
+        its new state. A prefill chunk (S > 1) runs ``mamba2_block`` with
+        ``valid_len``, a decode step ``mamba2_decode``. The hybrid's shared
+        attention block runs after every ``shared_attn_every``-th layer:
+        ``attn_rows(inv)`` gives the invocation's cached (k, v) rows (B,
+        T, KVH, HD), read with ``q_offset`` as ``layers.attention`` reads a
+        dense cache, and ``write_attn(inv, k_new, v_new)`` stores the
+        fresh rows once they have been read. Returns the residual
+        stream."""
+        cfg = self.cfg
+        decode = torch.is_tensor(q_offset)        # per-lane positions
+        shared = params.get("shared_attn")
+        for li, (p_l, inv) in enumerate(zip(params["blocks"],
+                                            self._attn_slot_list())):
+            if decode:
+                o, new = mamba2_decode(p_l, x, cfg, qc, read_state(li))
+            else:
+                o, new = mamba2_block(p_l, x, cfg, qc, read_state(li),
+                                      valid_len=valid_len)
+            merge(li, new)
+            x = x + o
+            if cfg.family == "hybrid" and inv >= 0:
+                a, k_new, v_new = attention(shared["attn"], x, cfg, qc,
+                                            q_offset, *attn_rows(inv), None)
+                write_attn(inv, k_new, v_new)
+                x = x + a
+                x = x + mlp(shared["mlp"], x, cfg, qc)
+        return x
+
     # ------------------------------------------------------------------
     # dense-cache serving (the batch-to-completion engine)
     # ------------------------------------------------------------------
@@ -182,6 +263,12 @@ class Model:
         """A dense cache ``{"layers": {"k": (L, B, T, KVH, HD), "v": ...},
         "pos": 0}`` on this model's device."""
         cfg = self.cfg
+        if cfg.family in RECURRENT:
+            raise NotImplementedError(
+                "the dense-cache API serves the batch-to-completion engine, "
+                f"which refuses the {cfg.family!r} family; it serves "
+                "through the continuous Engine (init_paged_cache with "
+                "num_slots)")
         shape = (cfg.num_layers, batch_size, max_seq, cfg.num_kv_heads,
                  cfg.head_dim)
         dtype = dtype or self.dtype
@@ -244,8 +331,8 @@ class Model:
     # paged serving (continuous batching; see repro_torch/serve/)
     # ------------------------------------------------------------------
     def init_paged_cache(self, max_seq: int, page_size: int,
-                         num_pages: int, dtype=None,
-                         codebook=None) -> Params:
+                         num_pages: int, dtype=None, codebook=None,
+                         num_slots: Optional[int] = None) -> Params:
         """The page pool ``{"k": (L, num_pages+1, page_size, KVH, HD),
         "v": ...}`` on this model's device; the extra last page is the
         trash page that absorbs writes of lanes that are not live.
@@ -253,9 +340,19 @@ class Model:
         codebook: optional :class:`~repro_torch.core.kv_codebook.KVCodebook`
         -- the pool then holds uint8 codes ``(L, num_pages+1, page_size,
         KVH, nc)`` and the cache carries its own copy of the codebook's
-        leaves under ``CODEBOOK_KEY``, on this model's device."""
+        leaves under ``CODEBOOK_KEY``, on this model's device.
+
+        The SSM and hybrid families (whose state is O(1) a sequence) take
+        ``num_slots`` instead of pages: ``{"conv": (L, num_slots, K-1, C),
+        "h": (L, num_slots, H, P, N) float32}``, and for the hybrid
+        ``{"mamba": {...}, "attn": {"k", "v": (n_inv, num_slots,
+        max_seq+1, KVH, HD)}}``, whose extra last row is the trash row
+        that absorbs writes of lanes that are not decoding (rows >= a
+        slot's position are never read). They take no codebook."""
         cfg = self.cfg
         l, kvh, hd = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
+        if cfg.family in RECURRENT:
+            return self._init_slot_state(max_seq, num_slots, dtype, codebook)
         if codebook is not None:
             if (codebook.num_layers, codebook.head_dim) != (l, hd):
                 raise ValueError(
@@ -275,6 +372,34 @@ class Model:
         dtype = dtype or self.dtype
         return {"k": torch.zeros(shape, dtype=dtype, device=self.device),
                 "v": torch.zeros(shape, dtype=dtype, device=self.device)}
+
+    def _init_slot_state(self, max_seq: int, num_slots: Optional[int],
+                         dtype, codebook) -> Params:
+        cfg = self.cfg
+        if codebook is not None:
+            raise NotImplementedError(
+                "KV quantization applies to paged attention pools only; "
+                f"the {cfg.family!r} family has recurrent state")
+        if num_slots is None:
+            raise ValueError(f"the {cfg.family!r} family keeps its state "
+                             "slot by slot: pass num_slots")
+        dtype = dtype or self.dtype
+        dev = self.device
+        conv_dim = cfg.d_inner + 2 * cfg.ssm_ngroups * cfg.ssm_state
+        l = cfg.num_layers
+        mamba = {
+            "conv": torch.zeros((l, num_slots, cfg.ssm_conv - 1, conv_dim),
+                                dtype=dtype, device=dev),
+            "h": torch.zeros((l, num_slots, cfg.ssm_nheads, cfg.ssm_headdim,
+                              cfg.ssm_state), dtype=torch.float32,
+                             device=dev)}
+        if cfg.family == "ssm":
+            return mamba
+        shape = (self.num_attn_slots, num_slots, max_seq + 1,
+                 cfg.num_kv_heads, cfg.head_dim)
+        return {"mamba": mamba,
+                "attn": {"k": torch.zeros(shape, dtype=dtype, device=dev),
+                         "v": torch.zeros(shape, dtype=dtype, device=dev)}}
 
     @staticmethod
     def _encode_rows(cb_l, key: str, rows: torch.Tensor) -> torch.Tensor:
@@ -308,7 +433,17 @@ class Model:
             past max_seq, its real rows may not).
 
         Returns logits (1, V) at the last real token.
+
+        The SSM and hybrid families ignore ``page_table``: the chunk reads
+        and writes ``slot``'s recurrent state in ``kv``
+        (:meth:`_prefill_slot_state`).
         """
+        if self.cfg.family in RECURRENT:
+            x = self._prefill_slot_state(params, tokens, kv, slot, pos,
+                                         valid_len, qc)
+            x_last = rms_norm(x[:, valid_len - 1:valid_len],
+                              params["final_norm"], self.cfg.norm_eps)
+            return self._head(params, x_last)[:, 0]
         trash = kv["k"].shape[1] - 1
         ps = kv["k"].shape[2]
         # a chunk may start anywhere (a prefix hit, a shrunk prefill
@@ -349,7 +484,13 @@ class Model:
 
         Returns logits (num_slots, V). Each decoding slot's new K/V row is
         written at its own (page, offset); other lanes write the trash page.
+        The SSM and hybrid families ignore ``page_table``
+        (:meth:`_decode_slot_state`).
         """
+        if self.cfg.family in RECURRENT:
+            x = self._decode_slot_state(params, tokens, kv, positions, qc)
+            x = rms_norm(x, params["final_norm"], self.cfg.norm_eps)
+            return self._head(params, x)[:, 0]
         b = tokens.shape[0]
         trash = kv["k"].shape[1] - 1
         ps = kv["k"].shape[2]
@@ -400,7 +541,16 @@ class Model:
         and rolls back the rejected tail by not advancing over it: rows
         >= the position are never attended and are overwritten before
         the position crosses them again.
+
+        Attention families only: Mamba2 (and hybrid) recurrent state is
+        one evolving tensor a slot, which cannot roll back rejected draft
+        tokens.
         """
+        if self.cfg.family in RECURRENT:
+            raise NotImplementedError(
+                "verify_paged needs rewindable (paged) KV state; the "
+                f"{self.cfg.family!r} family's recurrent state cannot roll "
+                "back rejected draft tokens")
         b, t_v = tokens.shape
         trash = kv["k"].shape[1] - 1
         ps = kv["k"].shape[2]
@@ -423,3 +573,90 @@ class Model:
                              positions, kv, phys, write)
         x = rms_norm(x, params["final_norm"], self.cfg.norm_eps)
         return self._head(params, x)
+
+    # ------------------------------------------------------------------
+    # slot state (the SSM and hybrid families)
+    # ------------------------------------------------------------------
+    def _prefill_slot_state(self, params: Params, tokens: torch.Tensor,
+                            kv: Params, slot: int, pos: int, valid_len: int,
+                            qc: QuantConfig) -> torch.Tensor:
+        """One prefill chunk over ``slot``'s recurrent state. The first
+        chunk of a new occupant (``pos == 0``) reads zeros, never the last
+        occupant's state: that is how a slot is recycled. The chunk's
+        pads are recurrence-neutral (``mamba2_block``'s ``valid_len``);
+        the hybrid's shared attention reads the slot's rows [0, pos) and
+        writes the chunk's real rows at [pos, pos + valid_len)."""
+        hybrid = self.cfg.family == "hybrid"
+        mamba = kv["mamba"] if hybrid else kv
+
+        def read_state(li):
+            return {key: (mamba[key][li, slot:slot + 1] if pos > 0 else
+                          torch.zeros_like(mamba[key][li, slot:slot + 1]))
+                    for key in ("conv", "h")}
+
+        def merge(li, new):
+            for key in ("conv", "h"):
+                mamba[key][li, slot] = new[key][0]
+
+        attn_rows = write_attn = None
+        if hybrid:
+            attn = kv["attn"]
+            max_seq = attn["k"].shape[2] - 1          # the last is trash
+            if pos + valid_len > max_seq:
+                raise ValueError(f"rows [{pos}, {pos + valid_len}) run "
+                                 f"past max_seq {max_seq}")
+
+            def attn_rows(inv):
+                return (attn["k"][inv, slot:slot + 1],
+                        attn["v"][inv, slot:slot + 1])
+
+            def write_attn(inv, k_new, v_new):
+                attn["k"][inv, slot, pos:pos + valid_len] = \
+                    k_new[0, :valid_len]
+                attn["v"][inv, slot, pos:pos + valid_len] = \
+                    v_new[0, :valid_len]
+
+        return self._run_recurrent(
+            params, self._embed(params, tokens), qc, read_state, merge,
+            attn_rows, write_attn, valid_len=valid_len, q_offset=pos)
+
+    def _decode_slot_state(self, params: Params, tokens: torch.Tensor,
+                           kv: Params, positions: torch.Tensor,
+                           qc: QuantConfig) -> torch.Tensor:
+        """One decode step of every lane over the slot state. Every lane
+        is computed, but only the decoding ones (``positions >= 0``) take
+        their new state: a lane mid-prefill carries real state between two
+        chunks, so each layer's update is a per-lane select. The hybrid's
+        fresh K/V row goes to row ``positions[b]`` of the slot, or to the
+        trash row for a lane that is not decoding."""
+        hybrid = self.cfg.family == "hybrid"
+        mamba = kv["mamba"] if hybrid else kv
+        live = positions >= 0
+
+        def read_state(li):
+            return {key: mamba[key][li] for key in ("conv", "h")}
+
+        def merge(li, new):
+            for key in ("conv", "h"):
+                old = mamba[key][li]
+                mask = live.reshape((-1,) + (1,) * (old.dim() - 1))
+                old.copy_(torch.where(mask, new[key].to(old.dtype), old))
+
+        attn_rows = write_attn = None
+        if hybrid:
+            attn = kv["attn"]
+            trash_row = attn["k"].shape[2] - 1
+            lanes = torch.arange(tokens.shape[0], device=self.device)
+            row = torch.where(live, positions,
+                              torch.full_like(positions, trash_row)).long()
+
+            def attn_rows(inv):
+                return attn["k"][inv], attn["v"][inv]
+
+            def write_attn(inv, k_new, v_new):
+                attn["k"][inv, lanes, row] = k_new[:, 0]
+                attn["v"][inv, lanes, row] = v_new[:, 0]
+
+        return self._run_recurrent(
+            params, self._embed(params, tokens), qc, read_state, merge,
+            attn_rows, write_attn, q_offset=positions)

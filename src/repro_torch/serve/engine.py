@@ -9,7 +9,9 @@
     ``prefill_chunk`` tokens, one chunk interleaved with each decode step,
     so a long prompt never stalls the running requests;
   * paged KV: attention KV lives in fixed-size pages with per-slot page
-    tables (``PagedKVCache``), so memory scales with live tokens;
+    tables (``PagedKVCache``), so memory scales with live tokens; the
+    SSM and hybrid families keep their recurrent state slot by slot
+    instead (no pages, no prefix caching, no speculation, no VQ pool);
   * prefix caching (on by default): fully written prompt pages are
     indexed by content, and a later prompt sharing a page-aligned prefix
     maps them read-shared and starts prefill past them; a whole-prompt
@@ -64,6 +66,7 @@ import torch
 
 from repro_torch.core.kv_codebook import KVCodebook
 from repro_torch.core.lut import DENSE, QuantConfig
+from repro_torch.models.model import RECURRENT
 from repro_torch.obs import Obs, safe_ratio
 from .kv_cache import PagedKVCache, PagePoolExhausted
 from .scheduler import FinishReason, Request, SlotPhase, SlotScheduler
@@ -300,6 +303,11 @@ class Engine:
         self.page_size = page_size
         self.kv_codebook = kv_codebook
         if qc.kv_quant == "vq":
+            if model.cfg.family in RECURRENT:
+                raise ValueError(
+                    "kv_quant='vq' quantizes paged attention KV pages; "
+                    f"the {model.cfg.family!r} family has recurrent "
+                    "state, which has no page rows to encode")
             if self.kv_codebook is None:
                 self.kv_codebook = self._fit_kv_codebook()
         elif kv_codebook is not None:
@@ -354,6 +362,11 @@ class Engine:
         self._c_spec_emitted = met.counter("engine.spec.emitted",
                                            unit="tokens")
         if spec_decode is not None:
+            if not self.kv.paged:
+                raise ValueError(
+                    "spec_decode needs rewindable paged KV state; the "
+                    f"{model.cfg.family!r} family's recurrent state cannot "
+                    "roll back rejected draft tokens")
             if spec_decode.k < 1:
                 raise ValueError(f"spec_decode.k must be >= 1, got "
                                  f"{spec_decode.k}")
@@ -843,12 +856,21 @@ class BatchToCompletionEngine:
     ``pad_lens``. Projections run B1 as in :class:`Engine` (at batch x
     longest-prompt rows in the prefill); attention runs in plain torch,
     as the JAX package's dense path computes it outside Pallas.
+    Attention families only: an SSM would integrate the left padding into
+    its state (``kv_start`` masks attention only); :class:`Engine`, which
+    never left-pads, serves them.
     """
 
     def __init__(self, model, params, qc: QuantConfig = DENSE,
                  batch_size: int = 8, max_seq: int = 512,
                  eos_id: Optional[int] = None, seed: int = 0,
                  obs: Optional[Obs] = None):
+        if model.cfg.family in RECURRENT:
+            raise ValueError(
+                "BatchToCompletionEngine left-pads prompts, which an SSM "
+                "would integrate into its state (kv_start only masks "
+                "attention); use the continuous Engine for "
+                f"family={model.cfg.family!r}")
         self.model = model
         self.params = params
         self.qc = qc

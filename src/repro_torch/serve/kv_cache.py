@@ -42,6 +42,8 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.models.model import RECURRENT
+
 
 class PagePoolExhausted(RuntimeError):
     """A page allocation cannot be satisfied (the message carries the
@@ -542,11 +544,24 @@ class PageTable:
 class PagedKVCache:
     """The device pool + page table of one engine.
 
-    ``data`` is ``{"k": (L, P+1, page, KVH, HD), "v": ...}``, or with a
-    ``codebook`` uint8 codes ``(L, P+1, page, KVH, nc)`` plus the
-    codebook under ``CODEBOOK_KEY``; the final page is the trash page.
-    A code pool salts the prefix keys with the codebook's fingerprint
-    (computed once here, so no lookup reads the card).
+    ``data`` is what ``Model.init_paged_cache`` returns:
+
+      * attention families: ``{"k": (L, P+1, page, KVH, HD), "v": ...}``,
+        or with a ``codebook`` uint8 codes ``(L, P+1, page, KVH, nc)``
+        plus the codebook under ``CODEBOOK_KEY``; the final page is the
+        trash page. A code pool salts the prefix keys with the codebook's
+        fingerprint (computed once here, so no lookup reads the card).
+      * ssm: ``{"conv": (L, slots, K-1, C), "h": (L, slots, H, P, N)}``,
+        recurrent state slot by slot, recycled on eviction.
+      * hybrid: ``{"mamba": {...}, "attn": {"k": (n_inv, slots, T, KVH,
+        HD), ...}}``: the shared attention block's few invocations keep a
+        slot-dense cache.
+
+    Paging applies to the attention families only (``paged``). For the
+    recurrent ones the page table is kept but never used: a slot's state
+    has a constant size, so capacity checks pass, prefix caching is off
+    whatever the caller asks (a recurrent state has no page-sized unit
+    to share), and the byte accounting reports 0.
     """
 
     def __init__(self, model, num_slots: int, max_seq: int,
@@ -557,23 +572,29 @@ class PagedKVCache:
         self.page_size = page_size
         self.device = model.device
         self.codebook = codebook
+        self.paged = model.cfg.family not in RECURRENT
         salt = codebook.fingerprint() if codebook is not None else 0
         self.table = PageTable(num_slots, max_seq, page_size, num_pages,
-                               prefix_cache=prefix_cache, content_salt=salt)
+                               prefix_cache=prefix_cache and self.paged,
+                               content_salt=salt)
         self.data = model.init_paged_cache(
             max_seq, page_size, self.table.allocator.num_pages,
-            codebook=codebook)
+            codebook=codebook, num_slots=num_slots)
         self.cow_forks = 0
         # set by the Engine: forks annotate the owning replica's trace
         # track; None outside an engine
         self.obs = None
-        self.table.page_bytes = self.page_bytes
+        if self.paged:
+            self.table.page_bytes = self.page_bytes
 
     # -- byte accounting ----------------------------------------------------
     @property
     def bytes_per_token(self) -> int:
         """Device bytes ONE cached token occupies across k+v and all
-        layers, read from the pool tensors (fp rows or uint8 codes)."""
+        layers, read from the pool tensors (fp rows or uint8 codes); 0
+        for slot state."""
+        if not self.paged:
+            return 0
         total = 0
         for key in ("k", "v"):
             t = self.data[key]                  # (L, P+1, page, KVH, W)
@@ -595,51 +616,64 @@ class PagedKVCache:
     @property
     def live_bytes(self) -> int:
         """Bytes pinned by slot-referenced pages now."""
-        return self.page_bytes * self.table.live_pages
+        return self.page_bytes * self.live_pages
 
     @property
     def pressure(self) -> float:
-        """Pool pressure in ``[0, 1]`` (:attr:`PageTable.pressure`)."""
-        return self.table.pressure
+        """Pool pressure in ``[0, 1]`` (:attr:`PageTable.pressure`); 0.0
+        for slot state, whose capacity is the slot count the scheduler
+        already answers for."""
+        return self.table.pressure if self.paged else 0.0
 
     @property
     def live_pages(self) -> int:
-        return self.table.live_pages
+        return self.table.live_pages if self.paged else 0
 
     def pages_for(self, n: int) -> int:
-        return self.table.pages_for(n)
+        return self.table.pages_for(n) if self.paged else 0
 
     def occupancy(self) -> str:
-        return self.table.occupancy()
+        return (self.table.occupancy() if self.paged
+                else f"slot-dense cache ({self.num_slots} slots)")
 
     def can_fit(self, n_tokens: int,
                 match: Optional[PrefixMatch] = None) -> bool:
-        return self.table.can_fit(n_tokens, match)
+        return self.table.can_fit(n_tokens, match) if self.paged else True
 
     def check_admissible(self, n_tokens: int) -> None:
-        self.table.check_admissible(n_tokens)
+        if self.paged:
+            self.table.check_admissible(n_tokens)
+        elif n_tokens > self.max_seq:
+            raise PagePoolExhausted(
+                f"request of {n_tokens} tokens exceeds max_seq="
+                f"{self.max_seq}")
 
     def ensure(self, slot: int, n_tokens: int) -> None:
-        self.table.ensure(slot, n_tokens)
+        if self.paged:
+            self.table.ensure(slot, n_tokens)
 
     def release(self, slot: int) -> None:
-        self.table.release(slot)
+        if self.paged:
+            self.table.release(slot)
 
     def trim(self, slot: int, n_tokens: int) -> int:
         """Speculative rollback: drop the slot's tail pages past
         ``n_tokens`` (:meth:`PageTable.trim`)."""
-        return self.table.trim(slot, n_tokens)
+        return self.table.trim(slot, n_tokens) if self.paged else 0
 
     # -- prefix caching -----------------------------------------------------
     def match_prefix(self, tokens) -> PrefixMatch:
         """Longest reusable page-aligned prefix of ``tokens`` (a read-only
-        probe; also the router's affinity metric)."""
+        probe; also the router's affinity metric); none for slot
+        state."""
+        if not self.paged:
+            return PrefixMatch()
         return self.table.match_prefix(tokens)
 
     def adopt_prefix(self, slot: int, match: PrefixMatch) -> int:
         """Map a match into ``slot`` and copy the forked page on the
         device when the plan forks one. Returns the tokens covered."""
-        if not match.pages and match.cow_page is None:
+        if not self.paged or (not match.pages and match.cow_page is None):
             return 0
         pair = self.table.adopt_prefix(slot, match)
         if pair is not None:
@@ -659,7 +693,8 @@ class PagedKVCache:
             pool[:, dst].copy_(pool[:, src])
 
     def register_prefix(self, slot: int, tokens, n_covered: int) -> None:
-        self.table.register_prefix(slot, tokens, n_covered)
+        if self.paged:
+            self.table.register_prefix(slot, tokens, n_covered)
 
     def table_device(self) -> torch.Tensor:
         return self.table.device(self.device)

@@ -48,9 +48,10 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
 
 
 def test_new_modules_are_in_the_boundary_walk():
-    """The speculative-decoding module, the dense configs, and the
-    observability, fault-injection and router modules are among the
-    modules the boundary check imports."""
+    """The speculative-decoding module, the dense configs, the
+    observability, fault-injection and router modules, and the Mamba2
+    module and the SSM / hybrid configs are among the modules the
+    boundary check imports."""
     import pkgutil
 
     import repro_torch
@@ -60,7 +61,9 @@ def test_new_modules_are_in_the_boundary_walk():
             "repro_torch.configs.gemma3_4b",
             "repro_torch.configs.gemma3_27b", "repro_torch.obs",
             "repro_torch.obs.metrics", "repro_torch.obs.tracing",
-            "repro_torch.serve.faults", "repro_torch.serve.router"} <= names
+            "repro_torch.serve.faults", "repro_torch.serve.router",
+            "repro_torch.models.mamba2", "repro_torch.configs.mamba2_2p7b",
+            "repro_torch.configs.zamba2_1p2b"} <= names
 
 
 def test_default_device_entry_points_raise_without_a_card():

@@ -51,7 +51,7 @@ def pair():
 
 
 PORTED = ("qwen1.5-4b", "yi-9b", "gemma3-4b", "gemma3-27b",
-          "deepseek-moe-16b", "dbrx-132b")
+          "deepseek-moe-16b", "dbrx-132b", "mamba2-2.7b", "zamba2-1.2b")
 
 
 def test_config_copies_match_jax_field_for_field():
