@@ -53,14 +53,22 @@ each against the plain versions, how many routed pairs overflow their
 expert's capacity: real tokens and pad rows apart, by layer, with the
 experts a call chose, its largest load and the share of its router
 logits that its tokens have in common) and a float32-LUT copy cut to 4
-layers twice (tokens and logits bitwise equal). A last phase, ssm, holds
+layers twice (tokens and logits bitwise equal). A phase, ssm, holds
 B1, B3 and B4 at the projection shapes mamba2-2.7b and zamba2-1.2b add
 (their in_proj's dt columns, which the last column tile holds, on their
 own too), serves full-width, full-depth mamba2-2.7b twice (fused,
 two-pass) and zamba2-1.2b once (fused), each with one decode step's
 launches and a bf16 logit check, and a float32-LUT copy of each cut in
 depth twice (bitwise) and with 8 concurrent requests on 4 slots (each
-stream equal to the request served alone).
+stream equal to the request served alone). A last phase, train, runs
+LUTBoost on full-width, full-depth qwen1.5-4b in bf16: stage 1 (k-means
+of each projection's inputs in the dense forward: 280 of 280 codebooks
+changed and closer to their rows), three centroid-only steps (every
+other leaf bit for bit), three joint steps (every weight moved), one
+block's loss and gradients in float32 on the card against the CPU, a
+checkpoint of a 2-layer copy (bf16 bit for bit, and a resume against
+the uninterrupted run), then int8 LUTs of the result served through the
+engine with B1 and B2 (one decode step's launches, a bf16 logit check).
 
     python3 chip_smoke.py [--seed N]
 
@@ -69,7 +77,8 @@ without a result line, when there is no CUDA device or any check fails.
 Its last line is ``{"ok": true, "device": {...}}``; the two before it
 are the per-kernel JSON record (times in ms, measured in this run, with
 the bound computed from this run's inputs; launches of the main path,
-qwen1.5-4b's three serve runs, for the grouped rows the grouped
+qwen1.5-4b's three serve runs (B1, B2: and the train phase's serve run
+of the converted model), for the grouped rows the grouped
 launches of deepseek-moe-16b's three, for the SSM rows the launches of
 the three recurrent runs) and the card's name and power limit.
 Every serve run's launches are printed before them, by run.
@@ -84,8 +93,10 @@ import inspect
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -97,7 +108,16 @@ import torch  # noqa: E402
 from repro_torch.configs import (  # noqa: E402
     deepseek_moe_16b, gemma3_4b, gemma3_27b, mamba2_2p7b, qwen1p5_4b, yi_9b,
     zamba2_1p2b)
-from repro_torch.core.lut import QuantConfig  # noqa: E402
+from repro_torch.checkpoint import (  # noqa: E402
+    CheckpointManager, load_pytree, save_pytree)
+from repro_torch.core.lut import (  # noqa: E402
+    DENSE, QuantConfig, strip_for_inference)
+from repro_torch.core.lutboost import (  # noqa: E402
+    capture_activations, convert, precompute_model)
+from repro_torch.core import similarity  # noqa: E402
+from repro_torch.core.similarity import (  # noqa: E402
+    pairwise_distance_subspaces)
+from repro_torch.data import SyntheticDataset  # noqa: E402
 from repro_torch.device import enqueued  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.core.kv_codebook import KVCodebook, kv_encode  # noqa
@@ -115,6 +135,10 @@ from repro_torch.serve import (  # noqa: E402
     BatchToCompletionEngine, Engine, FaultInjector, FaultSchedule,
     FinishReason, ReplicaHealth, ReplicaRouter, Request)
 from repro_torch.serve.speculative import Drafter, SpecConfig  # noqa
+from repro_torch.train import (  # noqa: E402
+    TrainConfig, Trainer, init_opt_state, make_train_step)
+from repro_torch.tree import (  # noqa: E402
+    tree_flatten_with_path, tree_leaves, tree_map)
 
 # Published H100 SXM peaks (NVIDIA data sheet), at a 700 W power limit.
 HBM_BYTES_PER_S = 3.35e12
@@ -2606,6 +2630,402 @@ def ssm_phase(gen, seed):
     return cases, stats
 
 
+# ---------------------------------------------------------------------------
+# train phase: LUTBoost on full-width qwen1.5-4b, then served
+# ---------------------------------------------------------------------------
+
+# the calibration and training batch: 2 sequences of 256 tokens
+TRAIN_BATCH, TRAIN_SEQ = 2, 256
+# steps of stage 2 (centroids only) and stage 3 (joint)
+TRAIN_STEPS = {2: 3, 3: 3}
+TRAIN_LR = 1e-4
+# the card-vs-CPU check: one block at float32 on this many tokens; every
+# tensor within relative L2 BLOCK_REL_TOL on equal centroid assignments
+# (a near-tie may flip an argmin between two orders of summation: then the
+# card's side is run again on the CPU's assignments, see block_check)
+BLOCK_TOKENS = 64
+BLOCK_REL_TOL = 1e-4
+# the checkpoint copy: full width, cut to this many layers
+CKPT_LAYERS = 2
+TRAIN_LABEL = "qwen1.5-4b converted, fused"
+
+
+def _lut_layers(tree):
+    """The LutLinear dict of every projection in ``tree``, in order."""
+    if isinstance(tree, dict):
+        if "z" in tree and "w" in tree:
+            yield tree
+            return
+        tree = list(tree.values())
+    if isinstance(tree, list):
+        for v in tree:
+            yield from _lut_layers(v)
+
+
+def _strip(tree):
+    """Every LutLinear of ``tree`` without its dense weight."""
+    if isinstance(tree, dict):
+        if "lut" in tree:
+            return strip_for_inference(tree)
+        return {k: _strip(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_strip(v) for v in tree]
+    return tree
+
+
+def _bits(t):
+    return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+
+
+@contextlib.contextmanager
+def _ste_assignments(replay=None):
+    """Record every subspace STE call in call order as (x, z, indices) on
+    the CPU; with ``replay`` (such a record), each call takes the indices
+    of the recorded call in the same place in place of its own argmin."""
+    calls = []
+    own = similarity.assign_subspaces
+
+    def assign(x, z, metric):
+        idx = (own(x, z, metric) if replay is None
+               else replay[len(calls)][2].to(x.device))
+        calls.append((x.detach().cpu(), z.detach().cpu(), idx.cpu()))
+        return idx
+
+    similarity.assign_subspaces = assign
+    try:
+        yield calls
+    finally:
+        similarity.assign_subspaces = own
+
+
+def block_check(model, layer, qc, seed):
+    """One full-width block (layer 0 of the trained params) in float32:
+    its output, its loss (a fixed projection of the output plus
+    recon_weight x its recon) and the gradients of the loss for every
+    leaf and for the input, on the card and on the CPU (TF32 off), each
+    within relative L2 BLOCK_REL_TOL. Every sub-vector's centroid is
+    compared too. A flip (a near-tie decided the other way by another
+    order of summation) must be a near-tie on the CPU's distances, and
+    the card's side is then run again on the CPU's assignments, so that
+    the forward and the backward are always held at BLOCK_REL_TOL."""
+    cfg = model.cfg.replace(dtype="float32")
+    gen = torch.Generator().manual_seed(seed + 7)
+    x = torch.randn((1, BLOCK_TOKENS, cfg.d_model), generator=gen)
+    cot = torch.randn((1, BLOCK_TOKENS, cfg.d_model), generator=gen)
+
+    def run(dev, replay=None):
+        m = Model(cfg, device=dev)
+        p = tree_map(lambda t: t.to(dev, torch.float32, copy=True), layer)
+        leaves = list(_leaves(p))
+        for t in leaves:
+            t.requires_grad_(True)
+        xd = x.to(dev).requires_grad_(True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with _ste_assignments(replay) as calls:
+            y, r, _ = m._train_layer(p, 0, None, qc, xd)
+        loss = (y * cot.to(dev)).sum() / y.numel() + qc.recon_weight * r
+        grads = torch.autograd.grad(loss, [xd] + leaves)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        got = [y.detach().cpu(), loss.detach().cpu()] + [g.cpu()
+                                                         for g in grads]
+        return got, calls, secs
+
+    def rel(got, want):
+        return [float((a - b).norm() / b.norm().clamp_min(1e-30))
+                for a, b in zip(got, want)]
+
+    got, calls_card, t_card = run(DEV)
+    want, calls_cpu, t_cpu = run("cpu")
+    check(len(calls_card) == len(calls_cpu) == 7,
+          f"train device check: {len(calls_card)} / {len(calls_cpu)} STE "
+          "calls, want 7")
+    flips, n_assign, worst_gap = 0, 0, 0.0
+    for (_, _, ic), (xc, zc, iw) in zip(calls_card, calls_cpu):
+        n_assign += iw.numel()
+        off = ic != iw
+        flips += int(off.sum())
+        if off.any():
+            d = pairwise_distance_subspaces(xc, zc, qc.metric)
+            gap = (d.gather(-1, ic.long()[..., None])
+                   - d.gather(-1, iw.long()[..., None]))[..., 0][off]
+            zw = zc[torch.arange(zc.shape[0]), iw.long()]
+            size = ((xc * xc).sum(-1) + (zw * zw).sum(-1))[off] + 1.0
+            worst_gap = max(worst_gap, float((gap / size).max()))
+    rels = rel(got, want)
+    print(f"train [device check]: layer 0 of the trained model, float32, "
+          f"{BLOCK_TOKENS} tokens, card vs CPU (TF32 off): output rel L2 "
+          f"{rels[0]:.2e}, loss {rels[1]:.2e}, input grad {rels[2]:.2e}, "
+          f"max over the {len(rels) - 3} leaf grads {max(rels[3:]):.2e}; "
+          f"centroid assignments differing {flips} of {n_assign}; card "
+          f"{1e3 * t_card:.1f} ms, CPU {1e3 * t_cpu:.1f} ms [{SMI}]")
+    if flips:
+        # a flip is a near-tie: the card's centroid is no farther on the
+        # CPU's own distances than float32 rounding of |x|^2 + |z|^2 explains
+        check(worst_gap <= 1e-5,
+              f"train device check: a flipped assignment is {worst_gap:.2e}"
+              " (relative to |x|^2 + |z|^2 + 1) farther on the CPU: not a "
+              "near-tie")
+        got, _, _ = run(DEV, calls_cpu)
+        rels = rel(got, want)
+        print(f"train [device check]: card rerun on the CPU's assignments: "
+              f"output rel L2 {rels[0]:.2e}, loss {rels[1]:.2e}, input "
+              f"grad {rels[2]:.2e}, max leaf grad {max(rels[3:]):.2e}")
+    check(max(rels) <= BLOCK_REL_TOL,
+          f"train device check: card vs CPU relative L2 {max(rels):.2e} > "
+          f"{BLOCK_REL_TOL} on equal assignments")
+
+
+def checkpoint_check(cfg, params, qc, seed):
+    """A copy of the trained params cut to CKPT_LAYERS layers (full width):
+    save_pytree / load_pytree bit for bit (every leaf bf16), then resume:
+    two Trainer steps in one run against one step, a checkpoint (params
+    and optimizer state) and a restart from it for the second. On the
+    card the embedding's backward sums with atomics, so the two runs are
+    held within a tolerance: the same step count, the params' updates
+    and the moments within relative L2 1e-2 of the uninterrupted run's
+    (a restart that dropped the moments or the count misses by far
+    more)."""
+    cut_cfg = cfg.replace(num_layers=CKPT_LAYERS)
+    cut = _clone({"embed": params["embed"],
+                 "final_norm": params["final_norm"],
+                 "blocks": params["blocks"][:CKPT_LAYERS]})
+    model = Model(cut_cfg)
+    ds = SyntheticDataset(cut_cfg, TRAIN_BATCH, TRAIN_SEQ, seed=seed + 1,
+                          device=DEV)
+    base = os.path.join(ROOT, "build")
+    os.makedirs(base, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="ckpt_smoke_", dir=base)
+    try:
+        t0 = time.perf_counter()
+        save_pytree(os.path.join(tmp, "cut"), cut)
+        t_save = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = load_pytree(os.path.join(tmp, "cut"), cut)
+        t_load = time.perf_counter() - t0
+        same = all(a.dtype == b.dtype and torch.equal(_bits(a), _bits(b))
+                   for a, b in zip(_leaves(cut), _leaves(back)))
+        nb = sum(nbytes(t) for t in _leaves(cut))
+        check(same, "train checkpoint: a restored leaf differs")
+        del back
+        tc = TrainConfig(total_steps=2, lr=TRAIN_LR, warmup=0,
+                         checkpoint_every=100, log_every=100,
+                         keep_checkpoints=1)
+        quiet = dict(log_fn=lambda _: None)
+        p_a, o_a, _ = Trainer(model, ds, qc, tc, **quiet).run(_clone(cut))
+        free()
+        ck = os.path.join(tmp, "run")
+        t0 = time.perf_counter()
+        _, o_b, _ = Trainer(model, ds, qc, tc, checkpoint_dir=ck,
+                            **quiet).run(_clone(cut), num_steps=1)
+        t_ckpt = time.perf_counter() - t0
+        del o_b
+        free()
+        t0 = time.perf_counter()
+        (p_b, o_b), step, _ = CheckpointManager(ck).restore(
+            (_clone(cut), init_opt_state(cut, tc)))
+        t_restore = time.perf_counter() - t0
+        p_b, o_b, _ = Trainer(model, ds, qc, tc, **quiet).run(
+            p_b, o_b, start_step=step, num_steps=1)
+        check(step == 1 and int(o_b["adam"]["count"]) == 2
+              == int(o_a["adam"]["count"]),
+              f"train checkpoint: resumed at step {step}, counts "
+              f"{int(o_b['adam']['count'])} / {int(o_a['adam']['count'])}")
+        bitwise = all(torch.equal(_bits(a), _bits(b)) for a, b in
+                      zip(_leaves([p_a, o_a]), _leaves([p_b, o_b])))
+        upd = max(float((a.float() - b.float()).norm()
+                        / (a.float() - c.float()).norm().clamp_min(1e-30))
+                  for a, b, c in zip(_leaves(p_a), _leaves(p_b),
+                                     _leaves(cut))
+                  if not torch.equal(a, c))
+        mom = max(float((a - b).norm() / a.norm().clamp_min(1e-30))
+                  for a, b in zip(_leaves([o_a["adam"]["m"],
+                                           o_a["adam"]["v"]]),
+                                  _leaves([o_b["adam"]["m"],
+                                           o_b["adam"]["v"]])))
+        ck_bytes = sum(os.path.getsize(os.path.join(d, f))
+                       for d, _, fs in os.walk(ck) for f in fs)
+        print(f"train [checkpoint]: {cut_cfg.name} cut to {CKPT_LAYERS} "
+              f"layers, {nb / 1e9:.2f} GB of bf16 params: saved in "
+              f"{t_save:.1f} s, loaded in {t_load:.1f} s, every leaf bit for "
+              f"bit; resume: one step + a checkpoint of params and "
+              f"optimizer state ({ck_bytes / 1e9:.2f} GB) in {t_ckpt:.1f} s,"
+              f" restored in {t_restore:.1f} s, then a second step: "
+              f"{'bit for bit' if bitwise else 'not bit for bit'} the "
+              f"uninterrupted run (updates within relative L2 {upd:.2e}, "
+              f"moments {mom:.2e}) [{SMI}]")
+        check(upd <= 1e-2 and mom <= 1e-2,
+              f"train checkpoint: resumed run off the uninterrupted one "
+              f"(updates {upd:.2e}, moments {mom:.2e})")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del model, cut, p_a, o_a, p_b, o_b
+    free()
+
+
+def train_phase(seed):
+    """LUTBoost on full-width qwen1.5-4b (lut_train, v=8 c=16 l2): stage 1
+    (convert: k-means of each projection's inputs captured in the dense
+    forward of one calibration batch), stage 2 (centroids only), stage 3
+    (joint); the
+    card-vs-CPU block check; a checkpoint round trip and resume on a copy
+    cut to CKPT_LAYERS layers; then int8 LUTs (precompute_model) served
+    through the engine on MAIN_LOAD with B1 and B2, one decode step's
+    launches and a bf16 logit check."""
+    cfg = qwen1p5_4b.config()
+    qc = QuantConfig(mode="lut_train", v=V, c=C, metric="l2")
+    torch.cuda.reset_peak_memory_stats()
+    model = Model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=DEV).manual_seed(seed), qc)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"train [init]: full-width {cfg.name} ({cfg.num_layers} layers, "
+          f"lut_train v={V} c={C} l2, {cfg.dtype}), {n_params / 1e9:.3f} B "
+          f"params, built on the card in {time.perf_counter() - t0:.1f} s "
+          f"[{SMI}]")
+    ds = SyntheticDataset(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=seed,
+                          device=DEV)
+
+    # stage 1: the calibration activations are the dense model's, as the
+    # paper's converter and the JAX package's example take them (captured
+    # under the lut_train forward, each layer would see the output of
+    # upstream layers quantized to their random centroids: the residual
+    # stream stays at the embedding's scale, and the gradient then grows
+    # exponentially with depth, NaN at 40 layers: PERF.md, section 6)
+    calib = ds.batch(0)
+
+    def dense_forward(p, b):
+        return model.forward(p, b, DENSE)
+    t0 = time.perf_counter()
+    conv = convert(dense_forward, params, calib, qc, seed=seed)
+    torch.cuda.synchronize()
+    t_convert = time.perf_counter() - t0
+    with torch.no_grad(), capture_activations() as cap:
+        dense_forward(params, calib)
+    old = list(_lut_layers(params))
+    new = list(_lut_layers(conv))
+    changed = sum(not torch.equal(a["z"], b["z"]) for a, b in zip(old, new))
+    closer = 0
+    for a, b in zip(old, new):
+        rows = cap[id(a["z"])].float().reshape(-1, a["z"].shape[0], V)
+
+        def dist(z):
+            return float(pairwise_distance_subspaces(
+                rows, z.float(), "l2").amin(-1).mean())
+        closer += dist(b["z"]) < dist(a["z"])
+    n_proj = 7 * cfg.num_layers
+    print(f"train [stage 1]: convert ({TRAIN_BATCH} x {TRAIN_SEQ} "
+          f"calibration tokens through the dense forward: capture + "
+          f"k-means of {len(new)} "
+          f"projections, 10 Lloyd iterations) in {t_convert:.2f} s; z "
+          f"changed in {changed} of {n_proj} projections; mean "
+          f"nearest-centroid distance over the captured rows below the "
+          f"random init's in {closer} of {n_proj} [{SMI}]")
+    check(len(new) == n_proj and changed == n_proj and closer == n_proj,
+          f"train stage 1: {changed} / {closer} of {n_proj} projections "
+          "converted / closer")
+    del cap, old, new
+    params = conv
+    del conv
+    free()
+
+    # stages 2 and 3
+    tc = TrainConfig(total_steps=sum(TRAIN_STEPS.values()), lr=TRAIN_LR,
+                     warmup=0, weight_decay=0.01, grad_clip=1.0)
+    opt = init_opt_state(params, tc)
+    frozen = {path: t.clone() for path, t in tree_flatten_with_path(params)
+              if not path.endswith("['z']")}
+    z_before = {path: t.clone() for path, t in
+                tree_flatten_with_path(params) if path.endswith("['z']")}
+    times, step = {2: [], 3: []}, 0
+    for stage, n in TRAIN_STEPS.items():
+        fn = make_train_step(model, qc, tc, stage)
+        for _ in range(n):
+            batch = ds.batch(1 + step)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, met = fn(params, opt, batch, step)
+            torch.cuda.synchronize()
+            times[stage].append(time.perf_counter() - t0)
+            loss, gn = float(met["loss"]), float(met["grad_norm"])
+            print(f"train [stage {stage}] step {step}: loss {loss:.4f} (ce "
+                  f"{float(met['ce']):.4f}, recon {float(met['recon']):.4f})"
+                  f", grad_norm {gn:.4g}, lr {met['lr']:.2e}, "
+                  f"{1e3 * times[stage][-1]:.1f} ms [{SMI}]")
+            check(math.isfinite(loss) and math.isfinite(gn),
+                  f"train stage {stage}: non-finite loss or grad_norm")
+            step += 1
+        flat = dict(tree_flatten_with_path(params))
+        if stage == 2:
+            kept = sum(torch.equal(_bits(flat[p]), _bits(t))
+                       for p, t in frozen.items())
+            moved = sum(not torch.equal(flat[p], t)
+                        for p, t in z_before.items())
+            print(f"train [stage 2]: {kept} of {len(frozen)} non-centroid "
+                  f"leaves bit for bit unchanged, {moved} of "
+                  f"{len(z_before)} z moved [{SMI}]")
+            check(kept == len(frozen) and moved == len(z_before),
+                  f"train stage 2: {kept} of {len(frozen)} frozen leaves "
+                  f"kept, {moved} of {len(z_before)} z moved")
+        else:
+            w_paths = [p for p in frozen if p.endswith("['w']")]
+            moved = sum(not torch.equal(flat[p], frozen[p])
+                        for p in w_paths)
+            print(f"train [stage 3]: {moved} of {len(w_paths)} weights "
+                  f"changed [{SMI}]")
+            check(moved == len(w_paths),
+                  f"train stage 3: {moved} of {len(w_paths)} w changed")
+        del flat
+    del frozen, z_before
+    free()
+    all_t = times[2] + times[3]
+    print(f"train [steps]: stage 2 mean {1e3 * np.mean(times[2]):.1f} ms, "
+          f"stage 3 mean {1e3 * np.mean(times[3]):.1f} ms a step "
+          f"({TRAIN_BATCH} x {TRAIN_SEQ} tokens, AdamW with fp32 moments); "
+          f"{TRAIN_BATCH * TRAIN_SEQ * len(all_t) / sum(all_t):.0f} training"
+          f" tokens/s; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB [{SMI}]")
+    del opt
+    free()
+
+    block_check(model, params["blocks"][0], qc, seed)
+    free()
+    checkpoint_check(cfg, params, qc, seed)
+
+    # deployment: int8 LUTs, served
+    qi = QuantConfig(mode="lut_infer", v=V, c=C, metric="l2",
+                     lut_dtype="int8")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    served = _strip(precompute_model(params, qi))
+    torch.cuda.synchronize()
+    t_pre = time.perf_counter() - t0
+    del params
+    free()
+    pbytes = sum(nbytes(t) for t in _leaves(served))
+    print(f"train [precompute]: int8 LUTs of {n_proj} projections in "
+          f"{t_pre:.2f} s, {pbytes / 1e9:.2f} GB of params served [{SMI}]")
+    _, _, eng = serve(model, served, qi, seed, TRAIN_LABEL, {"b1", "b2"},
+                      {"b3", "b4", "b5"}, tag="train")
+    del eng
+    kv, table, toks, positions, lengths = prefilled_pool(model, served, qi,
+                                                         seed)
+    want = {"b1": n_proj, "b2": cfg.num_layers}
+    got = step_launches(model, served, qi, kv, table, toks, positions)
+    print(f"train [{TRAIN_LABEL}]: one decode step launches {got} "
+          f"(expected {want}) [{SMI}]")
+    check(got == want, f"train: one decode step launches {got}, expected "
+          f"{want}")
+    decode_logit_check(model, served, qi, kv, table, toks, positions,
+                       f"logit check, {TRAIN_LABEL}",
+                       f"{SLOTS} slots at lengths {lengths.tolist()}",
+                       tag="train")
+    del kv, model, served
+    free()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2874,6 +3294,8 @@ def main(argv=None) -> int:
         moe = moe_phase(gen, args.seed)
     with phase("ssm"):
         ssm, _ = ssm_phase(gen, args.seed)
+    with phase("train"):
+        train_phase(args.seed)
 
     def layer_sum(res, key):
         return sum(res[(8, k, n)][key] * cnt for k, n, cnt in PROJ_SHAPES)
@@ -2899,8 +3321,10 @@ def main(argv=None) -> int:
                 "bound_by": res["bound_by"],
                 "library_ms": res["library_ms"]}
 
-    def launches(key):               # the main path: qwen's three runs
-        return sum(c[key] for c in counts.values())
+    def launches(key):     # the main path: qwen's three runs, and the
+        # train phase's serve run of the converted model
+        return (sum(c[key] for c in counts.values())
+                + PATH_LAUNCHES[TRAIN_LABEL][key])
 
     def moe_launches(key):           # deepseek-moe-16b's three runs
         name = deepseek_moe_16b.config().name
@@ -3005,37 +3429,20 @@ def main(argv=None) -> int:
 
 
 def _clone(tree):
-    if isinstance(tree, dict):
-        return {k: _clone(v) for k, v in tree.items()}
-    return tree.clone()
+    return tree_map(lambda t: t.clone(), tree)
 
 
 def _restore(tree, saved):
     """Copy ``saved`` (a :func:`_clone` of ``tree``) back in place."""
-    if isinstance(tree, dict):
-        for k in tree:
-            _restore(tree[k], saved[k])
-    else:
-        tree.copy_(saved)
+    tree_map(lambda t, v: t.copy_(v), tree, saved)
 
 
 def _map_float(tree, dtype):
-    if isinstance(tree, dict):
-        return {k: _map_float(v, dtype) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_map_float(v, dtype) for v in tree]
-    return tree.to(dtype) if tree.is_floating_point() else tree
+    return tree_map(lambda t: t.to(dtype) if t.is_floating_point() else t,
+                    tree)
 
 
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    elif isinstance(tree, list):
-        for v in tree:
-            yield from _leaves(v)
-    else:
-        yield tree
+_leaves = tree_leaves
 
 
 if __name__ == "__main__":

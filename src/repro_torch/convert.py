@@ -5,7 +5,9 @@ The JAX package keeps a parameter pytree whose ``blocks`` leaves carry a
 leading layer axis (its layer loop is a ``lax.scan``). The caller turns
 that pytree into numpy arrays (``jax.tree_util.tree_map(np.asarray, ...)``)
 so this module needs nothing of JAX; :func:`params_from_numpy` then builds
-the port's params, with ``blocks`` unstacked into one dict per layer.
+the port's params, with ``blocks`` unstacked into one dict per layer, and
+:func:`params_to_numpy` goes back (to compare trained params with the JAX
+package's).
 :func:`kv_codebook_from_numpy` carries a JAX ``KVCodebook`` over the same
 way (its ``tree()`` as numpy arrays).
 """
@@ -59,6 +61,40 @@ def params_from_numpy(tree: Any, cfg: ModelConfig,
         return _map(tree["blocks"], take)
 
     out["blocks"] = [layer(i) for i in range(n_layers)]
+    return out
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def params_to_numpy(params: Any, cfg: ModelConfig) -> Any:
+    """The inverse of :func:`params_from_numpy`: numpy arrays in the JAX
+    package's layout, the list ``params["blocks"]`` stacked into leaves
+    with a leading axis of ``cfg.num_layers``. numpy has no bfloat16, so
+    a bf16 leaf comes back as float32 (which holds each of its values
+    exactly); every other dtype is kept."""
+    blocks = params["blocks"]
+    if len(blocks) != cfg.num_layers:
+        raise ValueError(f"{len(blocks)} blocks for a config of "
+                         f"{cfg.num_layers} layers")
+    out = {k: _map(v, _numpy) for k, v in params.items() if k != "blocks"}
+
+    def stack(*leaves):
+        return np.stack([_numpy(t) for t in leaves])
+
+    def walk(first, i_path):
+        if isinstance(first, dict):
+            return {k: walk(v, i_path + (k,)) for k, v in first.items()}
+
+        def leaf(b):
+            for k in i_path:
+                b = b[k]
+            return b
+        return stack(*(leaf(b) for b in blocks))
+
+    out["blocks"] = walk(blocks[0], ())
     return out
 
 

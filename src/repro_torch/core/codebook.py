@@ -2,8 +2,7 @@
 
 Port of ``repro.core.codebook``: the operating point of one LUT-ified GEMM,
 the random centroid init, and k-means over calibration activations (what
-the KV codebook fit runs; LUTBoost training, its other user, is not
-ported yet). Centroid tensors are ``(nc, c, v)``. A ``torch.Generator``
+the KV codebook fit and LUTBoost's stage ① run). Centroid tensors are ``(nc, c, v)``. A ``torch.Generator``
 takes the place of the JAX key; the two give different streams, so the
 tests hand both sides the same initial centroids.
 """
@@ -71,18 +70,19 @@ def kmeans(x: torch.Tensor, c: int, metric: Metric = "l2", iters: int = 10,
     index its own problem.
 
     Seeding: ``init`` (..., c, v) when given, else c distinct random
-    samples of each problem drawn from ``generator``. Lloyd updates as the
-    JAX package's: the mean for every metric, and an empty cluster is
-    re-seeded with the point farthest from its centroid.
+    samples of each problem, drawn for all problems at once from
+    ``generator``. Lloyd updates as the JAX package's: the mean for every
+    metric, and an empty cluster is re-seeded with the point farthest from
+    its centroid.
     """
     n = x.shape[-2]
     if init is None:
-        lead = x.shape[:-2]
-        flat = x.reshape(-1, n, x.shape[-1])
-        init = torch.stack([
-            flat[i, torch.randperm(n, generator=generator,
-                                   device=x.device)[:c]]
-            for i in range(flat.shape[0])]).reshape(*lead, c, x.shape[-1])
+        if n < c:
+            raise ValueError(f"{n} rows cannot seed {c} centroids")
+        order = torch.argsort(torch.rand(x.shape[:-1], generator=generator,
+                                         device=x.device), dim=-1)
+        init = torch.gather(x, -2, order[..., :c, None].expand(
+            *x.shape[:-2], c, x.shape[-1]))
     cents = init.to(x.dtype)
     for _ in range(iters):
         d = _distances(x, cents, metric)                      # (..., n, c)
@@ -101,12 +101,13 @@ def kmeans(x: torch.Tensor, c: int, metric: Metric = "l2", iters: int = 10,
 def kmeans_codebook(acts: torch.Tensor, k: int, spec: CodebookSpec,
                     iters: int = 10,
                     generator: Optional[torch.Generator] = None,
-                    max_samples: int = 4096) -> torch.Tensor:
+                    max_samples: int = 4096,
+                    init: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K-means per subspace over calibration activations.
 
-    acts (..., K) -> centroids (nc, c, v). At most ``max_samples`` rows
-    (a random subset from ``generator``) enter the fit; the nc subspaces
-    are fit as one batch.
+    acts (..., K) -> centroids (nc, c, v) float32. At most ``max_samples``
+    rows (a random subset from ``generator``) enter the fit; the nc
+    subspaces are fit as one batch, from ``init`` (nc, c, v) when given.
     """
     nc = spec.num_subspaces(k)
     flat = acts.reshape(-1, nc, spec.v)                       # (n, nc, v)
@@ -116,4 +117,4 @@ def kmeans_codebook(acts: torch.Tensor, k: int, spec: CodebookSpec,
                              device=acts.device)[:max_samples]
         flat = flat[sel]
     return kmeans(flat.transpose(0, 1).float(), spec.c, spec.metric, iters,
-                  generator)                                  # (nc, c, v)
+                  generator, init)                            # (nc, c, v)

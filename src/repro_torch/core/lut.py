@@ -1,8 +1,15 @@
 """LUT construction and the LutLinear projection (port of ``repro.core.lut``).
 
-Two operating modes are ported (``QuantConfig.mode``):
+Three operating modes (``QuantConfig.mode``):
 
   * ``dense``      — plain ``x @ w + b`` (the paper's comparison baseline).
+  * ``lut_train``  — LUTBoost training: each sub-vector of the input goes
+                     to its nearest centroid through a straight-through
+                     estimator; the forward value is ``Â·W``, the backward
+                     path ``A·W`` (paper §V-2), and a two-sided
+                     reconstruction loss trains the centroids. Plain
+                     PyTorch on the card too: the JAX package computes it
+                     in XLA, not in a Pallas kernel.
   * ``lut_infer``  — deployment path: precomputed LUT (optionally int8),
                      nearest-centroid assignment fused with the LUT
                      gather-accumulate (``kernels.ops.vq_amm``, kernel B1),
@@ -19,7 +26,7 @@ the projections: the KV pool then holds uint8 centroid codes
 Parameters of one LutLinear (a plain dict of tensors):
   w  (K, N)            dense weight  (absent after `strip_for_inference`)
   b  (N,)              optional bias
-  z  (nc, c, v)        centroids
+  z  (nc, c, v)        centroids (trained in LUTBoost stages 2 and 3)
   lut (nc, c, N)       precomputed table      (inference only)
   lut_scale (N,)       dequant scale          (int8 inference only)
 An MoE layer's expert projections carry a leading expert axis on each
@@ -30,14 +37,14 @@ below take any leading axes, as the JAX package vmaps them.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kops
 from .codebook import CodebookSpec, init_centroids
-from .similarity import Metric
+from .similarity import Metric, ste_quantize_subspaces
 
 Params = Dict[str, torch.Tensor]
 
@@ -46,17 +53,14 @@ LUT_DTYPES = ("float32", "bfloat16", "int8")
 
 @dataclasses.dataclass(frozen=True)
 class QuantConfig:
-    """VQ-AMM operating point threaded through every projection.
-
-    ``mode="lut_train"`` selects code this port does not have yet and
-    raises ``NotImplementedError`` naming the ROADMAP.md queue A item that
-    ports it.
-    """
-    mode: str = "dense"            # dense | lut_infer
+    """VQ-AMM operating point threaded through every projection."""
+    mode: str = "dense"            # dense | lut_train | lut_infer
     v: int = 8                     # sub-vector length
     c: int = 16                    # centroids per subspace (<= 256)
     metric: Metric = "l2"          # l2 | l1 | chebyshev
     lut_dtype: str = "float32"     # float32 | bfloat16 | int8
+    recon_weight: float = 0.05     # lut_train: the paper's penalty ratio
+    task_grad_to_centroids: bool = False   # lut_train: LUT-NN-style path
     fuse: bool = True              # lut_infer: one fused assign + LUT
     #                                kernel (B1) vs two passes (B3, B4)
     kv_quant: str = "none"         # paged KV pool: none (fp rows) | vq
@@ -65,11 +69,7 @@ class QuantConfig:
     kv_c: int = 16                 # KV centroids per subspace (<= 256)
 
     def __post_init__(self):
-        if self.mode == "lut_train":
-            raise NotImplementedError(
-                "mode='lut_train' (LUTBoost training) is not ported yet: "
-                "ROADMAP.md queue A item 10 (Training)")
-        if self.mode not in ("dense", "lut_infer"):
+        if self.mode not in ("dense", "lut_train", "lut_infer"):
             raise ValueError(f"unknown quant mode: {self.mode}")
         if self.kv_quant not in ("none", "vq"):
             raise ValueError(
@@ -89,7 +89,7 @@ class QuantConfig:
 
     @property
     def is_lut(self) -> bool:
-        return self.mode == "lut_infer"
+        return self.mode in ("lut_train", "lut_infer")
 
     def replace(self, **kw) -> "QuantConfig":
         return dataclasses.replace(self, **kw)
@@ -165,9 +165,19 @@ def strip_for_inference(p: Params) -> Params:
     return {k: v for k, v in p.items() if k != "w" or "lut" not in p}
 
 
-def lut_linear_apply(p: Params, x: torch.Tensor,
-                     qc: QuantConfig) -> torch.Tensor:
-    """Apply the projection: x (..., K) -> (..., N) in x's dtype."""
+def lut_linear_apply(p: Params, x: torch.Tensor, qc: QuantConfig,
+                     recon: Optional[List[torch.Tensor]] = None
+                     ) -> torch.Tensor:
+    """Apply the projection: x (..., K) -> (..., N) in x's dtype.
+
+    In ``lut_train`` the projection's reconstruction loss (a float32
+    scalar) is appended to ``recon``, which the caller must pass there;
+    the other modes have none and leave it alone. While
+    :func:`~repro_torch.core.lutboost.capture_activations` is open, the
+    input is recorded first (LUTBoost stage 1).
+    """
+    if _lutboost._CAPTURE is not None:
+        _lutboost.record_activation(p, x)
     if qc.mode == "dense" or "z" not in p:
         out = x @ p["w"]
         if "b" in p:
@@ -176,6 +186,27 @@ def lut_linear_apply(p: Params, x: torch.Tensor,
     z = p["z"]
     k = z.shape[0] * z.shape[2]
     lead = x.shape[:-1]
+    if qc.mode == "lut_train":
+        if recon is None:
+            raise ValueError("lut_train projections need a recon list")
+        x_hat = ste_quantize_subspaces(x.reshape(*lead, k // qc.v, qc.v), z,
+                                       qc.metric)
+        out_q = x_hat.reshape(*lead, k).to(x.dtype) @ p["w"]        # Â·W
+        if qc.task_grad_to_centroids:
+            # LUT-NN-style: the task gradient reaches the centroids
+            # through the STE
+            out = out_q
+            out_d = x.detach() @ p["w"]
+        else:
+            # paper-faithful: forward value Â·W, backward path A·W; the
+            # centroids learn from the reconstruction loss only
+            out_d = x @ p["w"]                                       # A·W
+            out = out_d + (out_q - out_d).detach()
+        recon.append((torch.mean((out_q.detach() - out_d) ** 2)
+                      + torch.mean((out_q - out_d.detach()) ** 2)).float())
+        if "b" in p:
+            out = out + p["b"]
+        return out
     x2d = x.reshape(-1, k // qc.v, qc.v).contiguous()
     lut = p.get("lut")
     if lut is None:                    # on-the-fly (testing convenience)
@@ -189,3 +220,7 @@ def lut_linear_apply(p: Params, x: torch.Tensor,
     if "b" in p:
         out = out + p["b"]
     return out
+
+
+# the capture hook's module; imported last, as it imports this one
+from . import lutboost as _lutboost  # noqa: E402

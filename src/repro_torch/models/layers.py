@@ -4,6 +4,13 @@ dense and MoE families' blocks and by the hybrid family's shared block).
 
 Every projection routes through :func:`proj`, a LutLinear, so the paper's
 VQ-AMM technique is a switch for every projection (``QuantConfig.mode``).
+In ``lut_train`` each projection appends its reconstruction loss to the
+``recon`` list the caller passes (the JAX package returns it beside each
+output and sums ``r1 + r2 + r3 + r4``); serving passes none.
+The whole-sequence path of training (no cache, ``q_offset`` 0: ``k_pages``
+None) attends the fresh K/V alone through the same plain softmax as a
+prefill chunk; the JAX package's block-local fast path for windowed layers
+(``_sdpa_local``) computes the same function and is not ported.
 Attention is ported for the three paths paged serving runs: a prefill
 chunk over the slot's cached rows plus the chunk itself (plain matmul and
 masked softmax, as the JAX package's naive ``_sdpa``); single-token decode
@@ -24,7 +31,7 @@ the port computes the same function in one softmax.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -58,9 +65,11 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
-def proj(p: Params, x: torch.Tensor, qc: QuantConfig) -> torch.Tensor:
-    """One LutLinear projection."""
-    return lut_linear_apply(p, x, qc)
+def proj(p: Params, x: torch.Tensor, qc: QuantConfig,
+         recon: Optional[List[torch.Tensor]] = None) -> torch.Tensor:
+    """One LutLinear projection (its lut_train recon term into
+    ``recon``)."""
+    return lut_linear_apply(p, x, qc, recon)
 
 
 def _attend(qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -187,10 +196,12 @@ def _paged_view(pages: torch.Tensor, phys: torch.Tensor,
 
 
 def attention(p: Params, x: torch.Tensor, cfg, qc: QuantConfig, q_offset,
-              k_pages: torch.Tensor, v_pages: torch.Tensor,
+              k_pages: Optional[torch.Tensor],
+              v_pages: Optional[torch.Tensor],
               phys: Optional[torch.Tensor], window: int = 0,
               codebook: Optional[Params] = None,
-              kv_start: Optional[torch.Tensor] = None
+              kv_start: Optional[torch.Tensor] = None,
+              recon: Optional[List[torch.Tensor]] = None
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Pre-norm GQA attention over one layer of the paged pool, or of a
     dense cache.
@@ -217,7 +228,9 @@ def attention(p: Params, x: torch.Tensor, cfg, qc: QuantConfig, q_offset,
         chunk's (decode too: S == 1 attends in plain torch, as the JAX
         package's dense decode); at a (B,) ``q_offset`` with S == 1 each
         row decodes at its own position over its rows < q_offset[b]
-        (``_sdpa_decode_combine``).
+        (``_sdpa_decode_combine``). Both None (with ``phys`` None and
+        ``q_offset`` 0): no cache, the whole sequence attends itself
+        (training's forward).
       phys: (B, NP) trash-redirected physical page ids, or None.
       window: 0 = global attention, >0 = sliding window.
       codebook: this layer's slice of the KV codebook ({"zk": (nc, c, v),
@@ -225,15 +238,16 @@ def attention(p: Params, x: torch.Tensor, cfg, qc: QuantConfig, q_offset,
         (P+1, page, KVH, nc); None for an fp pool.
       kv_start: optional (B,) first valid cache row of each row (dense
         cache only): rows before it hold left padding and are masked.
+      recon: lut_train: the list each projection's recon term joins.
 
     Returns: (out (B, S, D), k_new, v_new (B, S, KVH, HD)).
     """
     b, s, _ = x.shape
     h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     xn = rms_norm(x, p["norm"], cfg.norm_eps)
-    q = proj(p["wq"], xn, qc)
-    k = proj(p["wk"], xn, qc)
-    v = proj(p["wv"], xn, qc)
+    q = proj(p["wq"], xn, qc, recon)
+    k = proj(p["wk"], xn, qc, recon)
+    v = proj(p["wv"], xn, qc, recon)
     verify = s > 1 and torch.is_tensor(q_offset)
     if torch.is_tensor(q_offset):       # per-slot: decode (S = 1) or verify
         positions = q_offset[:, None] + torch.arange(s, device=x.device)
@@ -242,6 +256,12 @@ def attention(p: Params, x: torch.Tensor, cfg, qc: QuantConfig, q_offset,
     q = rope(q.reshape(b, s, h, hd), positions, cfg.rope_theta)
     k = rope(k.reshape(b, s, kvh, hd), positions, cfg.rope_theta)
     v = v.reshape(b, s, kvh, hd)
+    if k_pages is None:     # no cache: the sequence attends itself
+        if torch.is_tensor(q_offset) or q_offset != 0 or phys is not None:
+            raise ValueError("attention without a cache runs the whole "
+                             "sequence from position 0")
+        out = _sdpa(q, k, v, 0, window).reshape(b, s, h * hd)
+        return proj(p["wo"], out, qc, recon), k, v
     if codebook is None:
         k_new, v_new = k.to(k_pages.dtype), v.to(v_pages.dtype)
     else:                   # code pool: the fresh rows stay fp
@@ -286,12 +306,13 @@ def attention(p: Params, x: torch.Tensor, cfg, qc: QuantConfig, q_offset,
             v_all = torch.cat([v_old.to(x.dtype), v_new.to(x.dtype)], 1)
             out = _sdpa(q, k_all, v_all, q_offset, window).reshape(
                 b, s, h * hd)
-    return proj(p["wo"], out, qc), k_new, v_new
+    return proj(p["wo"], out, qc, recon), k_new, v_new
 
 
-def mlp(p: Params, x: torch.Tensor, cfg, qc: QuantConfig) -> torch.Tensor:
+def mlp(p: Params, x: torch.Tensor, cfg, qc: QuantConfig,
+        recon: Optional[List[torch.Tensor]] = None) -> torch.Tensor:
     """Pre-norm SwiGLU MLP."""
     xn = rms_norm(x, p["norm"], cfg.norm_eps)
-    g = proj(p["wg"], xn, qc)
-    u = proj(p["wu"], xn, qc)
-    return proj(p["wd"], torch.nn.functional.silu(g) * u, qc)
+    g = proj(p["wg"], xn, qc, recon)
+    u = proj(p["wu"], xn, qc, recon)
+    return proj(p["wd"], torch.nn.functional.silu(g) * u, qc, recon)

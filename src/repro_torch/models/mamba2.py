@@ -9,13 +9,14 @@ update of a (B, H, P, N) float32 state.
 
 The projections (``in_proj``, ``out_proj``) are LutLinear, so in
 ``lut_infer`` they run kernel B1 (or B3 then B4 with ``fuse=False``) on
-the card. The scan, the causal conv and the recurrent update are plain
-torch ops there too: the JAX package computes them in XLA, not in a
-Pallas kernel.
+the card; in ``lut_train`` their recon terms join the ``recon`` list.
+The scan, the causal conv and the recurrent update are plain torch ops
+there too: the JAX package computes them in XLA, not in a Pallas
+kernel.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -178,26 +179,28 @@ def ssd_chunked(x, dt, a_log, bmat, cmat, d_skip, chunk: int = 128,
 
 def mamba2_block(p: Params, x: torch.Tensor, cfg, qc: QuantConfig,
                  cache: Optional[Params] = None,
-                 valid_len: Optional[int] = None
+                 valid_len: Optional[int] = None,
+                 recon: Optional[List[torch.Tensor]] = None
                  ) -> Tuple[torch.Tensor, Optional[Params]]:
-    """The full Mamba2 block (prefill path). x (B, S, D).
+    """The full Mamba2 block (prefill and training path). x (B, S, D).
 
     cache: {"conv": (B, K-1, C), "h": (B, H, P, N)}, carried for prefill
-    continuity and returned updated for the next chunk or decode.
+    continuity and returned updated for the next chunk or decode; None
+    starts from zero state (training's whole sequences).
     valid_len: positions >= valid_len are right-padding (a prefill
     chunk). An SSM integrates every input into its state, so pads are
     made recurrence-neutral: their dt is 0 (decay exp(-A.0) = 1, input
     weight dt.x = 0, an exact no-op on h) and the conv state is taken at
     the last real token.
-    Returns (out (B, S, D), new_cache or None). The JAX package's
-    reconstruction loss (its second output) serves no purpose in the port,
-    which does not train.
+    recon: lut_train: the list the two projections' recon terms join
+    (the JAX package returns their sum as its second output).
+    Returns (out (B, S, D), new_cache or None).
     """
     b, s, _ = x.shape
     h, pdim, n, g = (cfg.ssm_nheads, cfg.ssm_headdim, cfg.ssm_state,
                      cfg.ssm_ngroups)
     xn = rms_norm(x, p["norm"], cfg.norm_eps)
-    z, xbc, dt = _split_in_proj(proj(p["in_proj"], xn, qc), cfg)
+    z, xbc, dt = _split_in_proj(proj(p["in_proj"], xn, qc, recon), cfg)
     conv_state = cache["conv"] if cache is not None else None
     xbc, new_conv = _causal_conv(xbc, p["conv_w"], p["conv_b"], conv_state,
                                  valid_len=valid_len)
@@ -214,7 +217,7 @@ def mamba2_block(p: Params, x: torch.Tensor, cfg, qc: QuantConfig,
                              chunk=128, h0=h0)
     y = y.reshape(b, s, din)
     y = rms_norm(y * F.silu(z), p["gate_norm"], cfg.norm_eps)
-    out = proj(p["out_proj"], y, qc)
+    out = proj(p["out_proj"], y, qc, recon)
     new_cache = None
     if cache is not None:
         new_cache = {"conv": new_conv, "h": h_final}

@@ -1,8 +1,7 @@
-"""The decoder served through the paged KV pool (port of
-``repro.models.model``: the dense, MoE, SSM and hybrid families; the
-serving entry points: paged for the continuous-batching engine, dense for
-the batch-to-completion one; ``forward`` and ``loss`` wait for training,
-ROADMAP.md queue A item 10).
+"""The decoder (port of ``repro.models.model``: the dense, MoE, SSM and
+hybrid families): ``forward`` and ``loss`` for training, and the serving
+entry points, paged for the continuous-batching engine, dense for the
+batch-to-completion one.
 
 Params are a plain dict: ``embed``, ``final_norm`` (and ``head`` when
 embeddings are untied), and ``blocks``, a list with one dict per layer
@@ -16,6 +15,8 @@ stacks layers on a leading axis and scans, this port loops over the list.
 API:
   Model(cfg, device)                                     device="cuda"
   init(generator, qc)                              -> params
+  forward(params, {"tokens"}, qc)                  -> (logits, aux)
+  loss(params, {"tokens"}, qc)                     -> (scalar, metrics)
   init_cache(batch_size, max_seq)                  -> dense cache
   prefill(params, {"tokens"}, cache, qc, pad_lens=None) -> (logits, cache)
   decode(params, tokens, cache, qc, pad_lens=None)      -> (logits, cache)
@@ -41,12 +42,20 @@ last row is the trash row). It is updated in place as well: a prefill
 chunk writes its slot's state, a decode step a per-lane select that keeps
 the state of every lane that is not decoding. The dense-cache API and
 ``verify_paged`` refuse these families, as the JAX package's engines do.
+
+``forward`` runs whole sequences from position 0 with no cache (the SSM
+blocks from zero state), each layer under ``torch.utils.checkpoint`` when
+``cfg.remat`` is set; in ``lut_train`` it sums every projection's
+reconstruction loss, and the MoE family's load-balancing loss, for
+``loss``.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional
+import functools
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.kv_codebook import CODEBOOK_KEY, kv_encode
 from repro_torch.core.lut import (DENSE, QuantConfig, lut_linear_init,
@@ -78,8 +87,10 @@ class Model:
                 f"family {cfg.family!r} is not ported yet: ROADMAP.md "
                 "queue A item 9 (Other families)")
         if cfg.head_layout != "heads":
-            raise NotImplementedError("paged serving requires "
-                                      "head_layout='heads'")
+            raise NotImplementedError(
+                "head_layout='hd' (the head_dim-major layout that shards "
+                "attention) is not ported: ROADMAP.md queue A item 11 "
+                "(Scale-out)")
         self.cfg = cfg
         self.device = resolve_device(device)
 
@@ -136,8 +147,9 @@ class Model:
     def init(self, generator: torch.Generator,
              qc: QuantConfig = DENSE) -> Params:
         """Random params from ``generator`` (a generator on this model's
-        device), built on the device layer by layer; in lut_infer mode
-        every projection holds its LUT and no dense weight."""
+        device), built on the device layer by layer. In lut_train every
+        projection holds its dense weight ``w`` and centroids ``z``; in
+        lut_infer its LUT and no dense weight."""
         cfg, dev = self.cfg, self.device
 
         def normal(shape, std):
@@ -254,6 +266,73 @@ class Model:
                 x = x + a
                 x = x + mlp(shared["mlp"], x, cfg, qc)
         return x
+
+    # ------------------------------------------------------------------
+    # train forward + loss
+    # ------------------------------------------------------------------
+    def _train_layer(self, p_l: Params, li: int, shared: Optional[Params],
+                     qc: QuantConfig, x: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Layer ``li`` over whole sequences: x -> (x, its recon loss, its
+        MoE load-balancing loss), both float32 scalars."""
+        cfg = self.cfg
+        recon: List[torch.Tensor] = []
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        if cfg.family in RECURRENT:
+            o, _ = mamba2_block(p_l, x, cfg, qc, recon=recon)
+            x = x + o
+            if cfg.family == "hybrid" and self._attn_slot_list()[li] >= 0:
+                a, _, _ = attention(shared["attn"], x, cfg, qc, 0, None,
+                                    None, None, recon=recon)
+                x = x + a
+                x = x + mlp(shared["mlp"], x, cfg, qc, recon)
+        else:
+            a, _, _ = attention(p_l["attn"], x, cfg, qc, 0, None, None,
+                                None, window=self._windows()[li],
+                                recon=recon)
+            x = x + a
+            if "moe" in p_l:
+                f, aux = moe_ffn(p_l["moe"], x, cfg, qc, recon)
+            else:
+                f = mlp(p_l["mlp"], x, cfg, qc, recon)
+            x = x + f
+        r = (torch.stack(recon).sum() if recon
+             else torch.zeros((), dtype=torch.float32, device=x.device))
+        return x, r, aux
+
+    def forward(self, params: Params, batch: Dict, qc: QuantConfig = DENSE
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Logits of whole sequences: batch ``{"tokens": (B, S) int}`` ->
+        (logits (B, S, V), {"recon", "moe_aux"}: float32 scalars summed
+        over the layers)."""
+        x = self._embed(params, batch["tokens"])
+        recon = torch.zeros((), dtype=torch.float32, device=x.device)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        shared = params.get("shared_attn")
+        for li, p_l in enumerate(params["blocks"]):
+            layer = functools.partial(self._train_layer, p_l, li, shared, qc)
+            if self.cfg.remat:
+                x, r, a = checkpoint(layer, x, use_reentrant=False)
+            else:
+                x, r, a = layer(x)
+            recon = recon + r
+            aux = aux + a
+        x = rms_norm(x, params["final_norm"], self.cfg.norm_eps)
+        return self._head(params, x), {"recon": recon, "moe_aux": aux}
+
+    def loss(self, params: Params, batch: Dict, qc: QuantConfig = DENSE
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Next-token cross-entropy (float32) + ``qc.recon_weight`` x the
+        recon loss + 0.01 x the MoE load-balancing loss. Returns (total,
+        {"ce", "recon", "moe_aux", "loss"})."""
+        logits, aux = self.forward(params, batch, qc)
+        labels = batch["tokens"][:, 1:].long()
+        lp = torch.log_softmax(logits[:, :-1].float(), dim=-1)
+        ce = -torch.gather(lp, -1, labels[..., None])[..., 0].mean()
+        total = (ce + qc.recon_weight * aux["recon"]
+                 + 0.01 * aux["moe_aux"])
+        return total, {"ce": ce, "recon": aux["recon"],
+                       "moe_aux": aux["moe_aux"], "loss": total}
 
     # ------------------------------------------------------------------
     # dense-cache serving (the batch-to-completion engine)

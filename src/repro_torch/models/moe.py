@@ -12,18 +12,21 @@ leading expert axis: B1 fused, or B3 then B4), where the JAX package
 vmaps its Pallas kernels over the experts.
 
 The router product is a plain matmul outside any kernel, as the JAX
-package leaves it to XLA. ``lut_train`` is not ported (``QuantConfig``
-raises for it, citing ROADMAP.md queue A item 10).
+package leaves it to XLA. In ``lut_train`` each expert's rows go to that
+expert's centroids through the straight-through estimator (one call for
+all experts), with the forward value ``Â·W``, the backward path ``A·W``
+and the two-sided reconstruction loss of ``core.lut``, in plain PyTorch.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.core.lut import (QuantConfig, build_lut, precompute_layer,
                                   strip_for_inference)
+from repro_torch.core.similarity import ste_quantize_subspaces
 from repro_torch.kernels import ops as kops
 from .layers import rms_norm
 
@@ -48,21 +51,35 @@ def init_expert_proj(gen: torch.Generator, e: int, k: int, n: int,
     return p
 
 
-def expert_proj(p: Params, x: torch.Tensor, qc: QuantConfig
+def expert_proj(p: Params, x: torch.Tensor, qc: QuantConfig,
+                recon: Optional[List[torch.Tensor]] = None
                 ) -> torch.Tensor:
     """Batched per-expert projection: x (E, Cap, K) capacity-slotted
     expert buffers -> (E, Cap, N) in x's dtype.
 
-    p: {"w": (E, K, N)} and, in lut_infer, "z" (E, nc, c, v) with "lut"
-    (E, nc, c, N) and, for int8, "lut_scale" (E, N). In lut_infer every
-    expert goes through one kernel call (``qc.fuse``: B1; else B3 then
-    B4), on the card one launch for all experts.
+    p: {"w": (E, K, N)} and, in LUT modes, "z" (E, nc, c, v); in
+    lut_infer also "lut" (E, nc, c, N) and, for int8, "lut_scale" (E, N).
+    In lut_infer every expert goes through one kernel call (``qc.fuse``:
+    B1; else B3 then B4), on the card one launch for all experts. In
+    lut_train the recon term (over all experts) joins ``recon``; the
+    task gradient never reaches the centroids here, whatever
+    ``task_grad_to_centroids`` says, as in the JAX package.
     """
     if qc.mode == "dense" or "z" not in p:
         return torch.bmm(x, p["w"])
     e, cap, k = x.shape
-    xs = x.reshape(e, cap, k // qc.v, qc.v).contiguous()
+    xs = x.reshape(e, cap, k // qc.v, qc.v)
     z = p["z"]
+    if qc.mode == "lut_train":
+        if recon is None:
+            raise ValueError("lut_train projections need a recon list")
+        x_hat = ste_quantize_subspaces(xs, z, qc.metric)
+        out_q = torch.bmm(x_hat.reshape(e, cap, k).to(x.dtype), p["w"])
+        out_d = torch.bmm(x, p["w"])
+        recon.append((torch.mean((out_q.detach() - out_d) ** 2)
+                      + torch.mean((out_q - out_d.detach()) ** 2)).float())
+        return out_d + (out_q - out_d).detach()
+    xs = xs.contiguous()
     lut = p.get("lut")
     if lut is None:                    # on-the-fly (testing convenience)
         lut = build_lut(p["w"], z)
@@ -119,7 +136,8 @@ def route(probs: torch.Tensor, k: int, cap: int
     return eid, slot, slot < cap, gate_vals.reshape(-1)
 
 
-def moe_ffn(p: Params, x: torch.Tensor, cfg, qc: QuantConfig
+def moe_ffn(p: Params, x: torch.Tensor, cfg, qc: QuantConfig,
+            recon: Optional[List[torch.Tensor]] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-k routed MoE. x (B, S, D) -> (out (B, S, D), aux), aux the
     load-balancing loss E * sum_e f_e * p_e (float32 scalar).
@@ -130,7 +148,8 @@ def moe_ffn(p: Params, x: torch.Tensor, cfg, qc: QuantConfig
     buffers; each kept pair has its own slot, so no sum is needed (the
     reference adds zeros for dropped pairs, which gives the same
     buffers). A dropped pair combines with a zero gate, as in the
-    reference.
+    reference. ``recon``: lut_train, the list the expert projections'
+    recon terms join.
     """
     b, s, d = x.shape
     e, k = cfg.num_experts, cfg.top_k
@@ -156,9 +175,9 @@ def moe_ffn(p: Params, x: torch.Tensor, cfg, qc: QuantConfig
     buf[dest] = tokens.repeat_interleave(k, dim=0)
     buf = buf[:e * cap].view(e, cap, d)
 
-    g = expert_proj(p["wg"], buf, qc)
-    u = expert_proj(p["wu"], buf, qc)
-    y = expert_proj(p["wd"], F.silu(g) * u, qc)              # (E, Cap, D)
+    g = expert_proj(p["wg"], buf, qc, recon)
+    u = expert_proj(p["wu"], buf, qc, recon)
+    y = expert_proj(p["wd"], F.silu(g) * u, qc, recon)       # (E, Cap, D)
 
     # combine: each pair's row (a dropped pair reads slot cap - 1 with a
     # zero gate), weighted, summed over its k choices
@@ -169,7 +188,8 @@ def moe_ffn(p: Params, x: torch.Tensor, cfg, qc: QuantConfig
 
     if "shared_wg" in p:              # always-on shared experts, summed
         xin = tokens[None].expand(cfg.num_shared_experts, t, d).contiguous()
-        sg = expert_proj(p["shared_wg"], xin, qc)
-        su = expert_proj(p["shared_wu"], xin, qc)
-        out = out + expert_proj(p["shared_wd"], F.silu(sg) * su, qc).sum(0)
+        sg = expert_proj(p["shared_wg"], xin, qc, recon)
+        su = expert_proj(p["shared_wu"], xin, qc, recon)
+        out = out + expert_proj(p["shared_wd"], F.silu(sg) * su, qc,
+                                recon).sum(0)
     return out.reshape(b, s, d), aux

@@ -208,7 +208,9 @@ def test_lut_linear_apply_matches_jax():
                                atol=1e-5)
 
 
-@pytest.mark.parametrize("kw", [{"mode": "lut_train"}])
+@pytest.mark.parametrize("kw", [{"mode": "no-such-mode"}])
 def test_unported_quant_options_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A"):
+    """Every mode of the JAX package is ported (lut_train since LUTBoost
+    training came over): an unknown mode raises."""
+    with pytest.raises(ValueError, match="unknown quant mode"):
         tlut.QuantConfig(**kw)
