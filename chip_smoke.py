@@ -69,6 +69,19 @@ block's loss and gradients in float32 on the card against the CPU, a
 checkpoint of a 2-layer copy (bf16 bit for bit, and a resume against
 the uninterrupted run), then int8 LUTs of the result served through the
 engine with B1 and B2 (one decode step's launches, a bf16 logit check).
+A last phase, families, runs paligemma-3b (vlm: 256 image patches that
+attend each other both ways before the text) and musicgen-large (audio:
+frame embeddings in, 4 codebook heads out) at full width and depth:
+forward, the dense-cache prefill and 16 decode steps (fused, and for
+paligemma two-pass with the same greedy tokens; one decode step's
+launches, every kernel call one kernel), in float32 every B1 call
+(the chain's and the forward's) against its plain version on the same
+operands, each step's logits against a plain twin from the same cache,
+the forward's assignments against the chain's row for row, and the
+chain's logits against the forward's (rows no differing assignment
+reached, and every row of a forward on the chain's assignments), then
+LUTBoost stage 1 and one lut_train loss_and_grads. The kernel phase holds B1, B3 and B4 at both configs'
+projection shapes at their decode and prefill rows.
 
     python3 chip_smoke.py [--seed N]
 
@@ -106,8 +119,8 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch.configs import (  # noqa: E402
-    deepseek_moe_16b, gemma3_4b, gemma3_27b, mamba2_2p7b, qwen1p5_4b, yi_9b,
-    zamba2_1p2b)
+    deepseek_moe_16b, gemma3_4b, gemma3_27b, mamba2_2p7b, musicgen_large,
+    paligemma_3b, qwen1p5_4b, yi_9b, zamba2_1p2b)
 from repro_torch.checkpoint import (  # noqa: E402
     CheckpointManager, load_pytree, save_pytree)
 from repro_torch.core.lut import (  # noqa: E402
@@ -137,6 +150,7 @@ from repro_torch.serve import (  # noqa: E402
 from repro_torch.serve.speculative import Drafter, SpecConfig  # noqa
 from repro_torch.train import (  # noqa: E402
     TrainConfig, Trainer, init_opt_state, make_train_step)
+from repro_torch.train.trainer import loss_and_grads  # noqa: E402
 from repro_torch.tree import (  # noqa: E402
     tree_flatten_with_path, tree_leaves, tree_map)
 
@@ -161,6 +175,11 @@ GEMMA_PROJ_SHAPES = [(2560, 2048, 1), (2560, 1024, 2), (2048, 2560, 1),
 # and gemma3-27b (wq, wk wv, wo, wg wu, wd)
 GEMMA27_PROJ_SHAPES = [(5376, 4096, 1), (5376, 2048, 2), (4096, 5376, 1),
                        (5376, 21504, 2), (21504, 5376, 1)]
+# paligemma-3b (wq wo, wk wv: one kv head of 256, wg wu, wd: nc = 2048) and
+# musicgen-large (wq wk wv wo, wg wu, wd)
+PALIGEMMA_PROJ_SHAPES = [(2048, 2048, 2), (2048, 256, 2), (2048, 16384, 2),
+                         (16384, 2048, 1)]
+MUSICGEN_PROJ_SHAPES = [(2048, 2048, 4), (2048, 8192, 2), (8192, 2048, 1)]
 # rows of a projection call: decode (the slots), the prefill chunk, and a
 # speculative verify of SLOTS slots x (k+1) tokens at k = SPEC_K
 SPEC_K = 4
@@ -1083,6 +1102,11 @@ GEMMA_LOAD = Load(max_seq=2048, chunk=256, prompt=(1100, 1801),
                   check=(1100, 1800))
 GEMMA27_LOAD = Load(slots=4, max_seq=2048, chunk=256, n=4,
                     prompt=(1100, 1301), new=16, hot=-1, check=(1100, 1300))
+# The families phase (paligemma-3b, musicgen-large; dense cache): the
+# forward batch's rows and length (text tokens after the image prefix, or
+# frames), then the serve runs' rows, prompt and decode steps
+FAM_FORWARD = 2, {"vlm": 64, "audio": 256}
+FAM_ROWS, FAM_PROMPT, FAM_STEPS = 4, {"vlm": 32, "audio": 64}, 16
 # (projection shapes, rows of a call) of each config's 3-d kernel
 # checks: every M its serve runs give B1 (decode: the slots; prefill: the
 # chunk), and yi-9b and gemma3-4b also at DENSE_MS
@@ -1097,6 +1121,13 @@ DENSE_PATHS = {
     # projections are the moe phase's grouped cases (MOE_CASES)
     "deepseek-moe-16b": ([(2048, 2048, 4)], sorted({MAIN_LOAD.slots,
                                                     MAIN_LOAD.chunk})),
+    # the families phase's dense-cache runs: decode (B rows) and prefill
+    # (B x (patches + prompt tokens), B x prompt frames)
+    "paligemma-3b": (PALIGEMMA_PROJ_SHAPES, [
+        FAM_ROWS, FAM_ROWS * (paligemma_3b.config().num_patches
+                              + FAM_PROMPT["vlm"])]),
+    "musicgen-large": (MUSICGEN_PROJ_SHAPES, [FAM_ROWS,
+                                              FAM_ROWS * FAM_PROMPT["audio"]]),
 }
 
 
@@ -3026,6 +3057,640 @@ def train_phase(seed):
     free()
 
 
+# ---------------------------------------------------------------------------
+# families phase: paligemma-3b (vlm) and musicgen-large (audio), dense cache
+# ---------------------------------------------------------------------------
+
+# Float32 copies (LUTs stay int8): each step of the chain through the
+# kernels against its twin through the plain versions from the same cache
+# state; a sequence with no near-tie argmin flip in that step gives the
+# same logits (every projection the same exact int8 sum, the rest the same
+# plain torch), within FAM_PLAIN_ATOL. A flipped assignment must be a near-
+# tie: its two centroids' squared distances (in float64) within FLIP_REL
+# of |x|^2 + |z|^2, ~100 float32 ulps of the terms that the kernel (fma
+# chain) and the plain version (a matmul) sum in other orders.
+FAM_PLAIN_ATOL = 1e-4
+FLIP_REL = 1e-5
+# decode against forward: the JAX package's tolerances for that
+# (tests/test_models.py: 3e-4 for the prefill, 5e-3 for a decode step);
+# a forward's B1 input in a row that no differing assignment has reached
+# is the chain's within FWD_X_REL of its norm (only the order of the
+# attention and ``in_proj`` sums differs)
+FAM_FORWARD_TOL = (3e-4, 5e-3)
+FWD_X_REL = 1e-4
+
+
+def family_batch(cfg, rows, length, seed, step):
+    """A SyntheticDataset batch of the family's kind on the card: vlm
+    patch embeddings and ``length`` text tokens; audio ``length`` frames
+    and their labels."""
+    prefix = cfg.num_patches if cfg.family == "vlm" else 0
+    return SyntheticDataset(cfg, rows, prefix + length, seed=seed,
+                            device=DEV).batch(step)
+
+
+def family_chain(model, params, qc, prompt, frames=None, spare=0):
+    """The dense-cache serve of a vlm or audio model: prefill ``prompt``
+    (a batch dict), then FAM_STEPS decode steps, each fed the next of
+    ``frames`` (audio, (B, FAM_STEPS, D)) or else greedily the argmax of
+    the step before (vlm). The cache keeps ``spare`` rows more. Returns (the logits of the prefill and of
+    each step, the inputs fed, prefill s, each decode step's s, the
+    cache)."""
+    cfg = model.cfg
+    rows = next(iter(prompt.values())).shape[0]
+    n = (prompt["embeds"].shape[1] if cfg.family == "audio"
+         else cfg.num_patches + prompt["tokens"].shape[1])
+    cache = model.init_cache(rows, n + FAM_STEPS + spare)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lg, cache = model.prefill(params, prompt, cache, qc)
+    torch.cuda.synchronize()
+    t_pre = time.perf_counter() - t0
+    logits, inputs, times = [lg], [], []
+    for t in range(FAM_STEPS):
+        x = (frames[:, t:t + 1] if frames is not None
+             else lg.argmax(-1)[:, None].to(torch.int32))
+        t0 = time.perf_counter()
+        lg, cache = model.decode(params, x, cache, qc)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        logits.append(lg)
+        inputs.append(x)
+    return logits, inputs, t_pre, times, cache
+
+
+def kernel_calls(fn, keys):
+    """Run ``fn`` with every call of the kernels ``keys`` (of "b1", "b3",
+    "b4") tapped: for each distinct set of operand shapes, what one call
+    enqueues (``device.enqueued``, which launches it twice more). Returns
+    {key: {shapes: enqueued}}."""
+    seen = {k: {} for k in keys}
+    saved = {k: getattr(DISPATCH[k][0], DISPATCH[k][1]) for k in keys}
+
+    def tap(key, orig):
+        def call(*a, **kw):
+            sig = tuple(tuple(t.shape) for t in a if torch.is_tensor(t))
+            if sig not in seen[key]:
+                seen[key][sig] = enqueued(lambda: orig(*a, **kw))
+            return orig(*a, **kw)
+        return call
+    for k in keys:
+        mod, attr, _ = DISPATCH[k]
+        setattr(mod, attr, tap(k, saved[k]))
+    try:
+        fn()
+    finally:
+        for k in keys:
+            setattr(DISPATCH[k][0], DISPATCH[k][1], saved[k])
+    return seen
+
+
+class FlipTap:
+    """While entered, every B1 call (``ops.vq_amm_cuda``) is also held
+    against its plain versions on the same operands: B3 gives B1's own
+    assignments (bit for bit: ``b34_case``), ``ref.assign_ref`` the plain
+    ones. In every row the output must be the plain gather-sum
+    (``ref.lut_gemm_onehot``) over B1's own assignments, and an
+    assignment that differs from the plain one must be a near-tie
+    (FLIP_REL; the l2 metric). With ``keep`` each call's (x, assignments,
+    z) is kept in ``kept``; ``hook``, when set, is called with them.
+    :meth:`take` returns the sequences (``seqs`` of them, each a block of
+    a call's rows) with a flip since the last take."""
+
+    def __init__(self, seqs, keep=False):
+        self.seqs = seqs
+        self.flipped = set()
+        self.calls = self.assignments = self.flips = 0
+        self.worst = 0.0                      # largest relative flip gap
+        self.bad = []
+        self.kept = [] if keep else None
+        self.hook = None
+
+    def __enter__(self):
+        self._orig = ops.vq_amm_cuda
+        ops.vq_amm_cuda = self._call
+        return self
+
+    def __exit__(self, *exc):
+        ops.vq_amm_cuda = self._orig
+
+    def take(self):
+        out, self.flipped = self.flipped, set()
+        return out
+
+    def _call(self, x, z, lut, scale=None, metric="l2"):
+        y = self._orig(x, z, lut, scale, metric)
+        idx_k = vq_assign_cuda(x, z, metric)
+        idx_p = ref.assign_ref(x, z, metric)
+        y_k = ref.lut_gemm_onehot(idx_k, lut, scale)
+        err = float((y - y_k).abs().max())
+        if err > 1e-5 * max(1.0, float(y_k.abs().max())):
+            self.bad.append(f"B1 {tuple(x.shape)}: off the plain gather-sum "
+                            f"over its own assignments by {err}")
+        diff = idx_k != idx_p                               # (M, nc)
+        self.calls += 1
+        self.assignments += diff.numel()
+        n = int(diff.sum())
+        self.flips += n
+        if n:
+            r, c = diff.nonzero(as_tuple=True)
+            rel = float(flip_gap(x[r, c], z[c, idx_k[r, c].long()],
+                                 z[c, idx_p[r, c].long()])[0].max())
+            self.worst = max(self.worst, rel)
+            if metric != "l2" or rel > FLIP_REL:
+                self.bad.append(f"B1 {tuple(x.shape)}: an assignment off "
+                                f"the plain one by {rel:.2e} of |x|^2 + "
+                                f"|z|^2 (not a near-tie)")
+            self.flipped.update((r // (x.shape[0] // self.seqs)).tolist())
+        if self.kept is not None:
+            self.kept.append((x.clone(), idx_k, z))
+        if self.hook is not None:
+            self.hook(x, idx_k, z)
+        return y
+
+
+def flip_gap(x, a, b):
+    """For inputs x (F, v) that chose centroid a over b: the gap
+    |x - b|^2 - |x - a|^2 (float64) over |x|^2 + max(|a|^2, |b|^2), and
+    that size."""
+    x, a, b = x.double(), a.double(), b.double()
+    gap = ((x - b) ** 2).sum(-1) - ((x - a) ** 2).sum(-1)
+    size = (x ** 2).sum(-1) + torch.maximum((a ** 2).sum(-1),
+                                            (b ** 2).sum(-1))
+    return gap.abs() / size, gap, size
+
+
+def chain_calls(kept, per_pass, seqs):
+    """The chain's B1 calls (:class:`FlipTap` ``kept``: the prefill's
+    pass, then each decode step's) laid out as the forward's: for each
+    call of a pass, (x, assignments, z) over every row of the sequences,
+    the prefill's then each step's."""
+    check(len(kept) % per_pass == 0,
+          f"the chain made {len(kept)} B1 calls, not passes of {per_pass}")
+    out = []
+    for i in range(per_pass):
+        parts = kept[i::per_pass]
+        check(all(p[2].data_ptr() == parts[0][2].data_ptr() for p in parts),
+              f"B1 call {i} of a pass takes other centroids step by step")
+
+        def seq(t):
+            return torch.cat([q.reshape(seqs, -1, *q.shape[1:]) for q in t],
+                             1).flatten(0, 1)
+        out.append((seq([p[0] for p in parts]), seq([p[1] for p in parts]),
+                    parts[0][2]))
+    kept.clear()
+    return out
+
+
+class ChainMatch:
+    """The forward's B1 calls against the chain's (:func:`chain_calls`),
+    call for call and row for row. A row is clean while no assignment
+    has differed, in an earlier call, at its position or before it in its
+    sequence (a vlm's prefix attends both ways, so a difference there
+    reaches every row). A clean row's input must be the chain's within
+    FWD_X_REL of its norm, and an assignment that differs there must be
+    one that input difference explains: its gap on the forward's input at
+    most 2 |dx| |a - b| + FLIP_REL (|x|^2 + |z|^2). ``first[b]`` is the
+    first position of sequence b that is no longer clean."""
+
+    def __init__(self, chain, seqs, prefix):
+        self.chain, self.seqs, self.prefix = chain, seqs, prefix
+        self.i = self.flips = self.clean_flips = self.assignments = 0
+        self.worst_dx = self.worst_gap = 0.0
+        self.first = None
+        self.bad = []
+
+    def __call__(self, x, idx, z):
+        if self.i == len(self.chain):
+            self.bad.append(f"the forward made more than {self.i} B1 calls")
+            return
+        xc, ic, zc = self.chain[self.i]
+        self.i += 1
+        if (z.data_ptr(), x.shape) != (zc.data_ptr(), xc.shape):
+            self.bad.append(f"B1 call {self.i - 1}: the forward's operands "
+                            f"{tuple(x.shape)} are not the chain's "
+                            f"{tuple(xc.shape)}")
+            return
+        s = x.shape[0] // self.seqs
+        if self.first is None:
+            self.first = torch.full((self.seqs,), s, device=x.device)
+        rows = torch.arange(x.shape[0], device=x.device)
+        clean = rows % s < self.first[rows // s]
+        dx = x.double() - xc.double()
+        dx_row = dx.flatten(1).norm(dim=1)[clean]
+        x_row = xc.double().flatten(1).norm(dim=1)[clean]
+        if dx_row.numel():
+            self.worst_dx = max(self.worst_dx, float(
+                (dx_row / x_row.clamp_min(1e-30)).max()))
+            if bool((dx_row > FWD_X_REL * x_row).any()):
+                self.bad.append(f"B1 call {self.i - 1}: a clean row's input "
+                                f"off the chain's by more than {FWD_X_REL} "
+                                "of its norm")
+        diff = idx != ic
+        self.assignments += diff.numel()
+        n = int(diff.sum())
+        if not n:
+            return
+        self.flips += n
+        r, c = diff.nonzero(as_tuple=True)
+        k = clean[r]
+        rk, ck = r[k], c[k]
+        if rk.numel():
+            a, b = z[ck, idx[rk, ck].long()], z[ck, ic[rk, ck].long()]
+            rel, gap, size = flip_gap(x[rk, ck], a, b)
+            allowed = (2 * dx[rk, ck].norm(dim=-1)
+                       * (a.double() - b.double()).norm(dim=-1)
+                       + FLIP_REL * size)
+            self.clean_flips += rk.numel()
+            self.worst_gap = max(self.worst_gap, float(rel.max()))
+            if bool((gap.abs() > allowed).any()):
+                self.bad.append(f"B1 call {self.i - 1}: an assignment "
+                                "differs from the chain's by more than the "
+                                "input difference explains")
+        pos = r % s
+        pos = torch.where(pos < self.prefix, 0, pos)
+        self.first.scatter_reduce_(0, r // s, pos, reduce="amin")
+
+
+@contextlib.contextmanager
+def replayed(chain):
+    """Every B1 call takes the assignments of the chain's call at its
+    place (:func:`chain_calls`) and sums them with B4: a forward then
+    makes the chain's LUT sums in every row."""
+    calls = iter(chain)
+    orig = ops.vq_amm_cuda
+
+    def call(x, z, lut, scale=None, metric="l2"):
+        _, idx, zc = next(calls)
+        check((z.data_ptr(), x.shape[0]) == (zc.data_ptr(), idx.shape[0]),
+              "a replayed B1 call's operands are not the chain's")
+        return ops.lut_gemm_cuda(idx, lut, scale)
+    ops.vq_amm_cuda = call
+    try:
+        yield
+    finally:
+        ops.vq_amm_cuda = orig
+
+
+def family_serve(model, params, qc, prompt, frames, n_proj):
+    """The bf16 dense-cache serve runs of one model: fused (B1), and for
+    a vlm two-pass (B3 + B4, greedy tokens equal to the fused run's).
+    Each run counts its launches (PATH_LAUNCHES, 7 x layers a prefill and
+    a decode step); then one more decode step counts its own, and one
+    more has every kernel call's enqueue checked (ONE_KERNEL)."""
+    cfg = model.cfg
+    audio = cfg.family == "audio"
+    runs = {"fused": (qc, ("b1",), {"b2", "b3", "b4", "b5"})}
+    if not audio:
+        runs["two-pass"] = (qc.replace(fuse=False), ("b3", "b4"),
+                            {"b1", "b2", "b5"})
+    tokens = {}
+    for run, (qc_r, keys, idle) in runs.items():
+        label = f"{cfg.name} {run}"
+        with torch.no_grad():
+            (logits, inputs, t_pre, times, cache), wall, counts = path_run(
+                label, lambda: family_chain(model, params, qc_r, prompt,
+                                            frames, spare=2),
+                set(keys), idle)
+            check(all(bool(torch.isfinite(lg).all()) for lg in logits),
+                  f"{label}: non-finite logits")
+            want = {k: n_proj * (FAM_STEPS + 1) for k in keys}
+            got = {k: counts[k] for k in keys}
+            check(got == want, f"{label}: the prefill and {FAM_STEPS} "
+                  f"decode steps launched {got}, expected {want}")
+            x = (frames[:, -1:] if audio
+                 else logits[-1].argmax(-1)[:, None].to(torch.int32))
+            reset_counts()
+            model.decode(params, x, cache, qc_r)
+            torch.cuda.synchronize()
+            step = {k: n for k, n in read_counts().items()
+                    if n and not k.endswith("_grouped")}
+            check(step == {k: n_proj for k in keys},
+                  f"{label}: one decode step launches {step}, expected "
+                  f"{n_proj} of each of {keys}")
+            calls = kernel_calls(lambda: model.decode(params, x, cache, qc_r),
+                                 keys)
+        shapes = {k: len(v) for k, v in calls.items()}
+        check(all(calls.values()) and all(
+            e == ONE_KERNEL for v in calls.values() for e in v.values()),
+              f"{label}: each kernel call must enqueue {ONE_KERNEL}: "
+              f"{calls}")
+        if not audio:
+            tokens[run] = [x.flatten().tolist() for x in inputs] + [
+                logits[-1].argmax(-1).tolist()]
+        dec = 1e3 * np.array(times)
+        print(f"families [{label}]: dense-cache prefill of {FAM_ROWS} x "
+              + (f"{FAM_PROMPT['audio']} frames"
+                 if audio else f"({cfg.num_patches} patches + "
+                 f"{FAM_PROMPT['vlm']} tokens)")
+              + f" in {1e3 * t_pre:.1f} ms, {FAM_STEPS} decode steps "
+              + ("fed the next frames" if audio else "greedy")
+              + f": mean {dec.mean():.1f} ms, median {np.median(dec):.1f} "
+              f"ms ({FAM_ROWS * FAM_STEPS / (1e-3 * dec.sum()):.1f} tokens/s"
+              f" decoded); run launches {PATH_LAUNCHES[label]}; one decode "
+              f"step launches {step}, every call one kernel "
+              f"({ONE_KERNEL}) at each of {shapes} operand shapes [{SMI}]")
+    if not audio:
+        check(tokens["two-pass"] == tokens["fused"],
+              f"{cfg.name}: two-pass greedy tokens differ from the fused "
+              "run's")
+        print(f"families [{cfg.name}]: two-pass greedy tokens equal the "
+              f"fused run's ({FAM_ROWS} rows x {FAM_STEPS + 1} tokens)")
+
+
+def chain_forward(model, params, qc, prompt, frames, fed):
+    """The model's forward over the prompt and what a chain fed it, at
+    the chain's positions (the prompt's last row, then each step's)."""
+    if model.cfg.family == "audio":
+        whole = {"embeds": torch.cat([prompt["embeds"], frames], 1)}
+        first = prompt["embeds"].shape[1] - 1
+    else:
+        whole = {"patch_embeds": prompt["patch_embeds"],
+                 "tokens": torch.cat([prompt["tokens"]] + fed, 1)}
+        first = model.cfg.num_patches + prompt["tokens"].shape[1] - 1
+    full, _ = model.forward(params, whole, qc)
+    return full[:, first:].clone(), first
+
+
+def forward_agreement(chain, full):
+    """Each of the chain's logits (the prefill's, then each decode
+    step's) against the forward's at its position, at FAM_FORWARD_TOL:
+    (within, argmax equal), each (steps, sequences), and the largest
+    |difference| a step."""
+    ok, same, mx = [], [], []
+    for i, lg in enumerate(chain):
+        tol = FAM_FORWARD_TOL[i > 0]
+        want = full[:, i].float()
+        d = (lg.float() - want).abs()
+        ok.append((d <= tol + tol * want.abs()).reshape(FAM_ROWS, -1).all(1))
+        same.append((lg.argmax(-1) == want.argmax(-1))
+                    .reshape(FAM_ROWS, -1).all(1))
+        mx.append(float(d.max()))
+    return torch.stack(ok), torch.stack(same), mx
+
+
+def family_float32(model32, params32, qc, prompt, frames):
+    """Float32 (LUTs int8), every B1 call tapped (:class:`FlipTap`): the
+    prefill and FAM_STEPS decode steps through the kernels, each step's
+    twin through the plain versions (``plain_kernels``) from the same
+    cache state and inputs; a sequence with no flip in that step must
+    give the plain logits within FAM_PLAIN_ATOL and the same argmax.
+    Then the model's forward over the same sequences, tapped too, its B1
+    calls held against the chain's (:class:`ChainMatch`): the chain's
+    logits must be the forward's at FAM_FORWARD_TOL in every row still
+    clean, and in every row those of a forward that takes the chain's
+    assignments (:func:`replayed`)."""
+    cfg = model32.cfg
+    audio = cfg.family == "audio"
+    n = (prompt["embeds"].shape[1] if audio
+         else cfg.num_patches + prompt["tokens"].shape[1])
+    tap = FlipTap(FAM_ROWS, keep=True)
+    steps, fed = [], []
+    with torch.no_grad():
+        with plain_kernels():
+            lg_p, _ = model32.prefill(params32, prompt,
+                                      model32.init_cache(FAM_ROWS, n), qc)
+        cache = model32.init_cache(FAM_ROWS, n + FAM_STEPS)
+        with tap:
+            lg, cache = model32.prefill(params32, prompt, cache, qc)
+        steps.append((lg, lg_p, tap.take()))
+        for t in range(FAM_STEPS):
+            x = (frames[:, t:t + 1] if audio
+                 else lg.argmax(-1)[:, None].to(torch.int32))
+            twin = {"layers": {k: v.clone()
+                               for k, v in cache["layers"].items()},
+                    "pos": cache["pos"]}
+            with plain_kernels():
+                lg_p, _ = model32.decode(params32, x, twin, qc)
+            del twin
+            with tap:
+                lg, cache = model32.decode(params32, x, cache, qc)
+            steps.append((lg, lg_p, tap.take()))
+            fed.append(x)
+        del cache
+        chain_tap = (tap.calls, tap.flips, tap.assignments)
+        chain = chain_calls(tap.kept, 7 * cfg.num_layers, FAM_ROWS)
+        tap.kept = None
+        tap.hook = match = ChainMatch(chain, FAM_ROWS,
+                                      0 if audio else cfg.num_patches)
+        with tap:
+            full, first = chain_forward(model32, params32, qc, prompt,
+                                        frames, fed)
+        tap.hook = None
+        with replayed(chain):
+            full_r, _ = chain_forward(model32, params32, qc, prompt, frames,
+                                      fed)
+        calls, n_chain = match.i, len(chain)
+        del chain
+    torch.cuda.synchronize()
+    clean = ok = same = off = off_same = 0
+    worst_clean = worst_off = 0.0
+    for lg, lg_p, seqs in steps:
+        d = (lg.float() - lg_p.float()).abs().reshape(FAM_ROWS, -1).amax(1)
+        am = (lg.argmax(-1) == lg_p.argmax(-1)).reshape(FAM_ROWS, -1).all(1)
+        for b in range(FAM_ROWS):
+            if b in seqs:
+                off += 1
+                off_same += bool(am[b])
+                worst_off = max(worst_off, float(d[b]))
+            else:
+                clean += 1
+                ok += float(d[b]) <= FAM_PLAIN_ATOL
+                same += bool(am[b])
+                worst_clean = max(worst_clean, float(d[b]))
+    print(f"families [{cfg.name}] float32 kernels vs plain versions, "
+          f"step by step from one cache: {chain_tap[0]} B1 calls, "
+          f"{chain_tap[1]} of {chain_tap[2]} assignments flipped at near-"
+          f"ties; {ok}/{clean} rows without a flip within {FAM_PLAIN_ATOL} "
+          f"(max |diff| {worst_clean:.2e}), argmax equal in {same}/{clean}; "
+          f"{off} rows with a flip in their step (max |diff| "
+          f"{worst_off:.3g}, argmax equal in {off_same}); the forward's "
+          f"{tap.calls - chain_tap[0]} B1 calls: {tap.flips - chain_tap[1]} "
+          f"of {tap.assignments - chain_tap[2]} flipped; largest gap of "
+          f"all {tap.worst:.2e} of |x|^2 + |z|^2 [{SMI}]")
+    check(not tap.bad, f"{cfg.name} float32 B1 against plain: "
+          f"{tap.bad[:3]}")
+    check(ok == clean and same == clean,
+          f"{cfg.name} float32 kernels vs plain: {ok} / {same} of {clean} "
+          "rows without a flip within tolerance / with the same argmax")
+
+    chain_lg = [lg for lg, _, _ in steps]
+    f_ok, f_same, f_max = forward_agreement(chain_lg, full)
+    r_ok, r_same, r_max = forward_agreement(chain_lg, full_r)
+    reached = (match.first.tolist() if match.first is not None
+               else [None] * FAM_ROWS)
+    pos = first + torch.arange(len(steps), device=full.device)[:, None]
+    kept = (pos < match.first[None, :] if match.first is not None
+            else torch.zeros_like(f_ok))
+    rows = f_ok.numel()
+    print(f"families [{cfg.name}] float32 int8-LUT forward vs the chain: "
+          f"{calls} B1 calls matched call for call; {match.flips} of "
+          f"{match.assignments} assignments differ, {match.clean_flips} in "
+          f"clean rows (largest gap {match.worst_gap:.2e} of |x|^2 + "
+          f"|z|^2, each within what its input's difference explains; clean "
+          f"inputs within {match.worst_dx:.2e} of their norm); first "
+          f"position reached by a difference, by sequence {reached} (chain "
+          f"rows from position {first}); {int(kept.sum())}/{rows} rows "
+          f"clean, {int(f_ok[kept].sum())} of them within {FAM_FORWARD_TOL}"
+          f" and {int(f_same[kept].sum())} with the same argmax (all rows: "
+          f"{int(f_ok.sum())} within, max |diff| {max(f_max):.2e}); the "
+          f"forward on the chain's assignments: {int(r_ok.sum())}/{rows} "
+          f"within, argmax equal in {int(r_same.sum())}/{rows}, max |diff| "
+          f"by step {[f'{m:.1e}' for m in r_max]} [{SMI}]")
+    check(not match.bad and calls == n_chain,
+          f"{cfg.name} forward against the chain: {calls} of {n_chain} B1 "
+          f"calls; {match.bad[:3]}")
+    check(bool(f_ok[kept].all()) and bool(f_same[kept].all()),
+          f"{cfg.name} int8-LUT decode vs forward: rows no differing "
+          "assignment reached off tolerance or argmax")
+    check(bool(r_ok.all()) and bool(r_same.all()),
+          f"{cfg.name} int8-LUT decode vs the forward on the chain's "
+          f"assignments: {int(r_ok.sum())} / {int(r_same.sum())} of {rows} "
+          "rows within tolerance / with the same argmax")
+
+
+def batch_tokens(batch):
+    """The tokens a batch trains on, for tokens/s: its text tokens (a
+    vlm's image patches, which the loss does not predict, are not
+    counted), or an audio batch's frames."""
+    if "embeds" in batch:
+        return batch["embeds"].shape[0] * batch["embeds"].shape[1]
+    return batch["tokens"].numel()
+
+
+def family_train(cfg, seed):
+    """LUTBoost on the full-width model in bf16: stage 1 (``convert``
+    through the dense forward on one batch of the family's kind: every
+    block projection's z changes; ``in_proj`` / ``heads`` / ``embed``
+    carry no z and stay the same tensors), then one ``loss_and_grads`` in
+    lut_train: loss, ce, recon and the gradient norm finite, recon > 0."""
+    qt = QuantConfig(mode="lut_train", v=V, c=C, metric="l2")
+    torch.cuda.reset_peak_memory_stats()
+    model = Model(cfg, device=DEV)
+    params = model.init(torch.Generator(device=DEV).manual_seed(seed + 1),
+                        qt)
+    rows, length = FAM_FORWARD[0], FAM_FORWARD[1][cfg.family]
+    calib = family_batch(cfg, rows, length, seed, 2)
+    batch = family_batch(cfg, rows, length, seed, 3)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    conv = convert(lambda p, b: model.forward(p, b, DENSE), params, calib,
+                   qt, seed=seed)
+    torch.cuda.synchronize()
+    t_conv = time.perf_counter() - t0
+    n_proj = 7 * cfg.num_layers
+    changed = sum(not torch.equal(a["z"], b["z"]) for a, b in
+                  zip(_lut_layers(params), _lut_layers(conv)))
+    dense = [k for k in ("embed", "in_proj", "heads") if k in params]
+    kept = all(conv[k] is params[k] for k in dense)
+    del params
+    free()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, met, grads = loss_and_grads(model, conv, batch, qt)
+    torch.cuda.synchronize()
+    t_step = time.perf_counter() - t0
+    gn = math.sqrt(sum(float(g.float().pow(2).sum())
+                       for g in _leaves(grads)))
+    vals = {k: float(met[k]) for k in ("loss", "ce", "recon")}
+    tokens = batch_tokens(batch)
+    print(f"families [{cfg.name} lut_train]: convert ({rows} x "
+          + (f"{length} frames" if cfg.family == "audio" else
+             f"({cfg.num_patches} patches + {length} tokens)")
+          + f" through the dense forward) {t_conv:.2f} s, z changed in "
+          f"{changed} of {n_proj}, {dense} kept; one loss_and_grads "
+          f"{1e3 * t_step:.1f} ms ({tokens / t_step:.0f} training tokens/s"
+          f", {tokens} {'frames' if cfg.family == 'audio' else 'text tokens'}"
+          f" a batch): loss {vals['loss']:.4f} (ce {vals['ce']:.4f}, recon "
+          f"{vals['recon']:.4f}), grad_norm {gn:.4g}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB [{SMI}]")
+    check(changed == n_proj and kept,
+          f"{cfg.name} convert: z changed in {changed} of {n_proj}, dense "
+          f"leaves kept: {kept}")
+    check(all(math.isfinite(v) for v in vals.values()) and math.isfinite(gn)
+          and vals["recon"] > 0,
+          f"{cfg.name} lut_train: loss {vals}, grad_norm {gn}")
+    del conv, grads, model
+    free()
+
+
+def family_run(cfg, seed):
+    """One full-width, full-depth vlm or audio config from a seed (int8
+    LUTs, v=V c=C l2, bf16): forward on FAM_FORWARD, the dense-cache serve
+    runs (:func:`family_serve`), the float32 checks
+    (:func:`family_float32`), then LUTBoost (:func:`family_train`)."""
+    qc = QuantConfig(mode="lut_infer", v=V, c=C, metric="l2",
+                     lut_dtype="int8")
+    audio = cfg.family == "audio"
+    n_proj = 7 * cfg.num_layers
+    torch.cuda.reset_peak_memory_stats()
+    model = Model(cfg, device=DEV)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=DEV).manual_seed(seed), qc)
+    torch.cuda.synchronize()
+    pbytes = sum(nbytes(t) for t in _leaves(params))
+    extra = (f"{cfg.num_codebooks} codebook heads" if audio
+             else f"{cfg.num_patches} patches a prefix")
+    print(f"families [{cfg.name}]: full-width ({cfg.num_layers} layers, "
+          f"d_model {cfg.d_model}, {cfg.num_heads} heads / "
+          f"{cfg.num_kv_heads} kv, head_dim {cfg.head_dim}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab_size}, {extra}; "
+          f"{cfg.param_count() / 1e9:.3f} B params) lut_infer int8 v={V} "
+          f"c={C} built on the card in {time.perf_counter() - t0:.1f} s, "
+          f"{pbytes / 1e9:.2f} GB of params [{SMI}]")
+
+    rows, length = FAM_FORWARD[0], FAM_FORWARD[1][cfg.family]
+    batch = family_batch(cfg, rows, length, seed, 0)
+    with torch.no_grad():
+        model.forward(params, batch, qc)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, _ = model.forward(params, batch, qc)
+        torch.cuda.synchronize()
+    t_fwd = time.perf_counter() - t0
+    want = ((rows, length, cfg.num_codebooks, cfg.vocab_size) if audio
+            else (rows, cfg.num_patches + length, cfg.vocab_size))
+    check(tuple(lg.shape) == want and bool(torch.isfinite(lg).all()),
+          f"{cfg.name} forward: logits {tuple(lg.shape)} (expected {want}) "
+          "or not finite")
+    print(f"families [{cfg.name}]: forward of {rows} x "
+          + (f"{length} frames" if audio else
+             f"({cfg.num_patches} patches + {length} tokens)")
+          + f" ({rows * want[1]} rows a projection) in {1e3 * t_fwd:.1f} ms,"
+          f" logits {want} [{SMI}]")
+    del lg, batch
+
+    p_len = FAM_PROMPT[cfg.family]
+    serve_in = family_batch(cfg, FAM_ROWS,
+                            p_len + (FAM_STEPS if audio else 0), seed, 1)
+    if audio:
+        prompt = {"embeds": serve_in["embeds"][:, :p_len]}
+        frames = serve_in["embeds"][:, p_len:]
+    else:
+        prompt, frames = serve_in, None
+    family_serve(model, params, qc, prompt, frames, n_proj)
+    print(f"families [{cfg.name}]: peak device memory (init, forward, "
+          f"serving) {torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
+          f"[{SMI}]")
+    params32 = _map_float(params, torch.float32)
+    del params
+    free()
+    model32 = Model(cfg.replace(dtype="float32"), device=DEV)
+    family_float32(model32, params32, qc, prompt, frames)
+    del params32, model32, model
+    free()
+    family_train(cfg, seed)
+
+
+def families_phase(seed, cfgs=None):
+    """paligemma-3b (vlm) and musicgen-large (audio) at full width and
+    depth (:func:`family_run` each, freed before the next)."""
+    for cfg in cfgs or (paligemma_3b.config(), musicgen_large.config()):
+        with phase(f"families, {cfg.name}"):
+            family_run(cfg, seed)
+        free()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3296,6 +3961,8 @@ def main(argv=None) -> int:
         ssm, _ = ssm_phase(gen, args.seed)
     with phase("train"):
         train_phase(args.seed)
+    with phase("families"):
+        families_phase(args.seed)
 
     def layer_sum(res, key):
         return sum(res[(8, k, n)][key] * cnt for k, n, cnt in PROJ_SHAPES)

@@ -44,7 +44,8 @@ def params_from_numpy(tree: Any, cfg: ModelConfig,
     ``tree["blocks"]`` leaves have a leading axis of ``cfg.num_layers``;
     they become a list of per-layer dicts (a Mamba2 block's too). Every
     other entry (``embed``, ``final_norm``, ``head``, the hybrid's
-    ``shared_attn``) comes over as it is. Every array keeps its dtype
+    ``shared_attn``, the audio family's ``in_proj`` and ``heads``: it has
+    no ``embed``) comes over as it is. Every array keeps its dtype
     (float32, bfloat16, int8) and lands on ``device``.
     """
     dev = resolve_device(device)

@@ -15,7 +15,9 @@ every projection of every layer has a ``z`` of its own and the capture
 sees that projection's real input. (The JAX package stacks layers and
 scans them, so a capture around a whole model records nothing.) An MoE
 layer's expert projections are not captured, as in the JAX package: their
-centroids keep their init.
+centroids keep their init. The audio family's ``in_proj`` and ``heads``
+are dense matrices with no centroids in either package, so the capture
+and every stage pass them by.
 """
 from __future__ import annotations
 
@@ -127,7 +129,9 @@ def convert(apply_fn: Callable, params, calib_batch, qc: QuantConfig,
         random centroids.
       params: params whose LutLinear layers carry ``z`` (init the model
         with a ``lut_train`` QuantConfig).
-      calib_batch: one representative batch.
+      calib_batch: one representative batch (any family's: audio frame
+        embeddings, vlm patches and text; a vlm projection's capture
+        holds the patch rows too).
       qc / iters / seed: as :func:`kmeans_init_from_capture`.
 
     Returns: params with calibrated centroids (stage ② trains them).

@@ -11,8 +11,9 @@ random jumps: structured enough that a model measurably learns, and fully
 synthetic. The draws come from a ``torch.Generator`` on the CPU (seeded
 from (seed, step, host_index) through numpy's SeedSequence), so a batch
 is the same whatever device it lands on; the JAX package's stream
-differs. Audio and vlm batches wait for their families (ROADMAP.md queue
-A item 9).
+differs. An audio batch is frame embeddings and per-codebook labels, a
+vlm batch patch embeddings and a successor stream of text tokens, with
+the JAX package's shapes and dtypes.
 """
 from __future__ import annotations
 
@@ -65,16 +66,29 @@ class SyntheticDataset:
     def __post_init__(self):
         if self.global_batch % self.num_hosts:
             raise ValueError("global_batch must divide across hosts")
-        if self.cfg.family in ("audio", "vlm"):
-            raise NotImplementedError(
-                f"{self.cfg.family} batches are not ported yet: ROADMAP.md "
-                "queue A item 9 (Other families)")
         self.host_batch = self.global_batch // self.num_hosts
 
     def batch(self, step: int) -> Dict[str, torch.Tensor]:
-        """This host's batch for ``step``: {"tokens": (host_batch,
-        seq_len) int32} on ``device``."""
+        """This host's batch for ``step`` on ``device``: {"tokens": (B,
+        seq_len) int32}; audio {"embeds": (B, seq_len, D) float32,
+        "labels": (B, seq_len, Q) int32}; vlm {"patch_embeds": (B, P, D)
+        float32, "tokens": (B, max(seq_len - P, 1)) int32} (``seq_len``
+        counts the image prefix and the text)."""
+        cfg = self.cfg
         gen = _generator(self.seed, step, self.host_index)
-        toks = _successor_tokens(gen, self.host_batch, self.seq_len,
-                                self.cfg.vocab_size)
-        return {"tokens": toks.to(resolve_device(self.device))}
+        b, s, v = self.host_batch, self.seq_len, cfg.vocab_size
+        if cfg.family == "audio":
+            out = {"embeds": torch.randn((b, s, cfg.d_model), generator=gen),
+                   "labels": torch.randint(0, v, (b, s, cfg.num_codebooks),
+                                           generator=gen,
+                                           dtype=torch.int32)}
+        elif cfg.family == "vlm":
+            patches = torch.randn((b, cfg.num_patches, cfg.d_model),
+                                  generator=gen)
+            out = {"patch_embeds": patches,
+                   "tokens": _successor_tokens(
+                       gen, b, max(s - cfg.num_patches, 1), v)}
+        else:
+            out = {"tokens": _successor_tokens(gen, b, s, v)}
+        dev = resolve_device(self.device)
+        return {k: t.to(dev) for k, t in out.items()}

@@ -2,8 +2,7 @@
 
 Kept field for field identical to the JAX package's ``ModelConfig`` (a
 test holds the two against each other), so configurations carry over
-unchanged. The port serves the dense, MoE, SSM and hybrid families; the
-audio and vlm families raise in ``Model`` (ROADMAP.md queue A item 9).
+unchanged. The port runs all six families.
 """
 from __future__ import annotations
 
@@ -101,3 +100,33 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+    def param_count(self) -> int:
+        """Approximate parameter count (embeddings + blocks; audio's
+        codebook heads, the hybrid's shared block once), the JAX
+        package's formula."""
+        d, f, L = self.d_model, self.d_ff, self.num_layers
+        hd = self.head_dim
+        emb = self.vocab_size * d
+        attn = d * (self.num_heads * hd) + 2 * d * (self.num_kv_heads * hd) \
+            + (self.num_heads * hd) * d
+        mlp = 3 * d * f
+        if self.family == "moe":
+            mlp = (self.num_experts + self.num_shared_experts) * 3 * d * f \
+                + d * self.num_experts
+        if self.family == "ssm":
+            return emb + L * self._ssm_block_params()
+        if self.family == "hybrid":
+            return emb + L * self._ssm_block_params() + (attn + 3 * d * f)
+        total = emb + L * (attn + mlp)
+        if self.family == "audio":
+            total += self.num_codebooks * self.vocab_size * d
+        return total
+
+    def _ssm_block_params(self) -> int:
+        d, din = self.d_model, self.d_inner
+        n, g, h = self.ssm_state, self.ssm_ngroups, self.ssm_nheads
+        in_proj = d * (2 * din + 2 * g * n + h)
+        out_proj = din * d
+        conv = (din + 2 * g * n) * self.ssm_conv
+        return in_proj + out_proj + conv + 2 * h + din

@@ -1,6 +1,7 @@
 """Model building blocks: RMSNorm, RoPE, paged attention, SwiGLU MLP
 (port of ``repro.models.layers``, ``head_layout="heads"``; used by the
-dense and MoE families' blocks and by the hybrid family's shared block).
+dense, MoE, audio and vlm families' blocks and by the hybrid family's
+shared block).
 
 Every projection routes through :func:`proj`, a LutLinear, so the paper's
 VQ-AMM technique is a switch for every projection (``QuantConfig.mode``).
@@ -27,7 +28,10 @@ path, and its decode step, one token a slot at per-slot positions, the
 two-part softmax ``_sdpa_decode_combine`` (plain torch, as the JAX
 package's XLA form). Where the JAX package switches to a chunked
 online softmax past ``attn_chunk`` key rows (``attn_impl="chunked"``),
-the port computes the same function in one softmax.
+the port computes the same function in one softmax. The vlm family's
+prefix-LM term (:func:`mask_tile`: its image patches attend each other
+both ways) reaches training's whole-sequence path and a dense cache's
+prefill; decode passes 0, as the JAX package's does.
 """
 from __future__ import annotations
 
@@ -85,22 +89,34 @@ def _attend(qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bkgst,btkd->bskgd", probs, v)
 
 
+def mask_tile(qi: torch.Tensor, kj: torch.Tensor, window: int,
+              prefix_len: int) -> torch.Tensor:
+    """(s, t) boolean attention mask from absolute positions qi (s,) and
+    kj (t,): causal, within ``window`` when it is > 0, and ORed with the
+    prefix-LM term: positions < ``prefix_len`` attend each other both
+    ways (a vlm's image patches)."""
+    m = kj[None, :] <= qi[:, None]
+    if window > 0:
+        m = m & (kj[None, :] > qi[:, None] - window)
+    if prefix_len > 0:
+        m = m | ((qi[:, None] < prefix_len) & (kj[None, :] < prefix_len))
+    return m
+
+
 def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_offset: int,
-          window: int, kv_start: Optional[torch.Tensor] = None
-          ) -> torch.Tensor:
+          window: int, kv_start: Optional[torch.Tensor] = None,
+          prefix_len: int = 0) -> torch.Tensor:
     """Grouped-query attention of a chunk: q (B,S,H,D) at absolute
     positions q_offset.., k/v (B,T,KVH,D) at positions 0..T-1
-    (``_attend`` under a causal, optionally windowed mask). kv_start:
-    optional (B,) first valid key position of each row; keys before it
-    are masked (the left-padded prompts of the batch-to-completion
+    (``_attend`` under :func:`mask_tile`). kv_start: optional (B,) first
+    valid key position of each row; keys before it are masked after the
+    prefix term (the left-padded prompts of the batch-to-completion
     engine)."""
     b, s, h, d = q.shape
     t, kvh = k.shape[1], k.shape[2]
     qi = torch.arange(s, device=q.device) + q_offset
     kj = torch.arange(t, device=q.device)
-    mask = kj[None, :] <= qi[:, None]                            # (s, t)
-    if window > 0:
-        mask = mask & (kj[None, :] > qi[:, None] - window)
+    mask = mask_tile(qi, kj, window, prefix_len)                 # (s, t)
     if kv_start is not None:                                     # (B, s, t)
         mask = mask[None] & (kj[None, None, :]
                              >= kv_start.to(q.device).long()[:, None, None])
@@ -201,7 +217,8 @@ def attention(p: Params, x: torch.Tensor, cfg, qc: QuantConfig, q_offset,
               phys: Optional[torch.Tensor], window: int = 0,
               codebook: Optional[Params] = None,
               kv_start: Optional[torch.Tensor] = None,
-              recon: Optional[List[torch.Tensor]] = None
+              recon: Optional[List[torch.Tensor]] = None,
+              prefix_len: int = 0
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Pre-norm GQA attention over one layer of the paged pool, or of a
     dense cache.
@@ -239,6 +256,9 @@ def attention(p: Params, x: torch.Tensor, cfg, qc: QuantConfig, q_offset,
       kv_start: optional (B,) first valid cache row of each row (dense
         cache only): rows before it hold left padding and are masked.
       recon: lut_train: the list each projection's recon term joins.
+      prefix_len: positions < prefix_len attend each other both ways (a
+        vlm's image prefix); taken by the paths that see the prefix, the
+        one with no cache and a dense cache's chunk at q_offset 0.
 
     Returns: (out (B, S, D), k_new, v_new (B, S, KVH, HD)).
     """
@@ -260,7 +280,8 @@ def attention(p: Params, x: torch.Tensor, cfg, qc: QuantConfig, q_offset,
         if torch.is_tensor(q_offset) or q_offset != 0 or phys is not None:
             raise ValueError("attention without a cache runs the whole "
                              "sequence from position 0")
-        out = _sdpa(q, k, v, 0, window).reshape(b, s, h * hd)
+        out = _sdpa(q, k, v, 0, window, prefix_len=prefix_len).reshape(
+            b, s, h * hd)
         return proj(p["wo"], out, qc, recon), k, v
     if codebook is None:
         k_new, v_new = k.to(k_pages.dtype), v.to(v_pages.dtype)
@@ -279,8 +300,8 @@ def attention(p: Params, x: torch.Tensor, cfg, qc: QuantConfig, q_offset,
                            k_new.to(x.dtype)], 1)
         v_all = torch.cat([v_pages[:, :q_offset].to(x.dtype),
                            v_new.to(x.dtype)], 1)
-        out = _sdpa(q, k_all, v_all, q_offset, window, kv_start).reshape(
-            b, s, h * hd)
+        out = _sdpa(q, k_all, v_all, q_offset, window, kv_start,
+                    prefix_len).reshape(b, s, h * hd)
     elif s == 1:
         out = flash_decode_paged(q, k_pages, v_pages, k, v, phys, q_offset,
                                  window=window, codebook=codebook)

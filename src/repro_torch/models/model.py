@@ -1,7 +1,7 @@
-"""The decoder (port of ``repro.models.model``: the dense, MoE, SSM and
-hybrid families): ``forward`` and ``loss`` for training, and the serving
-entry points, paged for the continuous-batching engine, dense for the
-batch-to-completion one.
+"""The decoder (port of ``repro.models.model``: the dense, MoE, SSM,
+hybrid, audio and vlm families): ``forward`` and ``loss`` for training,
+and the serving entry points, paged for the continuous-batching engine,
+dense for the batch-to-completion one.
 
 Params are a plain dict: ``embed``, ``final_norm`` (and ``head`` when
 embeddings are untied), and ``blocks``, a list with one dict per layer
@@ -12,14 +12,28 @@ hybrid families, ``models/mamba2.py``). The hybrid family adds
 after every ``shared_attn_every``-th Mamba2 block. Where the JAX package
 stacks layers on a leading axis and scans, this port loops over the list.
 
+The audio and vlm families take their inputs from a stubbed frontend, as
+the JAX package does. audio (musicgen) has no ``embed``: a batch carries
+frame embeddings ``{"embeds": (B, S, D), "labels": (B, S, Q)}``, which
+``in_proj`` (D, D) maps into the model, and ``heads`` (Q, D, V) give one
+set of logits per codebook, (B, S, Q, V). vlm (paligemma) prepends
+``{"patch_embeds": (B, P, D)}`` to the embedded ``tokens`` (B, S); the P
+patches attend each other both ways (the prefix-LM mask,
+``layers.mask_tile``) and the loss covers the text tokens only.
+``in_proj`` and ``heads`` are plain dense products outside any kernel,
+as in the JAX package; every block projection runs through B1 (or B3 +
+B4) as any family's does.
+Both serve through the dense cache only (``prefill`` / ``decode``); the
+paged entry points refuse them, as the JAX package's do.
+
 API:
   Model(cfg, device)                                     device="cuda"
   init(generator, qc)                              -> params
-  forward(params, {"tokens"}, qc)                  -> (logits, aux)
-  loss(params, {"tokens"}, qc)                     -> (scalar, metrics)
+  forward(params, batch, qc)                       -> (logits, aux)
+  loss(params, batch, qc)                          -> (scalar, metrics)
   init_cache(batch_size, max_seq)                  -> dense cache
-  prefill(params, {"tokens"}, cache, qc, pad_lens=None) -> (logits, cache)
-  decode(params, tokens, cache, qc, pad_lens=None)      -> (logits, cache)
+  prefill(params, batch, cache, qc, pad_lens=None) -> (logits, cache)
+  decode(params, tokens, cache, qc, pad_lens=None) -> (logits, cache)
   init_paged_cache(max_seq, page_size, num_pages, codebook=None,
                    num_slots=None)                 -> pool or slot state
   prefill_paged(params, tokens, kv, table, slot, pos, valid, qc) -> logits
@@ -69,23 +83,26 @@ from .moe import init_moe, moe_ffn
 Params = Dict[str, Any]
 
 
-#: The families this port serves: attention blocks with an MLP or an MoE
-#: FFN, Mamba2 blocks (ssm), and Mamba2 blocks with one shared attention
-#: block (hybrid). audio and vlm wait for queue A item 9.
-FAMILIES = ("dense", "moe", "ssm", "hybrid")
+#: The families of the JAX package, all ported: attention blocks with an
+#: MLP or an MoE FFN, Mamba2 blocks (ssm), Mamba2 blocks with one shared
+#: attention block (hybrid), and attention blocks over frame (audio) or
+#: patch-prefixed (vlm) inputs.
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "audio", "vlm")
 #: The families whose state is recurrent and kept slot by slot.
 RECURRENT = ("ssm", "hybrid")
+#: The families whose inputs come from a stubbed frontend (frame or patch
+#: embeddings): no token prompts, so no paged serving.
+FRONTEND = ("audio", "vlm")
 
 
 class Model:
-    """A dense, MoE, SSM or hybrid decoder on ``device`` (default the CUDA
-    card; raises when there is none)."""
+    """A decoder of any of :data:`FAMILIES` on ``device`` (default the
+    CUDA card; raises when there is none)."""
 
     def __init__(self, cfg: ModelConfig, device="cuda"):
         if cfg.family not in FAMILIES:
-            raise NotImplementedError(
-                f"family {cfg.family!r} is not ported yet: ROADMAP.md "
-                "queue A item 9 (Other families)")
+            raise ValueError(f"unknown family {cfg.family!r}; known: "
+                             f"{FAMILIES}")
         if cfg.head_layout != "heads":
             raise NotImplementedError(
                 "head_layout='hd' (the head_dim-major layout that shards "
@@ -149,7 +166,9 @@ class Model:
         """Random params from ``generator`` (a generator on this model's
         device), built on the device layer by layer. In lut_train every
         projection holds its dense weight ``w`` and centroids ``z``; in
-        lut_infer its LUT and no dense weight."""
+        lut_infer its LUT and no dense weight. audio has no ``embed`` but
+        ``heads`` (Q, D, V) and ``in_proj`` (D, D), dense in every mode
+        (no centroids)."""
         cfg, dev = self.cfg, self.device
 
         def normal(shape, std):
@@ -158,15 +177,19 @@ class Model:
 
         params: Params = {
             "final_norm": torch.zeros((cfg.d_model,), dtype=self.dtype,
-                                      device=dev),
-            "embed": normal((cfg.vocab_size, cfg.d_model), 0.02),
-        }
+                                      device=dev)}
+        if cfg.family != "audio":
+            params["embed"] = normal((cfg.vocab_size, cfg.d_model), 0.02)
         params["blocks"] = [self._init_block(generator, qc)
                             for _ in range(cfg.num_layers)]
         if cfg.family == "hybrid":
             params["shared_attn"] = {"attn": self._init_attn(generator, qc),
                                      "mlp": self._init_mlp(generator, qc)}
-        if not cfg.tie_embeddings:
+        if cfg.family == "audio":
+            params["heads"] = normal((cfg.num_codebooks, cfg.d_model,
+                                      cfg.vocab_size), 0.02)
+            params["in_proj"] = normal((cfg.d_model, cfg.d_model), 0.02)
+        elif not cfg.tie_embeddings:
             params["head"] = normal((cfg.d_model, cfg.vocab_size), 0.02)
         return params
 
@@ -174,9 +197,30 @@ class Model:
     # embedding / head / layer loop
     # ------------------------------------------------------------------
     def _embed(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
+        """Token ids (B, S) -> (B, S, D); audio: frame embeddings (B, S,
+        D) through ``in_proj``."""
+        if self.cfg.family == "audio":
+            return tokens.to(self.dtype) @ params["in_proj"]
         return params["embed"][tokens.long()]
 
+    def _inputs(self, params: Params, batch: Dict
+                ) -> Tuple[torch.Tensor, int]:
+        """A whole-sequence batch -> (x (B, S, D), prefix_len): audio's
+        ``embeds``; vlm's ``patch_embeds`` (in the model's dtype) before
+        its embedded ``tokens``, the P patches the bidirectional prefix;
+        the others' ``tokens``."""
+        cfg = self.cfg
+        if cfg.family == "audio":
+            return self._embed(params, batch["embeds"]), 0
+        x = self._embed(params, batch["tokens"])
+        if cfg.family == "vlm":
+            patches = batch["patch_embeds"].to(self.dtype)
+            return torch.cat([patches, x], 1), cfg.num_patches
+        return x, 0
+
     def _head(self, params: Params, x: torch.Tensor) -> torch.Tensor:
+        if self.cfg.family == "audio":          # one head per codebook
+            return torch.einsum("bsd,qdv->bsqv", x, params["heads"])
         if self.cfg.tie_embeddings:
             return x @ params["embed"].T
         return x @ params["head"]
@@ -188,10 +232,11 @@ class Model:
 
     def _run_blocks(self, params: Params, x: torch.Tensor, qc: QuantConfig,
                     q_offset, kv: Params, phys: Optional[torch.Tensor],
-                    write, kv_start: Optional[torch.Tensor] = None
-                    ) -> torch.Tensor:
+                    write, kv_start: Optional[torch.Tensor] = None,
+                    prefix_len: int = 0) -> torch.Tensor:
         """The layer loop: attention (reading layer li of the pool, or of
-        a dense cache when ``phys`` is None) then the MLP or the MoE FFN
+        a dense cache when ``phys`` is None; ``prefix_len`` as
+        ``layers.attention`` takes it) then the MLP or the MoE FFN
         (whose load-balancing loss serving drops, as the JAX entry points
         do), with ``write(li, k_new, v_new)`` storing the layer's fresh
         rows once its attention has read the pool."""
@@ -203,7 +248,8 @@ class Model:
             a, k_new, v_new = attention(p_l["attn"], x, self.cfg, qc,
                                         q_offset, kv["k"][li], kv["v"][li],
                                         phys, window=win, codebook=cb_l,
-                                        kv_start=kv_start)
+                                        kv_start=kv_start,
+                                        prefix_len=prefix_len)
             write(li, self._encode_rows(cb_l, "k", k_new),
                   self._encode_rows(cb_l, "v", v_new))
             x = x + a
@@ -271,10 +317,11 @@ class Model:
     # train forward + loss
     # ------------------------------------------------------------------
     def _train_layer(self, p_l: Params, li: int, shared: Optional[Params],
-                     qc: QuantConfig, x: torch.Tensor
+                     qc: QuantConfig, x: torch.Tensor, prefix_len: int = 0
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """Layer ``li`` over whole sequences: x -> (x, its recon loss, its
-        MoE load-balancing loss), both float32 scalars."""
+        MoE load-balancing loss), both float32 scalars; the first
+        ``prefix_len`` positions attend each other both ways."""
         cfg = self.cfg
         recon: List[torch.Tensor] = []
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -289,7 +336,7 @@ class Model:
         else:
             a, _, _ = attention(p_l["attn"], x, cfg, qc, 0, None, None,
                                 None, window=self._windows()[li],
-                                recon=recon)
+                                recon=recon, prefix_len=prefix_len)
             x = x + a
             if "moe" in p_l:
                 f, aux = moe_ffn(p_l["moe"], x, cfg, qc, recon)
@@ -302,15 +349,18 @@ class Model:
 
     def forward(self, params: Params, batch: Dict, qc: QuantConfig = DENSE
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """Logits of whole sequences: batch ``{"tokens": (B, S) int}`` ->
-        (logits (B, S, V), {"recon", "moe_aux"}: float32 scalars summed
+        """Logits of whole sequences: batch ``{"tokens": (B, S) int}``
+        (audio ``{"embeds": (B, S, D)}``; vlm also ``{"patch_embeds": (B,
+        P, D)}``) -> (logits (B, S, V) (audio (B, S, Q, V); vlm over the
+        P + S positions), {"recon", "moe_aux"}: float32 scalars summed
         over the layers)."""
-        x = self._embed(params, batch["tokens"])
+        x, prefix_len = self._inputs(params, batch)
         recon = torch.zeros((), dtype=torch.float32, device=x.device)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         shared = params.get("shared_attn")
         for li, p_l in enumerate(params["blocks"]):
-            layer = functools.partial(self._train_layer, p_l, li, shared, qc)
+            layer = functools.partial(self._train_layer, p_l, li, shared, qc,
+                                      prefix_len=prefix_len)
             if self.cfg.remat:
                 x, r, a = checkpoint(layer, x, use_reentrant=False)
             else:
@@ -324,10 +374,22 @@ class Model:
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Next-token cross-entropy (float32) + ``qc.recon_weight`` x the
         recon loss + 0.01 x the MoE load-balancing loss. Returns (total,
-        {"ce", "recon", "moe_aux", "loss"})."""
+        {"ce", "recon", "moe_aux", "loss"}). audio: every codebook's
+        next frame (``labels`` (B, S, Q) shifted by one); vlm: the text
+        tokens only, each predicted from the position before it (the last
+        patch predicts the first token)."""
+        cfg = self.cfg
         logits, aux = self.forward(params, batch, qc)
-        labels = batch["tokens"][:, 1:].long()
-        lp = torch.log_softmax(logits[:, :-1].float(), dim=-1)
+        if cfg.family == "audio":
+            labels = batch["labels"][:, 1:].long()          # (B, S-1, Q)
+            pred = logits[:, :-1]
+        elif cfg.family == "vlm":
+            labels = batch["tokens"].long()
+            pred = logits[:, cfg.num_patches - 1:-1]
+        else:
+            labels = batch["tokens"][:, 1:].long()
+            pred = logits[:, :-1]
+        lp = torch.log_softmax(pred.float(), dim=-1)
         ce = -torch.gather(lp, -1, labels[..., None])[..., 0].mean()
         total = (ce + qc.recon_weight * aux["recon"]
                  + 0.01 * aux["moe_aux"])
@@ -340,7 +402,8 @@ class Model:
     def init_cache(self, batch_size: int, max_seq: int,
                    dtype=None) -> Params:
         """A dense cache ``{"layers": {"k": (L, B, T, KVH, HD), "v": ...},
-        "pos": 0}`` on this model's device."""
+        "pos": 0}`` on this model's device (a vlm's rows hold its patches,
+        then its tokens)."""
         cfg = self.cfg
         if cfg.family in RECURRENT:
             raise NotImplementedError(
@@ -363,22 +426,28 @@ class Model:
         Args:
           batch: ``{"tokens": (B, S) int32}``; prompts LEFT-padded
             (right-aligned) to S, the batch-to-completion convention.
-          cache: from :meth:`init_cache`; rows [0, S) are written in place.
+            audio: ``{"embeds": (B, S, D)}``; vlm: ``{"patch_embeds": (B,
+            P, D), "tokens": (B, S)}``, which fill rows [0, P + S).
+          cache: from :meth:`init_cache`; the rows are written in place.
           pad_lens: optional (B,) int32 pad width of each row; cache rows
-            < pad_lens[b] are masked out of row b's attention.
+            < pad_lens[b] are masked out of row b's attention. Refused
+            for vlm: the mask would hide the image prefix, whose rows come
+            first.
 
-        Returns (logits (B, V) at the last position, cache with pos = S).
+        Returns (logits at the last position, (B, V) (audio (B, Q, V)),
+        cache with pos = the rows written).
         """
-        tokens = batch["tokens"]
-        s = tokens.shape[1]
+        self._check_pad_lens(pad_lens)
+        x, prefix_len = self._inputs(params, batch)
+        s = x.shape[1]
         layers = cache["layers"]
 
         def write(li, k_new, v_new):
             layers["k"][li, :, :s] = k_new
             layers["v"][li, :, :s] = v_new
 
-        x = self._run_blocks(params, self._embed(params, tokens), qc, 0,
-                             layers, None, write, kv_start=pad_lens)
+        x = self._run_blocks(params, x, qc, 0, layers, None, write,
+                             kv_start=pad_lens, prefix_len=prefix_len)
         x = rms_norm(x[:, -1:], params["final_norm"], self.cfg.norm_eps)
         return self._head(params, x)[:, 0], {"layers": layers, "pos": s}
 
@@ -386,10 +455,12 @@ class Model:
                qc: QuantConfig = DENSE, pad_lens=None):
         """One decode step of every row at the cache's position.
 
-        tokens (B, 1) int32; pad_lens as in :meth:`prefill` (the left
-        padding stays masked). The new row is written in place at
-        ``cache["pos"]``. Returns (logits (B, V), cache with pos + 1).
+        tokens (B, 1) int32 (audio: frame embeddings (B, 1, D); vlm: text
+        token ids); pad_lens as in :meth:`prefill` (the left padding stays
+        masked). The new row is written in place at ``cache["pos"]``.
+        Returns (logits (B, V) (audio (B, Q, V)), cache with pos + 1).
         """
+        self._check_pad_lens(pad_lens)
         pos = cache["pos"]
         layers = cache["layers"]
         if pos >= layers["k"].shape[2]:
@@ -405,6 +476,22 @@ class Model:
         x = rms_norm(x, params["final_norm"], self.cfg.norm_eps)
         return self._head(params, x)[:, 0], {"layers": layers,
                                              "pos": pos + 1}
+
+    def _check_pad_lens(self, pad_lens) -> None:
+        """Refuse left padding on a vlm: the JAX package masks rows <
+        pad_lens after the prefix term, so it would mask the image
+        prefix, whose rows come first, and attend the pad tokens."""
+        if pad_lens is not None and self.cfg.family == "vlm":
+            raise NotImplementedError(
+                "pad_lens masks the first cache rows, which hold a vlm's "
+                "image prefix; the vlm family takes no left padding")
+
+    def _check_paged(self) -> None:
+        if self.cfg.family in FRONTEND:
+            raise NotImplementedError(
+                "paged serving covers token-prompt families only; the "
+                f"{self.cfg.family!r} family serves through the dense "
+                "cache (prefill / decode)")
 
     # ------------------------------------------------------------------
     # paged serving (continuous batching; see repro_torch/serve/)
@@ -517,6 +604,7 @@ class Model:
         and writes ``slot``'s recurrent state in ``kv``
         (:meth:`_prefill_slot_state`).
         """
+        self._check_paged()
         if self.cfg.family in RECURRENT:
             x = self._prefill_slot_state(params, tokens, kv, slot, pos,
                                          valid_len, qc)
@@ -566,6 +654,7 @@ class Model:
         The SSM and hybrid families ignore ``page_table``
         (:meth:`_decode_slot_state`).
         """
+        self._check_paged()
         if self.cfg.family in RECURRENT:
             x = self._decode_slot_state(params, tokens, kv, positions, qc)
             x = rms_norm(x, params["final_norm"], self.cfg.norm_eps)
@@ -625,6 +714,7 @@ class Model:
         one evolving tensor a slot, which cannot roll back rejected draft
         tokens.
         """
+        self._check_paged()
         if self.cfg.family in RECURRENT:
             raise NotImplementedError(
                 "verify_paged needs rewindable (paged) KV state; the "

@@ -66,7 +66,7 @@ import torch
 
 from repro_torch.core.kv_codebook import KVCodebook
 from repro_torch.core.lut import DENSE, QuantConfig
-from repro_torch.models.model import RECURRENT
+from repro_torch.models.model import FRONTEND, RECURRENT
 from repro_torch.obs import Obs, safe_ratio
 from .kv_cache import PagedKVCache, PagePoolExhausted
 from .scheduler import FinishReason, Request, SlotPhase, SlotScheduler
@@ -287,6 +287,7 @@ class Engine:
             raise NotImplementedError(
                 "Engine(mesh=...) (tensor-parallel serving) is not ported "
                 "yet: ROADMAP.md queue A item 11 (Scale-out)")
+        _refuse_frontend(model, "Engine")
         self.model = model
         self.params = params
         self.qc = qc
@@ -865,6 +866,7 @@ class BatchToCompletionEngine:
                  batch_size: int = 8, max_seq: int = 512,
                  eos_id: Optional[int] = None, seed: int = 0,
                  obs: Optional[Obs] = None):
+        _refuse_frontend(model, "BatchToCompletionEngine")
         if model.cfg.family in RECURRENT:
             raise ValueError(
                 "BatchToCompletionEngine left-pads prompts, which an SSM "
@@ -950,6 +952,19 @@ class BatchToCompletionEngine:
             # anything still unfinished was truncated at max_seq
             r.finish(FinishReason.TRUNCATED, self.step_count)
             _observe_request(self.obs, r)
+
+
+def _refuse_frontend(model, engine: str) -> None:
+    """The engines serve token prompts: an audio or vlm model (frame or
+    patch embeddings from a stubbed frontend) serves through
+    ``Model.prefill`` / ``decode`` on a dense cache instead. The JAX
+    package's engines fail later, at the embedding or at the paged
+    entry points; these refuse at construction."""
+    if model.cfg.family in FRONTEND:
+        raise NotImplementedError(
+            f"{engine} serves token prompts; the {model.cfg.family!r} "
+            "family's inputs are frontend embeddings: serve it through "
+            "Model.init_cache / prefill / decode")
 
 
 def greedy_generate(model, params, prompt_tokens, n_new: int,

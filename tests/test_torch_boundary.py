@@ -50,9 +50,10 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
 def test_new_modules_are_in_the_boundary_walk():
     """The speculative-decoding module, the dense configs, the
     observability, fault-injection and router modules, the Mamba2
-    module and the SSM / hybrid configs, and the training modules
-    (LUTBoost, optimizer, compression, trainer, checkpoints, data) are
-    among the modules the boundary check imports."""
+    module and the SSM / hybrid configs, the training modules
+    (LUTBoost, optimizer, compression, trainer, checkpoints, data) and
+    the audio / vlm configs are among the modules the boundary check
+    imports."""
     import pkgutil
 
     import repro_torch
@@ -69,7 +70,8 @@ def test_new_modules_are_in_the_boundary_walk():
             "repro_torch.train.compression", "repro_torch.train.trainer",
             "repro_torch.checkpoint", "repro_torch.checkpoint.manager",
             "repro_torch.data", "repro_torch.data.synthetic",
-            "repro_torch.tree"} <= names
+            "repro_torch.tree", "repro_torch.configs.musicgen_large",
+            "repro_torch.configs.paligemma_3b"} <= names
 
 
 def test_default_device_entry_points_raise_without_a_card():

@@ -2,8 +2,8 @@
 (``core/similarity.py``), the ``lut_train`` projection (``core/lut.py``),
 the stage mechanics and the stage-1 converter (``core/lutboost.py``), and
 ``Model.forward`` / ``Model.loss`` with their gradients on the dense, MoE,
-SSM and hybrid smoke configs in ``dense`` and ``lut_train``, against the
-JAX package on the same numpy inputs, on the CPU, in float32.
+SSM, hybrid, audio and vlm smoke configs in ``dense`` and ``lut_train``,
+against the JAX package on the same numpy inputs, on the CPU, in float32.
 
 Tolerances: one projection (outputs, recon, every gradient) at 1e-5
 relative to the largest value compared; STE values exact, their VJPs at
@@ -384,7 +384,25 @@ def test_convert_gives_every_block_projection_a_codebook_of_its_inputs():
 # ---------------------------------------------------------------------------
 
 MODEL_ARCHS = ["qwen1.5-4b", "gemma3-4b", "deepseek-moe-16b", "mamba2-2.7b",
-               "zamba2-1.2b"]
+               "zamba2-1.2b", "musicgen-large", "paligemma-3b"]
+
+
+def _model_batch(cfg, rng, b=2, s=16):
+    """A training batch of the family's kind as numpy arrays: tokens;
+    audio frame embeddings and per-codebook labels; vlm patch
+    embeddings before s text tokens."""
+    if cfg.family == "audio":
+        return {"embeds": rng.standard_normal((b, s, cfg.d_model)).astype(
+                    np.float32),
+                "labels": rng.integers(0, cfg.vocab_size,
+                                       (b, s, cfg.num_codebooks)).astype(
+                    np.int32)}
+    toks = {"tokens": rng.integers(0, cfg.vocab_size, (b, s)).astype(
+        np.int32)}
+    if cfg.family == "vlm":
+        toks["patch_embeds"] = rng.standard_normal(
+            (b, cfg.num_patches, cfg.d_model)).astype(np.float32)
+    return toks
 
 
 def _leaf_pairs(got_tree, want_tree, path=""):
@@ -402,7 +420,9 @@ def test_forward_loss_and_grads_match_jax(arch, mode):
     """Loss, its parts and every parameter's gradient on the
     smoke config (gemma3-4b: windowed layers, the JAX block-local path;
     deepseek-moe-16b: the load-balancing loss; mamba2 / zamba2: the scan
-    from zero state and the shared block)."""
+    from zero state and the shared block; musicgen: the input projection
+    and the codebook heads; paligemma: the bidirectional image prefix and
+    a loss over the text alone)."""
     cfg_j = jconfigs.get_smoke_config(arch)
     cfg = tconfigs.get_smoke_config(arch)
     qj = jlut.QuantConfig(mode=mode)
@@ -411,12 +431,11 @@ def test_forward_loss_and_grads_match_jax(arch, mode):
     tm = TModel(cfg, device="cpu")
     params = tm.init(torch.Generator().manual_seed(11), qt)
     params_j = _jax_tree(params, cfg)
-    rng = np.random.default_rng(12)
-    toks = rng.integers(0, cfg.vocab_size, (2, 16)).astype(np.int32)
-    batch_j = {"tokens": jnp.asarray(toks)}
+    arrays = _model_batch(cfg, np.random.default_rng(12))
+    batch_j = {k: jnp.asarray(a) for k, a in arrays.items()}
     (loss_j, met_j), g_j = jax.jit(jax.value_and_grad(
         lambda p, b: jm.loss(p, b, qj), has_aux=True))(params_j, batch_j)
-    batch = {"tokens": _t(toks)}
+    batch = {k: _t(a) for k, a in arrays.items()}
     loss, met, grads = loss_and_grads(tm, params, batch, qt)
     _close(loss.item(), loss_j, MODEL_TOL)
     for key in ("ce", "recon", "moe_aux", "loss"):
@@ -451,11 +470,13 @@ def test_remat_gives_the_same_loss_and_grads():
                                    atol=1e-7)
 
 
-@pytest.mark.parametrize("arch", ["qwen1.5-4b", "zamba2-1.2b"])
+@pytest.mark.parametrize("arch", ["qwen1.5-4b", "zamba2-1.2b",
+                                  "musicgen-large", "paligemma-3b"])
 def test_params_to_numpy_inverts_params_from_numpy(arch):
     """The port's per-layer list back to the JAX package's stacked leaves
-    (the hybrid's shared block kept apart), and forth again, leaf for
-    leaf; a bf16 leaf comes back as float32 holding the same values."""
+    (the hybrid's shared block kept apart; audio's ``in_proj`` and
+    ``heads`` and no ``embed``), and forth again, leaf for leaf; a bf16
+    leaf comes back as float32 holding the same values."""
     cfg = tconfigs.get_smoke_config(arch)
     params = TModel(cfg, device="cpu").init(torch.Generator().manual_seed(4),
                                             tlut.QuantConfig(mode="lut_train"))
@@ -472,19 +493,48 @@ def test_params_to_numpy_inverts_params_from_numpy(arch):
     for path, a in flat:
         assert torch.equal(a, back[path]), path
     bf = tree_map(lambda t: t.to(torch.bfloat16), params)
-    emb = params_to_numpy(bf, cfg)["embed"]
+    key = "in_proj" if cfg.family == "audio" else "embed"
+    emb = params_to_numpy(bf, cfg)[key]
     assert emb.dtype == np.float32
-    np.testing.assert_array_equal(emb, bf["embed"].float().numpy())
+    np.testing.assert_array_equal(emb, bf[key].float().numpy())
     with pytest.raises(ValueError, match="blocks"):
         params_to_numpy(params, cfg.replace(num_layers=cfg.num_layers + 1))
 
 
 def test_audio_vlm_and_hd_layout_still_raise():
-    for arch in ("musicgen-large", "paligemma-3b"):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            tconfigs.get_smoke_config(arch)
+    """head_layout="hd" still raises (queue A item 11). The audio and vlm
+    families convert: stage 1 on each smoke model, calibrated through its
+    dense forward on a batch of its kind, gives every block projection a
+    new z; a vlm projection's capture holds its patch rows too; the
+    dense ``in_proj`` and ``heads`` (audio) and ``embed`` carry no z and
+    come through as the same tensors."""
     cfg = tconfigs.get_smoke_config("qwen1.5-4b")
     with pytest.raises(NotImplementedError, match="item 11"):
         TModel(cfg.replace(head_layout="hd"), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        TModel(cfg.replace(family="vlm"), device="cpu")
+    qt = tlut.QuantConfig(mode="lut_train")
+    for arch in ("musicgen-large", "paligemma-3b"):
+        tm = TModel(tconfigs.get_smoke_config(arch), device="cpu")
+        params = tm.init(torch.Generator().manual_seed(5), qt)
+        batch = {k: _t(a) for k, a in _model_batch(
+            tm.cfg, np.random.default_rng(6), s=8).items()}
+
+        def fwd(p, b):
+            return tm.forward(p, b, tlut.DENSE)
+        with tlb.capture_activations() as captured, torch.no_grad():
+            fwd(params, batch)
+        conv = tlb.convert(fwd, params, batch, qt)
+        rows = 2 * (8 + tm.cfg.num_patches)
+        n = 0
+        for old, new in zip(params["blocks"], conv["blocks"]):
+            for part in ("attn", "mlp"):
+                for name, p in old[part].items():
+                    if name == "norm":
+                        continue
+                    assert captured[id(p["z"])].shape[0] == rows
+                    assert not torch.equal(p["z"], new[part][name]["z"])
+                    n += 1
+        assert n == 7 * tm.cfg.num_layers
+        dense = ("in_proj", "heads") if arch == "musicgen-large" \
+            else ("embed",)
+        for key in dense + ("final_norm",):
+            assert conv[key] is params[key], key

@@ -51,7 +51,8 @@ def pair():
 
 
 PORTED = ("qwen1.5-4b", "yi-9b", "gemma3-4b", "gemma3-27b",
-          "deepseek-moe-16b", "dbrx-132b", "mamba2-2.7b", "zamba2-1.2b")
+          "deepseek-moe-16b", "dbrx-132b", "mamba2-2.7b", "zamba2-1.2b",
+          "musicgen-large", "paligemma-3b")
 
 
 def test_config_copies_match_jax_field_for_field():
@@ -66,14 +67,17 @@ def test_config_copies_match_jax_field_for_field():
 
 
 def test_registry_names_the_roadmap_item_of_unported_configs():
-    assert tuple(tconfigs.ARCH_NAMES) == PORTED
-    assert set(PORTED) < set(jconfigs.ARCH_NAMES)
-    for arch in set(jconfigs.ARCH_NAMES) - set(PORTED):
-        for fn in (tconfigs.get_config, tconfigs.get_smoke_config):
-            with pytest.raises(NotImplementedError, match="item 9"):
-                fn(arch)
-    with pytest.raises(KeyError):
-        tconfigs.get_config("no-such-model")
+    """Every config is ported: the registry holds the JAX package's ten
+    names in its order, each config's parameter count is the JAX one's,
+    and an unknown name raises KeyError."""
+    assert tconfigs.ARCH_NAMES == list(jconfigs.ARCH_NAMES)
+    assert set(PORTED) == set(jconfigs.ARCH_NAMES)
+    for arch in PORTED:
+        assert tconfigs.get_config(arch).param_count() == \
+            jconfigs.get_config(arch).param_count(), arch
+    for fn in (tconfigs.get_config, tconfigs.get_smoke_config):
+        with pytest.raises(KeyError):
+            fn("no-such-model")
 
 
 def test_params_from_numpy_unstacks_layers(pair):

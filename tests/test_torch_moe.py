@@ -363,14 +363,12 @@ def test_config_copies_and_registry():
     full = tconfigs.get_config("deepseek-moe-16b")
     assert (full.num_layers, full.d_model, full.num_experts, full.top_k,
             full.num_shared_experts, full.d_ff) == (28, 2048, 64, 6, 2, 1408)
-    # the recurrent families build; those still to port raise in Model,
-    # citing their item
-    for family in ("ssm", "hybrid"):
+    # every family of the JAX package builds; an unknown one raises
+    for family in ("ssm", "hybrid", "audio", "vlm"):
         assert TModel(full.replace(family=family),
                       device="cpu").cfg.family == family
-    for family in ("audio", "vlm"):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            TModel(full.replace(family=family), device="cpu")
+    with pytest.raises(ValueError, match="unknown family"):
+        TModel(full.replace(family="diffusion"), device="cpu")
 
 
 @pytest.mark.parametrize("arch", MOE_ARCHS)

@@ -28,6 +28,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro import configs as jconfigs  # noqa: E402
 from repro.core import lut as jlut  # noqa: E402
+from repro.data.synthetic import SyntheticDataset as JDataset  # noqa: E402
 from repro.models.model import Model as JModel  # noqa: E402
 from repro.train import compression as jcomp  # noqa: E402
 from repro.train import optimizer as jopt  # noqa: E402
@@ -511,5 +512,25 @@ def test_data_is_deterministic_host_split_and_successor_structured():
     assert 0.85 < succ < 0.95                  # ~90% successors
     with pytest.raises(ValueError, match="divide"):
         SyntheticDataset(cfg, global_batch=3, seq_len=8, num_hosts=2)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        SyntheticDataset(cfg.replace(family="audio"), 2, 8)
+    # audio and vlm batches: the JAX package's keys, shapes and dtypes
+    # (seq_len counts a vlm's image prefix), deterministic per (seed,
+    # step); a vlm's text (after its image prefix) is a successor stream
+    for arch in ("musicgen-large", "paligemma-3b"):
+        fcfg = tconfigs.get_smoke_config(arch)
+        ds = SyntheticDataset(fcfg, 4, 40, seed=7, device="cpu")
+        got, again = ds.batch(3), ds.batch(3)
+        want = JDataset(jconfigs.get_smoke_config(arch), 4, 40,
+                        seed=7).batch(3)
+        assert set(got) == set(want)
+        for key, t in got.items():
+            assert tuple(t.shape) == want[key].shape, (arch, key)
+            assert str(t.dtype).split(".")[-1] == str(want[key].dtype)
+            assert torch.equal(t, again[key])
+            assert not torch.equal(t, ds.batch(4)[key])
+        if arch == "paligemma-3b":
+            toks = got["tokens"].numpy()
+            assert toks.shape == (4, 40 - fcfg.num_patches)
+            succ = (toks[:, 1:] == (toks[:, :-1] + 1) % fcfg.vocab_size)
+            assert succ.mean() > 0.75
+        else:
+            assert int(got["labels"].max()) < fcfg.vocab_size
