@@ -81,7 +81,17 @@ the forward's assignments against the chain's row for row, and the
 chain's logits against the forward's (rows no differing assignment
 reached, and every row of a forward on the chain's assignments), then
 LUTBoost stage 1 and one lut_train loss_and_grads. The kernel phase holds B1, B3 and B4 at both configs'
-projection shapes at their decode and prefill rows.
+projection shapes at their decode and prefill rows. A phase, analysis
+(after the serving phases), runs the sync guard (repro_torch.analysis:
+a dispatch-level recorder of host syncs, host <-> device copies and
+kernel builds, and the card's sync debug mode) over full-width qwen1.5-4b
+serving: fused at full depth, two-pass, vq-kv and ngram-speculative at
+SERVING_LAYERS; one host read a decode step and a finished prefill, at
+most two a speculative round, no sync, transfer or float64 op inside a
+model entry point, no kernel build in the steady state; then one call of
+each paged entry point on fp and code pools (no float64, no transfer,
+the pool updated in place). A last phase, examples, runs the five
+example twins (examples/torch_*.py) at the JAX examples' defaults.
 
     python3 chip_smoke.py [--seed N]
 
@@ -123,6 +133,8 @@ from repro_torch.configs import (  # noqa: E402
     paligemma_3b, qwen1p5_4b, yi_9b, zamba2_1p2b)
 from repro_torch.checkpoint import (  # noqa: E402
     CheckpointManager, load_pytree, save_pytree)
+from repro_torch.analysis import (  # noqa: E402
+    run_invariants, run_sync_guard)
 from repro_torch.core.lut import (  # noqa: E402
     DENSE, QuantConfig, strip_for_inference)
 from repro_torch.core.lutboost import (  # noqa: E402
@@ -3691,6 +3703,145 @@ def families_phase(seed, cfgs=None):
         free()
 
 
+# ---------------------------------------------------------------------------
+# analysis phase: the sync guard and the entry points' invariants on the card
+# ---------------------------------------------------------------------------
+
+# The guard's warmup: 3 of MAIN_LOAD's requests, 8 tokens each, prompts
+# from another seed. Its shape classes are the steady state's (8 decode
+# lanes, 32-token chunks, a temperature slot); every kernel is built and
+# loaded before the phase, so it has nothing else to pay.
+ANALYSIS_WARMUP = dataclasses.replace(MAIN_LOAD, n=3, new=8, hot=1)
+ANALYSIS_WARMUP_SEED = 1000
+
+
+def analysis_run(model, params, qc, seed, label, launched, idle, spec=None):
+    """The sync guard over one engine: ANALYSIS_WARMUP, then MAIN_LOAD.
+    Fails on any finding: a sync inside a model entry point, a read
+    count off its expected one, a steady-state kernel build, a float64
+    op."""
+    vocab = model.cfg.vocab_size
+    eng = Engine(model, params, qc, **engine_kw(seed=seed,
+                                                spec_decode=spec))
+    warm = load_requests(ANALYSIS_WARMUP, seed + ANALYSIS_WARMUP_SEED,
+                         vocab)
+    steady = load_requests(MAIN_LOAD, seed, vocab)
+    rep, wall, counts = path_run(
+        f"analysis {label}", lambda: run_sync_guard(eng, warm, steady),
+        launched, idle)
+    print(f"analysis [{label}]: {rep.summary()} [{SMI}]")
+    print(f"analysis [{label}]: launches (warmup + steady) "
+          f"{ {k: v for k, v in counts.items() if k in WRAPPERS} }, "
+          f"{wall:.1f} s [{SMI}]")
+    for n, op, path, line, ph in rep.debug_sites():
+        print(f"analysis [{label}]: sync outside the read: {n} x {op} at "
+              f"{path}:{line} ({ph}) [{SMI}]")
+    for f in rep.findings:
+        print(f"analysis [{label}]: FINDING {f.render()}")
+    check(rep.ok, f"analysis [{label}]: {len(rep.findings)} finding(s)")
+    check(all(r.done for r in steady), f"{label}: steady requests unserved")
+    del eng
+    return rep.counts
+
+
+def analysis_phase(model, params, qc, seed):
+    """The guard on full-width, full-depth qwen1.5-4b fused, then on its
+    first SERVING_LAYERS layers two-pass, vq-kv and ngram-speculative;
+    then the invariants of the three paged entry points on fp and code
+    pools at full depth."""
+    out = {}
+    n = model.cfg.num_layers
+    out["fused"] = analysis_run(
+        model, params, qc, seed, f"qwen1.5-4b fused, {n} layers",
+        {"b1", "b2"}, {"b3", "b4", "b5"})
+    cut, cut_params = cut_depth(model, params, SERVING_LAYERS)
+    for name, qc_r, spec, launched, idle in (
+            ("two-pass", qc.replace(fuse=False), None, {"b3", "b4", "b2"},
+             {"b1", "b5"}),
+            ("vq-kv", qc.replace(kv_quant="vq", kv_v=KV_V, kv_c=KV_C), None,
+             {"b1", "b5"}, {"b2", "b3", "b4"}),
+            (f"ngram k={SPEC_K}", qc,
+             SpecConfig(k=SPEC_K, drafter="ngram"), {"b1"},
+             {"b3", "b4", "b5"})):
+        out[name] = analysis_run(
+            cut, cut_params, qc_r, seed,
+            f"qwen1.5-4b {name}, {SERVING_LAYERS} layers", launched, idle,
+            spec)
+    t0 = time.perf_counter()
+    rep = run_invariants(model, params, qc)
+    for r in rep.rows:
+        print(f"invariants [qwen1.5-4b {r['pool']} pool, {n} layers] "
+              f"{r['entry']}: records {r['records']}, transfers "
+              f"{r['transfers']}, float64 ops {r['float64']}, pool-sized "
+              f"allocations {r['big_allocs']}, pool pointers unchanged "
+              f"{r['pool_ptrs_same']} [{SMI}]")
+    for f in rep.findings:
+        print(f"invariants: FINDING {f.render()}")
+    print(f"invariants: {len(rep.rows)} calls in "
+          f"{time.perf_counter() - t0:.1f} s")
+    check(rep.ok, f"invariants: {len(rep.findings)} finding(s)")
+    del cut, cut_params
+    free()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# examples phase: the five example twins on the card
+# ---------------------------------------------------------------------------
+
+EXAMPLES = (
+    # (twin, argv beyond --device / paths, kernels it must launch)
+    ("torch_quickstart", [], {"b1", "b3", "b4"}),
+    ("torch_dse_search", [], set()),
+    ("torch_lutboost_convert", [], {"b1"}),
+    ("torch_train_lm", [], set()),
+    ("torch_serve_demo", [], {"b1", "b2"}),
+    ("torch_serve_demo", ["--chaos"], {"b2"}),
+)
+
+
+def load_example(name):
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"example_{name}", os.path.join(ROOT, "examples", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def examples_phase():
+    """Each twin's ``main`` at its JAX defaults on the card (the DSE
+    heatmap, the training checkpoints and the serve demo's traces go to
+    a scratch directory under build/, removed after): its report lines,
+    its seconds, the kernels it launched."""
+    scratch = os.path.join(ROOT, "build", f"examples_smoke_{os.getpid()}")
+    os.makedirs(scratch, exist_ok=True)
+    try:
+        for name, extra, launched in EXAMPLES:
+            mod = load_example(name)
+            argv = ["--device", DEV, *extra]
+            if name == "torch_dse_search":
+                argv += ["--csv", os.path.join(scratch, "dse.csv")]
+            if name == "torch_train_lm":
+                argv += ["--ckpt-dir", os.path.join(scratch, "ckpt")]
+            if name == "torch_serve_demo":
+                argv += ["--trace", os.path.join(
+                    scratch, f"trace{'_chaos' if extra else ''}.json")]
+            label = " ".join([name, *extra])
+            print(f"examples [{label}]: {' '.join(argv)}")
+            out, wall, counts = path_run(
+                f"example {label}", lambda: mod.main(argv), launched,
+                set() if launched else set(WRAPPERS))
+            check(out is not None and out != 1,
+                  f"examples [{label}]: main returned {out!r}")
+            print(f"examples [{label}]: exit 0 in {wall:.1f} s, launches "
+                  f"{ {k: v for k, v in counts.items() if k in WRAPPERS} } "
+                  f"[{SMI}]")
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+    free()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3934,6 +4085,8 @@ def main(argv=None) -> int:
                 (f"rejected drafter k={SPEC_K}", SpecConfig(k=SPEC_K),
                  {"b1"}, ShiftDrafter())], Load(hot=-1))
     serving_phases(model, params, qc, args.seed, gen)
+    with phase("analysis"):
+        analysis_phase(model, params, qc, args.seed)
     del model, params
     free()
     with phase("float32 LUTs, qwen1.5-4b cut to 4 layers"):
@@ -3963,6 +4116,8 @@ def main(argv=None) -> int:
         train_phase(args.seed)
     with phase("families"):
         families_phase(args.seed)
+    with phase("examples"):
+        examples_phase()
 
     def layer_sum(res, key):
         return sum(res[(8, k, n)][key] * cnt for k, n, cnt in PROJ_SHAPES)

@@ -28,6 +28,19 @@ import torch.nn.functional as F
 
 Metric = Literal["l2", "l1", "chebyshev"]
 
+#: Hardware cost of one element-wise similarity op (paper Eq. 1's alpha_sim):
+#: L2 = mul+add, L1 = abs+add, Chebyshev = abs+max. The co-design models
+#: (``repro_torch.dse``) read it.
+ALPHA_SIM = {"l2": 2.0, "l1": 1.0, "chebyshev": 1.0}
+
+
+def one_hot(idx: torch.Tensor, n: int, dtype=torch.int64) -> torch.Tensor:
+    """``F.one_hot(idx, n).to(dtype)``, the same values, without its value
+    checks: on the CPU those read ``idx.min()`` and ``idx.max()`` back to
+    the host, a sync inside the model on every call (the sync guard,
+    ``repro_torch.analysis``, reports it). Indices must lie in [0, n)."""
+    return (idx[..., None] == torch.arange(n, device=idx.device)).to(dtype)
+
 
 def pairwise_distance(x: torch.Tensor, z: torch.Tensor,
                       metric: Metric) -> torch.Tensor:

@@ -10,6 +10,10 @@ source, not the sum.
 
 A failed or impossible build raises; nothing is caught and nothing falls
 back to the plain versions.
+
+``build.compiles`` counts the sources compiled and ``load.opens`` the
+libraries opened, so a guard can assert that steady-state serving builds
+and loads nothing (``repro_torch.analysis.sync_guard``).
 """
 from __future__ import annotations
 
@@ -66,6 +70,7 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, str]:
     if not todo:
         return {}
     exe = nvcc()
+    build.compiles += len(todo)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name, out in todo.items():
@@ -87,6 +92,9 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, str]:
     return logs
 
 
+build.compiles = 0
+
+
 def load(name: str) -> ctypes.CDLL:
     """The built library of ``csrc/<name>.cu``, building it first if
     needed."""
@@ -94,6 +102,10 @@ def load(name: str) -> ctypes.CDLL:
     if lib is None:
         build([name])
         lib = ctypes.CDLL(str(library_path(name)))
+        load.opens += 1
         _LIBS[name] = lib
     return lib
+
+
+load.opens = 0
 

@@ -43,6 +43,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.core.similarity import one_hot
 from . import _build
 
 # Finite stand-in for -inf. exp(NEG_INF - NEG_INF) == 1 (not NaN), which
@@ -259,7 +260,7 @@ def flash_decode_splits_kvq(qg: torch.Tensor, kc_pages: torch.Tensor,
     vc = vc_pages[phys.long()].reshape(b, ns, sl, kvh, nc).long()
     qs = (qg * sk.float()[None, :, None, None]).reshape(b, kvh, g, nc, v)
     lut_k = torch.einsum("bkgsv,scv->bkgsc", qs, zk.float())
-    oh_k = torch.nn.functional.one_hot(kc, c).float()
+    oh_k = one_hot(kc, c, torch.float32)
     sc = torch.einsum("bntksc,bkgsc->bnkgt", oh_k, lut_k)  # (B,NS,KVH,G,SL)
     kj = torch.arange(ns * sl, dtype=torch.int32,
                       device=qg.device).reshape(ns, sl)
@@ -271,7 +272,7 @@ def flash_decode_splits_kvq(qg: torch.Tensor, kc_pages: torch.Tensor,
     p = torch.where(mask5, torch.exp(sc - m[..., None]),
                     torch.zeros_like(sc))
     l = torch.sum(p, dim=-1)
-    oh_v = torch.nn.functional.one_hot(vc, c).float()
+    oh_v = one_hot(vc, c, torch.float32)
     w = torch.einsum("bnkgt,bntksc->bnkgsc", p, oh_v)
     acc = torch.einsum("bnkgsc,scv->bnkgsv", w, zv.float())
     acc = acc.reshape(b, ns, kvh, g, d) * sv.float()[None, None, :, None,

@@ -21,7 +21,8 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.similarity import Metric, pairwise_distance_subspaces
+from repro_torch.core.similarity import (Metric, one_hot,
+                                         pairwise_distance_subspaces)
 
 
 def _assign(x, z, metric):
@@ -31,7 +32,7 @@ def _assign(x, z, metric):
 
 def _lut_gemm(idx, lut, scale):
     c = lut.shape[1]
-    onehot = torch.nn.functional.one_hot(idx.long(), c).to(torch.float32)
+    onehot = one_hot(idx.long(), c, torch.float32)
     out = torch.einsum("mkc,kcn->mn", onehot, lut.to(torch.float32))
     if scale is not None:
         out = out * scale[None, :].to(torch.float32)

@@ -26,7 +26,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.lut import (QuantConfig, build_lut, precompute_layer,
                                   strip_for_inference)
-from repro_torch.core.similarity import ste_quantize_subspaces
+from repro_torch.core.similarity import one_hot, ste_quantize_subspaces
 from repro_torch.kernels import ops as kops
 from .layers import rms_norm
 
@@ -131,7 +131,7 @@ def route(probs: torch.Tensor, k: int, cap: int
     gate_vals = gate_vals / torch.clamp_min(
         gate_vals.sum(-1, keepdim=True), 1e-9)
     eid = gate_idx.reshape(-1)
-    counts = torch.cumsum(F.one_hot(eid, e), dim=0)          # (T*k, E)
+    counts = torch.cumsum(one_hot(eid, e), dim=0)            # (T*k, E)
     slot = counts.gather(1, eid[:, None])[:, 0] - 1
     return eid, slot, slot < cap, gate_vals.reshape(-1)
 
@@ -163,7 +163,7 @@ def moe_ffn(p: Params, x: torch.Tensor, cfg, qc: QuantConfig,
     cap = min(t, max(int(cfg.capacity_factor * t * k / e), 8))
     eid, slot, keep, gates = route(probs, k, cap)
 
-    onehot_any = F.one_hot(eid.reshape(t, k), e).sum(1).float()  # (T, E)
+    onehot_any = one_hot(eid.reshape(t, k), e).sum(1).float()  # (T, E)
     ce = onehot_any.mean(0) / k
     aux = e * torch.sum(probs.mean(0) * ce)
 

@@ -302,7 +302,8 @@ class FaultInjector:
             while table.prefix.reclaimable:
                 # fault injection reclaims parked refcount-0 prefix pages
                 # exactly as the allocator's own reclaim does
-                table.allocator.restore(table.prefix.pop_lru())
+                table.allocator.restore(  # analysis: ok(allocator-free)
+                    table.prefix.pop_lru())
         held = table.allocator.alloc(table.allocator.available)
         self._held_pages[i] = held
         self._log(fault, f"holding {len(held)} page(s)")

@@ -53,3 +53,16 @@ def tree_flatten_with_path(tree, path: str = "") -> List[Tuple[str, Any]]:
 
 def tree_leaves(tree) -> list:
     return [leaf for _, leaf in tree_flatten_with_path(tree)]
+
+
+def tree_overlay(base, top):
+    """``base`` with every leaf that ``top`` holds at the same path taken
+    from ``top``; leaves only ``base`` holds stay. A dense model's trained
+    params over a ``lut_train`` init, for instance, keep the init's
+    centroids ``z`` and take every other leaf from the dense model."""
+    if is_leaf(top):
+        return top
+    if isinstance(base, dict):
+        return {k: tree_overlay(v, top[k]) if k in top else v
+                for k, v in base.items()}
+    return type(base)(tree_overlay(b, t) for b, t in zip(base, top))

@@ -29,10 +29,18 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
 for name in names:
     importlib.import_module(name)
 import chip_smoke
+import glob, importlib.util, os
+files = sorted(glob.glob(os.path.join({root!r}, "examples", "torch_*.py")))
+files += [os.path.join({root!r}, "scripts", name)
+          for name in ("analyze_torch.py", "guard_serve.py")]
+for path in files:
+    spec = importlib.util.spec_from_file_location(
+        "walk_" + os.path.basename(path)[:-3], path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(k for k in sys.modules
              if k == "jax" or k.startswith(("jax.", "jaxlib"))
              or k == "repro" or k.startswith("repro."))
-print(len(names), bad)
+print(len(names), len(files), bad)
 """
 
 
@@ -42,8 +50,9 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
-    n, bad = res.stdout.split(" ", 1)
-    assert int(n) >= 50                 # every module of the package
+    n, n_files, bad = res.stdout.split(" ", 2)
+    assert int(n) >= 60                 # every module of the package
+    assert int(n_files) == 7            # five twins, the gate, the guard
     assert bad.strip() == "[]"
 
 
@@ -51,9 +60,9 @@ def test_new_modules_are_in_the_boundary_walk():
     """The speculative-decoding module, the dense configs, the
     observability, fault-injection and router modules, the Mamba2
     module and the SSM / hybrid configs, the training modules
-    (LUTBoost, optimizer, compression, trainer, checkpoints, data) and
-    the audio / vlm configs are among the modules the boundary check
-    imports."""
+    (LUTBoost, optimizer, compression, trainer, checkpoints, data), the
+    audio / vlm configs, and the co-design, simulator and analysis
+    modules are among the modules the boundary check imports."""
     import pkgutil
 
     import repro_torch
@@ -71,7 +80,13 @@ def test_new_modules_are_in_the_boundary_walk():
             "repro_torch.checkpoint", "repro_torch.checkpoint.manager",
             "repro_torch.data", "repro_torch.data.synthetic",
             "repro_torch.tree", "repro_torch.configs.musicgen_large",
-            "repro_torch.configs.paligemma_3b"} <= names
+            "repro_torch.configs.paligemma_3b", "repro_torch.dse",
+            "repro_torch.dse.models", "repro_torch.dse.ppa",
+            "repro_torch.dse.search", "repro_torch.simulator",
+            "repro_torch.simulator.cycle_sim", "repro_torch.analysis",
+            "repro_torch.analysis.findings", "repro_torch.analysis.astlint",
+            "repro_torch.analysis.sync_guard",
+            "repro_torch.analysis.invariants"} <= names
 
 
 def test_default_device_entry_points_raise_without_a_card():
