@@ -153,6 +153,10 @@ from repro_torch.kernels.fused_amm import (  # noqa: E402
     vq_amm_cuda, vq_amm_geometry)
 from repro_torch.kernels.lut_gemm import (  # noqa: E402
     lut_gemm_cuda, lut_gemm_geometry)
+from repro_torch.launch.mesh import make_test_mesh  # noqa: E402
+from repro_torch.parallel import collectives as tcol  # noqa: E402
+from repro_torch.parallel.sharding import (  # noqa: E402
+    serving_layout, unshard_tree)
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models.model import RECURRENT, Model  # noqa: E402
 from repro_torch.obs import Obs, Tracer, validate_trace  # noqa: E402
@@ -310,7 +314,7 @@ def host_us(fn, iters: int = 50) -> float:
 
 
 def nbytes(*ts) -> int:
-    return sum(t.numel() * t.element_size() for t in ts)
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
 
 def bound(bytes_: float, ops_: float):
@@ -431,15 +435,20 @@ def index_probe(nc, lead):
             torch.ones(lead + (nc,), device=DEV))
 
 
-def b1_case(gen, m, k, n, flush, e=None, label=None, tag="moe"):
+def b1_case(gen, m, k, n, flush, e=None, label=None, tag="moe",
+            scaled=True):
     """B1 at one main-path shape (with ``e``: its grouped form, one launch
     for e experts, ``label`` naming the expert projection; lines tagged
-    ``tag``). Returns a result dict."""
+    ``tag``). ``scaled=False``: the int8 LUT without its scale, as a
+    row-parallel shard launches it (the exact integer sums, equal to the
+    plain version's bit for bit). Returns a result dict."""
     nc = k // V
     lead = () if e is None else (e,)
-    what = case_text(m, k, n, e)
+    what = case_text(m, k, n, e) + ("" if scaled else ", no scale")
     head, tail = case_tags(label, tag)
     x, z, lut, scale, xr = vq_inputs(gen, m, k, n, e)
+    if not scaled:
+        scale = None
 
     idx_plain = ref.assign_ref(x, z)
     probe, ones = index_probe(nc, lead)
@@ -454,6 +463,8 @@ def b1_case(gen, m, k, n, flush, e=None, label=None, tag="moe"):
     # both sides are exact int32/fp32 integer sums times the same scale
     tol = 1e-5 * max(1.0, float(out_p.abs().max()))
     check(err <= tol, f"B1 {what}: max abs err {err} > {tol}")
+    check(scaled or torch.equal(out_k, out_p),
+          f"B1 {what}: unscaled integer sums differ from the plain ones")
 
     flips = float((torch.round(vq_amm_cuda(xr, z, probe, ones)).to(
         torch.int32) != ref.assign_ref(xr, z)).float().mean())
@@ -563,19 +574,24 @@ def nc_sweep(gen, flush, m=8, n=6912, full_nc=320):
     return rows
 
 
-def b34_case(gen, m, k, n, flush, e=None, label=None, tag="moe"):
+def b34_case(gen, m, k, n, flush, e=None, label=None, tag="moe",
+             scaled=True):
     """B3 then B4 (the two-pass path) at one main-path shape (with ``e``:
     their grouped forms, as in :func:`b1_case`): B3's indices equal the
     plain argmin on margin inputs and B1's own on random ones (they share
     one distance and argmin code), B4's int8 sums are exact, and
-    B4(B3(x)) equals B1(x) bit for bit. Returns two result dicts."""
+    B4(B3(x)) equals B1(x) bit for bit (``scaled=False``: without the
+    scale, as a row-parallel shard). Returns two result dicts."""
     dev = DEV
     nc = k // V
     lead = () if e is None else (e,)
     ne = 1 if e is None else e
-    what, whatk = case_text(m, k, n, e), case_text(m, k, None, e)
+    what = case_text(m, k, n, e) + ("" if scaled else ", no scale")
+    whatk = case_text(m, k, None, e)
     head, tail = case_tags(label, tag)
     x, z, lut, scale, xr = vq_inputs(gen, m, k, n, e)
+    if not scaled:
+        scale = None
     idx_k = vq_assign_cuda(x, z)
     idx_p = ref.assign_ref(x, z)
     check(torch.equal(idx_k, idx_p),
@@ -608,9 +624,9 @@ def b34_case(gen, m, k, n, flush, e=None, label=None, tag="moe"):
         offs = offs + (nc * C * torch.arange(e, device=dev))[:, None, None]
     offs = offs.reshape(-1, nc)
     lib = torch.nn.functional.embedding_bag(offs, lut_f, mode="sum")
-    check(torch.allclose(lib.reshape(out_k.shape) * scale[..., None, :],
-                         out_k, rtol=1e-6, atol=0.0),
-          f"B4 {what}: embedding_bag yardstick disagrees")
+    check(torch.allclose(lib.reshape(out_k.shape) * (
+        1.0 if scale is None else scale[..., None, :]), out_k, rtol=1e-6,
+        atol=0.0), f"B4 {what}: embedding_bag yardstick disagrees")
     calls3 = enqueued(lambda: vq_assign_cuda(x, z))
     check(calls3 == ONE_KERNEL, f"B3 {whatk}: a call enqueues {calls3}")
     calls4 = enqueued(lambda: lut_gemm_cuda(idx_k, lut, scale))
@@ -811,11 +827,13 @@ def split_sweep(np_, sp):
 
 
 def b2_case(gen, name, b, h, kvh, d, np_, positions, window, kv_start,
-            flush, timed, ps=PAGE):
+            flush, timed, ps=PAGE, sp=None):
+    """B2 at one shape (``sp`` pages a split; default the split rule's
+    choice for ``kvh`` kv heads), against its plain version."""
     q, kp, vp, kn, vn, phys, pos, ks = b2_inputs(gen, b, h, kvh, d, np_,
                                                  positions, kv_start, ps)
     g = h // kvh
-    sp = fd.split_pages_for(b, kvh, np_)
+    sp = sp or fd.split_pages_for(b, kvh, np_)
     qg = (q.reshape(b, kvh, g, d).float() * d ** -0.5).contiguous()
     pad = (-np_) % sp
     phys_p = torch.nn.functional.pad(phys, (0, pad),
@@ -956,13 +974,13 @@ def b5_inputs(gen, b, h, kvh, d, np_, positions, kv_start, ps,
 
 
 def b5_case(gen, name, b, h, kvh, d, np_, positions, window, kv_start,
-            flush, timed, exact_c=None, ps=PAGE):
+            flush, timed, exact_c=None, ps=PAGE, sp=None):
     """B5 at one shape, against its plain version (triples and output)
     and the dequantize-then-reference oracle, all in float32."""
     q, kc, vc, cb_l, kn, vn, phys, pos, ks = b5_inputs(
         gen, b, h, kvh, d, np_, positions, kv_start, ps, exact_c)
     g = h // kvh
-    sp = fd.split_pages_for(b, kvh, np_, kvq=True)
+    sp = sp or fd.split_pages_for(b, kvh, np_, kvq=True)
     qg = (q.reshape(b, kvh, g, d).float() * d ** -0.5).contiguous()
     tab = (cb_l["zk"], cb_l["zv"], cb_l["sk"], cb_l["sv"])
 
@@ -1173,21 +1191,32 @@ def timed_steps(eng, names) -> dict:
 
 
 def serve(model, params, qc, seed, label, launched, idle, load=MAIN_LOAD,
-          spec=None, hook=None, tag="serve"):
+          spec=None, hook=None, tag="serve", mesh=None):
     """Serve ``load`` through the engine under ``qc`` (speculatively with
     ``spec``); every kernel in ``launched`` must launch, none in ``idle``,
     and no plain version may run. ``hook(eng)``, when given, may wrap the
     engine's methods before the run (after the step timers). The result
-    line starts ``{tag} [{label}]``. Returns (counts, tokens, engine)."""
+    line starts ``{tag} [{label}]``. Over a ``mesh`` the engine's
+    placement is measured too: ``stats["place_peak"]`` and
+    ``["place_held"]`` are the card's peak and held bytes over those
+    before it (collect earlier engines first, so that none is freed
+    inside the span), ``["setup_s"]`` its seconds. Returns (counts,
+    tokens, engine)."""
     vocab = model.cfg.vocab_size
     reqs = load_requests(load, seed, vocab)
     torch.cuda.synchronize()
+    if mesh is not None:
+        torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     eng = Engine(model, params, qc, batch_size=load.slots,
                  max_seq=load.max_seq, page_size=PAGE,
-                 prefill_chunk=load.chunk, seed=seed, spec_decode=spec)
+                 prefill_chunk=load.chunk, seed=seed, spec_decode=spec,
+                 mesh=mesh)
     torch.cuda.synchronize()
     setup = time.perf_counter() - t0
+    place = {"place_peak": torch.cuda.max_memory_allocated() - base,
+             "place_held": torch.cuda.memory_allocated() - base}
     step = "_decode_step" if spec is None else "_spec_decode_step"
     times = timed_steps(eng, ("_prefill_chunk_step", step))
     if hook is not None:
@@ -1215,7 +1244,10 @@ def serve(model, params, qc, seed, label, launched, idle, load=MAIN_LOAD,
           f"{eng.device_reads} host reads; {fit}{pool_text(eng.kv)}; "
           f"launches {counts} [{SMI}]")
     eng.stats = {"wall": wall, "tokens_per_s": gen_tokens / wall,
-                 "step_ms": 1e3 * float(np.mean(dec))}
+                 "step_ms": 1e3 * float(np.mean(dec)),
+                 "chunk_ms": 1e3 * float(np.mean(pre)),
+                 "steps": len(dec), "chunks": len(pre), "setup_s": setup,
+                 **place}
     eng.requests = reqs
     return counts, [r.out_tokens for r in reqs], eng
 
@@ -1223,11 +1255,12 @@ def serve(model, params, qc, seed, label, launched, idle, load=MAIN_LOAD,
 def pool_text(kv) -> str:
     """A serve line's account of the engine's cache: bytes a token of a
     page pool, or the size of the slot state of a recurrent family."""
+    shards = (f" in {len(kv.pools)} shards" if len(kv.pools) > 1 else "")
     if kv.paged:
         return (f"KV pool {kv.bytes_per_token} B per token "
-                f"({kv.data['k'].dtype})")
-    return (f"slot state {sum(nbytes(t) for t in _leaves(kv.data)) / 1e6:.1f}"
-            f" MB for {kv.num_slots} slots (no pages)")
+                f"({kv.pools[0]['k'].dtype}){shards}")
+    return (f"slot state {sum(nbytes(t) for t in _leaves(kv.pools)) / 1e6:.1f}"
+            f" MB for {kv.num_slots} slots (no pages){shards}")
 
 
 def prefilled_pool(model, params, qc, seed, codebook=None, load=MAIN_LOAD):
@@ -1625,18 +1658,29 @@ def dense_config(cfg, qc, seed, load, runs,
         del eng
     print(f"peak device memory, {cfg.name} (init and serving): "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
-    models = {"bfloat16": (model, params)}
+    # the float32 copy at SERVING_LAYERS, as qwen1.5-4b's (the script's
+    # time budget)
+    models = {"bfloat16": (model, params, codebook, "")}
     if "float32" in logits:
-        models["float32"] = (Model(cfg.replace(dtype="float32")),
-                             _map_float(params, torch.float32))
+        cut, cut_params = cut_depth(model, params, SERVING_LAYERS)
+        models["float32"] = (
+            Model(cut.cfg.replace(dtype="float32")),
+            _map_float(cut_params, torch.float32),
+            None if codebook is None else KVCodebook(
+                **{k: v[:SERVING_LAYERS]
+                   for k, v in codebook.tree().items()}),
+            f", {SERVING_LAYERS} layers")
+        del cut, cut_params
     for label, (qc_r, _, _) in runs.items():
-        cb = codebook if qc_r.kv_quant == "vq" else None
+        vq = qc_r.kv_quant == "vq"
         for dt in logits:
-            logit_check(*models[dt], qc_r, seed, f"{cfg.name} {label}", cb,
-                        load)
-        if "float32" in logits and cb is None:
-            verify_check(*models["float32"], qc_r, seed,
-                         f"{cfg.name} {label}", load)
+            m, p, cb, depth = models[dt]
+            logit_check(m, p, qc_r, seed, f"{cfg.name} {label}{depth}",
+                        cb if vq else None, load)
+        if "float32" in logits and not vq:
+            m, p, _, depth = models["float32"]
+            verify_check(m, p, qc_r, seed, f"{cfg.name} {label}{depth}",
+                         load)
     del model, params, codebook, models
     free()
 
@@ -1816,8 +1860,8 @@ def shared_pool_check(model, params, qc, seed, label, codebook):
                         device=DEV)
     positions = torch.tensor([s.pos for s in slots], dtype=torch.int32,
                              device=DEV)
-    decode_logit_check(model, params, qc, eng.kv.data, eng.kv.table_device(),
-                       toks, positions, label,
+    decode_logit_check(model, params, qc, eng.kv.pools[0],
+                       eng.kv.table_device(), toks, positions, label,
                        f"{SLOTS} slots at lengths {positions.tolist()} "
                        f"sharing {shared} physical pages")
 
@@ -2002,7 +2046,7 @@ def chaos_run(model, params, qc, seed, label):
                for n in rng.integers(*load.prompt, load.n)]
     router = ReplicaRouter.build(model, params, qc, replicas=2, seed=seed,
                                  **engine_kw())
-    check(all(e.params is params for e in router.engines),
+    check(all(e.params[0] is params for e in router.engines),
           f"{label}: the replicas do not share one params dict")
     inj = FaultInjector(FaultSchedule.canned(2)).attach(router)
     reqs, wall, _ = path_run(label, in_stages(router, [[
@@ -3715,14 +3759,15 @@ ANALYSIS_WARMUP = dataclasses.replace(MAIN_LOAD, n=3, new=8, hot=1)
 ANALYSIS_WARMUP_SEED = 1000
 
 
-def analysis_run(model, params, qc, seed, label, launched, idle, spec=None):
-    """The sync guard over one engine: ANALYSIS_WARMUP, then MAIN_LOAD.
-    Fails on any finding: a sync inside a model entry point, a read
-    count off its expected one, a steady-state kernel build, a float64
-    op."""
+def analysis_run(model, params, qc, seed, label, launched, idle, spec=None,
+                 mesh=None, keep=None):
+    """The sync guard over one engine: ANALYSIS_WARMUP, then MAIN_LOAD
+    (its requests appended to ``keep`` when given). Fails on any finding:
+    a sync inside a model entry point, a read count off its expected one,
+    a steady-state kernel build, a float64 op."""
     vocab = model.cfg.vocab_size
-    eng = Engine(model, params, qc, **engine_kw(seed=seed,
-                                                spec_decode=spec))
+    eng = Engine(model, params, qc, **engine_kw(seed=seed, spec_decode=spec,
+                                                mesh=mesh))
     warm = load_requests(ANALYSIS_WARMUP, seed + ANALYSIS_WARMUP_SEED,
                          vocab)
     steady = load_requests(MAIN_LOAD, seed, vocab)
@@ -3740,21 +3785,24 @@ def analysis_run(model, params, qc, seed, label, launched, idle, spec=None):
         print(f"analysis [{label}]: FINDING {f.render()}")
     check(rep.ok, f"analysis [{label}]: {len(rep.findings)} finding(s)")
     check(all(r.done for r in steady), f"{label}: steady requests unserved")
+    if keep is not None:
+        keep.extend(steady)
     del eng
     return rep.counts
 
 
 def analysis_phase(model, params, qc, seed):
-    """The guard on full-width, full-depth qwen1.5-4b fused, then on its
-    first SERVING_LAYERS layers two-pass, vq-kv and ngram-speculative;
-    then the invariants of the three paged entry points on fp and code
+    """The guard on full-width qwen1.5-4b's first SERVING_LAYERS layers
+    fused, two-pass, vq-kv and ngram-speculative (the fused guard at full
+    depth took 43 s of the phase's 70 on an H100, cut for the scale
+    phase's time); then the invariants of the three paged entry points on fp and code
     pools at full depth."""
     out = {}
     n = model.cfg.num_layers
-    out["fused"] = analysis_run(
-        model, params, qc, seed, f"qwen1.5-4b fused, {n} layers",
-        {"b1", "b2"}, {"b3", "b4", "b5"})
     cut, cut_params = cut_depth(model, params, SERVING_LAYERS)
+    out["fused"] = analysis_run(
+        cut, cut_params, qc, seed, f"qwen1.5-4b fused, {SERVING_LAYERS} "
+        "layers", {"b1", "b2"}, {"b3", "b4", "b5"})
     for name, qc_r, spec, launched, idle in (
             ("two-pass", qc.replace(fuse=False), None, {"b3", "b4", "b2"},
              {"b1", "b5"}),
@@ -3783,6 +3831,301 @@ def analysis_phase(model, params, qc, seed):
     del cut, cut_params
     free()
     return out
+
+
+# ---------------------------------------------------------------------------
+# scale phase: tensor-parallel serving over a mesh of the one card
+# ---------------------------------------------------------------------------
+
+#: The model axis of the scale phase's engines. The card is one H100, so
+#: both ranks of a TP-2 engine (and the four of the (2, 2) router) share
+#: it: the phase shows the sharded program's correctness and cost, not
+#: scaling.
+TP = 2
+#: qwen1.5-4b's projections as a TP-2 rank runs them, (K, N, calls a
+#: layer, scaled): column-parallel wq / wk / wv and wg / wu (N halved),
+#: row-parallel wo and wd (K halved: nc 160 and 432), launched without
+#: the scale (their integer partials are all-reduced, then scaled once)
+TP_QWEN_SHAPES = [(2560, 1280, 3, True), (2560, 3456, 2, True),
+                  (1280, 2560, 1, False), (3456, 2560, 1, False)]
+#: deepseek-moe-16b's per-rank groups: EP-2 routed experts (32 of 64, at
+#: the decode buffers of 8 rows) and the TP-2 shared experts (N of wg / wu
+#: halved, K of wd halved, wd without the scale); (label, E, M, K, N,
+#: calls a layer, scaled)
+TP_MOE_CASES = [("EP-2 routed wg/wu", 32, 8, 2048, 1408, 2, True),
+                ("EP-2 routed wd", 32, 8, 1408, 2048, 1, True),
+                ("TP-2 shared wg/wu", 2, 8, 2048, 704, 2, True),
+                ("TP-2 shared wd", 2, 8, 704, 2048, 1, False)]
+#: depth of the scale phase's deepseek-moe-16b and mamba2-2.7b runs (full
+#: width; qwen1.5-4b runs at full depth and at SERVING_LAYERS)
+TP_MOE_LAYERS, TP_SSM_LAYERS = 4, 8
+#: the labels of the scale phase's sharded runs (their launches make the
+#: kernels line's TP rows)
+SCALE_LABELS: list = []
+
+
+def tp_kernel_cases(gen, flush, seed):
+    """B1, B3 and B4 at the shard shapes (qwen1.5-4b at M = SLOTS and
+    CHUNK, deepseek-moe-16b's per-rank expert groups at decode), each
+    against its plain version; B2 and B5 at a rank's 10 kv heads with the
+    pages a split the engine passes there (the full model's 20-head
+    choice)."""
+    qwen = {"b1": {}, "b3": {}, "b4": {}}
+    for k, n, _, scaled in TP_QWEN_SHAPES:
+        label = (f"qwen1.5-4b TP-{TP} "
+                 + ("column shard" if scaled else "row shard"))
+        for m in (SLOTS, CHUNK):
+            qwen["b1"][(m, k, n)] = b1_case(gen, m, k, n, flush, label=label,
+                                            tag="scale", scaled=scaled)
+            qwen["b3"][(m, k, n)], qwen["b4"][(m, k, n)] = b34_case(
+                gen, m, k, n, flush, label=label, tag="scale",
+                scaled=scaled)
+    moe = {}
+    for label, e, m, k, n, _, scaled in TP_MOE_CASES:
+        lab = f"deepseek-moe-16b {label}"
+        moe[label] = {"b1": b1_case(gen, m, k, n, flush, e, lab, "scale",
+                                    scaled)}
+        moe[label]["b3"], moe[label]["b4"] = b34_case(
+            gen, m, k, n, flush, e, lab, "scale", scaled)
+    rng = np.random.default_rng(seed)
+    pos = sorted(rng.integers(32, MAX_SEQ, SLOTS).tolist())
+    np_ = MAX_SEQ // PAGE
+    kvh = qwen1p5_4b.config().num_kv_heads // TP
+    b2 = b2_case(gen, f"TP-{TP} rank B=8 KVH={kvh} G=1 D=128 NP=32",
+                 SLOTS, kvh, kvh, 128, np_, pos, 0, [0] * SLOTS, flush, True,
+                 sp=fd.split_pages_for(SLOTS, 2 * kvh, np_))
+    b5 = b5_case(gen, f"TP-{TP} rank B=8 KVH={kvh} G=1 D=128 NP=32 nc=32 "
+                 "c=16", SLOTS, kvh, kvh, 128, np_, pos, 0, [0] * SLOTS,
+                 flush, True,
+                 sp=fd.split_pages_for(SLOTS, 2 * kvh, np_, kvq=True))
+    return {"qwen": qwen, "moe": moe, "b2": b2, "b5": b5}
+
+
+def collective_host_us(devices, n=2000) -> float:
+    """Host µs of one all-reduce of a one-element tensor across a rank
+    runner over ``devices``: the turn handoffs and the rank-order add,
+    with no layer work between collectives."""
+    runner = tcol.RankRunner(devices)
+    t = torch.ones((1,), device=devices[0])
+
+    def many(tp):
+        out = t
+        for _ in range(n):
+            out = tp.all_reduce(out)
+        return out
+    runner.run(many)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    runner.run(many)
+    torch.cuda.synchronize()
+    return 1e6 * (time.perf_counter() - t0) / n
+
+
+def step_collectives(eng):
+    """A ``serve`` hook: each decode call's (collectives, bytes) in
+    ``eng.coll_steps``."""
+    eng.coll_steps = []
+    call = eng._decode_call
+
+    def wrapper(*a):
+        c0 = eng.collectives
+        out = call(*a)
+        c1 = eng.collectives
+        eng.coll_steps.append((c1[0] - c0[0], c1[1] - c0[1]))
+        return out
+    eng._decode_call = wrapper
+
+
+def collective_device_ms(cfg, flush) -> float:
+    """Device ms of one decode step's collectives on one card (TP-2, 8
+    slots): the adds of 2 all-reduces a layer of (8, d_model) float32
+    partials, the embedding's all-reduce (bf16) and the logits' gather."""
+    d, v = cfg.d_model, cfg.vocab_size
+    a = torch.randn((SLOTS, d), device=DEV)
+    e = torch.randn((SLOTS, d), device=DEV).to(torch.bfloat16)
+    g = torch.randn((SLOTS, v // TP), device=DEV).to(torch.bfloat16)
+    add = time_ms(lambda: a + a, 30, flush)
+    emb = time_ms(lambda: e + e, 30, flush)
+    cat = time_ms(lambda: torch.cat([g, g], -1), 30, flush)
+    return 2 * cfg.num_layers * add + emb + cat
+
+
+def compare_tokens(label, got, want, skip=()):
+    """Print whether two runs' token lists agree (``skip``: request
+    indices left out) and return how many requests differ."""
+    idx = [i for i in range(len(want)) if i not in skip]
+    bad = [i for i in idx if got[i] != want[i]]
+    first = ""
+    if bad:
+        i = bad[0]
+        j = next(t for t, (a, b) in enumerate(zip(got[i], want[i]))
+                 if a != b)
+        first = f"; first: request {i} at token {j}"
+    print(f"scale [{label}]: tokens of {len(idx) - len(bad)} of {len(idx)} "
+          f"requests identical{first} [{SMI}]")
+    return len(bad)
+
+
+def tp_serve(model, params, qc, seed, label, launched, idle, mesh,
+             load=MAIN_LOAD):
+    """``serve`` over ``mesh``, labelled as a sharded run (its launches
+    join the kernels line's TP rows), each decode call's collectives
+    recorded."""
+    SCALE_LABELS.append(label)
+    out = serve(model, params, qc, seed, label, launched, idle, load=load,
+                tag="scale", mesh=mesh, hook=step_collectives)
+    eng = out[2]
+    steps = eng.coll_steps
+    eng.stats["coll_per_step"] = float(np.mean([c for c, _ in steps]))
+    eng.stats["coll_bytes_per_step"] = float(np.mean([b for _, b in steps]))
+    return out
+
+
+def scale_phase(model, params, qc, seed, unsharded, gen):
+    """Tensor-parallel serving on the one card: the shard-shape kernel
+    cases; full-width, full-depth qwen1.5-4b int8 TP-2 fused on MAIN_LOAD
+    (greedy tokens equal to the serve phase's unsharded fused run bit for
+    bit); at SERVING_LAYERS the sync guard over a TP-2 fused engine and a
+    second TP-2 fused run (the temperature request the same in both; the
+    greedy tokens the unsharded engine's), two-pass and vq-kv TP-2
+    against unsharded runs, the (2, 2) router against the unsharded
+    engine; deepseek-moe-16b EP-2 and mamba2-2.7b TP-2 cut in depth
+    against their unsharded runs. Returns the kernel cases."""
+    flush = torch.ones(L2_FLUSH_BYTES // 4, dtype=torch.int32, device=DEV)
+    cases = tp_kernel_cases(gen, flush, seed)
+    cfg = model.cfg
+    mesh = make_test_mesh((1, TP), device=DEV)
+    hot = MAIN_LOAD.hot
+    ref_tokens, ref_stats = unsharded
+    # placed from the host, as a model larger than the card would be:
+    # each rank's shards and pool are made on the card, nothing whole
+    free()
+    t0 = time.perf_counter()
+    host = tree_map(lambda t: t.cpu(), params)
+    host_s = time.perf_counter() - t0
+    _, toks, eng = tp_serve(model, host, qc, seed,
+                            f"qwen1.5-4b TP-{TP} fused", {"b1", "b2"},
+                            {"b3", "b4", "b5"}, mesh)
+    st = eng.stats
+    model_b = nbytes(*_leaves(params))
+    shard_b = nbytes(*{t.data_ptr(): t for t in _leaves(eng.params)
+                       }.values())
+    pool_b = nbytes(*_leaves(eng.kv.pools))
+    leaf_b = max(nbytes(t) for t in _leaves(eng.params))
+    print(f"scale [qwen1.5-4b TP-{TP} fused, {cfg.num_layers} layers]: "
+          f"placement from the host in {st['setup_s']:.2f} s (the host "
+          f"copy of the params {host_s:.2f} s before it): the card's peak "
+          f"{st['place_peak'] / 1e9:.3f} GB over the engine's construction, "
+          f"held "
+          f"{st['place_held'] / 1e9:.3f} GB (the ranks' shards "
+          f"{shard_b / 1e9:.3f} GB, replicated leaves once, + pool shards "
+          f"{pool_b / 1e9:.3f} GB); the params {model_b / 1e9:.3f} GB, "
+          f"largest shard leaf {leaf_b / 1e6:.1f} MB [{SMI}]")
+    check(st["place_peak"] <= shard_b + pool_b + leaf_b,
+          f"TP-{TP} placement from the host peaked at {st['place_peak']} B"
+          f" on the card, over its shards and pool ({shard_b + pool_b} B)"
+          " and one leaf")
+    del eng, host
+    free()
+    check(compare_tokens(f"qwen1.5-4b TP-{TP} fused vs unsharded, greedy",
+                         toks, ref_tokens, skip=(hot,)) == 0,
+          "TP-2 greedy tokens differ from the unsharded run's")
+    same_hot = toks[hot] == ref_tokens[hot]
+    coll_ms = collective_device_ms(cfg, flush)
+    coll_us = collective_host_us(list(mesh.devices.flat))
+    print(f"scale [qwen1.5-4b TP-{TP} fused, {cfg.num_layers} layers]: "
+          f"decode step {st['step_ms']:.1f} ms (unsharded "
+          f"{ref_stats['step_ms']:.1f}), prefill chunk {st['chunk_ms']:.1f} "
+          f"ms ({ref_stats['chunk_ms']:.1f}), {st['tokens_per_s']:.1f} "
+          f"generated tokens/s ({ref_stats['tokens_per_s']:.1f}); "
+          f"collectives a decode step {st['coll_per_step']:.1f} "
+          f"({st['coll_bytes_per_step'] / 1e6:.2f} MB gathered; device "
+          f"{coll_ms:.3f} ms of adds and the logits' gather on one card; "
+          f"host {coll_us:.1f} us a collective alone, its turn handoffs "
+          f"included, {st['coll_per_step'] * coll_us / 1e3:.2f} ms a "
+          f"step); the temperature request "
+          f"{'equal' if same_hot else 'not equal'} to the unsharded "
+          f"one's [{SMI}]")
+    cut, cut_params = cut_depth(model, params, SERVING_LAYERS)
+    lab = f"qwen1.5-4b fused, {SERVING_LAYERS} layers"
+    _, solo, _ = serve(cut, cut_params, qc, seed, lab, {"b1", "b2"},
+                       {"b3", "b4", "b5"}, tag="scale")
+    guarded = []
+    glab = f"qwen1.5-4b TP-{TP} fused, {SERVING_LAYERS} layers"
+    SCALE_LABELS.append(f"analysis {glab}")
+    analysis_run(cut, cut_params, qc, seed, glab, {"b1", "b2"},
+                 {"b3", "b4", "b5"}, mesh=mesh, keep=guarded)
+    _, again, eng = tp_serve(cut, cut_params, qc, seed, f"{lab}, TP-{TP}",
+                             {"b1", "b2"}, {"b3", "b4", "b5"}, mesh)
+    # the placement: the engine's shards put back together are the params
+    back = unshard_tree(eng.params, serving_layout(cut_params, cut.cfg, TP),
+                        mesh)
+    pairs = list(zip(_leaves(cut_params), _leaves(back)))
+    check(all(torch.equal(a, b) for a, b in pairs),
+          f"{lab}: unshard_tree of the TP-{TP} shards differs from the "
+          "params")
+    print(f"scale [{lab}, TP-{TP}]: unshard_tree of the engine's shards "
+          f"equals the params in all {len(pairs)} leaves [{SMI}]")
+    del eng, back, pairs
+    check(compare_tokens(f"{lab} TP-{TP}, two runs (the sync guard's and "
+                         "a plain one)", again,
+                         [r.out_tokens for r in guarded]) == 0,
+          f"{lab}: the two TP-{TP} runs differ (the temperature request "
+          "is not reproducible)")
+    check(compare_tokens(f"{lab} TP-{TP} vs unsharded, greedy", again,
+                         solo, skip=(hot,)) == 0,
+          f"{lab}: TP-{TP} greedy tokens differ from the unsharded run's")
+    for name, qc_r, launched, idle in (
+            ("two-pass", qc.replace(fuse=False), {"b3", "b4", "b2"},
+             {"b1", "b5"}),
+            ("vq-kv", qc.replace(kv_quant="vq", kv_v=KV_V, kv_c=KV_C),
+             {"b1", "b5"}, {"b2", "b3", "b4"})):
+        lab = f"qwen1.5-4b {name}, {SERVING_LAYERS} layers"
+        _, one, _ = serve(cut, cut_params, qc_r, seed, lab, launched, idle,
+                          tag="scale")
+        _, two, _ = tp_serve(cut, cut_params, qc_r, seed,
+                             f"{lab}, TP-{TP}", launched, idle, mesh)
+        check(compare_tokens(f"{lab} TP-{TP} vs unsharded, greedy", two,
+                             one, skip=(hot,)) == 0,
+              f"{lab}: TP-{TP} tokens differ from the unsharded run's")
+    router = ReplicaRouter.from_mesh(
+        cut, cut_params, qc, mesh=make_test_mesh((2, TP), device=DEV),
+        **engine_kw(seed=seed))
+    reqs = load_requests(MAIN_LOAD, seed, cfg.vocab_size)
+    rlab = f"qwen1.5-4b fused, {SERVING_LAYERS} layers, router over (2, {TP})"
+    SCALE_LABELS.append(rlab)
+    _, wall, counts = path_run(rlab, in_stages(router, [reqs]), {"b1", "b2"},
+                               {"b3", "b4", "b5"})
+    used = [e.emitted_tokens for e in router.engines]
+    check(len(used) == 2 and all(used), f"{rlab}: replicas used {used}")
+    print(f"scale [{rlab}]: {len(reqs)} requests in {wall:.2f} s, tokens "
+          f"emitted by replica {used}, launches {counts} [{SMI}]")
+    check(compare_tokens(f"{rlab} vs one unsharded engine, greedy",
+                         [r.out_tokens for r in reqs], solo,
+                         skip=(hot,)) == 0,
+          f"{rlab}: greedy tokens differ from the unsharded engine's")
+    del router, cut, cut_params
+    free()
+    for mod, layers, launched in (
+            (deepseek_moe_16b, TP_MOE_LAYERS, {"b1", "b2"}),
+            (mamba2_2p7b, TP_SSM_LAYERS, {"b1"})):
+        c = mod.config().replace(num_layers=layers)
+        m = Model(c)
+        p = m.init(torch.Generator(device=DEV).manual_seed(seed), qc)
+        way = "EP" if c.family == "moe" else "TP"
+        lab = f"{c.name} fused, {layers} layers"
+        idle = {"b3", "b4", "b5"} | ({"b2"} if "b2" not in launched
+                                     else set())
+        _, one, _ = serve(m, p, qc, seed, lab, launched, idle, tag="scale")
+        _, two, _ = tp_serve(m, p, qc, seed, f"{lab}, {way}-{TP}", launched,
+                             idle, mesh)
+        check(compare_tokens(f"{lab} {way}-{TP} vs unsharded", two,
+                             one) == 0,
+              f"{lab}: {way}-{TP} tokens differ from the unsharded run's")
+        del m, p
+        free()
+    del flush
+    return cases
 
 
 # ---------------------------------------------------------------------------
@@ -4041,11 +4384,12 @@ def main(argv=None) -> int:
         "vq-kv": (qc.replace(kv_quant="vq", kv_v=KV_V, kv_c=KV_C),
                   {"b1", "b5"}, {"b2", "b3", "b4"}),
     }
-    counts, tokens, codebook, bpt = {}, {}, None, {}
+    counts, tokens, codebook, bpt, stats = {}, {}, None, {}, {}
     for label, (qc_r, launched, idle) in runs.items():
         counts[label], tokens[label], eng = serve(
             model, params, qc_r, args.seed, label, launched, idle)
         bpt[label] = eng.kv.bytes_per_token
+        stats[label] = eng.stats
         if qc_r.kv_quant == "vq":
             codebook = eng.kv_codebook
         del eng
@@ -4062,28 +4406,46 @@ def main(argv=None) -> int:
           f"({bpt['fused'] / bpt['vq-kv']:.1f}x)")
     print(f"peak device memory while serving: "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
-    params32 = _map_float(params, torch.float32)
-    model32 = Model(cfg.replace(dtype="float32"))
+    # the float32 copies (LUTs stay int8) at SERVING_LAYERS: at full depth
+    # they add 20 s or more to the phase on an H100, which the whole
+    # script's time budget does not leave beside the scale phase
+    cut32, cut32_params = cut_depth(model, params, SERVING_LAYERS)
+    params32 = _map_float(cut32_params, torch.float32)
+    model32 = Model(cfg.replace(dtype="float32", num_layers=SERVING_LAYERS))
+    cb32 = None if codebook is None else KVCodebook(
+        **{k: v[:SERVING_LAYERS] for k, v in codebook.tree().items()})
     for label, (qc_r, _, _) in runs.items():
         cb = codebook if qc_r.kv_quant == "vq" else None
         logit_check(model, params, qc_r, args.seed, label, cb)
         # the same step in float32 (LUTs stay int8): what is left of the
         # difference without bf16 rounding
-        logit_check(model32, params32, qc_r, args.seed, label, cb)
+        logit_check(model32, params32, qc_r, args.seed,
+                    f"{label}, {SERVING_LAYERS} layers",
+                    cb32 if cb is not None else None)
         if cb is None:
-            verify_check(model32, params32, qc_r, args.seed, label)
-    del model32, params32, codebook, cb
+            verify_check(model32, params32, qc_r, args.seed,
+                         f"{label}, {SERVING_LAYERS} layers")
+    del model32, params32, cut32, cut32_params, codebook, cb, cb32
     print(f"phase [qwen1.5-4b serve]: {time.perf_counter() - t_qwen:.1f} s")
-    with phase("speculative, qwen1.5-4b int8"):
+    with phase("scale"):
+        scale = scale_phase(model, params, qc, args.seed,
+                            (tokens["fused"], stats["fused"]), gen)
+    # at SERVING_LAYERS, the model drafter's early exit at 4 of them: at
+    # full depth (draft_layers=10) the phase took 47-59 s of the script's
+    # 991-1159 s on an H100, next to the 1200 s limit
+    with phase(f"speculative, qwen1.5-4b int8, {SERVING_LAYERS} layers"):
+        cut, cut_params = cut_depth(model, params, SERVING_LAYERS)
         spec_runs(
-            model, params, qc, args.seed, "qwen1.5-4b int8", [
+            cut, cut_params, qc, args.seed,
+            f"qwen1.5-4b int8, {SERVING_LAYERS} layers", [
                 (f"ngram k={SPEC_K}", SpecConfig(k=SPEC_K, drafter="ngram"),
                  {"b1"}, None),
-                (f"model k={SPEC_K} draft_layers=10",
-                 SpecConfig(k=SPEC_K, drafter="model", draft_layers=10),
+                (f"model k={SPEC_K} draft_layers=4",
+                 SpecConfig(k=SPEC_K, drafter="model", draft_layers=4),
                  {"b1", "b2"}, None),
                 (f"rejected drafter k={SPEC_K}", SpecConfig(k=SPEC_K),
                  {"b1"}, ShiftDrafter())], Load(hot=-1))
+        del cut, cut_params
     serving_phases(model, params, qc, args.seed, gen)
     with phase("analysis"):
         analysis_phase(model, params, qc, args.seed)
@@ -4240,6 +4602,81 @@ def main(argv=None) -> int:
         ssm_row("lut_gemm (B4, the same 2 mamba2-2.7b projections)", "b4",
                 "src/repro_torch/csrc/lut_gemm.cu",
                 "src/repro/kernels/lut_gemm.py:61"),
+    ]
+    def scale_launches(key):         # the scale phase's sharded runs
+        return sum(PATH_LAUNCHES[lab][key] for lab in SCALE_LABELS)
+
+    def scale_proj_row(name, key, source, replaces):
+        """One TP-2 rank's 7 qwen1.5-4b projections at decode (M=8) at
+        their shard shapes."""
+        res = scale["qwen"][key]
+        rows = [(res[(SLOTS, k, n)], cnt) for k, n, cnt, _ in
+                TP_QWEN_SHAPES]
+        lib = (None if key != "b4"
+               else sum(r["library_ms"] * c for r, c in rows))
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": scale_launches(key),
+                "max_abs_err": max(r["err"] for r in res.values()),
+                "ms": sum(r["ms"] * c for r, c in rows),
+                "plain_ms": sum(r["plain_ms"] * c for r, c in rows),
+                "bound_ms": sum(r["bound_ms"] * c for r, c in rows),
+                "bound_by": "bytes" if all(r["bound_by"] == "bytes"
+                                           for r, _ in rows)
+                else "operations", "library_ms": lib}
+
+    def scale_moe_row(name, key, source, replaces):
+        """A rank's 6 deepseek-moe-16b expert projections (EP-2 routed,
+        TP-2 shared) at decode."""
+        moe_s = scale["moe"]
+        rows = [(moe_s[label][key], cnt)
+                for label, *_, cnt, _ in TP_MOE_CASES]
+        lib = (None if key != "b4"
+               else sum(r["library_ms"] * c for r, c in rows))
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces,
+                "launches": sum(PATH_LAUNCHES[lab].get(key + "_grouped", 0)
+                                for lab in SCALE_LABELS),
+                "max_abs_err": max(r["err"] for r, _ in rows),
+                "ms": sum(r["ms"] * c for r, c in rows),
+                "plain_ms": sum(r["plain_ms"] * c for r, c in rows),
+                "bound_ms": sum(r["bound_ms"] * c for r, c in rows),
+                "bound_by": "bytes" if all(r["bound_by"] == "bytes"
+                                           for r, _ in rows)
+                else "operations", "library_ms": lib}
+    kernels += [
+        scale_proj_row(f"vq_amm (B1) at the TP-{TP} shard shapes: one rank's "
+                       "7 qwen1.5-4b projections at decode M=8 (column "
+                       "2560->1280 x3, 2560->3456 x2; row nc 160 and 432 "
+                       "without the scale); launches: the scale phase's "
+                       "sharded runs, every rank", "b1",
+                       "src/repro_torch/csrc/fused_amm.cu",
+                       "src/repro/kernels/fused_amm.py:87"),
+        scale_proj_row(f"vq_assign (B3) at the TP-{TP} shard shapes, the "
+                       "same 7 projections", "b3",
+                       "src/repro_torch/csrc/assign.cu",
+                       "src/repro/kernels/assign.py:54"),
+        scale_proj_row(f"lut_gemm (B4) at the TP-{TP} shard shapes, the "
+                       "same 7 projections", "b4",
+                       "src/repro_torch/csrc/lut_gemm.cu",
+                       "src/repro/kernels/lut_gemm.py:61"),
+        attn_row(f"flash_decode_paged_cuda (B2) at a TP-{TP} rank's 10 kv "
+                 "heads, 8 slots, the 20-head split; launches: the scale "
+                 "phase's sharded runs", scale["b2"], [scale["b2"]["err"]],
+                 "src/repro_torch/csrc/flash_decode.cu",
+                 "src/repro/kernels/flash_decode.py:183",
+                 scale_launches("b2")),
+        attn_row(f"flash_decode_paged_kvq_cuda (B5) at a TP-{TP} rank's 10 "
+                 "kv heads, 8 slots, nc=32 c=16", scale["b5"],
+                 [scale["b5"]["err"]],
+                 "src/repro_torch/csrc/flash_decode_kvq.cu",
+                 "src/repro/kernels/flash_decode.py:294",
+                 scale_launches("b5")),
+        scale_moe_row(f"vq_amm grouped (B1) at a rank's deepseek-moe-16b "
+                      f"expert groups: EP-{TP} routed E=32, TP-{TP} shared "
+                      "E=2 (wd without the scale), decode M=8; launches: "
+                      "grouped, the EP run", "b1",
+                      "src/repro_torch/csrc/fused_amm.cu",
+                      "src/repro/kernels/fused_amm.py:87"),
     ]
     print(f"launches by serve run: {json.dumps(PATH_LAUNCHES)}")
     print(json.dumps({"kernels": kernels}))

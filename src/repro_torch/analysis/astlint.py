@@ -69,6 +69,11 @@ MODEL_SEEDS: Tuple[str, ...] = (
     "repro_torch.kernels.ops.lut_matmul",
     "repro_torch.kernels.ops.vq_amm",
     "repro_torch.kernels.flash_decode.flash_decode_paged",
+    # the collectives a tensor-parallel rank calls inside the layer code
+    "repro_torch.parallel.collectives.TP.all_reduce",
+    "repro_torch.parallel.collectives.TP.all_gather",
+    "repro_torch.parallel.collectives.TP.local",
+    "repro_torch.parallel.collectives.TP.shard",
 )
 
 #: Host-side hot-loop seeds: the continuous engine's step machinery and
@@ -81,6 +86,10 @@ STEP_SEEDS: Tuple[str, ...] = (
     "repro_torch.serve.speculative.ModelDrafter.propose",
     "repro_torch.serve.speculative.NgramDrafter.propose",
     "repro_torch.serve.router.ReplicaRouter.step",
+    # a tensor-parallel engine's model calls: the engine's funnel and the
+    # rank runner that fans them out
+    "repro_torch.serve.engine.Engine._run",
+    "repro_torch.parallel.collectives.RankRunner.run",
 )
 
 #: The step loop's one device -> host funnel: its reads are the counted

@@ -14,7 +14,7 @@ Storage is one ``.npz`` a checkpoint. Leaves are named by their tree path
 gives each layer a stable key). numpy has no bfloat16, so a bf16 leaf is
 stored as its raw 16-bit pattern with ``bfloat16`` in the manifest, and
 comes back bit for bit. The JAX package's elastic resharding on restore
-belongs to scale-out (ROADMAP.md queue A item 11).
+belongs to the training half of scale-out (ROADMAP.md queue A item 11).
 """
 from __future__ import annotations
 

@@ -3,7 +3,10 @@ vocab=100352, 16 experts top-4 fine-grained (hf:databricks/dbrx-base).
 
 The port's own copy of ``repro.configs.dbrx_132b``; a test holds the two
 field for field. Its int8 LUTs (~264 GB) need more than one card: at full
-depth it waits for scale-out (ROADMAP.md queue A item 11)."""
+depth it can serve only tensor-parallel over several cards (four H100s at
+least), with params held on the host and each rank's shard copied to its
+card by ``Engine(mesh=)``. That run, on several cards, is still to
+measure (ROADMAP.md queue A item 11)."""
 from repro_torch.models.config import ModelConfig
 
 

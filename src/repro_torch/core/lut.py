@@ -43,6 +43,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kops
+from repro_torch.parallel.collectives import current as tp_current
 from .codebook import CodebookSpec, init_centroids
 from .similarity import Metric, ste_quantize_subspaces
 
@@ -207,16 +208,65 @@ def lut_linear_apply(p: Params, x: torch.Tensor, qc: QuantConfig,
         if "b" in p:
             out = out + p["b"]
         return out
+    out = _lut_accumulate(p, x, qc, p.get("lut_scale")).to(x.dtype)
+    if "b" in p:
+        out = out + p["b"]
+    return out
+
+
+def _lut_accumulate(p: Params, x: torch.Tensor, qc: QuantConfig,
+                    scale: Optional[torch.Tensor]) -> torch.Tensor:
+    """The lut_infer product x (..., K) -> (..., N) float32: assignment
+    and LUT accumulate (B1, or B3 then B4), times ``scale`` when given."""
+    z = p["z"]
+    k = z.shape[0] * z.shape[2]
     x2d = x.reshape(-1, k // qc.v, qc.v).contiguous()
     lut = p.get("lut")
     if lut is None:                    # on-the-fly (testing convenience)
         lut = build_lut(p["w"], z)
     if qc.fuse:        # indices stay on chip (kernel B1)
-        out = kops.vq_amm(x2d, z, lut, p.get("lut_scale"), qc.metric)
+        out = kops.vq_amm(x2d, z, lut, scale, qc.metric)
     else:              # two-pass: (M, nc) indices through device memory
         idx = kops.vq_assign(x2d, z, qc.metric)
-        out = kops.lut_matmul(idx, lut, p.get("lut_scale"))
-    out = out.reshape(*lead, -1).to(x.dtype)
+        out = kops.lut_matmul(idx, lut, scale)
+    return out.reshape(*x.shape[:-1], -1)
+
+
+def lut_linear_row(p: Params, x: torch.Tensor, qc: QuantConfig,
+                   recon: Optional[List[torch.Tensor]] = None
+                   ) -> torch.Tensor:
+    """A row-parallel projection (wo, wd, out_proj) under tensor
+    parallelism: ``x`` holds this rank's slice of the input features and
+    ``p`` the matching shard (rows of ``w``, subspaces of ``z`` and
+    ``lut``; ``lut_scale`` and ``b`` whole). Each rank's partial sums are
+    all-reduced (:func:`~repro_torch.parallel.collectives.current`), then
+    the scale and the bias apply once. Outside a tensor-parallel rank it
+    is :func:`lut_linear_apply`.
+
+    With an int8 LUT the partials go without the scale: each is an exact
+    integer in float32 (|sum| <= 127 nc < 2^24 at every shape of the
+    configs), so their sum is the one-device kernel's integer sum, and
+    ``float(sum) * lut_scale[n]`` is what B1's (and B4's) epilogue
+    computes (``csrc/vq_gather.cuh``, ``finish_share``): the sharded
+    projection equals the unsharded one bit for bit. Float LUTs and dense
+    weights sum in another order than one device does: equal within
+    rounding.
+    """
+    tp = tp_current()
+    if tp.size == 1:
+        return lut_linear_apply(p, x, qc, recon)
+    if qc.mode == "lut_train":
+        raise NotImplementedError(
+            "tensor-parallel lut_train (the sharded train step) is not "
+            "ported: ROADMAP.md queue A item 11 (the training half)")
+    if qc.mode == "dense" or "z" not in p:
+        part = (x @ p["w"]).float()
+    else:
+        part = _lut_accumulate(p, x, qc, None)
+    out = tp.all_reduce(part)
+    if "lut_scale" in p:
+        out = out * p["lut_scale"]
+    out = out.to(x.dtype)
     if "b" in p:
         out = out + p["b"]
     return out

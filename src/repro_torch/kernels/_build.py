@@ -22,6 +22,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Dict, Iterable
 
@@ -70,7 +71,7 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, str]:
     if not todo:
         return {}
     exe = nvcc()
-    build.compiles += len(todo)
+    bump(build, "compiles", len(todo))
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name, out in todo.items():
@@ -97,15 +98,31 @@ build.compiles = 0
 
 def load(name: str) -> ctypes.CDLL:
     """The built library of ``csrc/<name>.cu``, building it first if
-    needed."""
+    needed (one thread at a time: the rank threads of a tensor-parallel
+    engine may ask for it together)."""
     lib = _LIBS.get(name)
     if lib is None:
-        build([name])
-        lib = ctypes.CDLL(str(library_path(name)))
-        load.opens += 1
-        _LIBS[name] = lib
+        with _LOAD_LOCK:
+            lib = _LIBS.get(name)
+            if lib is None:
+                build([name])
+                lib = ctypes.CDLL(str(library_path(name)))
+                bump(load, "opens")
+                _LIBS[name] = lib
     return lib
 
 
 load.opens = 0
 
+
+_LOAD_LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
+
+
+def bump(fn, attr: str = "launches", n: int = 1) -> None:
+    """Add ``n`` to the counter ``fn.<attr>`` under one lock. The kernel
+    wrappers and the plain versions count their calls this way: the rank
+    threads of a tensor-parallel engine (``parallel/collectives.py``)
+    launch at the same time, and ``+=`` on an attribute is not atomic."""
+    with _COUNT_LOCK:
+        setattr(fn, attr, getattr(fn, attr) + n)

@@ -85,8 +85,8 @@ def vq_assign_cuda(x: torch.Tensor, z: torch.Tensor, metric: Metric = "l2",
     if err != 0:
         raise RuntimeError(
             f"vq_assign_cuda: launch failed with cudaError {err}")
-    vq_assign_cuda.launches += 1
-    vq_assign_cuda.grouped += x.dim() == 4
+    _build.bump(vq_assign_cuda, "launches")
+    _build.bump(vq_assign_cuda, "grouped", x.dim() == 4)
     return idx
 
 

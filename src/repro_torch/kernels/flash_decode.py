@@ -129,7 +129,7 @@ def flash_decode_splits(qg: torch.Tensor, k_pages: torch.Tensor,
     Returns (m, l, acc) shaped (NS, B, KVH, G[, D]) float32.
     ``flash_decode_splits.calls`` counts calls.
     """
-    flash_decode_splits.calls += 1
+    _build.bump(flash_decode_splits, "calls")
     b, kvh, g, d = qg.shape
     ps = k_pages.shape[1]
     ns = phys.shape[1] // split_pages
@@ -226,7 +226,7 @@ def flash_decode_splits_cuda(qg: torch.Tensor, k_pages: torch.Tensor,
     if err != 0:
         raise RuntimeError(
             f"flash_decode_splits_cuda: launch failed with cudaError {err}")
-    flash_decode_splits_cuda.launches += 1
+    _build.bump(flash_decode_splits_cuda, "launches")
     return m, l, acc
 
 
@@ -250,7 +250,7 @@ def flash_decode_splits_kvq(qg: torch.Tensor, kc_pages: torch.Tensor,
     sk/sv (KVH,); the rest as :func:`flash_decode_splits`.
     ``flash_decode_splits_kvq.calls`` counts calls.
     """
-    flash_decode_splits_kvq.calls += 1
+    _build.bump(flash_decode_splits_kvq, "calls")
     b, kvh, g, d = qg.shape
     ps = kc_pages.shape[1]
     nc, c, v = zk.shape
@@ -379,7 +379,7 @@ def flash_decode_splits_kvq_cuda(qg: torch.Tensor, kc_pages: torch.Tensor,
         raise RuntimeError(
             f"flash_decode_splits_kvq_cuda: launch failed with cudaError "
             f"{err}")
-    flash_decode_splits_kvq_cuda.launches += 1
+    _build.bump(flash_decode_splits_kvq_cuda, "launches")
     return m, l, acc
 
 
@@ -400,7 +400,7 @@ def fold_splits(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor,
     zero, and a lane whose splits are all the identity (pos = -1) returns
     exactly its v_new row. ``fold_splits.calls`` counts calls.
     """
-    fold_splits.calls += 1
+    _build.bump(fold_splits, "calls")
     b, kvh, g, d = qg.shape
     m, l, acc = reduce_splits(m, l, acc)
     s_new = torch.einsum("bkgd,bkd->bkg", qg, k_new[:, 0].float())
@@ -454,7 +454,7 @@ def flash_decode_paged_plain(q: torch.Tensor, k_pages: torch.Tensor,
     B2's plain triples (:func:`flash_decode_splits`), then
     :func:`fold_splits`. ``flash_decode_paged_plain.calls`` counts
     calls."""
-    flash_decode_paged_plain.calls += 1
+    _build.bump(flash_decode_paged_plain, "calls")
     qg = _scaled_query(q, k_pages.shape[2])
     m, l, acc = flash_decode_splits(
         qg, k_pages, v_pages, _trash_padded(phys, split_pages,
@@ -478,7 +478,7 @@ def flash_decode_paged_kvq_plain(q: torch.Tensor, kc_pages: torch.Tensor,
     :func:`flash_decode_paged_kvq_cuda` (:func:`flash_decode_splits_kvq`,
     then :func:`fold_splits`). ``flash_decode_paged_kvq_plain.calls``
     counts calls."""
-    flash_decode_paged_kvq_plain.calls += 1
+    _build.bump(flash_decode_paged_kvq_plain, "calls")
     qg = _scaled_query(q, kc_pages.shape[2])
     m, l, acc = flash_decode_splits_kvq(
         qg, kc_pages, vc_pages, zk, zv, sk, sv,
@@ -582,7 +582,7 @@ def flash_decode_paged_cuda(q: torch.Tensor, k_pages: torch.Tensor,
          ks.data_ptr(), int(win)],
         [b, kvh, g, d, ps, np_, split_pages, _KV_DTYPES[k_pages.dtype]],
         d ** -0.5)
-    flash_decode_paged_cuda.launches += 1
+    _build.bump(flash_decode_paged_cuda, "launches")
     return out
 
 
@@ -632,7 +632,7 @@ def flash_decode_paged_kvq_cuda(q: torch.Tensor, kc_pages: torch.Tensor,
          k_new.data_ptr(), v_new.data_ptr(), phys.data_ptr(), pos.data_ptr(),
          ks.data_ptr(), int(win)],
         [b, kvh, g, d, ps, np_, split_pages, nc, c, v], d ** -0.5)
-    flash_decode_paged_kvq_cuda.launches += 1
+    _build.bump(flash_decode_paged_kvq_cuda, "launches")
     return out
 
 

@@ -81,7 +81,9 @@ def vq_amm_cuda(x: torch.Tensor, z: torch.Tensor, lut: torch.Tensor,
     """Fused assign + LUT accumulate on the card.
 
     x (M, nc, v) f32|bf16, z (nc, c, v) of x's type, lut (nc, c, N)
-    f32|bf16|int8, scale (N,) f32 or None; all contiguous CUDA tensors on
+    f32|bf16|int8, scale (N,) f32 or None (an int8 LUT without it gives
+    the exact int32 sums as float32: a row-parallel shard's partials,
+    ``core.lut.lut_linear_row``); all contiguous CUDA tensors on
     one device. Returns out (M, N) float32. With a leading expert axis on
     every operand (x (E, M, nc, v), z (E, nc, c, v), lut (E, nc, c, N),
     scale (E, N)) it returns (E, M, N), one launch for all experts.
@@ -113,8 +115,6 @@ def vq_amm_cuda(x: torch.Tensor, z: torch.Tensor, lut: torch.Tensor,
     if scale is not None:
         _check(scale.dtype == torch.float32 and scale.shape[-1] == n,
                "scale must be float32 of shape (N,), or (E, N)")
-    if lut.dtype == torch.int8:
-        _check(scale is not None, "an int8 LUT needs its scale")
     # per expert: the kernel moves between experts with 64-bit offsets
     _check(m * n < 2 ** 31 and nc * c * n < 2 ** 31 and m * nc * v < 2 ** 31,
            "sizes of one expert beyond int32 indexing")
@@ -130,8 +130,8 @@ def vq_amm_cuda(x: torch.Tensor, z: torch.Tensor, lut: torch.Tensor,
             _LUT_DTYPES[lut.dtype], _METRICS[metric], stream, None)
     if err != 0:
         raise RuntimeError(f"vq_amm_cuda: launch failed with cudaError {err}")
-    vq_amm_cuda.launches += 1
-    vq_amm_cuda.grouped += x.dim() == 4
+    _build.bump(vq_amm_cuda, "launches")
+    _build.bump(vq_amm_cuda, "grouped", x.dim() == 4)
     return out
 
 

@@ -54,7 +54,9 @@ def lut_gemm_cuda(idx: torch.Tensor, lut: torch.Tensor,
     """LUT accumulate on the card.
 
     idx (M, nc) int32 with entries in [0, c), lut (nc, c, N)
-    f32|bf16|int8, scale (N,) f32 or None (required for int8); all
+    f32|bf16|int8, scale (N,) f32 or None (an int8 LUT without it
+    gives the exact int32 sums as float32: a row-parallel shard's
+    partials, ``core.lut.lut_linear_row``); all
     contiguous CUDA tensors on one device. Returns out (M, N) float32,
     ``sum_k lut[k, idx[m, k], :]`` (x scale); with a leading expert axis
     on every operand (idx (E, M, nc), lut (E, nc, c, N), scale (E, N)),
@@ -81,8 +83,6 @@ def lut_gemm_cuda(idx: torch.Tensor, lut: torch.Tensor,
     if scale is not None:
         _check(scale.dtype == torch.float32 and scale.shape[-1] == n,
                "scale must be float32 of shape (N,), or (E, N)")
-    if lut.dtype == torch.int8:
-        _check(scale is not None, "an int8 LUT needs its scale")
     # per expert: the kernel moves between experts with 64-bit offsets
     _check(m * n < 2 ** 31 and nc * c * n < 2 ** 31,
            "sizes of one expert beyond int32 indexing")
@@ -97,8 +97,8 @@ def lut_gemm_cuda(idx: torch.Tensor, lut: torch.Tensor,
                  stream, None)
     if err != 0:
         raise RuntimeError(f"lut_gemm_cuda: launch failed with cudaError {err}")
-    lut_gemm_cuda.launches += 1
-    lut_gemm_cuda.grouped += idx.dim() == 3
+    _build.bump(lut_gemm_cuda, "launches")
+    _build.bump(lut_gemm_cuda, "grouped", idx.dim() == 3)
     return out
 
 

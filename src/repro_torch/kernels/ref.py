@@ -23,6 +23,7 @@ import torch
 
 from repro_torch.core.similarity import (Metric, one_hot,
                                          pairwise_distance_subspaces)
+from . import _build
 
 
 def _assign(x, z, metric):
@@ -56,7 +57,7 @@ def assign_ref(x: torch.Tensor, z: torch.Tensor,
     lowest index wins a tie. Grouped: x (E, M, nc, v), z (E, nc, c, v)
     -> (E, M, nc).
     """
-    assign_ref.calls += 1
+    _build.bump(assign_ref, "calls")
     return _per_expert(lambda xx, zz: _assign(xx, zz, metric), x.dim() == 4,
                        x, z)
 
@@ -67,7 +68,7 @@ def lut_gemm_onehot(idx: torch.Tensor, lut: torch.Tensor,
     contraction in float32 (plain version of B4). idx (M, nc) int32,
     lut (nc, c, N) float or int8 -> (M, N) float32. Grouped: idx
     (E, M, nc), lut (E, nc, c, N), scale (E, N) -> (E, M, N)."""
-    lut_gemm_onehot.calls += 1
+    _build.bump(lut_gemm_onehot, "calls")
     return _per_expert(_lut_gemm, idx.dim() == 3, idx, lut, scale)
 
 
@@ -81,7 +82,7 @@ def vq_amm_ref(x: torch.Tensor, z: torch.Tensor, lut: torch.Tensor,
 
     ``vq_amm_ref.calls`` counts calls, so a run on the card can show that
     its main path never took the plain version."""
-    vq_amm_ref.calls += 1
+    _build.bump(vq_amm_ref, "calls")
     return _per_expert(
         lambda xx, zz, ll, ss: _lut_gemm(_assign(xx, zz, metric), ll, ss),
         x.dim() == 4, x, z, lut, scale)

@@ -40,8 +40,10 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from repro_torch.core.kv_codebook import kv_decode
-from repro_torch.core.lut import QuantConfig, lut_linear_apply
-from repro_torch.kernels.flash_decode import flash_decode_paged
+from repro_torch.core.lut import QuantConfig, lut_linear_apply, lut_linear_row
+from repro_torch.kernels.flash_decode import (flash_decode_paged,
+                                              split_pages_for)
+from repro_torch.parallel.collectives import current as tp_current
 
 Params = Dict
 
@@ -51,6 +53,18 @@ def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
     xf = x.float()
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps)
+    return (out * (1.0 + gamma.float())).to(x.dtype)
+
+
+def rms_norm_sharded(x: torch.Tensor, gamma: torch.Tensor, eps: float,
+                     tp) -> torch.Tensor:
+    """:func:`rms_norm` of a full (all-gathered) ``x``, returning only the
+    rank's even slice of the last dim, with ``gamma`` that slice's gain:
+    bit for bit the slice of the one-device norm (its reduction runs over
+    the same full row)."""
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    out = tp.shard(xf * torch.rsqrt(var + eps), -1)
     return (out * (1.0 + gamma.float())).to(x.dtype)
 
 
@@ -72,7 +86,9 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
 def proj(p: Params, x: torch.Tensor, qc: QuantConfig,
          recon: Optional[List[torch.Tensor]] = None) -> torch.Tensor:
     """One LutLinear projection (its lut_train recon term into
-    ``recon``)."""
+    ``recon``); column-parallel under tensor parallelism (its output
+    columns are the rank's). The row-parallel projections (wo, wd,
+    out_proj) call :func:`~repro_torch.core.lut.lut_linear_row`."""
     return lut_linear_apply(p, x, qc, recon)
 
 
@@ -260,10 +276,18 @@ def attention(p: Params, x: torch.Tensor, cfg, qc: QuantConfig, q_offset,
         vlm's image prefix); taken by the paths that see the prefix, the
         one with no cache and a dense cache's chunk at q_offset 0.
 
+    Under tensor parallelism (a rank of ``parallel.collectives``) the
+    rank computes its own heads: ``wq`` / ``wk`` / ``wv`` hold its
+    columns, the pool its kv heads, and ``wo`` is row-parallel. B2 / B5
+    split the pages as the one-device launch over every kv head does, so
+    each head's sums run in the same order as on one device.
+
     Returns: (out (B, S, D), k_new, v_new (B, S, KVH, HD)).
     """
     b, s, _ = x.shape
-    h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    tp = tp_current()
+    h, kvh, hd = (cfg.num_heads // tp.size, cfg.num_kv_heads // tp.size,
+                  cfg.head_dim)
     xn = rms_norm(x, p["norm"], cfg.norm_eps)
     q = proj(p["wq"], xn, qc, recon)
     k = proj(p["wk"], xn, qc, recon)
@@ -282,7 +306,7 @@ def attention(p: Params, x: torch.Tensor, cfg, qc: QuantConfig, q_offset,
                              "sequence from position 0")
         out = _sdpa(q, k, v, 0, window, prefix_len=prefix_len).reshape(
             b, s, h * hd)
-        return proj(p["wo"], out, qc, recon), k, v
+        return lut_linear_row(p["wo"], out, qc, recon), k, v
     if codebook is None:
         k_new, v_new = k.to(k_pages.dtype), v.to(v_pages.dtype)
     else:                   # code pool: the fresh rows stay fp
@@ -303,8 +327,11 @@ def attention(p: Params, x: torch.Tensor, cfg, qc: QuantConfig, q_offset,
         out = _sdpa(q, k_all, v_all, q_offset, window, kv_start,
                     prefix_len).reshape(b, s, h * hd)
     elif s == 1:
+        split = None if tp.size == 1 else split_pages_for(
+            b, cfg.num_kv_heads, phys.shape[1], codebook is not None)
         out = flash_decode_paged(q, k_pages, v_pages, k, v, phys, q_offset,
-                                 window=window, codebook=codebook)
+                                 window=window, codebook=codebook,
+                                 split_pages=split)
     else:
         # prefill reads the slot's rows [0, q_offset); verify reads every
         # row of every slot's table and masks rows >= q_offset[b]
@@ -327,13 +354,14 @@ def attention(p: Params, x: torch.Tensor, cfg, qc: QuantConfig, q_offset,
             v_all = torch.cat([v_old.to(x.dtype), v_new.to(x.dtype)], 1)
             out = _sdpa(q, k_all, v_all, q_offset, window).reshape(
                 b, s, h * hd)
-    return proj(p["wo"], out, qc, recon), k_new, v_new
+    return lut_linear_row(p["wo"], out, qc, recon), k_new, v_new
 
 
 def mlp(p: Params, x: torch.Tensor, cfg, qc: QuantConfig,
         recon: Optional[List[torch.Tensor]] = None) -> torch.Tensor:
-    """Pre-norm SwiGLU MLP."""
+    """Pre-norm SwiGLU MLP (under tensor parallelism wg / wu
+    column-parallel, wd row-parallel)."""
     xn = rms_norm(x, p["norm"], cfg.norm_eps)
     g = proj(p["wg"], xn, qc, recon)
     u = proj(p["wu"], xn, qc, recon)
-    return proj(p["wd"], torch.nn.functional.silu(g) * u, qc, recon)
+    return lut_linear_row(p["wd"], torch.nn.functional.silu(g) * u, qc, recon)

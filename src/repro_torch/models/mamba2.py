@@ -22,8 +22,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.lut import (QuantConfig, lut_linear_init,
-                                  precompute_layer, strip_for_inference)
-from .layers import proj, rms_norm
+                                  lut_linear_row, precompute_layer,
+                                  strip_for_inference)
+from repro_torch.parallel.collectives import current as tp_current
+from .layers import proj, rms_norm, rms_norm_sharded
 
 Params = Dict
 
@@ -72,8 +74,11 @@ def init_mamba2(gen: torch.Generator, cfg, qc: QuantConfig, dtype,
     }
 
 
-def _split_in_proj(zxbcdt: torch.Tensor, cfg):
-    din = cfg.d_inner
+def _split_in_proj(zxbcdt: torch.Tensor, cfg, tp_size: int = 1):
+    """z | xBC | dt of the fused in_proj output; under tensor parallelism
+    (``tp_size`` ranks) the rank's columns, laid out z_r | x_r | B | C |
+    dt_r (``parallel.sharding.mamba_columns``)."""
+    din = cfg.d_inner // tp_size
     gn = cfg.ssm_ngroups * cfg.ssm_state
     z = zxbcdt[..., :din]
     xbc = zxbcdt[..., din:din + din + 2 * gn]
@@ -177,6 +182,19 @@ def ssd_chunked(x, dt, a_log, bmat, cmat, d_skip, chunk: int = 128,
     return y.to(x.dtype), h_final
 
 
+def _gated_norm(y: torch.Tensor, z: torch.Tensor, gamma: torch.Tensor,
+                cfg, tp) -> torch.Tensor:
+    """RMSNorm of ``y * silu(z)`` over d_inner. Under tensor parallelism
+    the rank's slices are all-gathered first, the norm reduces over the
+    whole row, and the rank keeps its slice for the row-parallel
+    ``out_proj``: bit for bit the one-device values."""
+    gated = y * F.silu(z)
+    if tp.size == 1:
+        return rms_norm(gated, gamma, cfg.norm_eps)
+    return rms_norm_sharded(tp.all_gather(gated, -1), gamma, cfg.norm_eps,
+                            tp)
+
+
 def mamba2_block(p: Params, x: torch.Tensor, cfg, qc: QuantConfig,
                  cache: Optional[Params] = None,
                  valid_len: Optional[int] = None,
@@ -194,17 +212,23 @@ def mamba2_block(p: Params, x: torch.Tensor, cfg, qc: QuantConfig,
     the last real token.
     recon: lut_train: the list the two projections' recon terms join
     (the JAX package returns their sum as its second output).
+    Under tensor parallelism the rank runs its own heads and channels
+    (plus every head's B and C): ``in_proj`` is column-parallel in the
+    port's layout, the gated norm reads the all-gathered row, and
+    ``out_proj`` is row-parallel.
     Returns (out (B, S, D), new_cache or None).
     """
     b, s, _ = x.shape
-    h, pdim, n, g = (cfg.ssm_nheads, cfg.ssm_headdim, cfg.ssm_state,
-                     cfg.ssm_ngroups)
+    tp = tp_current()
+    h, pdim, n, g = (cfg.ssm_nheads // tp.size, cfg.ssm_headdim,
+                     cfg.ssm_state, cfg.ssm_ngroups)
     xn = rms_norm(x, p["norm"], cfg.norm_eps)
-    z, xbc, dt = _split_in_proj(proj(p["in_proj"], xn, qc, recon), cfg)
+    z, xbc, dt = _split_in_proj(proj(p["in_proj"], xn, qc, recon), cfg,
+                                tp.size)
     conv_state = cache["conv"] if cache is not None else None
     xbc, new_conv = _causal_conv(xbc, p["conv_w"], p["conv_b"], conv_state,
                                  valid_len=valid_len)
-    din = cfg.d_inner
+    din = cfg.d_inner // tp.size
     xs = xbc[..., :din].reshape(b, s, h, pdim)
     bmat = xbc[..., din:din + g * n].reshape(b, s, g, n)
     cmat = xbc[..., din + g * n:].reshape(b, s, g, n)
@@ -215,9 +239,8 @@ def mamba2_block(p: Params, x: torch.Tensor, cfg, qc: QuantConfig,
     h0 = cache["h"] if cache is not None else None
     y, h_final = ssd_chunked(xs, dt, p["A_log"], bmat, cmat, p["D"],
                              chunk=128, h0=h0)
-    y = y.reshape(b, s, din)
-    y = rms_norm(y * F.silu(z), p["gate_norm"], cfg.norm_eps)
-    out = proj(p["out_proj"], y, qc, recon)
+    y = _gated_norm(y.reshape(b, s, din), z, p["gate_norm"], cfg, tp)
+    out = lut_linear_row(p["out_proj"], y, qc, recon)
     new_cache = None
     if cache is not None:
         new_cache = {"conv": new_conv, "h": h_final}
@@ -230,18 +253,19 @@ def mamba2_decode(p: Params, x: torch.Tensor, cfg, qc: QuantConfig,
     float32 and its output is cast back to x's type. Returns (out, new
     cache)."""
     b = x.shape[0]
-    h, pdim, n, g = (cfg.ssm_nheads, cfg.ssm_headdim, cfg.ssm_state,
-                     cfg.ssm_ngroups)
+    tp = tp_current()
+    h, pdim, n, g = (cfg.ssm_nheads // tp.size, cfg.ssm_headdim,
+                     cfg.ssm_state, cfg.ssm_ngroups)
     f32 = torch.float32
     xn = rms_norm(x, p["norm"], cfg.norm_eps)
-    z, xbc, dt = _split_in_proj(proj(p["in_proj"], xn, qc), cfg)
+    z, xbc, dt = _split_in_proj(proj(p["in_proj"], xn, qc), cfg, tp.size)
     # conv over the cached window
     xpad = torch.cat([cache["conv"], xbc], dim=1)                # (B, K, C)
     kk = p["conv_w"].shape[0]
     conv_out = torch.einsum("bkc,kc->bc", xpad[:, -kk:], p["conv_w"])
     xbc1 = F.silu(conv_out + p["conv_b"])[:, None]               # (B, 1, C)
     new_conv = xpad[:, -(kk - 1):]
-    din = cfg.d_inner
+    din = cfg.d_inner // tp.size
     xs = xbc1[..., :din].reshape(b, h, pdim).to(f32)
     bmat = xbc1[..., din:din + g * n].reshape(b, g, n)
     cmat = xbc1[..., din + g * n:].reshape(b, g, n)
@@ -254,7 +278,7 @@ def mamba2_decode(p: Params, x: torch.Tensor, cfg, qc: QuantConfig,
             + torch.einsum("bh,bhp,bhn->bhpn", dt1, xs, bmat))
     y = torch.einsum("bhpn,bhn->bhp", hnew, cmat)
     y = y + xs * p["D"].float()[None, :, None]
-    y = y.reshape(b, 1, din).to(x.dtype)
-    y = rms_norm(y * F.silu(z), p["gate_norm"], cfg.norm_eps)
-    out = proj(p["out_proj"], y, qc)
+    y = _gated_norm(y.reshape(b, 1, din).to(x.dtype), z, p["gate_norm"],
+                    cfg, tp)
+    out = lut_linear_row(p["out_proj"], y, qc)
     return out, {"conv": new_conv, "h": hnew}

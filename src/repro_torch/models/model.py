@@ -75,6 +75,7 @@ from repro_torch.core.kv_codebook import CODEBOOK_KEY, kv_encode
 from repro_torch.core.lut import (DENSE, QuantConfig, lut_linear_init,
                                   precompute_layer, strip_for_inference)
 from repro_torch.device import resolve_device
+from repro_torch.parallel.collectives import current as tp_current
 from .config import ModelConfig
 from .layers import attention, mlp, rms_norm
 from .mamba2 import init_mamba2, mamba2_block, mamba2_decode
@@ -107,7 +108,7 @@ class Model:
             raise NotImplementedError(
                 "head_layout='hd' (the head_dim-major layout that shards "
                 "attention) is not ported: ROADMAP.md queue A item 11 "
-                "(Scale-out)")
+                "(Scale-out, its training half)")
         self.cfg = cfg
         self.device = resolve_device(device)
 
@@ -198,10 +199,23 @@ class Model:
     # ------------------------------------------------------------------
     def _embed(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
         """Token ids (B, S) -> (B, S, D); audio: frame embeddings (B, S,
-        D) through ``in_proj``."""
+        D) through ``in_proj``.
+
+        Under tensor parallelism a vocab-sharded ``embed`` (rank r holds
+        rows [r n, (r + 1) n)) is looked up where the rank owns the id and
+        zero elsewhere, then all-reduced: exactly one rank adds a
+        non-zero row, so the sum is the one-device lookup."""
         if self.cfg.family == "audio":
             return tokens.to(self.dtype) @ params["in_proj"]
-        return params["embed"][tokens.long()]
+        emb = params["embed"]
+        tp = tp_current()
+        if tp.size == 1 or emb.shape[0] == self.cfg.vocab_size:
+            return emb[tokens.long()]
+        n = emb.shape[0]
+        ids = tokens.long() - tp.rank * n
+        mine = ((ids >= 0) & (ids < n))[..., None]
+        rows = emb[ids.clamp(0, n - 1)]
+        return tp.all_reduce(torch.where(mine, rows, torch.zeros_like(rows)))
 
     def _inputs(self, params: Params, batch: Dict
                 ) -> Tuple[torch.Tensor, int]:
@@ -219,11 +233,20 @@ class Model:
         return x, 0
 
     def _head(self, params: Params, x: torch.Tensor) -> torch.Tensor:
+        """Logits. Under tensor parallelism a vocab-sharded head (or tied
+        embedding) gives the rank's columns, all-gathered in rank order,
+        so every rank holds the whole row (the reference's replicated
+        output) and the engine reads it once, from rank 0."""
         if self.cfg.family == "audio":          # one head per codebook
             return torch.einsum("bsd,qdv->bsqv", x, params["heads"])
         if self.cfg.tie_embeddings:
-            return x @ params["embed"].T
-        return x @ params["head"]
+            out = x @ params["embed"].T
+        else:
+            out = x @ params["head"]
+        tp = tp_current()
+        if tp.size > 1 and out.shape[-1] != self.cfg.vocab_size:
+            out = tp.all_gather(out, -1)
+        return out
 
     def _windows(self) -> List[int]:
         cfg = self.cfg
@@ -241,10 +264,15 @@ class Model:
         do), with ``write(li, k_new, v_new)`` storing the layer's fresh
         rows once its attention has read the pool."""
         cb = kv.get(CODEBOOK_KEY)
+        tp = tp_current()
         for li, (p_l, win) in enumerate(zip(params["blocks"],
                                             self._windows())):
+            # a code pool's codebook is replicated; its per-kv-head scales
+            # sk / sv are cut to the rank's heads
             cb_l = (None if cb is None
-                    else {key: leaf[li] for key, leaf in cb.items()})
+                    else {key: leaf[li] if key in ("zk", "zv")
+                          else tp.shard(leaf[li], 0)
+                          for key, leaf in cb.items()})
             a, k_new, v_new = attention(p_l["attn"], x, self.cfg, qc,
                                         q_offset, kv["k"][li], kv["v"][li],
                                         phys, window=win, codebook=cb_l,
@@ -498,10 +526,12 @@ class Model:
     # ------------------------------------------------------------------
     def init_paged_cache(self, max_seq: int, page_size: int,
                          num_pages: int, dtype=None, codebook=None,
-                         num_slots: Optional[int] = None) -> Params:
+                         num_slots: Optional[int] = None,
+                         device=None) -> Params:
         """The page pool ``{"k": (L, num_pages+1, page_size, KVH, HD),
-        "v": ...}`` on this model's device; the extra last page is the
-        trash page that absorbs writes of lanes that are not live.
+        "v": ...}`` on ``device`` (default this model's; the meta device
+        gives the shapes alone); the extra last page is the trash page
+        that absorbs writes of lanes that are not live.
 
         codebook: optional :class:`~repro_torch.core.kv_codebook.KVCodebook`
         -- the pool then holds uint8 codes ``(L, num_pages+1, page_size,
@@ -517,8 +547,10 @@ class Model:
         slot's position are never read). They take no codebook."""
         cfg = self.cfg
         l, kvh, hd = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
+        dev = self.device if device is None else device
         if cfg.family in RECURRENT:
-            return self._init_slot_state(max_seq, num_slots, dtype, codebook)
+            return self._init_slot_state(max_seq, num_slots, dtype, codebook,
+                                         dev)
         if codebook is not None:
             if (codebook.num_layers, codebook.head_dim) != (l, hd):
                 raise ValueError(
@@ -527,20 +559,18 @@ class Model:
                     f"(L={l}, HD={hd})")
             shape = (l, num_pages + 1, page_size, kvh, codebook.nc)
             return {
-                "k": torch.zeros(shape, dtype=torch.uint8,
-                                 device=self.device),
-                "v": torch.zeros(shape, dtype=torch.uint8,
-                                 device=self.device),
-                CODEBOOK_KEY: {key: leaf.to(self.device, torch.float32,
+                "k": torch.zeros(shape, dtype=torch.uint8, device=dev),
+                "v": torch.zeros(shape, dtype=torch.uint8, device=dev),
+                CODEBOOK_KEY: {key: leaf.to(dev, torch.float32,
                                             copy=True).contiguous()
                                for key, leaf in codebook.tree().items()}}
         shape = (l, num_pages + 1, page_size, kvh, hd)
         dtype = dtype or self.dtype
-        return {"k": torch.zeros(shape, dtype=dtype, device=self.device),
-                "v": torch.zeros(shape, dtype=dtype, device=self.device)}
+        return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+                "v": torch.zeros(shape, dtype=dtype, device=dev)}
 
     def _init_slot_state(self, max_seq: int, num_slots: Optional[int],
-                         dtype, codebook) -> Params:
+                         dtype, codebook, dev) -> Params:
         cfg = self.cfg
         if codebook is not None:
             raise NotImplementedError(
@@ -550,7 +580,6 @@ class Model:
             raise ValueError(f"the {cfg.family!r} family keeps its state "
                              "slot by slot: pass num_slots")
         dtype = dtype or self.dtype
-        dev = self.device
         conv_dim = cfg.d_inner + 2 * cfg.ssm_ngroups * cfg.ssm_state
         l = cfg.num_layers
         mamba = {
@@ -622,7 +651,7 @@ class Model:
                              f"max_seq {page_table.shape[1] * ps}")
         row = page_table[slot]
         phys = torch.where(row >= 0, row, torch.full_like(row, trash))[None]
-        tok_pos = pos + torch.arange(valid_len, device=self.device)
+        tok_pos = pos + torch.arange(valid_len, device=tokens.device)
         tgt, off = phys[0, tok_pos // ps].long(), tok_pos % ps
 
         def write(li, k_new, v_new):
@@ -665,7 +694,7 @@ class Model:
         phys = torch.where(page_table >= 0, page_table,
                            torch.full_like(page_table, trash))
         pos_c = torch.clamp_min(positions, 0).long()
-        live_page = phys[torch.arange(b, device=self.device), pos_c // ps]
+        live_page = phys[torch.arange(b, device=tokens.device), pos_c // ps]
         tgt = torch.where(positions >= 0, live_page,
                           torch.full_like(live_page, trash)).long()
         off = pos_c % ps
@@ -726,7 +755,7 @@ class Model:
         max_seq = page_table.shape[1] * ps
         phys = torch.where(page_table >= 0, page_table,
                            torch.full_like(page_table, trash))
-        cols = torch.arange(t_v, device=self.device)
+        cols = torch.arange(t_v, device=tokens.device)
         tok_pos = torch.clamp_min(positions, 0).long()[:, None] + cols[None]
         live = (positions >= 0)[:, None] & (cols[None] < n_live[:, None])
         tok_pos = torch.clamp_max(tok_pos, max_seq - 1)  # dead cols: clamp
@@ -815,7 +844,7 @@ class Model:
         if hybrid:
             attn = kv["attn"]
             trash_row = attn["k"].shape[2] - 1
-            lanes = torch.arange(tokens.shape[0], device=self.device)
+            lanes = torch.arange(tokens.shape[0], device=tokens.device)
             row = torch.where(live, positions,
                               torch.full_like(positions, trash_row)).long()
 

@@ -28,6 +28,7 @@ from repro_torch.core.lut import (QuantConfig, build_lut, precompute_layer,
                                   strip_for_inference)
 from repro_torch.core.similarity import one_hot, ste_quantize_subspaces
 from repro_torch.kernels import ops as kops
+from repro_torch.parallel.collectives import current as tp_current
 from .layers import rms_norm
 
 Params = Dict[str, torch.Tensor]
@@ -79,15 +80,50 @@ def expert_proj(p: Params, x: torch.Tensor, qc: QuantConfig,
         recon.append((torch.mean((out_q.detach() - out_d) ** 2)
                       + torch.mean((out_q - out_d.detach()) ** 2)).float())
         return out_d + (out_q - out_d).detach()
-    xs = xs.contiguous()
+    return _expert_accumulate(p, x, qc, p.get("lut_scale")).to(x.dtype)
+
+
+def _expert_accumulate(p: Params, x: torch.Tensor, qc: QuantConfig,
+                       scale: Optional[torch.Tensor]) -> torch.Tensor:
+    """The lut_infer product of every expert, x (E, Cap, K) -> (E, Cap,
+    N) float32: one grouped call of B1 (or B3 then B4), times ``scale``
+    (E, N) when given."""
+    e, cap, k = x.shape
+    xs = x.reshape(e, cap, k // qc.v, qc.v).contiguous()
+    z = p["z"]
     lut = p.get("lut")
     if lut is None:                    # on-the-fly (testing convenience)
         lut = build_lut(p["w"], z)
-    scale = p.get("lut_scale")
     if qc.fuse:
-        out = kops.vq_amm(xs, z, lut, scale, qc.metric)
+        return kops.vq_amm(xs, z, lut, scale, qc.metric)
+    return kops.lut_matmul(kops.vq_assign(xs, z, qc.metric), lut, scale)
+
+
+def expert_proj_row(p: Params, x: torch.Tensor, qc: QuantConfig,
+                    recon: Optional[List[torch.Tensor]] = None
+                    ) -> torch.Tensor:
+    """:func:`expert_proj` of a row-parallel expert shard (the shared
+    experts' ``wd`` under tensor parallelism): x (E, Cap, K / ranks) the
+    rank's input features, ``p`` its rows / subspaces. The partial sums
+    (int8 LUTs: without the scale, exact integers) are all-reduced, then
+    ``lut_scale`` (E, N) applies once, as the kernel's epilogue does: bit
+    for bit the one-device projection on int8 LUTs (``core.lut.
+    lut_linear_row``). One device: :func:`expert_proj` (``recon`` as
+    there)."""
+    tp = tp_current()
+    if tp.size == 1:
+        return expert_proj(p, x, qc, recon)
+    if qc.mode == "lut_train":
+        raise NotImplementedError(
+            "tensor-parallel lut_train (the sharded train step) is not "
+            "ported: ROADMAP.md queue A item 11 (the training half)")
+    if qc.mode == "dense" or "z" not in p:
+        part = torch.bmm(x, p["w"]).float()
     else:
-        out = kops.lut_matmul(kops.vq_assign(xs, z, qc.metric), lut, scale)
+        part = _expert_accumulate(p, x, qc, None)
+    out = tp.all_reduce(part)
+    if "lut_scale" in p:
+        out = out * p["lut_scale"][:, None, :]
     return out.to(x.dtype)
 
 
@@ -150,6 +186,14 @@ def moe_ffn(p: Params, x: torch.Tensor, cfg, qc: QuantConfig,
     buffers). A dropped pair combines with a zero gate, as in the
     reference. ``recon``: lut_train, the list the expert projections'
     recon terms join.
+
+    Under tensor parallelism the routing is replicated (every rank
+    computes the same dispatch), the routed experts are sharded over the
+    ranks (expert parallelism: rank r runs the grouped kernel over its
+    E / ranks experts' buffers), and their outputs are all-gathered in
+    expert order before the combine, so the combine sums each token's
+    choices in the one-device order. The shared experts are
+    tensor-parallel (wg / wu column-, wd row-parallel).
     """
     b, s, d = x.shape
     e, k = cfg.num_experts, cfg.top_k
@@ -175,9 +219,14 @@ def moe_ffn(p: Params, x: torch.Tensor, cfg, qc: QuantConfig,
     buf[dest] = tokens.repeat_interleave(k, dim=0)
     buf = buf[:e * cap].view(e, cap, d)
 
+    tp = tp_current()
+    if tp.size > 1:                   # this rank's experts' buffers
+        el = e // tp.size
+        buf = buf[tp.rank * el:(tp.rank + 1) * el]
     g = expert_proj(p["wg"], buf, qc, recon)
     u = expert_proj(p["wu"], buf, qc, recon)
     y = expert_proj(p["wd"], F.silu(g) * u, qc, recon)       # (E, Cap, D)
+    y = tp.all_gather(y, 0)
 
     # combine: each pair's row (a dropped pair reads slot cap - 1 with a
     # zero gate), weighted, summed over its k choices
@@ -190,6 +239,6 @@ def moe_ffn(p: Params, x: torch.Tensor, cfg, qc: QuantConfig,
         xin = tokens[None].expand(cfg.num_shared_experts, t, d).contiguous()
         sg = expert_proj(p["shared_wg"], xin, qc, recon)
         su = expert_proj(p["shared_wu"], xin, qc, recon)
-        out = out + expert_proj(p["shared_wd"], F.silu(sg) * su, qc,
-                                recon).sum(0)
+        out = out + expert_proj_row(p["shared_wd"], F.silu(sg) * su, qc,
+                                    recon).sum(0)
     return out.reshape(b, s, d), aux

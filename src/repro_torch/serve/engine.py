@@ -48,10 +48,20 @@ decoding slot, one ``verify_paged`` call scores them, and the accepted
 prefix plus one target token is emitted; greedy output stays
 token-identical to non-speculative decoding.
 
-Not ported yet (ROADMAP.md queue A): the tensor-parallel mesh
-(``mesh=``, item 11); the JAX engine's recompile-guard hooks
-(``jit_entry_points``) and device-resident temperature buffer, which
-have no counterpart without jit (the port samples from host
+Every model call runs through a ``parallel.collectives.RankRunner``:
+one rank on one device. With ``mesh=`` (``launch.mesh``) the engine
+serves tensor-parallel over the mesh's ``model`` axis: params and pool
+are one shard a rank (``parallel.sharding``), each model call runs once a
+rank in this process, and the page table, the scheduler and the host
+read stay single. It serves on the mesh's first
+data group (``replica_submeshes(mesh)[0]``): the reference replicates a
+TP engine over the data axes, which repeats the same work on every data
+group; the way to split data work is ``ReplicaRouter.from_mesh``, one TP
+engine a data group.
+
+Not ported yet (ROADMAP.md queue A): the JAX engine's recompile-guard
+hooks (``jit_entry_points``) and device-resident temperature buffer,
+which have no counterpart without jit (the port samples from host
 temperatures and per-slot generators).
 """
 from __future__ import annotations
@@ -66,8 +76,13 @@ import torch
 
 from repro_torch.core.kv_codebook import KVCodebook
 from repro_torch.core.lut import DENSE, QuantConfig
+from repro_torch.launch.mesh import replica_submeshes
 from repro_torch.models.model import FRONTEND, RECURRENT
 from repro_torch.obs import Obs, safe_ratio
+from repro_torch.parallel.collectives import RankRunner
+from repro_torch.parallel.collectives import current as tp_current
+from repro_torch.parallel.sharding import (check_tensor_parallel,
+                                           serving_layout, shard_tree)
 from .kv_cache import PagedKVCache, PagePoolExhausted
 from .scheduler import FinishReason, Request, SlotPhase, SlotScheduler
 from .speculative import SpecConfig, accept_tokens
@@ -205,19 +220,27 @@ def calibration_rows(model, params, qc: QuantConfig, max_seq: int,
     max_seq), as the JAX engine feeds it, goes through one fp paged
     prefill chunk into a scratch one-slot pool; the rows it writes are
     the sample. No random stream is involved.
+
+    Inside a tensor-parallel rank (``params`` its shards) the scratch
+    pool holds the rank's kv heads and the rows are all-gathered over
+    them: every rank returns the whole rows, those of one device.
     """
-    cfg, dev = model.cfg, model.device
+    cfg, tp = model.cfg, tp_current()
+    dev = model.device if tp.size == 1 else tp.device
     t = min(128, max_seq)
     n_pages = -(-t // page_size)
     tokens = (torch.arange(t, dtype=torch.int32, device=dev) * 31 + 7
               ) % cfg.vocab_size
-    kv = model.init_paged_cache(n_pages * page_size, page_size, n_pages)
+    kv = {key: tp.shard(pages, 3).contiguous() for key, pages in
+          model.init_paged_cache(n_pages * page_size, page_size, n_pages,
+                                 device=dev).items()}
     table = torch.arange(n_pages, dtype=torch.int32, device=dev)[None]
     model.prefill_paged(params, tokens[None], kv, table, 0, 0, t, qc)
 
     def rows(pages):               # (L, P+1, page, KVH, HD) -> (L, t, ...)
-        return pages[:, :n_pages].reshape(
-            cfg.num_layers, n_pages * page_size, *pages.shape[3:])[:, :t]
+        return tp.all_gather(pages[:, :n_pages].reshape(
+            cfg.num_layers, n_pages * page_size, *pages.shape[3:])[:, :t],
+            2)
     return rows(kv["k"]), rows(kv["v"])
 
 
@@ -237,7 +260,27 @@ class Engine:
       num_pages: physical pool size; default ``slots x pages_per_slot``.
         A smaller pool admits fewer concurrent tokens and may preempt.
       prefill_chunk: static prefill chunk width (must divide max_seq).
-      mesh: tensor-parallel serving is not ported (raises).
+      mesh: optional :class:`~repro_torch.launch.mesh.Mesh` with a
+        trailing ``model`` axis: the engine then serves tensor-parallel
+        over the first data group's ranks. Params are placed by
+        ``parallel.sharding.serving_layout`` (the JAX ``param_pspecs``;
+        the Mamba2 ``in_proj`` / conv in the port's layout), the pool by
+        ``serving_cache_layout`` (kv heads over ``model``), and every
+        prefill chunk, decode step and verify call runs once a rank
+        (``parallel.collectives``): column-parallel projections run their
+        kernel on the rank's columns, row-parallel ones all-reduce
+        partial sums, the embedding and head are vocab-parallel and the
+        MoE experts expert-parallel. The logits are all-gathered, and the
+        sampled tokens are read once, from rank 0's device. ``params``
+        are full tensors on any one device, the host (CPU) included:
+        each rank's shard is copied straight to its device, and the pool
+        and the KV codebook's calibration are made shard by shard, so no
+        card ever holds the whole model or pool (params on the host serve
+        a model larger than one card). Raises ``NotImplementedError``
+        where a sharded dim does not divide the model axis
+        (``check_tensor_parallel``). ``self.params`` is the list of the
+        ranks' trees (``[params]`` without a mesh) and ``self.kv.pools``
+        that of their pools.
       prefix_cache: automatic prefix caching (default on). Fully written
         prompt pages are indexed by content as prefill covers them; a
         later request sharing a page-aligned prompt prefix maps them
@@ -283,15 +326,25 @@ class Engine:
                  = DEFAULT_DEGRADATION,
                  kv_codebook: Optional[KVCodebook] = None,
                  obs: Optional[Obs] = None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "Engine(mesh=...) (tensor-parallel serving) is not ported "
-                "yet: ROADMAP.md queue A item 11 (Scale-out)")
         _refuse_frontend(model, "Engine")
         self.model = model
-        self.params = params
         self.qc = qc
-        self.device = model.device
+        self.mesh = mesh
+        group = None                      # the ranks under a mesh
+        if mesh is None:
+            self.params = [params]
+            self._tp = RankRunner([model.device])
+        else:
+            if "model" not in mesh.axis_names:
+                raise ValueError(f"mesh {mesh.axis_names} has no 'model' "
+                                 "axis")
+            msize = mesh.shape["model"]
+            check_tensor_parallel(model.cfg, msize, qc)
+            group = replica_submeshes(mesh)[0]
+            self.params = shard_tree(
+                params, serving_layout(params, model.cfg, msize), group)
+            self._tp = RankRunner(list(group.devices.flat))
+        self.device = self._tp.devices[0]
         self.num_slots = batch_size
         max_seq = -(-max_seq // page_size) * page_size
         self.max_seq = max_seq
@@ -323,7 +376,7 @@ class Engine:
         self.kv = PagedKVCache(model, self.num_slots, max_seq,
                                page_size=page_size, num_pages=num_pages,
                                codebook=self.kv_codebook,
-                               prefix_cache=prefix_cache)
+                               prefix_cache=prefix_cache, mesh=group)
         self.kv.obs = self.obs
         self.scheduler = SlotScheduler(self.num_slots, max_queue=max_queue,
                                        obs=self.obs)
@@ -375,21 +428,36 @@ class Engine:
             self.drafter = spec_decode.build_drafter()
             self.drafter.bind(self)
 
+    def _run(self, fn):
+        """``fn(params, pool, local)`` once a rank, with the rank's params
+        and pool and ``local`` moving a step input to the rank's device;
+        returns rank 0's result."""
+        return self._tp.run(lambda tp: fn(self.params[tp.rank],
+                                          self.kv.pools[tp.rank],
+                                          tp.local))[0]
+
+    @property
+    def collectives(self) -> Tuple[int, int]:
+        """(collectives, bytes gathered) since the engine started; (0, 0)
+        on one device (``parallel.collectives.RankRunner``)."""
+        return self._tp.collectives, self._tp.bytes
+
     # ------------------------------------------------------------------
     # the device calls of the step loop (one named attribute each, so a
     # fault can be injected before any state is touched)
     # ------------------------------------------------------------------
     def _decode_call(self, toks: torch.Tensor,
                      positions: torch.Tensor) -> torch.Tensor:
-        return self.model.decode_paged(self.params, toks, self.kv.data,
-                                       self.kv.table_device(), positions,
-                                       self.qc)
+        table = self.kv.table_device()
+        return self._run(lambda p, kv, loc: self.model.decode_paged(
+            p, loc(toks), kv, loc(table), loc(positions), self.qc))
 
     def _verify_call(self, toks: torch.Tensor, positions: torch.Tensor,
                      n_live: torch.Tensor) -> torch.Tensor:
-        return self.model.verify_paged(self.params, toks, self.kv.data,
-                                       self.kv.table_device(), positions,
-                                       n_live, self.qc)
+        table = self.kv.table_device()
+        return self._run(lambda p, kv, loc: self.model.verify_paged(
+            p, loc(toks), kv, loc(table), loc(positions), loc(n_live),
+            self.qc))
 
     def _device_read(self, t: Union[torch.Tensor, Tuple[torch.Tensor, ...]]):
         """THE device -> host transfer of the step loop (one per decode
@@ -640,8 +708,9 @@ class Engine:
         """Fit the KV codebook on :func:`calibration_rows` (k-means seeded
         with 0: a restart or a second replica fits the same codebook, so
         their code pools share one prefix-key space)."""
-        k_rows, v_rows = calibration_rows(self.model, self.params, self.qc,
-                                          self.max_seq, self.page_size)
+        k_rows, v_rows = self._tp.run(lambda tp: calibration_rows(
+            self.model, self.params[tp.rank], self.qc, self.max_seq,
+            self.page_size))[0]
         return KVCodebook.fit(
             k_rows, v_rows, v=self.qc.kv_v, c=self.qc.kv_c,
             generator=torch.Generator(device=self.device).manual_seed(0))
@@ -695,10 +764,11 @@ class Engine:
         valid = len(chunk)
         toks = np.zeros((1, c), np.int32)
         toks[0, :valid] = chunk
-        logits = self.model.prefill_paged(
-            self.params, torch.from_numpy(toks).to(self.device),
-            self.kv.data, self.kv.table_device(), slot.idx, slot.pos, valid,
-            self.qc)
+        toks = torch.from_numpy(toks).to(self.device)
+        table = self.kv.table_device()
+        logits = self._run(lambda p, kv, loc: self.model.prefill_paged(
+            p, loc(toks), kv, loc(table), slot.idx, slot.pos, valid,
+            self.qc))
         slot.pos += valid
         self._c_prefilled.inc(valid)
         # index the prompt pages this chunk completed: later requests

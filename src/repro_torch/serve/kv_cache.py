@@ -42,7 +42,9 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core.kv_codebook import CODEBOOK_KEY
 from repro_torch.models.model import RECURRENT
+from repro_torch.parallel.sharding import serving_cache_layout, shard_tree
 
 
 class PagePoolExhausted(RuntimeError):
@@ -562,11 +564,20 @@ class PagedKVCache:
     has a constant size, so capacity checks pass, prefix caching is off
     whatever the caller asks (a recurrent state has no page-sized unit
     to share), and the byte accounting reports 0.
+
+    ``pools`` is the list of local pools (or slot states), one a rank:
+    ``[pool]`` on the model's device, or, given the ranks of a
+    tensor-parallel engine (``mesh``, one data group), each rank's shard
+    laid out by ``parallel.sharding.serving_cache_layout`` (kv heads over
+    the model axis, the codebook replicated, Mamba2 channels and heads
+    over it) and allocated on the rank's device alone: the whole pool is
+    never made. The page table, the allocator and the prefix index stay
+    single host objects: every rank's shard holds the same pages.
     """
 
     def __init__(self, model, num_slots: int, max_seq: int,
                  page_size: int = 16, num_pages: Optional[int] = None,
-                 codebook=None, prefix_cache: bool = True):
+                 codebook=None, prefix_cache: bool = True, mesh=None):
         self.num_slots = num_slots
         self.max_seq = max_seq
         self.page_size = page_size
@@ -577,9 +588,14 @@ class PagedKVCache:
         self.table = PageTable(num_slots, max_seq, page_size, num_pages,
                                prefix_cache=prefix_cache and self.paged,
                                content_salt=salt)
-        self.data = model.init_paged_cache(
-            max_seq, page_size, self.table.allocator.num_pages,
-            codebook=codebook, num_slots=num_slots)
+        if mesh is None:
+            self.pools = [model.init_paged_cache(
+                max_seq, page_size, self.table.allocator.num_pages,
+                codebook=codebook, num_slots=num_slots)]
+        else:
+            self.pools = _sharded_pools(model, mesh, max_seq, page_size,
+                                        self.table.allocator.num_pages,
+                                        codebook, num_slots)
         self.cow_forks = 0
         # set by the Engine: forks annotate the owning replica's trace
         # track; None outside an engine
@@ -590,16 +606,17 @@ class PagedKVCache:
     # -- byte accounting ----------------------------------------------------
     @property
     def bytes_per_token(self) -> int:
-        """Device bytes ONE cached token occupies across k+v and all
-        layers, read from the pool tensors (fp rows or uint8 codes); 0
-        for slot state."""
+        """Device bytes ONE cached token occupies across k+v, all layers
+        and every shard, read from the pool tensors (fp rows or uint8
+        codes); 0 for slot state."""
         if not self.paged:
             return 0
         total = 0
-        for key in ("k", "v"):
-            t = self.data[key]                  # (L, P+1, page, KVH, W)
-            l, _, _, kvh, w = t.shape
-            total += l * kvh * w * t.element_size()
+        for pool in self.pools:
+            for key in ("k", "v"):
+                t = pool[key]                   # (L, P+1, page, KVH, W)
+                l, _, _, kvh, w = t.shape
+                total += l * kvh * w * t.element_size()
         return total
 
     @property
@@ -685,12 +702,12 @@ class PagedKVCache:
         return match.tokens
 
     def _copy_page(self, src: int, dst: int) -> None:
-        """Copy one physical page's K/V rows in place (the fork). Only the
-        page leaves ``k`` and ``v``: a code pool's codebook has no page
-        axis."""
-        for key in ("k", "v"):
-            pool = self.data[key]
-            pool[:, dst].copy_(pool[:, src])
+        """Copy one physical page's K/V rows in place (the fork), in every
+        shard of a tensor-parallel pool. Only the page leaves ``k`` and
+        ``v``: a code pool's codebook has no page axis."""
+        for pool in self.pools:
+            for key in ("k", "v"):
+                pool[key][:, dst].copy_(pool[key][:, src])
 
     def register_prefix(self, slot: int, tokens, n_covered: int) -> None:
         if self.paged:
@@ -698,3 +715,19 @@ class PagedKVCache:
 
     def table_device(self) -> torch.Tensor:
         return self.table.device(self.device)
+
+
+def _sharded_pools(model, mesh, max_seq: int, page_size: int,
+                   num_pages: int, codebook, num_slots: int) -> list:
+    """One zeroed pool shard a device of ``mesh``, each made on its device
+    from the pool's shapes alone (``init_paged_cache`` on the meta
+    device), and the codebook's leaves (real data) cut or replicated."""
+    full = model.init_paged_cache(max_seq, page_size, num_pages,
+                                  codebook=codebook, num_slots=num_slots,
+                                  device=torch.device("meta"))
+    if codebook is not None:
+        full[CODEBOOK_KEY] = {key: leaf.to(torch.float32, copy=True)
+                              for key, leaf in codebook.tree().items()}
+    layout = serving_cache_layout(model.cfg, mesh,
+                                  quantized=codebook is not None)
+    return shard_tree(full, layout, mesh)

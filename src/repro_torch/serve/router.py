@@ -33,8 +33,10 @@ resumes exactly, so greedy output stays token-identical.
 :meth:`ReplicaRouter.step` steps replicas one after another, and each
 engine step ends in a blocking device -> host read, so replicas stepped
 by one host process do not overlap in wall-clock time: the router adds
-capacity and isolation, not the throughput of one process. Replicas over a mesh
-(``from_mesh``) are not ported (ROADMAP.md queue A item 11).
+capacity and isolation, not the throughput of one process.
+:meth:`ReplicaRouter.from_mesh` builds one tensor-parallel engine a data
+group of a mesh, all in this process (data parallelism over replicas,
+tensor parallelism inside each).
 """
 from __future__ import annotations
 
@@ -170,10 +172,11 @@ class ReplicaRouter:
               replicas: int, mesh=None, router_kw: Optional[dict] = None,
               **engine_kw) -> "ReplicaRouter":
         """``replicas`` identical engines over one ``params`` dict (on one
-        card they share the weights; each has its own page pool).
-        ``router_kw`` forwards to the router constructor (watchdog and
-        backoff knobs). ``mesh`` is not ported (raises, as
-        ``Engine(mesh=)`` does)."""
+        card they share the weights; each has its own page pool). Each
+        gets ``mesh`` (usually a per-replica TP submesh is wanted instead,
+        :meth:`from_mesh`: one shared mesh here repeats the serving work
+        on the same ranks, it does not split it). ``router_kw`` forwards
+        to the router constructor (watchdog and backoff knobs)."""
         return cls([Engine(model, params, qc, mesh=mesh, **engine_kw)
                     for _ in range(replicas)], **(router_kw or {}))
 
@@ -181,11 +184,21 @@ class ReplicaRouter:
     def from_mesh(cls, model, params, qc: QuantConfig = DENSE, *, mesh,
                   router_kw: Optional[dict] = None,
                   **engine_kw) -> "ReplicaRouter":
-        """One tensor-parallel engine per data slice of a mesh: not ported
-        yet."""
-        raise NotImplementedError(
-            "ReplicaRouter.from_mesh (tensor-parallel replicas over a mesh) "
-            "is not ported yet: ROADMAP.md queue A item 11 (Scale-out)")
+        """One tensor-parallel engine per data slice of ``mesh``, all in
+        this process.
+
+        ``mesh`` must carry a trailing ``model`` axis; every other (data)
+        axis is flattened into replica groups
+        (``launch.mesh.replica_submeshes``). A ``(2, 2)`` mesh therefore
+        yields 2 replicas of TP-2. Each replica places its own shards of
+        ``params`` on its group's devices (each group holds its own copy:
+        that is data parallelism's memory cost; on one card the copies
+        share storage where a shard is a contiguous slice).
+        """
+        from repro_torch.launch.mesh import replica_submeshes
+        return cls([Engine(model, params, qc, mesh=sub, **engine_kw)
+                    for sub in replica_submeshes(mesh)],
+                   **(router_kw or {}))
 
     # ------------------------------------------------------------------
     # health

@@ -221,10 +221,11 @@ class ModelDrafter(Drafter):
         self.model = model if n is None else type(model)(
             model.cfg.replace(num_layers=n), device=model.device)
 
-    def _draft_state(self, engine):
-        """(params, pool) the draft steps run on: the engine's own, or
-        views of their first ``draft_layers`` layers."""
-        params, kv, n = engine.params, engine.kv.data, self._n
+    def _draft_state(self, params, kv):
+        """(params, pool) the draft steps run on: the engine's own (a
+        rank's shards under tensor parallelism), or views of their first
+        ``draft_layers`` layers."""
+        n = self._n
         if n is None:
             return params, kv
         p_d = dict(params, blocks=params["blocks"][:n])
@@ -233,6 +234,10 @@ class ModelDrafter(Drafter):
             if key not in ("k", "v"):
                 kv_d[key] = {name: leaf[:n] for name, leaf in cb.items()}
         return p_d, kv_d
+
+    def _draft_args(self, params, kv, loc, cur, table, pos_t):
+        p_d, kv_d = self._draft_state(params, kv)
+        return p_d, loc(cur)[:, None], kv_d, loc(table), loc(pos_t)
 
     def propose(self, engine, dslots, k_slot: Dict[int, int], k: int):
         b = engine.num_slots
@@ -250,7 +255,6 @@ class ModelDrafter(Drafter):
             return np.zeros((b, k), np.int32), n_prop, None
         hot = [i for i in range(b) if temps[i] > 0.0]
         dev = engine.device
-        params, kv = self._draft_state(engine)
         table = engine.kv.table_device()
         cur = torch.from_numpy(first).to(dev)
         positions = torch.from_numpy(posv).to(dev)
@@ -261,8 +265,10 @@ class ModelDrafter(Drafter):
         for t in range(k):
             pos_t = torch.where(live & (t < steps), positions + t,
                                 torch.full_like(positions, -1))
-            logits = self.model.decode_paged(params, cur[:, None], kv, table,
-                                             pos_t, self.qc)
+            logits = engine._run(
+                lambda p, kv, loc: self.model.decode_paged(
+                    *self._draft_args(p, kv, loc, cur, table, pos_t),
+                    self.qc))
             cur = torch.argmax(logits, dim=-1).to(torch.int32)
             if hot:
                 p = torch.softmax(logits.float() / temps_d.clamp_min(1e-6),

@@ -37,6 +37,7 @@ def psum_hierarchical(grads, data_axis: str = "data", pod_axis: str = "pod"):
     """The two-level (intra-pod, then cross-pod) gradient reduction."""
     raise NotImplementedError(
         "psum_hierarchical (the cross-pod gradient reduction) is not "
-        "ported: ROADMAP.md queue A item 11 (Scale-out)")
+        "ported: ROADMAP.md queue A item 11 (Scale-out, its training "
+        "half)")
 
 

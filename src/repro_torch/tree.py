@@ -8,7 +8,7 @@ way, and a per-layer list of ``blocks`` gives each layer a stable key.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, List, Tuple
+from typing import Any, Callable, List, Optional, Tuple
 
 
 def _children(tree) -> List[Tuple[str, Any]]:
@@ -21,18 +21,20 @@ def is_leaf(tree) -> bool:
     return not isinstance(tree, (dict, list, tuple))
 
 
-def tree_map_with_path(fn: Callable, tree, *rest, path: str = ""):
+def tree_map_with_path(fn: Callable, tree, *rest, path: str = "",
+                       leaf: Optional[Callable] = None):
     """``fn(path, leaf, *leaves of rest)`` over every leaf of ``tree``;
     ``rest`` are trees of the same structure. Returns a tree of that
-    structure."""
-    if is_leaf(tree):
+    structure. ``leaf``: optional predicate naming more leaves (a tuple
+    subclass such as a PartitionSpec, which would otherwise be walked)."""
+    if is_leaf(tree) or (leaf is not None and leaf(tree)):
         return fn(path, tree, *rest)
     if isinstance(tree, dict):
         return {k: tree_map_with_path(fn, v, *(r[k] for r in rest),
-                                      path=f"{path}[{k!r}]")
+                                      path=f"{path}[{k!r}]", leaf=leaf)
                 for k, v in tree.items()}
     return type(tree)(tree_map_with_path(fn, v, *(r[i] for r in rest),
-                                         path=f"{path}[{i}]")
+                                         path=f"{path}[{i}]", leaf=leaf)
                       for i, v in enumerate(tree))
 
 

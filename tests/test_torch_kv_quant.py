@@ -504,7 +504,7 @@ def test_engine_vq_greedy_tokens_match_jax_engine(pair):
                     degradation=None, kv_codebook=cb_j, **ENGINE_KW)
     t_eng = TEngine(tm, params_t, qc_t, num_pages=5, kv_codebook=cb_t,
                     **ENGINE_KW)
-    assert t_eng.kv.data["k"].dtype == torch.uint8
+    assert t_eng.kv.pools[0]["k"].dtype == torch.uint8
     j_reqs = _serve(j_eng, lambda p, n: JRequest(tokens=p, max_new_tokens=n))
     t_reqs = _serve(t_eng, lambda p, n: Request(tokens=p, max_new_tokens=n))
     assert j_eng.scheduler.preemptions >= 1

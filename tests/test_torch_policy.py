@@ -42,6 +42,7 @@ from repro.serve import SpecConfig as JSpecConfig  # noqa: E402
 from repro_torch.configs import qwen1p5_4b as tcfg  # noqa: E402
 from repro_torch.convert import params_from_numpy  # noqa: E402
 from repro_torch.core.lut import QuantConfig as TQC  # noqa: E402
+from repro_torch.launch.mesh import make_test_mesh  # noqa: E402
 from repro_torch.models.model import Model as TModel  # noqa: E402
 from repro_torch.serve import (DegradationPolicy, Engine,  # noqa: E402
                                Fault, FaultInjector, FaultSchedule,
@@ -132,8 +133,12 @@ def test_engine_defaults_are_the_jax_engines(lut):
     assert eng.scheduler.max_queue is None
     assert dataclasses.asdict(DEFAULT_DEGRADATION) == \
         dataclasses.asdict(JPolicy())
-    with pytest.raises(NotImplementedError, match="item 11"):
-        Engine(tm, params_t, qc_t, mesh=object(), **ENGINE_KW)
+    # the tensor-parallel engine (once refused here) keeps the defaults
+    tp = Engine(tm, params_t, qc_t, **ENGINE_KW,
+                mesh=make_test_mesh((1, 2), device="cpu"))
+    assert tp.kv.table.prefix is not None and len(tp.kv.pools) == 2
+    assert tp.degradation is DEFAULT_DEGRADATION
+    assert tp.scheduler.max_queue is None
 
 
 def test_bounded_queue_sheds_lowest_priority_newest_first():

@@ -313,12 +313,12 @@ def test_cow_fork_preserves_donor_page_contents(lut):
     match = eng.kv.match_prefix(list(SYS))
     assert match.cow_page is not None
     src = match.cow_page
-    before = {k: eng.kv.data[k][:, src].clone() for k in ("k", "v")}
+    before = {k: eng.kv.pools[0][k][:, src].clone() for k in ("k", "v")}
     assert eng.kv.adopt_prefix(1, match) == 15     # slot 1 is free
     dst = int(eng.kv.table.table[1, 1])
     for k in ("k", "v"):
-        assert torch.equal(eng.kv.data[k][:, dst], before[k])
-        assert torch.equal(eng.kv.data[k][:, src], before[k])
+        assert torch.equal(eng.kv.pools[0][k][:, dst], before[k])
+        assert torch.equal(eng.kv.pools[0][k][:, src], before[k])
     assert eng.kv.cow_forks == 1
     eng.kv.release(1)
     b = Request(tokens=list(SYS), max_new_tokens=3)

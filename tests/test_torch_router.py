@@ -9,8 +9,9 @@ complete every request the router accepted, with the greedy tokens of a
 fault-free run; and the canned chaos schedule and a stall window give
 the JAX router's outcomes: finish reasons, tokens, retries, replica
 health and the injections that fired. ``ReplicaRouter.build`` on one
-device shares one params dict; ``from_mesh`` raises (ROADMAP.md queue A
-item 11).
+device shares one params dict; ``from_mesh`` over a (2, 2) mesh of CPU
+ranks builds two tensor-parallel replicas that serve the one-device
+router's tokens (``tests/test_torch_tp.py`` holds the rest of scale-out).
 
 Tolerances: greedy tokens identical; outcomes equal.
 """
@@ -34,6 +35,8 @@ from repro.serve import Request as JRequest  # noqa: E402
 from repro_torch.configs import qwen1p5_4b as tcfg  # noqa: E402
 from repro_torch.convert import params_from_numpy  # noqa: E402
 from repro_torch.core.lut import QuantConfig as TQC  # noqa: E402
+from repro_torch.launch.mesh import (make_test_mesh,  # noqa: E402
+                                     replica_submeshes)
 from repro_torch.models.model import Model as TModel  # noqa: E402
 from repro_torch.serve import (Engine, Fault, FaultInjector,  # noqa: E402
                                FaultSchedule, FinishReason,
@@ -71,17 +74,33 @@ def _mk_jrouter(lut, replicas=2, router_kw=None, **kw):
 
 
 def test_build_shares_params_and_mesh_is_not_ported(lut):
+    """``build`` shares one params dict; over a mesh (the case this test
+    once held refused), ``from_mesh`` and ``build(mesh=)`` give
+    tensor-parallel replicas with their own shards and the one-device
+    router's greedy tokens."""
     *_, tm, params_t, qc_t = lut
     router = ReplicaRouter.build(tm, params_t, qc_t, replicas=2,
                                  **ENGINE_KW)
-    assert all(e.params is params_t for e in router.engines)
-    assert router.engines[0].kv.data["k"].data_ptr() != \
-        router.engines[1].kv.data["k"].data_ptr()
+    assert all(e.params[0] is params_t for e in router.engines)
+    assert router.engines[0].kv.pools[0]["k"].data_ptr() != \
+        router.engines[1].kv.pools[0]["k"].data_ptr()
     assert [e.obs.pid for e in router.engines] == [0, 1]
-    with pytest.raises(NotImplementedError, match="item 11"):
-        ReplicaRouter.from_mesh(tm, params_t, qc_t, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 11"):
-        ReplicaRouter.build(tm, params_t, qc_t, replicas=2, mesh=object())
+    mesh = make_test_mesh((2, 2), device="cpu")
+    dp = ReplicaRouter.from_mesh(tm, params_t, qc_t, mesh=mesh, **ENGINE_KW)
+    built = ReplicaRouter.build(tm, params_t, qc_t, replicas=2,
+                                mesh=replica_submeshes(mesh)[0],
+                                **ENGINE_KW)
+    for r in (dp, built):
+        assert [len(e.params) for e in r.engines] == [2, 2]
+        assert [e.obs.pid for e in r.engines] == [0, 1]
+    reqs = [[Request(tokens=SYS[:5 + i], max_new_tokens=4)
+             for i in range(3)] for _ in range(3)]
+    for r, rs in zip((router, dp, built), reqs):
+        for q in rs:
+            r.submit(q)
+        r.run_until_idle()
+    assert [q.out_tokens for q in reqs[0]] == \
+        [q.out_tokens for q in reqs[1]] == [q.out_tokens for q in reqs[2]]
 
 
 def test_router_routes_to_replica_with_longest_prefix(lut):

@@ -3,8 +3,9 @@
 ``Engine(spec_decode=)``) against the JAX package on the same numpy
 inputs and carried-over params (float32, CPU).
 
-Ported from ``tests/test_speculative.py``, without the test that needs
-a mesh (ROADMAP.md queue A item 11); the prefix-cache tests came with
+Ported from ``tests/test_speculative.py``; its test that needs a mesh
+has its counterpart in ``tests/test_torch_tp.py`` (speculation under
+TP-2); the prefix-cache tests came with
 the prefix cache (rollback over shared pages keeps every refcount equal
 to the rows mapping the page; a warm start under speculation equals a
 cold plain run).
