@@ -13,8 +13,15 @@ Storage is one ``.npz`` a checkpoint. Leaves are named by their tree path
 (``['blocks'][3]['attn']['wq']['w']``: the per-layer list of ``blocks``
 gives each layer a stable key). numpy has no bfloat16, so a bf16 leaf is
 stored as its raw 16-bit pattern with ``bfloat16`` in the manifest, and
-comes back bit for bit. The JAX package's elastic resharding on restore
-belongs to the training half of scale-out (ROADMAP.md queue A item 11).
+comes back bit for bit.
+
+**Elastic restore**: a sharded state (one tree a rank of a mesh, the
+sharded train step's) is saved as global arrays (``save(..., mesh=,
+layout=)`` puts the shards back together with ``unshard_tree``), so a
+checkpoint does not know the mesh it came from. ``restore(..., mesh=,
+layout=)`` re-places it onto any mesh by that mesh's layout (the
+counterpart of the reference's ``load_pytree(..., shardings=)``), and
+without a mesh it restores unsharded.
 """
 from __future__ import annotations
 
@@ -27,6 +34,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from repro_torch.parallel.sharding import shard_tree, unshard_tree
 from repro_torch.tree import tree_flatten_with_path, tree_map_with_path
 
 
@@ -57,11 +65,12 @@ def save_pytree(path: str, tree) -> None:
         json.dump(manifest, f)
 
 
-def load_pytree(path: str, tree_like):
+def load_pytree(path: str, tree_like, device=None):
     """The tree saved at ``path``, in the structure of ``tree_like``:
-    each leaf with its saved dtype, on the device of ``tree_like``'s leaf
-    (or the CPU where that leaf is not a tensor). Raises IOError on a CRC
-    mismatch, KeyError on a missing leaf, ValueError on a shape
+    each leaf with its saved dtype, on ``device`` or else on the device of
+    ``tree_like``'s leaf (the CPU where that leaf is not a tensor or lies
+    on the meta device: ``tree_like`` may be shapes only). Raises IOError
+    on a CRC mismatch, KeyError on a missing leaf, ValueError on a shape
     mismatch."""
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
@@ -81,11 +90,16 @@ def load_pytree(path: str, tree_like):
         if tuple(arr.shape) != shape:
             raise ValueError(
                 f"shape mismatch for {key}: {arr.shape} vs {shape}")
+        if not arr.flags.writeable:
+            arr = arr.copy()
         if dtype == "bfloat16":
             t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
         else:
-            t = torch.from_numpy(np.array(arr))
-        dev = ref.device if torch.is_tensor(ref) else "cpu"
+            t = torch.from_numpy(arr)
+        dev = device
+        if dev is None:
+            dev = ref.device if torch.is_tensor(ref) and not ref.is_meta \
+                else "cpu"
         return t.to(dev)
 
     return tree_map_with_path(restore, tree_like)
@@ -116,8 +130,14 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     # ------------------------------------------------------------------
-    def save(self, step: int, tree, extra: Optional[Dict[str, Any]] = None
-             ) -> str:
+    def save(self, step: int, tree, extra: Optional[Dict[str, Any]] = None,
+             mesh=None, layout=None) -> str:
+        """Write ``tree`` as checkpoint ``step``. With ``mesh``, ``tree`` is
+        a list of per-rank trees (the order of ``mesh.devices.flat``) laid
+        out by ``layout`` (a spec tree of one rank's structure), saved as
+        the global arrays."""
+        if mesh is not None:
+            tree = unshard_tree(tree, layout, mesh, device="cpu")
         tmp = os.path.join(self.directory, f"tmp.{step}")
         if os.path.exists(tmp):
             shutil.rmtree(tmp)
@@ -132,14 +152,22 @@ class CheckpointManager:
         self._gc()
         return final
 
-    def restore(self, tree_like, step: Optional[int] = None):
+    def restore(self, tree_like, step: Optional[int] = None, mesh=None,
+                layout=None):
         """(tree, step, extra dict or None) of ``step`` (default: the
-        latest)."""
+        latest). ``tree_like`` has the global shapes (its leaves may lie on
+        the meta device). With ``mesh`` the tree is re-placed onto it by
+        ``layout`` and comes back as one tree a rank (each shard its own
+        copy on its rank's device), whatever mesh saved it."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.directory}")
         path = self._step_dir(step)
-        tree = load_pytree(path, tree_like)
+        if mesh is None:
+            tree = load_pytree(path, tree_like)
+        else:
+            tree = shard_tree(load_pytree(path, tree_like, device="cpu"),
+                              layout, mesh, copy=True)
         extra_path = os.path.join(path, "extra.json")
         extra = None
         if os.path.exists(extra_path):

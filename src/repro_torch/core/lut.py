@@ -166,8 +166,38 @@ def strip_for_inference(p: Params) -> Params:
     return {k: v for k, v in p.items() if k != "w" or "lut" not in p}
 
 
+def recon_terms(out_q: torch.Tensor, out_d: torch.Tensor,
+                shared: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """The two-sided reconstruction loss of a lut_train projection,
+    ``mean((Â·W)' - A·W)^2 + mean(Â·W - (A·W)')^2`` (' = no gradient), a
+    float32 scalar.
+
+    Under tensor parallelism the outputs are the rank's columns (or
+    experts) of a projection cut evenly over the ranks, and the result is
+    the rank's share: its sum of squared errors over the whole
+    projection's element count, so the shares of the ranks add up to
+    the one-device loss (``shared``: output columns every rank holds,
+    counted by rank 0 alone)."""
+    tp = tp_current()
+    if tp.size == 1:
+        return (torch.mean((out_q.detach() - out_d) ** 2)
+                + torch.mean((out_q - out_d.detach()) ** 2)).float()
+    err = ((out_q.detach() - out_d).float() ** 2
+           + (out_q - out_d.detach()).float() ** 2)
+    n_shared = 0
+    if shared is not None:
+        lo, hi = shared
+        n_shared = err.numel() // err.shape[-1] * (hi - lo)
+        if tp.rank:
+            err = torch.cat([err[..., :lo], err[..., hi:]], -1)
+    total = (err.numel() if not tp.rank else err.numel() + n_shared)
+    count = (total - n_shared) * tp.size + n_shared
+    return err.sum() / count
+
+
 def lut_linear_apply(p: Params, x: torch.Tensor, qc: QuantConfig,
-                     recon: Optional[List[torch.Tensor]] = None
+                     recon: Optional[List[torch.Tensor]] = None,
+                     shared: Optional[Tuple[int, int]] = None
                      ) -> torch.Tensor:
     """Apply the projection: x (..., K) -> (..., N) in x's dtype.
 
@@ -176,6 +206,14 @@ def lut_linear_apply(p: Params, x: torch.Tensor, qc: QuantConfig,
     the other modes have none and leave it alone. While
     :func:`~repro_torch.core.lutboost.capture_activations` is open, the
     input is recorded first (LUTBoost stage 1).
+
+    Under tensor parallelism this is a column-parallel shard (``w``'s
+    columns are the rank's, ``z`` whole) and what joins ``recon`` is the
+    rank's share of the projection's loss (:func:`recon_terms`): the
+    model all-reduces the shares once a forward, so each projection's
+    loss enters it once. ``shared``: the run of output columns [start,
+    stop) that every rank holds (a Mamba2 ``in_proj``'s B and C), counted
+    on rank 0 only.
     """
     if _lutboost._CAPTURE is not None:
         _lutboost.record_activation(p, x)
@@ -203,8 +241,7 @@ def lut_linear_apply(p: Params, x: torch.Tensor, qc: QuantConfig,
             # centroids learn from the reconstruction loss only
             out_d = x @ p["w"]                                       # A·W
             out = out_d + (out_q - out_d).detach()
-        recon.append((torch.mean((out_q.detach() - out_d) ** 2)
-                      + torch.mean((out_q - out_d.detach()) ** 2)).float())
+        recon.append(recon_terms(out_q, out_d, shared))
         if "b" in p:
             out = out + p["b"]
         return out
@@ -251,14 +288,19 @@ def lut_linear_row(p: Params, x: torch.Tensor, qc: QuantConfig,
     projection equals the unsharded one bit for bit. Float LUTs and dense
     weights sum in another order than one device does: equal within
     rounding.
+
+    In ``lut_train`` (:func:`row_parallel_train`) ``z`` holds the rank's
+    subspaces: each rank quantizes its own sub-vectors, and the partial
+    products Â_r·W_r and A_r·W_r are all-reduced together (in float32,
+    one collective), so every rank holds the whole Â·W and A·W; the
+    projection's recon loss is computed from them and joins ``recon`` on
+    rank 0 only (the model sums the ranks' shares).
     """
     tp = tp_current()
     if tp.size == 1:
         return lut_linear_apply(p, x, qc, recon)
-    if qc.mode == "lut_train":
-        raise NotImplementedError(
-            "tensor-parallel lut_train (the sharded train step) is not "
-            "ported: ROADMAP.md queue A item 11 (the training half)")
+    if qc.mode == "lut_train" and "z" in p:
+        return row_parallel_train(p, x, qc, recon, tp, torch.matmul)
     if qc.mode == "dense" or "z" not in p:
         part = (x @ p["w"]).float()
     else:
@@ -267,6 +309,34 @@ def lut_linear_row(p: Params, x: torch.Tensor, qc: QuantConfig,
     if "lut_scale" in p:
         out = out * p["lut_scale"]
     out = out.to(x.dtype)
+    if "b" in p:
+        out = out + p["b"]
+    return out
+
+
+def row_parallel_train(p: Params, x: torch.Tensor, qc: QuantConfig,
+                       recon: Optional[List[torch.Tensor]], tp, matmul
+                       ) -> torch.Tensor:
+    """The lut_train form of a row-parallel shard (``lut_linear_row``,
+    and ``models.moe.expert_proj_row`` with ``torch.bmm`` as
+    ``matmul``): x (..., K / ranks) -> (..., N) in x's dtype."""
+    if recon is None:
+        raise ValueError("lut_train projections need a recon list")
+    z = p["z"]
+    k = z.shape[-3] * z.shape[-1]
+    lead = x.shape[:-1]
+    x_hat = ste_quantize_subspaces(x.reshape(*lead, k // qc.v, qc.v), z,
+                                   qc.metric)
+    x_d = x.detach() if qc.task_grad_to_centroids else x
+    parts = torch.stack([matmul(x_hat.reshape(*lead, k).to(x.dtype),
+                                p["w"]).float(),
+                         matmul(x_d, p["w"]).float()])
+    out_q, out_d = (t.to(x.dtype) for t in tp.all_reduce(parts).unbind(0))
+    out = (out_q if qc.task_grad_to_centroids
+           else out_d + (out_q - out_d).detach())
+    if tp.rank == 0:
+        recon.append((torch.mean((out_q.detach() - out_d) ** 2)
+                      + torch.mean((out_q - out_d.detach()) ** 2)).float())
     if "b" in p:
         out = out + p["b"]
     return out

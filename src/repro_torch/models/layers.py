@@ -84,12 +84,14 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
 
 
 def proj(p: Params, x: torch.Tensor, qc: QuantConfig,
-         recon: Optional[List[torch.Tensor]] = None) -> torch.Tensor:
+         recon: Optional[List[torch.Tensor]] = None,
+         shared: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """One LutLinear projection (its lut_train recon term into
     ``recon``); column-parallel under tensor parallelism (its output
-    columns are the rank's). The row-parallel projections (wo, wd,
-    out_proj) call :func:`~repro_torch.core.lut.lut_linear_row`."""
-    return lut_linear_apply(p, x, qc, recon)
+    columns are the rank's; ``shared`` as ``lut_linear_apply`` takes
+    it). The row-parallel projections (wo, wd, out_proj) call
+    :func:`~repro_torch.core.lut.lut_linear_row`."""
+    return lut_linear_apply(p, x, qc, recon, shared)
 
 
 def _attend(qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -215,7 +215,10 @@ def mamba2_block(p: Params, x: torch.Tensor, cfg, qc: QuantConfig,
     Under tensor parallelism the rank runs its own heads and channels
     (plus every head's B and C): ``in_proj`` is column-parallel in the
     port's layout, the gated norm reads the all-gathered row, and
-    ``out_proj`` is row-parallel.
+    ``out_proj`` is row-parallel. In lut_train the ``in_proj`` recon share
+    counts the B and C columns, which every rank holds, on rank 0 only;
+    their gradient, like every replicated entry's, is one part of a sum
+    over the ranks (``train.trainer``).
     Returns (out (B, S, D), new_cache or None).
     """
     b, s, _ = x.shape
@@ -223,12 +226,13 @@ def mamba2_block(p: Params, x: torch.Tensor, cfg, qc: QuantConfig,
     h, pdim, n, g = (cfg.ssm_nheads // tp.size, cfg.ssm_headdim,
                      cfg.ssm_state, cfg.ssm_ngroups)
     xn = rms_norm(x, p["norm"], cfg.norm_eps)
-    z, xbc, dt = _split_in_proj(proj(p["in_proj"], xn, qc, recon), cfg,
+    din = cfg.d_inner // tp.size
+    bc = (2 * din, 2 * din + 2 * g * n)       # every rank's B and C columns
+    z, xbc, dt = _split_in_proj(proj(p["in_proj"], xn, qc, recon, bc), cfg,
                                 tp.size)
     conv_state = cache["conv"] if cache is not None else None
     xbc, new_conv = _causal_conv(xbc, p["conv_w"], p["conv_b"], conv_state,
                                  valid_len=valid_len)
-    din = cfg.d_inner // tp.size
     xs = xbc[..., :din].reshape(b, s, h, pdim)
     bmat = xbc[..., din:din + g * n].reshape(b, s, g, n)
     cmat = xbc[..., din + g * n:].reshape(b, s, g, n)

@@ -381,7 +381,20 @@ class Model:
         (audio ``{"embeds": (B, S, D)}``; vlm also ``{"patch_embeds": (B,
         P, D)}``) -> (logits (B, S, V) (audio (B, S, Q, V); vlm over the
         P + S positions), {"recon", "moe_aux"}: float32 scalars summed
-        over the layers)."""
+        over the layers).
+
+        Inside a rank of a ``parallel.collectives.RankRunner`` over a mesh
+        (the sharded train step) ``params`` are the rank's shards and
+        ``batch`` its data group's rows: the layers run their collectives,
+        the logits come back whole (all-gathered), ``recon`` is the sum of
+        the ranks' shares (one all-reduce over the model axis) and
+        ``moe_aux`` the global batch's. ``cfg.remat`` is refused there."""
+        tp = tp_current()
+        if self.cfg.remat and tp.world > 1:
+            raise NotImplementedError(
+                "remat under a mesh (a layer recomputed in the backward, "
+                "outside the rank runner, would run its collectives at "
+                "size 1) is not ported: ROADMAP.md queue A item 11")
         x, prefix_len = self._inputs(params, batch)
         recon = torch.zeros((), dtype=torch.float32, device=x.device)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -395,6 +408,9 @@ class Model:
                 x, r, a = layer(x)
             recon = recon + r
             aux = aux + a
+        if qc.mode == "lut_train":
+            # the ranks' shares of every projection's recon loss
+            recon = tp.all_reduce(recon)
         x = rms_norm(x, params["final_norm"], self.cfg.norm_eps)
         return self._head(params, x), {"recon": recon, "moe_aux": aux}
 

@@ -24,7 +24,8 @@ from typing import Dict, List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.lut import (QuantConfig, build_lut, precompute_layer,
+from repro_torch.core.lut import (QuantConfig, row_parallel_train, build_lut,
+                                  precompute_layer, recon_terms,
                                   strip_for_inference)
 from repro_torch.core.similarity import one_hot, ste_quantize_subspaces
 from repro_torch.kernels import ops as kops
@@ -64,7 +65,9 @@ def expert_proj(p: Params, x: torch.Tensor, qc: QuantConfig,
     B1; else B3 then B4), on the card one launch for all experts. In
     lut_train the recon term (over all experts) joins ``recon``; the
     task gradient never reaches the centroids here, whatever
-    ``task_grad_to_centroids`` says, as in the JAX package.
+    ``task_grad_to_centroids`` says, as in the JAX package. Under tensor
+    parallelism the experts (or the shared experts' columns) are the
+    rank's and the recon term its share (``core.lut.recon_terms``).
     """
     if qc.mode == "dense" or "z" not in p:
         return torch.bmm(x, p["w"])
@@ -77,8 +80,7 @@ def expert_proj(p: Params, x: torch.Tensor, qc: QuantConfig,
         x_hat = ste_quantize_subspaces(xs, z, qc.metric)
         out_q = torch.bmm(x_hat.reshape(e, cap, k).to(x.dtype), p["w"])
         out_d = torch.bmm(x, p["w"])
-        recon.append((torch.mean((out_q.detach() - out_d) ** 2)
-                      + torch.mean((out_q - out_d.detach()) ** 2)).float())
+        recon.append(recon_terms(out_q, out_d))
         return out_d + (out_q - out_d).detach()
     return _expert_accumulate(p, x, qc, p.get("lut_scale")).to(x.dtype)
 
@@ -108,15 +110,18 @@ def expert_proj_row(p: Params, x: torch.Tensor, qc: QuantConfig,
     (int8 LUTs: without the scale, exact integers) are all-reduced, then
     ``lut_scale`` (E, N) applies once, as the kernel's epilogue does: bit
     for bit the one-device projection on int8 LUTs (``core.lut.
-    lut_linear_row``). One device: :func:`expert_proj` (``recon`` as
-    there)."""
+    lut_linear_row``). In lut_train ``z`` holds the rank's subspaces and
+    the two partial products are all-reduced together, as
+    ``core.lut.lut_linear_row`` does (the task gradient does not reach
+    the centroids, as in :func:`expert_proj`). One device:
+    :func:`expert_proj` (``recon`` as there)."""
     tp = tp_current()
     if tp.size == 1:
         return expert_proj(p, x, qc, recon)
-    if qc.mode == "lut_train":
-        raise NotImplementedError(
-            "tensor-parallel lut_train (the sharded train step) is not "
-            "ported: ROADMAP.md queue A item 11 (the training half)")
+    if qc.mode == "lut_train" and "z" in p:
+        return row_parallel_train(
+            p, x, qc.replace(task_grad_to_centroids=False), recon, tp,
+            torch.bmm)
     if qc.mode == "dense" or "z" not in p:
         part = torch.bmm(x, p["w"]).float()
     else:
@@ -194,12 +199,26 @@ def moe_ffn(p: Params, x: torch.Tensor, cfg, qc: QuantConfig,
     expert order before the combine, so the combine sums each token's
     choices in the one-device order. The shared experts are
     tensor-parallel (wg / wu column-, wd row-parallel).
+
+    Under data parallelism (the sharded train step: each data group holds
+    its rows of the global batch) the routing is the global batch's, as
+    in the reference, whose one program sees the whole batch: T, the
+    capacity, each pair's slot (a count over the global token order) and
+    ``aux`` all come from it. The normalised tokens are all-gathered over
+    the data axes in batch order, every data group routes and runs the
+    experts over all of them, and keeps its own rows of the output; so
+    ``aux`` and the experts' recon terms are the global batch's in every
+    data group (the train step averages the data groups' losses, so each
+    enters once).
     """
     b, s, d = x.shape
     e, k = cfg.num_experts, cfg.top_k
     xn = rms_norm(x, p["norm"], cfg.norm_eps)
-    tokens = xn.reshape(b * s, d)
-    t = b * s
+    dp = tp_current().data
+    if dp.size > 1:                   # the global batch's tokens
+        xn = dp.all_gather(xn, 0)
+    tokens = xn.reshape(-1, d)
+    t = tokens.shape[0]
 
     logits = (tokens @ p["router"].to(tokens.dtype)).float()
     probs = torch.softmax(logits, dim=-1)                     # (T, E)
@@ -241,4 +260,7 @@ def moe_ffn(p: Params, x: torch.Tensor, cfg, qc: QuantConfig,
         su = expert_proj(p["shared_wu"], xin, qc, recon)
         out = out + expert_proj_row(p["shared_wd"], F.silu(sg) * su, qc,
                                     recon).sum(0)
-    return out.reshape(b, s, d), aux
+    out = out.reshape(-1, s, d)
+    if dp.size > 1:                   # this data group's rows
+        out = out[dp.rank * b:(dp.rank + 1) * b]
+    return out, aux

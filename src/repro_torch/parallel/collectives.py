@@ -7,8 +7,8 @@ holding its local shard on its device. :meth:`RankRunner.run` calls the
 model's layer code once a rank, rank 0 on the calling thread and every
 other rank on a worker thread of its own (as ``nn.DataParallel``'s
 ``parallel_apply`` does). The layer code sees only its shard and calls
-the rank's :class:`TP` handle (:func:`current`) at the points where GSPMD
-inserts a collective in the reference:
+the rank's :class:`TP` handle (:func:`current`) at the points where
+GSPMD inserts a collective in the reference:
 
   * :meth:`TP.all_reduce` sums every rank's tensor in rank order (0, 1,
     ...), so every rank holds the same bits and a run reproduces;
@@ -37,22 +37,51 @@ Outside a runner :func:`current` is :data:`SOLO`, a group of one whose
 collectives return their input: the single-device code paths are the
 sharded ones at size 1.
 
+A runner may also span a whole device mesh (``RankRunner(mesh=)``): a
+``(data, model)`` or ``(pod, data, model)`` mesh for the sharded train
+step, a ``(stage,)`` mesh for the pipeline. Every rank of the mesh is a
+rank of the one runner, in the order of ``mesh.devices.flat``, and takes
+its turn in the one ring. Its :class:`TP` handle (:func:`current`) is
+the one of its ``model`` axis group (the ranks that differ only in their
+``model`` coordinate); :meth:`TP.over` gives the handle of any other
+axis group of the same rank (``tp.over("data")``, ``tp.data`` for the
+data axes together, ``tp.over("stage")``). Since every rank runs the same
+program, every rank reaches the same collective at the same point: each
+puts its part in, and each reads the parts of its own group. An axis the
+mesh does not have gives a group of one.
+
+Grad mode and inference mode are thread-local: :meth:`RankRunner.run`
+carries the caller's into every rank, so a training forward builds one
+autograd graph over every rank (a collective hands over the other ranks'
+live tensors, so its output is a function of every rank's input) and a
+``torch.no_grad()`` caller builds none. A call with grad enabled (and
+inference mode off) runs every rank on a thread started for the call,
+which counts autograd's sequence numbers from zero. The backward orders
+the parts of a gradient by those numbers, and the persistent worker
+threads (whose counts go on across calls) made two identical training
+steps differ in their last bits. Serving runs under ``no_grad`` or
+inference mode and keeps the persistent workers, as threads started at
+every decode step made a TP-2 step of qwen1.5-4b 35-66 ms slower on an
+H100 (PERF.md, section 6).
+
 This module is the one seam for a multi-process backend: a
 ``torch.distributed`` (NCCL) group would implement the same :class:`TP`
-methods, one process a rank, for serving across hosts (ROADMAP.md queue
-A item 11).
+methods, one process a rank, for serving and training across hosts
+(ROADMAP.md queue A item 11).
 
 Counters: ``RankRunner.collectives`` counts collectives (one per call of
-all ranks) and ``RankRunner.bytes`` the bytes they gathered (the sum of
-every rank's contribution), for the ``scale`` phase of ``chip_smoke.py``.
+all ranks, whatever the axis) and ``RankRunner.bytes`` the bytes they
+gathered (the sum of every rank's contribution), for the ``scale`` and
+``train_scale`` phases of ``chip_smoke.py``.
 """
 from __future__ import annotations
 
 import contextlib
+import itertools
 import queue
 import threading
 import weakref
-from typing import Callable, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -62,18 +91,42 @@ BARRIER_TIMEOUT = 600.0
 
 
 class TP:
-    """One rank's handle on its tensor-parallel group: ``rank``, ``size``,
-    ``device`` and the collectives."""
+    """One rank's handle on one axis group of its runner: ``rank`` (its
+    index in the group), ``size``, ``device`` and the collectives."""
 
     def __init__(self, group: Optional["_Group"], rank: int,
-                 device: torch.device):
+                 device: torch.device, members: Sequence[int] = (0,),
+                 me: int = 0):
         self.group = group
         self.rank = rank
         self.device = device
+        self.members = tuple(members)     # the group's ranks in the runner
+        self.me = me                      # this rank in the runner
+        self._views: Dict[Tuple[str, ...], "TP"] = {}
 
     @property
     def size(self) -> int:
+        return len(self.members)
+
+    @property
+    def world(self) -> int:
+        """The number of ranks of the whole runner (1 outside one)."""
         return 1 if self.group is None else self.group.size
+
+    def over(self, *axes: str) -> "TP":
+        """The same rank's handle on the group of ``axes`` (the ranks that
+        differ only in those mesh coordinates, ranked row-major over
+        them); axes the runner's mesh lacks are left out, and with none
+        left it is a group of one."""
+        if self.group is None:
+            return self
+        names = tuple(a for a in self.group.axis_names if a in axes)
+        return self._views[names]
+
+    @property
+    def data(self) -> "TP":
+        """The handle on the data axes (``pod`` and ``data``) together."""
+        return self.over("pod", "data")
 
     def local(self, t: torch.Tensor) -> torch.Tensor:
         """``t`` on this rank's device (itself when it lies there): the
@@ -82,17 +135,16 @@ class TP:
 
     def _exchange(self, t: torch.Tensor) -> List[torch.Tensor]:
         g = self.group
-        buf = g.slots[g.gen[self.rank] % 2]
-        g.gen[self.rank] += 1
-        buf[self.rank] = t
-        if self.rank == 0:
+        buf = g.slots[g.gen[self.me] % 2]
+        g.gen[self.me] += 1
+        buf[self.me] = t
+        if self.me == 0:
             g.runner.collectives += 1
-        g.handoff(self.rank)
-        parts = list(buf)
-        if self.rank == 0:
+        g.handoff(self.me)
+        if self.me == 0:
             g.runner.bytes += sum(p.numel() * p.element_size()
-                                  for p in parts)
-        return [self.local(p) for p in parts]
+                                  for p in buf)
+        return [self.local(buf[m]) for m in self.members]
 
     def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
         """The sum of every rank's ``t``, added in rank order."""
@@ -109,6 +161,18 @@ class TP:
         if self.size == 1:
             return t
         return torch.cat(self._exchange(t), dim=dim)
+
+    def permute(self, t: torch.Tensor,
+                perm: Sequence[Tuple[int, int]]) -> torch.Tensor:
+        """``jax.lax.ppermute``: rank ``dst`` receives the ``t`` of rank
+        ``src`` for each ``(src, dst)`` of ``perm``; a rank that receives
+        nothing gets zeros."""
+        if self.size == 1:
+            src = [s for s, d in perm if d == 0]
+            return t if src else torch.zeros_like(t)
+        parts = self._exchange(t)
+        src = [s for s, d in perm if d == self.rank]
+        return parts[src[0]] if src else torch.zeros_like(t)
 
     def shard(self, t: torch.Tensor, dim: int = -1) -> torch.Tensor:
         """This rank's even slice of a replicated ``t`` along ``dim``."""
@@ -148,9 +212,11 @@ class _Group:
     since, so no read races a write) and the turn: one lock a rank, held
     while it is not the rank's turn."""
 
-    def __init__(self, runner: "RankRunner", size: int):
+    def __init__(self, runner: "RankRunner", size: int,
+                 axis_names: Tuple[str, ...]):
         self.runner = runner
         self.size = size
+        self.axis_names = axis_names
         self.reset()
 
     def reset(self) -> None:
@@ -179,6 +245,11 @@ class _Group:
     def handoff(self, rank: int) -> None:
         self.give(rank)
         self.wait(rank)
+
+    def clear(self) -> None:
+        """Drop the exchanged parts (after a run: they may be live
+        tensors of an autograd graph)."""
+        self.slots = [[None] * self.size, [None] * self.size]
 
     def abort(self) -> None:
         """Wake every rank: each leaves at its next wait."""
@@ -229,27 +300,41 @@ def _worker(q: "queue.Queue") -> None:
 
 class RankRunner:
     """The ranks of one tensor-parallel group over ``devices`` (one a
-    rank, in rank order; a device may repeat).
+    rank, in rank order; a device may repeat), or of a whole ``mesh``
+    (``launch.mesh.Mesh``: its devices in the order of
+    ``mesh.devices.flat``, each rank's :func:`current` the handle of its
+    ``model`` axis group, the other axes through :meth:`TP.over`).
 
     ``run(fn)`` calls ``fn(tp)`` once a rank, with the rank's :class:`TP`
     also returned by :func:`current` inside it, and returns the list of
     results in rank order. Rank 0 runs on the calling thread, the others
     on persistent worker threads (daemons, stopped when the runner is
-    collected). Each rank runs under its own device (the current CUDA
-    device), the calling thread's dispatch modes and its number of
-    intra-op threads.
+    collected); a call with grad enabled outside inference mode (a
+    training forward) runs every rank of a runner of several on a thread
+    started for the call. Each rank runs under its own
+    device (the current CUDA device) and the calling thread's dispatch
+    modes, grad mode, inference mode and number of intra-op threads.
     """
 
-    def __init__(self, devices: Sequence[torch.device]):
+    def __init__(self, devices: Optional[Sequence[torch.device]] = None,
+                 mesh=None):
+        if mesh is not None:
+            devices = list(mesh.devices.flat)
+            axis_names = tuple(mesh.axis_names)
+            shape = tuple(mesh.devices.shape)
+        else:
+            axis_names, shape = ("model",), (len(devices),)
         self.devices = [_indexed(torch.device(d)) for d in devices]
         self.size = len(self.devices)
         if self.size < 1:
             raise ValueError("a rank runner needs at least one device")
+        self.axis_names = axis_names
         self.collectives = 0
         self.bytes = 0
-        self._group = _Group(self, self.size) if self.size > 1 else None
-        self.handles = [TP(self._group, r, d)
-                        for r, d in enumerate(self.devices)]
+        self._group = (_Group(self, self.size, axis_names)
+                       if self.size > 1 else None)
+        self.handles = _handles(self._group, self.devices, axis_names,
+                                shape)
         self._queues: List[queue.Queue] = []
         for _ in range(1, self.size):
             q: queue.Queue = queue.Queue()
@@ -268,18 +353,22 @@ class RankRunner:
         done = [threading.Event() for _ in range(1, self.size)]
         modes = _dispatch_modes()
         threads = torch.get_num_threads()
+        grad = torch.is_grad_enabled()
+        inference = torch.is_inference_mode_enabled()
+        fresh = grad and not inference        # a training forward
 
         def call(r):
             tp = self.handles[r]
+            away = bool(r) or fresh           # not on the calling thread
             try:
                 if r:
                     g.wait(r)
-                    if torch.get_num_threads() != threads:
-                        # the caller's intra-op threads (CPU ranks): a
-                        # worker would start its own pool of every core
-                        torch.set_num_threads(threads)
+                if away and torch.get_num_threads() != threads:
+                    # the caller's intra-op threads (CPU ranks): a new
+                    # thread would start its own pool of every core
+                    torch.set_num_threads(threads)
                 with _as_rank(tp), _cuda_device(tp.device), _entered(
-                        modes if r else ()):
+                        modes if away else ()), _grad_mode(grad, inference):
                     results[r] = fn(tp)
             except BaseException as e:     # noqa: BLE001 -- re-raised below
                 errors[r] = e
@@ -287,12 +376,22 @@ class RankRunner:
             else:
                 g.give(r)
 
-        for r in range(1, self.size):
-            self._queues[r - 1].put(
-                lambda r=r: (call(r), done[r - 1].set()))
-        call(0)
-        for ev in done:
-            ev.wait()
+        if fresh:
+            started = [threading.Thread(target=call, args=(r,),
+                                        daemon=True)
+                       for r in range(self.size)]
+            for th in started:
+                th.start()
+            for th in started:
+                th.join()
+        else:
+            for r in range(1, self.size):
+                self._queues[r - 1].put(
+                    lambda r=r: (call(r), done[r - 1].set()))
+            call(0)
+            for ev in done:
+                ev.wait()
+        g.clear()
         first = next((e for e in errors
                       if e is not None and not isinstance(e, _Aborted)),
                      None)
@@ -301,6 +400,43 @@ class RankRunner:
         if first is not None:
             raise first
         return results
+
+
+def _handles(group, devices, axis_names, shape) -> List[TP]:
+    """Every rank's handle on its ``model`` axis group, each carrying its
+    handles on every other combination of axes (:meth:`TP.over`)."""
+    n = len(devices)
+    coords = list(itertools.product(*[range(k) for k in shape]))
+    subsets = [tuple(a for a, keep in zip(axis_names, mask) if keep)
+               for mask in itertools.product((False, True),
+                                             repeat=len(axis_names))]
+    views: List[Dict[Tuple[str, ...], TP]] = [{} for _ in range(n)]
+    for names in subsets:
+        groups: Dict[tuple, List[int]] = {}
+        for r, c in enumerate(coords):
+            key = tuple(c[i] for i, a in enumerate(axis_names)
+                        if a not in names)
+            groups.setdefault(key, []).append(r)   # row-major over names
+        for members in groups.values():
+            for idx, r in enumerate(members):
+                views[r][names] = TP(group, idx, devices[r], members, r)
+    model = ("model",) if "model" in axis_names else ()
+    out = []
+    for r in range(n):
+        for tp in views[r].values():
+            tp._views = views[r]
+        out.append(views[r][model])
+    return out
+
+
+@contextlib.contextmanager
+def _grad_mode(grad: bool, inference: bool):
+    if inference:
+        with torch.inference_mode():
+            yield
+    else:
+        with torch.set_grad_enabled(grad):
+            yield
 
 
 def _indexed(dev: torch.device) -> torch.device:

@@ -36,16 +36,20 @@ state's channels) are its own z, x and dt slices plus the whole B and C
 
 :func:`shard_tree` is the counterpart of ``logical_to_sharding`` +
 ``jax.device_put``: it cuts full tensors into every rank's local shard on
-the rank's device; :func:`unshard_tree` puts them back together.
+the rank's device; :func:`unshard_tree` puts them back together. The
+sharded train step reads the same layout (and :func:`opt_pspecs` for the
+optimizer state, :func:`shard_batch` for the batch); where several ranks
+hold an entry (:func:`model_shared`) its gradient is a sum over them.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.launch.mesh import Mesh
+from repro_torch.launch.mesh import Mesh, data_axes
 from repro_torch.models.config import ModelConfig
 from repro_torch.tree import tree_map_with_path
 
@@ -191,6 +195,17 @@ def param_pspecs(params, cfg: ModelConfig, model_axis: str = "model",
         params)
 
 
+def opt_pspecs(p_specs, tc):
+    """The optimizer state's layout (the JAX dry run's ``_opt_pspecs``):
+    AdamW's moments ``m`` / ``v`` and the error-feedback residuals ``ef``
+    (with ``tc.compress_grads``) by the params' layout, the step count
+    replicated."""
+    out = {"adam": {"m": p_specs, "v": p_specs, "count": P()}}
+    if tc.compress_grads:
+        out["ef"] = p_specs
+    return out
+
+
 def batch_pspecs(cfg: ModelConfig, data_axes: Tuple[str, ...] = ("data",)):
     """PartitionSpecs for a training batch (batch dim over all DP axes)."""
     da = data_axes if len(data_axes) > 1 else data_axes[0]
@@ -199,6 +214,18 @@ def batch_pspecs(cfg: ModelConfig, data_axes: Tuple[str, ...] = ("data",)):
     if cfg.family == "vlm":
         return {"patch_embeds": P(da, None, None), "tokens": P(da, None)}
     return {"tokens": P(da, None)}
+
+
+def shard_batch(batch, cfg: ModelConfig, mesh: Mesh) -> list:
+    """A global training batch cut by :func:`batch_pspecs` over the mesh's
+    data axes (every rank of a data group gets its rows; the batch dim
+    must divide their product), one dict a rank on the rank's device, in
+    the order of ``mesh.devices.flat``. A mesh without data axes gives
+    every rank the whole batch."""
+    da = data_axes(mesh)
+    specs = (batch_pspecs(cfg, da) if da
+             else {k: P() for k in batch})
+    return shard_tree({k: batch[k] for k in specs}, specs, mesh)
 
 
 def cache_pspecs(cfg: ModelConfig, batch_size: int, mesh: Mesh,
@@ -333,8 +360,9 @@ def check_tensor_parallel(cfg: ModelConfig, msize: int, qc=None) -> None:
     need = []
     if cfg.family in ("audio", "vlm"):
         raise NotImplementedError(
-            f"tensor-parallel serving covers the paged families; the "
-            f"{cfg.family!r} family serves through the dense cache")
+            f"the {cfg.family!r} family under a model axis (its frontend "
+            "stub, its heads and the dense-cache layouts) is not ported: "
+            "ROADMAP.md queue A item 11")
     if cfg.family in ("dense", "moe", "hybrid"):
         hd = cfg.head_dim
         need += [("num_heads", cfg.num_heads), ("num_kv_heads",
@@ -364,9 +392,10 @@ def check_tensor_parallel(cfg: ModelConfig, msize: int, qc=None) -> None:
 
 def serving_layout(params, cfg: ModelConfig, msize: int,
                    model_axis: str = "model"):
-    """The layout a tensor-parallel engine places ``params`` by:
-    :func:`param_pspecs`, with a Mamba2 block's ``in_proj`` leaves and
-    ``conv_w`` / ``conv_b`` as :class:`Columns` (:func:`mamba_columns`)."""
+    """The layout a tensor-parallel engine (and the sharded train step)
+    places ``params`` by: :func:`param_pspecs`, with a Mamba2 block's
+    ``in_proj`` leaves and ``conv_w`` / ``conv_b`` as :class:`Columns`
+    (:func:`mamba_columns`)."""
     specs = param_pspecs(params, cfg, model_axis, msize)
     if cfg.family not in ("ssm", "hybrid") or msize == 1:
         return specs
@@ -454,7 +483,7 @@ def _take(leaf: torch.Tensor, spec, region) -> torch.Tensor:
     return leaf[region]
 
 
-def shard_tree(tree, specs, mesh: Mesh) -> list:
+def shard_tree(tree, specs, mesh: Mesh, copy: bool = False) -> list:
     """Cut every full leaf of ``tree`` into each device's shard by its
     spec (a :class:`P` or :class:`Columns` leaf of ``specs``, a tree of
     the same structure). Returns one local tree a device of ``mesh``, in
@@ -482,6 +511,9 @@ def shard_tree(tree, specs, mesh: Mesh) -> list:
             part = leaf if whole else _take(leaf, spec, region)
             if leaf.is_meta:
                 return torch.zeros(part.shape, dtype=part.dtype, device=dev)
+            if copy:
+                return part.to(dev, copy=True,
+                               memory_format=torch.contiguous_format)
             if not whole:
                 return part.contiguous().to(dev)
             key = (id(leaf), str(dev))
@@ -490,6 +522,41 @@ def shard_tree(tree, specs, mesh: Mesh) -> list:
             return placed[key]
         return tree_map_with_path(cut, tree, specs)
     return [one(i) for i in range(len(devices))]
+
+
+@dataclasses.dataclass(frozen=True)
+class SharedRun:
+    """Entries [lo, hi) of dim ``axis`` of a rank's shard, which every
+    rank of the model axis holds (:func:`model_shared`)."""
+    axis: int
+    lo: int
+    hi: int
+
+
+def model_shared(spec, model_axis: str = "model"):
+    """Which entries of a rank's shard every rank of its ``model`` axis
+    group holds too (so a gradient there is one part of a sum over those
+    ranks, and a norm counts it once): ``"all"`` for a leaf the spec does
+    not cut over ``model_axis``, None for one it cuts, and for
+    :class:`Columns` the :class:`SharedRun` of columns every rank's list
+    holds (a Mamba2 ``in_proj``'s B and C: the same positions on every
+    rank)."""
+    if isinstance(spec, Columns):
+        common = set(spec.ranks[0]).intersection(*map(set, spec.ranks[1:]))
+        pos = [[i for i, c in enumerate(r) if c in common]
+               for r in spec.ranks]
+        if not pos[0]:
+            return None
+        lo, hi = pos[0][0], pos[0][-1] + 1
+        if any(p != list(range(lo, hi)) for p in pos) or any(
+                [r[i] for i in p] != [spec.ranks[0][i] for i in pos[0]]
+                for r, p in zip(spec.ranks, pos)):
+            raise ValueError("the columns every rank holds must sit at the "
+                             "same positions, in one run, on each rank")
+        return SharedRun(spec.axis, lo, hi)
+    cut = any(e == model_axis or (isinstance(e, tuple) and model_axis in e)
+              for e in spec)
+    return None if cut else "all"
 
 
 def unshard_tree(shards: Sequence, specs, mesh: Mesh,

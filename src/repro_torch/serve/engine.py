@@ -428,10 +428,12 @@ class Engine:
             self.drafter = spec_decode.build_drafter()
             self.drafter.bind(self)
 
+    @torch.no_grad()
     def _run(self, fn):
         """``fn(params, pool, local)`` once a rank, with the rank's params
         and pool and ``local`` moving a step input to the rank's device;
-        returns rank 0's result."""
+        returns rank 0's result. Serving builds no autograd graph (and so
+        the runner keeps its persistent rank threads)."""
         return self._tp.run(lambda tp: fn(self.params[tp.rank],
                                           self.kv.pools[tp.rank],
                                           tp.local))[0]
@@ -704,6 +706,7 @@ class Engine:
     # ------------------------------------------------------------------
     # internals
     # ------------------------------------------------------------------
+    @torch.no_grad()
     def _fit_kv_codebook(self) -> KVCodebook:
         """Fit the KV codebook on :func:`calibration_rows` (k-means seeded
         with 0: a restart or a second replica fits the same codebook, so

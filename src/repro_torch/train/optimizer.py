@@ -19,6 +19,7 @@ from typing import Any, Optional, Tuple
 
 import torch
 
+from repro_torch.parallel.collectives import current
 from repro_torch.tree import tree_leaves, tree_map
 
 
@@ -65,18 +66,52 @@ def adamw_update(grads, state, params, lr, b1: float = 0.9,
 
 
 @torch.no_grad()
-def clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float, shared=None):
     """Scale every gradient by min(1, max_norm / ||grads||), the norm over
     all leaves in fp32, in place (a second copy of a full-width model's
     gradients would not fit beside its moments). Returns (grads, the norm
-    as a 0-d fp32 tensor)."""
+    as a 0-d fp32 tensor).
+
+    ``shared``: inside a rank of the sharded train step, ``grads`` are the
+    rank's shards (already summed over their copies) and ``shared`` the
+    tree of ``parallel.sharding.model_shared`` of their layout. The norm
+    then counts each logical element once: the rank's own slices are
+    summed over the model axis (one all-reduce), an entry every rank
+    holds is counted on the axis' rank 0 only; every rank gets the same
+    norm."""
     leaves = tree_leaves(grads)
-    norm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                          for g in leaves))
+    norm = global_norm(grads, shared)
     scale = torch.clamp(max_norm / torch.clamp_min(norm, 1e-9), max=1.0)
     for g in leaves:
         g.copy_((g.float() * scale).to(g.dtype))
     return grads, norm
+
+
+@torch.no_grad()
+def global_norm(grads, shared=None) -> torch.Tensor:
+    """The fp32 L2 norm over every leaf of ``grads`` (``shared`` as
+    :func:`clip_by_global_norm` takes it), a 0-d tensor."""
+    leaves = tree_leaves(grads)
+    if shared is None:
+        return torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                              for g in leaves))
+    return torch.sqrt(_sharded_square_sum(leaves, tree_leaves(shared)))
+
+
+def _sharded_square_sum(leaves, shared) -> torch.Tensor:
+    tp = current()
+    total = torch.zeros((), dtype=torch.float32, device=tp.device)
+    for g, sh in zip(leaves, shared):
+        sq = torch.square(g.float())
+        if sh == "all":
+            part = sq.sum() if tp.rank == 0 else None
+        elif sh is None or tp.rank == 0:
+            part = sq.sum()
+        else:                                 # a run of columns all hold
+            part = sq.sum() - sq.narrow(sh.axis, sh.lo, sh.hi - sh.lo).sum()
+        if part is not None:
+            total = total + part.to(total.device)
+    return tp.all_reduce(total)
 
 
 def cosine_lr(step, base_lr: float, warmup: int, total: int,

@@ -178,8 +178,22 @@ def test_error_feedback_compression_is_bit_for_bit_the_jax_one():
         np.testing.assert_array_equal(ef_t["v"][0].numpy(),
                                       np.asarray(ef_j["v"][0]))
     assert tcomp.decompress(ct)["w"].dtype == torch.float32
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tcomp.psum_hierarchical(ct)
+    # the compressed gradients' hierarchical sum: outside a runner the
+    # tree itself; on a (2, 1, 2) (pod, data, model) mesh each rank's sum
+    # over the pod axis, bit for bit the plain sum in rank order (the JAX
+    # one inside shard_map: test_torch_train_scale.py)
+    assert tcomp.psum_hierarchical(ct)["w"] is ct["w"]
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.parallel.collectives import RankRunner
+    parts = [tree_map(lambda t: t * (r + 1), ct) for r in range(4)]
+    outs = RankRunner(mesh=make_test_mesh(
+        (2, 1, 2), ("pod", "data", "model"), device="cpu")).run(
+            lambda tp: tcomp.psum_hierarchical(parts[tp.me]))
+    for r, out in enumerate(outs):
+        want = tree_map(torch.add, parts[r % 2], parts[2 + r % 2])
+        for got, w in zip((out["w"], out["v"][0]), (want["w"],
+                                                    want["v"][0])):
+            assert got.dtype == torch.bfloat16 and torch.equal(got, w)
 
 
 # ---------------------------------------------------------------------------
