@@ -32,9 +32,9 @@ run at full width and depth, each freed before the next, each with a
 logit check. In float32, one verify_paged call must give the logits of
 a chain of decode_paged steps over the same tokens (qwen1.5-4b, yi-9b,
 gemma3-4b, at full depth). Five serving phases run full-width qwen1.5-4b
-cut to its first SERVING_LAYERS layers (its weights shared; the phases
-check policy, not depth, and are host-bound, so their time is the
-depth's) through the rest of the serving stack, each also in float32 cut
+cut to its first SERVING_LAYERS layers (the prefix phase to
+SHALLOW_LAYERS; its weights shared; the phases check policy, not depth,
+and are host-bound, so their time is the depth's) through the rest of the serving stack, each also in float32 cut
 to 4 layers where streams must be identical: prefix (a shared system prompt,
 copy-on-write forks, a resumed chunk past max_seq; cold and warm on the
 fp and the code pool; one decode step over slots sharing physical pages
@@ -73,7 +73,8 @@ checkpoint of a 2-layer copy (bf16 bit for bit), then int8 LUTs of the
 result served through the engine with B1 and B2 (one decode step's
 launches, a bf16 logit check). A phase, scale (after the first serve
 runs), serves qwen1.5-4b tensor-parallel over a (1, 2) mesh of the card
-at full depth and, cut to SCALE_LAYERS, under the sync guard, two-pass,
+cut to SERVING_LAYERS and, cut to SCALE_LAYERS, under the sync guard,
+two-pass,
 on a code pool and through a (2, 2) router, then deepseek-moe-16b EP-2
 and mamba2-2.7b TP-2 cut in depth, each against its unsharded run, and
 holds B1-B5 at the shard shapes. A phase, train_scale, runs the sharded
@@ -106,12 +107,19 @@ projection shapes at their decode and prefill rows. A phase, analysis
 (after the serving phases), runs the sync guard (repro_torch.analysis:
 a dispatch-level recorder of host syncs, host <-> device copies and
 kernel builds, and the card's sync debug mode) over full-width qwen1.5-4b
-serving: fused at full depth, two-pass, vq-kv and ngram-speculative at
-SERVING_LAYERS; one host read a decode step and a finished prefill, at
+serving: fused, two-pass, vq-kv and ngram-speculative at
+SHALLOW_LAYERS; one host read a decode step and a finished prefill, at
 most two a speculative round, no sync, transfer or float64 op inside a
 model entry point, no kernel build in the steady state; then one call of
 each paged entry point on fp and code pools (no float64, no transfer,
-the pool updated in place). A last phase, examples, runs the five
+the pool updated in place). A phase, launch (after analysis), runs the
+dry run (repro_torch.launch: one rank's program on meta tensors, costed
+at H100 peaks) of three cells, counts one decode step of the full-width
+qwen1.5-4b engine on the card and on meta copies of its inputs (flops,
+CUDA-core ops, bytes and kernel calls must be equal) beside its measured
+time and roofline-ideal time, and runs qwen1.5-4b cut to 4 layers over a
+(1, 8) mesh of the card, whose 20 kv heads take the head_dim layout,
+against the unsharded run. A last phase, examples, runs the five
 example twins (examples/torch_*.py) at the JAX examples' defaults.
 
     python3 chip_smoke.py [--seed N]
@@ -165,7 +173,8 @@ from repro_torch.core.similarity import (  # noqa: E402
     pairwise_distance_subspaces)
 from repro_torch.data import SyntheticDataset  # noqa: E402
 from repro_torch.device import enqueued  # noqa: E402
-from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.kernels import _build, ops, ref, work  # noqa: E402
+from repro_torch.kernels.work import nbytes  # noqa: E402
 from repro_torch.core.kv_codebook import KVCodebook, kv_encode  # noqa
 from repro_torch.kernels import flash_decode as fd  # noqa: E402
 from repro_torch.kernels.assign import (  # noqa: E402
@@ -174,11 +183,17 @@ from repro_torch.kernels.fused_amm import (  # noqa: E402
     vq_amm_cuda, vq_amm_geometry)
 from repro_torch.kernels.lut_gemm import (  # noqa: E402
     lut_gemm_cuda, lut_gemm_geometry)
+from repro_torch.launch import roofline  # noqa: E402
 from repro_torch.launch.mesh import make_test_mesh  # noqa: E402
 from repro_torch.parallel import collectives as tcol  # noqa: E402
 from repro_torch.parallel.pipeline import run_pipeline  # noqa: E402
 from repro_torch.parallel.sharding import (  # noqa: E402
-    opt_pspecs, serving_layout, shard_batch, shard_tree, unshard_tree)
+    opt_pspecs, serving_layout, shard_batch, shard_cache, shard_tree,
+    unshard_tree)
+from repro_torch.launch.dryrun import run_cell  # noqa: E402
+from repro_torch.launch.mesh import make_production_mesh  # noqa: E402
+from repro_torch.launch.op_cost import program_cost  # noqa: E402
+from repro_torch.models.layers import hd_fallback  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models.model import RECURRENT, Model  # noqa: E402
 from repro_torch.obs import Obs, Tracer, validate_trace  # noqa: E402
@@ -194,9 +209,6 @@ from repro_torch.train.trainer import (  # noqa: E402
 from repro_torch.tree import (  # noqa: E402
     tree_flatten_with_path, tree_leaves, tree_map)
 
-# Published H100 SXM peaks (NVIDIA data sheet), at a 700 W power limit.
-HBM_BYTES_PER_S = 3.35e12
-FP32_CUDA_CORE_OPS_PER_S = 67e12      # also used for int32 adds
 L2_FLUSH_BYTES = 256 << 20            # > the 50 MB L2: launches start cold
 SPIN_CYCLES = 2_000_000               # ~1 ms: longer than any host enqueue
 
@@ -337,12 +349,12 @@ def host_us(fn, iters: int = 50) -> float:
     return 1e6 * t / iters
 
 
-def nbytes(*ts) -> int:
-    return sum(t.numel() * t.element_size() for t in ts if t is not None)
-
-
-def bound(bytes_: float, ops_: float):
-    t_b, t_o = bytes_ / HBM_BYTES_PER_S, ops_ / FP32_CUDA_CORE_OPS_PER_S
+def bound(work_):
+    """(ms, what bounds it) of a kernel call's work (``kernels.work``:
+    bytes, CUDA-core operations) at the card's published peaks
+    (``launch.roofline``: HBM, FP32 CUDA cores)."""
+    bytes_, ops_ = work_
+    t_b, t_o = bytes_ / roofline.HBM_BW, ops_ / roofline.CORE_OPS
     return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
 
 
@@ -425,16 +437,6 @@ def vq_inputs(gen, m, k, n, e=None):
     return x, z, lut, scale, xr
 
 
-def selected_lut_bytes(idx, n):
-    """Bytes of the int8 LUT rows that some row of idx (M, nc) selects,
-    summed over the experts of a leading expert axis (E, M, nc): what a
-    gather-accumulate must read."""
-    idx = idx.reshape((-1,) + tuple(idx.shape[-2:]))
-    rows = torch.zeros((idx.shape[0], idx.shape[2], C), device=idx.device)
-    rows.scatter_(2, idx.transpose(1, 2).long(), 1.0)
-    return float(rows.sum()) * n
-
-
 def case_text(m, k, n=None, e=None):
     """A kernel case's shape, with its expert count when grouped."""
     return (("" if e is None else f"E={e} ") + f"M={m} K={k}"
@@ -508,11 +510,9 @@ def b1_case(gen, m, k, n, flush, e=None, label=None, tag="moe",
     geo = vq_amm_geometry(x, z, lut)
     # bytes this data needs: x, z, the LUT rows some row selects (of each
     # expert), scale, out
-    ne = 1 if e is None else e
-    lut_bytes = selected_lut_bytes(idx_plain, n)
-    b = nbytes(x, z, scale) + lut_bytes + ne * m * n * 4
-    o = ne * (m * nc * C * (4 * V + 2) + m * nc * n + m * n)
-    bms, by = bound(b, o)
+    rows = work.selected_rows(idx_plain, C)
+    lut_bytes = rows * n * lut.element_size()
+    bms, by = bound(work.vq_amm(x, z, lut, scale, rows=rows))
     print(f"{head}B1 vq_amm {what}: kernel {ms * 1e3:.1f} us "
           f"(warm, 30 calls in one graph: {warm_ms * 1e3:.1f} us a call), "
           f"plain {plain_ms * 1e3:.1f} us, bound {bms * 1e3:.2f} us ({by}; "
@@ -609,7 +609,6 @@ def b34_case(gen, m, k, n, flush, e=None, label=None, tag="moe",
     dev = DEV
     nc = k // V
     lead = () if e is None else (e,)
-    ne = 1 if e is None else e
     what = case_text(m, k, n, e) + ("" if scaled else ", no scale")
     whatk = case_text(m, k, None, e)
     head, tail = case_tags(label, tag)
@@ -672,12 +671,9 @@ def b34_case(gen, m, k, n, flush, e=None, label=None, tag="moe",
     # B3 must read x and z and write the indices; B4 read the indices,
     # the LUT rows they select (of each expert) and the scale, and write
     # out
-    r3["bound_ms"], r3["bound_by"] = bound(
-        nbytes(x, z, idx_k), ne * m * nc * C * (4 * V + 2))
-    lut_bytes = selected_lut_bytes(idx_k, n)
-    r4["bound_ms"], r4["bound_by"] = bound(
-        nbytes(idx_k, scale) + lut_bytes + ne * m * n * 4,
-        ne * (m * nc * n + m * n))
+    r3["bound_ms"], r3["bound_by"] = bound(work.vq_assign(x, z))
+    r4["bound_ms"], r4["bound_by"] = bound(work.lut_gemm(
+        idx_k, lut, scale, rows=work.selected_rows(idx_k, C)))
     print(f"{head}B3 vq_assign {whatk}: kernel {r3['ms'] * 1e3:.1f} us (warm,"
           f" 30 calls in one graph: {r3['warm_ms'] * 1e3:.1f} us a call), "
           f"plain {r3['plain_ms'] * 1e3:.1f} us, bound "
@@ -938,12 +934,10 @@ def b2_case(gen, name, b, h, kvh, d, np_, positions, window, kv_start,
                              enable_gqa=h != kvh),
                          30, flush)
     live = int(pos.clamp_min(0).sum())
-    rows = 2 * live * kvh * d * kp.element_size()
-    tms, tby = bound(rows + nbytes(qg, phys_p, pos) + nbytes(*tk),
-                     4 * live * h * d)
+    tms, tby = bound(work.flash_decode_splits(qg, kp, phys_p, tk,
+                                              live=live))
     # the whole call: K/V rows, q, the new token's rows, page ids, out
-    bms, by = bound(rows + nbytes(q, kn, vn, phys, pos, ks) + nbytes(q),
-                    4 * live * h * d + 10 * b * h * d)
+    bms, by = bound(work.flash_decode(q, kp, kn, phys, live=live))
     print(f"B2 flash_decode {name}: whole flash_decode_paged call (fused "
           f"kernel) {ct['ms'] * 1e3:.1f} us flushed (median "
           f"{ct['med_ms'] * 1e3:.1f}), {ct['warm_ms'] * 1e3:.1f} us warm in "
@@ -1104,11 +1098,10 @@ def b5_case(gen, name, b, h, kvh, d, np_, positions, window, kv_start,
                              enable_gqa=h != kvh),
                          30, flush)
     live_t = int(pos.clamp_min(0).sum())
-    codes = 2 * live_t * kvh * kc.shape[-1] * kc.element_size() + tables
-    ops = 4 * live_t * h * d + 2 * live_t * kvh * d
-    tms, tby = bound(codes + nbytes(qg, phys_p, pos, ks) + nbytes(*tk), ops)
-    bms, by = bound(codes + nbytes(q, kn, vn, phys, pos, ks) + nbytes(q),
-                    ops + 10 * b * h * d)
+    tms, tby = bound(work.flash_decode_splits(qg, kc, phys_p, tk,
+                                              codebook=cb_l, live=live_t))
+    bms, by = bound(work.flash_decode(q, kc, kn, phys, codebook=cb_l,
+                                      live=live_t))
     print(f"B5 flash_decode_kvq {name}: whole flash_decode_paged call "
           f"(fused kernel, {fform} form) {ct['ms'] * 1e3:.1f} us flushed "
           f"(median {ct['med_ms'] * 1e3:.1f}), {ct['warm_ms'] * 1e3:.1f} us "
@@ -2198,6 +2191,11 @@ def baseline_phase(model, params, qc, f32, seed, gen, flush):
 
 # the serving phases' depth: the first 8 of qwen1.5-4b's 40 layers
 SERVING_LAYERS = 8
+#: depth of the prefix phase's runs and of the analysis phase's guard runs:
+#: what they check (hits, forks, host reads, syncs and uploads a step) does
+#: not depend on depth, and at SERVING_LAYERS they took 40 s more of the
+#: script's 1197 on a slow host
+SHALLOW_LAYERS = 4
 
 
 def cut_depth(model, params, layers):
@@ -2210,13 +2208,15 @@ def cut_depth(model, params, layers):
 
 def serving_phases(model, params, qc, seed, gen):
     """The prefix, policy, chaos, baseline and obs phases on full-width
-    qwen1.5-4b (``model``, int8 LUTs) cut to SERVING_LAYERS layers, each
-    with its float32 runs on one 4-layer float32 model."""
+    qwen1.5-4b (``model``, int8 LUTs) cut to SERVING_LAYERS layers (the
+    prefix phase to SHALLOW_LAYERS), each with its float32 runs on one
+    4-layer float32 model."""
     model, params = cut_depth(model, params, SERVING_LAYERS)
     f32 = f32_model(seed)
     flush = torch.ones(L2_FLUSH_BYTES // 4, dtype=torch.int32, device=DEV)
     with phase("prefix"):
-        prefix_phase(model, params, qc, f32, seed)
+        prefix_phase(*cut_depth(model, params, SHALLOW_LAYERS), qc, f32,
+                     seed)
     with phase("policy"):
         policy_phase(model, params, qc, f32, seed)
     with phase("chaos"):
@@ -4379,17 +4379,216 @@ def analysis_run(model, params, qc, seed, label, launched, idle, spec=None,
     return rep.counts
 
 
+# ---------------------------------------------------------------------------
+# launch phase: the dry run, one decode step's cost on the card and on meta,
+# the head_dim layout on the card
+# ---------------------------------------------------------------------------
+
+#: (arch, shape, multi-pod) of the dry-run cells the phase runs on meta
+LAUNCH_CELLS = (("qwen1.5-4b", "decode_32k", False),
+                ("qwen1.5-4b", "train_4k", False),
+                ("yi-9b", "decode_32k", True))
+#: one H100's device memory, bytes
+CARD_BYTES = 80e9
+#: the head_dim layout's run: qwen1.5-4b cut to FALLBACK_LAYERS layers over
+#: a (1, 8) mesh of the one card (20 heads and 20 kv heads over 8 ranks:
+#: head_dim 128 / 8 = 16 a rank), a dense-cache prefill of FALLBACK_BATCH x
+#: FALLBACK_PROMPT tokens and FALLBACK_STEPS decode steps
+FALLBACK_MESH = (1, 8)
+FALLBACK_LAYERS = 4
+FALLBACK_BATCH, FALLBACK_PROMPT, FALLBACK_STEPS = 4, 64, 8
+
+
+def fullest_decode_step(eng):
+    """A ``serve`` hook: the inputs of the decode call with the most lanes
+    decoding (its tokens, positions and page table, cloned) in
+    ``eng.decode_args``."""
+    call = eng._decode_call
+    eng.decode_args, live = None, [0]
+
+    def grab(toks, positions):
+        n = len(eng.scheduler.decode_slots())     # host state: no sync
+        if n > live[0]:
+            live[0] = n
+            eng.decode_args = (toks.clone(), positions.clone(),
+                               eng.kv.table_device().clone())
+        return call(toks, positions)
+    eng._decode_call = grab
+
+
+def launch_phase(model, params, qc, seed, eng):
+    """(a) the dry run (``repro_torch.launch``, meta tensors, no card) of
+    LAUNCH_CELLS: each must be ``ok``; its roofline and memory, and
+    whether the rank's arguments plus temp fit the card. (b) one decode
+    step of the serve phase's fused engine ``eng`` (full-width
+    qwen1.5-4b, int8 LUTs; :func:`step_cost`). (c) the head_dim layout on
+    the card (:func:`fallback_run`)."""
+    for arch, shape, multi in LAUNCH_CELLS:
+        res = run_cell(arch, shape, make_production_mesh(multi_pod=multi),
+                       "lut", verbose=False)
+        check(res["status"] == "ok", f"dry run {arch} x {shape}: {res}")
+        mem = res["memory"]
+        need = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+        print(f"launch [dry run {arch} x {shape} x {res['mesh']}]: trace "
+              f"{res['trace_s']} s on the host, kernel calls "
+              f"{res['kernels']}; roofline {json.dumps(res['roofline'])}; "
+              f"memory {json.dumps(mem)}; arguments + temp "
+              f"{need / 1e9:.2f} GB {'fit' if need <= CARD_BYTES else 'do not fit'}"  # noqa: E501
+              f" in {CARD_BYTES / 1e9:.0f} GB [{SMI}]")
+    step_cost(model, qc, eng)
+    fallback_run(model, params, qc, seed)
+
+
+def step_cost(model, qc, eng):
+    """Part (b) of :func:`launch_phase`: the decode call of ``eng``'s run
+    with the most lanes decoding (:func:`fullest_decode_step`), on its
+    pool now, counted by ``program_cost`` on the card and on meta copies
+    of its params, pool and inputs: flops, CUDA-core ops, bytes and
+    kernel calls must be equal. Beside it the step's roofline-ideal time
+    at H100 peaks (``model_flops_for`` / ``model_bytes_for``) and its
+    measured time (median of 5, host clock, synchronised)."""
+    cfg = model.cfg
+    check(eng.decode_args is not None, "step cost: no decode step")
+    toks, positions, table = eng.decode_args
+    slots, max_seq = eng.num_slots, eng.max_seq
+
+    def card_step():
+        return eng._run(lambda p, kv, loc: model.decode_paged(
+            p, loc(toks), kv, loc(table), loc(positions), qc))
+    card_step()
+    torch.cuda.synchronize()
+    card = program_cost(card_step)
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        card_step()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    step_ms = 1e3 * float(np.median(times))
+
+    def meta(t):
+        return t.to("meta")
+    with torch.no_grad():
+        dry = program_cost(Model(cfg, device="meta").decode_paged,
+                           tree_map(meta, eng.params[0]), meta(toks),
+                           tree_map(meta, eng.kv.pools[0]), meta(table),
+                           meta(positions), qc)
+    fields = ("flops", "core_ops", "bytes")
+    for f in fields:
+        check(getattr(card, f) == getattr(dry, f),
+              f"step cost: {f} {getattr(card, f)} on the card, "
+              f"{getattr(dry, f)} on meta")
+    check(dict(card.kernels) == dict(dry.kernels),
+          f"step cost: kernel calls {dict(card.kernels)} on the card, "
+          f"{dict(dry.kernels)} on meta")
+    param_bytes = float(nbytes(*_leaves(eng.params[0])))
+    cache_bytes = float(nbytes(*_leaves(eng.kv.pools[0])))
+    rep = roofline.analyze(
+        card, 1, roofline.model_flops_for(cfg, "decode", slots, max_seq),
+        roofline.model_bytes_for(cfg, "decode", slots, max_seq,
+                                 param_bytes, cache_bytes))
+    print(f"launch [step cost {cfg.name} fused, {slots} slots at "
+          f"{positions.tolist()}]: card == meta: flops {card.flops:.6g}, "
+          f"CUDA-core ops {card.core_ops:.6g}, bytes {card.bytes:.6g}, "
+          f"kernel calls {dict(card.kernels)}; bound of the counted step "
+          f"{1e3 * max(rep.t_compute, rep.t_memory):.3f} ms "
+          f"({rep.bottleneck}); roofline-ideal step (model_flops_for / "
+          f"model_bytes_for: {param_bytes / 1e9:.3f} GB params, "
+          f"{cache_bytes / 1e9:.3f} GB pool) {1e3 * rep.t_ideal:.3f} ms; "
+          f"measured step {step_ms:.2f} ms (median of 5, host clock, "
+          f"synchronised); share of the roofline "
+          f"{rep.t_ideal / (step_ms / 1e3):.4f} [{SMI}]")
+    print("launch [step cost]: costliest lines by bytes: " + "; ".join(
+        f"{r['op']} @ {r['site']} x{r['count']}: {r['bytes'] / 1e6:.1f} MB"
+        for r in card.top_cost_lines(6)))
+
+
+def fallback_run(model, params, qc, seed):
+    """Part (c) of :func:`launch_phase`: qwen1.5-4b cut to FALLBACK_LAYERS
+    layers, int8 LUTs (B1 on every rank's shards), over a FALLBACK_MESH
+    mesh of the one card, where its 20 kv heads do not divide the 8 ranks
+    (the head_dim layout): a dense-cache prefill and FALLBACK_STEPS decode
+    steps fed the unsharded run's greedy tokens, every step's logits held
+    against the unsharded run's by the logit check's row rule."""
+    cut, cut_params = cut_depth(model, params, FALLBACK_LAYERS)
+    cfg = cut.cfg
+    mesh = make_test_mesh(FALLBACK_MESH, device=DEV)
+    check(hd_fallback(cfg, mesh.shape["model"]),
+          f"{cfg.name} over {FALLBACK_MESH} does not take the head_dim layout")
+    rng = np.random.default_rng(seed + 30)
+    b, s, n = FALLBACK_BATCH, FALLBACK_PROMPT, FALLBACK_STEPS
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s))
+                              .astype(np.int32)).to(DEV)
+    counts0 = vq_amm_cuda.launches
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        cache = cut.init_cache(b, s + n)
+        lg, cache = cut.prefill(cut_params, {"tokens": prompt}, cache, qc)
+        ref, toks = [lg.float()], [lg.argmax(-1)]
+        for _ in range(n):
+            lg, cache = cut.decode(cut_params, toks[-1][:, None].int(),
+                                   cache, qc)
+            ref.append(lg.float())
+            toks.append(lg.argmax(-1))
+        del cache
+        torch.cuda.synchronize()
+        t_one = time.perf_counter() - t0
+        shards = shard_tree(cut_params, serving_layout(cut_params, cfg,
+                                                       mesh.shape["model"]),
+                            mesh)
+        caches = shard_cache(cut.init_cache(b, s + n), cfg, b, mesh)
+        runner = tcol.RankRunner(mesh=mesh)
+        launches0 = vq_amm_cuda.launches
+        t0 = time.perf_counter()
+        outs = runner.run(lambda tp: cut.prefill(
+            shards[tp.me], {"tokens": prompt}, caches[tp.me], qc))
+        got, caches = [outs[0][0].float()], [o[1] for o in outs]
+        for i in range(n):
+            t = toks[i][:, None].int()
+            outs = runner.run(lambda tp: cut.decode(shards[tp.me], t,
+                                                    caches[tp.me], qc))
+            got.append(outs[0][0].float())
+            caches = [o[1] for o in outs]
+        torch.cuda.synchronize()
+        t_tp = time.perf_counter() - t0
+    launches = vq_amm_cuda.launches - launches0
+    allowed = LOGIT_ROWS_OFF[cfg.dtype]
+    worst = []
+    for step, (a, r) in enumerate(zip(got, ref)):
+        check(bool(torch.isfinite(a).all()), f"fallback step {step}: "
+              "non-finite logits")
+        rel = ((a - r).norm(dim=-1) / r.norm(dim=-1)).tolist()
+        agreeing = sum(x <= LOGIT_ROW_REL_TOL for x in rel)
+        worst.append(max(rel))
+        check(agreeing >= b - allowed,
+              f"fallback step {step}: {agreeing} of {b} rows within "
+              f"relative L2 {LOGIT_ROW_REL_TOL}, rows {rel}")
+    sharded_toks = [g.argmax(-1).tolist() for g in got]
+    print(f"launch [head_dim layout {cfg.name}, {FALLBACK_LAYERS} layers over "
+          f"{FALLBACK_MESH}, {cfg.num_kv_heads} kv heads, head_dim "
+          f"{cfg.head_dim // mesh.shape['model']} a rank]: prefill {b} x {s} "
+          f"+ {n} decode steps against the unsharded run: every step's rows "
+          f"within relative L2 {LOGIT_ROW_REL_TOL} (all but {allowed} "
+          f"allowed), worst row a step {[round(w, 5) for w in worst]}; "
+          f"greedy tokens sharded {sharded_toks} unsharded "
+          f"{[t.tolist() for t in toks]}; B1 launches {launches} "
+          f"({launches0 - counts0} unsharded); {t_tp:.2f} s sharded, "
+          f"{t_one:.2f} s unsharded (host clock) [{SMI}]")
+    del shards, caches, runner
+    free()
+
+
 def analysis_phase(model, params, qc, seed):
-    """The guard on full-width qwen1.5-4b's first SERVING_LAYERS layers
+    """The guard on full-width qwen1.5-4b's first SHALLOW_LAYERS layers
     fused, two-pass, vq-kv and ngram-speculative (the fused guard at full
     depth took 43 s of the phase's 70 on an H100, cut for the scale
     phase's time); then the invariants of the three paged entry points on fp and code
     pools at full depth."""
     out = {}
     n = model.cfg.num_layers
-    cut, cut_params = cut_depth(model, params, SERVING_LAYERS)
+    cut, cut_params = cut_depth(model, params, SHALLOW_LAYERS)
     out["fused"] = analysis_run(
-        cut, cut_params, qc, seed, f"qwen1.5-4b fused, {SERVING_LAYERS} "
+        cut, cut_params, qc, seed, f"qwen1.5-4b fused, {SHALLOW_LAYERS} "
         "layers", {"b1", "b2"}, {"b3", "b4", "b5"})
     for name, qc_r, spec, launched, idle in (
             ("two-pass", qc.replace(fuse=False), None, {"b3", "b4", "b2"},
@@ -4401,7 +4600,7 @@ def analysis_phase(model, params, qc, seed):
              {"b3", "b4", "b5"})):
         out[name] = analysis_run(
             cut, cut_params, qc_r, seed,
-            f"qwen1.5-4b {name}, {SERVING_LAYERS} layers", launched, idle,
+            f"qwen1.5-4b {name}, {SHALLOW_LAYERS} layers", launched, idle,
             spec)
     t0 = time.perf_counter()
     rep = run_invariants(model, params, qc)
@@ -4575,11 +4774,13 @@ def tp_serve(model, params, qc, seed, label, launched, idle, mesh,
     return out
 
 
-def scale_phase(model, params, qc, seed, unsharded, gen):
+def scale_phase(model, params, qc, seed, gen):
     """Tensor-parallel serving on the one card: the shard-shape kernel
-    cases; full-width, full-depth qwen1.5-4b int8 TP-2 fused on MAIN_LOAD
-    (greedy tokens equal to the serve phase's unsharded fused run bit for
-    bit); at SCALE_LAYERS the sync guard over a TP-2 fused engine and a
+    cases; full-width qwen1.5-4b int8 cut to SERVING_LAYERS TP-2 fused on
+    MAIN_LOAD, placed from the host (greedy tokens equal to an unsharded
+    fused run's at that depth bit for bit; at full depth the TP-2 run took
+    53 of the script's 1197 s on a slow host, 2x its host time a call, and
+    the check does not depend on depth); at SCALE_LAYERS the sync guard over a TP-2 fused engine and a
     second TP-2 fused run (the temperature request the same in both; the
     greedy tokens the unsharded engine's), two-pass and vq-kv TP-2
     against unsharded runs, the (2, 2) router against the unsharded
@@ -4590,23 +4791,29 @@ def scale_phase(model, params, qc, seed, unsharded, gen):
     cfg = model.cfg
     mesh = make_test_mesh((1, TP), device=DEV)
     hot = MAIN_LOAD.hot
-    ref_tokens, ref_stats = unsharded
+    deep, deep_params = cut_depth(model, params, SERVING_LAYERS)
+    _, ref_tokens, ref = serve(deep, deep_params, qc, seed,
+                               f"qwen1.5-4b fused, {SERVING_LAYERS} layers",
+                               {"b1", "b2"}, {"b3", "b4", "b5"},
+                               tag="scale")
+    ref_stats = ref.stats
+    del ref
     # placed from the host, as a model larger than the card would be:
     # each rank's shards and pool are made on the card, nothing whole
     free()
     t0 = time.perf_counter()
-    host = tree_map(lambda t: t.cpu(), params)
+    host = tree_map(lambda t: t.cpu(), deep_params)
     host_s = time.perf_counter() - t0
-    _, toks, eng = tp_serve(model, host, qc, seed,
-                            f"qwen1.5-4b TP-{TP} fused", {"b1", "b2"},
-                            {"b3", "b4", "b5"}, mesh)
+    _, toks, eng = tp_serve(deep, host, qc, seed,
+                            f"qwen1.5-4b TP-{TP} fused, {SERVING_LAYERS} "
+                            "layers", {"b1", "b2"}, {"b3", "b4", "b5"}, mesh)
     st = eng.stats
-    model_b = nbytes(*_leaves(params))
+    model_b = nbytes(*_leaves(deep_params))
     shard_b = nbytes(*{t.data_ptr(): t for t in _leaves(eng.params)
                        }.values())
     pool_b = nbytes(*_leaves(eng.kv.pools))
     leaf_b = max(nbytes(t) for t in _leaves(eng.params))
-    print(f"scale [qwen1.5-4b TP-{TP} fused, {cfg.num_layers} layers]: "
+    print(f"scale [qwen1.5-4b TP-{TP} fused, {SERVING_LAYERS} layers]: "
           f"placement from the host in {st['setup_s']:.2f} s (the host "
           f"copy of the params {host_s:.2f} s before it): the card's peak "
           f"{st['place_peak'] / 1e9:.3f} GB over the engine's construction, "
@@ -4619,15 +4826,16 @@ def scale_phase(model, params, qc, seed, unsharded, gen):
           f"TP-{TP} placement from the host peaked at {st['place_peak']} B"
           f" on the card, over its shards and pool ({shard_b + pool_b} B)"
           " and one leaf")
-    del eng, host
+    del eng, host, deep, deep_params
     free()
-    check(compare_tokens(f"qwen1.5-4b TP-{TP} fused vs unsharded, greedy",
+    check(compare_tokens(f"qwen1.5-4b TP-{TP} fused, {SERVING_LAYERS} "
+                         "layers, vs unsharded, greedy",
                          toks, ref_tokens, skip=(hot,)) == 0,
           "TP-2 greedy tokens differ from the unsharded run's")
     same_hot = toks[hot] == ref_tokens[hot]
     coll_ms = collective_device_ms(cfg, flush)
     coll_us = collective_host_us(list(mesh.devices.flat))
-    print(f"scale [qwen1.5-4b TP-{TP} fused, {cfg.num_layers} layers]: "
+    print(f"scale [qwen1.5-4b TP-{TP} fused, {SERVING_LAYERS} layers]: "
           f"decode step {st['step_ms']:.1f} ms (unsharded "
           f"{ref_stats['step_ms']:.1f}), prefill chunk {st['chunk_ms']:.1f} "
           f"ms ({ref_stats['chunk_ms']:.1f}), {st['tokens_per_s']:.1f} "
@@ -4978,14 +5186,17 @@ def main(argv=None) -> int:
         "vq-kv": (qc.replace(kv_quant="vq", kv_v=KV_V, kv_c=KV_C),
                   {"b1", "b5"}, {"b2", "b3", "b4"}),
     }
-    counts, tokens, codebook, bpt, stats = {}, {}, None, {}, {}
+    counts, tokens, codebook, bpt = {}, {}, None, {}
+    step_eng = None              # the fused engine, for the launch phase
     for label, (qc_r, launched, idle) in runs.items():
         counts[label], tokens[label], eng = serve(
-            model, params, qc_r, args.seed, label, launched, idle)
+            model, params, qc_r, args.seed, label, launched, idle,
+            hook=fullest_decode_step if label == "fused" else None)
         bpt[label] = eng.kv.bytes_per_token
-        stats[label] = eng.stats
         if qc_r.kv_quant == "vq":
             codebook = eng.kv_codebook
+        if label == "fused":
+            step_eng = eng
         del eng
     check(tokens["two-pass"] == tokens["fused"],
           "two-pass tokens differ from the fused run's")
@@ -5022,8 +5233,7 @@ def main(argv=None) -> int:
     del model32, params32, cut32, cut32_params, codebook, cb, cb32
     print(f"phase [qwen1.5-4b serve]: {time.perf_counter() - t_qwen:.1f} s")
     with phase("scale"):
-        scale = scale_phase(model, params, qc, args.seed,
-                            (tokens["fused"], stats["fused"]), gen)
+        scale = scale_phase(model, params, qc, args.seed, gen)
     # at SERVING_LAYERS, the model drafter's early exit at 4 of them: at
     # full depth (draft_layers=10) the phase took 47-59 s of the script's
     # 991-1159 s on an H100, next to the 1200 s limit
@@ -5043,7 +5253,9 @@ def main(argv=None) -> int:
     serving_phases(model, params, qc, args.seed, gen)
     with phase("analysis"):
         analysis_phase(model, params, qc, args.seed)
-    del model, params
+    with phase("launch"):
+        launch_phase(model, params, qc, args.seed, step_eng)
+    del model, params, step_eng
     free()
     with phase("float32 LUTs, qwen1.5-4b cut to 4 layers"):
         float_lut_serve(args.seed)

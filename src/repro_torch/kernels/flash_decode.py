@@ -44,7 +44,9 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.core.similarity import one_hot
+from repro_torch.launch.op_cost import kernel_call, meta_result
 from . import _build
+from . import work as _work
 
 # Finite stand-in for -inf. exp(NEG_INF - NEG_INF) == 1 (not NaN), which
 # is what makes the identity triple compose safely.
@@ -686,11 +688,26 @@ def flash_decode_paged(q: torch.Tensor, k_pages: torch.Tensor,
     are uint8 code pools (P+1, page, KVH, nc). split_pages: pages per
     split (default :func:`split_pages_for`).
     For CUDA tensors, one kernel: B2 (B5 over codes) in its fused form;
-    for CPU tensors, the plain versions. Returns (B, 1, H*D) in q's dtype.
+    for CPU tensors, the plain versions; meta tensors as
+    ``kernels.ops``' entry points take them (under an OpCost only).
+    Returns (B, 1, H*D) in q's dtype.
     """
     b, s, h, d = q.shape
     if s != 1:
         raise ValueError(f"flash decode is single-token (got S={s})")
+    with kernel_call("b2" if codebook is None else "b5", q.device,
+                     lambda: _work.flash_decode(q, k_pages, k_new, phys,
+                                                codebook)):
+        if q.is_meta:
+            return meta_result((b, 1, h * d), q.dtype)
+        return _flash_decode_paged(q, k_pages, v_pages, k_new, v_new, phys,
+                                   positions, window, kv_start, codebook,
+                                   split_pages)
+
+
+def _flash_decode_paged(q, k_pages, v_pages, k_new, v_new, phys, positions,
+                        window, kv_start, codebook, split_pages):
+    b = q.shape[0]
     kvh = k_pages.shape[2]
     np_ = phys.shape[1]
     dev = q.device

@@ -10,7 +10,11 @@
 Dispatch is by the tensors' device alone: CPU tensors take the plain
 PyTorch version (``kernels.ref``), CUDA tensors take the kernel, which
 raises on anything it cannot run. No option selects between them and
-nothing falls back.
+nothing falls back. Meta tensors (the dry run, ``launch``) run nothing:
+under an open ``launch.op_cost.OpCost`` the call records its kernel's
+work (``kernels.work``) and returns an empty meta result; outside one it
+raises. Under an OpCost a CPU or CUDA call records the same work and runs
+as it would without.
 
 Each also takes a leading expert axis on every operand, the per-expert
 projections of an MoE layer (``models/moe.py``), where the JAX package
@@ -24,7 +28,9 @@ from typing import Optional
 import torch
 
 from repro_torch.core.similarity import Metric
+from repro_torch.launch.op_cost import kernel_call, meta_result
 from . import ref as _ref
+from . import work as _work
 from .assign import vq_assign_cuda
 from .fused_amm import vq_amm_cuda
 from .lut_gemm import lut_gemm_cuda
@@ -44,9 +50,13 @@ def vq_amm(x: torch.Tensor, z: torch.Tensor, lut: torch.Tensor,
     Returns: (M, N) float32 (grouped: (E, M, N)),
     ``sum_k lut[k, argmin_j d(x[m,k], z[k,j]), :]`` (x scale).
     """
-    if x.device.type == "cpu":
-        return _ref.vq_amm_ref(x, z, lut, scale, metric)
-    return vq_amm_cuda(x, z, lut, scale, metric)
+    with kernel_call("b1", x.device,
+                     lambda: _work.vq_amm(x, z, lut, scale)):
+        if x.is_meta:
+            return meta_result(x.shape[:-2] + lut.shape[-1:], torch.float32)
+        if x.device.type == "cpu":
+            return _ref.vq_amm_ref(x, z, lut, scale, metric)
+        return vq_amm_cuda(x, z, lut, scale, metric)
 
 
 def vq_assign(x: torch.Tensor, z: torch.Tensor,
@@ -57,9 +67,12 @@ def vq_assign(x: torch.Tensor, z: torch.Tensor,
     (the lowest index wins a tie); grouped: (E, M, nc, v), (E, nc, c, v)
     -> (E, M, nc).
     """
-    if x.device.type == "cpu":
-        return _ref.assign_ref(x, z, metric)
-    return vq_assign_cuda(x, z, metric)
+    with kernel_call("b3", x.device, lambda: _work.vq_assign(x, z)):
+        if x.is_meta:
+            return meta_result(x.shape[:-1], torch.int32)
+        if x.device.type == "cpu":
+            return _ref.assign_ref(x, z, metric)
+        return vq_assign_cuda(x, z, metric)
 
 
 def lut_matmul(idx: torch.Tensor, lut: torch.Tensor,
@@ -71,6 +84,11 @@ def lut_matmul(idx: torch.Tensor, lut: torch.Tensor,
     ``sum_k lut[k, idx[m, k], :]`` (x scale); grouped: (E, M, nc),
     (E, nc, c, N), (E, N) -> (E, M, N).
     """
-    if idx.device.type == "cpu":
-        return _ref.lut_gemm_onehot(idx, lut, scale)
-    return lut_gemm_cuda(idx, lut, scale)
+    with kernel_call("b4", idx.device,
+                     lambda: _work.lut_gemm(idx, lut, scale)):
+        if idx.is_meta:
+            return meta_result(idx.shape[:-1] + lut.shape[-1:],
+                               torch.float32)
+        if idx.device.type == "cpu":
+            return _ref.lut_gemm_onehot(idx, lut, scale)
+        return lut_gemm_cuda(idx, lut, scale)

@@ -1,0 +1,151 @@
+"""The work of each kernel call: the bytes it must move and the CUDA-core
+operations it must do, from its operands' shapes (and, where the work
+depends on the data, an optional measured count).
+
+One function a kernel, B1-B5 (and B2 / B5's triples form). They count
+what the call's function needs, whatever implements it: each input read
+once, each output written once, the operations of the arithmetic the
+function defines. ``chip_smoke.py``'s bound column divides them by the
+card's peaks (``launch.roofline``), and the dry run's cost mode records
+them for every kernel call (``launch.op_cost``), so a redesigned kernel
+leaves both unchanged.
+
+Each returns ``(bytes, ops)``. Operands may lie on any device, the meta
+device included: only shapes and dtypes are read, except the measured
+counts a caller passes.
+
+Data-dependent terms:
+
+* B1 / B4 read only the LUT rows some row selects. ``rows`` is the
+  number of (expert, subspace, centroid) rows selected (``selected_rows``
+  counts it from the indices); without it each subspace of each expert
+  counts ``min(M, c)`` rows, an upper bound (every row picks a centroid
+  no other row picks).
+* B2 / B5 read the K/V rows of the live tokens. ``live`` is their number
+  (the sum of the non-negative positions); without it every lane counts
+  its whole page table, ``NP x page`` rows, an upper bound.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+Work = Tuple[float, float]
+
+
+def nbytes(*ts) -> int:
+    """Bytes of the given tensors (None skipped)."""
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+def _experts(x: torch.Tensor, plain_ndim: int) -> int:
+    """The leading expert axis' length (1 without one)."""
+    return x.shape[0] if x.dim() > plain_ndim else 1
+
+
+def selected_rows(idx: torch.Tensor, c: int) -> int:
+    """How many (expert, subspace, centroid) LUT rows some row of ``idx``
+    ((M, nc), or (E, M, nc) with an expert axis) selects: the rows a
+    gather-accumulate must read. Reads ``idx`` (a device sync)."""
+    idx = idx.reshape((-1,) + tuple(idx.shape[-2:]))
+    rows = torch.zeros((idx.shape[0], idx.shape[2], c), device=idx.device)
+    rows.scatter_(2, idx.transpose(1, 2).long(), 1.0)
+    return int(rows.sum())
+
+
+def _lut_rows(e: int, m: int, nc: int, c: int,
+              rows: Optional[int]) -> int:
+    return e * nc * min(m, c) if rows is None else rows
+
+
+def vq_assign(x: torch.Tensor, z: torch.Tensor) -> Work:
+    """B3: read x (M, nc, v) and z (nc, c, v), write the int32 indices
+    (M, nc); a distance (4 v + 2 operations) for every (row, subspace,
+    centroid)."""
+    e = _experts(x, 3)
+    m, nc, v = x.shape[-3:]
+    c = z.shape[-2]
+    return (nbytes(x, z) + e * m * nc * 4, e * m * nc * c * (4 * v + 2))
+
+
+def lut_gemm(idx: torch.Tensor, lut: torch.Tensor,
+             scale: Optional[torch.Tensor] = None,
+             rows: Optional[int] = None) -> Work:
+    """B4: read the indices (M, nc), the selected rows of the LUT (nc, c,
+    N) and the scale, write the float32 output (M, N); an add per
+    (row, subspace, column) and a multiply per output."""
+    e = _experts(idx, 2)
+    m, nc = idx.shape[-2:]
+    c, n = lut.shape[-2:]
+    rows = _lut_rows(e, m, nc, c, rows)
+    return (nbytes(idx, scale) + rows * n * lut.element_size()
+            + e * m * n * 4, e * (m * nc * n + m * n))
+
+
+def vq_amm(x: torch.Tensor, z: torch.Tensor, lut: torch.Tensor,
+           scale: Optional[torch.Tensor] = None,
+           rows: Optional[int] = None) -> Work:
+    """B1: B3's reads and distances and B4's gather-accumulate, without
+    the indices in between."""
+    e = _experts(x, 3)
+    m, nc, v = x.shape[-3:]
+    c, n = lut.shape[-2:]
+    rows = _lut_rows(e, m, nc, c, rows)
+    return (nbytes(x, z, scale) + rows * n * lut.element_size()
+            + e * m * n * 4,
+            e * (m * nc * c * (4 * v + 2) + m * nc * n + m * n))
+
+
+def _live(phys: torch.Tensor, page: int, live: Optional[int]) -> int:
+    return phys.shape[0] * phys.shape[1] * page if live is None else live
+
+
+def flash_decode(q: torch.Tensor, k_pages: torch.Tensor,
+                 k_new: torch.Tensor, phys: torch.Tensor,
+                 codebook: Optional[dict] = None,
+                 live: Optional[int] = None) -> Work:
+    """A whole ``flash_decode_paged`` call (B2, or B5 over a code pool
+    with ``codebook``): read the live tokens' K and V rows (codes and the
+    tables for B5), q, the new token's K/V rows, the page ids, the
+    positions and kv starts (int32 a lane), write the output (q's size
+    and dtype). Operations: scores and probabilities times V (4 a live
+    token, head and dim), B5's dequantization (2 a live token, kv head
+    and dim), and the split fold and self term (10 a lane, head and
+    dim)."""
+    b, _, h, d = q.shape
+    kvh = k_pages.shape[2]
+    live = _live(phys, k_pages.shape[1], live)
+    small = nbytes(q, k_new, k_new) + phys.numel() * 4 + 2 * b * 4 \
+        + nbytes(q)
+    ops = 4 * live * h * d + 10 * b * h * d
+    if codebook is None:
+        rows = 2 * live * kvh * d * k_pages.element_size()
+        return rows + small, ops
+    return _codes(k_pages, kvh, codebook, live) + small, \
+        ops + 2 * live * kvh * d
+
+
+def _codes(k_pages, kvh: int, codebook: dict, live: int) -> int:
+    """B5's reads of the live tokens' K and V codes and its tables."""
+    return (2 * live * kvh * k_pages.shape[-1] * k_pages.element_size()
+            + nbytes(*(codebook[k] for k in ("zk", "zv", "sk", "sv"))))
+
+
+def flash_decode_splits(qg: torch.Tensor, k_pages: torch.Tensor,
+                        phys: torch.Tensor, outs, codebook=None,
+                        live: Optional[int] = None) -> Work:
+    """B2 / B5's triples form (``flash_decode_splits[_kvq]_cuda``): read
+    the live rows (codes and tables), the scaled query ``qg``, the padded
+    page ids, positions and kv starts, write the triples ``outs`` (m, l,
+    acc); scores and probabilities times V (and B5's dequantization;
+    ``codebook`` as :func:`flash_decode` takes it)."""
+    b, kvh, g, d = qg.shape
+    live = _live(phys, k_pages.shape[1], live)
+    small = nbytes(qg, *outs) + phys.numel() * 4 + (
+        b * 4 if codebook is None else 2 * b * 4)
+    ops = 4 * live * kvh * g * d
+    if codebook is None:
+        return 2 * live * kvh * d * k_pages.element_size() + small, ops
+    return _codes(k_pages, kvh, codebook, live) + small, \
+        ops + 2 * live * kvh * d

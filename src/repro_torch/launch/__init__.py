@@ -1,2 +1,3 @@
-"""Launch layer: device meshes (port of ``repro.launch``; its roofline,
-dry-run, HLO cost and hill-climb modules are not ported yet)."""
+"""Launch layer (port of ``repro.launch``): device meshes, the dry run of
+one rank's program on meta tensors, its op cost and roofline at H100
+peaks, and the hill-climb runner."""

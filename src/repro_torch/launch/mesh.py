@@ -12,8 +12,10 @@ package's tests run four host devices on one CPU: the sharded program
 runs unchanged, at the shard shapes, with its collectives reduced to
 copies on one device (``parallel/collectives.py``).
 
-``make_production_mesh`` (the 256- and 512-chip pod meshes) belongs to
-the launch layer's later slice.
+``make_production_mesh`` is the JAX package's 16x16 ``(data, model)``
+pod and 2x16x16 ``(pod, data, model)`` pair of pods, every entry one
+given device (default the meta device: the dry run, ``launch.dryrun``,
+runs one rank's program of them on meta tensors).
 """
 from __future__ import annotations
 
@@ -68,6 +70,17 @@ class Mesh:
 
 def data_axes(mesh: Mesh) -> tuple:
     return tuple(a for a in mesh.axis_names if a in ("pod", "data"))
+
+
+def make_production_mesh(multi_pod: bool = False, device="meta") -> Mesh:
+    """The single-pod mesh, 16 x 16 = 256 devices with axes (data,
+    model), or with ``multi_pod`` 2 x 16 x 16 = 512 with a leading
+    ``pod`` axis (an outer data-parallel axis: gradients reduce inside a
+    pod first, then once across pods). Every entry is ``device``."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    dev = resolve_device(device)
+    return Mesh(np.full(shape, dev, dtype=object), axes)
 
 
 def make_test_mesh(shape=(2, 2), axes=("data", "model"),

@@ -130,3 +130,17 @@ class ModelConfig:
         out_proj = din * d
         conv = (din + 2 * g * n) * self.ssm_conv
         return in_proj + out_proj + conv + 2 * h + din
+
+    def active_param_count(self) -> int:
+        """Active parameters per token (MoE: only routed top-k + shared),
+        the JAX package's formula."""
+        if self.family != "moe":
+            return self.param_count()
+        d, f, L = self.d_model, self.d_ff, self.num_layers
+        hd = self.head_dim
+        emb = self.vocab_size * d
+        attn = d * (self.num_heads * hd) + 2 * d * (self.num_kv_heads * hd) \
+            + (self.num_heads * hd) * d
+        mlp_active = (self.top_k + self.num_shared_experts) * 3 * d * f \
+            + d * self.num_experts
+        return emb + L * (attn + mlp_active)

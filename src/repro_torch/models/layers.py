@@ -41,7 +41,8 @@ import torch
 
 from repro_torch.core.kv_codebook import kv_decode
 from repro_torch.core.lut import QuantConfig, lut_linear_apply, lut_linear_row
-from repro_torch.kernels.flash_decode import (flash_decode_paged,
+from repro_torch.kernels.flash_decode import (combine_splits,
+                                              flash_decode_paged,
                                               split_pages_for)
 from repro_torch.parallel.collectives import current as tp_current
 
@@ -95,13 +96,18 @@ def proj(p: Params, x: torch.Tensor, qc: QuantConfig,
 
 
 def _attend(qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-            mask: torch.Tensor) -> torch.Tensor:
+            mask: torch.Tensor, tp=None, d: Optional[int] = None
+            ) -> torch.Tensor:
     """Grouped queries qg (B,S,KVH,G,D) against k/v (B,T,KVH,D): scores
     in float32 scaled by D^-0.5, masked to -1e30 where ``mask`` (broadcast
     to (B,KVH,G,S,T)) is false, softmax, then probabilities in v's type.
-    Returns (B,S,KVH,G,D)."""
-    scores = torch.einsum("bskgd,btkd->bkgst", qg.float(),
-                          k.float()) * (qg.shape[-1] ** -0.5)
+    Returns (B,S,KVH,G,D). With ``tp`` the last dim is the rank's slice
+    of a head_dim ``d``: the partial scores are all-reduced over it
+    before the scale (the head_dim layout, ``_attention_hd``)."""
+    scores = torch.einsum("bskgd,btkd->bkgst", qg.float(), k.float())
+    if tp is not None:
+        scores = tp.all_reduce(scores)
+    scores = scores * ((d or qg.shape[-1]) ** -0.5)
     scores = torch.where(mask, scores, torch.full_like(scores, -1e30))
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     return torch.einsum("bkgst,btkd->bskgd", probs, v)
@@ -123,13 +129,15 @@ def mask_tile(qi: torch.Tensor, kj: torch.Tensor, window: int,
 
 def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_offset: int,
           window: int, kv_start: Optional[torch.Tensor] = None,
-          prefix_len: int = 0) -> torch.Tensor:
+          prefix_len: int = 0, tp=None, hd: Optional[int] = None
+          ) -> torch.Tensor:
     """Grouped-query attention of a chunk: q (B,S,H,D) at absolute
     positions q_offset.., k/v (B,T,KVH,D) at positions 0..T-1
     (``_attend`` under :func:`mask_tile`). kv_start: optional (B,) first
     valid key position of each row; keys before it are masked after the
     prefix term (the left-padded prompts of the batch-to-completion
-    engine)."""
+    engine). ``tp`` / ``hd``: q and k hold the rank's slice of head_dim
+    ``hd`` (``_attend``)."""
     b, s, h, d = q.shape
     t, kvh = k.shape[1], k.shape[2]
     qi = torch.arange(s, device=q.device) + q_offset
@@ -139,7 +147,7 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_offset: int,
         mask = mask[None] & (kj[None, None, :]
                              >= kv_start.to(q.device).long()[:, None, None])
         mask = mask[:, None, None]
-    out = _attend(q.reshape(b, s, kvh, h // kvh, d), k, v, mask)
+    out = _attend(q.reshape(b, s, kvh, h // kvh, d), k, v, mask, tp, hd)
     return out.reshape(b, s, h, d)
 
 
@@ -229,6 +237,192 @@ def _paged_view(pages: torch.Tensor, phys: torch.Tensor,
     return view.reshape(b, n_pages * ps, *pages.shape[2:])[:, :n_tokens]
 
 
+def hd_fallback(cfg, size: int) -> bool:
+    """Whether attention over a model axis of ``size`` ranks takes the
+    reference's head_dim layout: the kv heads do not divide the axis
+    (``parallel.sharding._kv_model_axes``; ``check_tensor_parallel``
+    requires head_dim to divide it then)."""
+    return size > 1 and bool(cfg.num_kv_heads % size)
+
+
+def _whole(t: torch.Tensor, n: int, tp) -> torch.Tensor:
+    """A column-parallel projection's output, the rank's contiguous
+    columns (..., n / ranks), all-gathered to all ``n`` columns; a
+    replicated projection's (the JAX rule drops the model axis where
+    ``n`` does not divide it) is whole already."""
+    return t if t.shape[-1] == n else tp.all_gather(t, -1)
+
+
+def _hd_slice(t: torch.Tensor, tp) -> torch.Tensor:
+    """The rank's even slice of the last (head_dim) dim, contiguous."""
+    return tp.shard(t, -1).contiguous()
+
+
+def _decode_dense(q: torch.Tensor, k_rows: torch.Tensor,
+                  v_rows: torch.Tensor, k_new: torch.Tensor,
+                  v_new: torch.Tensor, pos: int, window: int,
+                  kv_start: Optional[torch.Tensor], row0: int, scale: float,
+                  tp, dp) -> torch.Tensor:
+    """One-token decode of every row at ``pos`` over a dense cache sharded
+    by sequence over ``data`` (``dp``, the data handle): each data rank
+    computes the softmax triple (max, sum, probabilities times V) of its
+    rows (data rank 0 also the fresh row), and the triples are combined
+    across ``data`` in rank order (``kernels.flash_decode.
+    combine_splits``, the fold of B2's splits).
+
+    q (B,1,H,D'), k_rows / v_rows (B,T',KVH,D'): this rank's rows of the
+    cache (global rows [row0, row0 + T')), k_new / v_new (B,1,KVH,D') the
+    fresh row. With the head_dim layout too (``tp`` given) D' is the
+    rank's head_dim slice: its partial scores are all-reduced over
+    ``model`` into the whole scores. Masks as the one-device decode: rows
+    < pos, within ``window``, at or past ``kv_start``. Float32 throughout
+    (the probabilities rounded to V's type first). Returns (B,1,H,D') in
+    q's type."""
+    b, _, h, d = q.shape
+    t, kvh = k_rows.shape[1], k_rows.shape[2]
+    qg = q.reshape(b, kvh, h // kvh, d).float()
+
+    def scores(eq, keys):
+        sc = torch.einsum(eq, qg, keys.float())
+        return (sc if tp is None else tp.all_reduce(sc)) * scale
+
+    j = row0 + torch.arange(t, device=q.device)
+    mask = (j < pos)[None].expand(b, t)
+    if window > 0:
+        mask = mask & (j > pos - window)[None]
+    if kv_start is not None:
+        mask = mask & (j[None] >= kv_start.to(q.device).long()[:, None])
+    sc = scores("bkgd,btkd->bkgt", k_rows)
+    s_new = scores("bkgd,bkd->bkg", k_new[:, 0])   # every rank collects
+    vs = v_rows
+    if dp.rank == 0:                          # the fresh row, once
+        sc = torch.cat([sc, s_new[..., None]], -1)
+        mask = torch.cat([mask, torch.ones((b, 1), dtype=torch.bool,
+                                           device=q.device)], -1)
+        vs = torch.cat([v_rows, v_new.to(v_rows.dtype)], 1)
+    live = mask[:, None, None, :]
+    sc = torch.where(live, sc, torch.full_like(sc, -1e30))
+    mx = sc.amax(-1)
+    pr = torch.where(live, torch.exp(sc - mx[..., None]),
+                     torch.zeros_like(sc))
+    tri = (mx, pr.sum(-1), torch.einsum("bkgt,btkd->bkgd",
+                                        pr.to(vs.dtype).float(),
+                                        vs.float()))
+    if dp.size > 1:
+        packed = torch.cat([tri[0][..., None], tri[1][..., None], tri[2]],
+                           -1)
+        parts = dp.all_gather(packed[None], 0)
+        tri = None
+        for part in parts.unbind(0):
+            one = (part[..., 0], part[..., 1], part[..., 2:])
+            tri = one if tri is None else combine_splits(tri, one)
+    out = tri[2] / tri[1][..., None]
+    return out.reshape(b, 1, h, d).to(q.dtype)
+
+
+def _attention_hd(p: Params, x: torch.Tensor, cfg, qc: QuantConfig,
+                  q_offset, k_cache: Optional[torch.Tensor],
+                  v_cache: Optional[torch.Tensor], window: int,
+                  kv_start: Optional[torch.Tensor],
+                  recon: Optional[List[torch.Tensor]], prefix_len: int,
+                  seq_rows: Optional[int]
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`attention` when the kv heads do not divide the model axis
+    (the reference's fallback, ``_kv_model_axes``): wq / wk / wv keep
+    their contiguous column shards, the dense cache holds every kv head's
+    head_dim slice of the rank, wo stays row-parallel.
+
+    q, k and v are all-gathered to whole heads (RoPE rotates pairs across
+    the head_dim), and the rank keeps its head_dim slice of the fresh
+    K / V rows for the cache. Decode (one token): the one-device decode's
+    rows and arithmetic on the rank's slice, the partial scores
+    all-reduced over ``model`` before the softmax (``_attend``; over a
+    sequence-sharded cache, :func:`_decode_dense`); the head_dim-sharded
+    output is gathered and cut to the rank's columns for wo. A whole
+    sequence (training, a prefill from row 0): where the
+    reference's Ulysses conditions hold (S divides over the ranks and
+    exceeds them) the queries are re-sharded by sequence with an
+    all-to-all, each rank attends its rows with whole heads, and an
+    all-to-all takes the output back to the rank's columns; otherwise
+    every rank attends every row and keeps its columns.
+    """
+    b, s, _ = x.shape
+    tp = tp_current()
+    m, r = tp.size, tp.rank
+    h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    if torch.is_tensor(q_offset) or (s > 1 and q_offset != 0):
+        raise NotImplementedError(
+            "the head_dim layout (kv heads that do not divide the model "
+            "axis) runs whole sequences from row 0 and one-token dense "
+            "decode; per-slot positions and chunks past row 0 (the paged "
+            "engine's) are not ported: ROADMAP.md queue A item 11")
+    xn = rms_norm(x, p["norm"], cfg.norm_eps)
+    q = proj(p["wq"], xn, qc, recon)
+    k = proj(p["wk"], xn, qc, recon)
+    v = proj(p["wv"], xn, qc, recon)
+    positions = (torch.arange(s, device=x.device) + q_offset)[None]
+    kf = rope(_whole(k, kvh * hd, tp).reshape(b, s, kvh, hd), positions,
+              cfg.rope_theta)
+    vf = _whole(v, kvh * hd, tp).reshape(b, s, kvh, hd)
+    k_new, v_new = _hd_slice(kf, tp), _hd_slice(vf, tp)
+    if k_cache is not None:
+        k_new, v_new = k_new.to(k_cache.dtype), v_new.to(v_cache.dtype)
+    if s == 1 and k_cache is not None:          # dense decode
+        qs = _hd_slice(rope(_whole(q, h * hd, tp).reshape(b, 1, h, hd),
+                            positions, cfg.rope_theta), tp)
+        if seq_rows is not None:
+            o = _decode_dense(qs, k_cache.to(x.dtype), v_cache.to(x.dtype),
+                              k_new.to(x.dtype), v_new.to(x.dtype), q_offset,
+                              window, kv_start, seq_rows, hd ** -0.5, tp,
+                              tp.over("data"))
+        else:     # the one-device decode's rows and arithmetic, per slice
+            k_all = torch.cat([k_cache[:, :q_offset].to(x.dtype),
+                               k_new.to(x.dtype)], 1)
+            v_all = torch.cat([v_cache[:, :q_offset].to(x.dtype),
+                               v_new.to(x.dtype)], 1)
+            o = _sdpa(qs, k_all, v_all, q_offset, window, kv_start, 0, tp,
+                      hd)
+        out = tp.all_gather(o, -1).reshape(b, 1, h * hd)
+    elif s % m == 0 and s > m:                  # Ulysses
+        rows = s // m
+        qs = (tp.all_to_all(q, 1, -1) if q.shape[-1] != h * hd
+              else q.narrow(1, r * rows, rows))
+        qs = rope(qs.reshape(b, rows, h, hd), positions[:, r * rows:
+                                                        (r + 1) * rows],
+                  cfg.rope_theta)
+        o = _sdpa(qs, kf.to(x.dtype), vf.to(x.dtype), r * rows, window,
+                  kv_start, prefix_len).reshape(b, rows, h * hd)
+        if _in_width(p["wo"]) != h * hd:         # back to the rank's columns
+            return (lut_linear_row(p["wo"], tp.all_to_all(o, -1, 1), qc,
+                                   recon), k_new, v_new)
+        out = tp.all_gather(o, 1)
+    else:
+        qf = rope(_whole(q, h * hd, tp).reshape(b, s, h, hd), positions,
+                  cfg.rope_theta)
+        out = _sdpa(qf, kf.to(x.dtype), vf.to(x.dtype), 0, window,
+                    kv_start, prefix_len).reshape(b, s, h * hd)
+    return _row_out(p["wo"], out, qc, recon, tp), k_new, v_new
+
+
+def _in_width(p: Params) -> int:
+    """A projection's local input width (its rows: ``w``'s, or nc x v of
+    its centroids)."""
+    if "w" in p:
+        return p["w"].shape[-2]
+    return p["z"].shape[-3] * p["z"].shape[-1]
+
+
+def _row_out(p: Params, out: torch.Tensor, qc: QuantConfig,
+             recon: Optional[List[torch.Tensor]], tp) -> torch.Tensor:
+    """A row-parallel projection of a whole (all-gathered) input: the
+    rank's contiguous rows into ``lut_linear_row``, or, where the
+    projection is replicated (its rows did not divide the model axis),
+    the whole input through the one-device projection."""
+    if _in_width(p) == out.shape[-1]:
+        return lut_linear_apply(p, out, qc, recon)
+    return lut_linear_row(p, tp.shard(out, -1).contiguous(), qc, recon)
+
+
 def attention(p: Params, x: torch.Tensor, cfg, qc: QuantConfig, q_offset,
               k_pages: Optional[torch.Tensor],
               v_pages: Optional[torch.Tensor],
@@ -236,7 +430,7 @@ def attention(p: Params, x: torch.Tensor, cfg, qc: QuantConfig, q_offset,
               codebook: Optional[Params] = None,
               kv_start: Optional[torch.Tensor] = None,
               recon: Optional[List[torch.Tensor]] = None,
-              prefix_len: int = 0
+              prefix_len: int = 0, seq_rows: Optional[int] = None
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Pre-norm GQA attention over one layer of the paged pool, or of a
     dense cache.
@@ -277,17 +471,33 @@ def attention(p: Params, x: torch.Tensor, cfg, qc: QuantConfig, q_offset,
       prefix_len: positions < prefix_len attend each other both ways (a
         vlm's image prefix); taken by the paths that see the prefix, the
         one with no cache and a dense cache's chunk at q_offset 0.
+      seq_rows: a dense cache sharded by sequence over ``data``
+        (``parallel.sharding.cache_pspecs``' branch for a batch smaller
+        than the data axes): the global index of this rank's first cache
+        row. One-token decode then combines the data ranks' softmax
+        triples (:func:`_decode_dense`).
 
     Under tensor parallelism (a rank of ``parallel.collectives``) the
     rank computes its own heads: ``wq`` / ``wk`` / ``wv`` hold its
     columns, the pool its kv heads, and ``wo`` is row-parallel. B2 / B5
     split the pages as the one-device launch over every kv head does, so
-    each head's sums run in the same order as on one device.
+    each head's sums run in the same order as on one device. Where the kv
+    heads do not divide the model axis, the head_dim layout
+    (:func:`_attention_hd`; whole sequences and dense decode only).
 
     Returns: (out (B, S, D), k_new, v_new (B, S, KVH, HD)).
     """
     b, s, _ = x.shape
     tp = tp_current()
+    if hd_fallback(cfg, tp.size):
+        if phys is not None:
+            raise NotImplementedError(
+                "the paged pool under the head_dim layout (kv heads that "
+                "do not divide the model axis: B2 / B5 would need a "
+                "head_dim-split form) is not ported: ROADMAP.md queue A "
+                "item 11")
+        return _attention_hd(p, x, cfg, qc, q_offset, k_pages, v_pages,
+                             window, kv_start, recon, prefix_len, seq_rows)
     h, kvh, hd = (cfg.num_heads // tp.size, cfg.num_kv_heads // tp.size,
                   cfg.head_dim)
     xn = rms_norm(x, p["norm"], cfg.norm_eps)
@@ -321,6 +531,12 @@ def attention(p: Params, x: torch.Tensor, cfg, qc: QuantConfig, q_offset,
         out = _sdpa_decode_combine(q, k_pages.to(x.dtype),
                                    v_pages.to(x.dtype), k.to(x.dtype),
                                    v.to(x.dtype), q_offset, window)
+    elif phys is None and s == 1 and seq_rows is not None:
+        # dense cache sharded by sequence over data: combine the triples
+        out = _decode_dense(q, k_pages.to(x.dtype), v_pages.to(x.dtype),
+                            k_new.to(x.dtype), v_new.to(x.dtype), q_offset,
+                            window, kv_start, seq_rows, hd ** -0.5, None,
+                            tp.over("data")).reshape(b, s, h * hd)
     elif phys is None:      # dense cache: rows [0, q_offset) + the chunk
         k_all = torch.cat([k_pages[:, :q_offset].to(x.dtype),
                            k_new.to(x.dtype)], 1)
@@ -362,8 +578,12 @@ def attention(p: Params, x: torch.Tensor, cfg, qc: QuantConfig, q_offset,
 def mlp(p: Params, x: torch.Tensor, cfg, qc: QuantConfig,
         recon: Optional[List[torch.Tensor]] = None) -> torch.Tensor:
     """Pre-norm SwiGLU MLP (under tensor parallelism wg / wu
-    column-parallel, wd row-parallel)."""
+    column-parallel, wd row-parallel; replicated where d_ff does not
+    divide the model axis, as the JAX rule drops the axis there)."""
     xn = rms_norm(x, p["norm"], cfg.norm_eps)
     g = proj(p["wg"], xn, qc, recon)
     u = proj(p["wu"], xn, qc, recon)
-    return lut_linear_row(p["wd"], torch.nn.functional.silu(g) * u, qc, recon)
+    hidden = torch.nn.functional.silu(g) * u
+    if _in_width(p["wd"]) == cfg.d_ff:           # replicated (or one rank)
+        return lut_linear_apply(p["wd"], hidden, qc, recon)
+    return lut_linear_row(p["wd"], hidden, qc, recon)

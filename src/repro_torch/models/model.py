@@ -76,6 +76,7 @@ from repro_torch.core.lut import (DENSE, QuantConfig, lut_linear_init,
                                   precompute_layer, strip_for_inference)
 from repro_torch.device import resolve_device
 from repro_torch.parallel.collectives import current as tp_current
+from repro_torch.parallel.collectives import recomputable
 from .config import ModelConfig
 from .layers import attention, mlp, rms_norm
 from .mamba2 import init_mamba2, mamba2_block, mamba2_decode
@@ -256,13 +257,15 @@ class Model:
     def _run_blocks(self, params: Params, x: torch.Tensor, qc: QuantConfig,
                     q_offset, kv: Params, phys: Optional[torch.Tensor],
                     write, kv_start: Optional[torch.Tensor] = None,
-                    prefix_len: int = 0) -> torch.Tensor:
+                    prefix_len: int = 0,
+                    seq_rows: Optional[int] = None) -> torch.Tensor:
         """The layer loop: attention (reading layer li of the pool, or of
         a dense cache when ``phys`` is None; ``prefix_len`` as
         ``layers.attention`` takes it) then the MLP or the MoE FFN
         (whose load-balancing loss serving drops, as the JAX entry points
         do), with ``write(li, k_new, v_new)`` storing the layer's fresh
-        rows once its attention has read the pool."""
+        rows once its attention has read the pool; ``seq_rows`` as
+        ``layers.attention`` takes it (a sequence-sharded dense cache)."""
         cb = kv.get(CODEBOOK_KEY)
         tp = tp_current()
         for li, (p_l, win) in enumerate(zip(params["blocks"],
@@ -277,7 +280,8 @@ class Model:
                                         q_offset, kv["k"][li], kv["v"][li],
                                         phys, window=win, codebook=cb_l,
                                         kv_start=kv_start,
-                                        prefix_len=prefix_len)
+                                        prefix_len=prefix_len,
+                                        seq_rows=seq_rows)
             write(li, self._encode_rows(cb_l, "k", k_new),
                   self._encode_rows(cb_l, "v", v_new))
             x = x + a
@@ -388,13 +392,10 @@ class Model:
         ``batch`` its data group's rows: the layers run their collectives,
         the logits come back whole (all-gathered), ``recon`` is the sum of
         the ranks' shares (one all-reduce over the model axis) and
-        ``moe_aux`` the global batch's. ``cfg.remat`` is refused there."""
+        ``moe_aux`` the global batch's. With ``cfg.remat`` a layer
+        recomputed in the backward replays the results its collectives
+        gave in the forward (``parallel.collectives.recomputable``)."""
         tp = tp_current()
-        if self.cfg.remat and tp.world > 1:
-            raise NotImplementedError(
-                "remat under a mesh (a layer recomputed in the backward, "
-                "outside the rank runner, would run its collectives at "
-                "size 1) is not ported: ROADMAP.md queue A item 11")
         x, prefix_len = self._inputs(params, batch)
         recon = torch.zeros((), dtype=torch.float32, device=x.device)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -403,7 +404,9 @@ class Model:
             layer = functools.partial(self._train_layer, p_l, li, shared, qc,
                                       prefix_len=prefix_len)
             if self.cfg.remat:
-                x, r, a = checkpoint(layer, x, use_reentrant=False)
+                x, r, a = checkpoint(recomputable(layer), x,
+                                     use_reentrant=False,
+                                     preserve_rng_state=not x.is_meta)
             else:
                 x, r, a = layer(x)
             recon = recon + r
@@ -480,20 +483,40 @@ class Model:
 
         Returns (logits at the last position, (B, V) (audio (B, Q, V)),
         cache with pos = the rows written).
+
+        Inside a rank of a ``parallel.collectives`` runner over a mesh,
+        ``params`` are the rank's shards (``serving_layout``) and
+        ``cache`` the rank's part of a cache laid out by
+        ``parallel.sharding.cache_pspecs`` (``shard_cache``): its batch
+        rows when the batch covers the data axes (``batch`` then holds
+        those rows), else every row of a slice of the sequence over
+        ``data`` (``cache["seq_rows"]``: each data rank writes the prompt
+        rows it holds, and decode combines the ranks' softmax triples).
+        Where the kv heads do not divide the model axis, the cache holds
+        the rank's head_dim slice (``layers.attention``).
         """
         self._check_pad_lens(pad_lens)
+        row0 = self._seq_rows(cache)
         x, prefix_len = self._inputs(params, batch)
         s = x.shape[1]
         layers = cache["layers"]
+        lo = row0 or 0
+        hi = min(lo + layers["k"].shape[2], s)
+        if row0 is None and s > layers["k"].shape[2]:
+            raise ValueError(f"a prompt of {s} rows runs past the cache's "
+                             f"{layers['k'].shape[2]}")
 
         def write(li, k_new, v_new):
-            layers["k"][li, :, :s] = k_new
-            layers["v"][li, :, :s] = v_new
+            if hi > lo:         # the prompt rows this rank's cache holds
+                layers["k"][li, :, :hi - lo] = k_new[:, lo:hi]
+                layers["v"][li, :, :hi - lo] = v_new[:, lo:hi]
 
         x = self._run_blocks(params, x, qc, 0, layers, None, write,
-                             kv_start=pad_lens, prefix_len=prefix_len)
+                             kv_start=pad_lens, prefix_len=prefix_len,
+                             seq_rows=row0)
         x = rms_norm(x[:, -1:], params["final_norm"], self.cfg.norm_eps)
-        return self._head(params, x)[:, 0], {"layers": layers, "pos": s}
+        return self._head(params, x)[:, 0], dict(cache, layers=layers,
+                                                 pos=s)
 
     def decode(self, params: Params, tokens: torch.Tensor, cache: Params,
                qc: QuantConfig = DENSE, pad_lens=None):
@@ -501,25 +524,47 @@ class Model:
 
         tokens (B, 1) int32 (audio: frame embeddings (B, 1, D); vlm: text
         token ids); pad_lens as in :meth:`prefill` (the left padding stays
-        masked). The new row is written in place at ``cache["pos"]``.
-        Returns (logits (B, V) (audio (B, Q, V)), cache with pos + 1).
+        masked). The new row is written in place at ``cache["pos"]`` (by
+        the rank that holds it, in a sequence-sharded cache; layouts as
+        :meth:`prefill` takes them). Returns (logits (B, V) (audio (B, Q,
+        V)), cache with pos + 1).
         """
         self._check_pad_lens(pad_lens)
+        row0 = self._seq_rows(cache)
         pos = cache["pos"]
         layers = cache["layers"]
-        if pos >= layers["k"].shape[2]:
+        rows = layers["k"].shape[2]
+        total = rows * (1 if row0 is None else tp_current().over("data").size)
+        if pos >= total:
             raise ValueError(f"decode at row {pos} runs past the cache's "
-                             f"{layers['k'].shape[2]} rows")
+                             f"{total} rows")
+        local = pos - (row0 or 0)
 
         def write(li, k_new, v_new):
-            layers["k"][li, :, pos] = k_new[:, 0]
-            layers["v"][li, :, pos] = v_new[:, 0]
+            if 0 <= local < rows:   # the rank that holds row pos
+                layers["k"][li, :, local] = k_new[:, 0]
+                layers["v"][li, :, local] = v_new[:, 0]
 
         x = self._run_blocks(params, self._embed(params, tokens), qc, pos,
-                             layers, None, write, kv_start=pad_lens)
+                             layers, None, write, kv_start=pad_lens,
+                             seq_rows=row0)
         x = rms_norm(x, params["final_norm"], self.cfg.norm_eps)
-        return self._head(params, x)[:, 0], {"layers": layers,
-                                             "pos": pos + 1}
+        return self._head(params, x)[:, 0], dict(cache, layers=layers,
+                                                 pos=pos + 1)
+
+    def _seq_rows(self, cache: Params) -> Optional[int]:
+        """The global index of this rank's first row of a dense cache
+        sharded by sequence over ``data`` (``cache["seq_rows"]``, set by
+        ``parallel.sharding.shard_cache``); None for a cache that holds
+        every row. The MoE family routes the global batch over the data
+        axes, which a sequence-sharded cache's ranks share: refused."""
+        row0 = cache.get("seq_rows")
+        if row0 is not None and self.cfg.family == "moe":
+            raise NotImplementedError(
+                "MoE serving over a sequence-sharded dense cache (a batch "
+                "smaller than the data axes) is not ported: its routing "
+                "gathers the batch over data: ROADMAP.md queue A item 11")
+        return row0
 
     def _check_pad_lens(self, pad_lens) -> None:
         """Refuse left padding on a vlm: the JAX package masks rows <

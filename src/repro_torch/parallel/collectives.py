@@ -12,7 +12,9 @@ GSPMD inserts a collective in the reference:
 
   * :meth:`TP.all_reduce` sums every rank's tensor in rank order (0, 1,
     ...), so every rank holds the same bits and a run reproduces;
-  * :meth:`TP.all_gather` concatenates them along a dim in rank order.
+  * :meth:`TP.all_gather` concatenates them along a dim in rank order;
+  * :meth:`TP.all_to_all` gives rank r the r-th slice (along one dim) of
+    every rank's tensor, concatenated along another in rank order.
 
 On one device (several ranks sharing a card, or the CPU) a collective is
 plain adds or a concatenation; across cards each rank copies the others'
@@ -72,7 +74,26 @@ methods, one process a rank, for serving and training across hosts
 Counters: ``RankRunner.collectives`` counts collectives (one per call of
 all ranks, whatever the axis) and ``RankRunner.bytes`` the bytes they
 gathered (the sum of every rank's contribution), for the ``scale`` and
-``train_scale`` phases of ``chip_smoke.py``.
+``train_scale`` phases of ``chip_smoke.py``. Under an open
+``launch.op_cost.OpCost`` each rank also records its operand's bytes by
+kind.
+
+:class:`CostRunner` is the one-rank runner of the dry run (``launch``):
+over a mesh it runs only the rank at coordinate 0 of every axis, whose
+collectives exchange nothing: each returns an empty tensor of its
+result's shape (on the meta device, where the dry run runs) and records
+its operand's bytes, and its backward records the transposed collective.
+The layouts the port accepts shard evenly, so every rank runs the same
+shapes and one rank's program is every rank's: the counterpart of the
+SPMD-partitioned module the JAX package costs.
+
+Activation checkpointing under a mesh (:func:`recomputable`): a layer's
+forward records what each of its collectives returned (a tape); the
+layer recomputed in the backward runs on the thread of the backward,
+outside the runner, where the other ranks are not running, so its
+collectives return the taped results through a replaying handle of the
+same rank. The recomputed ops see the same values, and the gradient
+still flows through the forward's collectives (the original graph).
 """
 from __future__ import annotations
 
@@ -84,6 +105,8 @@ import weakref
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
+
+from repro_torch.launch.op_cost import record_collective
 
 #: Seconds a rank waits for its turn before the call raises (a rank stuck
 #: for this long is a bug).
@@ -133,7 +156,8 @@ class TP:
         engine's replicated step inputs."""
         return t if t.device == self.device else t.to(self.device)
 
-    def _exchange(self, t: torch.Tensor) -> List[torch.Tensor]:
+    def _exchange(self, t: torch.Tensor, kind: str) -> List[torch.Tensor]:
+        record_collective(kind, t.numel() * t.element_size(), self.me)
         g = self.group
         buf = g.slots[g.gen[self.me] % 2]
         g.gen[self.me] += 1
@@ -150,17 +174,29 @@ class TP:
         """The sum of every rank's ``t``, added in rank order."""
         if self.size == 1:
             return t
-        parts = self._exchange(t)
+        parts = self._exchange(t, "all-reduce")
         out = parts[0]
         for p in parts[1:]:
             out = out + p
-        return out
+        return _taped(out)
 
     def all_gather(self, t: torch.Tensor, dim: int = -1) -> torch.Tensor:
         """Every rank's ``t`` concatenated along ``dim`` in rank order."""
         if self.size == 1:
             return t
-        return torch.cat(self._exchange(t), dim=dim)
+        return _taped(torch.cat(self._exchange(t, "all-gather"), dim=dim))
+
+    def all_to_all(self, t: torch.Tensor, split_dim: int,
+                   cat_dim: int) -> torch.Tensor:
+        """Rank r's part: the r-th even slice along ``split_dim`` of every
+        rank's ``t``, concatenated along ``cat_dim`` in rank order (the
+        Ulysses re-shard: sequence-sharded <-> head-sharded)."""
+        if self.size == 1:
+            return t
+        parts = self._exchange(t, "all-to-all")
+        w = t.shape[split_dim] // self.size
+        return _taped(torch.cat([p.narrow(split_dim, self.rank * w, w)
+                                 for p in parts], dim=cat_dim))
 
     def permute(self, t: torch.Tensor,
                 perm: Sequence[Tuple[int, int]]) -> torch.Tensor:
@@ -170,9 +206,9 @@ class TP:
         if self.size == 1:
             src = [s for s, d in perm if d == 0]
             return t if src else torch.zeros_like(t)
-        parts = self._exchange(t)
+        parts = self._exchange(t, "permute")
         src = [s for s, d in perm if d == self.rank]
-        return parts[src[0]] if src else torch.zeros_like(t)
+        return _taped(parts[src[0]] if src else torch.zeros_like(t))
 
     def shard(self, t: torch.Tensor, dim: int = -1) -> torch.Tensor:
         """This rank's even slice of a replicated ``t`` along ``dim``."""
@@ -186,6 +222,73 @@ class TP:
 SOLO = TP(None, 0, torch.device("cpu"))
 
 _LOCAL = threading.local()
+
+
+def _taped(out: torch.Tensor) -> torch.Tensor:
+    """A collective's result, appended to the calling thread's tape when
+    one is open (the forward of a :func:`recomputable` layer)."""
+    tape = getattr(_LOCAL, "tape", None)
+    if tape is not None:
+        tape.append(out)
+    return out
+
+
+class _Replay(TP):
+    """A rank's handle whose collectives return, in order, what the
+    same rank's collectives returned in the forward (a tape): the handle
+    of a layer recomputed in the backward."""
+
+    def __init__(self, base: TP, results):
+        self.__dict__.update(base.__dict__)
+        self._base = base
+        self._results = results
+
+    def over(self, *axes: str) -> TP:
+        return _Replay(self._base.over(*axes), self._results)
+
+    def _next(self, t: torch.Tensor) -> torch.Tensor:
+        return t if self.size == 1 else next(self._results)
+
+    def all_reduce(self, t):
+        return self._next(t)
+
+    def all_gather(self, t, dim=-1):
+        return self._next(t)
+
+    def all_to_all(self, t, split_dim, cat_dim):
+        return self._next(t)
+
+    def permute(self, t, perm):
+        if self.size == 1:
+            return TP.permute(self, t, perm)
+        return next(self._results)
+
+
+def recomputable(fn: Callable) -> Callable:
+    """``fn`` for ``torch.utils.checkpoint`` inside a rank of a runner
+    over several ranks: its first call (the forward) tapes what each of
+    its collectives returns; every later call (a recompute in the
+    backward, on another thread) runs as the same rank with those
+    results replayed (:class:`_Replay`). Outside such a runner, ``fn``
+    itself."""
+    tp = current()
+    if tp.world == 1:
+        return fn
+    tape: list = []
+    calls = [0]
+
+    def run(*args, **kwargs):
+        calls[0] += 1
+        if calls[0] == 1:
+            prev = getattr(_LOCAL, "tape", None)
+            _LOCAL.tape = tape
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                _LOCAL.tape = prev
+        with _as_rank(_Replay(tp, iter(tape))), _cuda_device(tp.device):
+            return fn(*args, **kwargs)
+    return run
 
 
 def current() -> TP:
@@ -329,6 +432,7 @@ class RankRunner:
         if self.size < 1:
             raise ValueError("a rank runner needs at least one device")
         self.axis_names = axis_names
+        self.ranks = list(range(self.size))   # the mesh ranks it runs
         self.collectives = 0
         self.bytes = 0
         self._group = (_Group(self, self.size, axis_names)
@@ -400,6 +504,115 @@ class RankRunner:
         if first is not None:
             raise first
         return results
+
+
+class _Costed(torch.autograd.Function):
+    """A collective of the one-rank runner: an empty result of the given
+    shape on the operand's device, its operand's bytes recorded; the
+    backward records the transposed collective (``back``) on the
+    incoming gradient."""
+
+    @staticmethod
+    def forward(ctx, t, tp, kind, back, shape):
+        ctx.tp, ctx.back, ctx.in_shape = tp, back, tuple(t.shape)
+        tp._record(kind, t)
+        return t.new_empty(shape)
+
+    @staticmethod
+    def backward(ctx, g):
+        ctx.tp._record(ctx.back, g)
+        return g.new_empty(ctx.in_shape), None, None, None, None
+
+
+class _CostTP(TP):
+    """Rank 0's handle on one axis group of a :class:`CostRunner`: the
+    group's ``size``, and collectives that exchange nothing."""
+
+    def __init__(self, runner: "CostRunner", size: int,
+                 device: torch.device):
+        super().__init__(None, 0, device, tuple(range(size)), 0)
+        self.runner = runner
+
+    @property
+    def world(self) -> int:
+        return self.runner.world
+
+    def over(self, *axes: str) -> TP:
+        names = tuple(a for a in self.runner.axis_names if a in axes)
+        return self._views[names]
+
+    def _record(self, kind: str, t: torch.Tensor) -> None:
+        n = t.numel() * t.element_size()
+        record_collective(kind, n, 0)
+        self.runner.collectives += 1
+        self.runner.bytes += n * self.size
+
+    def _costed(self, t, kind, back, shape):
+        return _taped(_Costed.apply(t, self, kind, back, tuple(shape)))
+
+    def all_reduce(self, t):
+        if self.size == 1:
+            return t
+        return self._costed(t, "all-reduce", "all-reduce", t.shape)
+
+    def all_gather(self, t, dim=-1):
+        if self.size == 1:
+            return t
+        shape = list(t.shape)
+        shape[dim] *= self.size
+        return self._costed(t, "all-gather", "reduce-scatter", shape)
+
+    def all_to_all(self, t, split_dim, cat_dim):
+        if self.size == 1:
+            return t
+        shape = list(t.shape)
+        shape[split_dim] //= self.size
+        shape[cat_dim] *= self.size
+        return self._costed(t, "all-to-all", "all-to-all", shape)
+
+    def permute(self, t, perm):
+        if self.size == 1:
+            return TP.permute(self, t, perm)
+        return self._costed(t, "permute", "permute", t.shape)
+
+
+class CostRunner:
+    """The one-rank runner of the dry run: over ``mesh`` it runs only the
+    rank at coordinate 0 of every axis (``ranks == [0]``), on the mesh's
+    first device; its handles' sizes are the mesh's, their collectives
+    return empty tensors of the result's shape and record their operand
+    bytes in every open ``launch.op_cost.OpCost`` (and ``collectives`` /
+    ``bytes`` here: ``bytes`` counts every rank's part, as
+    :class:`RankRunner`'s). ``run(fn)`` returns ``[fn(tp)]``. Takes a
+    :class:`RankRunner`'s place wherever a runner is passed."""
+
+    def __init__(self, mesh):
+        self.axis_names = tuple(mesh.axis_names)
+        shape = tuple(mesh.devices.shape)
+        self.world = int(mesh.devices.size)
+        self.devices = [_indexed(torch.device(mesh.devices.flat[0]))]
+        self.size = 1
+        self.ranks = [0]
+        self.collectives = 0
+        self.bytes = 0
+        views: Dict[Tuple[str, ...], TP] = {}
+        for mask in itertools.product((False, True),
+                                      repeat=len(shape)):
+            names = tuple(a for a, keep in zip(self.axis_names, mask)
+                          if keep)
+            size = 1
+            for a, n, keep in zip(self.axis_names, shape, mask):
+                size *= n if keep else 1
+            views[names] = _CostTP(self, size, self.devices[0])
+        for tp in views.values():
+            tp._views = views
+        model = ("model",) if "model" in self.axis_names else ()
+        self.handles = [views[model]]
+
+    def run(self, fn: Callable[[TP], object]) -> list:
+        tp = self.handles[0]
+        with _as_rank(tp), _cuda_device(tp.device):
+            return [fn(tp)]
 
 
 def _handles(group, devices, axis_names, shape) -> List[TP]:

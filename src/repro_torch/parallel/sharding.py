@@ -216,16 +216,18 @@ def batch_pspecs(cfg: ModelConfig, data_axes: Tuple[str, ...] = ("data",)):
     return {"tokens": P(da, None)}
 
 
-def shard_batch(batch, cfg: ModelConfig, mesh: Mesh) -> list:
+def shard_batch(batch, cfg: ModelConfig, mesh: Mesh,
+                only: Optional[Sequence[int]] = None) -> list:
     """A global training batch cut by :func:`batch_pspecs` over the mesh's
     data axes (every rank of a data group gets its rows; the batch dim
     must divide their product), one dict a rank on the rank's device, in
-    the order of ``mesh.devices.flat``. A mesh without data axes gives
+    the order of ``mesh.devices.flat`` (``only``: the ranks to cut for,
+    as :func:`shard_tree` takes them). A mesh without data axes gives
     every rank the whole batch."""
     da = data_axes(mesh)
     specs = (batch_pspecs(cfg, da) if da
              else {k: P() for k in batch})
-    return shard_tree({k: batch[k] for k in specs}, specs, mesh)
+    return shard_tree({k: batch[k] for k in specs}, specs, mesh, only=only)
 
 
 def cache_pspecs(cfg: ModelConfig, batch_size: int, mesh: Mesh,
@@ -277,6 +279,32 @@ def _kv_model_axes(cfg: ModelConfig, model_axis: str, msize: int):
     if hd and hd % msize == 0:
         return None, model_axis
     return None, None
+
+
+def shard_cache(cache, cfg: ModelConfig, batch_size: int, mesh: Mesh,
+                only: Optional[Sequence[int]] = None) -> list:
+    """A dense cache (``Model.init_cache``: full leaves on any device,
+    the meta device giving zeroed shards) cut by :func:`cache_pspecs`
+    into each rank's part (``only`` as :func:`shard_tree` takes it): its
+    batch rows when the batch covers the data axes, else a slice of the
+    sequence over ``data``, whose first global row the part carries as
+    ``"seq_rows"`` (what ``Model.prefill`` / ``decode`` read); each
+    rank's kv heads, or its head_dim slice where they do not divide the
+    model axis."""
+    da = data_axes(mesh)
+    specs = cache_pspecs(cfg, batch_size, mesh, da)["layers"]
+    parts = shard_tree(cache["layers"], specs, mesh, only=only)
+    seq = specs["k"][2]                       # (L, B, T, KVH, HD): T's axes
+    coords = _coords(mesh)
+    out = []
+    for i, layers in zip(range(mesh.size) if only is None else only,
+                         parts):
+        part = dict(cache, layers=layers)
+        if seq is not None:
+            rows = layers["k"].shape[2]
+            part["seq_rows"] = _block(seq, coords[i], mesh)[0] * rows
+        out.append(part)
+    return out
 
 
 def paged_cache_pspecs(cfg: ModelConfig, mesh: Mesh,
@@ -347,13 +375,25 @@ def mamba_columns(cfg: ModelConfig, msize: int
     return in_cols, conv_cols
 
 
-def check_tensor_parallel(cfg: ModelConfig, msize: int, qc=None) -> None:
+def check_tensor_parallel(cfg: ModelConfig, msize: int, qc=None,
+                          paged: bool = False) -> None:
     """Raise ``NotImplementedError`` unless the layer code can run
-    ``cfg`` over a model axis of ``msize``: every dim it shards must
-    divide (the JAX rule would replicate a non-divisible dim, and GSPMD
-    reshard around it; the port's rank code sees only its shard). The
-    vocab may go either way (sharded or replicated). ``qc``'s sub-vector
-    length must also divide each row-parallel shard's input width."""
+    ``cfg`` over a model axis of ``msize``. Every dim it shards must
+    divide, or fall back as the reference's does:
+
+    * kv heads that do not divide take the head_dim layout
+      (``models.layers._attention_hd``: the dense cache holds each rank's
+      head_dim slice, which must divide) for ``forward`` / ``loss``, the
+      dense-cache ``prefill`` / ``decode`` and the train step; the paged
+      entry points (``paged=True``, the engines) refuse it, since B2 / B5
+      have no head_dim-split form;
+    * a d_ff that does not divide replicates the MLP (the JAX rule drops
+      the axis there), and so do q / k / v / o projections whose width
+      does not divide under the head_dim layout.
+
+    The vocab may go either way (sharded or replicated). ``qc``'s
+    sub-vector length must also divide each row-parallel shard's input
+    width."""
     if msize == 1:
         return
     v = qc.v if qc is not None and qc.is_lut else 1
@@ -365,15 +405,21 @@ def check_tensor_parallel(cfg: ModelConfig, msize: int, qc=None) -> None:
             "ROADMAP.md queue A item 11")
     if cfg.family in ("dense", "moe", "hybrid"):
         hd = cfg.head_dim
-        need += [("num_heads", cfg.num_heads), ("num_kv_heads",
-                                                cfg.num_kv_heads),
-                 ("wo subspaces", cfg.num_heads * hd // v)]
+        wo = cfg.num_heads * hd
+        if paged or cfg.family == "hybrid" or not cfg.num_kv_heads % msize:
+            need += [("num_heads", cfg.num_heads),
+                     ("num_kv_heads", cfg.num_kv_heads),
+                     ("wo subspaces", wo // v)]
+        else:                                   # the head_dim layout
+            need += [("head_dim", hd)]
+            if not wo % msize:
+                need += [("wo subspaces", wo // v)]
         if cfg.family == "moe":
             need += [("num_experts", cfg.num_experts)]
             if cfg.num_shared_experts:
                 need += [("d_ff", cfg.d_ff), ("wd subspaces", cfg.d_ff // v)]
-        else:
-            need += [("d_ff", cfg.d_ff), ("wd subspaces", cfg.d_ff // v)]
+        elif not cfg.d_ff % msize:              # else the MLP is replicated
+            need += [("wd subspaces", cfg.d_ff // v)]
     if cfg.family in ("ssm", "hybrid"):
         if cfg.ssm_ngroups != 1:
             raise NotImplementedError(
@@ -383,11 +429,13 @@ def check_tensor_parallel(cfg: ModelConfig, msize: int, qc=None) -> None:
                  ("out_proj subspaces", cfg.d_inner // v)]
     bad = [f"{name}={n}" for name, n in need if n % msize]
     if bad:
+        what = ("the paged engines' head_dim form (B2 / B5 split by "
+                "head_dim)" if paged and cfg.num_kv_heads % msize
+                else "a layout for such dims")
         raise NotImplementedError(
             f"{cfg.name} over a model axis of {msize}: {', '.join(bad)} "
-            "do not divide it; the reference's fallbacks for such dims "
-            "(head_dim-sharded attention, replicated projections) are not "
-            "ported: ROADMAP.md queue A item 11")
+            f"do not divide it; {what} is not ported: ROADMAP.md queue A "
+            "item 11")
 
 
 def serving_layout(params, cfg: ModelConfig, msize: int,
@@ -483,7 +531,8 @@ def _take(leaf: torch.Tensor, spec, region) -> torch.Tensor:
     return leaf[region]
 
 
-def shard_tree(tree, specs, mesh: Mesh, copy: bool = False) -> list:
+def shard_tree(tree, specs, mesh: Mesh, copy: bool = False,
+               only: Optional[Sequence[int]] = None) -> list:
     """Cut every full leaf of ``tree`` into each device's shard by its
     spec (a :class:`P` or :class:`Columns` leaf of ``specs``, a tree of
     the same structure). Returns one local tree a device of ``mesh``, in
@@ -496,7 +545,10 @@ def shard_tree(tree, specs, mesh: Mesh, copy: bool = False) -> list:
     device stands for zeros: each shard is allocated zeroed on its
     device (a pool made shard by shard). A replicated leaf is copied to
     a device once and shared by the ranks there; on its own device it is
-    the leaf itself, and a contiguous slice there is a view of it."""
+    the leaf itself, and a contiguous slice there is a view of it.
+    ``only``: the flat indices of the devices to cut for (a runner's
+    ``ranks``; the one-rank ``CostRunner`` runs rank 0 alone), in that
+    order; default every device."""
     coords = _coords(mesh)
     devices = list(mesh.devices.flat)
     placed: dict = {}                     # (leaf, device) -> replicated copy
@@ -521,7 +573,8 @@ def shard_tree(tree, specs, mesh: Mesh, copy: bool = False) -> list:
                 placed[key] = part.to(dev).contiguous()
             return placed[key]
         return tree_map_with_path(cut, tree, specs)
-    return [one(i) for i in range(len(devices))]
+    return [one(i) for i in (range(len(devices)) if only is None
+                             else only)]
 
 
 @dataclasses.dataclass(frozen=True)

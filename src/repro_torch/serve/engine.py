@@ -339,7 +339,7 @@ class Engine:
                 raise ValueError(f"mesh {mesh.axis_names} has no 'model' "
                                  "axis")
             msize = mesh.shape["model"]
-            check_tensor_parallel(model.cfg, msize, qc)
+            check_tensor_parallel(model.cfg, msize, qc, paged=True)
             group = replica_submeshes(mesh)[0]
             self.params = shard_tree(
                 params, serving_layout(params, model.cfg, msize), group)

@@ -102,7 +102,8 @@ def _microbatches(batch, n: int):
 
 
 def make_train_step(model, qc: QuantConfig, tc: TrainConfig,
-                    stage: int = 3, mesh=None, layout=None) -> Callable:
+                    stage: int = 3, mesh=None, layout=None,
+                    runner=None) -> Callable:
     """Returns ``step_fn(params, opt_state, batch, step, accept=None) ->
     (params, opt_state, metrics)``.
 
@@ -121,7 +122,7 @@ def make_train_step(model, qc: QuantConfig, tc: TrainConfig,
     and the step is the same code on one rank (a runner over the params'
     device), where every collective is the identity.
     """
-    runner = shared = None
+    shared = None
     if mesh is not None:
         if layout is None:
             raise ValueError("a sharded train step needs the params' "
@@ -129,7 +130,7 @@ def make_train_step(model, qc: QuantConfig, tc: TrainConfig,
         if "model" not in mesh.axis_names:
             raise ValueError(f"mesh {mesh.axis_names} has no 'model' axis")
         check_tensor_parallel(model.cfg, mesh.shape["model"], qc)
-        runner = RankRunner(mesh=mesh)
+        runner = runner or RankRunner(mesh=mesh)
         shared = shared_entries(layout)
     n = tc.microbatches
 
@@ -137,7 +138,8 @@ def make_train_step(model, qc: QuantConfig, tc: TrainConfig,
         _own_storage(list(zip(params, opt_state)))
         gsum, lsum = None, None
         for mb in _microbatches(batch, n):
-            parts = [mb] if mesh is None else shard_batch(mb, model.cfg, mesh)
+            parts = ([mb] if mesh is None else
+                     shard_batch(mb, model.cfg, mesh, only=run.ranks))
             loss, metrics, g = sharded_loss_and_grads(model, run, params,
                                                       parts, qc)
             if n > 1:           # accumulated in fp32, as the reference
