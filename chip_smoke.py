@@ -119,7 +119,14 @@ qwen1.5-4b engine on the card and on meta copies of its inputs (flops,
 CUDA-core ops, bytes and kernel calls must be equal) beside its measured
 time and roofline-ideal time, and runs qwen1.5-4b cut to 4 layers over a
 (1, 8) mesh of the card, whose 20 kv heads take the head_dim layout,
-against the unsharded run. A last phase, examples, runs the five
+against the unsharded run. A phase, attention (after launch), runs one
+full-width qwen1.5-4b attention layer over a 32768-token sequence
+through the chunked online softmax (its peak beside the 85.9 GB of one
+float32 score tensor), holds the chunked and block-local forms and the
+chunked backward against one float32 softmax at 4096 tokens, prints a
+2-layer train step's peak chunked and with one softmax, and counts a
+32768-row dense-cache decode step on the card and on meta (equal). A
+last phase, examples, runs the five
 example twins (examples/torch_*.py) at the JAX examples' defaults.
 
     python3 chip_smoke.py [--seed N]
@@ -193,6 +200,7 @@ from repro_torch.parallel.sharding import (  # noqa: E402
 from repro_torch.launch.dryrun import run_cell  # noqa: E402
 from repro_torch.launch.mesh import make_production_mesh  # noqa: E402
 from repro_torch.launch.op_cost import program_cost  # noqa: E402
+from repro_torch.models import layers as tlayers  # noqa: E402
 from repro_torch.models.layers import hd_fallback  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models.model import RECURRENT, Model  # noqa: E402
@@ -4578,6 +4586,231 @@ def fallback_run(model, params, qc, seed):
     free()
 
 
+# ---------------------------------------------------------------------------
+# attention phase: bounded-memory attention (the chunked online softmax,
+# the block-local window path, a dense cache read as a view of its rows)
+# ---------------------------------------------------------------------------
+
+#: tokens of the long whole-sequence layer and rows of the long decode's
+#: dense cache
+ATTN_LONG = 32768
+#: tokens of the comparisons against one float32 softmax, and the window
+#: of the block-local form there (gemma3-4b's)
+ATTN_CMP, ATTN_WINDOW = 4096, 1024
+#: relative L2 of the chunked and the block-local forms against a float32
+#: one softmax of the same q, k, v: in bf16, and in float32
+ATTN_REL = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
+#: relative L2 of the chunked backward's float32 q / k / v gradients
+#: against autograd of the float32 one softmax
+ATTN_GRAD_REL = 1e-5
+#: one float32 score tensor of the one-softmax form over ATTN_LONG tokens
+#: at qwen1.5-4b's 20 heads, GB
+ONE_SOFTMAX_GB = 20 * ATTN_LONG ** 2 * 4 / 1e9
+#: the train step of the phase: qwen1.5-4b cut to this depth, one row of
+#: this many tokens
+ATTN_TRAIN_LAYERS, ATTN_TRAIN_SEQ = 2, 4096
+
+
+def one_softmax(q, k, v, window=0):
+    """Float32 attention of q (B, S, H, D) over k / v (B, S, KVH, D) in one
+    softmax (causal, within ``window`` when it is > 0): the plain
+    yardstick, differentiable."""
+    b, s, h, d = q.shape
+    kvh = k.shape[2]
+    qg = q.float().reshape(b, s, kvh, h // kvh, d)
+    sc = torch.einsum("bskgd,btkd->bkgst", qg, k.float()) * d ** -0.5
+    i = torch.arange(s, device=q.device)
+    mask = i[None, :] <= i[:, None]
+    if window:
+        mask = mask & (i[None, :] > i[:, None] - window)
+    p = torch.softmax(sc.masked_fill(~mask, float("-inf")), -1)
+    return torch.einsum("bkgst,btkd->bskgd", p, v.float()).reshape(b, s, h, d)
+
+
+def event_ms(fn):
+    """(fn's result, its device ms: CUDA events around one call)."""
+    torch.cuda.synchronize()
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    s.record()
+    out = fn()
+    e.record()
+    torch.cuda.synchronize()
+    return out, s.elapsed_time(e)
+
+
+def peak_gb(fn):
+    """(fn's result, the card's peak allocated GB during the call above
+    what was allocated before it, its device ms)."""
+    free()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out, ms = event_ms(fn)
+    return out, (torch.cuda.max_memory_allocated() - base) / 1e9, ms
+
+
+def attention_phase(model, params, qc, seed):
+    """Bounded-memory attention on the card: (a) one full-width
+    qwen1.5-4b attention layer (int8 LUTs, bf16) over an ATTN_LONG-token
+    whole sequence through ``layers.attention`` (the chunked online
+    softmax), its peak beside the one float32 score tensor the one
+    softmax would need; (b) the chunked form (qwen1.5-4b heads) and the
+    block-local form (gemma3-4b heads, window ATTN_WINDOW) at ATTN_CMP tokens
+    against a float32 one softmax of the same q, k, v, in bf16 and in
+    float32, and the chunked backward's float32 gradients against
+    autograd of it; (c) the peak of a qwen1.5-4b train step cut to
+    ATTN_TRAIN_LAYERS layers at 1 x ATTN_TRAIN_SEQ tokens, chunked
+    beside ``attn_impl="naive"``; (d) one dense-cache decode step at
+    ATTN_LONG rows of full-width qwen1.5-4b, counted by ``program_cost``
+    on the card and on meta copies (flops, bytes, kernel calls equal)."""
+    cfg = model.cfg
+    gen = torch.Generator(device=DEV).manual_seed(seed + 40)
+
+    def randn(*shape, dtype=torch.bfloat16, scale=1.0):
+        return (scale * torch.randn(shape, generator=gen, device=DEV)).to(
+            dtype)
+
+    # (a) the long whole-sequence layer
+    x = randn(1, ATTN_LONG, cfg.d_model)
+    b1_0 = vq_amm_cuda.launches
+    with torch.no_grad():
+        out, gb, ms = peak_gb(lambda: tlayers.attention(
+            params["blocks"][0]["attn"], x, cfg, qc, 0, None, None, None))
+    check(tuple(out.shape) == tuple(x.shape)
+          and bool(torch.isfinite(out).all()),
+          f"attention [{ATTN_LONG} tokens]: non-finite or misshapen output")
+    check(vq_amm_cuda.launches - b1_0 == 4,
+          "attention [long layer]: not 4 B1 launches (wq wk wv wo)")
+    print(f"attention [{cfg.name} layer 0, int8 LUTs, bf16, 1 x {ATTN_LONG} "
+          f"tokens, chunks of {cfg.attn_chunk}]: peak {gb:.2f} GB above "
+          f"the {torch.cuda.memory_allocated() / 1e9:.2f} GB held (one "
+          f"float32 score tensor of the one softmax: {ONE_SOFTMAX_GB:.1f} "
+          f"GB); {ms:.1f} ms on the device, 4 B1 launches [{SMI}]")
+    del x, out
+    # (b) against a float32 one softmax at ATTN_CMP tokens
+    cases = (("chunked", cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, 0),
+             ("local", 8, 4, 256, ATTN_WINDOW))   # gemma3-4b's local layer
+    for form, h, kvh, d, w in cases:
+        q = randn(1, ATTN_CMP, h, d)
+        k, v = randn(1, ATTN_CMP, kvh, d), randn(1, ATTN_CMP, kvh, d)
+        with torch.no_grad():
+            want, plain_ms = event_ms(lambda: one_softmax(q, k, v, w))
+            rels, times = {}, {}
+            for dt in (torch.bfloat16, torch.float32):
+                qq, kk, vv = q.to(dt), k.to(dt), v.to(dt)
+                got, times[dt] = event_ms(
+                    (lambda: tlayers._sdpa(qq, kk, vv, 0, w,
+                                           chunk=cfg.attn_chunk))
+                    if form == "chunked" else
+                    (lambda: tlayers._sdpa_local(qq, kk, vv, w)))
+                rels[dt] = _rel(got, want)
+                check(rels[dt] <= ATTN_REL[dt],
+                      f"attention [{form} {dt}]: relative L2 {rels[dt]} "
+                      f"against one float32 softmax, limit {ATTN_REL[dt]}")
+        print(f"attention [{form}, 1 x {ATTN_CMP} tokens, {h} heads / {kvh}"
+              f" kv, head_dim {d}" + (f", window {w}" if w else
+                                      f", chunks of {cfg.attn_chunk}")
+              + f"]: relative L2 against one float32 softmax "
+              f"{rels[torch.bfloat16]:.3e} in bf16 (limit "
+              f"{ATTN_REL[torch.bfloat16]}), {rels[torch.float32]:.3e} in "
+              f"float32 (limit {ATTN_REL[torch.float32]}); "
+              f"{times[torch.bfloat16]:.2f} / {times[torch.float32]:.2f} ms "
+              f"(bf16 / float32) against the one softmax's {plain_ms:.2f} "
+              f"ms [{SMI}]")
+    h, kvh, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    leaves = [randn(1, ATTN_CMP, n, d, dtype=torch.float32).requires_grad_()
+              for n in (h, kvh, kvh)]
+    ct = randn(1, ATTN_CMP, h, d, dtype=torch.float32)
+    grads = []
+    for fn in (lambda q, k, v: tlayers._sdpa(q, k, v, 0, 0,
+                                             chunk=cfg.attn_chunk),
+               one_softmax):
+        (fn(*leaves) * ct).sum().backward()
+        grads.append([t.grad for t in leaves])
+        for t in leaves:
+            t.grad = None
+    rel = [_rel(a, b) for a, b in zip(*grads)]
+    check(max(rel) <= ATTN_GRAD_REL,
+          f"attention [chunked backward]: q / k / v gradients {rel} against"
+          f" autograd of one float32 softmax, limit {ATTN_GRAD_REL}")
+    print(f"attention [chunked backward, float32, 1 x {ATTN_CMP} tokens]: "
+          f"q / k / v gradients within relative L2 "
+          f"{', '.join(f'{r:.3e}' for r in rel)} of autograd of one float32"
+          f" softmax (limit {ATTN_GRAD_REL}) [{SMI}]")
+    del leaves, ct, grads
+    # (c) the train step's peak, chunked and one softmax
+    tqc = QuantConfig(mode="lut_train", v=V, c=C, metric="l2",
+                      lut_dtype="float32")
+    cut_cfg = cfg.replace(num_layers=ATTN_TRAIN_LAYERS)
+    tparams = Model(cut_cfg, device=DEV).init(
+        torch.Generator(device=DEV).manual_seed(seed + 41), tqc)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, ATTN_TRAIN_SEQ),
+                                     generator=gen, device=DEV,
+                                     dtype=torch.int32)}
+    steps = {}
+    for impl in ("chunked", "naive"):
+        m = Model(cut_cfg.replace(attn_impl=impl), device=DEV)
+        loss_and_grads(m, tparams, batch, tqc)          # a warm-up step
+        (loss, _, g), gb, ms = peak_gb(
+            lambda: loss_and_grads(m, tparams, batch, tqc))
+        check(math.isfinite(loss.item()), f"attention [train {impl}]: "
+              f"loss {loss.item()}")
+        steps[impl] = (loss.item(), gb, ms)
+        del g
+    print(f"attention [train step, {cfg.name} cut to {ATTN_TRAIN_LAYERS} "
+          f"layers, lut_train float32 LUTs, bf16, 1 x {ATTN_TRAIN_SEQ} "
+          f"tokens]: peak {steps['chunked'][1]:.2f} GB chunked (chunks of "
+          f"{cfg.attn_chunk}), {steps['naive'][1]:.2f} GB with one softmax "
+          f"(attn_impl naive); step {steps['chunked'][2]:.1f} / "
+          f"{steps['naive'][2]:.1f} ms on the device (after a warm-up step)"
+          f"; loss {steps['chunked'][0]:.6f} / "
+          f"{steps['naive'][0]:.6f} [{SMI}]")
+    del tparams, batch
+    # (d) one decode step over ATTN_LONG rows of a dense cache
+    free()
+    cache = model.init_cache(1, ATTN_LONG)
+    for t in cache["layers"].values():
+        t.copy_(randn(*t.shape, scale=0.5))
+    cache["pos"] = ATTN_LONG - 1
+    toks = torch.randint(0, cfg.vocab_size, (1, 1), generator=gen,
+                         device=DEV, dtype=torch.int32)
+
+    def step():
+        return model.decode(params, toks, cache, qc)[0]
+    with torch.no_grad():
+        lg = step()
+        check(bool(torch.isfinite(lg).all()), "attention [long decode]: "
+              "non-finite logits")
+        card = program_cost(step)
+        _, ms = event_ms(step)
+
+        def meta(t):
+            return t.to("meta")
+        dry = program_cost(Model(cfg, device="meta").decode,
+                           tree_map(meta, params), meta(toks),
+                           dict(cache, layers=tree_map(meta,
+                                                       cache["layers"])), qc)
+    for f in ("flops", "core_ops", "bytes"):
+        check(getattr(card, f) == getattr(dry, f),
+              f"attention [long decode]: {f} {getattr(card, f)} on the "
+              f"card, {getattr(dry, f)} on meta")
+    check(dict(card.kernels) == dict(dry.kernels),
+          f"attention [long decode]: kernel calls {dict(card.kernels)} on "
+          f"the card, {dict(dry.kernels)} on meta")
+    cache_gb = sum(nbytes(t) for t in cache["layers"].values()) / 1e9
+    print(f"attention [dense-cache decode step, {cfg.name}, 1 row at "
+          f"{ATTN_LONG - 1} of {ATTN_LONG}, {cache_gb:.2f} GB cache]: card "
+          f"== meta: flops {card.flops:.6g}, bytes {card.bytes:.6g}, kernel"
+          f" calls {dict(card.kernels)}; {ms:.1f} ms on the device (one "
+          f"call after a warm-up) [{SMI}]")
+    print("attention [long decode]: costliest lines by bytes: " + "; ".join(
+        f"{r['op']} @ {r['site']} x{r['count']}: {r['bytes'] / 1e9:.3f} GB"
+        for r in card.top_cost_lines(6)))
+    del cache
+    free()
+
+
 def analysis_phase(model, params, qc, seed):
     """The guard on full-width qwen1.5-4b's first SHALLOW_LAYERS layers
     fused, two-pass, vq-kv and ngram-speculative (the fused guard at full
@@ -5255,6 +5488,8 @@ def main(argv=None) -> int:
         analysis_phase(model, params, qc, args.seed)
     with phase("launch"):
         launch_phase(model, params, qc, args.seed, step_eng)
+    with phase("attention"):
+        attention_phase(model, params, qc, args.seed)
     del model, params, step_eng
     free()
     with phase("float32 LUTs, qwen1.5-4b cut to 4 layers"):

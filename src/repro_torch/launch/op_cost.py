@@ -13,7 +13,11 @@ nothing is computed, or on the card):
   * bytes: operand plus result bytes of every op that is not a view, a
     metadata op or a factory, the eager counterpart of ``hlo_cost``'s
     per-instruction bytes at fusion granularity (an in-place op's result
-    is its operand, counted once);
+    is its operand, counted once); an in-place write at indices
+    (``index_put_``, ``index_copy_``, ``scatter_``, ...) counts what it
+    moves: its values and indices read, and the rows it writes (read
+    too where it accumulates), never the whole tensor it writes into
+    (:func:`_indexed_write_bytes`);
   * kernels: each call of a kernel entry point (B1-B5) records the work
     its function needs (``kernels.work``: bytes, and CUDA-core
     operations in ``core_ops``) and its launch, by kernel, and nothing
@@ -61,6 +65,15 @@ _METADATA = {_aten.detach, _aten.alias, _aten.lift_fresh, _aten.sym_size,
              _aten.is_same_size, _aten.set_, _aten.resize_,
              _aten._local_scalar_dense}
 
+#: In-place writes at indices (the result is the first operand, of which
+#: only the indexed rows are touched), and whether each accumulates into
+#: the rows (reads them too).
+_INDEXED_WRITES = {_aten.index_put_: False, _aten._index_put_impl_: False,
+                   _aten.index_copy_: False, _aten.index_fill_: False,
+                   _aten.scatter_: False, _aten.scatter_add_: True,
+                   _aten.scatter_reduce_: True, _aten.index_add_: True,
+                   _aten.index_reduce_: True}
+
 COLLECTIVE_KINDS = ("all-reduce", "all-gather", "reduce-scatter",
                     "all-to-all", "permute")
 
@@ -71,6 +84,55 @@ def _tensors(tree) -> List[torch.Tensor]:
 
 def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
+
+
+def _indexed_rows(packet, args) -> int:
+    """Elements an in-place indexed write touches in its first operand:
+    the shape ``self[indices]`` has for ``index_put_`` (a boolean index
+    counts all its elements, an upper bound), the index's elements
+    (times the other dims for ``index_fill_``) for ``scatter_`` /
+    ``index_fill_``, the source's for ``index_copy_`` / ``index_add_``."""
+    self_ = args[0]
+    if packet in (_aten.index_put_, _aten._index_put_impl_):
+        kept, shapes, used = 1, [], 0
+        for idx in args[1]:
+            if idx is None:
+                kept *= self_.shape[used]
+                used += 1
+            elif idx.dtype == torch.bool:
+                shapes.append((idx.numel(),))
+                used += idx.dim()
+            else:
+                shapes.append(tuple(idx.shape))
+                used += 1
+        n = torch.Size(torch.broadcast_shapes(*shapes)).numel()
+        for size in self_.shape[used:]:
+            kept *= size
+        return n * kept
+    if packet in (_aten.index_copy_, _aten.index_add_, _aten.index_reduce_):
+        return args[3].numel()
+    if packet is _aten.index_fill_:
+        dim = args[1] % self_.dim()
+        return args[2].numel() * (self_.numel() // max(self_.shape[dim], 1))
+    return args[2].numel()                   # scatter_ and its kin
+
+
+def _indexed_write_bytes(packet, args, kwargs) -> int:
+    """Bytes an in-place write at indices moves: every operand but the
+    destination (values, indices, a source) read once, and the rows it
+    writes (twice where it accumulates: read, then written)."""
+    self_ = args[0]
+    rows = _indexed_rows(packet, args) * self_.element_size()
+    accumulate = _INDEXED_WRITES[packet] or bool(
+        kwargs.get("accumulate", len(args) > 3 and packet in (
+            _aten.index_put_, _aten._index_put_impl_) and args[3]))
+    seen = {id(self_)}
+    nbytes = 0
+    for t in _tensors((args[1:], kwargs)):
+        if id(t) not in seen:
+            seen.add(id(t))
+            nbytes += _nbytes(t)
+    return nbytes + rows * (2 if accumulate else 1)
 
 
 def _is_factory(packet, inputs) -> bool:
@@ -149,8 +211,10 @@ class OpCost(TorchDispatchMode):
             flops = float(flop_registry[packet](*args, **kwargs,
                                                 out_val=out))
         nbytes = 0
-        if not (func.is_view or packet in _METADATA
-                or _is_factory(packet, ins)):
+        if packet in _INDEXED_WRITES:
+            nbytes = _indexed_write_bytes(packet, args, kwargs)
+        elif not (func.is_view or packet in _METADATA
+                  or _is_factory(packet, ins)):
             seen = set()
             for t in ins + outs:          # an in-place result: its operand
                 if id(t) not in seen:

@@ -9,29 +9,39 @@ In ``lut_train`` each projection appends its reconstruction loss to the
 ``recon`` list the caller passes (the JAX package returns it beside each
 output and sums ``r1 + r2 + r3 + r4``); serving passes none.
 The whole-sequence path of training (no cache, ``q_offset`` 0: ``k_pages``
-None) attends the fresh K/V alone through the same plain softmax as a
-prefill chunk; the JAX package's block-local fast path for windowed layers
-(``_sdpa_local``) computes the same function and is not ported.
-Attention is ported for the three paths paged serving runs: a prefill
-chunk over the slot's cached rows plus the chunk itself (plain matmul and
-masked softmax, as the JAX package's naive ``_sdpa``); single-token decode
-straight off the page pool (``kernels.flash_decode.flash_decode_paged``,
-kernel B2, or B5 over a pool of centroid codes); and the speculative
-verify, T proposed tokens per slot at per-slot positions over the
-committed rows (``_sdpa_verify``, plain torch as the JAX package's XLA
-form). The batch-to-completion engine's dense cache takes the prefill
-path for its prefill and its decode steps, with a ``kv_start`` mask over
-the left padding of each row (plain torch, as the JAX package's dense
-``_sdpa``; its projections still run B1). The hybrid family's shared
-block reads a slot-dense cache: its prefill chunk takes the same dense
-path, and its decode step, one token a slot at per-slot positions, the
-two-part softmax ``_sdpa_decode_combine`` (plain torch, as the JAX
-package's XLA form). Where the JAX package switches to a chunked
-online softmax past ``attn_chunk`` key rows (``attn_impl="chunked"``),
-the port computes the same function in one softmax. The vlm family's
-prefix-LM term (:func:`mask_tile`: its image patches attend each other
-both ways) reaches training's whole-sequence path and a dense cache's
-prefill; decode passes 0, as the JAX package's does.
+None) attends the fresh K/V alone. Attention is ported for the three
+paths paged serving runs: a prefill chunk over the slot's cached rows
+plus the chunk itself (plain torch, as the JAX package's ``_sdpa``);
+single-token decode straight off the page pool
+(``kernels.flash_decode.flash_decode_paged``, kernel B2, or B5 over a
+pool of centroid codes); and the speculative verify, T proposed tokens
+per slot at per-slot positions over the committed rows (``_sdpa_verify``,
+plain torch as the JAX package's XLA form). The batch-to-completion
+engine's dense cache (its projections still run B1) is written first and
+then read as a view of its rows, as the JAX package's
+``dynamic_update_slice``: its prefill attends like a whole sequence (a
+``kv_start`` mask over the left padding of each row), its decode step
+takes the JAX package's naive one softmax over the view
+(:func:`_sdpa_decode`: float32 scores a chunk of keys at a time, no
+float32 copy of the whole cache). The hybrid family's shared block reads
+a slot-dense cache: its prefill chunk takes the same dense path, and its
+decode step, one token a slot at per-slot positions, the two-part
+softmax ``_sdpa_decode_combine`` (plain torch, as the JAX package's XLA
+form).
+
+Where the JAX package takes its chunked online softmax
+(``attn_impl="chunked"``, more key rows than ``attn_chunk``, several
+queries: :func:`attn_chunk`, with the JAX package's T for each path),
+the port takes it too (:class:`_ChunkedAttention`: its arithmetic and
+rounding, memory bounded by a chunk, and a backward that recomputes a
+chunk at a time); where it takes its block-local window path
+(``_sdpa_local``: a whole sequence from row 0 in a grouped local:global
+layer loop, :func:`local_path`), the port takes it too. Elsewhere one
+softmax (``_attend``). All of it is plain torch: no attention library
+call. The vlm family's prefix-LM term (:func:`mask_tile`: its image
+patches attend each other both ways) reaches training's whole-sequence
+path and a dense cache's prefill; decode passes 0, as the JAX package's
+does.
 """
 from __future__ import annotations
 
@@ -96,18 +106,13 @@ def proj(p: Params, x: torch.Tensor, qc: QuantConfig,
 
 
 def _attend(qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-            mask: torch.Tensor, tp=None, d: Optional[int] = None
-            ) -> torch.Tensor:
-    """Grouped queries qg (B,S,KVH,G,D) against k/v (B,T,KVH,D): scores
-    in float32 scaled by D^-0.5, masked to -1e30 where ``mask`` (broadcast
-    to (B,KVH,G,S,T)) is false, softmax, then probabilities in v's type.
-    Returns (B,S,KVH,G,D). With ``tp`` the last dim is the rank's slice
-    of a head_dim ``d``: the partial scores are all-reduced over it
-    before the scale (the head_dim layout, ``_attention_hd``)."""
+            mask: torch.Tensor) -> torch.Tensor:
+    """Grouped queries qg (B,S,KVH,G,D) against k/v (B,T,KVH,D) in one
+    softmax: scores in float32 scaled by D^-0.5, masked to -1e30 where
+    ``mask`` (broadcast to (B,KVH,G,S,T)) is false, softmax, then
+    probabilities in v's type. Returns (B,S,KVH,G,D)."""
     scores = torch.einsum("bskgd,btkd->bkgst", qg.float(), k.float())
-    if tp is not None:
-        scores = tp.all_reduce(scores)
-    scores = scores * ((d or qg.shape[-1]) ** -0.5)
+    scores = scores * (qg.shape[-1] ** -0.5)
     scores = torch.where(mask, scores, torch.full_like(scores, -1e30))
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     return torch.einsum("bkgst,btkd->bskgd", probs, v)
@@ -127,28 +132,266 @@ def mask_tile(qi: torch.Tensor, kj: torch.Tensor, window: int,
     return m
 
 
+def _key_mask(qi: torch.Tensor, kj: torch.Tensor, window: int,
+              prefix_len: int, kv_start: Optional[torch.Tensor]
+              ) -> torch.Tensor:
+    """:func:`mask_tile`, and keys before each row's ``kv_start`` (B,)
+    masked after the prefix term: (s, t), or (B, 1, 1, s, t) with
+    ``kv_start``, to broadcast over (B, KVH, G, s, t)."""
+    mask = mask_tile(qi, kj, window, prefix_len)
+    if kv_start is None:
+        return mask
+    return (mask[None] & (kj[None, None, :] >= kv_start[:, None, None])
+            )[:, None, None]
+
+
+def attn_chunk(cfg, s: int, t: int) -> Optional[int]:
+    """The key chunk of the online softmax (``cfg.attn_chunk``) where the
+    reference takes it: ``attn_impl="chunked"``, several queries, and
+    more key rows ``t`` than a chunk, ``t`` being the reference's (the
+    whole sequence; a dense cache's rows; a paged slot's table width x
+    page). None: one softmax."""
+    if cfg.attn_impl == "chunked" and s > 1 and t > cfg.attn_chunk:
+        return cfg.attn_chunk
+    return None
+
+
+def local_path(cfg, s: int, q_offset, window: int, prefix_len: int,
+               kv_start) -> bool:
+    """Whether the reference takes its block-local path (``_sdpa_local``):
+    a windowed layer of a whole sequence from row 0 (``s`` a multiple of
+    the window, no prefix, no ``kv_start``) in a layer loop whose window
+    is static, which is where its ``_run_blocks`` groups a local:global
+    pattern (``global_every`` > 1 layers, a window, at least one
+    group)."""
+    grouped = (cfg.global_every > 1 and cfg.sliding_window > 0
+               and cfg.num_layers >= cfg.global_every)
+    return (grouped and window > 0 and s > 1 and not torch.is_tensor(q_offset)
+            and q_offset == 0 and s % window == 0 and prefix_len == 0
+            and kv_start is None)
+
+
+def _copy(t: torch.Tensor, dtype: torch.dtype, *perm: int) -> torch.Tensor:
+    """A ``dtype`` copy of ``t`` permuted by ``perm``, laid out
+    contiguous: one copy op (a key or value chunk's only float32
+    copy)."""
+    t = t.permute(*perm)
+    if t.dtype == dtype:
+        return t.contiguous()
+    return t.to(dtype, memory_format=torch.contiguous_format)
+
+
+
+def _chunk_range(t: int, chunk: int, q_lo: int, q_hi: int, window: int,
+                 prefix_len: int) -> range:
+    """The key chunks (of ``chunk`` rows from row 0, the last one short)
+    that hold a key some query at [q_lo, q_hi] sees. A chunk past the
+    last query would add exact zeros; one before the first query's window
+    is masked for every row, and the reference's ``alpha`` = 0 reset
+    wipes what it adds once a row meets its first key. A row that sees no
+    key at all (a left-padded row before its ``kv_start``) is garbage in
+    both, and is not held to the reference."""
+    first = q_lo - window + 1 if window > 0 and prefix_len <= 0 else 0
+    last = min(t, max(q_hi + 1, prefix_len))
+    return range(max(first, 0) // chunk, -(-last // chunk))
+
+
+def _chunk_scores(qf, k, c0, c1, scale, qi, window, prefix_len, kv_start,
+                  shape5):
+    """Masked float32 scores of the queries qf (B,KVH,G*S,D) against key
+    rows [c0, c1) of k (B,T,KVH,D), (B,KVH,G*S,C), and the chunk's mask
+    and float32 keys (B,KVH,D,C)."""
+    kc = _copy(k[:, c0:c1], torch.float32, 0, 2, 3, 1)
+    sc = torch.matmul(qf, kc).mul_(scale)
+    mask = _key_mask(qi, torch.arange(c0, c1, device=qf.device), window,
+                     prefix_len, kv_start)
+    sc.view(*shape5, c1 - c0).masked_fill_(~mask, -1e30)
+    return sc, mask, kc
+
+
+def _online_softmax(qf, k, v, scale, chunk, q_offset, window, prefix_len,
+                    kv_start, shape5):
+    """The reference's ``_sdpa_chunked`` on queries qf (B,KVH,G*S,D),
+    float32: per chunk, m_new = max(m, max sc), alpha = exp(m - m_new),
+    p = exp(sc - m_new), l = l alpha + sum p, acc = acc alpha + (p in V's
+    type) @ V accumulated in float32. Returns (acc / max(l, 1e-30), m, l),
+    each over (B,KVH,G*S)."""
+    b, kvh, gs, d = qf.shape
+    s = shape5[3]
+    t = k.shape[1]
+    qi = torch.arange(s, device=qf.device) + q_offset
+    m = torch.full((b, kvh, gs), -1e30, dtype=torch.float32,
+                   device=qf.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros_like(qf)
+    for ci in _chunk_range(t, chunk, q_offset, q_offset + s - 1, window,
+                           prefix_len):
+        c0, c1 = ci * chunk, min(t, (ci + 1) * chunk)
+        sc, _, _ = _chunk_scores(qf, k, c0, c1, scale, qi, window,
+                                 prefix_len, kv_start, shape5)
+        m_new = torch.maximum(m, sc.amax(-1))
+        alpha = torch.exp(m - m_new)
+        p = sc.sub_(m_new[..., None]).exp_()
+        l = l * alpha + p.sum(-1)
+        pv = torch.matmul(p.to(v.dtype).float(),
+                          _copy(v[:, c0:c1], torch.float32, 0, 2, 1, 3))
+        acc = acc.mul_(alpha[..., None]).add_(pv)
+        m = m_new
+    return acc / l.clamp_min(1e-30)[..., None], m, l
+
+
+class _ChunkedAttention(torch.autograd.Function):
+    """The online softmax with a backward in bounded memory: the forward
+    saves its output and each row's max and sum, the backward recomputes
+    each chunk's probabilities P = exp(sc - m) / l (flash attention's
+    backward): dV = P^T dO, dS = P (dO V^T - rowsum(dO O)) masked, dQ =
+    dS K, dK = dS^T Q, each times the scale. Memory is a chunk's (B, KVH,
+    G, S, chunk), never S x T."""
+
+    @staticmethod
+    def forward(ctx, qg, k, v, kv_start, chunk, q_offset, window,
+                prefix_len):
+        b, s, kvh, g, d = qg.shape
+        shape5 = (b, kvh, g, s)
+        qf = _copy(qg, torch.float32, 0, 2, 3, 1, 4).view(b, kvh, g * s, d)
+        out, m, l = _online_softmax(qf, k, v, d ** -0.5, chunk, q_offset,
+                                    window, prefix_len, kv_start, shape5)
+        ctx.save_for_backward(qg, k, v, kv_start, out, m, l)
+        ctx.args = (chunk, q_offset, window, prefix_len)
+        return _copy(out.view(b, kvh, g, s, d), qg.dtype, 0, 3, 1, 2, 4)
+
+    @staticmethod
+    def backward(ctx, d_out):
+        qg, k, v, kv_start, out, m, l = ctx.saved_tensors
+        chunk, q_offset, window, prefix_len = ctx.args
+        b, s, kvh, g, d = qg.shape
+        shape5 = (b, kvh, g, s)
+        scale = d ** -0.5
+        qf = _copy(qg, torch.float32, 0, 2, 3, 1, 4).view(b, kvh, g * s, d)
+        do = _copy(d_out, torch.float32, 0, 2, 3, 1,
+                   4).view(b, kvh, g * s, d)
+        delta = (do * out).sum(-1, keepdim=True)
+        inv_l = 1.0 / l.clamp_min(1e-30)[..., None]
+        qi = torch.arange(s, device=qg.device) + q_offset
+        dq = torch.zeros_like(qf)
+        dk, dv = torch.zeros_like(k), torch.zeros_like(v)
+        for ci in _chunk_range(k.shape[1], chunk, q_offset, q_offset + s - 1,
+                               window, prefix_len):
+            c0, c1 = ci * chunk, min(k.shape[1], (ci + 1) * chunk)
+            sc, mask, kc = _chunk_scores(qf, k, c0, c1, scale, qi, window,
+                                         prefix_len, kv_start, shape5)
+            p = sc.sub_(m[..., None]).exp_().mul_(inv_l)
+            vc = _copy(v[:, c0:c1], torch.float32, 0, 2, 1, 3)   # (B,KVH,C,D)
+            dv[:, c0:c1] = torch.matmul(p.transpose(-1, -2),
+                                        do).transpose(1, 2)
+            ds = p.mul_(torch.matmul(do, vc.transpose(-1, -2)).sub_(delta))
+            ds.view(*shape5, c1 - c0).masked_fill_(~mask, 0.0)
+            ds.mul_(scale)
+            dq.add_(torch.matmul(ds, kc.transpose(-1, -2)))
+            dk[:, c0:c1] = torch.matmul(ds.transpose(-1, -2),
+                                        qf).transpose(1, 2)
+        dq = _copy(dq.view(b, kvh, g, s, d), qg.dtype, 0, 3, 1, 2, 4)
+        return dq, dk, dv, None, None, None, None, None
+
+
 def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_offset: int,
           window: int, kv_start: Optional[torch.Tensor] = None,
-          prefix_len: int = 0, tp=None, hd: Optional[int] = None
-          ) -> torch.Tensor:
+          prefix_len: int = 0, chunk: Optional[int] = None) -> torch.Tensor:
     """Grouped-query attention of a chunk: q (B,S,H,D) at absolute
-    positions q_offset.., k/v (B,T,KVH,D) at positions 0..T-1
-    (``_attend`` under :func:`mask_tile`). kv_start: optional (B,) first
-    valid key position of each row; keys before it are masked after the
-    prefix term (the left-padded prompts of the batch-to-completion
-    engine). ``tp`` / ``hd``: q and k hold the rank's slice of head_dim
-    ``hd`` (``_attend``)."""
+    positions q_offset.., k/v (B,T,KVH,D) at positions 0..T-1, under
+    :func:`mask_tile`. kv_start: optional (B,) first valid key position
+    of each row; keys before it are masked after the prefix term (the
+    left-padded prompts of the batch-to-completion engine).
+
+    ``chunk`` None: one softmax (``_attend``, the reference's naive
+    ``_sdpa``). Otherwise the reference's ``_sdpa_chunked``: an online
+    softmax over key chunks of ``chunk`` rows from row 0, with a backward
+    that recomputes a chunk at a time (:class:`_ChunkedAttention`); the
+    output is then in q's type, as the reference's."""
     b, s, h, d = q.shape
     t, kvh = k.shape[1], k.shape[2]
+    qg = q.reshape(b, s, kvh, h // kvh, d)
+    if kv_start is not None:
+        kv_start = kv_start.to(q.device).long()
+    if chunk is not None:
+        out = _ChunkedAttention.apply(qg, k, v, kv_start, chunk, q_offset,
+                                      window, prefix_len)
+        return out.reshape(b, s, h, d)
     qi = torch.arange(s, device=q.device) + q_offset
-    kj = torch.arange(t, device=q.device)
-    mask = mask_tile(qi, kj, window, prefix_len)                 # (s, t)
-    if kv_start is not None:                                     # (B, s, t)
-        mask = mask[None] & (kj[None, None, :]
-                             >= kv_start.to(q.device).long()[:, None, None])
-        mask = mask[:, None, None]
-    out = _attend(q.reshape(b, s, kvh, h // kvh, d), k, v, mask, tp, hd)
-    return out.reshape(b, s, h, d)
+    mask = _key_mask(qi, torch.arange(t, device=q.device), window,
+                     prefix_len, kv_start)
+    return _attend(qg, k, v, mask).reshape(b, s, h, d)
+
+
+def _sdpa_local(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                window: int, q_offset: int = 0) -> torch.Tensor:
+    """The reference's block-local sliding-window attention: each query
+    block of ``window`` rows attends its own key block and the one before
+    it, S x 2W work and memory. q (B,S,H,D) at positions q_offset.. (a
+    multiple of the window; S one too), k/v (B,T,KVH,D) the whole
+    sequence from row 0. Scores and softmax in float32, probabilities in
+    V's type, products accumulated in float32; the output in q's type."""
+    b, s, h, d = q.shape
+    kvh = k.shape[2]
+    g, w = h // kvh, window
+    nb, n0 = s // w, q_offset // w
+    qb = q.reshape(b, nb, w, kvh, g, d).float()
+
+    def pairs(t):            # (b, nb, 2w, kvh, d): block n - 1, then n
+        blocks = t.reshape(b, -1, w, kvh, d)
+        padded = torch.cat([torch.zeros_like(blocks[:, :1]), blocks], 1)
+        return torch.cat([padded[:, n0:n0 + nb],
+                          padded[:, n0 + 1:n0 + nb + 1]], 2).float()
+    scores = torch.einsum("bnwkgd,bntkd->bnkgwt", qb, pairs(k)) * d ** -0.5
+    qi = torch.arange(w, device=q.device)[:, None]
+    kt = torch.arange(2 * w, device=q.device)[None, :] - w
+    rel = qi - kt
+    mask = (rel >= 0) & (rel < w)                         # causal, in window
+    first = (torch.arange(nb, device=q.device) + n0 == 0)[:, None, None]
+    mask = mask[None] & ~(first & (kt < 0)[None])         # (nb, w, 2w)
+    scores = torch.where(mask[None, :, None, None], scores,
+                         torch.full_like(scores, -1e30))
+    probs = torch.softmax(scores, dim=-1).to(v.dtype).float()
+    out = torch.einsum("bnkgwt,bntkd->bnwkgd", probs, pairs(v))
+    return out.reshape(b, s, h, d).to(q.dtype)
+
+
+def _sdpa_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 pos: int, window: int, kv_start: Optional[torch.Tensor],
+                 chunk: int, dtype: torch.dtype, tp=None,
+                 hd: Optional[int] = None) -> torch.Tensor:
+    """One-token attention of every row at position ``pos`` over a view of
+    a dense cache's rows [0, pos] (B, pos + 1, KVH, D'), the fresh row
+    already written: the reference's naive arithmetic in one softmax,
+    without a float32 copy of the whole cache in one op. The float32
+    scores are taken ``chunk`` rows at a time (each chunk's keys copied
+    to float32 alone) into one row; probabilities in ``dtype`` (the
+    activations'), then one product with V in ``dtype`` over every row
+    for each batch row (its kv heads a batch of strided views of the
+    cache: no copy of V). With ``tp`` the last dim is the rank's slice of
+    head_dim ``hd``: the partial scores are all-reduced before the scale
+    (the head_dim layout). Returns (B, 1, H, D') in ``dtype``."""
+    b, _, h, d = q.shape
+    t, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    qf = q.reshape(b, kvh, g, d).float()
+    sc = torch.cat([torch.matmul(qf, _copy(k[:, c0:c0 + chunk].to(dtype),
+                                           torch.float32, 0, 2, 3, 1))
+                    for c0 in range(0, t, chunk)], -1)      # (B,KVH,G,T)
+    if tp is not None:
+        sc = tp.all_reduce(sc)
+    sc = sc * ((hd or d) ** -0.5)
+    qi = torch.full((1,), pos, dtype=torch.long, device=q.device)
+    if kv_start is not None:
+        kv_start = kv_start.to(q.device).long()
+    mask = _key_mask(qi, torch.arange(t, device=q.device), window, 0,
+                     kv_start)[..., 0, :]
+    sc.masked_fill_(~mask, -1e30)
+    probs = torch.softmax(sc, dim=-1).to(dtype)
+    vv = v.to(dtype)
+    out = torch.stack([torch.matmul(probs[i], vv[i].transpose(0, 1))
+                       for i in range(b)])                  # (B,KVH,G,D')
+    return out.reshape(b, 1, h, d)
 
 
 def _sdpa_verify(q: torch.Tensor, k_cache: torch.Tensor,
@@ -325,8 +568,7 @@ def _attention_hd(p: Params, x: torch.Tensor, cfg, qc: QuantConfig,
                   v_cache: Optional[torch.Tensor], window: int,
                   kv_start: Optional[torch.Tensor],
                   recon: Optional[List[torch.Tensor]], prefix_len: int,
-                  seq_rows: Optional[int]
-                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                  seq_rows: Optional[int], write) -> torch.Tensor:
     """:func:`attention` when the kv heads do not divide the model axis
     (the reference's fallback, ``_kv_model_axes``): wq / wk / wv keep
     their contiguous column shards, the dense cache holds every kv head's
@@ -334,17 +576,21 @@ def _attention_hd(p: Params, x: torch.Tensor, cfg, qc: QuantConfig,
 
     q, k and v are all-gathered to whole heads (RoPE rotates pairs across
     the head_dim), and the rank keeps its head_dim slice of the fresh
-    K / V rows for the cache. Decode (one token): the one-device decode's
-    rows and arithmetic on the rank's slice, the partial scores
-    all-reduced over ``model`` before the softmax (``_attend``; over a
-    sequence-sharded cache, :func:`_decode_dense`); the head_dim-sharded
-    output is gathered and cut to the rank's columns for wo. A whole
-    sequence (training, a prefill from row 0): where the
-    reference's Ulysses conditions hold (S divides over the ranks and
-    exceeds them) the queries are re-sharded by sequence with an
-    all-to-all, each rank attends its rows with whole heads, and an
-    all-to-all takes the output back to the rank's columns; otherwise
-    every rank attends every row and keeps its columns.
+    K / V rows for the cache. Decode (one token): the fresh row is
+    written first, then the one-device decode's rows and arithmetic run
+    on the rank's slice of the cache's view (:func:`_sdpa_decode`), the
+    partial scores all-reduced over ``model`` before the softmax (over a
+    sequence-sharded cache, :func:`_decode_dense`, which reads the cache
+    before the write); the head_dim-sharded output is gathered and cut to
+    the rank's columns for wo. A whole sequence (training, a prefill from
+    row 0) attends with whole heads as :func:`attention` does (the
+    block-local path, the chunked online softmax or one softmax): where
+    the reference's Ulysses conditions hold (S divides over the ranks and
+    exceeds them; for the block-local path each rank's rows a multiple
+    of the window too) the queries are re-sharded by sequence with an
+    all-to-all, each rank attends its rows, and an all-to-all takes the
+    output back to the rank's columns; otherwise every rank attends every
+    row and keeps its columns.
     """
     b, s, _ = x.shape
     tp = tp_current()
@@ -364,9 +610,9 @@ def _attention_hd(p: Params, x: torch.Tensor, cfg, qc: QuantConfig,
     kf = rope(_whole(k, kvh * hd, tp).reshape(b, s, kvh, hd), positions,
               cfg.rope_theta)
     vf = _whole(v, kvh * hd, tp).reshape(b, s, kvh, hd)
-    k_new, v_new = _hd_slice(kf, tp), _hd_slice(vf, tp)
-    if k_cache is not None:
-        k_new, v_new = k_new.to(k_cache.dtype), v_new.to(v_cache.dtype)
+    if k_cache is not None:       # the rank's head_dim slice of the rows
+        k_new = _hd_slice(kf, tp).to(k_cache.dtype)
+        v_new = _hd_slice(vf, tp).to(v_cache.dtype)
     if s == 1 and k_cache is not None:          # dense decode
         qs = _hd_slice(rope(_whole(q, h * hd, tp).reshape(b, 1, h, hd),
                             positions, cfg.rope_theta), tp)
@@ -375,33 +621,51 @@ def _attention_hd(p: Params, x: torch.Tensor, cfg, qc: QuantConfig,
                               k_new.to(x.dtype), v_new.to(x.dtype), q_offset,
                               window, kv_start, seq_rows, hd ** -0.5, tp,
                               tp.over("data"))
+            write(k_new, v_new)
         else:     # the one-device decode's rows and arithmetic, per slice
-            k_all = torch.cat([k_cache[:, :q_offset].to(x.dtype),
-                               k_new.to(x.dtype)], 1)
-            v_all = torch.cat([v_cache[:, :q_offset].to(x.dtype),
-                               v_new.to(x.dtype)], 1)
-            o = _sdpa(qs, k_all, v_all, q_offset, window, kv_start, 0, tp,
-                      hd)
+            write(k_new, v_new)
+            n = q_offset + 1
+            o = _sdpa_decode(qs, k_cache[:, :n], v_cache[:, :n], q_offset,
+                             window, kv_start, cfg.attn_chunk, x.dtype, tp,
+                             hd)
         out = tp.all_gather(o, -1).reshape(b, 1, h * hd)
-    elif s % m == 0 and s > m:                  # Ulysses
-        rows = s // m
+        return _row_out(p["wo"], out, qc, recon, tp)
+    t_ref = s
+    if k_cache is not None:
+        write(k_new, v_new)
+        t_ref = _cache_rows(k_cache, seq_rows, tp)
+    local = local_path(cfg, s, q_offset, window, prefix_len, kv_start)
+    kf, vf = kf.to(x.dtype), vf.to(x.dtype)
+
+    def attend(qh, row0):
+        if local:
+            return _sdpa_local(qh, kf, vf, window, row0)
+        return _sdpa(qh, kf, vf, row0, window, kv_start, prefix_len,
+                     attn_chunk(cfg, s, t_ref))
+    rows = s // m
+    if s % m == 0 and s > m and not (local and rows % window):   # Ulysses
         qs = (tp.all_to_all(q, 1, -1) if q.shape[-1] != h * hd
               else q.narrow(1, r * rows, rows))
         qs = rope(qs.reshape(b, rows, h, hd), positions[:, r * rows:
                                                         (r + 1) * rows],
                   cfg.rope_theta)
-        o = _sdpa(qs, kf.to(x.dtype), vf.to(x.dtype), r * rows, window,
-                  kv_start, prefix_len).reshape(b, rows, h * hd)
+        o = attend(qs, r * rows).reshape(b, rows, h * hd)
         if _in_width(p["wo"]) != h * hd:         # back to the rank's columns
-            return (lut_linear_row(p["wo"], tp.all_to_all(o, -1, 1), qc,
-                                   recon), k_new, v_new)
+            return lut_linear_row(p["wo"], tp.all_to_all(o, -1, 1), qc,
+                                  recon)
         out = tp.all_gather(o, 1)
     else:
         qf = rope(_whole(q, h * hd, tp).reshape(b, s, h, hd), positions,
                   cfg.rope_theta)
-        out = _sdpa(qf, kf.to(x.dtype), vf.to(x.dtype), 0, window,
-                    kv_start, prefix_len).reshape(b, s, h * hd)
-    return _row_out(p["wo"], out, qc, recon, tp), k_new, v_new
+        out = attend(qf, 0).reshape(b, s, h * hd)
+    return _row_out(p["wo"], out, qc, recon, tp)
+
+
+def _cache_rows(k_cache: torch.Tensor, seq_rows: Optional[int], tp) -> int:
+    """A dense cache's rows, the reference's T: all of them, across the
+    data ranks where the cache is sharded by sequence."""
+    rows = k_cache.shape[1]
+    return rows if seq_rows is None else rows * tp.over("data").size
 
 
 def _in_width(p: Params) -> int:
@@ -430,14 +694,19 @@ def attention(p: Params, x: torch.Tensor, cfg, qc: QuantConfig, q_offset,
               codebook: Optional[Params] = None,
               kv_start: Optional[torch.Tensor] = None,
               recon: Optional[List[torch.Tensor]] = None,
-              prefix_len: int = 0, seq_rows: Optional[int] = None
-              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+              prefix_len: int = 0, seq_rows: Optional[int] = None,
+              write=None) -> torch.Tensor:
     """Pre-norm GQA attention over one layer of the paged pool, or of a
     dense cache.
 
-    The pool (or cache) is read only; the fresh K/V rows come back for
-    the caller to write: in the pool's type for an fp pool, in x's type
-    for a code pool (the caller encodes them).
+    With a pool or a cache, the fresh K/V rows (B, S, KVH, HD) go to
+    ``write(k_new, v_new)``: in the pool's type for an fp pool, in x's
+    type for a code pool (the writer encodes them). A dense cache at an
+    int ``q_offset`` is written first and then read as a view of its rows
+    [0, q_offset + S), as the reference's ``dynamic_update_slice``: no
+    copy of the cached rows (a sequence-sharded cache's decode,
+    :func:`_decode_dense`, reads first); the pool, and a dense cache at
+    per-row positions, are read first and written after.
 
     Args:
       p: layer params {"wq","wk","wv","wo","norm"}.
@@ -452,10 +721,10 @@ def attention(p: Params, x: torch.Tensor, cfg, qc: QuantConfig, q_offset,
       k_pages/v_pages: (P+1, page, KVH, HD) one layer of the pool; with
         ``phys`` None, one layer of a dense cache (B, T, KVH, HD) instead
         (the batch-to-completion engine, the hybrid's shared block): at
-        an int ``q_offset`` every row sits there, rows [0, q_offset) come
-        from the cache and the chunk's own K/V are fresh, as a prefill
-        chunk's (decode too: S == 1 attends in plain torch, as the JAX
-        package's dense decode); at a (B,) ``q_offset`` with S == 1 each
+        an int ``q_offset`` every row sits there and attends the rows
+        [0, q_offset + S) once the chunk is written (:func:`_dense_view`:
+        decode in one softmax as the JAX package's dense decode; a chunk
+        as a whole sequence); at a (B,) ``q_offset`` with S == 1 each
         row decodes at its own position over its rows < q_offset[b]
         (``_sdpa_decode_combine``). Both None (with ``phys`` None and
         ``q_offset`` 0): no cache, the whole sequence attends itself
@@ -476,6 +745,8 @@ def attention(p: Params, x: torch.Tensor, cfg, qc: QuantConfig, q_offset,
         than the data axes): the global index of this rank's first cache
         row. One-token decode then combines the data ranks' softmax
         triples (:func:`_decode_dense`).
+      write: with a pool or a cache, ``write(k_new, v_new)`` stores the
+        layer's fresh rows (called once, where the path needs it).
 
     Under tensor parallelism (a rank of ``parallel.collectives``) the
     rank computes its own heads: ``wq`` / ``wk`` / ``wv`` hold its
@@ -485,7 +756,7 @@ def attention(p: Params, x: torch.Tensor, cfg, qc: QuantConfig, q_offset,
     heads do not divide the model axis, the head_dim layout
     (:func:`_attention_hd`; whole sequences and dense decode only).
 
-    Returns: (out (B, S, D), k_new, v_new (B, S, KVH, HD)).
+    Returns: out (B, S, D).
     """
     b, s, _ = x.shape
     tp = tp_current()
@@ -497,7 +768,8 @@ def attention(p: Params, x: torch.Tensor, cfg, qc: QuantConfig, q_offset,
                 "head_dim-split form) is not ported: ROADMAP.md queue A "
                 "item 11")
         return _attention_hd(p, x, cfg, qc, q_offset, k_pages, v_pages,
-                             window, kv_start, recon, prefix_len, seq_rows)
+                             window, kv_start, recon, prefix_len, seq_rows,
+                             write)
     h, kvh, hd = (cfg.num_heads // tp.size, cfg.num_kv_heads // tp.size,
                   cfg.head_dim)
     xn = rms_norm(x, p["norm"], cfg.norm_eps)
@@ -516,13 +788,23 @@ def attention(p: Params, x: torch.Tensor, cfg, qc: QuantConfig, q_offset,
         if torch.is_tensor(q_offset) or q_offset != 0 or phys is not None:
             raise ValueError("attention without a cache runs the whole "
                              "sequence from position 0")
-        out = _sdpa(q, k, v, 0, window, prefix_len=prefix_len).reshape(
-            b, s, h * hd)
-        return lut_linear_row(p["wo"], out, qc, recon), k, v
+        if local_path(cfg, s, 0, window, prefix_len, None):
+            out = _sdpa_local(q, k, v, window)
+        else:
+            out = _sdpa(q, k, v, 0, window, prefix_len=prefix_len,
+                        chunk=attn_chunk(cfg, s, s))
+        return lut_linear_row(p["wo"], out.reshape(b, s, h * hd), qc, recon)
     if codebook is None:
         k_new, v_new = k.to(k_pages.dtype), v.to(v_pages.dtype)
     else:                   # code pool: the fresh rows stay fp
         k_new, v_new = k, v
+    if phys is None and not torch.is_tensor(q_offset) and not (
+            s == 1 and seq_rows is not None):
+        write(k_new, v_new)   # a dense cache: written, then read as a view
+        out = _dense_view(q, k, v, k_new, v_new, k_pages, v_pages, cfg,
+                          q_offset, window, kv_start, prefix_len, seq_rows,
+                          tp)
+        return lut_linear_row(p["wo"], out.reshape(b, s, h * hd), qc, recon)
     if phys is None and torch.is_tensor(q_offset):
         # dense cache, one token a row at per-row positions
         if s != 1:
@@ -537,13 +819,6 @@ def attention(p: Params, x: torch.Tensor, cfg, qc: QuantConfig, q_offset,
                             k_new.to(x.dtype), v_new.to(x.dtype), q_offset,
                             window, kv_start, seq_rows, hd ** -0.5, None,
                             tp.over("data")).reshape(b, s, h * hd)
-    elif phys is None:      # dense cache: rows [0, q_offset) + the chunk
-        k_all = torch.cat([k_pages[:, :q_offset].to(x.dtype),
-                           k_new.to(x.dtype)], 1)
-        v_all = torch.cat([v_pages[:, :q_offset].to(x.dtype),
-                           v_new.to(x.dtype)], 1)
-        out = _sdpa(q, k_all, v_all, q_offset, window, kv_start,
-                    prefix_len).reshape(b, s, h * hd)
     elif s == 1:
         split = None if tp.size == 1 else split_pages_for(
             b, cfg.num_kv_heads, phys.shape[1], codebook is not None)
@@ -570,9 +845,35 @@ def attention(p: Params, x: torch.Tensor, cfg, qc: QuantConfig, q_offset,
         else:
             k_all = torch.cat([k_old.to(x.dtype), k_new.to(x.dtype)], 1)
             v_all = torch.cat([v_old.to(x.dtype), v_new.to(x.dtype)], 1)
-            out = _sdpa(q, k_all, v_all, q_offset, window).reshape(
-                b, s, h * hd)
-    return lut_linear_row(p["wo"], out, qc, recon), k_new, v_new
+            out = _sdpa(q, k_all, v_all, q_offset, window, chunk=attn_chunk(
+                cfg, s, phys.shape[1] * k_pages.shape[1])).reshape(
+                    b, s, h * hd)
+    write(k_new, v_new)
+    return lut_linear_row(p["wo"], out, qc, recon)
+
+
+def _dense_view(q, k, v, k_new, v_new, k_cache, v_cache, cfg, q_offset,
+                window, kv_start, prefix_len, seq_rows, tp) -> torch.Tensor:
+    """:func:`attention` over a dense cache at an int ``q_offset``, the
+    chunk's rows already written: decode in one softmax over the rows
+    [0, q_offset] (:func:`_sdpa_decode`); a chunk through the block-local
+    path where the reference takes it (the fresh rows), else
+    :func:`_sdpa` over the rows [0, q_offset + S) (a sequence-sharded
+    cache holds a slice of the rows: its prefill, at q_offset 0, attends
+    its own fresh rows). Returns (B, S, H, HD) in x's type."""
+    s, dtype = q.shape[1], q.dtype
+    if s == 1:
+        return _sdpa_decode(q, k_cache[:, :q_offset + 1],
+                            v_cache[:, :q_offset + 1], q_offset, window,
+                            kv_start, cfg.attn_chunk, dtype)
+    if local_path(cfg, s, q_offset, window, prefix_len, kv_start):
+        return _sdpa_local(q, k, v, window)
+    n = min(q_offset + s, k_cache.shape[1])
+    k_all, v_all = ((k_cache[:, :n], v_cache[:, :n]) if seq_rows is None
+                    else (k_new, v_new))
+    return _sdpa(q, k_all.to(dtype), v_all.to(dtype), q_offset, window,
+                 kv_start, prefix_len,
+                 attn_chunk(cfg, s, _cache_rows(k_cache, seq_rows, tp)))
 
 
 def mlp(p: Params, x: torch.Tensor, cfg, qc: QuantConfig,

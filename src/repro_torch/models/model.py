@@ -264,8 +264,10 @@ class Model:
         ``layers.attention`` takes it) then the MLP or the MoE FFN
         (whose load-balancing loss serving drops, as the JAX entry points
         do), with ``write(li, k_new, v_new)`` storing the layer's fresh
-        rows once its attention has read the pool; ``seq_rows`` as
-        ``layers.attention`` takes it (a sequence-sharded dense cache)."""
+        rows (encoded for a code pool) where ``layers.attention`` calls
+        it: before it reads a dense cache, after it reads the pool;
+        ``seq_rows`` as ``layers.attention`` takes it (a
+        sequence-sharded dense cache)."""
         cb = kv.get(CODEBOOK_KEY)
         tp = tp_current()
         for li, (p_l, win) in enumerate(zip(params["blocks"],
@@ -276,15 +278,14 @@ class Model:
                     else {key: leaf[li] if key in ("zk", "zv")
                           else tp.shard(leaf[li], 0)
                           for key, leaf in cb.items()})
-            a, k_new, v_new = attention(p_l["attn"], x, self.cfg, qc,
-                                        q_offset, kv["k"][li], kv["v"][li],
-                                        phys, window=win, codebook=cb_l,
-                                        kv_start=kv_start,
-                                        prefix_len=prefix_len,
-                                        seq_rows=seq_rows)
-            write(li, self._encode_rows(cb_l, "k", k_new),
-                  self._encode_rows(cb_l, "v", v_new))
-            x = x + a
+            def store(k_new, v_new, li=li, cb_l=cb_l):
+                write(li, self._encode_rows(cb_l, "k", k_new),
+                      self._encode_rows(cb_l, "v", v_new))
+            x = x + attention(p_l["attn"], x, self.cfg, qc, q_offset,
+                              kv["k"][li], kv["v"][li], phys, window=win,
+                              codebook=cb_l, kv_start=kv_start,
+                              prefix_len=prefix_len, seq_rows=seq_rows,
+                              write=store)
             if "moe" in p_l:
                 x = x + moe_ffn(p_l["moe"], x, self.cfg, qc)[0]
             else:
@@ -323,7 +324,8 @@ class Model:
         ``attn_rows(inv)`` gives the invocation's cached (k, v) rows (B,
         T, KVH, HD), read with ``q_offset`` as ``layers.attention`` reads a
         dense cache, and ``write_attn(inv, k_new, v_new)`` stores the
-        fresh rows once they have been read. Returns the residual
+        fresh rows where ``layers.attention`` calls it (a prefill chunk's
+        before its read, a decode step's after). Returns the residual
         stream."""
         cfg = self.cfg
         decode = torch.is_tensor(q_offset)        # per-lane positions
@@ -338,10 +340,9 @@ class Model:
             merge(li, new)
             x = x + o
             if cfg.family == "hybrid" and inv >= 0:
-                a, k_new, v_new = attention(shared["attn"], x, cfg, qc,
-                                            q_offset, *attn_rows(inv), None)
-                write_attn(inv, k_new, v_new)
-                x = x + a
+                x = x + attention(shared["attn"], x, cfg, qc, q_offset,
+                                  *attn_rows(inv), None,
+                                  write=functools.partial(write_attn, inv))
                 x = x + mlp(shared["mlp"], x, cfg, qc)
         return x
 
@@ -361,15 +362,13 @@ class Model:
             o, _ = mamba2_block(p_l, x, cfg, qc, recon=recon)
             x = x + o
             if cfg.family == "hybrid" and self._attn_slot_list()[li] >= 0:
-                a, _, _ = attention(shared["attn"], x, cfg, qc, 0, None,
-                                    None, None, recon=recon)
-                x = x + a
+                x = x + attention(shared["attn"], x, cfg, qc, 0, None, None,
+                                  None, recon=recon)
                 x = x + mlp(shared["mlp"], x, cfg, qc, recon)
         else:
-            a, _, _ = attention(p_l["attn"], x, cfg, qc, 0, None, None,
-                                None, window=self._windows()[li],
-                                recon=recon, prefix_len=prefix_len)
-            x = x + a
+            x = x + attention(p_l["attn"], x, cfg, qc, 0, None, None, None,
+                              window=self._windows()[li], recon=recon,
+                              prefix_len=prefix_len)
             if "moe" in p_l:
                 f, aux = moe_ffn(p_l["moe"], x, cfg, qc, recon)
             else:

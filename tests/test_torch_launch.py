@@ -19,7 +19,10 @@ kernel entry points on meta tensors (record their work under an OpCost,
 raise outside one, never run a plain version); ``run_cell`` on a
 (2, 2) meta mesh for every smoke config and shape (vlm and audio
 refused, naming ROADMAP item 11); one dense cell's per-device FLOPs
-against the JAX ``run_cell`` on four host devices (a subprocess).
+against the JAX ``run_cell`` on four host devices (a subprocess); an
+in-place indexed write (a paged decode step's pool writes, and each
+kind of write at indices) counted by the values, indices and rows it
+moves.
 
 Tolerances: exact for the formulas, the specs, the counts and the
 bytes; the roofline terms at 1e-12 relative; the dense cell's FLOPs
@@ -45,6 +48,7 @@ from repro.launch import specs as jspecs  # noqa: E402
 from repro.models.model import Model as JModel  # noqa: E402
 from repro.train.trainer import TrainConfig as JTrainConfig  # noqa: E402
 from repro_torch import configs as tconfigs  # noqa: E402
+from repro_torch.core.lut import QuantConfig as TQC  # noqa: E402
 from repro_torch.kernels import flash_decode as tfd  # noqa: E402
 from repro_torch.kernels import ops, ref, work  # noqa: E402
 from repro_torch.launch import dryrun, roofline as trl  # noqa: E402
@@ -209,6 +213,72 @@ def test_peak_temp_bytes_counts_only_storages_the_call_makes():
     assert cost.live_temp_bytes == 4000 and tuple(view.shape) == (10,)
     del y
     assert cost.live_temp_bytes == 0
+
+
+def test_indexed_write_counts_the_rows_it_moves():
+    """A smoke paged decode step's pool writes (``kv[key][li, tgt, off] =
+    rows``, an ``index_put_``) count the values and the two index tensors
+    read and the rows written, by hand; never the pool they write into
+    (24 KB a layer here, 32 times a step's rows)."""
+    cfg = tconfigs.get_smoke_config("qwen1.5-4b")
+    model = tspecs.meta_model(cfg)
+    b, pages, ps = 3, 11, 8
+    qc = TQC(mode="dense")
+    params = model.init(None, qc)
+    kv = model.init_paged_cache(32, ps, pages, device="meta")
+    table = torch.zeros((b, 4), dtype=torch.int32, device="meta")
+    toks = torch.zeros((b, 1), dtype=torch.int32, device="meta")
+    positions = torch.zeros((b,), dtype=torch.int32, device="meta")
+    with torch.no_grad():
+        cost = program_cost(model.decode_paged, params, toks, kv, table,
+                            positions, qc)
+    lines = [r for r in cost.top_cost_lines(1000)
+             if r["op"] == "index_put_"]
+    assert len(lines) == 1 and lines[0]["count"] == 2 * cfg.num_layers
+    rows = b * cfg.num_kv_heads * cfg.head_dim * 4      # float32 rows
+    indices = 2 * b * 8                                 # tgt, off: int64
+    assert lines[0]["bytes"] == 2 * cfg.num_layers * (2 * rows + indices)
+
+
+def _ix(*vals):
+    return torch.tensor(vals, dtype=torch.int64)
+
+
+#: (an in-place indexed write of x (10, 6, 4) float32, its bytes by hand:
+#: operands read but x, then the rows written, twice where it adds)
+INDEXED_WRITES = {
+    "index_copy_": (lambda x: x.index_copy_(0, _ix(1, 7),
+                                            torch.ones(2, 6, 4)),
+                    16 + 192 + 192),
+    "index_add_": (lambda x: x.index_add_(0, _ix(1, 7), torch.ones(2, 6, 4)),
+                   16 + 192 + 2 * 192),
+    "scatter_": (lambda x: x.scatter_(0, torch.zeros(1, 6, 4,
+                                                     dtype=torch.int64),
+                                      torch.ones(1, 6, 4)),
+                 192 + 96 + 96),
+    "scatter_add_": (lambda x: x.scatter_add_(
+        0, torch.zeros(1, 6, 4, dtype=torch.int64), torch.ones(1, 6, 4)),
+        192 + 96 + 2 * 96),
+    "index_fill_": (lambda x: x.index_fill_(1, _ix(0, 2, 5), 3.0),
+                    24 + 3 * 10 * 4 * 4),
+    "index_put_ accumulate": (lambda x: x.index_put_(
+        (_ix(4),), torch.ones(6, 4), accumulate=True), 8 + 96 + 2 * 96),
+    "index_put_ past a slice": (lambda x: x.__setitem__(
+        (slice(None), _ix(0, 3)), torch.ones(10, 2, 4)),
+        16 + 320 + 320),
+}
+
+
+@pytest.mark.parametrize("name", list(INDEXED_WRITES))
+def test_indexed_write_kinds_count_what_they_move(name):
+    """Each in-place write at indices counts its other operands and the
+    rows it writes (read too where it accumulates), not the 960 bytes of
+    the tensor it writes into."""
+    fn, want = INDEXED_WRITES[name]
+    x = torch.zeros(10, 6, 4)
+    with OpCost() as cost:
+        fn(x)
+    assert cost.bytes == want
 
 
 def _row_parallel(tp, x, ws):

@@ -260,8 +260,8 @@ def test_prefill_and_decode_chain_match_jax(arch):
     the others decode (positions -1: its state must not move), then its
     prefill resumes and all three decode; last, slot 1 is recycled by a
     new prompt from position 0 (it must read zeros, not its last state).
-    The hybrid runs with attn_chunk 8, so the JAX package's prefill takes
-    its chunked online softmax over the slot's 33 rows."""
+    The hybrid runs with attn_chunk 8, so the JAX package's prefill and
+    the port's take the chunked online softmax over the slot's 33 rows."""
     cfg_kw = {"attn_impl": "chunked", "attn_chunk": 8} \
         if arch == "zamba2-1.2b" else {}
     jm, params_j, qc_j, tm, params_t, qc_t = _carry(arch, 6, cfg_kw=cfg_kw)
