@@ -81,7 +81,8 @@ holds B1-B5 at the shard shapes. A phase, train_scale, runs the sharded
 LUTBoost step on the train phase's converted params: its stage-2 and
 stage-3 steps over a (1, 2) mesh of the card at full width and depth
 (loss, ce, recon and grad_norm beside the unsharded run's, step ms,
-collectives, peak memory; stage 2 leaves every other leaf bit for bit),
+collectives, peak memory; stage 2 leaves every other leaf bit for bit;
+one gradient with and without remat, bit for bit, peaks beside),
 a float32 copy cut to 8 layers on (1, 2) and (2, 2) on the unsharded
 run's centroid assignments (every gathered gradient leaf against the
 unsharded float32 step's), how far bf16 rounding moves each run from
@@ -94,7 +95,7 @@ loop.
 A last phase, families, runs paligemma-3b (vlm: 256 image patches that
 attend each other both ways before the text) and musicgen-large (audio:
 frame embeddings in, 4 codebook heads out) at full width and depth:
-forward, the dense-cache prefill and 16 decode steps (fused, and for
+forward, the dense-cache prefill and 8 decode steps (fused, and for
 paligemma two-pass with the same greedy tokens; one decode step's
 launches, every kernel call one kernel), in float32 every B1 call
 (the chain's and the forward's) against its plain version on the same
@@ -102,7 +103,11 @@ operands, each step's logits against a plain twin from the same cache,
 the forward's assignments against the chain's row for row, and the
 chain's logits against the forward's (rows no differing assignment
 reached, and every row of a forward on the chain's assignments), then
-LUTBoost stage 1 and one lut_train loss_and_grads. The kernel phase holds B1, B3 and B4 at both configs'
+LUTBoost stage 1 and one lut_train loss_and_grads; over a (1, 2) mesh
+(paligemma in the head_dim layout, musicgen's heads sharded on V) the
+dense-cache prefill and 8 decode steps against the unsharded chain in
+bf16 and float32 (equal in float32), and a float32 lut_train gradient
+at 4 layers against the unsharded one. The kernel phase holds B1, B3 and B4 at both configs'
 projection shapes at their decode and prefill rows. A phase, analysis
 (after the serving phases), runs the sync guard (repro_torch.analysis:
 a dispatch-level recorder of host syncs, host <-> device copies and
@@ -139,7 +144,8 @@ the bound computed from this run's inputs; launches of the main path,
 qwen1.5-4b's three serve runs (B1, B2: and the train phase's serve run
 of the converted model), for the grouped rows the grouped
 launches of deepseek-moe-16b's three, for the SSM rows the launches of
-the three recurrent runs) and the card's name and power limit.
+the three recurrent runs, for B2s / B2a the (1, 8) fused run's) and
+the card's name and power limit.
 Every serve run's launches are printed before them, by run.
 """
 from __future__ import annotations
@@ -375,10 +381,16 @@ DISPATCH = {
     "b2": (fd, "flash_decode_paged_cuda", fd.flash_decode_paged_plain),
     "b5": (fd, "flash_decode_paged_kvq_cuda",
            fd.flash_decode_paged_kvq_plain),
+    "b2s": (fd, "flash_decode_hd_scores_cuda",
+            fd.flash_decode_hd_scores_plain),
+    "b2a": (fd, "flash_decode_hd_attend_cuda",
+            fd.flash_decode_hd_attend_plain),
 }
 WRAPPERS = {"b1": vq_amm_cuda, "b3": vq_assign_cuda, "b4": lut_gemm_cuda,
             "b2": fd.flash_decode_paged_cuda,
-            "b5": fd.flash_decode_paged_kvq_cuda}
+            "b5": fd.flash_decode_paged_kvq_cuda,
+            "b2s": fd.flash_decode_hd_scores_cuda,
+            "b2a": fd.flash_decode_hd_attend_cuda}
 
 
 @contextlib.contextmanager
@@ -1161,7 +1173,18 @@ GEMMA27_LOAD = Load(slots=4, max_seq=2048, chunk=256, n=4,
 # forward batch's rows and length (text tokens after the image prefix, or
 # frames), then the serve runs' rows, prompt and decode steps
 FAM_FORWARD = 2, {"vlm": 64, "audio": 256}
-FAM_ROWS, FAM_PROMPT, FAM_STEPS = 4, {"vlm": 32, "audio": 64}, 16
+# (8 decode steps since PR 32, 16 before: the families' (1, 2) runs took
+# the time; every check holds at any step count)
+FAM_ROWS, FAM_PROMPT, FAM_STEPS = 4, {"vlm": 32, "audio": 64}, 8
+# the families over a model axis: the mesh, the decode steps of the
+# sharded dense-cache chain (fed the unsharded chain's inputs) and the
+# depth of the float32 lut_train gradient check (held at the train_scale
+# phase's TRAIN_F32_REL); a bf16 row whose argmax differs from the
+# unsharded run's counts as a near-tie when its two logits in the
+# unsharded row lie within FAM_MESH_TIE of the row's largest |logit|
+# (two bfloat16 ulps)
+FAM_MESH, FAM_MESH_STEPS, FAM_MESH_LAYERS = (1, 2), 8, 4
+FAM_MESH_TIE = 2.0 ** -7
 # (projection shapes, rows of a call) of each config's 3-d kernel
 # checks: every M its serve runs give B1 (decode: the slots; prefill: the
 # chunk), and yi-9b and gemma3-4b also at DENSE_MS
@@ -3616,6 +3639,44 @@ def train_pipeline_check(seed, host):
     free()
 
 
+def remat_check(cfg, qc, shards, mesh, batch):
+    """The (1, TP) step's gradient of one batch with and without
+    ``cfg.remat`` (every rank recomputes a layer together in the
+    backward, its collectives run again): the loss and every rank's
+    gradient bit for bit, each run's peak above what it started from,
+    its ms and collectives."""
+    runs = {}
+    for remat in (False, True):
+        model = Model(cfg.replace(remat=remat))
+        runner = tcol.RankRunner(mesh=mesh)
+        parts = shard_batch(batch, cfg, mesh)
+        free()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        loss, _, grads = sharded_loss_and_grads(model, runner, shards, parts,
+                                                qc)
+        torch.cuda.synchronize()
+        runs[remat] = (loss, grads, time.perf_counter() - t0,
+                       torch.cuda.max_memory_allocated() - base,
+                       runner.collectives)
+        del grads
+    same = torch.equal(runs[False][0], runs[True][0]) and all(
+        torch.equal(_bits(a), _bits(b)) for a, b in
+        zip(_leaves(runs[False][1]), _leaves(runs[True][1])))
+    print("train_scale [remat]: one gradient of full-width, full-depth "
+          f"{cfg.name} on (1, {TP}): " + "; ".join(
+              f"{'with' if r else 'without'} remat peak "
+              f"{runs[r][3] / 1e9:.2f} GB above the placement, "
+              f"{1e3 * runs[r][2]:.1f} ms, {runs[r][4]} collectives"
+              for r in (False, True))
+          + f"; loss and every rank's gradient bit for bit: {same} [{SMI}]")
+    check(same, "train_scale remat: the gradients with remat differ from "
+          "those without it")
+    del runs
+    free()
+
+
 def train_scale_phase(seed, host, unsharded, unsharded_peak):
     """The sharded LUTBoost train step on the one card: the train phase's
     converted params (``host``, its stage-1 result) placed on a (1, 2)
@@ -3644,6 +3705,7 @@ def train_scale_phase(seed, host, unsharded, unsharded_peak):
           f"on a (1, {TP}) mesh of the one card in "
           f"{time.perf_counter() - t0:.2f} s, with its AdamW state: "
           f"{torch.cuda.memory_allocated() / 1e9:.2f} GB [{SMI}]")
+    remat_check(cfg, qc, shards, mesh, ds.batch(0))
     step = 0
     for stage, n in TRAIN_STEPS.items():
         fn = make_train_step(model, qc, tc, stage, mesh=mesh, layout=layout)
@@ -3697,7 +3759,8 @@ def train_scale_phase(seed, host, unsharded, unsharded_peak):
         del now, was
     print(f"train_scale [steps]: peak device memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB over the "
-          f"placement and {step} steps (the train phase's unsharded run: "
+          f"placement, the remat check and {step} steps (the train "
+          f"phase's unsharded run: "
           f"{unsharded_peak / 1e9:.2f} GB) [{SMI}]")
     trained = unshard_tree(shards, layout, mesh)
     del shards, opt, fn, model
@@ -3996,7 +4059,7 @@ def family_serve(model, params, qc, prompt, frames, n_proj):
     if not audio:
         runs["two-pass"] = (qc.replace(fuse=False), ("b3", "b4"),
                             {"b1", "b2", "b5"})
-    tokens = {}
+    tokens, fused = {}, None
     for run, (qc_r, keys, idle) in runs.items():
         label = f"{cfg.name} {run}"
         with torch.no_grad():
@@ -4006,6 +4069,8 @@ def family_serve(model, params, qc, prompt, frames, n_proj):
                 set(keys), idle)
             check(all(bool(torch.isfinite(lg).all()) for lg in logits),
                   f"{label}: non-finite logits")
+            if run == "fused":
+                fused = (logits, inputs)
             want = {k: n_proj * (FAM_STEPS + 1) for k in keys}
             got = {k: counts[k] for k in keys}
             check(got == want, f"{label}: the prefill and {FAM_STEPS} "
@@ -4048,6 +4113,129 @@ def family_serve(model, params, qc, prompt, frames, n_proj):
               "run's")
         print(f"families [{cfg.name}]: two-pass greedy tokens equal the "
               f"fused run's ({FAM_ROWS} rows x {FAM_STEPS + 1} tokens)")
+    return fused
+
+
+def family_mesh(model, params, qc, prompt, ref, fed):
+    """The dense-cache serve over FAM_MESH (paligemma-3b: its one kv head
+    takes the head_dim layout, the image prefix re-sharded by sequence;
+    musicgen-large: heads, its ``heads`` sharded on V): the prefill and
+    FAM_MESH_STEPS decode steps fed the unsharded chain's inputs
+    (``fed``), each call's logits (gathered) against that chain's
+    (``ref``): relative L2 by row, and argmax agreement with the
+    disagreeing rows that are near-ties (FAM_MESH_TIE) counted apart. In
+    float32 the two must agree (every row within LOGIT_ROW_REL_TOL, every
+    argmax equal): the sharded program is the same function. In bf16
+    they are printed and held finite: another order of float32 sums
+    (the head_dim layout's partial scores, a product's split over the
+    head_dim) moves a bf16 value by an ulp, which can flip a near-tied
+    centroid assignment of a later projection and so the rest of that
+    row (PR 32: bit for bit in float32, rows off by ~0.1 in bf16 from a
+    step on). Prints the collectives a decode step."""
+    cfg = model.cfg
+    strict = cfg.dtype == "float32"
+    mesh = make_test_mesh(FAM_MESH, device=DEV)
+    shards = shard_tree(params, serving_layout(params, cfg, FAM_MESH[1]),
+                        mesh)
+    n = ref[0].shape[0]
+    rows = (prompt["embeds"].shape[1] if cfg.family == "audio"
+            else cfg.num_patches + prompt["tokens"].shape[1])
+    caches = shard_cache(model.init_cache(n, rows + FAM_MESH_STEPS), cfg, n,
+                         mesh)
+    runner = tcol.RankRunner(mesh=mesh)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = runner.run(lambda tp: model.prefill(shards[tp.me], prompt,
+                                                   caches[tp.me], qc))
+        torch.cuda.synchronize()
+        t_pre = time.perf_counter() - t0
+        got, caches = [outs[0][0]], [o[1] for o in outs]
+        c0, times = runner.collectives, []
+        for x in fed[:FAM_MESH_STEPS]:
+            t0 = time.perf_counter()
+            outs = runner.run(lambda tp: model.decode(shards[tp.me], x,
+                                                      caches[tp.me], qc))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            got.append(outs[0][0])
+            caches = [o[1] for o in outs]
+    per_step = (runner.collectives - c0) / FAM_MESH_STEPS
+    del shards, caches, outs
+    label = f"families [{cfg.name} over {FAM_MESH}, {cfg.dtype}]"
+    worst, agree, ties, total = [], 0, 0, 0
+    for i, (g, r) in enumerate(zip(got, ref)):
+        g = g.float().reshape(-1, g.shape[-1])
+        r = r.float().reshape(-1, r.shape[-1])
+        check(g.shape == r.shape and bool(torch.isfinite(g).all()),
+              f"{label} call {i}: logits {tuple(g.shape)} or not finite")
+        rel = ((g - r).norm(dim=-1) / r.norm(dim=-1)).tolist()
+        worst.append(max(rel))
+        a_g, a_r = g.argmax(-1), r.argmax(-1)
+        total += len(rel)
+        agree += int((a_g == a_r).sum())
+        for row in (a_g != a_r).nonzero().flatten().tolist():
+            gap = float(r[row, a_r[row]] - r[row, a_g[row]])
+            ties += gap <= FAM_MESH_TIE * float(r[row].abs().max())
+        if strict:
+            check(max(rel) <= LOGIT_ROW_REL_TOL and torch.equal(a_g, a_r),
+                  f"{label} call {i}: rows off the unsharded run's by "
+                  f"{rel} (bound {LOGIT_ROW_REL_TOL}), argmax equal "
+                  f"{torch.equal(a_g, a_r)}")
+    dec = 1e3 * np.array(times)
+    print(f"{label}: "
+          + ("head_dim layout" if hd_fallback(cfg, FAM_MESH[1]) else
+             "heads layout, heads sharded on V")
+          + f"; prefill {1e3 * t_pre:.1f} ms, {FAM_MESH_STEPS} decode steps "
+          f"fed the unsharded chain's inputs: mean {dec.mean():.1f} ms; "
+          f"{per_step:.1f} collectives a decode step; logits against the "
+          f"unsharded run: worst row relative L2 a call "
+          f"{[float(f'{w:.3g}') for w in worst]}; argmax equal in {agree} "
+          f"of {total} rows, of the others {ties} near-ties (within "
+          f"{FAM_MESH_TIE} of the row's largest |logit|) [{SMI}]")
+
+
+def family_mesh_train(cfg, seed):
+    """One lut_train gradient over FAM_MESH in float32, full width, cut to
+    FAM_MESH_LAYERS layers: the sharded step's gathered gradient and loss
+    against the unsharded ``loss_and_grads`` on the same params and batch,
+    the sharded run on the unsharded run's centroid assignments
+    (``_rank_assignments``): the loss and every leaf within relative L2
+    TRAIN_F32_REL."""
+    c = cfg.replace(num_layers=FAM_MESH_LAYERS, dtype="float32")
+    model = Model(c, device=DEV)
+    qt = QuantConfig(mode="lut_train", v=V, c=C, metric="l2")
+    params = model.init(torch.Generator(device=DEV).manual_seed(seed + 2),
+                        qt)
+    batch = family_batch(c, 2, FAM_PROMPT[c.family], seed, 4)
+    with _rank_assignments() as rec:
+        loss, _, grads = loss_and_grads(model, params, batch, qt)
+    mesh = make_test_mesh(FAM_MESH, device=DEV)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _rank_assignments(replay=rec[0]):
+        s_loss, _, s_grads, _, coll = sharded_grads(model, params, batch, qt,
+                                                    mesh)
+    torch.cuda.synchronize()
+    t_s = time.perf_counter() - t0
+    want = dict(tree_flatten_with_path(grads))
+    got = dict(tree_flatten_with_path(s_grads))
+    check(set(got) == set(want), f"families [{c.name} lut_train over "
+          f"{FAM_MESH}]: gradient leaves differ")
+    rels = {p: _rel(got[p], want[p]) for p in want
+            if float(want[p].float().norm()) > 0}
+    worst = max(rels, key=rels.get)
+    l_rel = abs(float(s_loss) - float(loss)) / abs(float(loss))
+    print(f"families [{c.name} lut_train over {FAM_MESH}, {FAM_MESH_LAYERS} "
+          f"layers, float32]: loss {float(s_loss):.6f} (unsharded "
+          f"{float(loss):.6f}, {l_rel:.1e}); {len(rels)} gradient leaves, "
+          f"the farthest {worst} at relative L2 {rels[worst]:.2e}; "
+          f"{coll} collectives; {1e3 * t_s:.1f} ms sharded [{SMI}]")
+    check(l_rel <= TRAIN_F32_REL and rels[worst] <= TRAIN_F32_REL,
+          f"families [{c.name} lut_train over {FAM_MESH}]: loss {l_rel}, "
+          f"gradient {worst} {rels[worst]} beyond {TRAIN_F32_REL}")
+    del model, params, grads, s_grads
+    free()
 
 
 def chain_forward(model, params, qc, prompt, frames, fed):
@@ -4320,7 +4508,9 @@ def family_run(cfg, seed):
         frames = serve_in["embeds"][:, p_len:]
     else:
         prompt, frames = serve_in, None
-    family_serve(model, params, qc, prompt, frames, n_proj)
+    logits, fed = family_serve(model, params, qc, prompt, frames, n_proj)
+    family_mesh(model, params, qc, prompt, logits, fed)
+    del logits, fed
     print(f"families [{cfg.name}]: peak device memory (init, forward, "
           f"serving) {torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
           f"[{SMI}]")
@@ -4328,10 +4518,16 @@ def family_run(cfg, seed):
     del params
     free()
     model32 = Model(cfg.replace(dtype="float32"), device=DEV)
+    with torch.no_grad():
+        ref32, fed32, *_ = family_chain(model32, params32, qc, prompt,
+                                        frames)
+    family_mesh(model32, params32, qc, prompt, ref32, fed32)
+    del ref32, fed32
     family_float32(model32, params32, qc, prompt, frames)
     del params32, model32, model
     free()
     family_train(cfg, seed)
+    family_mesh_train(cfg, seed)
 
 
 def families_phase(seed, cfgs=None):
@@ -4924,7 +5120,136 @@ def tp_kernel_cases(gen, flush, seed):
                  "c=16", SLOTS, kvh, kvh, 128, np_, pos, 0, [0] * SLOTS,
                  flush, True,
                  sp=fd.split_pages_for(SLOTS, 2 * kvh, np_, kvq=True))
-    return {"qwen": qwen, "moe": moe, "b2": b2, "b5": b5}
+    # the head_dim layout's decode (B2s, B2a) at a rank's slice over
+    # HD_MESH: qwen1.5-4b's main path (20 kv heads, D/m 16), timed, and
+    # gemma3-4b's (4 kv heads, D/m 32, its 1024 window, kv_start and a
+    # pos = -1 lane)
+    m = HD_MESH[1]
+    g_pos = sorted(rng.integers(*GEMMA_LOAD.check, SLOTS).tolist())
+    g_pos[1] = -1
+    hd = hd_case(gen, f"qwen1.5-4b over {HD_MESH}: B=8 KVH=20 G=1 D/m="
+                 f"{128 // m} NP=32", SLOTS, 20, 20, 128, m, np_, pos, 0,
+                 [0] * SLOTS, flush, True)
+    hd_checks = [hd_case(gen, f"gemma3-4b over {HD_MESH}: B=8 KVH=4 G=2 "
+                         f"D/m={256 // m} NP=128 window=1024 kv_start>0, "
+                         "a pos=-1 lane", SLOTS, 8, 4, 256, m,
+                         GEMMA_LOAD.max_seq // PAGE, g_pos, 1024,
+                         [0, 0, 7, 0, 300, 0, 0, 12], flush, False)]
+    return {"qwen": qwen, "moe": moe, "b2": b2, "b5": b5, "hd": hd,
+            "hd_checks": hd_checks}
+
+
+#: the head_dim layout's paged serving: qwen1.5-4b's 20 kv heads over a
+#: (1, 8) mesh of the one card (head_dim 128 / 8 = 16 a rank), cut to
+#: SCALE_LAYERS, on HD_LOAD: 4 requests of 32-96 prompt tokens, 8 new
+#: each (one to three prefill chunks, every lane decoding at once); on
+#: MAIN_LOAD the two (1, 8) runs took 50 s of the script on an H100
+#: (eight ranks take turns: a step 13.6x the unsharded one)
+HD_MESH = (1, 8)
+HD_LOAD = Load(n=4, prompt=(32, 97), new=8, hot=-1)
+
+
+def hd_case(gen, name, b, h, kvh, d, m, np_, positions, window, kv_start,
+            flush, timed, ps=PAGE):
+    """B2s and B2a at rank 0's slice (head_dim ``d`` / ``m``) of a bf16
+    pool, q in bf16: B2s against its plain version (float32 scores within
+    2e-5 of their scale; a pos = -1 lane's and dead keys' 0); B2a on the
+    scores of the whole head_dim (what the all-reduce gives) against its
+    plain version (within 2e-5 of the scale plus a bfloat16 ulp; a pos =
+    -1 lane exactly its v_new slice); each call one kernel
+    (``device.enqueued``). ``timed``: each flushed (mean, median of 30),
+    warm in a graph, its plain version's time and its bound, and SDPA over
+    the whole heads' K / V already gathered as the pair's yardstick."""
+    q, kp, vp, kn, vn, phys, pos, ks = b2_inputs(gen, b, h, kvh, d, np_,
+                                                 positions, kv_start, ps)
+    ds = d // m
+
+    def cut(t):
+        return t[..., :ds].contiguous()
+    qs, kps, vps, kns, vns = (cut(t) for t in (q, kp, vp, kn, vn))
+    scale = d ** -0.5
+
+    def scores():
+        return fd.flash_decode_hd_scores_cuda(qs, kps, kns, phys, pos,
+                                              window, ks)
+
+    def scores_plain():
+        return fd.flash_decode_hd_scores_plain(qs, kps, kns, phys, pos,
+                                               window, ks)
+    sc_full = fd.flash_decode_hd_scores_plain(q, kp, kn, phys, pos, window,
+                                              ks)
+
+    def attend():
+        return fd.flash_decode_hd_attend_cuda(sc_full, vps, vns, phys, pos,
+                                              window, ks, scale, q.dtype)
+
+    def attend_plain():
+        return fd.flash_decode_hd_attend_plain(sc_full, vps, vns, phys, pos,
+                                               window, ks, scale, q.dtype)
+    sc, sc_p = scores(), scores_plain()
+    out, out_p, again = attend(), attend_plain(), attend()
+    torch.cuda.synchronize()
+    err_s = float((sc - sc_p).abs().max())
+    check(err_s <= 2e-5 * (1.0 + float(sc_p.abs().max())),
+          f"B2s {name}: max abs err {err_s}")
+    dead = (pos < 0).nonzero().flatten().tolist()
+    g = h // kvh
+    for lane in dead:
+        check(bool((sc[lane, :, :-1] == 0).all()),
+              f"B2s {name}: pos=-1 lane {lane} scores not 0")
+        check(torch.equal(out[lane, 0], vns[lane, 0].repeat_interleave(g,
+                                                                       0)),
+              f"B2a {name}: pos=-1 lane {lane} is not exactly its v_new")
+    err_a = float((out.float() - out_p.float()).abs().max())
+    mx = float(out_p.float().abs().max())
+    check(torch.equal(out, again), f"B2a {name}: two launches differ")
+    check(err_a <= 2e-5 * (1.0 + mx) + 2.0 ** -7 * mx,
+          f"B2a {name}: max abs err {err_a} (bf16 out)")
+    for label, call in (("B2s", scores), ("B2a", attend)):
+        calls = enqueued(call)
+        check(calls == ONE_KERNEL, f"{label} {name}: enqueues {calls}")
+    res = {"b2s": {"err": err_s}, "b2a": {"err": err_a}}
+    if not timed:
+        print(f"hd [{name}]: B2s max abs err {err_s:.3g} (float32 scores), "
+              f"B2a {err_a:.3g} (bf16 out); one kernel a call; pos=-1 "
+              f"lanes exact [{SMI}]")
+        return res
+    live = int(pos.clamp_min(0).sum())
+    for key, call, plain, wk in (
+            ("b2s", scores, scores_plain,
+             work.flash_decode_hd_scores(qs, kps, phys, live=live)),
+            ("b2a", attend, attend_plain,
+             work.flash_decode_hd_attend(sc_full, vps, phys, q.dtype,
+                                         live=live))):
+        times = device_times(call, 30, flush)
+        bms, by = bound(wk)
+        res[key].update({"ms": float(np.mean(times)),
+                         "med_ms": float(np.median(times)),
+                         "warm_ms": graph_ms(call), "host": host_us(call),
+                         "plain_ms": time_ms(plain, 5, flush),
+                         "bound_ms": bms, "bound_by": by,
+                         "library_ms": None})
+    t = np_ * ps
+    kg = kp[phys.long()].reshape(b, t, kvh, d).transpose(1, 2).contiguous()
+    vg = vp[phys.long()].reshape(b, t, kvh, d).transpose(1, 2).contiguous()
+    mask = (torch.arange(t, device=DEV)[None] < pos[:, None])[:, None, None]
+    qh = q.transpose(1, 2).contiguous()
+    sdpa_ms = time_ms(lambda: torch.nn.functional.
+                      scaled_dot_product_attention(qh, kg, vg, attn_mask=mask,
+                                                   enable_gqa=h != kvh),
+                      30, flush)
+    res["b2a"]["library_ms"] = sdpa_ms
+    print(f"hd [{name}]: " + "; ".join(
+        f"{key.upper()} {r['ms'] * 1e3:.1f} us flushed (median "
+        f"{r['med_ms'] * 1e3:.1f}), {r['warm_ms'] * 1e3:.1f} us warm in a "
+        f"graph, host {r['host']:.1f} us/call, bound "
+        f"{r['bound_ms'] * 1e3:.2f} us ({r['bound_by']}), plain "
+        f"{r['plain_ms'] * 1e3:.1f} us, max abs err {r['err']:.3g}"
+        for key, r in (("b2s", res["b2s"]), ("b2a", res["b2a"])))
+        + f"; one kernel a call; {live} live tokens; SDPA over the whole "
+        f"heads' K / V already gathered (the pair's function on one "
+        f"device) {sdpa_ms * 1e3:.1f} us [{SMI}]")
+    return res
 
 
 def collective_host_us(devices, n=2000) -> float:
@@ -5007,6 +5332,52 @@ def tp_serve(model, params, qc, seed, label, launched, idle, mesh,
     return out
 
 
+def hd_serve(cut, cut_params, qc, seed):
+    """The paged head_dim layout on the card: ``cut`` (full-width
+    qwen1.5-4b at SCALE_LAYERS: its 20 kv heads do not divide the 8 ranks
+    of HD_MESH) served on HD_LOAD fused (each rank's fp pool the head_dim
+    slice of every kv head: B1, B2s and B2a, no B2) and on a code pool
+    (replicated: B1 and B5 over every head), each against the unsharded
+    engine's run on that load at that depth: greedy tokens equal, the
+    step ms and collectives beside."""
+    mesh = make_test_mesh(HD_MESH, device=DEV)
+    check(hd_fallback(cut.cfg, HD_MESH[1]),
+          f"{cut.cfg.name} over {HD_MESH} does not take the head_dim layout")
+    for name, qc_r, launched, idle in (
+            ("fused", qc, {"b1", "b2s", "b2a"}, {"b2", "b3", "b4", "b5"}),
+            ("vq-kv", qc.replace(kv_quant="vq", kv_v=KV_V, kv_c=KV_C),
+             {"b1", "b5"}, {"b2", "b2s", "b2a", "b3", "b4"})):
+        lab = (f"qwen1.5-4b {name}, {SCALE_LAYERS} layers, head_dim layout "
+               f"over {HD_MESH}")
+        one = (launched - {"b2s", "b2a"}) | ({"b2"} if name == "fused"
+                                             else set())
+        _, want, ref = serve(cut, cut_params, qc_r, seed,
+                             f"qwen1.5-4b {name}, {SCALE_LAYERS} layers, "
+                             "HD_LOAD", one, (idle | {"b2s", "b2a"}) - one,
+                             load=HD_LOAD,
+                             tag="scale")
+        ref = ref.stats
+        _, got, eng = tp_serve(cut, cut_params, qc_r, seed, lab, launched,
+                               idle, mesh, load=HD_LOAD)
+        st = eng.stats
+        pool = eng.kv.pools[0]["k"]
+        del eng
+        free()
+        print(f"scale [{lab}]: decode step {st['step_ms']:.1f} ms "
+              f"(unsharded {ref['step_ms']:.1f}, "
+              f"{st['step_ms'] / ref['step_ms']:.2f}x), prefill chunk "
+              f"{st['chunk_ms']:.1f} ms ({ref['chunk_ms']:.1f}), "
+              f"{st['tokens_per_s']:.1f} generated tokens/s "
+              f"({ref['tokens_per_s']:.1f}); collectives a decode step "
+              f"{st['coll_per_step']:.1f} "
+              f"({st['coll_bytes_per_step'] / 1e6:.2f} MB); a rank's pool "
+              f"{tuple(pool.shape)} {pool.dtype}; launches "
+              f"{PATH_LAUNCHES[lab]} [{SMI}]")
+        check(compare_tokens(f"{lab} vs unsharded, greedy", got,
+                             want) == 0,
+              f"{lab}: greedy tokens differ from the unsharded run's")
+
+
 def scale_phase(model, params, qc, seed, gen):
     """Tensor-parallel serving on the one card: the shard-shape kernel
     cases; full-width qwen1.5-4b int8 cut to SERVING_LAYERS TP-2 fused on
@@ -5017,8 +5388,10 @@ def scale_phase(model, params, qc, seed, gen):
     second TP-2 fused run (the temperature request the same in both; the
     greedy tokens the unsharded engine's), two-pass and vq-kv TP-2
     against unsharded runs, the (2, 2) router against the unsharded
-    engine; deepseek-moe-16b EP-2 and mamba2-2.7b TP-2 cut in depth
-    against their unsharded runs. Returns the kernel cases."""
+    engine; the head_dim layout over HD_MESH at SCALE_LAYERS, fused and
+    vq-kv (:func:`hd_serve`); deepseek-moe-16b EP-2 and mamba2-2.7b TP-2
+    cut in depth against their unsharded runs. Returns the kernel
+    cases."""
     flush = torch.ones(L2_FLUSH_BYTES // 4, dtype=torch.int32, device=DEV)
     cases = tp_kernel_cases(gen, flush, seed)
     cfg = model.cfg
@@ -5123,6 +5496,7 @@ def scale_phase(model, params, qc, seed, gen):
         check(compare_tokens(f"{lab} TP-{TP} vs unsharded, greedy", two,
                              one, skip=(hot,)) == 0,
               f"{lab}: TP-{TP} tokens differ from the unsharded run's")
+    hd_serve(cut, cut_params, qc, seed)
     router = ReplicaRouter.from_mesh(
         cut, cut_params, qc, mesh=make_test_mesh((2, TP), device=DEV),
         **engine_kw(seed=seed))
@@ -5728,6 +6102,21 @@ def main(argv=None) -> int:
                       "src/repro_torch/csrc/fused_amm.cu",
                       "src/repro/kernels/fused_amm.py:87"),
     ]
+    hd = scale["hd"]
+    for key, what in (
+            ("b2s", "flash_decode_hd_scores_cuda (B2s: a rank's partial "
+             "decode scores in the head_dim layout, qwen1.5-4b over "
+             f"{HD_MESH}: 8 slots, 20 kv heads, D/m 16, bf16; launches: the "
+             f"{HD_MESH} fused serve run, every rank)"),
+            ("b2a", "flash_decode_hd_attend_cuda (B2a: the softmax of the "
+             "all-reduced scores and a rank's V slice, the same shapes; "
+             "library: SDPA over the whole heads' K / V already gathered, "
+             "the pair's function on one device)")):
+        kernels.append(attn_row(
+            what, hd[key], [hd[key]["err"]] + [c[key]["err"] for c in
+                                               scale["hd_checks"]],
+            "src/repro_torch/csrc/flash_decode_hd.cu",
+            "src/repro/kernels/flash_decode.py:183", scale_launches(key)))
     print(f"launches by serve run: {json.dumps(PATH_LAUNCHES)}")
     print(json.dumps({"kernels": kernels}))
     print(smi)

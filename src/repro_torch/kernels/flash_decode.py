@@ -34,6 +34,17 @@ the same call is the plain pair: the per-split triples
 (:func:`flash_decode_splits_cuda`, :func:`flash_decode_splits_kvq_cuda`)
 keeps the TPU kernels' contract, triples out, for holding B2 and B5
 against their plain versions.
+
+Under the head_dim layout of tensor parallelism (kv heads that do not
+divide the model axis; ``models.layers.attention``) each rank's fp pool
+holds every kv head's head_dim slice, and a decode is two kernels with an
+all-reduce between them (``csrc/flash_decode_hd.cu``): B2s,
+:func:`flash_decode_hd_scores`, the rank's partial scores (B, H, T + 1)
+(the last column the new token's self term), and, on their sum over the
+ranks, B2a, :func:`flash_decode_hd_attend`: the scale, the masks, one
+float32 softmax and the probabilities times the rank's V slice. Their
+plain versions are :func:`flash_decode_hd_scores_plain` and
+:func:`flash_decode_hd_attend_plain`.
 """
 from __future__ import annotations
 
@@ -705,18 +716,26 @@ def flash_decode_paged(q: torch.Tensor, k_pages: torch.Tensor,
                                    split_pages)
 
 
-def _flash_decode_paged(q, k_pages, v_pages, k_new, v_new, phys, positions,
-                        window, kv_start, codebook, split_pages):
-    b = q.shape[0]
-    kvh = k_pages.shape[2]
-    np_ = phys.shape[1]
-    dev = q.device
+def _lanes(positions, kv_start, b: int, dev: torch.device
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The (B,) int32 positions and kv starts a launch takes (an int
+    kv_start: one constant tensor, made once)."""
     pos = torch.as_tensor(positions, dtype=torch.int32,
                           device=dev).expand(b).contiguous()
     ks = (_device_const(kv_start, torch.int32, b, dev)
           if isinstance(kv_start, int) else
           torch.as_tensor(kv_start, dtype=torch.int32,
                           device=dev).expand(b).contiguous())
+    return pos, ks
+
+
+def _flash_decode_paged(q, k_pages, v_pages, k_new, v_new, phys, positions,
+                        window, kv_start, codebook, split_pages):
+    b = q.shape[0]
+    kvh = k_pages.shape[2]
+    np_ = phys.shape[1]
+    dev = q.device
+    pos, ks = _lanes(positions, kv_start, b, dev)
     if split_pages is None:
         split_pages = split_pages_for(b, kvh, np_, codebook is not None)
     sp = min(split_pages, np_)
@@ -731,3 +750,246 @@ def _flash_decode_paged(q, k_pages, v_pages, k_new, v_new, phys, positions,
           else flash_decode_paged_kvq_cuda)
     return fn(*args, codebook["zk"], codebook["zv"], codebook["sk"],
               codebook["sv"], *rest)
+
+
+# ---------------------------------------------------------------------------
+# the head_dim layout's decode: B2s (partial scores), B2a (attend)
+# ---------------------------------------------------------------------------
+
+def _live_keys(pos: torch.Tensor, win: int, ks: torch.Tensor,
+               t: int) -> torch.Tensor:
+    """(B, T) the live keys of each lane: kv_start <= j < pos, within the
+    window."""
+    kj = torch.arange(t, dtype=torch.int32, device=pos.device)[None]
+    return _split_masks(pos[:, None], win, ks[:, None], kj)
+
+
+def flash_decode_hd_scores_plain(q: torch.Tensor, k_pages: torch.Tensor,
+                                 k_new: torch.Tensor, phys: torch.Tensor,
+                                 pos: torch.Tensor, win: int,
+                                 ks: torch.Tensor) -> torch.Tensor:
+    """The partial scores of the head_dim layout in plain PyTorch: the
+    plain version of kernel B2s. q (B, 1, KVH*G, D) (a rank's head_dim
+    slice, unscaled), k_pages (P+1, page, KVH, D), k_new (B, 1, KVH, D),
+    phys (B, NP) trash-redirected, pos / ks (B,) int32. Returns (B, H,
+    NP*page + 1) float32: the dot products of q with every live key row
+    (0 elsewhere), then the self term with k_new.
+    ``flash_decode_hd_scores_plain.calls`` counts calls."""
+    _build.bump(flash_decode_hd_scores_plain, "calls")
+    b, _, h, d = q.shape
+    kvh, ps = k_pages.shape[2], k_pages.shape[1]
+    t = phys.shape[1] * ps
+    qf = q[:, 0].float().reshape(b, kvh, h // kvh, d)
+    kg = k_pages[phys.long()].reshape(b, t, kvh, d).float()
+    sc = torch.einsum("bkgd,btkd->bkgt", qf, kg)
+    live = _live_keys(pos, win, ks, t)[:, None, None]
+    sc = torch.where(live, sc, torch.zeros_like(sc))
+    s_new = torch.einsum("bkgd,bkd->bkg", qf, k_new[:, 0].float())
+    return torch.cat([sc, s_new[..., None]], -1).reshape(b, h, t + 1)
+
+
+flash_decode_hd_scores_plain.calls = 0
+
+
+def flash_decode_hd_attend_plain(sc: torch.Tensor, v_pages: torch.Tensor,
+                                 v_new: torch.Tensor, phys: torch.Tensor,
+                                 pos: torch.Tensor, win: int,
+                                 ks: torch.Tensor, scale: float,
+                                 out_dtype: torch.dtype) -> torch.Tensor:
+    """The attend step of the head_dim layout in plain PyTorch: the plain
+    version of kernel B2a. sc (B, H, NP*page + 1) float32, the scores
+    summed over the ranks; v_pages (P+1, page, KVH, D) and v_new (B, 1,
+    KVH, D), the rank's slices. The scores times ``scale`` (the whole
+    head_dim's), masked to -1e30 off the live keys (the last column, the
+    self term, always live), one float32 softmax, the probabilities
+    rounded to ``out_dtype``, their product with V summed in float32.
+    Returns (B, 1, H, D) in ``out_dtype``; a pos = -1 lane gives exactly
+    its v_new row. ``flash_decode_hd_attend_plain.calls`` counts calls."""
+    _build.bump(flash_decode_hd_attend_plain, "calls")
+    b, h, t1 = sc.shape
+    kvh, ps, d = v_pages.shape[2], v_pages.shape[1], v_pages.shape[3]
+    t = t1 - 1
+    live = torch.cat([_live_keys(pos, win, ks, t),
+                      torch.ones((b, 1), dtype=torch.bool,
+                                 device=sc.device)], -1)[:, None]
+    s = torch.where(live, sc * scale, torch.full_like(sc, NEG_INF))
+    p = torch.softmax(s, dim=-1).to(out_dtype).float()
+    vg = v_pages[phys.long()].reshape(b, t, kvh, d)
+    v_all = torch.cat([vg, v_new.to(vg.dtype)], 1).float()
+    out = torch.einsum("bkgt,btkd->bkgd", p.reshape(b, kvh, h // kvh, t1),
+                       v_all)
+    return out.reshape(b, 1, h, d).to(out_dtype)
+
+
+flash_decode_hd_attend_plain.calls = 0
+
+
+def _lib_hd():
+    lib = _build.load("flash_decode_hd")
+    fn = lib.flash_decode_hd_scores_launch
+    if fn.argtypes is None:
+        fn.argtypes = [_P] * 6 + [_I, _P] + [_I] * 8 + [_P]
+        fn.restype = _I
+        fn = lib.flash_decode_hd_attend_launch
+        fn.argtypes = [_P] * 6 + [_I, _F, _P] + [_I] * 8 + [_P]
+        fn.restype = _I
+    return lib
+
+
+def _check_hd(who: str, pool: torch.Tensor, new: torch.Tensor,
+              tensors: list, phys: torch.Tensor, pos: torch.Tensor,
+              ks: torch.Tensor, b: int, h: int) -> Tuple[int, int, int]:
+    """The checks both head_dim kernels share. Returns (KVH, G, D)."""
+    def check(cond, msg):
+        _check(cond, msg, who)
+    check(all(t.device.type == "cuda" for t in tensors),
+          "all tensors must be CUDA tensors")
+    check(len({t.device for t in tensors}) == 1,
+          "tensors lie on different devices")
+    check(all(t.is_contiguous() for t in tensors),
+          "tensors must be contiguous")
+    check(pool.dtype in _KV_DTYPES and new.dtype == pool.dtype,
+          f"the pool and the new row must share one of {list(_KV_DTYPES)}")
+    check(all(t.dtype == torch.int32 for t in (phys, pos, ks)),
+          "phys, pos and kv_start must be int32")
+    check(pool.dim() == 4, f"a pool (P+1, page, KVH, D) expected, got "
+          f"{tuple(pool.shape)}")
+    kvh, d = pool.shape[2], pool.shape[3]
+    check(h % kvh == 0, f"{h} query heads do not group over {kvh} kv heads")
+    check(tuple(new.shape) == (b, 1, kvh, d),
+          f"new row {tuple(new.shape)}, expected {(b, 1, kvh, d)}")
+    check(phys.dim() == 2 and phys.shape[0] == b
+          and tuple(pos.shape) == (b,) and tuple(ks.shape) == (b,),
+          "phys (B, NP), pos (B,) and kv_start (B,) expected")
+    check(1 <= b <= 65535 and h <= 65535, f"B={b}, H={h} out of range")
+    return kvh, h // kvh, d
+
+
+def flash_decode_hd_scores_cuda(q: torch.Tensor, k_pages: torch.Tensor,
+                                k_new: torch.Tensor, phys: torch.Tensor,
+                                pos: torch.Tensor, win: int,
+                                ks: torch.Tensor) -> torch.Tensor:
+    """Kernel B2s: the same contract as
+    :func:`flash_decode_hd_scores_plain`, on the card. q float32 or
+    bfloat16; pages and k_new float32 or bfloat16 (one type); phys, pos,
+    ks int32; all contiguous CUDA tensors on one device; the slot's q
+    (H x D floats) within 48 KB. ``flash_decode_hd_scores_cuda.launches``
+    counts launches."""
+    who = "flash_decode_hd_scores_cuda"
+    _check(q.dim() == 4 and q.shape[1] == 1 and q.dtype in _KV_DTYPES,
+           f"q (B, 1, H, D) float32 or bfloat16 expected, got "
+           f"{tuple(q.shape)} {q.dtype}", who)
+    b, _, h, d = q.shape
+    kvh, g, dk = _check_hd(who, k_pages, k_new,
+                           [q, k_pages, k_new, phys, pos, ks], phys, pos,
+                           ks, b, h)
+    _check(dk == d, f"pool head_dim {dk} != q's {d}", who)
+    _check(h * d * 4 <= 48 * 1024, f"H x D = {h * d} floats exceed 48 KB",
+           who)
+    ps, np_ = k_pages.shape[1], phys.shape[1]
+    sc = torch.empty((b, h, np_ * ps + 1), dtype=torch.float32,
+                     device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _lib_hd().flash_decode_hd_scores_launch(
+            q.data_ptr(), k_pages.data_ptr(), k_new.data_ptr(),
+            phys.data_ptr(), pos.data_ptr(), ks.data_ptr(), int(win),
+            sc.data_ptr(), b, kvh, g, d, ps, np_, _KV_DTYPES[k_pages.dtype],
+            _KV_DTYPES[q.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"{who}: launch failed with cudaError {err}")
+    _build.bump(flash_decode_hd_scores_cuda, "launches")
+    return sc
+
+
+flash_decode_hd_scores_cuda.launches = 0
+
+
+def flash_decode_hd_attend_cuda(sc: torch.Tensor, v_pages: torch.Tensor,
+                                v_new: torch.Tensor, phys: torch.Tensor,
+                                pos: torch.Tensor, win: int,
+                                ks: torch.Tensor, scale: float,
+                                out_dtype: torch.dtype) -> torch.Tensor:
+    """Kernel B2a: the same contract as
+    :func:`flash_decode_hd_attend_plain`, on the card. sc float32 (B, H,
+    NP*page + 1); pages and v_new float32 or bfloat16 (one type);
+    ``out_dtype`` float32 or bfloat16. ``flash_decode_hd_attend_cuda.
+    launches`` counts launches."""
+    who = "flash_decode_hd_attend_cuda"
+    _check(sc.dim() == 3 and sc.dtype == torch.float32,
+           f"sc (B, H, T + 1) float32 expected, got {tuple(sc.shape)} "
+           f"{sc.dtype}", who)
+    _check(out_dtype in _KV_DTYPES, f"out_dtype must be one of "
+           f"{list(_KV_DTYPES)}", who)
+    b, h, t1 = sc.shape
+    kvh, g, d = _check_hd(who, v_pages, v_new,
+                          [sc, v_pages, v_new, phys, pos, ks], phys, pos, ks,
+                          b, h)
+    ps, np_ = v_pages.shape[1], phys.shape[1]
+    _check(t1 == np_ * ps + 1, f"sc has {t1} columns, the table "
+           f"{np_ * ps} keys + 1", who)
+    out = torch.empty((b, 1, h, d), dtype=out_dtype, device=sc.device)
+    with torch.cuda.device(sc.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _lib_hd().flash_decode_hd_attend_launch(
+            sc.data_ptr(), v_pages.data_ptr(), v_new.data_ptr(),
+            phys.data_ptr(), pos.data_ptr(), ks.data_ptr(), int(win),
+            float(scale), out.data_ptr(), b, kvh, g, d, ps, np_,
+            _KV_DTYPES[v_pages.dtype], _KV_DTYPES[out_dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"{who}: launch failed with cudaError {err}")
+    _build.bump(flash_decode_hd_attend_cuda, "launches")
+    return out
+
+
+flash_decode_hd_attend_cuda.launches = 0
+
+
+def flash_decode_hd_scores(q: torch.Tensor, k_pages: torch.Tensor,
+                           k_new: torch.Tensor, phys: torch.Tensor,
+                           positions, *, window: int = 0,
+                           kv_start=0) -> torch.Tensor:
+    """A rank's partial decode scores under the head_dim layout: q (B, 1,
+    H, D) its head_dim slice, k_pages (P+1, page, KVH, D) one layer of its
+    pool, k_new (B, 1, KVH, D) the fresh row's slice (in the pool's type),
+    phys (B, NP) trash-redirected; positions and kv_start as
+    :func:`flash_decode_paged` takes them. Returns (B, H, NP*page + 1)
+    float32, to be all-reduced over the ranks. For CUDA tensors kernel
+    B2s; for CPU tensors its plain version; meta tensors as
+    ``kernels.ops``' entry points take them (under an OpCost only)."""
+    b, _, h, _ = q.shape
+    t1 = phys.shape[1] * k_pages.shape[1] + 1
+    with kernel_call("b2s", q.device,
+                     lambda: _work.flash_decode_hd_scores(q, k_pages, phys)):
+        if q.is_meta:
+            return meta_result((b, h, t1), torch.float32)
+        pos, ks = _lanes(positions, kv_start, b, q.device)
+        fn = (flash_decode_hd_scores_plain if q.device.type == "cpu"
+              else flash_decode_hd_scores_cuda)
+        return fn(q.contiguous(), k_pages, k_new.contiguous(),
+                  phys.to(torch.int32).contiguous(), pos, window, ks)
+
+
+def flash_decode_hd_attend(sc: torch.Tensor, v_pages: torch.Tensor,
+                           v_new: torch.Tensor, phys: torch.Tensor,
+                           positions, scale: float, out_dtype: torch.dtype,
+                           *, window: int = 0, kv_start=0) -> torch.Tensor:
+    """The rest of the head_dim layout's decode on the summed scores
+    ``sc`` (:func:`flash_decode_hd_scores`, all-reduced): v_pages and
+    v_new the rank's V slices, ``scale`` the whole head_dim's D^-0.5.
+    Returns (B, 1, H, D) in ``out_dtype``. For CUDA tensors kernel B2a;
+    for CPU tensors its plain version; meta as
+    :func:`flash_decode_hd_scores`."""
+    b, h, _ = sc.shape
+    d = v_pages.shape[-1]
+    with kernel_call("b2a", sc.device,
+                     lambda: _work.flash_decode_hd_attend(sc, v_pages, phys,
+                                                          out_dtype)):
+        if sc.is_meta:
+            return meta_result((b, 1, h, d), out_dtype)
+        pos, ks = _lanes(positions, kv_start, b, sc.device)
+        fn = (flash_decode_hd_attend_plain if sc.device.type == "cpu"
+              else flash_decode_hd_attend_cuda)
+        return fn(sc.contiguous(), v_pages, v_new.contiguous(),
+                  phys.to(torch.int32).contiguous(), pos, window, ks, scale,
+                  out_dtype)

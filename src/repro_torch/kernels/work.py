@@ -2,7 +2,8 @@
 operations it must do, from its operands' shapes (and, where the work
 depends on the data, an optional measured count).
 
-One function a kernel, B1-B5 (and B2 / B5's triples form). They count
+One function a kernel, B1-B5 (and B2 / B5's triples form), and B2s /
+B2a, the head_dim layout's decode. They count
 what the call's function needs, whatever implements it: each input read
 once, each output written once, the operations of the arithmetic the
 function defines. ``chip_smoke.py``'s bound column divides them by the
@@ -21,9 +22,10 @@ Data-dependent terms:
   counts it from the indices); without it each subspace of each expert
   counts ``min(M, c)`` rows, an upper bound (every row picks a centroid
   no other row picks).
-* B2 / B5 read the K/V rows of the live tokens. ``live`` is their number
-  (the sum of the non-negative positions); without it every lane counts
-  its whole page table, ``NP x page`` rows, an upper bound.
+* B2 / B5 (and B2s / B2a) read the K/V rows of the live tokens. ``live``
+  is their number (the sum of the non-negative positions); without it
+  every lane counts its whole page table, ``NP x page`` rows, an upper
+  bound.
 """
 from __future__ import annotations
 
@@ -149,3 +151,38 @@ def flash_decode_splits(qg: torch.Tensor, k_pages: torch.Tensor,
         return 2 * live * kvh * d * k_pages.element_size() + small, ops
     return _codes(k_pages, kvh, codebook, live) + small, \
         ops + 2 * live * kvh * d
+
+
+def flash_decode_hd_scores(q: torch.Tensor, k_pages: torch.Tensor,
+                           phys: torch.Tensor,
+                           live: Optional[int] = None) -> Work:
+    """B2s: read the live tokens' K row slices (KVH x D a token), q's
+    slice, the new token's K slice, the page ids, positions and kv
+    starts, write the float32 scores (B, H, NP x page + 1); a multiply-add
+    a live token (and the self term), head and dim."""
+    b, _, h, d = q.shape
+    kvh, ps = k_pages.shape[2], k_pages.shape[1]
+    live = _live(phys, ps, live)
+    t1 = phys.shape[1] * ps + 1
+    return (live * kvh * d * k_pages.element_size() + nbytes(q)
+            + b * kvh * d * k_pages.element_size() + phys.numel() * 4
+            + 2 * b * 4 + b * h * t1 * 4,
+            2 * (live + b) * h * d)
+
+
+def flash_decode_hd_attend(sc: torch.Tensor, v_pages: torch.Tensor,
+                           phys: torch.Tensor, out_dtype: torch.dtype,
+                           live: Optional[int] = None) -> Work:
+    """B2a: read the live tokens' scores (and each lane's self term), V
+    row slices and the new token's V slice, the page ids, positions and
+    kv starts, write the output (B, 1, H, D) in ``out_dtype``; the
+    softmax (scale, max, exponential, sum, division: 5 a live score) and
+    probabilities times V (2 a live token, head and dim)."""
+    b, h, _ = sc.shape
+    kvh, ps, d = v_pages.shape[2], v_pages.shape[1], v_pages.shape[3]
+    live = _live(phys, ps, live)
+    out_size = torch.empty((), dtype=out_dtype).element_size()
+    return ((live + b) * h * 4 + live * kvh * d * v_pages.element_size()
+            + b * kvh * d * v_pages.element_size() + phys.numel() * 4
+            + 2 * b * 4 + b * h * d * out_size,
+            5 * (live + b) * h + 2 * (live + b) * h * d)

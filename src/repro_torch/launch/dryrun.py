@@ -18,10 +18,11 @@ A cell's result has the JAX keys (``status``, ``mesh``, ``chips``,
 ``lower_s`` / ``compile_s``. ``memory``: the rank's argument and output
 bytes, the bytes updated in place (``alias``: the cache; the params and
 optimizer state of a train step) and ``temp_size_in_bytes``, the peak
-of the meta storages the run made and held. A cell the port refuses
-(vlm and audio under a model axis) has ``status: "refused"`` and the
-refusal's text; the CLI counts it apart from ``"error"`` and exits 1 on
-any error.
+of the meta storages the run made and held. A cell whose layout the
+port refuses (``check_tensor_parallel``; none of the production cells
+since every family runs under a model axis) has ``status: "refused"``
+and the refusal's text; the CLI counts it apart from ``"error"`` and
+exits 1 on any error.
 
     python -m repro_torch.launch.dryrun --arch qwen1.5-4b \\
         --shape decode_32k --mesh single

@@ -52,6 +52,8 @@ import torch
 from repro_torch.core.kv_codebook import kv_decode
 from repro_torch.core.lut import QuantConfig, lut_linear_apply, lut_linear_row
 from repro_torch.kernels.flash_decode import (combine_splits,
+                                              flash_decode_hd_attend,
+                                              flash_decode_hd_scores,
                                               flash_decode_paged,
                                               split_pages_for)
 from repro_torch.parallel.collectives import current as tp_current
@@ -106,13 +108,18 @@ def proj(p: Params, x: torch.Tensor, qc: QuantConfig,
 
 
 def _attend(qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-            mask: torch.Tensor) -> torch.Tensor:
+            mask: torch.Tensor, tp=None, hd: Optional[int] = None
+            ) -> torch.Tensor:
     """Grouped queries qg (B,S,KVH,G,D) against k/v (B,T,KVH,D) in one
     softmax: scores in float32 scaled by D^-0.5, masked to -1e30 where
     ``mask`` (broadcast to (B,KVH,G,S,T)) is false, softmax, then
-    probabilities in v's type. Returns (B,S,KVH,G,D)."""
+    probabilities in v's type. With ``tp`` D is the rank's slice of
+    head_dim ``hd`` (the head_dim layout): the partial scores are
+    all-reduced before the scale, hd^-0.5. Returns (B,S,KVH,G,D)."""
     scores = torch.einsum("bskgd,btkd->bkgst", qg.float(), k.float())
-    scores = scores * (qg.shape[-1] ** -0.5)
+    if tp is not None:
+        scores = tp.all_reduce(scores)
+    scores = scores * ((hd or qg.shape[-1]) ** -0.5)
     scores = torch.where(mask, scores, torch.full_like(scores, -1e30))
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     return torch.einsum("bkgst,btkd->bskgd", probs, v)
@@ -296,7 +303,8 @@ class _ChunkedAttention(torch.autograd.Function):
 
 def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_offset: int,
           window: int, kv_start: Optional[torch.Tensor] = None,
-          prefix_len: int = 0, chunk: Optional[int] = None) -> torch.Tensor:
+          prefix_len: int = 0, chunk: Optional[int] = None, tp=None,
+          hd: Optional[int] = None) -> torch.Tensor:
     """Grouped-query attention of a chunk: q (B,S,H,D) at absolute
     positions q_offset.., k/v (B,T,KVH,D) at positions 0..T-1, under
     :func:`mask_tile`. kv_start: optional (B,) first valid key position
@@ -307,20 +315,22 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_offset: int,
     ``_sdpa``). Otherwise the reference's ``_sdpa_chunked``: an online
     softmax over key chunks of ``chunk`` rows from row 0, with a backward
     that recomputes a chunk at a time (:class:`_ChunkedAttention`); the
-    output is then in q's type, as the reference's."""
+    output is then in q's type, as the reference's. ``tp`` / ``hd`` as
+    :func:`_attend` takes them (a rank's head_dim slice: one softmax over
+    the all-reduced scores)."""
     b, s, h, d = q.shape
     t, kvh = k.shape[1], k.shape[2]
     qg = q.reshape(b, s, kvh, h // kvh, d)
     if kv_start is not None:
         kv_start = kv_start.to(q.device).long()
-    if chunk is not None:
+    if chunk is not None and tp is None:
         out = _ChunkedAttention.apply(qg, k, v, kv_start, chunk, q_offset,
                                       window, prefix_len)
         return out.reshape(b, s, h, d)
     qi = torch.arange(s, device=q.device) + q_offset
     mask = _key_mask(qi, torch.arange(t, device=q.device), window,
                      prefix_len, kv_start)
-    return _attend(qg, k, v, mask).reshape(b, s, h, d)
+    return _attend(qg, k, v, mask, tp, hd).reshape(b, s, h, d)
 
 
 def _sdpa_local(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -397,7 +407,8 @@ def _sdpa_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _sdpa_verify(q: torch.Tensor, k_cache: torch.Tensor,
                  v_cache: torch.Tensor, k_new: torch.Tensor,
                  v_new: torch.Tensor, pos: torch.Tensor,
-                 window: int) -> torch.Tensor:
+                 window: int, tp=None, hd: Optional[int] = None
+                 ) -> torch.Tensor:
     """Multi-token verify over a read-only cache plus the proposed tokens.
 
     Query t of row b sits at absolute position pos[b] + t and attends (a)
@@ -408,8 +419,8 @@ def _sdpa_verify(q: torch.Tensor, k_cache: torch.Tensor,
     its own fresh tokens (its output is discarded by the caller).
 
     q (B,S,H,D); k_cache/v_cache (B,T,KVH,D); k_new/v_new (B,S,KVH,D);
-    pos (B,) int. Attends through ``_attend``. Returns (B, S, H*D) in q's
-    type.
+    pos (B,) int. Attends through ``_attend`` (``tp`` / ``hd`` as it
+    takes them). Returns (B, S, H*D) in q's type.
     """
     b, s, h, d = q.shape
     t, kvh = k_cache.shape[1], k_cache.shape[2]
@@ -426,7 +437,8 @@ def _sdpa_verify(q: torch.Tensor, k_cache: torch.Tensor,
     mask = torch.cat([mc.expand(b, s, t), ms[None].expand(b, s, s)], -1)
     out = _attend(q.reshape(b, s, kvh, h // kvh, d),
                   torch.cat([k_cache, k_new], 1),              # (B,T+S,..)
-                  torch.cat([v_cache, v_new], 1), mask[:, None, None])
+                  torch.cat([v_cache, v_new], 1), mask[:, None, None],
+                  tp, hd)
     return out.reshape(b, s, h * d).to(q.dtype)
 
 
@@ -569,9 +581,11 @@ def _attention_hd(p: Params, x: torch.Tensor, cfg, qc: QuantConfig,
                   kv_start: Optional[torch.Tensor],
                   recon: Optional[List[torch.Tensor]], prefix_len: int,
                   seq_rows: Optional[int], write) -> torch.Tensor:
-    """:func:`attention` when the kv heads do not divide the model axis
-    (the reference's fallback, ``_kv_model_axes``): wq / wk / wv keep
-    their contiguous column shards, the dense cache holds every kv head's
+    """:func:`attention` over no cache or a dense cache (a whole sequence
+    from row 0, a prefill from row 0, one-token decode: what the entry
+    points give it) when the kv heads do not divide the model axis (the
+    reference's fallback, ``_kv_model_axes``): wq / wk / wv keep their
+    contiguous column shards, the dense cache holds every kv head's
     head_dim slice of the rank, wo stays row-parallel.
 
     q, k and v are all-gathered to whole heads (RoPE rotates pairs across
@@ -596,12 +610,6 @@ def _attention_hd(p: Params, x: torch.Tensor, cfg, qc: QuantConfig,
     tp = tp_current()
     m, r = tp.size, tp.rank
     h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    if torch.is_tensor(q_offset) or (s > 1 and q_offset != 0):
-        raise NotImplementedError(
-            "the head_dim layout (kv heads that do not divide the model "
-            "axis) runs whole sequences from row 0 and one-token dense "
-            "decode; per-slot positions and chunks past row 0 (the paged "
-            "engine's) are not ported: ROADMAP.md queue A item 11")
     xn = rms_norm(x, p["norm"], cfg.norm_eps)
     q = proj(p["wq"], xn, qc, recon)
     k = proj(p["wk"], xn, qc, recon)
@@ -753,25 +761,26 @@ def attention(p: Params, x: torch.Tensor, cfg, qc: QuantConfig, q_offset,
     columns, the pool its kv heads, and ``wo`` is row-parallel. B2 / B5
     split the pages as the one-device launch over every kv head does, so
     each head's sums run in the same order as on one device. Where the kv
-    heads do not divide the model axis, the head_dim layout
-    (:func:`_attention_hd`; whole sequences and dense decode only).
+    heads do not divide the model axis, the head_dim layout: over no
+    cache or a dense cache, :func:`_attention_hd`; over the pool q, k and
+    v are all-gathered to whole heads, and over an fp pool the rank keeps
+    their head_dim slices, which its pool holds: the partial scores are
+    all-reduced over ``model`` before the scale and the softmax, and the
+    output's slices all-gathered for wo (decode: B2s, the all-reduce,
+    B2a; prefill chunks and verify: plain torch, one softmax). A pool of
+    codes is replicated under that layout (the reference's
+    ``paged_cache_pspecs``): each rank encodes and attends every kv head
+    with the whole q (B5 unchanged) and keeps its columns for wo.
 
     Returns: out (B, S, D).
     """
     b, s, _ = x.shape
     tp = tp_current()
-    if hd_fallback(cfg, tp.size):
-        if phys is not None:
-            raise NotImplementedError(
-                "the paged pool under the head_dim layout (kv heads that "
-                "do not divide the model axis: B2 / B5 would need a "
-                "head_dim-split form) is not ported: ROADMAP.md queue A "
-                "item 11")
+    hd_form = hd_fallback(cfg, tp.size)
+    if hd_form and phys is None:
         return _attention_hd(p, x, cfg, qc, q_offset, k_pages, v_pages,
                              window, kv_start, recon, prefix_len, seq_rows,
                              write)
-    h, kvh, hd = (cfg.num_heads // tp.size, cfg.num_kv_heads // tp.size,
-                  cfg.head_dim)
     xn = rms_norm(x, p["norm"], cfg.norm_eps)
     q = proj(p["wq"], xn, qc, recon)
     k = proj(p["wk"], xn, qc, recon)
@@ -781,9 +790,35 @@ def attention(p: Params, x: torch.Tensor, cfg, qc: QuantConfig, q_offset,
         positions = q_offset[:, None] + torch.arange(s, device=x.device)
     else:
         positions = (torch.arange(s, device=x.device) + q_offset)[None]
-    q = rope(q.reshape(b, s, h, hd), positions, cfg.rope_theta)
-    k = rope(k.reshape(b, s, kvh, hd), positions, cfg.rope_theta)
-    v = v.reshape(b, s, kvh, hd)
+    hd = cfg.head_dim
+    att = None      # the head_dim layout's handle: partial scores reduced
+    if hd_form:     # whole heads; an fp pool's head_dim slice of them
+        h, kvh = cfg.num_heads, cfg.num_kv_heads
+        q = _whole(q, h * hd, tp).reshape(b, s, h, hd)
+        k = _whole(k, kvh * hd, tp).reshape(b, s, kvh, hd)
+        v = _whole(v, kvh * hd, tp).reshape(b, s, kvh, hd)
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+        if codebook is None:
+            q, k, v = (_hd_slice(t, tp) for t in (q, k, v))
+            att = tp
+    else:
+        h, kvh = cfg.num_heads // tp.size, cfg.num_kv_heads // tp.size
+        q = rope(q.reshape(b, s, h, hd), positions, cfg.rope_theta)
+        k = rope(k.reshape(b, s, kvh, hd), positions, cfg.rope_theta)
+        v = v.reshape(b, s, kvh, hd)
+    d = q.shape[-1]                     # head_dim, or the rank's slice
+
+    def out_proj(out):
+        """wo: the rank's heads (row-parallel), or under the head_dim
+        layout the whole heads' rank columns (:func:`_row_out`)."""
+        if not hd_form:
+            return lut_linear_row(p["wo"], out.reshape(b, s, h * hd), qc,
+                                  recon)
+        if att is not None:
+            out = tp.all_gather(out.reshape(b, s, h, d), -1)
+        return _row_out(p["wo"], out.reshape(b, s, h * hd), qc, recon, tp)
+
     if k_pages is None:     # no cache: the sequence attends itself
         if torch.is_tensor(q_offset) or q_offset != 0 or phys is not None:
             raise ValueError("attention without a cache runs the whole "
@@ -793,7 +828,7 @@ def attention(p: Params, x: torch.Tensor, cfg, qc: QuantConfig, q_offset,
         else:
             out = _sdpa(q, k, v, 0, window, prefix_len=prefix_len,
                         chunk=attn_chunk(cfg, s, s))
-        return lut_linear_row(p["wo"], out.reshape(b, s, h * hd), qc, recon)
+        return out_proj(out)
     if codebook is None:
         k_new, v_new = k.to(k_pages.dtype), v.to(v_pages.dtype)
     else:                   # code pool: the fresh rows stay fp
@@ -804,7 +839,7 @@ def attention(p: Params, x: torch.Tensor, cfg, qc: QuantConfig, q_offset,
         out = _dense_view(q, k, v, k_new, v_new, k_pages, v_pages, cfg,
                           q_offset, window, kv_start, prefix_len, seq_rows,
                           tp)
-        return lut_linear_row(p["wo"], out.reshape(b, s, h * hd), qc, recon)
+        return out_proj(out)
     if phys is None and torch.is_tensor(q_offset):
         # dense cache, one token a row at per-row positions
         if s != 1:
@@ -818,9 +853,18 @@ def attention(p: Params, x: torch.Tensor, cfg, qc: QuantConfig, q_offset,
         out = _decode_dense(q, k_pages.to(x.dtype), v_pages.to(x.dtype),
                             k_new.to(x.dtype), v_new.to(x.dtype), q_offset,
                             window, kv_start, seq_rows, hd ** -0.5, None,
-                            tp.over("data")).reshape(b, s, h * hd)
+                            tp.over("data"))
+    elif s == 1 and att is not None:
+        # the head_dim layout's decode: a rank's partial scores (kernel
+        # B2s), all-reduced over model, then the softmax and its V slice
+        # (kernel B2a)
+        sc = flash_decode_hd_scores(q, k_pages, k_new, phys, q_offset,
+                                    window=window)
+        out = flash_decode_hd_attend(tp.all_reduce(sc), v_pages, v_new,
+                                     phys, q_offset, hd ** -0.5, q.dtype,
+                                     window=window)
     elif s == 1:
-        split = None if tp.size == 1 else split_pages_for(
+        split = None if tp.size == 1 or hd_form else split_pages_for(
             b, cfg.num_kv_heads, phys.shape[1], codebook is not None)
         out = flash_decode_paged(q, k_pages, v_pages, k, v, phys, q_offset,
                                  window=window, codebook=codebook,
@@ -841,15 +885,14 @@ def attention(p: Params, x: torch.Tensor, cfg, qc: QuantConfig, q_offset,
         if verify:
             out = _sdpa_verify(q, k_old.to(x.dtype), v_old.to(x.dtype),
                                k.to(x.dtype), v.to(x.dtype), q_offset,
-                               window)
+                               window, att, hd)
         else:
             k_all = torch.cat([k_old.to(x.dtype), k_new.to(x.dtype)], 1)
             v_all = torch.cat([v_old.to(x.dtype), v_new.to(x.dtype)], 1)
             out = _sdpa(q, k_all, v_all, q_offset, window, chunk=attn_chunk(
-                cfg, s, phys.shape[1] * k_pages.shape[1])).reshape(
-                    b, s, h * hd)
+                cfg, s, phys.shape[1] * k_pages.shape[1]), tp=att, hd=hd)
     write(k_new, v_new)
-    return lut_linear_row(p["wo"], out, qc, recon)
+    return out_proj(out)
 
 
 def _dense_view(q, k, v, k_new, v_new, k_cache, v_cache, cfg, q_offset,

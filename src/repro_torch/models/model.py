@@ -58,10 +58,10 @@ the state of every lane that is not decoding. The dense-cache API and
 ``verify_paged`` refuse these families, as the JAX package's engines do.
 
 ``forward`` runs whole sequences from position 0 with no cache (the SSM
-blocks from zero state), each layer under ``torch.utils.checkpoint`` when
-``cfg.remat`` is set; in ``lut_train`` it sums every projection's
-reconstruction loss, and the MoE family's load-balancing loss, for
-``loss``.
+blocks from zero state), each layer checkpointed when ``cfg.remat`` is
+set (``parallel.collectives.remat``); in ``lut_train`` it sums every
+projection's reconstruction loss, and the MoE family's load-balancing
+loss, for ``loss``.
 """
 from __future__ import annotations
 
@@ -69,16 +69,15 @@ import functools
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.kv_codebook import CODEBOOK_KEY, kv_encode
 from repro_torch.core.lut import (DENSE, QuantConfig, lut_linear_init,
                                   precompute_layer, strip_for_inference)
 from repro_torch.device import resolve_device
 from repro_torch.parallel.collectives import current as tp_current
-from repro_torch.parallel.collectives import recomputable
+from repro_torch.parallel.collectives import remat
 from .config import ModelConfig
-from .layers import attention, mlp, rms_norm
+from .layers import attention, hd_fallback, mlp, rms_norm
 from .mamba2 import init_mamba2, mamba2_block, mamba2_decode
 from .moe import init_moe, moe_ffn
 
@@ -95,6 +94,31 @@ RECURRENT = ("ssm", "hybrid")
 #: The families whose inputs come from a stubbed frontend (frame or patch
 #: embeddings): no token prompts, so no paged serving.
 FRONTEND = ("audio", "vlm")
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, vocab: int,
+                  tp) -> torch.Tensor:
+    """Mean cross-entropy in float32 of ``logits`` (..., V') against
+    ``labels`` (...). Where V' is the whole ``vocab``, one float32
+    ``log_softmax``. Otherwise (vocab-parallel: the rank's columns
+    [r V', (r + 1) V') of ``tp``'s rank r) the row max is gathered (a
+    constant of the gradient, as ``log_softmax``'s), the sum of
+    exponentials all-reduced in rank order, and the label's logit taken
+    by the rank that holds it and all-reduced: no rank forms a row of
+    the whole vocab, and the gradient flows through the all-reduces."""
+    z = logits.float()
+    if z.shape[-1] == vocab:
+        lp = torch.log_softmax(z, dim=-1)
+        return -torch.gather(lp, -1, labels[..., None])[..., 0].mean()
+    n = z.shape[-1]
+    m = tp.all_gather(z.detach().amax(-1, keepdim=True), -1).amax(
+        -1, keepdim=True)
+    total = tp.all_reduce(torch.exp(z - m).sum(-1))
+    ids = labels - tp.rank * n
+    mine = (ids >= 0) & (ids < n)
+    zy = torch.gather(z, -1, ids.clamp(0, n - 1)[..., None])[..., 0]
+    zy = tp.all_reduce(torch.where(mine, zy, torch.zeros_like(zy)))
+    return (torch.log(total) + m[..., 0] - zy).mean()
 
 
 class Model:
@@ -233,19 +257,22 @@ class Model:
             return torch.cat([patches, x], 1), cfg.num_patches
         return x, 0
 
-    def _head(self, params: Params, x: torch.Tensor) -> torch.Tensor:
+    def _head(self, params: Params, x: torch.Tensor,
+              gather: bool = True) -> torch.Tensor:
         """Logits. Under tensor parallelism a vocab-sharded head (or tied
-        embedding) gives the rank's columns, all-gathered in rank order,
-        so every rank holds the whole row (the reference's replicated
-        output) and the engine reads it once, from rank 0."""
+        embedding; audio's ``heads`` sharded on V) gives the rank's
+        columns: all-gathered in rank order (``gather``), so every rank
+        holds the whole row (the reference's replicated output) and the
+        engine reads it once, from rank 0; the loss keeps them
+        (:func:`cross_entropy`)."""
         if self.cfg.family == "audio":          # one head per codebook
-            return torch.einsum("bsd,qdv->bsqv", x, params["heads"])
-        if self.cfg.tie_embeddings:
+            out = torch.einsum("bsd,qdv->bsqv", x, params["heads"])
+        elif self.cfg.tie_embeddings:
             out = x @ params["embed"].T
         else:
             out = x @ params["head"]
         tp = tp_current()
-        if tp.size > 1 and out.shape[-1] != self.cfg.vocab_size:
+        if gather and tp.size > 1 and out.shape[-1] != self.cfg.vocab_size:
             out = tp.all_gather(out, -1)
         return out
 
@@ -270,13 +297,15 @@ class Model:
         sequence-sharded dense cache)."""
         cb = kv.get(CODEBOOK_KEY)
         tp = tp_current()
+        # a code pool's codebook is replicated; its per-kv-head scales sk /
+        # sv are cut to the rank's heads, or kept whole where the pool is
+        # replicated (the head_dim layout: every rank attends every head)
+        heads = not hd_fallback(self.cfg, tp.size)
         for li, (p_l, win) in enumerate(zip(params["blocks"],
                                             self._windows())):
-            # a code pool's codebook is replicated; its per-kv-head scales
-            # sk / sv are cut to the rank's heads
             cb_l = (None if cb is None
-                    else {key: leaf[li] if key in ("zk", "zv")
-                          else tp.shard(leaf[li], 0)
+                    else {key: tp.shard(leaf[li], 0)
+                          if heads and key in ("sk", "sv") else leaf[li]
                           for key, leaf in cb.items()})
             def store(k_new, v_new, li=li, cb_l=cb_l):
                 write(li, self._encode_rows(cb_l, "k", k_new),
@@ -378,7 +407,8 @@ class Model:
              else torch.zeros((), dtype=torch.float32, device=x.device))
         return x, r, aux
 
-    def forward(self, params: Params, batch: Dict, qc: QuantConfig = DENSE
+    def forward(self, params: Params, batch: Dict, qc: QuantConfig = DENSE,
+                gather: bool = True
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Logits of whole sequences: batch ``{"tokens": (B, S) int}``
         (audio ``{"embeds": (B, S, D)}``; vlm also ``{"patch_embeds": (B,
@@ -389,11 +419,12 @@ class Model:
         Inside a rank of a ``parallel.collectives.RankRunner`` over a mesh
         (the sharded train step) ``params`` are the rank's shards and
         ``batch`` its data group's rows: the layers run their collectives,
-        the logits come back whole (all-gathered), ``recon`` is the sum of
-        the ranks' shares (one all-reduce over the model axis) and
-        ``moe_aux`` the global batch's. With ``cfg.remat`` a layer
-        recomputed in the backward replays the results its collectives
-        gave in the forward (``parallel.collectives.recomputable``)."""
+        the logits come back whole (all-gathered; ``gather=False``: the
+        rank's vocab columns, as the loss takes them), ``recon`` is the
+        sum of the ranks' shares (one all-reduce over the model axis) and
+        ``moe_aux`` the global batch's. With ``cfg.remat`` every rank
+        recomputes a layer together in the backward, its collectives run
+        again (``parallel.collectives.remat``)."""
         tp = tp_current()
         x, prefix_len = self._inputs(params, batch)
         recon = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -402,19 +433,15 @@ class Model:
         for li, p_l in enumerate(params["blocks"]):
             layer = functools.partial(self._train_layer, p_l, li, shared, qc,
                                       prefix_len=prefix_len)
-            if self.cfg.remat:
-                x, r, a = checkpoint(recomputable(layer), x,
-                                     use_reentrant=False,
-                                     preserve_rng_state=not x.is_meta)
-            else:
-                x, r, a = layer(x)
+            x, r, a = remat(layer, x) if self.cfg.remat else layer(x)
             recon = recon + r
             aux = aux + a
         if qc.mode == "lut_train":
             # the ranks' shares of every projection's recon loss
             recon = tp.all_reduce(recon)
         x = rms_norm(x, params["final_norm"], self.cfg.norm_eps)
-        return self._head(params, x), {"recon": recon, "moe_aux": aux}
+        return (self._head(params, x, gather),
+                {"recon": recon, "moe_aux": aux})
 
     def loss(self, params: Params, batch: Dict, qc: QuantConfig = DENSE
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -423,9 +450,10 @@ class Model:
         {"ce", "recon", "moe_aux", "loss"}). audio: every codebook's
         next frame (``labels`` (B, S, Q) shifted by one); vlm: the text
         tokens only, each predicted from the position before it (the last
-        patch predicts the first token)."""
+        patch predicts the first token). Under tensor parallelism the
+        logits stay the rank's vocab columns (:func:`cross_entropy`)."""
         cfg = self.cfg
-        logits, aux = self.forward(params, batch, qc)
+        logits, aux = self.forward(params, batch, qc, gather=False)
         if cfg.family == "audio":
             labels = batch["labels"][:, 1:].long()          # (B, S-1, Q)
             pred = logits[:, :-1]
@@ -435,8 +463,7 @@ class Model:
         else:
             labels = batch["tokens"][:, 1:].long()
             pred = logits[:, :-1]
-        lp = torch.log_softmax(pred.float(), dim=-1)
-        ce = -torch.gather(lp, -1, labels[..., None])[..., 0].mean()
+        ce = cross_entropy(pred, labels, cfg.vocab_size, tp_current())
         total = (ce + qc.recon_weight * aux["recon"]
                  + 0.01 * aux["moe_aux"])
         return total, {"ce": ce, "recon": aux["recon"],

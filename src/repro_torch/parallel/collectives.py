@@ -87,13 +87,18 @@ The layouts the port accepts shard evenly, so every rank runs the same
 shapes and one rank's program is every rank's: the counterpart of the
 SPMD-partitioned module the JAX package costs.
 
-Activation checkpointing under a mesh (:func:`recomputable`): a layer's
-forward records what each of its collectives returned (a tape); the
-layer recomputed in the backward runs on the thread of the backward,
-outside the runner, where the other ranks are not running, so its
-collectives return the taped results through a replaying handle of the
-same rank. The recomputed ops see the same values, and the gradient
-still flows through the forward's collectives (the original graph).
+Activation checkpointing (:func:`remat`): a layer's forward keeps none
+of the tensors its backward reads (each is replaced by its index); the
+first backward node of a layer that reads one recomputes the layer. Under
+a runner over several ranks every rank recomputes that layer together,
+on rank threads started for the recompute, so its collectives run again
+and give what the forward's gave (the same parts, added in rank order);
+each rank's recomputed tensors are kept only until its own backward
+reads them, so at most one layer's are held for each rank, collective
+results included. The gradient still flows through the forward's
+collectives (the original graph). Under :class:`CostRunner` the
+recompute calls the cost handle's collectives, which record their bytes
+again: what the reference's remat costs.
 """
 from __future__ import annotations
 
@@ -178,13 +183,13 @@ class TP:
         out = parts[0]
         for p in parts[1:]:
             out = out + p
-        return _taped(out)
+        return out
 
     def all_gather(self, t: torch.Tensor, dim: int = -1) -> torch.Tensor:
         """Every rank's ``t`` concatenated along ``dim`` in rank order."""
         if self.size == 1:
             return t
-        return _taped(torch.cat(self._exchange(t, "all-gather"), dim=dim))
+        return torch.cat(self._exchange(t, "all-gather"), dim=dim)
 
     def all_to_all(self, t: torch.Tensor, split_dim: int,
                    cat_dim: int) -> torch.Tensor:
@@ -195,8 +200,8 @@ class TP:
             return t
         parts = self._exchange(t, "all-to-all")
         w = t.shape[split_dim] // self.size
-        return _taped(torch.cat([p.narrow(split_dim, self.rank * w, w)
-                                 for p in parts], dim=cat_dim))
+        return torch.cat([p.narrow(split_dim, self.rank * w, w)
+                          for p in parts], dim=cat_dim)
 
     def permute(self, t: torch.Tensor,
                 perm: Sequence[Tuple[int, int]]) -> torch.Tensor:
@@ -208,7 +213,7 @@ class TP:
             return t if src else torch.zeros_like(t)
         parts = self._exchange(t, "permute")
         src = [s for s, d in perm if d == self.rank]
-        return _taped(parts[src[0]] if src else torch.zeros_like(t))
+        return parts[src[0]] if src else torch.zeros_like(t)
 
     def shard(self, t: torch.Tensor, dim: int = -1) -> torch.Tensor:
         """This rank's even slice of a replicated ``t`` along ``dim``."""
@@ -224,71 +229,95 @@ SOLO = TP(None, 0, torch.device("cpu"))
 _LOCAL = threading.local()
 
 
-def _taped(out: torch.Tensor) -> torch.Tensor:
-    """A collective's result, appended to the calling thread's tape when
-    one is open (the forward of a :func:`recomputable` layer)."""
-    tape = getattr(_LOCAL, "tape", None)
-    if tape is not None:
-        tape.append(out)
-    return out
+class _Frame:
+    """One rank's call of a checkpointed layer: its function and inputs,
+    how many tensors its forward saved for the backward, and those tensors
+    once recomputed (by index; each dropped as the backward reads it)."""
+
+    def __init__(self, fn: Callable, args: tuple, tp: TP):
+        self.fn, self.args, self.tp = fn, args, tp
+        self.packed = 0
+        self.saved: Optional[Dict[int, torch.Tensor]] = None
+        self.layer: Optional["_Layer"] = None
+
+    def pack(self, t: torch.Tensor) -> int:
+        self.packed += 1
+        return self.packed - 1
+
+    def unpack(self, i: int) -> torch.Tensor:
+        if self.saved is None:
+            if self.layer is None:
+                with _as_rank(self.tp), _cuda_device(self.tp.device):
+                    self.recompute()
+            else:
+                self.layer.recompute()
+        t = self.saved.pop(i)
+        if not self.saved:
+            self.saved = None
+        return t
+
+    def recompute(self) -> None:
+        """Run the layer again with grad enabled, keeping what it saves
+        (detached: the recompute's own graph is dropped)."""
+        saved: Dict[int, torch.Tensor] = {}
+
+        def keep(t):
+            saved[len(saved)] = t.detach()
+
+        def never(_):
+            raise RuntimeError("a recomputed layer's own graph is never "
+                               "run backward")
+        args = tuple(a.detach().requires_grad_(a.requires_grad)
+                     if torch.is_tensor(a) else a for a in self.args)
+        with torch.enable_grad(), \
+                torch.autograd.graph.saved_tensors_hooks(keep, never):
+            self.fn(*args)
+        if len(saved) != self.packed:
+            raise RuntimeError(
+                f"a recomputed layer saved {len(saved)} tensors, its "
+                f"forward {self.packed}: the layer is not deterministic")
+        self.saved = saved
 
 
-class _Replay(TP):
-    """A rank's handle whose collectives return, in order, what the
-    same rank's collectives returned in the forward (a tape): the handle
-    of a layer recomputed in the backward."""
+class _Layer:
+    """Every rank's :class:`_Frame` of one checkpointed call under a runner
+    over several ranks: the first frame the backward reaches recomputes
+    them all, each rank on a thread started for the recompute, so that
+    their collectives exchange as the forward's did."""
 
-    def __init__(self, base: TP, results):
-        self.__dict__.update(base.__dict__)
-        self._base = base
-        self._results = results
+    def __init__(self, runner: "RankRunner"):
+        self.runner = runner
+        self.frames: List[Optional[_Frame]] = [None] * runner.size
+        self.lock = threading.Lock()
 
-    def over(self, *axes: str) -> TP:
-        return _Replay(self._base.over(*axes), self._results)
-
-    def _next(self, t: torch.Tensor) -> torch.Tensor:
-        return t if self.size == 1 else next(self._results)
-
-    def all_reduce(self, t):
-        return self._next(t)
-
-    def all_gather(self, t, dim=-1):
-        return self._next(t)
-
-    def all_to_all(self, t, split_dim, cat_dim):
-        return self._next(t)
-
-    def permute(self, t, perm):
-        if self.size == 1:
-            return TP.permute(self, t, perm)
-        return next(self._results)
+    def recompute(self) -> None:
+        with self.lock:
+            if all(f.saved is not None for f in self.frames):
+                return
+            with torch.enable_grad():      # a call started for the ranks
+                self.runner.run(lambda tp: self.frames[tp.me].recompute())
 
 
-def recomputable(fn: Callable) -> Callable:
-    """``fn`` for ``torch.utils.checkpoint`` inside a rank of a runner
-    over several ranks: its first call (the forward) tapes what each of
-    its collectives returns; every later call (a recompute in the
-    backward, on another thread) runs as the same rank with those
-    results replayed (:class:`_Replay`). Outside such a runner, ``fn``
-    itself."""
+def remat(fn: Callable, *args):
+    """``fn(*args)`` under activation checkpointing (``cfg.remat``): the
+    forward keeps none of the tensors its backward reads; the backward
+    recomputes them when it first reads one, under a runner over several
+    ranks every rank's call of this layer together, its collectives run
+    again (:class:`_Layer`)."""
     tp = current()
-    if tp.world == 1:
-        return fn
-    tape: list = []
-    calls = [0]
-
-    def run(*args, **kwargs):
-        calls[0] += 1
-        if calls[0] == 1:
-            prev = getattr(_LOCAL, "tape", None)
-            _LOCAL.tape = tape
-            try:
-                return fn(*args, **kwargs)
-            finally:
-                _LOCAL.tape = prev
-        with _as_rank(_Replay(tp, iter(tape))), _cuda_device(tp.device):
-            return fn(*args, **kwargs)
-    return run
+    frame = _Frame(fn, args, tp)
+    g = tp.group
+    if g is not None:
+        with g.lock:
+            k = g.remat_calls[tp.me]
+            g.remat_calls[tp.me] += 1
+            layer = g.remat.setdefault(k, _Layer(g.runner))
+            layer.frames[tp.me] = frame
+            if all(f is not None for f in layer.frames):
+                del g.remat[k]           # every rank's frame holds it
+        frame.layer = layer
+    with torch.autograd.graph.saved_tensors_hooks(frame.pack, frame.unpack):
+        return fn(*args)
 
 
 def current() -> TP:
@@ -320,6 +349,7 @@ class _Group:
         self.runner = runner
         self.size = size
         self.axis_names = axis_names
+        self.lock = threading.Lock()
         self.reset()
 
     def reset(self) -> None:
@@ -328,6 +358,8 @@ class _Group:
         self.gen = [0] * self.size
         self.slots = [[None] * self.size, [None] * self.size]
         self.failed = False
+        self.remat: Dict[int, "_Layer"] = {}    # calls not every rank made
+        self.remat_calls = [0] * self.size
         self.turns = [threading.Lock() for _ in range(self.size)]
         for lock in self.turns:
             lock.acquire()
@@ -548,7 +580,7 @@ class _CostTP(TP):
         self.runner.bytes += n * self.size
 
     def _costed(self, t, kind, back, shape):
-        return _taped(_Costed.apply(t, self, kind, back, tuple(shape)))
+        return _Costed.apply(t, self, kind, back, tuple(shape))
 
     def all_reduce(self, t):
         if self.size == 1:

@@ -324,7 +324,8 @@ def paged_cache_pspecs(cfg: ModelConfig, mesh: Mesh,
     ``quantized``: the pool holds uint8 codes ``(L, P+1, page, KVH, nc)``
     plus the codebook; kv heads still shard over ``model`` when
     divisible, but the last dim is the subspace axis, not head_dim, so the
-    head_dim fallback does not apply. The codebook is replicated.
+    head_dim fallback does not apply: the pool is replicated (each rank
+    encodes and attends every kv head). The codebook is replicated.
     """
     m = model_axis
     msize = mesh.shape[m]
@@ -375,38 +376,33 @@ def mamba_columns(cfg: ModelConfig, msize: int
     return in_cols, conv_cols
 
 
-def check_tensor_parallel(cfg: ModelConfig, msize: int, qc=None,
-                          paged: bool = False) -> None:
+def check_tensor_parallel(cfg: ModelConfig, msize: int, qc=None) -> None:
     """Raise ``NotImplementedError`` unless the layer code can run
     ``cfg`` over a model axis of ``msize``. Every dim it shards must
     divide, or fall back as the reference's does:
 
-    * kv heads that do not divide take the head_dim layout
-      (``models.layers._attention_hd``: the dense cache holds each rank's
-      head_dim slice, which must divide) for ``forward`` / ``loss``, the
-      dense-cache ``prefill`` / ``decode`` and the train step; the paged
-      entry points (``paged=True``, the engines) refuse it, since B2 / B5
-      have no head_dim-split form;
+    * kv heads that do not divide take the head_dim layout (each rank
+      holds its head_dim slice of the dense cache and of an fp page
+      pool, which must divide; a pool of codes is replicated:
+      ``models.layers``) everywhere: ``forward`` / ``loss``, the
+      dense-cache ``prefill`` / ``decode``, the train step and the paged
+      engines;
     * a d_ff that does not divide replicates the MLP (the JAX rule drops
       the axis there), and so do q / k / v / o projections whose width
       does not divide under the head_dim layout.
 
-    The vocab may go either way (sharded or replicated). ``qc``'s
+    The vocab may go either way (sharded or replicated; audio's
+    ``heads`` on V); audio's ``in_proj`` is replicated. ``qc``'s
     sub-vector length must also divide each row-parallel shard's input
     width."""
     if msize == 1:
         return
     v = qc.v if qc is not None and qc.is_lut else 1
     need = []
-    if cfg.family in ("audio", "vlm"):
-        raise NotImplementedError(
-            f"the {cfg.family!r} family under a model axis (its frontend "
-            "stub, its heads and the dense-cache layouts) is not ported: "
-            "ROADMAP.md queue A item 11")
-    if cfg.family in ("dense", "moe", "hybrid"):
+    if cfg.family in ("dense", "moe", "hybrid", "audio", "vlm"):
         hd = cfg.head_dim
         wo = cfg.num_heads * hd
-        if paged or cfg.family == "hybrid" or not cfg.num_kv_heads % msize:
+        if cfg.family == "hybrid" or not cfg.num_kv_heads % msize:
             need += [("num_heads", cfg.num_heads),
                      ("num_kv_heads", cfg.num_kv_heads),
                      ("wo subspaces", wo // v)]
@@ -429,13 +425,10 @@ def check_tensor_parallel(cfg: ModelConfig, msize: int, qc=None,
                  ("out_proj subspaces", cfg.d_inner // v)]
     bad = [f"{name}={n}" for name, n in need if n % msize]
     if bad:
-        what = ("the paged engines' head_dim form (B2 / B5 split by "
-                "head_dim)" if paged and cfg.num_kv_heads % msize
-                else "a layout for such dims")
         raise NotImplementedError(
             f"{cfg.name} over a model axis of {msize}: {', '.join(bad)} "
-            f"do not divide it; {what} is not ported: ROADMAP.md queue A "
-            "item 11")
+            "do not divide it; a layout for such dims is not ported: "
+            "ROADMAP.md queue A item 11")
 
 
 def serving_layout(params, cfg: ModelConfig, msize: int,

@@ -77,6 +77,7 @@ import torch
 from repro_torch.core.kv_codebook import KVCodebook
 from repro_torch.core.lut import DENSE, QuantConfig
 from repro_torch.launch.mesh import replica_submeshes
+from repro_torch.models.layers import hd_fallback
 from repro_torch.models.model import FRONTEND, RECURRENT
 from repro_torch.obs import Obs, safe_ratio
 from repro_torch.parallel.collectives import RankRunner
@@ -222,7 +223,8 @@ def calibration_rows(model, params, qc: QuantConfig, max_seq: int,
     the sample. No random stream is involved.
 
     Inside a tensor-parallel rank (``params`` its shards) the scratch
-    pool holds the rank's kv heads and the rows are all-gathered over
+    pool holds the rank's kv heads (under the head_dim layout, its
+    head_dim slice of every kv head) and the rows are all-gathered over
     them: every rank returns the whole rows, those of one device.
     """
     cfg, tp = model.cfg, tp_current()
@@ -231,7 +233,8 @@ def calibration_rows(model, params, qc: QuantConfig, max_seq: int,
     n_pages = -(-t // page_size)
     tokens = (torch.arange(t, dtype=torch.int32, device=dev) * 31 + 7
               ) % cfg.vocab_size
-    kv = {key: tp.shard(pages, 3).contiguous() for key, pages in
+    axis = 4 if hd_fallback(cfg, tp.size) else 3
+    kv = {key: tp.shard(pages, axis).contiguous() for key, pages in
           model.init_paged_cache(n_pages * page_size, page_size, n_pages,
                                  device=dev).items()}
     table = torch.arange(n_pages, dtype=torch.int32, device=dev)[None]
@@ -240,7 +243,7 @@ def calibration_rows(model, params, qc: QuantConfig, max_seq: int,
     def rows(pages):               # (L, P+1, page, KVH, HD) -> (L, t, ...)
         return tp.all_gather(pages[:, :n_pages].reshape(
             cfg.num_layers, n_pages * page_size, *pages.shape[3:])[:, :t],
-            2)
+            axis - 1)
     return rows(kv["k"]), rows(kv["v"])
 
 
@@ -339,7 +342,7 @@ class Engine:
                 raise ValueError(f"mesh {mesh.axis_names} has no 'model' "
                                  "axis")
             msize = mesh.shape["model"]
-            check_tensor_parallel(model.cfg, msize, qc, paged=True)
+            check_tensor_parallel(model.cfg, msize, qc)
             group = replica_submeshes(mesh)[0]
             self.params = shard_tree(
                 params, serving_layout(params, model.cfg, msize), group)

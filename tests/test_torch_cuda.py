@@ -29,7 +29,11 @@ bit for bit on float LUTs, 18 experts of a dbrx-132b expert shape whose
 int8 tables pass 2^31 bytes, the wrappers' refusals of mismatched
 experts, and one
 deepseek-moe-16b smoke decode step with one grouped launch per expert
-projection.
+projection; B2s and B2a (the head_dim layout's decode: partial scores,
+then the softmax and a rank's V slice) against their plain versions over
+float32 and bfloat16 pools and queries, pages 16 to 64, D/m of 8 to 64,
+G up to 8, window, kv_start, a pos = -1 lane (exactly its v_new), and
+pools at an odd storage offset.
 
 Needs a CUDA device and ``nvcc``: marked ``cuda``, and skipped when torch
 sees no card. On a machine with an H100, from the repository root:
@@ -1036,3 +1040,105 @@ def test_moe_decode_runs_one_grouped_launch_per_expert_projection(dev,
                         wrappers):
             setattr(ops, w, k)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the head_dim layout's decode: B2s (partial scores), B2a (attend)
+# ---------------------------------------------------------------------------
+
+def _hd_problem(dev, b, h, kvh, d, ps, np_, positions, kv_dtype, q_dtype,
+                seed):
+    rng = np.random.default_rng(seed)
+    n_pages = b * np_
+    kp = rng.standard_normal((n_pages + 1, ps, kvh, d)).astype(np.float32)
+    vp = rng.standard_normal((n_pages + 1, ps, kvh, d)).astype(np.float32)
+    kp[-1] = 1e4                        # trash page: never attended
+    vp[-1] = 1e4
+    phys = rng.permutation(n_pages).reshape(b, np_).astype(np.int32)
+    for i, p in enumerate(positions):   # unallocated tail -> trash
+        phys[i, max(0, -(-p // ps)):] = n_pages
+    q = rng.standard_normal((b, 1, h, d)).astype(np.float32)
+    kn = rng.standard_normal((b, 1, kvh, d)).astype(np.float32)
+    vn = rng.standard_normal((b, 1, kvh, d)).astype(np.float32)
+    t = lambda a, dt=None: torch.from_numpy(a).to(dev, dt)  # noqa: E731
+    return (t(q, q_dtype), t(kp, kv_dtype), t(vp, kv_dtype),
+            t(kn, kv_dtype), t(vn, kv_dtype), t(phys),
+            t(np.asarray(positions, np.int32)))
+
+
+HD_CASES = [   # h, kvh, d (a rank's slice), ps, np_, window, kv_start
+    (20, 20, 16, 16, 32, 0, 0),         # qwen1.5-4b over 8 ranks
+    (8, 4, 32, 16, 16, 40, 3),          # gemma3-4b over 8: G=2, window
+    (32, 4, 16, 32, 8, 0, 5),           # yi-9b over 8: G=8, page 32
+    (8, 1, 64, 64, 4, 100, 0),          # G=8, D/m 64, page 64
+    (48, 8, 8, 16, 12, 0, 0),           # dbrx-132b over 16: D/m 8
+    (6, 3, 24, 16, 5, 0, 2),            # D/m 24: not a power of two
+]
+
+
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kv_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,kvh,d,ps,np_,window,kv_start", HD_CASES)
+def test_head_dim_decode_kernels_match_plain(dev, kv_dtype, q_dtype, h, kvh,
+                                             d, ps, np_, window, kv_start):
+    """B2s's partial scores (float32: sums in another order) and B2a's
+    output on them against the plain versions: float32 output within
+    2e-5 of its scale, bfloat16 within one ulp; a pos = -1 lane's scores
+    0 and its output exactly its v_new slice; dead keys score 0; one
+    launch each, and two launches bit for bit equal."""
+    b = 4
+    cap = np_ * ps
+    positions = [cap, -1, ps, min(cap, 3 * ps + 1)]
+    q, kp, vp, kn, vn, phys, pos = _hd_problem(
+        dev, b, h, kvh, d, ps, np_, positions, kv_dtype, q_dtype, h + d)
+    ks = torch.full((b,), kv_start, dtype=torch.int32, device=dev)
+    before = (tfd.flash_decode_hd_scores_cuda.launches,
+              tfd.flash_decode_hd_attend_cuda.launches)
+    sc = tfd.flash_decode_hd_scores_cuda(q, kp, kn, phys, pos, window, ks)
+    want_sc = tfd.flash_decode_hd_scores_plain(q, kp, kn, phys, pos, window,
+                                               ks)
+    torch.cuda.synchronize()
+    assert sc.shape == (b, h, cap + 1)
+    torch.testing.assert_close(sc, want_sc, rtol=0,
+                               atol=2e-5 * (1 + float(want_sc.abs().max())))
+    assert bool((sc[1, :, :-1] == 0).all())
+    scale = (4 * d) ** -0.5                # a rank's slice of 4 x d
+    out = tfd.flash_decode_hd_attend_cuda(sc, vp, vn, phys, pos, window, ks,
+                                          scale, q_dtype)
+    again = tfd.flash_decode_hd_attend_cuda(sc, vp, vn, phys, pos, window,
+                                            ks, scale, q_dtype)
+    want = tfd.flash_decode_hd_attend_plain(sc, vp, vn, phys, pos, window,
+                                            ks, scale, q_dtype)
+    torch.cuda.synchronize()
+    assert (tfd.flash_decode_hd_scores_cuda.launches,
+            tfd.flash_decode_hd_attend_cuda.launches) == (before[0] + 1,
+                                                          before[1] + 2)
+    assert torch.equal(out, again)
+    assert out.shape == (b, 1, h, d) and out.dtype == q_dtype
+    tol = 2e-5 * (1 + float(want.float().abs().max()))
+    if q_dtype == torch.bfloat16:
+        tol += 2 ** -7 * float(want.float().abs().max())
+    torch.testing.assert_close(out.float(), want.float(), rtol=0, atol=tol)
+    g = h // kvh
+    lane = vn[1, 0].to(q_dtype).repeat_interleave(g, 0)
+    assert torch.equal(out[1, 0], lane)
+
+
+@pytest.mark.parametrize("pool", ["float32", "bfloat16"])
+def test_head_dim_decode_kernels_take_misaligned_pools(dev, pool):
+    """Pools (and the new rows) at a storage offset that is not 16-byte
+    aligned give the aligned launch's bits (element loads)."""
+    dt = getattr(torch, pool)
+    q, kp, vp, kn, vn, phys, pos = _hd_problem(
+        dev, 4, 20, 20, 16, 16, 8, [128, -1, 16, 49], dt, torch.float32, 5)
+    ks = torch.tensor([0, 0, 5, 0], dtype=torch.int32, device=dev)
+    sc = tfd.flash_decode_hd_scores_cuda(q, kp, kn, phys, pos, 30, ks)
+    sc_m = tfd.flash_decode_hd_scores_cuda(q, _misaligned(kp),
+                                           _misaligned(kn), phys, pos, 30, ks)
+    out = tfd.flash_decode_hd_attend_cuda(sc, vp, vn, phys, pos, 30, ks,
+                                          0.1, torch.float32)
+    out_m = tfd.flash_decode_hd_attend_cuda(sc, _misaligned(vp),
+                                            _misaligned(vn), phys, pos, 30,
+                                            ks, 0.1, torch.float32)
+    torch.cuda.synchronize()
+    assert torch.equal(sc, sc_m) and torch.equal(out, out_m)

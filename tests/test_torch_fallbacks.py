@@ -16,11 +16,12 @@ the CPU (every rank on the CPU, ``make_test_mesh(..., device="cpu")``):
   ranks' softmax triples in rank order): batch 1 on (2, 2), and with the
   head_dim layout on (2, 4), against the unsharded run over decode steps
   that cross from one data rank's rows to the next;
-* ``remat`` under a mesh (a layer recomputed in the backward replays its
-  collectives' results): the sharded lut_train gradients with and
-  without it, and against ``jax.grad``;
-* the paged ``Engine(mesh=)`` still refuses the head_dim layout, naming
-  ROADMAP.md queue A item 11.
+* ``remat`` under a mesh (every rank recomputes a layer together in the
+  backward, its collectives run again): the sharded lut_train gradients
+  with and without it, and against ``jax.grad``; no collective result of
+  a layer outlives its backward;
+* the paged ``Engine(mesh=)`` under the head_dim layout (refused before
+  this layout had its paged form), against the one-device engine.
 
 Tolerances: logits within 1e-4 of their scale of the JAX package's
 (float32; the same int8 sums; attention sums in another order), argmax
@@ -49,6 +50,7 @@ from repro_torch.models.model import Model as TModel  # noqa: E402
 from repro_torch.parallel import sharding as tsh  # noqa: E402
 from repro_torch.parallel.collectives import RankRunner  # noqa: E402
 from repro_torch.serve.engine import Engine  # noqa: E402
+from repro_torch.serve.scheduler import Request  # noqa: E402
 from repro_torch.train.trainer import (reduce_grads,  # noqa: E402
                                        shared_entries,
                                        sharded_loss_and_grads)
@@ -282,16 +284,113 @@ def test_remat_under_a_mesh_gives_the_same_gradients(arch, shape):
     walk(got, want)
 
 
+def test_remat_holds_at_most_one_layers_collective_results():
+    """Under ``remat`` on (1, 2) every collective result (weak references
+    to what ``all_reduce`` / ``all_gather`` / ``all_to_all`` return, by
+    layer, forward and recompute) of a layer is dead by the time the
+    backward recomputes the layer two below it, none is alive when the
+    forward returns or after the backward, and every layer is recomputed
+    once, every rank together (its collectives run again)."""
+    import threading
+    import weakref
+
+    from repro_torch.parallel import collectives as tcol
+
+    cfg = tconfigs.get_smoke_config("qwen1.5-4b").replace(remat=True,
+                                                          num_layers=4)
+    qt = TQC(mode="lut_train")
+    tm = TModel(cfg, device="cpu")
+    params = tm.init(torch.Generator().manual_seed(4), qt)
+    mesh = make_test_mesh((1, 2), device="cpu")
+    layout = tsh.serving_layout(params, cfg, 2)
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (2, 8)).astype(np.int32))
+    here = threading.local()
+    results = []                           # (layer, weakref)
+    seen = []                              # (layer recomputed, live layers)
+    own = {name: getattr(tcol.TP, name)
+           for name in ("all_reduce", "all_gather", "all_to_all")}
+    own_layer, own_recompute = TModel._train_layer, tcol._Layer.recompute
+
+    def wrap(name):
+        def call(self, *args, **kw):
+            out = own[name](self, *args, **kw)
+            li = getattr(here, "layer", None)
+            if li is not None and self.size > 1:
+                results.append((li, weakref.ref(out)))
+            return out
+        return call
+
+    def layer(self, p_l, li, *args, **kw):
+        here.layer = li
+        try:
+            return own_layer(self, p_l, li, *args, **kw)
+        finally:
+            here.layer = None
+
+    def recompute(self):
+        li = self.frames[0].fn.args[1]
+        seen.append((li, sorted({i for i, r in results
+                                 if r() is not None})))
+        return own_recompute(self)
+
+    for name in own:
+        setattr(tcol.TP, name, wrap(name))
+    TModel._train_layer, tcol._Layer.recompute = layer, recompute
+    try:
+        runner = RankRunner(mesh=mesh)
+        shards = tsh.shard_tree(params, layout, mesh, copy=True)
+        lives = [[t.detach().requires_grad_(True) for t in tree_leaves(sh)]
+                 for sh in shards]
+        from repro_torch.tree import tree_map
+        tracked = []
+        for sh, live in zip(shards, lives):
+            it = iter(live)
+            tracked.append(tree_map(lambda _: next(it), sh))
+        outs = runner.run(lambda tp: tm.loss(tracked[tp.me],
+                                             {"tokens": toks}, qt)[0])
+        forward = len(results)
+        assert forward > 0
+        assert not [li for li, r in results if r() is not None]
+        torch.autograd.grad(outs[0], [t for live in lives for t in live],
+                            allow_unused=True)
+    finally:
+        for name, fn in own.items():
+            setattr(tcol.TP, name, fn)
+        TModel._train_layer, tcol._Layer.recompute = own_layer, own_recompute
+    assert [li for li, _ in seen] == [3, 2, 1, 0]
+    for li, live in seen:
+        assert all(i == li + 1 for i in live), (li, live)
+    assert len(results) == 2 * forward        # every collective ran again
+    assert not [li for li, r in results if r() is not None]
+
+
 def test_paged_engine_still_refuses_the_head_dim_layout():
+    """The paged engine, refused under the head_dim layout before, now
+    serves it (the name is kept): yi-9b smoke's 2 kv heads over (1, 4),
+    each rank's pool the head_dim slice of every kv head, greedy tokens
+    equal to the one-device engine's (held against the JAX
+    ``Engine(mesh=)`` in ``test_torch_scaleout``). What stays refused:
+    a head_dim that does not divide either (16 ranks), naming ROADMAP.md
+    queue A item 11."""
     cfg = tconfigs.get_smoke_config("yi-9b")
     tm = TModel(cfg, device="cpu")
-    params = tm.init(torch.Generator().manual_seed(0), TQC(mode="dense"))
-    with pytest.raises(NotImplementedError,
-                       match=r"num_kv_heads=2.*head_dim form.*item 11"):
-        Engine(tm, params, TQC(mode="dense"),
-               mesh=make_test_mesh((1, 4), device="cpu"), batch_size=2,
-               max_seq=32, page_size=8, prefill_chunk=4)
-    # the rank code refuses the paged pool under the layout too
-    tsh.check_tensor_parallel(cfg, 4, TQC(mode="dense"))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tsh.check_tensor_parallel(cfg, 4, TQC(mode="dense"), paged=True)
+    qc = TQC(mode="dense")
+    params = tm.init(torch.Generator().manual_seed(0), qc)
+    kw = dict(batch_size=2, max_seq=32, page_size=8, prefill_chunk=4)
+    tsh.check_tensor_parallel(cfg, 4, qc)
+    sharded = Engine(tm, params, qc, mesh=make_test_mesh((1, 4), device="cpu"),
+                     **kw)
+    assert tuple(sharded.kv.pools[0]["k"].shape[-2:]) == (
+        cfg.num_kv_heads, cfg.head_dim // 4)
+    outs = []
+    for eng in (Engine(tm, params, qc, **kw), sharded):
+        reqs = [Request(tokens=[3, 4, 5, 6, 7], max_new_tokens=6),
+                Request(tokens=[9, 2], max_new_tokens=5)]
+        for r in reqs:
+            eng.submit(r)
+        eng.run_until_idle()
+        outs.append([r.out_tokens for r in reqs])
+    assert outs[0] == outs[1]
+    with pytest.raises(NotImplementedError, match="head_dim=8.*item 11"):
+        tsh.check_tensor_parallel(cfg, 16, qc)

@@ -16,9 +16,10 @@ slot); ``program_cost`` of seven chained matmuls (the FLOPs the JAX
 JAX ``test_hlo_cost_counts_loop_collectives`` through the one-rank
 ``CostRunner`` and, per rank, through the full ``RankRunner``; the
 kernel entry points on meta tensors (record their work under an OpCost,
-raise outside one, never run a plain version); ``run_cell`` on a
-(2, 2) meta mesh for every smoke config and shape (vlm and audio
-refused, naming ROADMAP item 11); one dense cell's per-device FLOPs
+raise outside one, never run a plain version; B2s and B2a, the head_dim
+layout's decode, too); ``run_cell`` on a (2, 2) meta mesh for every
+smoke config and shape (vlm and audio ``ok`` since they run under a
+model axis); one dense cell's per-device FLOPs
 against the JAX ``run_cell`` on four host devices (a subprocess); an
 in-place indexed write (a paged decode step's pool writes, and each
 kind of write at indices) counted by the values, indices and rows it
@@ -386,6 +387,51 @@ def test_kernel_entry_points_on_meta_record_their_work_or_raise():
                      tfd.flash_decode_paged_kvq_plain.calls)
 
 
+def test_head_dim_decode_kernels_on_meta_record_their_work():
+    """B2s and B2a (the head_dim layout's decode) on meta tensors: under an
+    OpCost an empty result of the kernel's shape and its
+    ``kernels.work`` entry, nothing of the plain version; outside one a
+    raise. On the CPU the plain versions run, recording the same work."""
+    (_, _, _, _, _, q, pages, new, phys, pos, _, _) = _meta_operands()
+    sc = torch.empty((2, 4, 4 * 4 + 1), device="meta")
+    calls = {
+        "b2s": (lambda q, pages, new, phys, pos, sc:
+                tfd.flash_decode_hd_scores(q, pages, new, phys, pos,
+                                           window=3)),
+        "b2a": (lambda q, pages, new, phys, pos, sc:
+                tfd.flash_decode_hd_attend(sc, pages, new, phys, pos, 0.25,
+                                           torch.bfloat16)),
+    }
+    works = {"b2s": work.flash_decode_hd_scores(q, pages, phys),
+             "b2a": work.flash_decode_hd_attend(sc, pages, phys,
+                                                torch.bfloat16)}
+    shapes = {"b2s": (2, 4, 17), "b2a": (2, 1, 4, 16)}
+    plain = (tfd.flash_decode_hd_scores_plain.calls,
+             tfd.flash_decode_hd_attend_plain.calls)
+    args = (q, pages, new, phys, pos, sc)
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match="outside an OpCost"):
+            call(*args)
+        cost = program_cost(call, *args)
+        assert tuple(cost.result.shape) == shapes[name]
+        assert cost.result.is_meta
+        assert dict(cost.kernels) == {name: 1}
+        assert (cost.bytes, cost.core_ops) == works[name]
+    assert plain == (tfd.flash_decode_hd_scores_plain.calls,
+                     tfd.flash_decode_hd_attend_plain.calls)
+    g = torch.Generator().manual_seed(1)
+    cpu = [torch.randn(t.shape, generator=g) if t.is_floating_point()
+           else torch.zeros(t.shape, dtype=t.dtype) for t in args]
+    cpu[4] = torch.tensor([5, -1], dtype=torch.int32)
+    for name, call in calls.items():
+        cost = program_cost(call, *cpu)
+        assert (cost.bytes, cost.core_ops) == works[name]
+        assert tuple(cost.result.shape) == shapes[name]
+    assert (tfd.flash_decode_hd_scores_plain.calls,
+            tfd.flash_decode_hd_attend_plain.calls) == (plain[0] + 1,
+                                                         plain[1] + 1)
+
+
 def test_kernel_work_on_the_cpu_equals_meta_and_the_plain_version_runs():
     """A CPU call under an OpCost records the same work as the meta call
     and counts none of the plain version's ops."""
@@ -419,10 +465,7 @@ def test_run_cell_on_a_small_mesh(arch):
                                               shape)
         if not runnable:
             assert res["status"] == "skipped"
-        elif family in ("vlm", "audio"):
-            assert res["status"] == "refused"
-            assert "item 11" in res["reason"]
-        else:
+        else:              # every family, vlm and audio included
             assert res["status"] == "ok", (shape, res)
             rl = res["roofline"]
             assert res["chips"] == 4 and res["mesh"] == "2x2"

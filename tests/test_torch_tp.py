@@ -477,13 +477,14 @@ def test_sync_guard_over_a_tp_engine(arch):
 
 def test_engine_refuses_a_layout_the_rank_code_cannot_run():
     """A sharded dim that does not divide the model axis (yi-9b smoke's 2
-    kv heads over 4 ranks) raises, naming it; so does a mesh without a
-    ``model`` axis."""
+    kv heads over 16 ranks, where its head_dim of 8 does not divide
+    either: the head_dim layout has no slice to give) raises, naming it;
+    so does a mesh without a ``model`` axis."""
     tm = TModel(tconfigs.get_smoke_config("yi-9b"), device="cpu")
     params = tm.init(torch.Generator().manual_seed(0), TQC(mode="dense"))
-    with pytest.raises(NotImplementedError, match="num_kv_heads=2"):
+    with pytest.raises(NotImplementedError, match="head_dim=8.*item 11"):
         Engine(tm, params, TQC(mode="dense"),
-               mesh=make_test_mesh((1, 4), device="cpu"), **ENGINE_KW)
+               mesh=make_test_mesh((1, 16), device="cpu"), **ENGINE_KW)
     with pytest.raises(ValueError, match="model"):
         Engine(tm, params, TQC(mode="dense"),
                mesh=make_test_mesh((2,), ("data",), device="cpu"),

@@ -27,9 +27,9 @@ subprocess) and against the plain sum; ``run_pipeline`` over 4 stages
 against the JAX ``run_pipeline`` (same subprocess) and the sequential
 loop; a checkpoint saved on (1, 2) restored unsharded, on (1, 2) and on
 (2, 2) bit for bit, each resuming bit for bit as the run that never
-stopped; the refusals under a mesh (a vlm, an audio model, a head_dim
-that does not divide), which name ROADMAP.md queue A item 11, and a
-``remat`` step that runs; grad mode and
+stopped; the refusal under a mesh of a head_dim that does not divide,
+which names ROADMAP.md queue A item 11, and a ``remat`` step, a vlm
+step and an audio step that run; grad mode and
 inference mode carried into every rank, and rank threads started at the
 call for a training forward only.
 
@@ -651,12 +651,13 @@ def test_a_failing_rank_raises_and_nothing_hangs():
 
 
 def test_refusals_under_a_mesh_name_item_11():
-    """No sharded step runs what the rank code cannot: the vlm and audio
-    families, a head_dim that does not divide the model axis (where the
-    kv heads do not either); shards that share storage across ranks are
-    refused too (each rank updates its own). ``remat`` under a mesh,
-    refused before, now runs (a recomputed layer replays its collectives'
-    results: ``test_torch_fallbacks``)."""
+    """No sharded step runs what the rank code cannot: a head_dim that
+    does not divide the model axis (where the kv heads do not either);
+    shards that share storage across ranks are refused too (each rank
+    updates its own). ``remat`` under a mesh, refused before, now runs
+    (every rank recomputes a layer together: ``test_torch_fallbacks``).
+    The vlm and audio families, refused before, now take a sharded step
+    (held against the JAX package in ``test_torch_scaleout``)."""
     qc = tlut.QuantConfig(mode="lut_train")
     tc = TrainConfig(**KW)
     mesh = make_test_mesh((1, 2), device="cpu")
@@ -672,14 +673,33 @@ def test_refusals_under_a_mesh_name_item_11():
     shared = tsh.shard_tree(params, layout, mesh)
     with pytest.raises(ValueError, match="copy=True"):
         fn(shared, init_opt_state(shared, tc, mesh=mesh), batch, 0)
-    for arch, size, what in (("paligemma-3b", 2, "vlm"),
-                             ("musicgen-large", 2, "audio"),
-                             ("yi-9b", 16, "head_dim=8")):
+    c = tconfigs.get_smoke_config("yi-9b")
+    with pytest.raises(NotImplementedError, match="head_dim=8.*item 11"):
+        make_train_step(TModel(c, device="cpu"), qc, tc, 3,
+                        mesh=make_test_mesh((1, 16), device="cpu"),
+                        layout={})
+    rng = np.random.default_rng(0)
+    for arch in ("paligemma-3b", "musicgen-large"):
         c = tconfigs.get_smoke_config(arch)
-        with pytest.raises(NotImplementedError, match=f"{what}.*item 11"):
-            make_train_step(TModel(c, device="cpu"), qc, tc, 3,
-                            mesh=make_test_mesh((1, size), device="cpu"),
-                            layout={})
+        tm = TModel(c, device="cpu")
+        params = tm.init(torch.Generator().manual_seed(0), qc)
+        layout = tsh.serving_layout(params, c, 2)
+        fn = make_train_step(tm, qc, tc, 3, mesh=mesh, layout=layout)
+        shards = tsh.shard_tree(params, layout, mesh, copy=True)
+        if c.family == "audio":
+            batch = {"embeds": torch.from_numpy(rng.standard_normal(
+                         (4, 8, c.d_model)).astype(np.float32)),
+                     "labels": torch.from_numpy(rng.integers(
+                         0, c.vocab_size, (4, 8, c.num_codebooks)
+                     ).astype(np.int32))}
+        else:
+            batch = {"patch_embeds": torch.from_numpy(rng.standard_normal(
+                         (4, c.num_patches, c.d_model)).astype(np.float32)),
+                     "tokens": torch.from_numpy(_tokens(c, 1, b=4,
+                                                        s=8)[0])}
+        _, _, met = fn(shards, init_opt_state(shards, tc, mesh=mesh), batch,
+                       0)
+        assert np.isfinite(float(met["loss"]))
 
 
 def test_rank_runner_carries_grad_and_inference_mode():
