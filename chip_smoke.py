@@ -5134,7 +5134,7 @@ def tp_kernel_cases(gen, flush, seed):
                          f"D/m={256 // m} NP=128 window=1024 kv_start>0, "
                          "a pos=-1 lane", SLOTS, 8, 4, 256, m,
                          GEMMA_LOAD.max_seq // PAGE, g_pos, 1024,
-                         [0, 0, 7, 0, 300, 0, 0, 12], flush, False)]
+                         [0, 0, 7, 0, 300, 0, 0, 12], flush, True)]
     return {"qwen": qwen, "moe": moe, "b2": b2, "b5": b5, "hd": hd,
             "hd_checks": hd_checks}
 
@@ -5156,10 +5156,16 @@ def hd_case(gen, name, b, h, kvh, d, m, np_, positions, window, kv_start,
     2e-5 of their scale; a pos = -1 lane's and dead keys' 0); B2a on the
     scores of the whole head_dim (what the all-reduce gives) against its
     plain version (within 2e-5 of the scale plus a bfloat16 ulp; a pos =
-    -1 lane exactly its v_new slice); each call one kernel
-    (``device.enqueued``). ``timed``: each flushed (mean, median of 30),
-    warm in a graph, its plain version's time and its bound, and SDPA over
-    the whole heads' K / V already gathered as the pair's yardstick."""
+    -1 lane exactly its v_new slice); three launches of each bit for bit
+    equal; each call one kernel (``device.enqueued``); each launch's
+    geometry (``fd.hd_geometry``: cluster size, clusters, how many the
+    card holds at once). ``timed``: each flushed (mean, median of 30),
+    warm in a graph, its plain version's time and its bound; B2s's
+    library yardstick, one ``torch.matmul`` of the q slice with the K
+    slice already gathered (dead rows zero, k_new the last row: B2s's
+    function), and SDPA over the whole heads' K / V already gathered as
+    the pair's; a sweep of B2s's pages a block and B2a's cluster size
+    beside the plan's choice."""
     q, kp, vp, kn, vn, phys, pos, ks = b2_inputs(gen, b, h, kvh, d, np_,
                                                  positions, kv_start, ps)
     ds = d // m
@@ -5186,9 +5192,13 @@ def hd_case(gen, name, b, h, kvh, d, m, np_, positions, window, kv_start,
     def attend_plain():
         return fd.flash_decode_hd_attend_plain(sc_full, vps, vns, phys, pos,
                                                window, ks, scale, q.dtype)
-    sc, sc_p = scores(), scores_plain()
-    out, out_p, again = attend(), attend_plain(), attend()
+    sc, sc_p, sc2, sc3 = scores(), scores_plain(), scores(), scores()
+    out, out_p, again, third = attend(), attend_plain(), attend(), attend()
     torch.cuda.synchronize()
+    check(torch.equal(sc, sc2) and torch.equal(sc, sc3),
+          f"B2s {name}: three launches differ")
+    check(torch.equal(out, third), f"B2a {name}: the third launch differs")
+    geo = fd.hd_geometry(qs, kps, phys)
     err_s = float((sc - sc_p).abs().max())
     check(err_s <= 2e-5 * (1.0 + float(sc_p.abs().max())),
           f"B2s {name}: max abs err {err_s}")
@@ -5209,12 +5219,19 @@ def hd_case(gen, name, b, h, kvh, d, m, np_, positions, window, kv_start,
         calls = enqueued(call)
         check(calls == ONE_KERNEL, f"{label} {name}: enqueues {calls}")
     res = {"b2s": {"err": err_s}, "b2a": {"err": err_a}}
+    print(f"hd [{name}]: plan {geo['plan']}; " + "; ".join(
+        f"{key.upper()} cluster {k['cluster']} x {k['clusters']} clusters, "
+        f"{k['resident']} at once on the card, {k['smem']} B shared, "
+        f"{k['registers']} registers" for key, k in
+        (("b2s", geo["b2s"]), ("b2a", geo["b2a"]))) + f" [{SMI}]")
     if not timed:
         print(f"hd [{name}]: B2s max abs err {err_s:.3g} (float32 scores), "
-              f"B2a {err_a:.3g} (bf16 out); one kernel a call; pos=-1 "
-              f"lanes exact [{SMI}]")
+              f"B2a {err_a:.3g} (bf16 out); one kernel a call; three "
+              f"launches equal; pos=-1 lanes exact [{SMI}]")
         return res
-    live = int(pos.clamp_min(0).sum())
+    t = np_ * ps
+    live_t = fd._live_keys(pos, window, ks, t)
+    live = int(live_t.sum())
     for key, call, plain, wk in (
             ("b2s", scores, scores_plain,
              work.flash_decode_hd_scores(qs, kps, phys, live=live)),
@@ -5229,16 +5246,46 @@ def hd_case(gen, name, b, h, kvh, d, m, np_, positions, window, kv_start,
                          "plain_ms": time_ms(plain, 5, flush),
                          "bound_ms": bms, "bound_by": by,
                          "library_ms": None})
-    t = np_ * ps
     kg = kp[phys.long()].reshape(b, t, kvh, d).transpose(1, 2).contiguous()
     vg = vp[phys.long()].reshape(b, t, kvh, d).transpose(1, 2).contiguous()
-    mask = (torch.arange(t, device=DEV)[None] < pos[:, None])[:, None, None]
+    mask = live_t[:, None, None]
     qh = q.transpose(1, 2).contiguous()
     sdpa_ms = time_ms(lambda: torch.nn.functional.
                       scaled_dot_product_attention(qh, kg, vg, attn_mask=mask,
                                                    enable_gqa=h != kvh),
                       30, flush)
     res["b2a"]["library_ms"] = sdpa_ms
+    # B2s's yardstick: the q slice times the rank's K slice gathered, dead
+    # rows zero and k_new the last row, in one matmul (B, KVH, G, T + 1)
+    ks_g = torch.cat([kps[phys.long()].reshape(b, t, kvh, ds)
+                      * live_t[:, :, None, None], kns], 1)
+    ks_g = ks_g.permute(0, 2, 3, 1).float().contiguous()   # (B, KVH, D, T+1)
+    qg_s = qs.reshape(b, kvh, g, ds).float().contiguous()
+    mm = torch.matmul(qg_s, ks_g).reshape(b, h, t + 1)
+    check(float((mm - sc_p).abs().max())
+          <= 2e-5 * (1.0 + float(sc_p.abs().max())),
+          f"B2s {name}: the matmul yardstick is not B2s's function")
+    res["b2s"]["library_ms"] = time_ms(lambda: torch.matmul(qg_s, ks_g), 30,
+                                       flush)
+    plan = geo["plan"]
+
+    def scores_at(pages):
+        return lambda: fd.flash_decode_hd_scores_cuda(
+            qs, kps, kns, phys, pos, window, ks, pages=pages)
+
+    def attend_at(cs):
+        return lambda: fd.flash_decode_hd_attend_cuda(
+            sc_full, vps, vns, phys, pos, window, ks, scale, q.dtype,
+            cluster=cs)
+    sweep = [f"B2s {p} pages a block "
+             f"{1e3 * time_ms(scores_at(p), 30, flush):.1f} us"
+             for p in sorted({1, 2, 4, 8, plan["pages"]}) if p <= np_]
+    sweep += [f"B2a cluster {cs} "
+              f"{1e3 * time_ms(attend_at(cs), 30, flush):.1f} us"
+              for cs in sorted({1, 2, 4, 8, 16, plan["cluster"]})]
+    print(f"hd [{name}] sweep, flushed (the plan: B2s {plan['pages']} pages "
+          f"a block, B2a cluster {plan['cluster']}): " + ", ".join(sweep)
+          + f" [{SMI}]")
     print(f"hd [{name}]: " + "; ".join(
         f"{key.upper()} {r['ms'] * 1e3:.1f} us flushed (median "
         f"{r['med_ms'] * 1e3:.1f}), {r['warm_ms'] * 1e3:.1f} us warm in a "
@@ -5246,9 +5293,10 @@ def hd_case(gen, name, b, h, kvh, d, m, np_, positions, window, kv_start,
         f"{r['bound_ms'] * 1e3:.2f} us ({r['bound_by']}), plain "
         f"{r['plain_ms'] * 1e3:.1f} us, max abs err {r['err']:.3g}"
         for key, r in (("b2s", res["b2s"]), ("b2a", res["b2a"])))
-        + f"; one kernel a call; {live} live tokens; SDPA over the whole "
-        f"heads' K / V already gathered (the pair's function on one "
-        f"device) {sdpa_ms * 1e3:.1f} us [{SMI}]")
+        + f"; one kernel a call; three launches equal; {live} live tokens; "
+        f"B2s's matmul yardstick {res['b2s']['library_ms'] * 1e3:.1f} us; "
+        f"SDPA over the whole heads' K / V already gathered (the pair's "
+        f"function on one device) {sdpa_ms * 1e3:.1f} us [{SMI}]")
     return res
 
 
@@ -6112,6 +6160,8 @@ def main(argv=None) -> int:
              "all-reduced scores and a rank's V slice, the same shapes; "
              "library: SDPA over the whole heads' K / V already gathered, "
              "the pair's function on one device)")):
+        # B2s's library: one torch.matmul of the q slice with the K slice
+        # already gathered (dead rows zero, k_new the last row)
         kernels.append(attn_row(
             what, hd[key], [hd[key]["err"]] + [c[key]["err"] for c in
                                                scale["hd_checks"]],

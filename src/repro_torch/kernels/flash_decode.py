@@ -50,7 +50,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -824,14 +824,66 @@ def flash_decode_hd_attend_plain(sc: torch.Tensor, v_pages: torch.Tensor,
 flash_decode_hd_attend_plain.calls = 0
 
 
+#: Streaming multiprocessors of the H100: the head_dim kernels' grids
+#: are sized by them (:func:`hd_plan`).
+SMS = 132
+
+#: Bytes of one page's slice of a block's kv heads in the head_dim
+#: kernels' shared memory, where the pages land by cp.async.
+HD_SLICE_BYTES = 24 * 1024
+
+#: Threads of a block of kernels B2s and B2a.
+HD_THREADS = 256
+
+
+class HdPlan(NamedTuple):
+    """How kernels B2s and B2a cut one launch (:func:`hd_plan`)."""
+    kv_heads: int    # kv heads a B2s block and a B2a cluster take
+    groups: int      # kv-head groups: grid z of both kernels
+    pages: int       # pages a B2s block
+    blocks: int      # B2s blocks a slot and group: ceil(np / pages)
+    cluster: int     # B2a CTAs a cluster, one cluster a slot and group
+
+
+def hd_plan(b: int, kvh: int, d: int, ps: int, np_: int,
+            elsize: int) -> HdPlan:
+    """The head_dim kernels' launch over ``b`` slots x ``kvh`` kv heads x
+    ``np_`` pages of ``ps`` tokens, a rank's head_dim slice ``d`` of
+    ``elsize``-byte elements: a function of these shapes alone (no
+    position is read on the host).
+
+    A row slice is ``ceil(d * elsize / 16)`` 16-byte chunks. A group takes
+    as many kv heads as keep one page's slice within
+    :data:`HD_SLICE_BYTES` and B2a's value columns (kv heads x chunks)
+    within its :data:`HD_THREADS` threads, spread evenly over the groups.
+    B2s cuts each slot's table into ``blocks`` ranges of ``pages`` pages,
+    about two blocks an SM (the card holds them all at once; one block an
+    SM was slower at gemma3-4b's slice, PERF.md). B2a gives each (slot,
+    group) a cluster of ``cluster`` CTAs, one wave over the :data:`SMS`
+    SMs (at most :data:`MAX_SPLITS`, at most one a page). qwen1.5-4b's
+    (1, 8) slice (8 slots, 20 kv heads, 16 dims of bf16, 32 pages) takes
+    one group, 32 B2s blocks of one page a slot and clusters of 16: 256
+    and 128 blocks."""
+    nch = -(-d * elsize // 16)
+    cap = max(1, min(kvh, HD_THREADS // nch,
+                     HD_SLICE_BYTES // (ps * nch * 16)))
+    groups = -(-kvh // cap)
+    share = max(1, SMS // (b * groups))
+    blocks = min(np_, max(1, 2 * SMS // (b * groups)))
+    pages = -(-np_ // blocks)
+    return HdPlan(kv_heads=-(-kvh // groups), groups=groups, pages=pages,
+                  blocks=-(-np_ // pages),
+                  cluster=min(MAX_SPLITS, np_, share))
+
+
 def _lib_hd():
     lib = _build.load("flash_decode_hd")
     fn = lib.flash_decode_hd_scores_launch
     if fn.argtypes is None:
-        fn.argtypes = [_P] * 6 + [_I, _P] + [_I] * 8 + [_P]
+        fn.argtypes = [_P] * 6 + [_I, _P] + [_I] * 10 + [_P, _P]
         fn.restype = _I
         fn = lib.flash_decode_hd_attend_launch
-        fn.argtypes = [_P] * 6 + [_I, _F, _P] + [_I] * 8 + [_P]
+        fn.argtypes = [_P] * 6 + [_I, _F, _P] + [_I] * 10 + [_P, _P]
         fn.restype = _I
     return lib
 
@@ -862,19 +914,32 @@ def _check_hd(who: str, pool: torch.Tensor, new: torch.Tensor,
           and tuple(pos.shape) == (b,) and tuple(ks.shape) == (b,),
           "phys (B, NP), pos (B,) and kv_start (B,) expected")
     check(1 <= b <= 65535 and h <= 65535, f"B={b}, H={h} out of range")
+    check(1 <= h // kvh <= 8 and 1 <= d <= 256,
+          f"G={h // kvh} or D={d} out of range (G <= 8, D <= 256)")
     return kvh, h // kvh, d
+
+
+def _hd_launch(who: str, fn, args: list, info=None) -> None:
+    err = fn(*args, info)
+    if err != 0:
+        raise RuntimeError(
+            f"{who}: launch failed with cudaError {err} (9: no thread block "
+            "cluster of this launch fits the card)")
 
 
 def flash_decode_hd_scores_cuda(q: torch.Tensor, k_pages: torch.Tensor,
                                 k_new: torch.Tensor, phys: torch.Tensor,
                                 pos: torch.Tensor, win: int,
-                                ks: torch.Tensor) -> torch.Tensor:
+                                ks: torch.Tensor, *,
+                                pages: Optional[int] = None
+                                ) -> torch.Tensor:
     """Kernel B2s: the same contract as
     :func:`flash_decode_hd_scores_plain`, on the card. q float32 or
     bfloat16; pages and k_new float32 or bfloat16 (one type); phys, pos,
     ks int32; all contiguous CUDA tensors on one device; the slot's q
-    (H x D floats) within 48 KB. ``flash_decode_hd_scores_cuda.launches``
-    counts launches."""
+    (H x D floats) within 48 KB; G <= 8, D <= 256. ``pages``: pages a
+    block (default :func:`hd_plan`'s). ``flash_decode_hd_scores_cuda.
+    launches`` counts launches."""
     who = "flash_decode_hd_scores_cuda"
     _check(q.dim() == 4 and q.shape[1] == 1 and q.dtype in _KV_DTYPES,
            f"q (B, 1, H, D) float32 or bfloat16 expected, got "
@@ -887,17 +952,17 @@ def flash_decode_hd_scores_cuda(q: torch.Tensor, k_pages: torch.Tensor,
     _check(h * d * 4 <= 48 * 1024, f"H x D = {h * d} floats exceed 48 KB",
            who)
     ps, np_ = k_pages.shape[1], phys.shape[1]
+    plan = hd_plan(b, kvh, d, ps, np_, k_pages.element_size())
     sc = torch.empty((b, h, np_ * ps + 1), dtype=torch.float32,
                      device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _lib_hd().flash_decode_hd_scores_launch(
+        _hd_launch(who, _lib_hd().flash_decode_hd_scores_launch, [
             q.data_ptr(), k_pages.data_ptr(), k_new.data_ptr(),
             phys.data_ptr(), pos.data_ptr(), ks.data_ptr(), int(win),
-            sc.data_ptr(), b, kvh, g, d, ps, np_, _KV_DTYPES[k_pages.dtype],
-            _KV_DTYPES[q.dtype], stream)
-    if err != 0:
-        raise RuntimeError(f"{who}: launch failed with cudaError {err}")
+            sc.data_ptr(), b, kvh, g, d, ps, np_, plan.kv_heads,
+            pages or plan.pages, _KV_DTYPES[k_pages.dtype],
+            _KV_DTYPES[q.dtype], stream])
     _build.bump(flash_decode_hd_scores_cuda, "launches")
     return sc
 
@@ -909,12 +974,15 @@ def flash_decode_hd_attend_cuda(sc: torch.Tensor, v_pages: torch.Tensor,
                                 v_new: torch.Tensor, phys: torch.Tensor,
                                 pos: torch.Tensor, win: int,
                                 ks: torch.Tensor, scale: float,
-                                out_dtype: torch.dtype) -> torch.Tensor:
+                                out_dtype: torch.dtype, *,
+                                cluster: Optional[int] = None
+                                ) -> torch.Tensor:
     """Kernel B2a: the same contract as
     :func:`flash_decode_hd_attend_plain`, on the card. sc float32 (B, H,
     NP*page + 1); pages and v_new float32 or bfloat16 (one type);
-    ``out_dtype`` float32 or bfloat16. ``flash_decode_hd_attend_cuda.
-    launches`` counts launches."""
+    ``out_dtype`` float32 or bfloat16; G <= 8, D <= 256. ``cluster``: CTAs
+    a cluster, at most :data:`MAX_SPLITS` (default :func:`hd_plan`'s).
+    ``flash_decode_hd_attend_cuda.launches`` counts launches."""
     who = "flash_decode_hd_attend_cuda"
     _check(sc.dim() == 3 and sc.dtype == torch.float32,
            f"sc (B, H, T + 1) float32 expected, got {tuple(sc.shape)} "
@@ -928,21 +996,54 @@ def flash_decode_hd_attend_cuda(sc: torch.Tensor, v_pages: torch.Tensor,
     ps, np_ = v_pages.shape[1], phys.shape[1]
     _check(t1 == np_ * ps + 1, f"sc has {t1} columns, the table "
            f"{np_ * ps} keys + 1", who)
+    plan = hd_plan(b, kvh, d, ps, np_, v_pages.element_size())
+    cs = cluster or plan.cluster
+    _check(1 <= cs <= MAX_SPLITS, f"a cluster of {cs} CTAs: at most "
+           f"MAX_SPLITS = {MAX_SPLITS}", who)
     out = torch.empty((b, 1, h, d), dtype=out_dtype, device=sc.device)
     with torch.cuda.device(sc.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _lib_hd().flash_decode_hd_attend_launch(
+        _hd_launch(who, _lib_hd().flash_decode_hd_attend_launch, [
             sc.data_ptr(), v_pages.data_ptr(), v_new.data_ptr(),
             phys.data_ptr(), pos.data_ptr(), ks.data_ptr(), int(win),
             float(scale), out.data_ptr(), b, kvh, g, d, ps, np_,
-            _KV_DTYPES[v_pages.dtype], _KV_DTYPES[out_dtype], stream)
-    if err != 0:
-        raise RuntimeError(f"{who}: launch failed with cudaError {err}")
+            plan.kv_heads, cs, _KV_DTYPES[v_pages.dtype],
+            _KV_DTYPES[out_dtype], stream])
     _build.bump(flash_decode_hd_attend_cuda, "launches")
     return out
 
 
 flash_decode_hd_attend_cuda.launches = 0
+
+
+def hd_geometry(q: torch.Tensor, pool: torch.Tensor,
+                phys: torch.Tensor) -> dict:
+    """The launches that :func:`flash_decode_hd_scores_cuda` and
+    :func:`flash_decode_hd_attend_cuda` make for a rank's q slice (B, 1,
+    H, D) over ``pool`` (P+1, page, KVH, D) and ``phys`` (B, NP), without
+    making them: for each (``"b2s"``, ``"b2a"``) its cluster size, the
+    clusters of its grid, how many of them the card holds at once, a
+    block's shared memory bytes and registers a thread; and the plan
+    (``"plan"``). Builds the kernels."""
+    b, _, h, d = q.shape
+    kvh, ps, np_ = pool.shape[2], pool.shape[1], phys.shape[1]
+    plan = hd_plan(b, kvh, d, ps, np_, pool.element_size())
+    dt, qt = _KV_DTYPES[pool.dtype], _KV_DTYPES[q.dtype]
+    lib = _lib_hd()
+    shape = [b, kvh, h // kvh, d, ps, np_, plan.kv_heads]
+    out = {"plan": plan._asdict()}
+    for key, fn, args in (
+            ("b2s", lib.flash_decode_hd_scores_launch,
+             [None] * 6 + [0, None] + shape + [plan.pages, dt, qt, None]),
+            ("b2a", lib.flash_decode_hd_attend_launch,
+             [None] * 6 + [0, 1.0, None] + shape
+             + [plan.cluster, dt, qt, None])):
+        info = (ctypes.c_int * 5)()
+        with torch.cuda.device(q.device):
+            _hd_launch("hd_geometry", fn, args, info)
+        out[key] = dict(zip(("cluster", "clusters", "resident", "smem",
+                             "registers"), info))
+    return out
 
 
 def flash_decode_hd_scores(q: torch.Tensor, k_pages: torch.Tensor,

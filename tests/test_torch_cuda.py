@@ -32,8 +32,11 @@ deepseek-moe-16b smoke decode step with one grouped launch per expert
 projection; B2s and B2a (the head_dim layout's decode: partial scores,
 then the softmax and a rank's V slice) against their plain versions over
 float32 and bfloat16 pools and queries, pages 16 to 64, D/m of 8 to 64,
-G up to 8, window, kv_start, a pos = -1 lane (exactly its v_new), and
-pools at an odd storage offset.
+G up to 8, window, kv_start, a pos = -1 lane (exactly its v_new), live
+ranges that start and end inside a page and a cluster CTA's chunk, fewer
+live keys than CTAs, NP = 1, one slot of 4096 and of 65536 tokens, 16
+slots, three launches bit for bit equal, and pools at an odd storage
+offset (D/m 16 and 24).
 
 Needs a CUDA device and ``nvcc``: marked ``cuda``, and skipped when torch
 sees no card. On a machine with an H100, from the repository root:
@@ -1066,29 +1069,47 @@ def _hd_problem(dev, b, h, kvh, d, ps, np_, positions, kv_dtype, q_dtype,
             t(np.asarray(positions, np.int32)))
 
 
-HD_CASES = [   # h, kvh, d (a rank's slice), ps, np_, window, kv_start
-    (20, 20, 16, 16, 32, 0, 0),         # qwen1.5-4b over 8 ranks
-    (8, 4, 32, 16, 16, 40, 3),          # gemma3-4b over 8: G=2, window
-    (32, 4, 16, 32, 8, 0, 5),           # yi-9b over 8: G=8, page 32
-    (8, 1, 64, 64, 4, 100, 0),          # G=8, D/m 64, page 64
-    (48, 8, 8, 16, 12, 0, 0),           # dbrx-132b over 16: D/m 8
-    (6, 3, 24, 16, 5, 0, 2),            # D/m 24: not a power of two
+# h, kvh, d (a rank's slice), ps, np_, window, kv_start, positions (None:
+# [NP x page, -1, page, 3 x page + 1] on 4 slots)
+HD_CASES = [
+    (20, 20, 16, 16, 32, 0, 0, None),   # qwen1.5-4b over 8 ranks
+    (8, 4, 32, 16, 16, 40, 3, None),    # gemma3-4b over 8: G=2, window
+    (32, 4, 16, 32, 8, 0, 5, None),     # yi-9b over 8: G=8, page 32
+    (8, 1, 64, 64, 4, 100, 0, None),    # G=8, D/m 64, page 64
+    (48, 8, 8, 16, 12, 0, 0, None),     # dbrx-132b over 16: D/m 8
+    (6, 3, 24, 16, 5, 0, 2, None),      # D/m 24: not a power of two
+    # live ranges that start and end inside a B2a CTA's chunk and inside
+    # a page, kv_start past the first page
+    (20, 20, 16, 16, 32, 100, 37, [333, 411, -1, 500, 90]),
+    # a 5-token window: fewer live keys than a cluster's CTAs (the ranks
+    # past the live ones hold none) and B2s ranges all dead but one page;
+    # 20 pages, not a multiple of the cluster
+    (8, 4, 32, 16, 20, 5, 0, [300, -1, 17, 64]),
+    (20, 20, 16, 16, 1, 0, 3, [16, -1, 9, 1]),           # NP = 1
+    (20, 20, 16, 16, 256, 0, 0, [4096]),    # one slot of 4096 tokens
+    # one slot of 65536 tokens: B2s's pages in rounds, B2a's chunk too
+    # long for its score cache (read from sc again), its V in rounds
+    (20, 20, 16, 16, 4096, 0, 0, [65536]),
+    (8, 4, 32, 16, 8, 0, 0,                 # B = 16
+     [128, 7, -1, 64, 100, 33, 0, 128, 17, 90, 3, 128, 1, 50, 77, 127]),
 ]
 
 
 @pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("kv_dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("h,kvh,d,ps,np_,window,kv_start", HD_CASES)
+@pytest.mark.parametrize("h,kvh,d,ps,np_,window,kv_start,positions",
+                         HD_CASES)
 def test_head_dim_decode_kernels_match_plain(dev, kv_dtype, q_dtype, h, kvh,
-                                             d, ps, np_, window, kv_start):
+                                             d, ps, np_, window, kv_start,
+                                             positions):
     """B2s's partial scores (float32: sums in another order) and B2a's
     output on them against the plain versions: float32 output within
     2e-5 of its scale, bfloat16 within one ulp; a pos = -1 lane's scores
     0 and its output exactly its v_new slice; dead keys score 0; one
     launch each, and two launches bit for bit equal."""
-    b = 4
     cap = np_ * ps
-    positions = [cap, -1, ps, min(cap, 3 * ps + 1)]
+    positions = positions or [cap, -1, ps, min(cap, 3 * ps + 1)]
+    b = len(positions)
     q, kp, vp, kn, vn, phys, pos = _hd_problem(
         dev, b, h, kvh, d, ps, np_, positions, kv_dtype, q_dtype, h + d)
     ks = torch.full((b,), kv_start, dtype=torch.int32, device=dev)
@@ -1101,7 +1122,9 @@ def test_head_dim_decode_kernels_match_plain(dev, kv_dtype, q_dtype, h, kvh,
     assert sc.shape == (b, h, cap + 1)
     torch.testing.assert_close(sc, want_sc, rtol=0,
                                atol=2e-5 * (1 + float(want_sc.abs().max())))
-    assert bool((sc[1, :, :-1] == 0).all())
+    dead = [i for i, p in enumerate(positions) if p < 0]
+    for i in dead:
+        assert bool((sc[i, :, :-1] == 0).all())
     scale = (4 * d) ** -0.5                # a rank's slice of 4 x d
     out = tfd.flash_decode_hd_attend_cuda(sc, vp, vn, phys, pos, window, ks,
                                           scale, q_dtype)
@@ -1120,17 +1143,40 @@ def test_head_dim_decode_kernels_match_plain(dev, kv_dtype, q_dtype, h, kvh,
         tol += 2 ** -7 * float(want.float().abs().max())
     torch.testing.assert_close(out.float(), want.float(), rtol=0, atol=tol)
     g = h // kvh
-    lane = vn[1, 0].to(q_dtype).repeat_interleave(g, 0)
-    assert torch.equal(out[1, 0], lane)
+    for i in dead:
+        lane = vn[i, 0].to(q_dtype).repeat_interleave(g, 0)
+        assert torch.equal(out[i, 0], lane)
 
 
+def test_head_dim_decode_kernels_repeat_bitwise(dev):
+    """At gemma3-4b's (1, 8) slice in bfloat16 (8 slots, 4 kv heads, G=2,
+    D/m 32, 128 pages, its 1024 window, kv starts, a pos = -1 lane), three
+    launches of each kernel give the same bits: every sum runs in one
+    fixed order, the cluster's partials folded in rank order."""
+    positions = [1100, -1, 1350, 1799, 1623, 1208, 1480, 1777]
+    q, kp, vp, kn, vn, phys, pos = _hd_problem(
+        dev, 8, 8, 4, 32, 16, 128, positions, torch.bfloat16, torch.bfloat16,
+        7)
+    ks = torch.tensor([0, 0, 7, 0, 300, 0, 0, 12], dtype=torch.int32,
+                      device=dev)
+    scs = [tfd.flash_decode_hd_scores_cuda(q, kp, kn, phys, pos, 1024, ks)
+           for _ in range(3)]
+    outs = [tfd.flash_decode_hd_attend_cuda(scs[0], vp, vn, phys, pos, 1024,
+                                            ks, 256 ** -0.5, torch.bfloat16)
+            for _ in range(3)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(scs[0], x) for x in scs[1:])
+    assert all(torch.equal(outs[0], x) for x in outs[1:])
+
+
+@pytest.mark.parametrize("d", [16, 24])
 @pytest.mark.parametrize("pool", ["float32", "bfloat16"])
-def test_head_dim_decode_kernels_take_misaligned_pools(dev, pool):
+def test_head_dim_decode_kernels_take_misaligned_pools(dev, pool, d):
     """Pools (and the new rows) at a storage offset that is not 16-byte
     aligned give the aligned launch's bits (element loads)."""
     dt = getattr(torch, pool)
     q, kp, vp, kn, vn, phys, pos = _hd_problem(
-        dev, 4, 20, 20, 16, 16, 8, [128, -1, 16, 49], dt, torch.float32, 5)
+        dev, 4, 20, 20, d, 16, 8, [128, -1, 16, 49], dt, torch.float32, 5)
     ks = torch.tensor([0, 0, 5, 0], dtype=torch.int32, device=dev)
     sc = tfd.flash_decode_hd_scores_cuda(q, kp, kn, phys, pos, 30, ks)
     sc_m = tfd.flash_decode_hd_scores_cuda(q, _misaligned(kp),

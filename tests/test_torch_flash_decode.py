@@ -281,6 +281,73 @@ def test_fused_wrappers_raise_value_error(case, kvq):
     assert fn.launches == launches
 
 
+# b, kv heads, a rank's head_dim slice, page, pages a slot
+HD_PLAN_SHAPES = [(b, kvh, d, ps, np_)
+                  for b in (1, 3, 8, 16, 200) for kvh in (1, 3, 4, 20, 64)
+                  for d in (8, 16, 24, 64, 256) for ps in (16, 64)
+                  for np_ in (1, 5, 32, 128, 256)]
+
+
+@pytest.mark.parametrize("elsize", [2, 4])
+def test_hd_plan_puts_every_page_in_one_block(elsize):
+    """B2s's ranges (``pages`` a block, ``blocks`` a slot) cover a slot's
+    table, every page in exactly one block; the kv-head groups cover the
+    kv heads, every head in exactly one group, as evenly as they go."""
+    for b, kvh, d, ps, np_ in HD_PLAN_SHAPES:
+        plan = tfd.hd_plan(b, kvh, d, ps, np_, elsize)
+        owner = [pg // plan.pages for pg in range(np_)]
+        assert sorted(set(owner)) == list(range(plan.blocks))
+        assert (plan.blocks - 1) * plan.pages < np_ <= plan.blocks * plan.pages
+        heads = [h // plan.kv_heads for h in range(kvh)]
+        assert sorted(set(heads)) == list(range(plan.groups))
+        assert (plan.groups - 1) * plan.kv_heads < kvh
+
+
+@pytest.mark.parametrize("elsize", [2, 4])
+def test_hd_plan_stays_within_one_cluster_and_the_block(elsize):
+    """A cluster has at most MAX_SPLITS = 16 CTAs (Hopper's largest) and
+    at most one a page; a group's value columns (kv heads x 16-byte
+    chunks) fit B2a's threads; one page's slice of a group fits
+    HD_SLICE_BYTES unless the group is a single kv head."""
+    for b, kvh, d, ps, np_ in HD_PLAN_SHAPES:
+        plan = tfd.hd_plan(b, kvh, d, ps, np_, elsize)
+        nch = -(-d * elsize // 16)
+        assert 1 <= plan.cluster <= min(tfd.MAX_SPLITS, np_)
+        assert plan.kv_heads * nch <= tfd.HD_THREADS
+        assert (plan.kv_heads == 1
+                or plan.kv_heads * ps * nch * 16 <= tfd.HD_SLICE_BYTES)
+
+
+def test_hd_plan_is_a_function_of_shapes_alone():
+    """The plan takes shapes and the element size, never a position (no
+    host read of the lanes' lengths), and gives the same launch every
+    time: the engines' decode steps stay free of host syncs."""
+    import inspect
+    assert list(inspect.signature(tfd.hd_plan).parameters) == [
+        "b", "kvh", "d", "ps", "np_", "elsize"]
+    for shape in HD_PLAN_SHAPES[::17]:
+        plans = {tfd.hd_plan(*shape, 2) for _ in range(3)}
+        assert len(plans) == 1
+        assert all(isinstance(v, int) for v in plans.pop())
+
+
+@pytest.mark.parametrize("name,shape,b2s,b2a", [
+    ("qwen1.5-4b", (8, 20, 16, 16, 32), 256, 128),
+    ("gemma3-4b", (8, 4, 32, 16, 128), 256, 128),
+    ("one slot of 4096 tokens", (1, 20, 16, 16, 256), 256, 16),
+])
+def test_hd_plan_fills_the_card_once_at_the_main_slices(name, shape, b2s,
+                                                        b2a):
+    """At the (1, 8) slices of qwen1.5-4b and gemma3-4b (bf16) one kv-head
+    group takes every head, B2a runs 8 clusters of 16 CTAs, 128 blocks in
+    one wave over the H100's 132 SMs, and B2s about two blocks an SM."""
+    plan = tfd.hd_plan(*shape, 2)
+    b = shape[0]
+    assert plan.groups == 1
+    assert plan.blocks * b * plan.groups == b2s <= 2 * tfd.SMS
+    assert plan.cluster * b * plan.groups == b2a <= tfd.SMS
+
+
 def test_split_pages_for_caps_the_splits_at_one_cluster():
     """At most MAX_SPLITS = 16 splits whatever the shape; the main path's
     8 slots x 20 kv heads x 32 pages still take 8 splits (B2) and 4 (B5),
