@@ -42,20 +42,24 @@ against the plain versions), policy (a bounded priority queue,
 deadlines, the degradation ladder on a speculative engine), chaos (two
 replicas on one card under the canned fault schedule), baseline (the
 batch-to-completion engine beside the continuous one; B1 at its prefill
-rows) and obs (timers and tracer on). Then a phase, moe, holds B1, B3 and
-B4 in their grouped form (a leading expert axis, one launch for all
-experts) at deepseek-moe-16b's routed and shared expert shapes and at
-dbrx-132b's expert layer (and 18 of its experts, whose int8 table passes
-2^31 bytes) against their plain versions, then serves full-width
-deepseek-moe-16b fused (fp pool) at full depth and, cut to
+rows) and obs (timers and tracer on). Then a phase, moe, serves
+full-width deepseek-moe-16b fused (fp pool) at full depth and, cut to
 SERVING_LAYERS, two-pass (tokens equal to a fused run's at that depth)
 and fused on a code pool: one decode step's launches by kernel, a bf16
 logit check of each against the plain versions, how many routed pairs
 overflow their expert's capacity in the two-pass run: real tokens and
 pad rows apart, by layer, with the experts a call chose, its largest
 load and the share of its router logits that its tokens have in
-common; and a float32-LUT copy cut to 4 layers twice (tokens and logits
-bitwise equal). A phase, ssm, holds
+common. It then holds B1, B3 and B4 in their grouped form (a leading
+expert axis, one launch for all experts) at deepseek-moe-16b's routed
+and shared expert shapes and at dbrx-132b's expert layer (and 18 of its
+experts, whose int8 table passes 2^31 bytes) against their plain
+versions on full buffers, and the routed shapes again at a decode
+buffer with live-row counts (deepseek's from its two-pass run's decode
+steps, dbrx's from a seeded route of 8 tokens): live rows bit for bit
+the launch without counts, dead rows zero; and serves a float32-LUT
+copy cut to 4 layers twice (tokens and logits bitwise equal). A phase,
+ssm, holds
 B1, B3 and B4 at the projection shapes mamba2-2.7b and zamba2-1.2b add
 (their in_proj's dt columns, which the last column tile holds, on their
 own too), serves full-width, full-depth mamba2-2.7b (fused; and cut
@@ -171,7 +175,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch.configs import (  # noqa: E402
-    deepseek_moe_16b, gemma3_4b, gemma3_27b, mamba2_2p7b, musicgen_large,
+    dbrx_132b, deepseek_moe_16b, gemma3_4b, gemma3_27b, mamba2_2p7b, musicgen_large,
     paligemma_3b, qwen1p5_4b, yi_9b, zamba2_1p2b)
 from repro_torch.checkpoint import (  # noqa: E402
     CheckpointManager, load_pytree, save_pytree)
@@ -481,29 +485,59 @@ def index_probe(nc, lead):
             torch.ones(lead + (nc,), device=DEV))
 
 
+def live_buffer(counts, m, most, *xs):
+    """A decode buffer: each x of ``xs`` (E, m, ...) with its rows past
+    each expert's count zeroed, as the dispatch leaves them, the counts as
+    the kernels take them (``live``: keyword arguments) and the live-row
+    mask (E, m). Without counts: the xs, no arguments, every row."""
+    if counts is None:
+        return xs, {}, None
+    c = torch.tensor(counts, dtype=torch.int64, device=DEV)
+    mask = torch.arange(m, device=DEV)[None] < c[:, None]
+    shape = mask.shape + (1,) * (xs[0].dim() - 2)
+    return ([(x * mask.reshape(shape)).contiguous() for x in xs],
+            {"counts": c, "most_live": most}, mask)
+
+
+def live_text(counts, most, m):
+    """The decode buffer's line: live rows, experts, their bound."""
+    if counts is None:
+        return ""
+    cap = [min(c, m) for c in counts]
+    return (f", decode buffer: {sum(cap)} live rows on "
+            f"{sum(c > 0 for c in cap)} experts (T x k = {most})")
+
+
 def b1_case(gen, m, k, n, flush, e=None, label=None, tag="moe",
-            scaled=True):
+            scaled=True, counts=None, most_live=None):
     """B1 at one main-path shape (with ``e``: its grouped form, one launch
     for e experts, ``label`` naming the expert projection; lines tagged
     ``tag``). ``scaled=False``: the int8 LUT without its scale, as a
     row-parallel shard launches it (the exact integer sums, equal to the
-    plain version's bit for bit). Returns a result dict."""
+    plain version's bit for bit). ``counts`` (E ints) and ``most_live``:
+    a decode buffer (the rows past each count zero) through the live-row
+    launch, whose live rows must equal the launch without counts bit for
+    bit and its dead rows 0.0, timed beside that launch. Returns a result
+    dict."""
     nc = k // V
     lead = () if e is None else (e,)
-    what = case_text(m, k, n, e) + ("" if scaled else ", no scale")
+    what = (case_text(m, k, n, e) + ("" if scaled else ", no scale")
+            + live_text(counts, most_live, m))
     head, tail = case_tags(label, tag)
     x, z, lut, scale, xr = vq_inputs(gen, m, k, n, e)
+    (x, xr), kw, mask = live_buffer(counts, m, most_live, x, xr)
     if not scaled:
         scale = None
 
-    idx_plain = ref.assign_ref(x, z)
+    idx_plain = ref.assign_ref(x, z, **kw)
     probe, ones = index_probe(nc, lead)
-    idx_kernel = torch.round(vq_amm_cuda(x, z, probe, ones)).to(torch.int32)
+    idx_kernel = torch.round(vq_amm_cuda(x, z, probe, ones, **kw)).to(
+        torch.int32)
     check(torch.equal(idx_kernel, idx_plain),
           f"B1 {what}: kernel indices differ from the plain argmin at "
           f"{int((idx_kernel != idx_plain).sum())} of {idx_plain.numel()}")
-    out_k = vq_amm_cuda(x, z, lut, scale)
-    out_p = ref.vq_amm_ref(x, z, lut, scale)
+    out_k = vq_amm_cuda(x, z, lut, scale, **kw)
+    out_p = ref.vq_amm_ref(x, z, lut, scale, **kw)
     torch.cuda.synchronize()
     err = float((out_k - out_p).abs().max())
     # both sides are exact int32/fp32 integer sums times the same scale
@@ -511,46 +545,62 @@ def b1_case(gen, m, k, n, flush, e=None, label=None, tag="moe",
     check(err <= tol, f"B1 {what}: max abs err {err} > {tol}")
     check(scaled or torch.equal(out_k, out_p),
           f"B1 {what}: unscaled integer sums differ from the plain ones")
+    if mask is not None:
+        every = vq_amm_cuda(x, z, lut, scale)
+        check(torch.equal(out_k[mask], every[mask]),
+              f"B1 {what}: live rows differ from the launch without counts")
+        check(not out_k[~mask].any(), f"B1 {what}: a dead row is not 0.0")
 
-    flips = float((torch.round(vq_amm_cuda(xr, z, probe, ones)).to(
-        torch.int32) != ref.assign_ref(xr, z)).float().mean())
-    off = float(((vq_amm_cuda(xr, z, lut, scale)
-                  - ref.vq_amm_ref(xr, z, lut, scale)).abs() > 1e-3)
+    flips = float((torch.round(vq_amm_cuda(xr, z, probe, ones, **kw)).to(
+        torch.int32) != ref.assign_ref(xr, z, **kw)).float().mean())
+    off = float(((vq_amm_cuda(xr, z, lut, scale, **kw)
+                  - ref.vq_amm_ref(xr, z, lut, scale, **kw)).abs() > 1e-3)
                 .float().mean())
     check(flips < 1e-3, f"B1 {what}: {flips:.2%} of random-x "
           "assignments differ (a near-tie flip rate is ~1e-4)")
     del probe, ones
 
-    ms = time_ms(lambda: vq_amm_cuda(x, z, lut, scale), 30, flush)
-    warm_ms = graph_ms(lambda: vq_amm_cuda(x, z, lut, scale))
-    plain_ms = time_ms(lambda: ref.vq_amm_ref(x, z, lut, scale), 5, flush)
-    host = host_us(lambda: vq_amm_cuda(x, z, lut, scale))
-    calls = enqueued(lambda: vq_amm_cuda(x, z, lut, scale))
+    def call():
+        return vq_amm_cuda(x, z, lut, scale, **kw)
+    ms = time_ms(call, 30, flush)
+    warm_ms = graph_ms(call)
+    plain_ms = time_ms(lambda: ref.vq_amm_ref(x, z, lut, scale, **kw), 5,
+                       flush)
+    host = host_us(call)
+    calls = enqueued(call)
     check(calls == ONE_KERNEL, f"B1 {what}: a call enqueues {calls}")
-    geo = vq_amm_geometry(x, z, lut)
-    # bytes this data needs: x, z, the LUT rows some row selects (of each
-    # expert), scale, out
-    rows = work.selected_rows(idx_plain, C)
+    geo = vq_amm_geometry(x, z, lut, **kw)
+    # bytes this data needs: x, z, the LUT rows some (live) row selects
+    # (of each expert), scale, out
+    rows = work.selected_rows(idx_plain, C, counts)
     lut_bytes = rows * n * lut.element_size()
-    bms, by = bound(work.vq_amm(x, z, lut, scale, rows=rows))
+    bms, by = bound(work.vq_amm(x, z, lut, scale, rows=rows, counts=counts))
+    every_ms = (None if mask is None else
+                time_ms(lambda: vq_amm_cuda(x, z, lut, scale), 30, flush))
     print(f"{head}B1 vq_amm {what}: kernel {ms * 1e3:.1f} us "
-          f"(warm, 30 calls in one graph: {warm_ms * 1e3:.1f} us a call), "
-          f"plain {plain_ms * 1e3:.1f} us, bound {bms * 1e3:.2f} us ({by}; "
-          f"{lut_bytes / 1e6:.2f} MB of LUT rows selected of "
+          f"(warm, 30 calls in one graph: {warm_ms * 1e3:.1f} us a call)"
+          + ("" if every_ms is None else
+             f", without counts (every row) {every_ms * 1e3:.1f} us")
+          + f", plain {plain_ms * 1e3:.1f} us, bound {bms * 1e3:.2f} us "
+          f"({by}; {lut_bytes / 1e6:.2f} MB of LUT rows selected of "
           f"{nbytes(lut) / 1e6:.2f}), host {host:.1f} us/call, enqueues "
-          f"{calls}, cluster {geo['cluster']} x {geo['tiles']} column tiles "
-          f"x {geo['row_groups']} row groups ({geo['subspaces']} subspaces "
-          f"and {geo['smem']} B of shared memory a block), max abs err "
-          f"{err:.3g}; random x: "
-          f"{flips:.2e} index flips, {off:.2%} of outputs off by >1e-3{tail}")
+          f"{calls}, {cluster_text(geo)}, max abs err "
+          f"{err:.3g}" + ("" if mask is None else
+                          "; live rows bitwise the launch without counts, "
+                          "dead rows 0.0")
+          + f"; random x: {flips:.2e} index flips, {off:.2%} of outputs "
+          f"off by >1e-3{tail}")
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-            "err": err, "warm_ms": warm_ms, "host": host}
+            "err": err, "warm_ms": warm_ms, "host": host,
+            "every_ms": every_ms}
 
 
 def cluster_text(geo):
+    tiled = (f" (tile clusters of {geo['tile_cluster']} tiles)"
+             if geo.get("tile_cluster") else "")
     return (f"cluster {geo['cluster']} x {geo['tiles']} column tiles x "
-            f"{geo['row_groups']} row groups, {geo['subspaces']} subspaces "
-            f"and {geo['smem']} B of shared memory a block")
+            f"{geo['row_groups']} row groups{tiled}, {geo['subspaces']} "
+            f"subspaces and {geo['smem']} B of shared memory a block")
 
 
 def assign_text(geo):
@@ -619,87 +669,112 @@ def nc_sweep(gen, flush, m=8, n=6912, full_nc=320):
 
 
 def b34_case(gen, m, k, n, flush, e=None, label=None, tag="moe",
-             scaled=True):
+             scaled=True, counts=None, most_live=None):
     """B3 then B4 (the two-pass path) at one main-path shape (with ``e``:
     their grouped forms, as in :func:`b1_case`): B3's indices equal the
     plain argmin on margin inputs and B1's own on random ones (they share
     one distance and argmin code), B4's int8 sums are exact, and
     B4(B3(x)) equals B1(x) bit for bit (``scaled=False``: without the
-    scale, as a row-parallel shard). Returns two result dicts."""
+    scale, as a row-parallel shard). ``counts`` and ``most_live``: a
+    decode buffer, as in :func:`b1_case` (B3's live rows equal the launch
+    without counts, dead rows index 0; B4's dead rows 0.0; the yardstick
+    sums the live rows' bags). Returns two result dicts."""
     dev = DEV
     nc = k // V
     lead = () if e is None else (e,)
-    what = case_text(m, k, n, e) + ("" if scaled else ", no scale")
-    whatk = case_text(m, k, None, e)
+    tail_text = live_text(counts, most_live, m)
+    what = case_text(m, k, n, e) + ("" if scaled else ", no scale") \
+        + tail_text
+    whatk = case_text(m, k, None, e) + tail_text
     head, tail = case_tags(label, tag)
     x, z, lut, scale, xr = vq_inputs(gen, m, k, n, e)
+    (x, xr), kw, mask = live_buffer(counts, m, most_live, x, xr)
     if not scaled:
         scale = None
-    idx_k = vq_assign_cuda(x, z)
-    idx_p = ref.assign_ref(x, z)
+    idx_k = vq_assign_cuda(x, z, **kw)
+    idx_p = ref.assign_ref(x, z, **kw)
     check(torch.equal(idx_k, idx_p),
           f"B3 {whatk}: kernel indices differ from the plain argmin at "
           f"{int((idx_k != idx_p).sum())} of {idx_p.numel()}")
-    out_k = lut_gemm_cuda(idx_k, lut, scale)
-    out_p = ref.lut_gemm_onehot(idx_p, lut, scale)
+    out_k = lut_gemm_cuda(idx_k, lut, scale, **kw)
+    out_p = ref.lut_gemm_onehot(idx_p, lut, scale, **kw)
     torch.cuda.synchronize()
     err = float((out_k - out_p).abs().max())
     tol = 1e-5 * max(1.0, float(out_p.abs().max()))
     check(err <= tol, f"B4 {what}: max abs err {err} > {tol}")
+    if mask is not None:
+        check(torch.equal(idx_k[mask], vq_assign_cuda(x, z)[mask])
+              and not idx_k[~mask].any(),
+              f"B3 {whatk}: live rows differ from the launch without "
+              "counts, or a dead row's index is not 0")
+        check(not out_k[~mask].any(), f"B4 {what}: a dead row is not 0.0")
     for name, xx in (("margin", x), ("random", xr)):
-        two = lut_gemm_cuda(vq_assign_cuda(xx, z), lut, scale)
-        check(torch.equal(two, vq_amm_cuda(xx, z, lut, scale)),
+        two = lut_gemm_cuda(vq_assign_cuda(xx, z, **kw), lut, scale, **kw)
+        check(torch.equal(two, vq_amm_cuda(xx, z, lut, scale, **kw)),
               f"B4(B3(x)) != B1(x) at {what} on {name} x")
-    idx_r = vq_assign_cuda(xr, z)
+    idx_r = vq_assign_cuda(xr, z, **kw)
     probe, ones = index_probe(nc, lead)
-    b1_r = torch.round(vq_amm_cuda(xr, z, probe, ones)).to(torch.int32)
+    b1_r = torch.round(vq_amm_cuda(xr, z, probe, ones, **kw)).to(
+        torch.int32)
     del probe, ones
     check(torch.equal(idx_r, b1_r),
           f"B3 {whatk}: indices differ from B1's on random x")
-    flips = float((idx_r != ref.assign_ref(xr, z)).float().mean())
+    flips = float((idx_r != ref.assign_ref(xr, z, **kw)).float().mean())
     check(flips < 1e-3, f"B3 {whatk}: {flips:.2%} of random-x "
           "assignments differ from the plain argmin")
 
-    # embedding_bag's table: every (expert, subspace, centroid) row
+    # embedding_bag's table: every (expert, subspace, centroid) row; its
+    # bags: every row's (a decode buffer: the live rows')
     lut_f = lut.float().reshape(-1, n)
     offs = idx_k.long() + C * torch.arange(nc, device=dev)
     if e is not None:
         offs = offs + (nc * C * torch.arange(e, device=dev))[:, None, None]
-    offs = offs.reshape(-1, nc)
+    keep = torch.ones(out_k.shape[:-1], dtype=torch.bool, device=dev) \
+        if mask is None else mask
+    offs = offs[keep].reshape(-1, nc)
     lib = torch.nn.functional.embedding_bag(offs, lut_f, mode="sum")
-    check(torch.allclose(lib.reshape(out_k.shape) * (
-        1.0 if scale is None else scale[..., None, :]), out_k, rtol=1e-6,
-        atol=0.0), f"B4 {what}: embedding_bag yardstick disagrees")
-    calls3 = enqueued(lambda: vq_assign_cuda(x, z))
+    check(torch.allclose(lib * (1.0 if scale is None else scale[..., None, :]
+                                .expand(out_k.shape)[keep]),
+                         out_k[keep], rtol=1e-6, atol=0.0),
+          f"B4 {what}: embedding_bag yardstick disagrees")
+    calls3 = enqueued(lambda: vq_assign_cuda(x, z, **kw))
     check(calls3 == ONE_KERNEL, f"B3 {whatk}: a call enqueues {calls3}")
-    calls4 = enqueued(lambda: lut_gemm_cuda(idx_k, lut, scale))
+    calls4 = enqueued(lambda: lut_gemm_cuda(idx_k, lut, scale, **kw))
     check(calls4 == ONE_KERNEL, f"B4 {what}: a call enqueues {calls4}")
-    r3 = {"ms": time_ms(lambda: vq_assign_cuda(x, z), 30, flush),
-          "warm_ms": graph_ms(lambda: vq_assign_cuda(x, z)),
-          "plain_ms": time_ms(lambda: ref.assign_ref(x, z), 5, flush),
-          "host": host_us(lambda: vq_assign_cuda(x, z)), "err": 0.0,
-          "library_ms": None}
-    r4 = {"ms": time_ms(lambda: lut_gemm_cuda(idx_k, lut, scale), 30, flush),
-          "warm_ms": graph_ms(lambda: lut_gemm_cuda(idx_k, lut, scale)),
-          "plain_ms": time_ms(lambda: ref.lut_gemm_onehot(idx_k, lut, scale),
-                              5, flush),
-          "host": host_us(lambda: lut_gemm_cuda(idx_k, lut, scale)),
+    r3 = {"ms": time_ms(lambda: vq_assign_cuda(x, z, **kw), 30, flush),
+          "warm_ms": graph_ms(lambda: vq_assign_cuda(x, z, **kw)),
+          "plain_ms": time_ms(lambda: ref.assign_ref(x, z, **kw), 5, flush),
+          "host": host_us(lambda: vq_assign_cuda(x, z, **kw)), "err": 0.0,
+          "library_ms": None,
+          "every_ms": None if mask is None else time_ms(
+              lambda: vq_assign_cuda(x, z), 30, flush)}
+    r4 = {"ms": time_ms(lambda: lut_gemm_cuda(idx_k, lut, scale, **kw), 30,
+                        flush),
+          "warm_ms": graph_ms(lambda: lut_gemm_cuda(idx_k, lut, scale,
+                                                    **kw)),
+          "plain_ms": time_ms(lambda: ref.lut_gemm_onehot(idx_k, lut, scale,
+                                                          **kw), 5, flush),
+          "host": host_us(lambda: lut_gemm_cuda(idx_k, lut, scale, **kw)),
           "library_ms": time_ms(lambda: torch.nn.functional.embedding_bag(
               offs, lut_f, mode="sum"), 30, flush),
           "err": err}
     del lut_f, lib
     # B3 must read x and z and write the indices; B4 read the indices,
     # the LUT rows they select (of each expert) and the scale, and write
-    # out
-    r3["bound_ms"], r3["bound_by"] = bound(work.vq_assign(x, z))
+    # out (a decode buffer: of the live rows, and the experts with one)
+    r3["bound_ms"], r3["bound_by"] = bound(work.vq_assign(x, z,
+                                                          counts=counts))
     r4["bound_ms"], r4["bound_by"] = bound(work.lut_gemm(
-        idx_k, lut, scale, rows=work.selected_rows(idx_k, C)))
+        idx_k, lut, scale, rows=work.selected_rows(idx_k, C, counts),
+        counts=counts))
+    every = "" if mask is None else (
+        f", without counts (every row) {r3['every_ms'] * 1e3:.1f} us")
     print(f"{head}B3 vq_assign {whatk}: kernel {r3['ms'] * 1e3:.1f} us (warm,"
-          f" 30 calls in one graph: {r3['warm_ms'] * 1e3:.1f} us a call), "
-          f"plain {r3['plain_ms'] * 1e3:.1f} us, bound "
+          f" 30 calls in one graph: {r3['warm_ms'] * 1e3:.1f} us a "
+          f"call){every}, plain {r3['plain_ms'] * 1e3:.1f} us, bound "
           f"{r3['bound_ms'] * 1e3:.3f} us ({r3['bound_by']}), host "
           f"{r3['host']:.1f} us/call, enqueues {calls3}, "
-          f"{assign_text(vq_assign_geometry(x, z))}; random x: "
+          f"{assign_text(vq_assign_geometry(x, z, **kw))}; random x: "
           f"{flips:.2e} flips vs plain, indices equal to B1's{tail}")
     print(f"{head}B4 lut_gemm {what}: kernel {r4['ms'] * 1e3:.1f} us "
           f"(warm, 30 calls in one graph: {r4['warm_ms'] * 1e3:.1f} us a "
@@ -708,8 +783,8 @@ def b34_case(gen, m, k, n, flush, e=None, label=None, tag="moe",
           f"{r4['library_ms'] * 1e3:.1f} us, bound "
           f"{r4['bound_ms'] * 1e3:.2f} us ({r4['bound_by']}), host "
           f"{r4['host']:.1f} us/call, enqueues {calls4}, "
-          f"{cluster_text(lut_gemm_geometry(idx_k, lut))} (B1: "
-          f"{cluster_text(vq_amm_geometry(x, z, lut))}), max abs err "
+          f"{cluster_text(lut_gemm_geometry(idx_k, lut, **kw))} (B1: "
+          f"{cluster_text(vq_amm_geometry(x, z, lut, **kw))}), max abs err "
           f"{err:.3g}; B4(B3(x)) == B1(x) bitwise{tail}")
     return r3, r4
 
@@ -2307,28 +2382,44 @@ def obs_phase(model, params, qc, seed, off_streams):
 # deepseek-moe-16b through the engine
 # ---------------------------------------------------------------------------
 
-# (label, experts, rows, K, N, launches per deepseek-moe-16b layer) of the
-# grouped cases: the routed experts (64, capacity 8 at decode and at the
-# 32-token chunk), the shared experts (2, the step's rows: 8 at decode, 32
-# a chunk), one dbrx-132b expert layer (16 experts; its int8 w1 table is
-# 2.11e9 bytes, just below 2^31), and 18 experts of dbrx's w1 shape, whose
-# table (2.38e9 bytes) passes 2^31: the 64-bit expert offsets
+# (label, experts, rows, K, N, launches per deepseek-moe-16b decode step's
+# layer) of the grouped cases on full buffers (every row random, no
+# counts): the routed experts (64, capacity 8 at decode and at the
+# 32-token chunk; a decode step runs them at the decode buffer,
+# MOE_LIVE_CASES), the shared experts (2, the step's rows: 8 at decode, 32
+# a chunk; all rows live), one dbrx-132b expert layer (16 experts; its
+# int8 w1 table is 2.11e9 bytes, just below 2^31), and 18 experts of
+# dbrx's w1 shape, whose table (2.38e9 bytes) passes 2^31: the 64-bit
+# expert offsets
 MOE_CASES = [
-    ("routed wg/wu", 64, 8, 2048, 1408, 2),
-    ("routed wd", 64, 8, 1408, 2048, 1),
+    ("routed wg/wu", 64, 8, 2048, 1408, 0),
+    ("routed wd", 64, 8, 1408, 2048, 0),
     ("shared wg/wu", 2, 8, 2048, 1408, 2), ("shared wd", 2, 8, 1408, 2048, 1),
     ("shared wg/wu chunk", 2, 32, 2048, 1408, 0),
     ("shared wd chunk", 2, 32, 1408, 2048, 0),
     ("dbrx-132b w1", 16, 8, 6144, 10752, 0),
     ("dbrx-132b w2", 16, 8, 10752, 6144, 0),
     ("dbrx-132b w1 x 18 experts, past 2^31", 18, 8, 6144, 10752, 0)]
+# the routed cases again at a decode buffer (the rows a decode step of 8
+# tokens fills, with their live-row counts: deepseek-moe-16b's from its
+# two-pass run's decode steps, dbrx-132b's from a seeded route of 8
+# tokens, top-4 of 16), as its decode step launches them; the last field
+# names the counts' source
+MOE_LIVE_CASES = [
+    ("routed wg/wu", 64, 8, 2048, 1408, 2, "deepseek-moe-16b"),
+    ("routed wd", 64, 8, 1408, 2048, 1, "deepseek-moe-16b"),
+    ("dbrx-132b w1", 16, 8, 6144, 10752, 0, "dbrx-132b"),
+    ("dbrx-132b w2", 16, 8, 10752, 6144, 0, "dbrx-132b")]
 
 
 @contextlib.contextmanager
-def drop_tally(model, calls):
+def drop_tally(model, calls, loads=None):
     """Record each MoE layer call's routing while ``model`` serves through
     prefill_paged and decode_paged: (layer, T, capacity, counts) appended
-    to ``calls``, counts a device vector (real pairs dropped, pad pairs
+    to ``calls`` and, with ``loads``, (layer, T, capacity, live rows) to
+    ``loads``, the live rows each expert's buffer takes (route's counts
+    clamped to the capacity, a device vector); counts a device vector
+    (real pairs dropped, pad pairs
     dropped, real pairs, pad pairs, experts some real token chose, the
     largest real load of an expert, and the share of the real tokens'
     router logits, centred over the experts, that they have in common:
@@ -2375,6 +2466,8 @@ def drop_tally(model, calls):
             (~keep & real).sum().float(), (~keep & ~real).sum().float(),
             real.sum().float(), (~real).sum().float(),
             (load > 0).sum().float(), load.max(), common])))
+        if loads is not None:
+            loads.append((state["layer"], t, cap, out[4].clamp(max=cap)))
         state["layer"] += 1
         return out
     moe_mod.route = route
@@ -2453,7 +2546,10 @@ def moe_serve(seed):
     on a VQ code pool (B5); each run's launches in one decode step
     (fused: 280 B1, 168 of them grouped, and 28 B2) and a bf16 logit
     check of one decode_paged step through the kernels against the plain
-    versions. Cuts for the script's time (the train_scale phase's room):
+    versions. Returns the live rows of one routed call of a decode step
+    of the two-pass run (E ints; of the decode calls, the one with the
+    median number of experts with a live row), the moe phase's decode
+    buffer. Cuts for the script's time (the train_scale phase's room):
     the routing was tallied in a fourth fused run (13.3 s on an H100), now
     in the
     two-pass run (whose step time then holds the tally's ops), and the
@@ -2494,13 +2590,13 @@ def moe_serve(seed):
                              "b4_grouped": grouped, "b2": n},
                 "vq-kv": {"b1": proj, "b1_grouped": grouped,
                           "b5": n}}[label]
-    tokens, codebook, drops = {}, None, []
+    tokens, codebook, drops, loads = {}, None, [], []
     for label, (qc_r, launched, idle) in runs.items():
         m_r, p_r = ((model, params) if depth[label] == cfg.num_layers
                     else cut_depth(model, params, depth[label]))
         name = (cfg.name if depth[label] == cfg.num_layers
                 else f"{cfg.name} ({depth[label]} layers)")
-        tally = (drop_tally(m_r, drops) if label == "two-pass"
+        tally = (drop_tally(m_r, drops, loads) if label == "two-pass"
                  else contextlib.nullcontext())
         with tally:
             counts, tokens[label], eng = serve(
@@ -2532,6 +2628,16 @@ def moe_serve(seed):
           "moe: two-pass tokens differ from the fused run's")
     print(f"moe [{cfg.name} routing, the two-pass run]: "
           f"{drop_text(drops, cfg.top_k, cfg.num_experts)} [{SMI}]")
+    decode = [row.tolist() for _, t, _, row in loads if t == SLOTS]
+    check(bool(decode), "moe: the two-pass run recorded no decode call")
+    decode.sort(key=lambda r: sum(n > 0 for n in r))
+    live = decode[len(decode) // 2]
+    print(f"moe [{cfg.name} decode buffer]: of {len(decode)} routed decode "
+          f"calls (T={SLOTS}, top-{cfg.top_k}), experts with a live row "
+          f"min / median / max {sum(n > 0 for n in decode[0])} / "
+          f"{sum(n > 0 for n in live)} / "
+          f"{sum(n > 0 for n in decode[-1])}; the median call's live rows "
+          f"{live} [{SMI}]")
     print(f"moe [{cfg.name}]: two-pass tokens identical to the fused run's "
           f"at {SERVING_LAYERS} layers (10 requests, "
           f"{sum(map(len, fused8))} tokens); peak "
@@ -2540,12 +2646,30 @@ def moe_serve(seed):
           f"{pbytes / 1e9:.2f} GB of params [{SMI}]")
     del model, params, codebook
     free()
+    return live
+
+
+def dbrx_decode_rows(gen):
+    """dbrx-132b's live rows at a decode step of SLOTS tokens: a seeded
+    route (random router logits, top-4 of 16) into buffers of its decode
+    capacity (8), as moe_ffn computes it."""
+    cfg = dbrx_132b.config()
+    t, e, k = SLOTS, cfg.num_experts, cfg.top_k
+    cap = min(t, max(int(cfg.capacity_factor * t * k / e), 8))
+    probs = torch.softmax(torch.randn((t, e), generator=gen, device=DEV), -1)
+    return moe_mod.route(probs, k, cap)[4].clamp(max=cap).tolist()
 
 
 def moe_phase(gen, seed):
-    """The MoE phase: the grouped kernel cases, the deepseek-moe-16b serve
-    runs, and the float32-LUT copy cut to 4 layers served twice. Returns
-    the kernel cases' results by label."""
+    """The MoE phase: the deepseek-moe-16b serve runs, the grouped kernel
+    cases on full buffers, the routed ones again at a decode buffer with
+    live-row counts, and the float32-LUT copy cut to 4 layers served
+    twice. Returns the kernel cases' results: by label, and the decode
+    buffers' under "<label> decode"."""
+    live = {"deepseek-moe-16b": moe_serve(seed),
+            "dbrx-132b": dbrx_decode_rows(gen)}
+    most = {"deepseek-moe-16b": SLOTS * deepseek_moe_16b.config().top_k,
+            "dbrx-132b": SLOTS * dbrx_132b.config().top_k}
     flush = torch.ones(L2_FLUSH_BYTES // 4, dtype=torch.int32, device=DEV)
     cases = {}
     for label, e, m, k, n, _ in MOE_CASES:
@@ -2557,16 +2681,27 @@ def moe_phase(gen, seed):
               + float_lut_text(fl, r1["ms"], r4["ms"]) + f" [{SMI}]")
         cases[label] = {"b1": r1, "b3": r3, "b4": r4}
         free()
+    for label, e, m, k, n, _, src in MOE_LIVE_CASES:
+        kw = dict(counts=live[src], most_live=most[src])
+        r1 = b1_case(gen, m, k, n, flush, e, f"{label} decode", **kw)
+        r3, r4 = b34_case(gen, m, k, n, flush, e, f"{label} decode", **kw)
+        cases[f"{label} decode"] = {"b1": r1, "b3": r3, "b4": r4}
+        free()
     del flush
     for key in ("b1", "b3", "b4"):
-        lay = {f: sum(cases[label][key][f] * cnt
-                      for label, *_, cnt in MOE_CASES)
-               for f in ("ms", "warm_ms", "bound_ms")}
+        def layer(f, full=False):
+            return sum(cases[label + ("" if full else " decode")][key][f]
+                       * cnt for label, *_, cnt, _ in MOE_LIVE_CASES
+                       if cnt) + sum(cases[label][key][f] * cnt
+                                     for label, *_, cnt in MOE_CASES if cnt)
         print(f"moe [{key.upper()} grouped per deepseek-moe-16b layer at "
-              f"decode, 3 routed + 3 shared expert projections]: "
-              f"{lay['ms'] * 1e3:.1f} us flushed, {lay['warm_ms'] * 1e3:.1f}"
-              f" us warm, bound {lay['bound_ms'] * 1e3:.2f} us [{SMI}]")
-    moe_serve(seed)
+              f"decode, 3 routed (decode buffer) + 3 shared expert "
+              f"projections]: {layer('ms') * 1e3:.1f} us flushed, "
+              f"{layer('warm_ms') * 1e3:.1f} us warm, bound "
+              f"{layer('bound_ms') * 1e3:.2f} us; with the routed ones on "
+              f"full buffers {layer('ms', True) * 1e3:.1f} us flushed, "
+              f"{layer('warm_ms', True) * 1e3:.1f} us warm, bound "
+              f"{layer('bound_ms', True) * 1e3:.2f} us [{SMI}]")
     float_lut_serve(seed, cfg=deepseek_moe_16b.config(), tag="moe")
     return cases
 
@@ -5988,10 +6123,14 @@ def main(argv=None) -> int:
 
     def moe_row(name, key, source, replaces):
         """A grouped kernel over one deepseek-moe-16b layer's six expert
-        projections at decode (MOE_CASES' counts)."""
+        projections at decode: the routed ones at the decode buffer
+        (MOE_LIVE_CASES), the shared ones (MOE_CASES), by their counts a
+        layer."""
         def layer(f):
-            return sum(moe[label][key][f] * cnt
-                       for label, *_, cnt in MOE_CASES)
+            return sum(moe[label + " decode"][key][f] * cnt
+                       for label, *_, cnt, _ in MOE_LIVE_CASES if cnt) + sum(
+                moe[label][key][f] * cnt for label, *_, cnt in MOE_CASES
+                if cnt)
         lib = None if key != "b4" else layer("library_ms")
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": moe_launches(key),
@@ -6000,7 +6139,9 @@ def main(argv=None) -> int:
                 "bound_ms": layer("bound_ms"),
                 "bound_by": "bytes" if all(
                     moe[label][key]["bound_by"] == "bytes"
-                    for label, *_, cnt in MOE_CASES if cnt)
+                    for label in [lab + " decode" for lab, *_, cnt, _ in
+                                  MOE_LIVE_CASES if cnt]
+                    + [lab for lab, *_, cnt in MOE_CASES if cnt])
                 else "operations", "library_ms": lib}
     def ssm_launches(key):           # the recurrent serve runs
         cut = f"mamba2-2.7b, {SERVING_LAYERS} layers"

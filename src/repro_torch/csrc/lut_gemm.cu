@@ -43,6 +43,13 @@
 //    the row groups, each block moves its operand pointers to its
 //    expert's (64-bit offsets), and the cluster size is planned over the
 //    clusters of all E experts. At E = 1 it is the ungrouped launch.
+//  * With live-row counts it takes B1's k-split live path (vq_gather.cuh:
+//    rows past an expert's count written 0.0, their indices never read,
+//    a row group with no live row returning before any cluster barrier,
+//    16 / lt k partitions merged in order, clusters planned over the row
+//    groups that can be live). It keeps clusters along k (no assignment
+//    to share); at one k split it sums as B1's tile clusters do, so
+//    B4(B3(x)) == B1(x) on float LUTs there too, and on int8 always.
 //  * The general path lives in the same kernel: any M (row groups in grid
 //    z), c up to 256, ragged nc and N (masked), and LUTs whose rows are
 //    not 16-byte aligned (element loads).
@@ -57,13 +64,16 @@ template <typename LT, int R>
 __global__ void __launch_bounds__(THREADS)
 lut_gemm_kernel(const int* __restrict__ idx, const LT* __restrict__ lut,
                 const float* __restrict__ scale, float* __restrict__ out,
-                int M, int nc, int c, int N, Geometry g) {
+                const long long* __restrict__ counts, int M, int nc, int c,
+                int N, Geometry g) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const Tile t = tile_of<LT>(g, M, nc);
+  const Tile t = tile_of<LT>(g, M, nc, counts);
+  out = expert_ptr(out, t.e, (size_t)M * N);
+  zero_dead_rows<LT>(out, g, N, t);
+  if (t.lt == 0) return;    // every rank of the cluster: no barrier met
   idx = expert_ptr(idx, t.e, (size_t)M * nc);
   lut = expert_ptr(lut, t.e, (size_t)nc * c * N);
   scale = expert_ptr(scale, t.e, (size_t)N);
-  out = expert_ptr(out, t.e, (size_t)M * N);
   copy_scale<LT>(smem, g, scale, t.n0, N);
   load_indices(idx, smem + g.off_idx, nc, t, idx_rows(R));
   sum_block<LT, R>(lut, scale, out, smem, g, c, N, t);
@@ -80,55 +90,63 @@ constexpr int FIXED_SUBSPACES = 12;
 
 template <typename LT, int R>
 cudaError_t launch_r(const int* idx, const void* lut, const float* scale,
-                     float* out, int E, int M, int nc, int c, int N,
+                     float* out, int E, Live lv, int M, int nc, int c, int N,
                      cudaStream_t st, int* info) {
   const Shape s{E, M, nc, c, 0, N, R, false,
                 (uintptr_t)lut % 16 == 0 &&
-                    ((size_t)N * sizeof(LT)) % 16 == 0};
+                    ((size_t)N * sizeof(LT)) % 16 == 0,
+                lv.counts != nullptr, lv.most, 0};
   return launch_cluster<LT>(lut_gemm_kernel<LT, R>, FIXED_SUBSPACES, s, st,
                             info, idx, static_cast<const LT*>(lut), scale,
-                            out, M, nc, c, N);
+                            out, lv.counts, M, nc, c, N);
 }
 
 // Rows a thread sums: 1, 2 or 4 (up to 16, 32 or 64 rows a block).
 template <typename LT>
 cudaError_t launch_lt(const int* idx, const void* lut, const float* scale,
-                      float* out, int E, int M, int nc, int c, int N,
+                      float* out, int E, Live lv, int M, int nc, int c, int N,
                       cudaStream_t st, int* info) {
   const int rows = M < ROW_CAP ? M : ROW_CAP;
   if (rows <= SLOTS)
-    return launch_r<LT, 1>(idx, lut, scale, out, E, M, nc, c, N, st, info);
+    return launch_r<LT, 1>(idx, lut, scale, out, E, lv, M, nc, c, N, st,
+                           info);
   if (rows <= 2 * SLOTS)
-    return launch_r<LT, 2>(idx, lut, scale, out, E, M, nc, c, N, st, info);
-  return launch_r<LT, 4>(idx, lut, scale, out, E, M, nc, c, N, st, info);
+    return launch_r<LT, 2>(idx, lut, scale, out, E, lv, M, nc, c, N, st,
+                           info);
+  return launch_r<LT, 4>(idx, lut, scale, out, E, lv, M, nc, c, N, st,
+                         info);
 }
 
 }  // namespace
 
 // E experts (1: no expert axis), each with its own idx (M, nc), lut and
-// scale, stored one after another. lut_dtype: 0 f32, 1 bf16, 2 int8.
-// scale may be null. Enqueues one kernel on stream and nothing else;
-// with info non-null it launches nothing and writes the launch's
-// geometry (vq_gather.cuh, launch_cluster). Returns a cudaError_t.
+// scale, stored one after another. counts: null, or E int64 live-row
+// counts (rows past an expert's count come out 0.0; their indices are
+// not read); most_live: the most live rows the call can have in all, for
+// the planner (0: E x M). lut_dtype: 0 f32, 1 bf16, 2 int8. scale may
+// be null. Enqueues one kernel on stream and nothing else; with info
+// non-null it launches nothing and writes the launch's geometry
+// (vq_gather.cuh, launch_cluster). Returns a cudaError_t.
 extern "C" int lut_gemm_launch(const void* idx, const void* lut,
-                               const void* scale, void* out, int E, int M,
+                               const void* scale, void* out, int E,
+                               const void* counts, int most_live, int M,
                                int nc, int c, int N, int lut_dtype,
                                void* stream, int* info) {
   if (E <= 0 || M <= 0 || nc <= 0 || N <= 0 || c < 1 || c > 256 ||
-      lut_dtype < 0 ||
-      lut_dtype > 2)
+      lut_dtype < 0 || lut_dtype > 2 || most_live < 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* ip = static_cast<const int*>(idx);
   const float* sp = static_cast<const float*>(scale);
   float* op = static_cast<float*>(out);
+  const Live lv{static_cast<const long long*>(counts), most_live};
   cudaError_t err;
   if (lut_dtype == 2)
-    err = launch_lt<int8_t>(ip, lut, sp, op, E, M, nc, c, N, st, info);
+    err = launch_lt<int8_t>(ip, lut, sp, op, E, lv, M, nc, c, N, st, info);
   else if (lut_dtype == 0)
-    err = launch_lt<float>(ip, lut, sp, op, E, M, nc, c, N, st, info);
+    err = launch_lt<float>(ip, lut, sp, op, E, lv, M, nc, c, N, st, info);
   else
-    err = launch_lt<__nv_bfloat16>(ip, lut, sp, op, E, M, nc, c, N, st,
+    err = launch_lt<__nv_bfloat16>(ip, lut, sp, op, E, lv, M, nc, c, N, st,
                                    info);
   return (int)err;
 }

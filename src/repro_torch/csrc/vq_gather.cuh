@@ -43,6 +43,41 @@
 // inside one expert stays as for E = 1, so a launch at E = 1 is the
 // ungrouped kernel bit for bit. plan counts the clusters of all E
 // experts when it sizes the cluster.
+//
+// Live rows (a grouped launch of an MoE layer's routed experts): the
+// launch may take counts, a device vector of E int64 counts, the rows of
+// each expert's capacity buffer that the router filled (the buffer's
+// first rows; the kernel clamps to M). A block reads its expert's count
+// before anything else (tile_of) and works on live rows only: the rows
+// past the count are written as 0.0 (B1, B4) or index 0 (B3) and never
+// assigned or gathered, and a row group with no live row writes its zeros
+// and returns before any cluster barrier (every rank of a cluster holds
+// one expert and row group, so all ranks return alike). A live block
+// spreads its 16 row slots over its lt live rows: 16 / lt k partitions
+// of lt slots each (parts_of), every warp gathering with 16 loads in
+// flight a thread, instead of two partitions of 8 slots whatever the
+// count; the partitions' sums meet in a fixed order, in a pass over all
+// the block's threads (push_merged), so a float result is still the
+// same on every launch, and an int8 result is exact.
+//
+// Tile clusters (B1 with live-row counts, up to 16 rows an expert, the
+// decode buffers): the k-split layout above runs every column tile's
+// cluster over the same few rows, so each of the N / 256 B tiles stages
+// and assigns the expert's rows again, and the grid (tiles x k splits x
+// E) runs in waves of short blocks (PERF.md: 1536 blocks, ~5
+// waves of ~8 us at deepseek-moe-16b's routed decode buffer). There the
+// cluster spans tcs column tiles instead (grid x), and k is not split:
+// rank r assigns subspaces [r nc / tcs, (r+1) nc / tcs) of the expert's
+// live rows, stores those indices into every rank's shared memory
+// (share_indices, 16-byte DSMEM stores), and after one cluster barrier
+// each block gathers all nc subspaces of its own tile over its k
+// partitions and writes its rows out itself (finish_local): no partial
+// leaves a block. Its sums are B4's at one k split (cluster size 1), in
+// the same order, so B4(B3(x)) == B1(x) on float LUTs there too.
+//
+// plan sizes either layout over the clusters that can be live: min(E x
+// row groups, the call's most live rows) row groups' worth. Without
+// counts every path below is the one before counts existed.
 
 #pragma once
 
@@ -73,7 +108,9 @@ constexpr int LOADS = 8;                  // 16-byte loads a batch
 // Shared memory the assignment's staging takes when one subspace fits in
 // it: the rest of the SM stays L1, which serves B1's repeated LUT lines.
 constexpr int STAGING_BYTES = 48 * 1024;
+constexpr int LIVE_STAGING_BYTES = 96 * 1024;   // with live-row counts
 constexpr int MAX_CLUSTER = clus::MAX_CLUSTER;
+constexpr int TILE_CLUSTER = 8;           // most tiles a tile cluster spans
 static_assert(CH * CHUNK <= THREADS, "a tile's scale columns: one a thread");
 
 template <typename LT> struct Acc { using T = float; };
@@ -153,6 +190,9 @@ struct Geometry {
   int kmax;        // most subspaces a block takes, ceil(nc / cs)
   int rows;        // rows of x a block takes, min(M, ROW_CAP)
   int parts;       // k partitions of a block: 2 up to 8 rows, else 1
+  int live;        // the launch takes live-row counts (parts_of)
+  int tcs;         // tile cluster: tiles a cluster spans, k not split
+                   // (then cs = 1); 0: clusters along k
   int ka;          // subspaces staged at once for the assignment (B4: 0)
   int vec_x;       // x and z take 16-byte loads
   int vec_lut;     // LUT rows take 16-byte loads
@@ -186,16 +226,19 @@ inline int staged_subspaces(int kmax, int rows, int c, int v,
 inline size_t up16(size_t b) { return (b + 15) / 16 * 16; }
 
 // Host: the geometry of B1 (v > 0) or B4 (v = 0: no assignment, so no
-// staging area but partition 1's merge tile) at a cluster size, for
-// rows-per-thread r and LUT element size le. Returns false when one
-// block's shared memory would exceed max_smem.
+// staging area but the partitions' merge tiles) at a cluster size, for
+// rows-per-thread r and LUT element size le; with live-row counts the
+// merge area holds the tiles of all SLOTS row slots (push_merged).
+// Returns false when one block's shared memory would exceed max_smem.
 inline bool make_geometry(Geometry& g, int M, int nc, int c, int v,
                           int cs, int r, int le, bool vec_x, bool vec_lut,
-                          int max_smem) {
+                          bool live, int max_smem) {
   g.cs = cs;
+  g.tcs = 0;
   g.kmax = (nc + cs - 1) / cs;
   g.rows = M < ROW_CAP ? M : ROW_CAP;
   g.parts = g.rows <= SLOTS / 2 ? 2 : 1;
+  g.live = live;
   g.vec_x = vec_x;
   g.vec_lut = vec_lut;
   size_t off = 0;
@@ -207,10 +250,56 @@ inline bool make_geometry(Geometry& g, int M, int nc, int c, int v,
   g.off_idx = (int)off;
   off += up16((size_t)g.kmax * idx_rows(r));
   g.off_stage = (int)off;
-  g.ka = v > 0 ? staged_subspaces(g.kmax, g.rows, c, v, STAGING_BYTES) : 0;
+  // with live rows a block's subspaces go in one staging round where
+  // LIVE_STAGING_BYTES holds them (a second round is a second chain of
+  // loads for the few rows a live block has)
+  const size_t one_round = v > 0 ? staging_bytes(g.kmax, g.rows, c, v) : 0;
+  g.ka = v > 0 ? staged_subspaces(
+                     g.kmax, g.rows, c, v,
+                     live && one_round <= LIVE_STAGING_BYTES ? one_round
+                                                             : STAGING_BYTES)
+               : 0;
   const size_t staging = v > 0 ? staging_bytes(g.ka, g.rows, c, v) : 0;
-  const size_t merge = g.parts == 2 ? (size_t)g.rows * TILE_BYTES / le * 4
-                                    : 0;
+  const size_t tile = (size_t)TILE_BYTES / le * 4;   // a row's sums
+  const size_t merge = live ? SLOTS * tile
+                     : g.parts == 2 ? (size_t)g.rows * tile : 0;
+  off += staging > merge ? staging : merge;
+  g.smem = (int)off;
+  return off <= (size_t)max_smem;
+}
+
+// Host: the geometry of B1 in tile clusters of tcs column tiles (live
+// rows, M <= SLOTS): each block assigns ceil(nc / tcs) subspaces, in one
+// staging round where LIVE_STAGING_BYTES holds them, keeps all nc
+// subspaces' indices and its partitions' tiles (merged where the staging
+// was). Returns false when one block's shared memory would exceed
+// max_smem.
+inline bool make_tile_geometry(Geometry& g, int M, int nc, int c, int v,
+                               int tcs, int le, bool vec_x, bool vec_lut,
+                               int max_smem) {
+  g = Geometry{};
+  g.cs = 1;
+  g.tcs = tcs;
+  g.kmax = nc;
+  g.rows = M < ROW_CAP ? M : ROW_CAP;
+  g.parts = g.rows <= SLOTS / 2 ? 2 : 1;
+  g.live = 1;
+  g.vec_x = vec_x;
+  g.vec_lut = vec_lut;
+  const int kas = (nc + tcs - 1) / tcs;
+  size_t off = 0;
+  g.off_recv = 0;
+  g.off_scale = 0;
+  off += up16(4 * (size_t)(TILE_BYTES / le));
+  g.off_idx = (int)off;
+  off += up16((size_t)nc * idx_rows(1));
+  g.off_stage = (int)off;
+  const size_t one_round = staging_bytes(kas, g.rows, c, v);
+  g.ka = staged_subspaces(kas, g.rows, c, v,
+                          one_round <= LIVE_STAGING_BYTES ? one_round
+                                                          : STAGING_BYTES);
+  const size_t staging = staging_bytes(g.ka, g.rows, c, v);
+  const size_t merge = (size_t)SLOTS * TILE_BYTES / le * 4;
   off += staging > merge ? staging : merge;
   g.smem = (int)off;
   return off <= (size_t)max_smem;
@@ -223,6 +312,65 @@ __device__ __forceinline__ int nearest_any(const float* xr, const float* zk,
                      : vqc::nearest<2>(xr, zk, c, v, v);
 }
 
+// Distance of the sub-vector xr to the centroid zj, vq_common.cuh's
+// distance for the metric (v = 8 a literal).
+__device__ __forceinline__ float distance_any(const float* xr,
+                                              const float* zj, int v,
+                                              int metric) {
+  if (v == 8)
+    return metric == 0 ? vqc::distance<0>(xr, zj, 8)
+         : metric == 1 ? vqc::distance<1>(xr, zj, 8)
+                       : vqc::distance<2>(xr, zj, 8);
+  return metric == 0 ? vqc::distance<0>(xr, zj, v)
+       : metric == 1 ? vqc::distance<1>(xr, zj, v)
+                     : vqc::distance<2>(xr, zj, v);
+}
+
+// The staged pairs (subspace kk of row mi, pair kk * mt + mi) of a block
+// with few of them (2 pairs <= THREADS): tpp threads a pair (the most, a
+// power of two up to 16, that the block's threads hold), thread `part`
+// scanning centroids part, part + tpp, ..., then the tpp minima combined
+// by shuffles, the lower index winning a tie. That is nearest's result:
+// its scan keeps the first strict minimum, the lowest index of the least
+// distance (0 when no distance is below infinity), and the distances are
+// its own (vq_common.cuh's distance, the same fp32 operations).
+__device__ __forceinline__ void assign_split(
+    const float* xs, const float* zs, unsigned char* idx, int a0, int an,
+    int mt, int xst, int zst, int c, int v, int metric, int rs) {
+  const int pairs = an * mt;
+  int tpp = 1;
+  while (tpp < 16 && 2 * tpp * pairs <= THREADS) tpp *= 2;
+  const int t = threadIdx.x / tpp, part = threadIdx.x % tpp;
+  const int kk = t / mt, mi = t % mt;
+  float best = INFINITY;
+  int bj = c;                           // none yet
+  if (t < pairs) {
+    const float* zk = zs + kk * zst;
+    if (v == 8) {
+      float xv[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) xv[i] = xs[mi * xst + kk * 8 + i];
+      for (int j = part; j < c; j += tpp) {
+        const float d = distance_any(xv, zk + j * 8, 8, metric);
+        if (d < best) { best = d; bj = j; }
+      }
+    } else {
+      for (int j = part; j < c; j += tpp) {
+        const float d = distance_any(xs + mi * xst + kk * v, zk + j * v, v,
+                                     metric);
+        if (d < best) { best = d; bj = j; }
+      }
+    }
+  }
+  for (int o = 1; o < tpp; o *= 2) {    // whole warps: tpp divides 32
+    const float od = __shfl_xor_sync(0xffffffffu, best, o);
+    const int oj = __shfl_xor_sync(0xffffffffu, bj, o);
+    if (od < best || (od == best && oj < bj)) { best = od; bj = oj; }
+  }
+  if (t < pairs && part == 0)
+    idx[(a0 + kk) * rs + mi] = (unsigned char)(bj == c ? 0 : bj);
+}
+
 // The assignment of a block (B1 and B3): rows m0 .. m0+mt, subspaces
 // k0 .. k0+kn, staged ka subspaces at a time (fp32, in the staging area),
 // one thread per (row, subspace) pair running vq_common's nearest, so
@@ -230,7 +378,7 @@ __device__ __forceinline__ int nearest_any(const float* xr, const float* zk,
 // loads, eight in flight a thread, where their rows are 16-byte aligned;
 // with v = 8 the x row sits in registers. Writes idx[kk * rs + m]. Ends
 // with a __syncthreads.
-template <typename XT>
+template <typename XT, bool SPLIT = true>
 __device__ __forceinline__ void assign_block(
     const XT* __restrict__ x, const XT* __restrict__ z,
     unsigned char* stage, unsigned char* idx, const Geometry& g,
@@ -295,7 +443,11 @@ __device__ __forceinline__ void assign_block(
     if (a0 == 0) VQG_STAMP(1);
     // neighbouring threads share a subspace: their z reads broadcast
     const int pairs = an * mt;
-    if (v == 8) {        // the main path: v a literal, x in registers
+    bool split = false;       // few pairs (a live block's few rows)
+    if constexpr (SPLIT) split = g.live && 2 * pairs <= THREADS;
+    if (split) {
+      assign_split(xs, zs, idx, a0, an, mt, xst, zst, c, v, metric, rs);
+    } else if (v == 8) {  // the main path: v a literal, x in registers
       for (int t = tid; t < pairs; t += THREADS) {
         const int kk = t / mt, mi = t % mt;
         float xv[8];
@@ -316,10 +468,23 @@ __device__ __forceinline__ void assign_block(
   }
 }
 
-// The rows a thread sums: up to 8 rows of x, the block's threads split
-// into two k partitions (slot / 8), each taking one row (slot % 8) and
-// half of the subspaces, so all 8 warps gather; above 8 rows, one
-// partition and rows slot + SLOTS * i.
+// The k partitions of a block's SLOTS row slots: n partitions of w slots
+// each, partition p taking subspaces [ceil(p kn / n), ceil((p+1) kn / n)).
+// With live-row counts, as many as the block's lt live rows leave room
+// for (SLOTS / lt of lt slots: 16 for one row, 8 for two, ..., 2 for 5-8,
+// 1 above 8); without, 2 of 8 slots up to 8 rows, else 1.
+struct Parts {
+  int n, w;
+};
+__device__ __forceinline__ Parts parts_of(const Geometry& g, int lt) {
+  if (g.live) return lt <= SLOTS / 2 ? Parts{SLOTS / lt, lt} : Parts{1, SLOTS};
+  return g.parts == 2 ? Parts{2, SLOTS / 2} : Parts{1, SLOTS};
+}
+
+// The rows a thread sums without live-row counts: up to 8 rows of x, the
+// block's threads split into two k partitions (slot / 8), each taking
+// one row (slot % 8) and half of the subspaces, so all 8 warps gather;
+// above 8 rows, one partition and rows slot + SLOTS * i.
 struct Lane {
   int rbase, mrow, part;
 };
@@ -327,6 +492,17 @@ __device__ __forceinline__ Lane lane_of(const Geometry& g) {
   const int slot = threadIdx.x / CH;
   if (g.parts == 2) return {slot % (SLOTS / 2), SLOTS / 2, slot / (SLOTS / 2)};
   return {slot, SLOTS, 0};
+}
+
+// With live-row counts: with one partition, rows slot + SLOTS * i;
+// with n > 1, row slot % w of partition slot / w, so all 8 warps gather.
+// Slots past n x w sit idle (part n, a row past every live row).
+__device__ __forceinline__ Lane lane_of(Parts p) {
+  const int slot = threadIdx.x / CH;
+  if (p.n == 1) return {slot, SLOTS, 0};
+  const int part = slot / p.w;
+  if (part >= p.n) return {SLOTS, SLOTS, p.n};
+  return {slot % p.w, SLOTS, part};
 }
 
 // One batch: the BK subspaces from kb on (below kend), R rows each, into
@@ -413,9 +589,10 @@ __device__ __forceinline__ int share_len(int mt, int cs) {
   return (quads + cs - 1) / cs;
 }
 
-// With two k partitions: partition 1 leaves its tile in shared memory
-// (scratch, the staging area) and partition 0 adds it to its own, in
-// that order (lower subspaces first). Ends with a __syncthreads.
+// With two k partitions (no live-row counts): partition 1 leaves its
+// tile in shared memory (scratch, the staging area) and partition 0 adds
+// it to its own, in that order (lower subspaces first). Ends with a
+// __syncthreads.
 template <typename LT>
 __device__ __forceinline__ void merge_partitions(
     typename Acc<LT>::T* scratch, int mt, Lane ln,
@@ -473,6 +650,61 @@ __device__ __forceinline__ void push_partial(
   clus::wait();
 }
 
+// With live-row counts and n > 1 k partitions, the merge and the push in
+// one pass over all the block's threads: every partition leaves its
+// tile in shared memory (partition q's row r at slot q w + r), then each
+// thread takes 16-byte quads of the (mt, BNE) tile, sums them over the
+// partitions in order (lower subspaces first) and stores the sum into
+// the owning rank's memory at push_partial's place; then the cluster
+// barrier. (One half warp summing n - 1 tiles, push_partial's way, took
+// ~6000 cycles a block at one live row: 15 tiles, bank conflicts.)
+template <typename LT, int R>
+__device__ __forceinline__ void push_merged(
+    typename Acc<LT>::T* scratch, typename Acc<LT>::T* recv,
+    const Geometry& g, int mt, Lane ln, Parts p,
+    typename Acc<LT>::T (&a)[R][epc<LT>()]) {
+  using AccT = typename Acc<LT>::T;
+  constexpr int E = epc<LT>(), BNE = tile_cols<LT>();
+  cg::cluster_group cluster = cg::this_cluster();
+  if (ln.rbase < mt && ln.part < p.n) {
+    AccT* t = scratch + (size_t)(ln.part * p.w + ln.rbase) * BNE +
+              (threadIdx.x % CH) * E;
+#pragma unroll
+    for (int e = 0; e < E; e += 4)
+      *reinterpret_cast<uint4*>(t + e) =
+          make_uint4(bits(a[0][e]), bits(a[0][e + 1]), bits(a[0][e + 2]),
+                     bits(a[0][e + 3]));
+  }
+  __syncthreads();
+  const int slen = share_len<LT>(mt, g.cs);
+  const int quads = mt * BNE / 4;
+  for (int u = threadIdx.x; u < quads; u += THREADS) {
+    const int m = 4 * u / BNE, col = 4 * u % BNE;
+    AccT s4[4], t4[4];
+    uint4 q = *reinterpret_cast<const uint4*>(scratch + (size_t)m * BNE +
+                                              col);
+    from_bits(q.x, s4[0]); from_bits(q.y, s4[1]);
+    from_bits(q.z, s4[2]); from_bits(q.w, s4[3]);
+    for (int k = 1; k < p.n; ++k) {
+      q = *reinterpret_cast<const uint4*>(
+          scratch + (size_t)(k * p.w + m) * BNE + col);
+      from_bits(q.x, t4[0]); from_bits(q.y, t4[1]);
+      from_bits(q.z, t4[2]); from_bits(q.w, t4[3]);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s4[i] += t4[i];
+    }
+    const int owner = u / slen;
+    AccT* dst = cluster.map_shared_rank(recv, owner) +
+                4 * ((size_t)blockIdx.y * slen + (u - owner * slen));
+    *reinterpret_cast<uint4*>(dst) =
+        make_uint4(bits(s4[0]), bits(s4[1]), bits(s4[2]), bits(s4[3]));
+  }
+  VQG_STAMP(4);
+  cp_async_wait_all();               // this thread's scale column
+  clus::arrive();
+  clus::wait();
+}
+
 // Rank r's share of the tile: the partials of every rank in rank order
 // -- subspace order -- summed from its own shared memory,
 // scaled (tile_scale: the tile's scale columns, copied into shared
@@ -516,14 +748,25 @@ __device__ __forceinline__ void finish_share(
   }
 }
 
+// Live rows m0 .. m0+lt of a block's rows m0 .. m0+mt of expert e: all
+// of them without counts, else those below the expert's count.
+__device__ __forceinline__ int live_rows(const long long* counts, int e,
+                                         int m0, int mt) {
+  if (counts == nullptr) return mt;
+  const long long n = __ldg(counts + e) - m0;
+  return n <= 0 ? 0 : n < mt ? (int)n : mt;
+}
+
 // Where a block of B1 or B4 sits: expert e, columns n0 .., subspaces
 // k0 .. k0+kn (the cluster spans grid y, so blockIdx.y is the block's
-// rank), rows m0 .. m0+mt of its expert (grid z = E x row groups).
+// rank), rows m0 .. m0+mt of its expert (grid z = E x row groups), of
+// which the first lt are live.
 struct Tile {
-  int e, n0, k0, kn, m0, mt;
+  int e, n0, k0, kn, m0, mt, lt;
 };
 template <typename LT>
-__device__ __forceinline__ Tile tile_of(const Geometry& g, int M, int nc) {
+__device__ __forceinline__ Tile tile_of(const Geometry& g, int M, int nc,
+                                        const long long* counts) {
   Tile t;
   const int groups = (M + ROW_CAP - 1) / ROW_CAP;
   t.e = (int)blockIdx.z / groups;
@@ -532,7 +775,24 @@ __device__ __forceinline__ Tile tile_of(const Geometry& g, int M, int nc) {
   t.kn = (int)((long)(blockIdx.y + 1) * nc / g.cs) - t.k0;
   t.m0 = ((int)blockIdx.z - t.e * groups) * ROW_CAP;
   t.mt = min(ROW_CAP, M - t.m0);
+  t.lt = live_rows(counts, t.e, t.m0, t.mt);
   return t;
+}
+
+// The tile's output rows past its live ones (rows m0+lt .. m0+mt, the
+// tile's columns) written as 0.0, the cluster's ranks taking turns by
+// THREADS elements; out is already the expert's.
+template <typename LT>
+__device__ __forceinline__ void zero_dead_rows(float* __restrict__ out,
+                                               const Geometry& g, int N,
+                                               const Tile& t) {
+  constexpr int BNE = tile_cols<LT>();
+  const int total = (t.mt - t.lt) * BNE;
+  for (int i = (int)blockIdx.y * THREADS + threadIdx.x; i < total;
+       i += g.cs * THREADS) {
+    const int m = t.m0 + t.lt + i / BNE, n = t.n0 + i % BNE;
+    if (n < N) out[(size_t)m * N + n] = 0.f;
+  }
 }
 
 // An expert's operand: p moved by expert e's stride of `per` elements,
@@ -556,13 +816,14 @@ __device__ __forceinline__ void copy_scale(unsigned char* smem,
 }
 
 // B4: the block's indices src[m0 + m, k0 + kk] (int32, row stride nc)
-// into idx[kk * rs + m] (uint8, c <= 256). Neighbouring threads read
-// neighbouring subspaces of one row (coalesced), eight loads in flight a
-// thread before any is stored. Ends with a __syncthreads.
+// of its live rows into idx[kk * rs + m] (uint8, c <= 256). Neighbouring
+// threads read neighbouring subspaces of one row (coalesced), eight
+// loads in flight a thread before any is stored. Ends with a
+// __syncthreads.
 __device__ __forceinline__ void load_indices(const int* __restrict__ src,
                                              unsigned char* idx, int nc,
                                              const Tile& t, int rs) {
-  const int total = t.mt * t.kn;
+  const int total = t.lt * t.kn;
   for (int b = threadIdx.x; b < total; b += 8 * THREADS) {
     int q[8];
 #pragma unroll
@@ -580,11 +841,14 @@ __device__ __forceinline__ void load_indices(const int* __restrict__ src,
   __syncthreads();
 }
 
-// Everything of a B1 or B4 block after its indices are in shared memory:
-// the gather-accumulate (two k partitions up to 8 rows, merged in
-// order), the push to the owning ranks, the cluster barrier and the
-// finish of this rank's share.
-template <typename LT, int R>
+// Everything of a B1 or B4 block after the indices of its live rows are
+// in shared memory: the gather-accumulate over its k partitions
+// (parts_of), merged in order, the push to the owning ranks, the cluster
+// barrier and the finish of this rank's share of the live rows. LIVE =
+// false (B1 without counts, compiled on its own) is the code before
+// live-row counts existed: two k partitions up to 8 rows, merged in
+// order.
+template <typename LT, int R, bool LIVE = true>
 __device__ __forceinline__ void sum_block(
     const LT* __restrict__ lut, const float* __restrict__ scale,
     float* __restrict__ out, unsigned char* smem, const Geometry& g, int c,
@@ -596,41 +860,203 @@ __device__ __forceinline__ void sum_block(
   for (int i = 0; i < R; ++i)
 #pragma unroll
     for (int e = 0; e < epc<LT>(); ++e) a[i][e] = AccT(0);
-  const Lane ln = lane_of(g);
-  const int half = (t.kn + 1) / 2;      // partition 0 takes the lower half
-  const int kbeg = g.parts == 1 || ln.part == 0 ? 0 : half;
-  const int kend = g.parts == 1 || ln.part == 1 ? t.kn : half;
-  gather_block<LT, R>(lut, smem + g.off_idx, g, c, N, t.k0, kbeg, kend,
-                      t.n0, t.mt, rs, ln, a);
-  VQG_STAMP(3);                         // gathered
-  if constexpr (R == 1) {
-    if (g.parts == 2)
-      merge_partitions<LT>(reinterpret_cast<AccT*>(smem + g.off_stage), t.mt,
-                           ln, a);
+  if constexpr (!LIVE) {
+    const Lane ln = lane_of(g);
+    const int half = (t.kn + 1) / 2;    // partition 0 takes the lower half
+    const int kbeg = g.parts == 1 || ln.part == 0 ? 0 : half;
+    const int kend = g.parts == 1 || ln.part == 1 ? t.kn : half;
+    gather_block<LT, R>(lut, smem + g.off_idx, g, c, N, t.k0, kbeg, kend,
+                        t.n0, t.mt, rs, ln, a);
+    VQG_STAMP(3);                       // gathered
+    if constexpr (R == 1) {
+      if (g.parts == 2)
+        merge_partitions<LT>(reinterpret_cast<AccT*>(smem + g.off_stage),
+                             t.mt, ln, a);
+    }
+    AccT* recv = reinterpret_cast<AccT*>(smem + g.off_recv);
+    push_partial<LT, R>(recv, g, N, t.n0, t.mt, ln, a);
+    VQG_STAMP(5);                       // past the cluster barrier
+    finish_share<LT>(recv, g, scale,
+                     reinterpret_cast<const float*>(smem + g.off_scale), out,
+                     N, t.m0, t.mt, t.n0);
+    return;
   }
+  const Parts p = parts_of(g, t.lt);
+  const Lane ln = lane_of(p);
+  // partition q's subspaces start at ceil(q kn / n): with two, partition
+  // 0 takes the larger half
+  const int kbeg = (ln.part * t.kn + p.n - 1) / p.n;
+  const int kend = ((ln.part + 1) * t.kn + p.n - 1) / p.n;
+  gather_block<LT, R>(lut, smem + g.off_idx, g, c, N, t.k0, kbeg, kend,
+                      t.n0, t.lt, rs, ln, a);
+  VQG_STAMP(3);                         // gathered
+  AccT* scratch = reinterpret_cast<AccT*>(smem + g.off_stage);
   AccT* recv = reinterpret_cast<AccT*>(smem + g.off_recv);
-  push_partial<LT, R>(recv, g, N, t.n0, t.mt, ln, a);
+  if (g.live && p.n > 1) {
+    push_merged<LT, R>(scratch, recv, g, t.lt, ln, p, a);
+  } else {
+    if constexpr (R == 1) {             // without counts: 2 up to 8 rows
+      if (p.n == 2) merge_partitions<LT>(scratch, t.lt, ln, a);
+    }
+    push_partial<LT, R>(recv, g, N, t.n0, t.lt, ln, a);
+  }
   VQG_STAMP(5);                         // past the cluster barrier
   finish_share<LT>(recv, g, scale,
                    reinterpret_cast<const float*>(smem + g.off_scale), out,
-                   N, t.m0, t.mt, t.n0);
+                   N, t.m0, t.lt, t.n0);
 }
 
-// Host: the launch configuration of a grid of clusters along y.
+// Tile clusters: rank r's indices, subspaces [k0, k0 + kn) of rows
+// stride rs (16-byte aligned), stored into the same place of every other
+// rank's shared memory; then this thread's scale column and the cluster
+// barrier, after which every rank holds all nc subspaces' indices and no
+// rank touches another's memory again.
+__device__ __forceinline__ void share_indices(unsigned char* idx, int k0,
+                                              int kn, int rs, int tcs) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int me = (int)cluster.block_rank();
+  const int q = kn * rs / 16;           // 16-byte words of the slice
+  unsigned char* mine = idx + (size_t)k0 * rs;
+  for (int i = threadIdx.x; i < q * (tcs - 1); i += THREADS) {
+    const int r = i / q, j = i % q;
+    const uint4 w = reinterpret_cast<const uint4*>(mine)[j];
+    reinterpret_cast<uint4*>(
+        cluster.map_shared_rank(mine, r < me ? r : r + 1))[j] = w;
+  }
+  cp_async_wait_all();               // this thread's scale column
+  clus::arrive();
+  clus::wait();
+}
+
+// Tile clusters: the block's k partitions' tiles of its live rows summed
+// in partition order (as push_merged sums them), scaled and written out
+// (as finish_share writes a share of one rank).
+template <typename LT>
+__device__ __forceinline__ void finish_local(
+    typename Acc<LT>::T* scratch, const float* tile_scale,
+    const float* __restrict__ scale, float* __restrict__ out, int N,
+    const Tile& t, Lane ln, Parts p, typename Acc<LT>::T (&a)[1][epc<LT>()]) {
+  using AccT = typename Acc<LT>::T;
+  constexpr int E = epc<LT>(), BNE = tile_cols<LT>();
+  if (ln.rbase < t.lt && ln.part < p.n) {
+    AccT* d = scratch + (size_t)(ln.part * p.w + ln.rbase) * BNE +
+              (threadIdx.x % CH) * E;
+#pragma unroll
+    for (int e = 0; e < E; e += 4)
+      *reinterpret_cast<uint4*>(d + e) =
+          make_uint4(bits(a[0][e]), bits(a[0][e + 1]), bits(a[0][e + 2]),
+                     bits(a[0][e + 3]));
+  }
+  __syncthreads();
+  VQG_STAMP(5);                         // partitions' tiles in place
+  const int quads = t.lt * BNE / 4;
+  for (int u = threadIdx.x; u < quads; u += THREADS) {
+    const int m = 4 * u / BNE, col = 4 * u % BNE, n = t.n0 + col;
+    if (n >= N) continue;
+    AccT s4[4], t4[4];
+    uint4 q = *reinterpret_cast<const uint4*>(scratch + (size_t)m * BNE +
+                                              col);
+    from_bits(q.x, s4[0]); from_bits(q.y, s4[1]);
+    from_bits(q.z, s4[2]); from_bits(q.w, s4[3]);
+    for (int k = 1; k < p.n; ++k) {
+      q = *reinterpret_cast<const uint4*>(
+          scratch + (size_t)(k * p.w + m) * BNE + col);
+      from_bits(q.x, t4[0]); from_bits(q.y, t4[1]);
+      from_bits(q.z, t4[2]); from_bits(q.w, t4[3]);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s4[i] += t4[i];
+    }
+    float* o = out + (size_t)(t.m0 + m) * N + n;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (n + i < N) {
+        float val = (float)s4[i];
+        if (scale != nullptr) val *= tile_scale[col + i];
+        o[i] = val;
+      }
+    }
+  }
+}
+
+// Tile clusters: a live B1 block of one thread row a slot (R = 1) after
+// tile_of (k0 = 0, kn = nc): its rank's share of the assignment, the
+// indices shared over the cluster, the gather of all nc subspaces of
+// its tile over its k partitions, and its rows written out. Operands
+// are the expert's.
+template <typename XT, typename LT>
+__device__ __forceinline__ void tile_block(
+    const XT* __restrict__ x, const XT* __restrict__ z,
+    const LT* __restrict__ lut, const float* __restrict__ scale,
+    float* __restrict__ out, unsigned char* smem, const Geometry& g,
+    int nc, int c, int v, int N, int metric, const Tile& t) {
+  using AccT = typename Acc<LT>::T;
+  const int rs = idx_rows(1);
+  const int rank = (int)blockIdx.x % g.tcs;
+  const int k0 = (int)((long)rank * nc / g.tcs);
+  const int kn = (int)((long)(rank + 1) * nc / g.tcs) - k0;
+  unsigned char* idx = smem + g.off_idx;
+  copy_scale<LT>(smem, g, scale, t.n0, N);
+  assign_block<XT>(x, z, smem + g.off_stage, idx + (size_t)k0 * rs, g,
+                   metric, nc, c, v, t.m0, t.lt, k0, kn, rs);
+  VQG_STAMP(2);                         // assigned
+  share_indices(idx, k0, kn, rs, g.tcs);
+  VQG_STAMP(3);                         // every rank's indices here
+  AccT a[1][epc<LT>()];
+#pragma unroll
+  for (int e = 0; e < epc<LT>(); ++e) a[0][e] = AccT(0);
+  const Parts p = parts_of(g, t.lt);
+  const Lane ln = lane_of(p);
+  const int kbeg = (ln.part * nc + p.n - 1) / p.n;
+  const int kend = ((ln.part + 1) * nc + p.n - 1) / p.n;
+  gather_block<LT, 1>(lut, idx, g, c, N, 0, kbeg, kend, t.n0, t.lt, rs,
+                      ln, a);
+  VQG_STAMP(4);                         // gathered
+  finish_local<LT>(reinterpret_cast<AccT*>(smem + g.off_stage),
+                   reinterpret_cast<const float*>(smem + g.off_scale), scale,
+                   out, N, t, ln, p, a);
+}
+
+// Host: a launch's grid (column tiles, padded to whole tile clusters; k
+// splits; E x row groups) and cluster shape.
+inline dim3 grid_of(const Geometry& g, int tiles, int groups, int E) {
+  const int x = g.tcs ? (tiles + g.tcs - 1) / g.tcs * g.tcs : tiles;
+  return dim3(x, g.cs, groups * E);
+}
 inline void cluster_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute* attr,
-                           dim3 grid, int cs, int smem, cudaStream_t st) {
-  clus::config(cfg, attr, grid, THREADS, dim3(1, cs, 1), smem, st);
+                           const Geometry& g, dim3 grid, cudaStream_t st) {
+  clus::config(cfg, attr, grid, THREADS,
+               g.tcs ? dim3(g.tcs, 1, 1) : dim3(1, g.cs, 1), g.smem, st);
 }
 
 // What a launch of B1 or B4 computes: E experts of M rows each; v = 0
-// for B4 (no assignment); r rows a thread sums.
+// for B4 (no assignment); r rows a thread sums; live: the launch takes
+// live-row counts, of which the call has at most most_live rows in all
+// (0: E x M).
 struct Shape {
   int E, M, nc, c, v, N, r;
-  bool vec_x, vec_lut;
+  bool vec_x, vec_lut, live;
+  int most_live;
+  int cluster;     // a sweep's layout: k splits (> 0), tiles a tile
+                   // cluster (< 0), or 0: plan's
 };
 
+// The live-row counts of a launch (null: none) and the most live rows
+// the call can have in all (0: E x M), for the planners.
+struct Live {
+  const long long* counts;
+  int most;
+};
+
+// Row groups of a launch that can hold a live row: each holds at least
+// one of the call's most_live live rows.
+inline long live_groups(const Shape& s) {
+  const long groups = (long)((s.M + ROW_CAP - 1) / ROW_CAP) * s.E;
+  return s.live && s.most_live > 0 && s.most_live < groups ? s.most_live
+                                                            : groups;
+}
+
 using PlanKey = std::tuple<const void*, int, int, int, int, int, int, int,
-                           int, int>;
+                           int, int, int, int, int>;
 inline std::mutex plan_mutex;
 inline std::map<PlanKey, Geometry> plans;
 
@@ -640,14 +1066,19 @@ inline std::map<PlanKey, Geometry> plans;
 // block + fixed), where fixed is the kernel's cost a block beyond its
 // gather (staging, assignment or index load, partition and cluster
 // sums) in units of one subspace's LUT rows; the clusters are those of
-// all E experts. Cached per kernel, device and shape.
+// the row groups that can be live (live_groups: all E experts' without
+// counts). B1 with live rows and up to SLOTS rows takes tile clusters,
+// estimated as waves x (subspaces a block assigns + subspaces a thread
+// gathers at the partitions of the planned live rows + fixed). Cached
+// per kernel, device, shape and live bound.
 template <typename LT>
 cudaError_t plan(Geometry& out, const void* kern, int fixed, const Shape& s) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   const PlanKey key{kern, dev, s.E, s.M, s.nc, s.c, s.v, s.N,
-                    (int)s.vec_x, (int)s.vec_lut};
+                    (int)s.vec_x, (int)s.vec_lut, (int)s.live,
+                    s.live ? s.most_live : 0, s.cluster};
   std::lock_guard<std::mutex> lock(plan_mutex);
   auto it = plans.find(key);
   if (it != plans.end()) {
@@ -662,21 +1093,41 @@ cudaError_t plan(Geometry& out, const void* kern, int fixed, const Shape& s) {
   if (err != cudaSuccess) return err;
   const int tiles = (s.N + tile_cols<LT>() - 1) / tile_cols<LT>();
   const int groups = (s.M + ROW_CAP - 1) / ROW_CAP;
-  const long clusters = (long)tiles * groups * s.E;
+  const long live = live_groups(s);
   long best = -1;
+  const bool can_tile = s.live && s.r == 1 && s.v > 0;
+  if (s.cluster < 0 && !can_tile) return cudaErrorInvalidValue;
+  const bool tiled = can_tile && s.cluster <= 0;
   for (int cs = 1; cs <= MAX_CLUSTER && cs <= s.nc; ++cs) {
-    Geometry g;
-    if (!make_geometry(g, s.M, s.nc, s.c, s.v, cs, s.r, (int)sizeof(LT),
-                       s.vec_x, s.vec_lut, max_smem))
+    if (s.cluster != 0 && cs != (s.cluster > 0 ? s.cluster : -s.cluster))
       continue;
+    Geometry g;
+    long clusters, per_block;
+    if (tiled) {
+      if (cs > TILE_CLUSTER ||
+          !make_tile_geometry(g, s.M, s.nc, s.c, s.v, cs, (int)sizeof(LT),
+                              s.vec_x, s.vec_lut, max_smem))
+        continue;
+      // the partitions of a live block at the call's mean live rows
+      const long rows = (s.most_live > 0 ? s.most_live : (long)s.E * s.M);
+      const long per_expert = (rows + live - 1) / live;
+      const long parts = per_expert <= SLOTS / 2 ? SLOTS / per_expert : 1;
+      clusters = (tiles + cs - 1) / cs * live;
+      per_block = (s.nc + cs - 1) / cs + s.nc / parts + fixed;
+    } else {
+      if (!make_geometry(g, s.M, s.nc, s.c, s.v, cs, s.r, (int)sizeof(LT),
+                         s.vec_x, s.vec_lut, s.live, max_smem))
+        continue;
+      clusters = (long)tiles * live;
+      per_block = (s.nc + cs - 1) / cs + fixed;
+    }
     cudaLaunchConfig_t cfg;
     cudaLaunchAttribute attr[1];
-    cluster_config(cfg, attr, dim3(tiles, cs, groups * s.E), cs, g.smem,
-                   0);
+    cluster_config(cfg, attr, g, grid_of(g, tiles, groups, s.E), 0);
     const int active = clus::max_active(kern, cfg);
     if (active < 1) continue;           // a size this card refuses
     const long waves = (clusters + active - 1) / active;
-    const long cost = waves * ((s.nc + cs - 1) / cs + fixed);
+    const long cost = waves * per_block;
     if (best < 0 || cost < best) {
       best = cost;
       out = g;
@@ -689,9 +1140,10 @@ cudaError_t plan(Geometry& out, const void* kern, int fixed, const Shape& s) {
 
 // Host: plan kern at this shape and launch it as one grid of clusters
 // (grid z: E x row groups) with args followed by the geometry. With info
-// non-null: write the launch's cluster size, column tiles, row groups
-// (of one expert), subspaces a block and shared memory bytes to
-// info[0..4] and launch nothing.
+// non-null: write the launch's k splits (cluster size along k), column
+// tiles, row groups (of one expert), subspaces a block gathers, shared
+// memory bytes and tiles a tile cluster spans (0: clusters along k) to
+// info[0..5] and launch nothing.
 template <typename LT, typename... Params, typename... Args>
 cudaError_t launch_cluster(void (*kern)(Params...), int fixed,
                            const Shape& s, cudaStream_t st, int* info,
@@ -704,13 +1156,12 @@ cudaError_t launch_cluster(void (*kern)(Params...), int fixed,
   if ((long)groups * s.E > 65535) return cudaErrorInvalidValue;
   if (info != nullptr) {
     info[0] = g.cs; info[1] = tiles; info[2] = groups; info[3] = g.kmax;
-    info[4] = g.smem;
+    info[4] = g.smem; info[5] = g.tcs;
     return cudaSuccess;
   }
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
-  cluster_config(cfg, attr, dim3(tiles, g.cs, groups * s.E), g.cs, g.smem,
-                 st);
+  cluster_config(cfg, attr, g, grid_of(g, tiles, groups, s.E), st);
   err = cudaLaunchKernelEx(&cfg, kern, args..., g);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();

@@ -17,7 +17,9 @@ the two by device.
 Every operand may carry a leading expert axis (idx ``(E, M, nc)``, lut
 ``(E, nc, c, N)``, scale ``(E, N)`` -> ``(E, M, N)``): all experts in one
 launch, as the JAX package vmaps ``lut_gemm_pallas`` over the experts of
-an MoE layer. The size limits hold per expert.
+an MoE layer. The size limits hold per expert. With ``counts`` and
+``most_live`` (as ``fused_amm.vq_amm_cuda`` takes them) rows past an
+expert's count come out 0.0 and their indices are not read.
 
 ``lut_gemm_cuda.launches`` counts launches (a grouped call is one);
 ``lut_gemm_cuda.grouped`` counts those with a leading expert axis.
@@ -30,7 +32,7 @@ from typing import Optional
 import torch
 
 from . import _build
-from .fused_amm import _LUT_DTYPES, expert_count
+from .fused_amm import _LUT_DTYPES, expert_count, geometry, live_args
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -39,7 +41,8 @@ _I = ctypes.c_int
 def _lib():
     fn = _build.load("lut_gemm").lut_gemm_launch
     if fn.argtypes is None:
-        fn.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P]
+        fn.argtypes = [_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _P,
+                       _P]
         fn.restype = _I
     return fn
 
@@ -50,7 +53,9 @@ def _check(cond: bool, msg: str) -> None:
 
 
 def lut_gemm_cuda(idx: torch.Tensor, lut: torch.Tensor,
-                  scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  scale: Optional[torch.Tensor] = None,
+                  counts: Optional[torch.Tensor] = None,
+                  most_live: Optional[int] = None) -> torch.Tensor:
     """LUT accumulate on the card.
 
     idx (M, nc) int32 with entries in [0, c), lut (nc, c, N)
@@ -60,9 +65,10 @@ def lut_gemm_cuda(idx: torch.Tensor, lut: torch.Tensor,
     contiguous CUDA tensors on one device. Returns out (M, N) float32,
     ``sum_k lut[k, idx[m, k], :]`` (x scale); with a leading expert axis
     on every operand (idx (E, M, nc), lut (E, nc, c, N), scale (E, N)),
-    (E, M, N) in one launch. Raises on anything else, and
-    when the kernel cannot be built or launched. Entries of idx are not
-    range-checked (that would cost a device read).
+    (E, M, N) in one launch. ``counts`` (E,) int64 and ``most_live``:
+    live rows only; rows past an expert's count are 0.0. Raises on
+    anything else, and when the kernel cannot be built or launched.
+    Entries of idx are not range-checked (that would cost a device read).
     """
     tensors = [idx, lut] + ([scale] if scale is not None else [])
     _check(all(t.device.type == "cuda" for t in tensors),
@@ -86,6 +92,8 @@ def lut_gemm_cuda(idx: torch.Tensor, lut: torch.Tensor,
     # per expert: the kernel moves between experts with 64-bit offsets
     _check(m * n < 2 ** 31 and nc * c * n < 2 ** 31,
            "sizes of one expert beyond int32 indexing")
+    cp, most = live_args("lut_gemm_cuda", counts, most_live, e,
+                         idx.device)
     fn = _lib()
     out = torch.empty(idx.shape[:-1] + (n,), dtype=torch.float32,
                       device=idx.device)
@@ -93,8 +101,8 @@ def lut_gemm_cuda(idx: torch.Tensor, lut: torch.Tensor,
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(idx.data_ptr(), lut.data_ptr(),
                  scale.data_ptr() if scale is not None else None,
-                 out.data_ptr(), e, m, nc, c, n, _LUT_DTYPES[lut.dtype],
-                 stream, None)
+                 out.data_ptr(), e, cp, most, m, nc, c, n,
+                 _LUT_DTYPES[lut.dtype], stream, None)
     if err != 0:
         raise RuntimeError(f"lut_gemm_cuda: launch failed with cudaError {err}")
     _build.bump(lut_gemm_cuda, "launches")
@@ -106,20 +114,18 @@ lut_gemm_cuda.launches = 0
 lut_gemm_cuda.grouped = 0
 
 
-def lut_gemm_geometry(idx: torch.Tensor, lut: torch.Tensor) -> dict:
+def lut_gemm_geometry(idx: torch.Tensor, lut: torch.Tensor,
+                      counts: Optional[torch.Tensor] = None,
+                      most_live: Optional[int] = None) -> dict:
     """The launch that ``lut_gemm_cuda`` makes for these CUDA operands
-    (with or without an expert axis), without making it: experts, cluster
-    size (k splits), column tiles, row groups of one expert, subspaces a
-    block and shared memory bytes a block (the keys of
-    ``fused_amm.vq_amm_geometry``)."""
+    (with or without an expert axis, and live-row counts), without making
+    it (the keys of ``fused_amm.vq_amm_geometry``; B4 always clusters
+    along k)."""
     e = idx.shape[0] if idx.dim() == 3 else 1
     m, nc = idx.shape[-2:]
     c, n = lut.shape[-2:]
-    info = (ctypes.c_int * 5)()
-    with torch.cuda.device(idx.device):
-        err = _lib()(idx.data_ptr(), lut.data_ptr(), None, None, e, m, nc, c,
-                     n, _LUT_DTYPES[lut.dtype], None, info)
-    if err != 0:
-        raise RuntimeError(f"lut_gemm_geometry: cudaError {err}")
-    return dict(experts=e, **dict(zip(
-        ("cluster", "tiles", "row_groups", "subspaces", "smem"), info)))
+    cp, most = live_args("lut_gemm_geometry", counts, most_live, e,
+                         idx.device)
+    return geometry(_lib(), "lut_gemm_geometry", (
+        idx.data_ptr(), lut.data_ptr(), None, None, e, cp, most, m, nc, c,
+        n, _LUT_DTYPES[lut.dtype]), e, idx.device)

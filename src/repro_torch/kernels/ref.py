@@ -10,7 +10,11 @@ Each counts its calls (``.calls``), so a run on the card can show that its
 main path never took a plain version. Distances are taken in float32
 whatever the input type, as the kernels compute them. Each also takes a
 leading expert axis on every operand (the grouped form an MoE layer
-calls): a loop over the experts of the ungrouped form, stacked.
+calls): a loop over the experts of the ungrouped form, stacked. With
+``counts`` (E,) (the live rows of each expert's buffer, clamped to M)
+rows past an expert's count come out 0.0 (index 0 for B3), as the
+kernels write them; ``most_live`` only plans a kernel's launch and is
+ignored here. Neither reads the host.
 
 Oracles, for tests only: ``flash_decode_ref`` (whole-softmax paged decode)
 and ``flash_decode_kvq_ref`` (dequantize the code pool, then the same).
@@ -49,43 +53,65 @@ def _per_expert(fn, grouped: bool, *args):
                         for i in range(args[0].shape[0])])
 
 
-def assign_ref(x: torch.Tensor, z: torch.Tensor,
-               metric: Metric = "l2") -> torch.Tensor:
+def live_only(out: torch.Tensor, counts: Optional[torch.Tensor]
+              ) -> torch.Tensor:
+    """``out`` (E, M, ...) (or (M, ...) with counts of one expert) with
+    the rows at or past each expert's count set to zero."""
+    if counts is None:
+        return out
+    lead = out if out.dim() >= 3 else out[None]
+    live = (torch.arange(lead.shape[1], device=out.device)[None]
+            < counts.to(out.device)[:, None])
+    shape = live.shape + (1,) * (lead.dim() - 2)
+    return torch.where(live.reshape(shape), lead,
+                       torch.zeros((), dtype=out.dtype,
+                                   device=out.device)).reshape(out.shape)
+
+
+def assign_ref(x: torch.Tensor, z: torch.Tensor, metric: Metric = "l2",
+               counts: Optional[torch.Tensor] = None,
+               most_live: Optional[int] = None) -> torch.Tensor:
     """Nearest-centroid assignment per subspace (plain version of B3).
 
     x (M, nc, v) inputs, z (nc, c, v) centroids -> (M, nc) int32; the
     lowest index wins a tie. Grouped: x (E, M, nc, v), z (E, nc, c, v)
-    -> (E, M, nc).
+    -> (E, M, nc); with ``counts``, index 0 past each expert's count.
     """
     _build.bump(assign_ref, "calls")
-    return _per_expert(lambda xx, zz: _assign(xx, zz, metric), x.dim() == 4,
-                       x, z)
+    return live_only(_per_expert(lambda xx, zz: _assign(xx, zz, metric),
+                                 x.dim() == 4, x, z), counts)
 
 
 def lut_gemm_onehot(idx: torch.Tensor, lut: torch.Tensor,
-                    scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    scale: Optional[torch.Tensor] = None,
+                    counts: Optional[torch.Tensor] = None,
+                    most_live: Optional[int] = None) -> torch.Tensor:
     """out[m, n] = sum_k lut[k, idx[m, k], n] (x scale[n]) as a one-hot
     contraction in float32 (plain version of B4). idx (M, nc) int32,
     lut (nc, c, N) float or int8 -> (M, N) float32. Grouped: idx
-    (E, M, nc), lut (E, nc, c, N), scale (E, N) -> (E, M, N)."""
+    (E, M, nc), lut (E, nc, c, N), scale (E, N) -> (E, M, N); with
+    ``counts``, 0.0 past each expert's count."""
     _build.bump(lut_gemm_onehot, "calls")
-    return _per_expert(_lut_gemm, idx.dim() == 3, idx, lut, scale)
+    return live_only(_per_expert(_lut_gemm, idx.dim() == 3, idx, lut,
+                                 scale), counts)
 
 
 def vq_amm_ref(x: torch.Tensor, z: torch.Tensor, lut: torch.Tensor,
                scale: Optional[torch.Tensor] = None,
-               metric: Metric = "l2") -> torch.Tensor:
+               metric: Metric = "l2",
+               counts: Optional[torch.Tensor] = None,
+               most_live: Optional[int] = None) -> torch.Tensor:
     """Plain version of the fused assign + lookup: x (M, nc, v),
     z (nc, c, v), lut (nc, c, N) -> (M, N) float32. Grouped: x
     (E, M, nc, v), z (E, nc, c, v), lut (E, nc, c, N), scale (E, N)
-    -> (E, M, N).
+    -> (E, M, N); with ``counts``, 0.0 past each expert's count.
 
     ``vq_amm_ref.calls`` counts calls, so a run on the card can show that
     its main path never took the plain version."""
     _build.bump(vq_amm_ref, "calls")
-    return _per_expert(
+    return live_only(_per_expert(
         lambda xx, zz, ll, ss: _lut_gemm(_assign(xx, zz, metric), ll, ss),
-        x.dim() == 4, x, z, lut, scale)
+        x.dim() == 4, x, z, lut, scale), counts)
 
 
 assign_ref.calls = 0

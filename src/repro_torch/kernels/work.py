@@ -22,6 +22,15 @@ Data-dependent terms:
   counts it from the indices); without it each subspace of each expert
   counts ``min(M, c)`` rows, an upper bound (every row picks a centroid
   no other row picks).
+* B1, B3 and B4 of an MoE layer's routed experts (``counts``) work on
+  the live rows of each expert's buffer only: they read those rows of x
+  (B4: their indices), z and the scale of the experts with a live row,
+  the LUT rows the live rows select, and write the whole output, the
+  dead rows' zeros included. ``counts`` is a sequence of E ints or a
+  tensor, read here (clamped to [0, M]); where it is unknown (a meta
+  tensor, or only ``most_live`` given) the call counts the most that
+  ``most_live`` live rows in all can need: min(E M, most_live) rows, on
+  as many experts as they can fill.
 * B2 / B5 (and B2s / B2a) read the K/V rows of the live tokens. ``live``
   is their number (the sum of the non-negative positions); without it
   every lane counts its whole page table, ``NP x page`` rows, an upper
@@ -46,57 +55,97 @@ def _experts(x: torch.Tensor, plain_ndim: int) -> int:
     return x.shape[0] if x.dim() > plain_ndim else 1
 
 
-def selected_rows(idx: torch.Tensor, c: int) -> int:
+def selected_rows(idx: torch.Tensor, c: int, counts=None) -> int:
     """How many (expert, subspace, centroid) LUT rows some row of ``idx``
     ((M, nc), or (E, M, nc) with an expert axis) selects: the rows a
-    gather-accumulate must read. Reads ``idx`` (a device sync)."""
+    gather-accumulate must read; with ``counts`` (E,), only rows below
+    each expert's count select. Reads ``idx`` (a device sync)."""
     idx = idx.reshape((-1,) + tuple(idx.shape[-2:]))
-    rows = torch.zeros((idx.shape[0], idx.shape[2], c), device=idx.device)
-    rows.scatter_(2, idx.transpose(1, 2).long(), 1.0)
-    return int(rows.sum())
+    e, m, nc = idx.shape
+    hit = torch.ones(idx.shape, device=idx.device)
+    if counts is not None:
+        live = torch.as_tensor(counts, device=idx.device)
+        hit = hit * (torch.arange(m, device=idx.device)[None]
+                     < live[:, None])[..., None]
+    rows = torch.zeros((e, nc, c), device=idx.device)
+    rows.scatter_add_(2, idx.transpose(1, 2).long(), hit.transpose(1, 2))
+    return int((rows > 0).sum())
 
 
-def _lut_rows(e: int, m: int, nc: int, c: int,
-              rows: Optional[int]) -> int:
-    return e * nc * min(m, c) if rows is None else rows
+class _Live:
+    """The live rows of a call of E experts of M rows: ``rows`` in all,
+    on ``experts`` experts, and ``lut_rows(nc, c)``, the most LUT rows
+    they can select."""
+
+    def __init__(self, e: int, m: int, counts=None,
+                 most_live: Optional[int] = None):
+        if isinstance(counts, torch.Tensor):
+            counts = None if counts.is_meta else counts.tolist()
+        if counts is not None:
+            self.per = [min(max(int(n), 0), m) for n in counts]
+            self.rows, self.experts = sum(self.per), sum(
+                n > 0 for n in self.per)
+        else:
+            self.per = None
+            self.rows = e * m if most_live is None else min(e * m, most_live)
+            self.experts = min(e, self.rows)
+        self.m = m
+
+    def lut_rows(self, nc: int, c: int) -> int:
+        if self.per is not None:
+            return nc * sum(min(n, c) for n in self.per)
+        return nc * min(self.rows, self.experts * min(self.m, c))
 
 
-def vq_assign(x: torch.Tensor, z: torch.Tensor) -> Work:
+def vq_assign(x: torch.Tensor, z: torch.Tensor, counts=None,
+              most_live: Optional[int] = None) -> Work:
     """B3: read x (M, nc, v) and z (nc, c, v), write the int32 indices
     (M, nc); a distance (4 v + 2 operations) for every (row, subspace,
-    centroid)."""
+    centroid). With live rows, those rows of x and the z of experts
+    with one (the whole output is written)."""
     e = _experts(x, 3)
     m, nc, v = x.shape[-3:]
     c = z.shape[-2]
-    return (nbytes(x, z) + e * m * nc * 4, e * m * nc * c * (4 * v + 2))
+    lv = _Live(e, m, counts, most_live)
+    return (lv.rows * nc * v * x.element_size()
+            + lv.experts * nc * c * v * z.element_size() + e * m * nc * 4,
+            lv.rows * nc * c * (4 * v + 2))
 
 
 def lut_gemm(idx: torch.Tensor, lut: torch.Tensor,
              scale: Optional[torch.Tensor] = None,
-             rows: Optional[int] = None) -> Work:
+             rows: Optional[int] = None, counts=None,
+             most_live: Optional[int] = None) -> Work:
     """B4: read the indices (M, nc), the selected rows of the LUT (nc, c,
     N) and the scale, write the float32 output (M, N); an add per
-    (row, subspace, column) and a multiply per output."""
+    (row, subspace, column) and a multiply per output. With live rows,
+    their indices and the scale of experts with one."""
     e = _experts(idx, 2)
     m, nc = idx.shape[-2:]
     c, n = lut.shape[-2:]
-    rows = _lut_rows(e, m, nc, c, rows)
-    return (nbytes(idx, scale) + rows * n * lut.element_size()
-            + e * m * n * 4, e * (m * nc * n + m * n))
+    lv = _Live(e, m, counts, most_live)
+    rows = lv.lut_rows(nc, c) if rows is None else rows
+    return (lv.rows * nc * 4 + (0 if scale is None else lv.experts * n * 4)
+            + rows * n * lut.element_size() + e * m * n * 4,
+            lv.rows * (nc * n + n))
 
 
 def vq_amm(x: torch.Tensor, z: torch.Tensor, lut: torch.Tensor,
            scale: Optional[torch.Tensor] = None,
-           rows: Optional[int] = None) -> Work:
+           rows: Optional[int] = None, counts=None,
+           most_live: Optional[int] = None) -> Work:
     """B1: B3's reads and distances and B4's gather-accumulate, without
     the indices in between."""
     e = _experts(x, 3)
     m, nc, v = x.shape[-3:]
     c, n = lut.shape[-2:]
-    rows = _lut_rows(e, m, nc, c, rows)
-    return (nbytes(x, z, scale) + rows * n * lut.element_size()
-            + e * m * n * 4,
-            e * (m * nc * c * (4 * v + 2) + m * nc * n + m * n))
+    lv = _Live(e, m, counts, most_live)
+    rows = lv.lut_rows(nc, c) if rows is None else rows
+    return (lv.rows * nc * v * x.element_size()
+            + lv.experts * nc * c * v * z.element_size()
+            + (0 if scale is None else lv.experts * n * 4)
+            + rows * n * lut.element_size() + e * m * n * 4,
+            lv.rows * (nc * c * (4 * v + 2) + nc * n + n))
 
 
 def _live(phys: torch.Tensor, page: int, live: Optional[int]) -> int:

@@ -9,7 +9,12 @@ per-expert codebooks and LUTs (``z (E, nc, c, v)``, ``lut (E, nc, c,
 N)``, ``lut_scale (E, N)``) and run in ``lut_infer`` as ONE grouped
 kernel call per projection for all experts (``kernels.ops`` with a
 leading expert axis: B1 fused, or B3 then B4), where the JAX package
-vmaps its Pallas kernels over the experts.
+vmaps its Pallas kernels over the experts. The routed experts' calls
+also take each buffer's live rows (the pairs the router kept there, a
+device vector straight from ``route``), so the kernels work on those
+rows only and write the empty rows as zeros, which is what the
+dispatch's zero rows would give the combine anyway: nothing reads an
+empty row with a nonzero weight.
 
 The router product is a plain matmul outside any kernel, as the JAX
 package leaves it to XLA. In ``lut_train`` each expert's rows go to that
@@ -54,10 +59,16 @@ def init_expert_proj(gen: torch.Generator, e: int, k: int, n: int,
 
 
 def expert_proj(p: Params, x: torch.Tensor, qc: QuantConfig,
-                recon: Optional[List[torch.Tensor]] = None
-                ) -> torch.Tensor:
+                recon: Optional[List[torch.Tensor]] = None,
+                counts: Optional[torch.Tensor] = None,
+                most_live: Optional[int] = None) -> torch.Tensor:
     """Batched per-expert projection: x (E, Cap, K) capacity-slotted
     expert buffers -> (E, Cap, N) in x's dtype.
+
+    ``counts`` (E,) int64 on x's device and ``most_live``: the buffers'
+    live rows and their bound (``kernels.ops``); in lut_infer the rows
+    past an expert's count come out zero and cost the kernels nothing.
+    Other modes compute every row (an empty row of zeros gives zeros).
 
     p: {"w": (E, K, N)} and, in LUT modes, "z" (E, nc, c, v); in
     lut_infer also "lut" (E, nc, c, N) and, for int8, "lut_scale" (E, N).
@@ -82,23 +93,28 @@ def expert_proj(p: Params, x: torch.Tensor, qc: QuantConfig,
         out_d = torch.bmm(x, p["w"])
         recon.append(recon_terms(out_q, out_d))
         return out_d + (out_q - out_d).detach()
-    return _expert_accumulate(p, x, qc, p.get("lut_scale")).to(x.dtype)
+    return _expert_accumulate(p, x, qc, p.get("lut_scale"), counts,
+                              most_live).to(x.dtype)
 
 
 def _expert_accumulate(p: Params, x: torch.Tensor, qc: QuantConfig,
-                       scale: Optional[torch.Tensor]) -> torch.Tensor:
+                       scale: Optional[torch.Tensor],
+                       counts: Optional[torch.Tensor] = None,
+                       most_live: Optional[int] = None) -> torch.Tensor:
     """The lut_infer product of every expert, x (E, Cap, K) -> (E, Cap,
     N) float32: one grouped call of B1 (or B3 then B4), times ``scale``
-    (E, N) when given."""
+    (E, N) when given, on the live rows of ``counts`` when given."""
     e, cap, k = x.shape
     xs = x.reshape(e, cap, k // qc.v, qc.v).contiguous()
     z = p["z"]
     lut = p.get("lut")
     if lut is None:                    # on-the-fly (testing convenience)
         lut = build_lut(p["w"], z)
+    live = dict(counts=counts, most_live=most_live)
     if qc.fuse:
-        return kops.vq_amm(xs, z, lut, scale, qc.metric)
-    return kops.lut_matmul(kops.vq_assign(xs, z, qc.metric), lut, scale)
+        return kops.vq_amm(xs, z, lut, scale, qc.metric, **live)
+    return kops.lut_matmul(kops.vq_assign(xs, z, qc.metric, **live), lut,
+                           scale, **live)
 
 
 def expert_proj_row(p: Params, x: torch.Tensor, qc: QuantConfig,
@@ -156,14 +172,17 @@ def init_moe(gen: torch.Generator, cfg, qc: QuantConfig, dtype,
 
 def route(probs: torch.Tensor, k: int, cap: int
           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
-                     torch.Tensor]:
+                     torch.Tensor, torch.Tensor]:
     """Top-k routing with capacity slots, the reference's rule.
 
     probs (T, E) float32 router probabilities. Returns, for the T*k
     (token, choice) pairs in that order: expert id, slot in the expert's
     buffer, whether the pair is kept (slot < cap), and its renormalised
-    gate. The top-k is a stable descending sort, so ties take the lowest
-    expert index first, as ``jax.lax.top_k`` does.
+    gate; then the pairs each expert received, (E,) int64 (the last row
+    of the running count, a view: no op of its own). Clamped to ``cap``
+    it is each buffer's live rows, the kept pairs, which fill the
+    buffer's first slots. The top-k is a stable descending sort, so ties
+    take the lowest expert index first, as ``jax.lax.top_k`` does.
     """
     e = probs.shape[-1]
     gate_vals, gate_idx = torch.sort(probs, dim=-1, descending=True,
@@ -174,7 +193,7 @@ def route(probs: torch.Tensor, k: int, cap: int
     eid = gate_idx.reshape(-1)
     counts = torch.cumsum(one_hot(eid, e), dim=0)            # (T*k, E)
     slot = counts.gather(1, eid[:, None])[:, 0] - 1
-    return eid, slot, slot < cap, gate_vals.reshape(-1)
+    return eid, slot, slot < cap, gate_vals.reshape(-1), counts[-1]
 
 
 def moe_ffn(p: Params, x: torch.Tensor, cfg, qc: QuantConfig,
@@ -189,7 +208,11 @@ def moe_ffn(p: Params, x: torch.Tensor, cfg, qc: QuantConfig,
     buffers; each kept pair has its own slot, so no sum is needed (the
     reference adds zeros for dropped pairs, which gives the same
     buffers). A dropped pair combines with a zero gate, as in the
-    reference. ``recon``: lut_train, the list the expert projections'
+    reference. The routed experts' projections take each buffer's live
+    rows (``route``'s counts, a device vector, no host read) and the
+    bound T x k on them, and work on those rows only; the combine reads
+    kept pairs' rows, and a dropped pair's row cap - 1 of a full buffer,
+    all live. ``recon``: lut_train, the list the expert projections'
     recon terms join.
 
     Under tensor parallelism the routing is replicated (every rank
@@ -224,7 +247,7 @@ def moe_ffn(p: Params, x: torch.Tensor, cfg, qc: QuantConfig,
     probs = torch.softmax(logits, dim=-1)                     # (T, E)
     # capacity: cf * T * k / E, floored at 8 and capped at T
     cap = min(t, max(int(cfg.capacity_factor * t * k / e), 8))
-    eid, slot, keep, gates = route(probs, k, cap)
+    eid, slot, keep, gates, load = route(probs, k, cap)
 
     onehot_any = one_hot(eid.reshape(t, k), e).sum(1).float()  # (T, E)
     ce = onehot_any.mean(0) / k
@@ -242,9 +265,12 @@ def moe_ffn(p: Params, x: torch.Tensor, cfg, qc: QuantConfig,
     if tp.size > 1:                   # this rank's experts' buffers
         el = e // tp.size
         buf = buf[tp.rank * el:(tp.rank + 1) * el]
-    g = expert_proj(p["wg"], buf, qc, recon)
-    u = expert_proj(p["wu"], buf, qc, recon)
-    y = expert_proj(p["wd"], F.silu(g) * u, qc, recon)       # (E, Cap, D)
+        load = load[tp.rank * el:(tp.rank + 1) * el]
+    live = dict(counts=load, most_live=t * k)
+    g = expert_proj(p["wg"], buf, qc, recon, **live)
+    u = expert_proj(p["wu"], buf, qc, recon, **live)
+    y = expert_proj(p["wd"], F.silu(g) * u, qc, recon,
+                    **live)                                   # (E, Cap, D)
     y = tp.all_gather(y, 0)
 
     # combine: each pair's row (a dropped pair reads slot cap - 1 with a

@@ -27,7 +27,10 @@ experts) against their plain versions at E of 1, 2 and 64, E = 1 bit for
 bit the ungrouped launch, one kernel a grouped call, B4(B3(x)) == B1(x)
 bit for bit on float LUTs, 18 experts of a dbrx-132b expert shape whose
 int8 tables pass 2^31 bytes, the wrappers' refusals of mismatched
-experts, and one
+experts; the same with live-row counts (rows past an expert's count 0.0
+and index 0, live rows the launch without counts bit for bit on int8,
+experts with no live row at every cluster size, one kernel a call, the
+ungrouped geometry kept, the refusals of bad counts); and one
 deepseek-moe-16b smoke decode step with one grouped launch per expert
 projection; B2s and B2a (the head_dim layout's decode: partial scores,
 then the softmax and a rank's V slice) against their plain versions over
@@ -67,7 +70,8 @@ from repro_torch.device import enqueued  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import flash_decode as tfd  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
-from repro_torch.kernels.assign import vq_assign_cuda  # noqa: E402
+from repro_torch.kernels.assign import (  # noqa: E402
+    vq_assign_cuda, vq_assign_geometry)
 from repro_torch.kernels.fused_amm import (  # noqa: E402
     vq_amm_cuda, vq_amm_geometry)
 from repro_torch.kernels.lut_gemm import (  # noqa: E402
@@ -990,6 +994,194 @@ def test_grouped_wrappers_refuse_mismatched_experts(dev):
                  (idx[::2], lut[::2], scale[::2])]:
         with pytest.raises(ValueError):
             lut_gemm_cuda(*args)
+    assert (vq_amm_cuda.launches, vq_assign_cuda.launches,
+            lut_gemm_cuda.launches) == launches
+
+
+def _counts_for(m, dev):
+    """Live-row counts of five experts: none, part, all, past the
+    capacity (clamped by the kernels), one row."""
+    return torch.tensor([0, max(1, m // 2), m, m + 3, 1], dtype=torch.int64,
+                        device=dev)
+
+
+def _live(counts, m):
+    return torch.arange(m, device=counts.device)[None] < counts[:, None]
+
+
+@pytest.mark.parametrize("lut_dtype", [torch.float32, torch.bfloat16,
+                                       torch.int8])
+@pytest.mark.parametrize("metric", ["l2", "l1", "chebyshev"])
+def test_grouped_kernels_with_counts_match_plain(dev, metric, lut_dtype):
+    """B1, B3 and B4 with live-row counts against their plain versions
+    with the same counts (indices exact, int8 sums exact, float sums to
+    1e-4), dead rows 0.0 and index 0; on int8 LUTs the live rows equal
+    the launch without counts bit for bit and B4(B3(x)) == B1(x); one
+    launch a call, counted as grouped."""
+    for i, shape in enumerate(GROUPED_SHAPES):
+        m = shape[0]
+        for x_dtype in (torch.float32, torch.bfloat16):
+            x, z, lut, scale = _grouped_inputs(5, shape, x_dtype, lut_dtype,
+                                               40 + i, dev)
+            counts = _counts_for(m, dev)
+            live = _live(counts, m)
+            kw = dict(counts=counts, most_live=int(counts.sum()))
+            wrappers = (vq_amm_cuda, vq_assign_cuda, lut_gemm_cuda)
+            launches = [(w.launches, w.grouped) for w in wrappers]
+            out = vq_amm_cuda(x, z, lut, scale, metric, **kw)
+            idx = vq_assign_cuda(x, z, metric, **kw)
+            two = lut_gemm_cuda(idx, lut, scale, **kw)
+            assert [(w.launches, w.grouped) for w in wrappers] == [
+                (n + 1, g + 1) for n, g in launches]
+            assert torch.equal(idx, tref.assign_ref(x, z, metric, **kw))
+            want = tref.vq_amm_ref(x, z, lut, scale, metric, **kw)
+            tol = 1e-6 if lut_dtype == torch.int8 else 1e-4
+            torch.testing.assert_close(out, want, rtol=tol, atol=tol)
+            torch.testing.assert_close(two, want, rtol=tol, atol=tol)
+            assert torch.equal(out[~live], torch.zeros_like(out[~live]))
+            assert torch.equal(two[~live], torch.zeros_like(two[~live]))
+            assert torch.equal(idx[~live], torch.zeros_like(idx[~live]))
+            assert torch.equal(idx[live], vq_assign_cuda(x, z, metric)[live])
+            if lut_dtype == torch.int8:
+                assert torch.equal(out[live],
+                                   vq_amm_cuda(x, z, lut, scale,
+                                               metric)[live])
+                assert torch.equal(two, out)
+
+
+def test_grouped_dead_clusters_return(dev):
+    """Experts with no live row at every cluster size: their clusters
+    write zeros and return before any cluster barrier, so a launch where
+    every count is 0, and one where live and dead experts share the
+    grid, both finish (no hang) with the right rows."""
+    x, z, lut, scale = _grouped_inputs(5, (8, 256, 8, 16, 1408),
+                                       torch.bfloat16, torch.int8, 7, dev)
+    want = vq_amm_cuda(x, z, lut, scale)
+    layouts = [dict(cluster=cl) for cl in (1, 2, 4, 8, 16)] + [
+        dict(tile_cluster=tc) for tc in (1, 2, 3, 6, 8)]
+    for lay in layouts:
+        dead = torch.zeros(5, dtype=torch.int64, device=dev)
+        out = vq_amm_cuda(x, z, lut, scale, counts=dead, most_live=40,
+                          **lay)
+        torch.cuda.synchronize()
+        assert not out.any()
+        counts = _counts_for(8, dev)
+        out = vq_amm_cuda(x, z, lut, scale, counts=counts, most_live=40,
+                          **lay)
+        torch.cuda.synchronize()
+        live = _live(counts, 8)
+        assert torch.equal(out[live], want[live]) and not out[~live].any()
+    idx = lut_gemm_cuda(vq_assign_cuda(x, z), lut, scale,
+                        counts=torch.zeros(5, dtype=torch.int64, device=dev))
+    torch.cuda.synchronize()
+    assert not idx.any()
+
+
+@pytest.mark.parametrize("lut_dtype", [torch.float32, torch.bfloat16,
+                                       torch.int8])
+def test_grouped_two_pass_equals_fused_with_counts(dev, lut_dtype):
+    """B4(B3(x)) == B1(x) bit for bit with live-row counts: always on
+    int8 LUTs; on float LUTs wherever the two launches take one cluster
+    size (then they sum in one order: the partitions follow the live
+    rows alike), at least once."""
+    same = 0
+    for e in (5, 64):
+        for i, shape in enumerate(GROUPED_SHAPES):
+            m = shape[0]
+            x, z, lut, scale = _grouped_inputs(e, shape, torch.bfloat16,
+                                               lut_dtype, 60 + i, dev)
+            xr = torch.randn(x.shape, device=dev).to(x.dtype)
+            counts = torch.randint(0, m + 2, (e,), device=dev)
+            kw = dict(counts=counts, most_live=e * m)
+            idx = vq_assign_cuda(xr, z, **kw)
+            g1 = vq_amm_geometry(xr, z, lut, **kw)
+            g4 = lut_gemm_geometry(idx, lut, **kw)
+            if lut_dtype != torch.int8 and g1["cluster"] != g4["cluster"]:
+                continue
+            same += 1
+            assert torch.equal(lut_gemm_cuda(idx, lut, scale, **kw),
+                               vq_amm_cuda(xr, z, lut, scale, **kw))
+    assert same >= 1
+
+
+@pytest.mark.parametrize("lut_dtype", [torch.float32, torch.bfloat16,
+                                       torch.int8])
+def test_grouped_calls_with_counts_are_one_kernel(dev, lut_dtype):
+    """At deepseek-moe-16b's routed decode buffer (64 experts, 8 rows,
+    2048 -> 1408, 48 live rows): a call of B1, B3 or B4 with counts
+    enqueues one kernel and nothing else, two launches give the same
+    bits, and every layout (k splits, tile clusters) gives B1 the same
+    bits on int8; the planner takes tile clusters there."""
+    one = {"kernels": 1, "copies": 0, "memsets": 0, "other": 0}
+    x, z, lut, scale = _grouped_inputs(64, (8, 256, 8, 16, 1408),
+                                       torch.bfloat16, lut_dtype, 0, dev)
+    counts = torch.zeros(64, dtype=torch.int64, device=dev)
+    counts[torch.randperm(64, device=dev)[:35]] = 1
+    counts[:13] += 1                      # 48 live rows on 35-48 experts
+    kw = dict(counts=counts, most_live=48)
+    idx = vq_assign_cuda(x, z, **kw)
+    assert enqueued(lambda: vq_amm_cuda(x, z, lut, scale, **kw)) == one
+    assert enqueued(lambda: vq_assign_cuda(x, z, **kw)) == one
+    assert enqueued(lambda: lut_gemm_cuda(idx, lut, scale, **kw)) == one
+    out = vq_amm_cuda(x, z, lut, scale, **kw)
+    assert vq_amm_geometry(x, z, lut, **kw)["tile_cluster"] > 0
+    assert torch.equal(out, vq_amm_cuda(x, z, lut, scale, **kw))
+    assert torch.equal(lut_gemm_cuda(idx, lut, scale, **kw),
+                       lut_gemm_cuda(idx, lut, scale, **kw))
+    if lut_dtype == torch.int8:
+        for lay in ([dict(cluster=cl) for cl in (1, 2, 4, 8, 16)]
+                    + [dict(tile_cluster=tc) for tc in range(1, 9)]):
+            assert torch.equal(vq_amm_cuda(x, z, lut, scale, **lay, **kw),
+                               out)
+
+
+def test_ungrouped_launches_keep_their_geometry(dev):
+    """Calls without counts launch as before live-row counts existed:
+    B1's and B4's planned geometry at qwen1.5-4b's decode shape (2560 ->
+    6912, M=8) and B3's rule (8 subspaces x 8 rows a block), whatever
+    grouped calls with counts the process has planned."""
+    x, z, lut, scale = _b1_inputs((8, 320, 8, 16, 6912), torch.bfloat16,
+                                  torch.int8, 0, dev)
+    xg, zg, lutg, _ = _grouped_inputs(3, (8, 320, 8, 16, 6912),
+                                      torch.bfloat16, torch.int8, 0, dev)
+    vq_amm_cuda(xg, zg, lutg, None,
+                counts=torch.ones(3, dtype=torch.int64, device=dev))
+    assert vq_amm_geometry(x, z, lut) == {
+        "experts": 1, "cluster": 8, "tiles": 27, "row_groups": 1,
+        "subspaces": 40, "smem": 40768, "tile_cluster": 0}
+    assert vq_assign_geometry(x, z) == {
+        "experts": 1, "k_blocks": 40, "row_groups": 1, "subspaces": 8,
+        "rows": 8, "smem": 6272}
+    idx = vq_assign_cuda(x, z)
+    g4 = lut_gemm_geometry(idx, lut)
+    assert (g4["tiles"], g4["row_groups"]) == (27, 1)
+    assert torch.equal(lut_gemm_cuda(idx, lut, scale),
+                       vq_amm_cuda(x, z, lut, scale))
+
+
+def test_wrappers_refuse_bad_counts(dev):
+    """counts of the wrong type, shape or device, and most_live without
+    counts: ValueError, and no launch."""
+    x, z, lut, scale = _grouped_inputs(4, GROUPED_SHAPES[0], torch.bfloat16,
+                                       torch.int8, 0, dev)
+    idx = vq_assign_cuda(x, z)
+    good = torch.ones(4, dtype=torch.int64, device=dev)
+    launches = (vq_amm_cuda.launches, vq_assign_cuda.launches,
+                lut_gemm_cuda.launches)
+    for kw in (dict(counts=good.int()), dict(counts=good[:3]),
+               dict(counts=good.cpu()), dict(counts=good[::2]),
+               dict(most_live=8), dict(counts=good, most_live=-1)):
+        with pytest.raises(ValueError):
+            vq_amm_cuda(x, z, lut, scale, **kw)
+        with pytest.raises(ValueError):
+            vq_assign_cuda(x, z, **kw)
+        with pytest.raises(ValueError):
+            lut_gemm_cuda(idx, lut, scale, **kw)
+    for lay in (dict(cluster=17), dict(tile_cluster=2),
+                dict(counts=good, tile_cluster=9),
+                dict(counts=good, cluster=2, tile_cluster=2)):
+        with pytest.raises(ValueError):
+            vq_amm_cuda(x, z, lut, scale, **lay)
     assert (vq_amm_cuda.launches, vq_assign_cuda.launches,
             lut_gemm_cuda.launches) == launches
 

@@ -274,11 +274,14 @@ def test_moe_ffn_drops_as_the_reference_does():
     probs_t = torch.softmax((xn_t.reshape(t, -1) @ p_t["router"]).float(), -1)
     np.testing.assert_allclose(probs_t.numpy(), np.asarray(probs_j),
                                rtol=1e-5, atol=1e-6)
-    eid_t, slot_t, keep_t, _ = tmoe.route(probs_t, k, cap)
+    eid_t, slot_t, keep_t, _, load_t = tmoe.route(probs_t, k, cap)
     assert (~keep_j).sum() >= 8          # the case really drops
     np.testing.assert_array_equal(eid_t.numpy(), eid_j)
     np.testing.assert_array_equal(slot_t.numpy(), slot_j)
     np.testing.assert_array_equal(keep_t.numpy(), keep_j)
+    # the live rows the kernels take: the reference's kept pairs an expert
+    np.testing.assert_array_equal(load_t.clamp(max=cap).numpy(),
+                                  np.bincount(eid_j[keep_j], minlength=e))
     for fuse in (True, False):
         out_j, _, aux_j = jmoe.moe_ffn(p_j, jnp.asarray(x), cfg_j,
                                        qc_j.replace(fuse=fuse))
@@ -291,12 +294,209 @@ def test_moe_ffn_drops_as_the_reference_does():
 def test_route_breaks_ties_by_the_lowest_expert():
     probs = torch.tensor([[0.25, 0.25, 0.25, 0.25],
                           [0.1, 0.4, 0.1, 0.4]])
-    eid, slot, keep, gates = tmoe.route(probs, 3, 8)
+    eid, slot, keep, gates, load = tmoe.route(probs, 3, 8)
     assert eid.tolist() == [0, 1, 2, 1, 3, 0]
+    assert load.tolist() == [2, 2, 1, 1] and load.dtype == torch.int64
     assert slot.tolist() == [0, 0, 0, 1, 0, 1] and bool(keep.all())
     want_idx = np.asarray(jax.lax.top_k(jnp.asarray(probs.numpy()), 3)[1])
     assert eid.tolist() == want_idx.reshape(-1).tolist()
     np.testing.assert_allclose(gates[:3].numpy(), [1 / 3] * 3, rtol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# live-row counts: the routed experts' calls work on the rows the router
+# filled; rows past an expert's count are 0.0 (index 0 from vq_assign)
+# ---------------------------------------------------------------------------
+
+# an expert with no live row, one partly live, one full, one whose count
+# passes the capacity (clamped), one with a single row
+COUNTS = [0, 2, 6, 9, 1]
+
+
+def _live_mask(counts, m):
+    return torch.arange(m)[None] < torch.as_tensor(counts)[:, None]
+
+
+@pytest.mark.parametrize("metric", ["l2", "l1", "chebyshev"])
+@pytest.mark.parametrize("lut_dtype", [torch.float32, torch.bfloat16,
+                                       torch.int8])
+def test_grouped_plain_ops_with_counts(metric, lut_dtype):
+    """The grouped plain ops with counts: live rows equal the calls
+    without counts bit for bit, dead rows are 0.0 (index 0), and the two
+    passes equal the fused op; an ungrouped call takes counts of one."""
+    rng = np.random.default_rng(20)
+    e, m, nc, c, v, n = len(COUNTS), 6, 5, 16, 4, 20
+    x = torch.from_numpy(rng.standard_normal((e, m, nc, v)).astype(
+        np.float32))
+    z = torch.from_numpy(rng.standard_normal((e, nc, c, v)).astype(
+        np.float32))
+    lut = torch.from_numpy(rng.standard_normal((e, nc, c, n)).astype(
+        np.float32))
+    scale = None
+    if lut_dtype == torch.int8:
+        lut = (lut * 40).clamp(-127, 127)
+        scale = torch.from_numpy((0.01 + rng.random((e, n))).astype(
+            np.float32))
+    lut = lut.to(lut_dtype)
+    counts = torch.tensor(COUNTS, dtype=torch.int64)
+    live = dict(counts=counts, most_live=sum(COUNTS))
+    out = tops.vq_amm(x, z, lut, scale, metric, **live)
+    idx = tops.vq_assign(x, z, metric, **live)
+    two = tops.lut_matmul(idx, lut, scale, **live)
+    mask = _live_mask(COUNTS, m)
+    assert torch.equal(out[mask], tops.vq_amm(x, z, lut, scale,
+                                              metric)[mask])
+    assert torch.equal(idx[mask], tops.vq_assign(x, z, metric)[mask])
+    assert torch.equal(out[~mask], torch.zeros_like(out[~mask]))
+    assert not torch.signbit(out[~mask]).any()        # +0.0, as written
+    assert torch.equal(idx[~mask], torch.zeros_like(idx[~mask]))
+    assert torch.equal(two, out)
+    assert idx.dtype == torch.int32 and out.dtype == torch.float32
+    # ungrouped, with the counts of one expert
+    s3 = None if scale is None else scale[1]
+    one = tops.vq_amm(x[1], z[1], lut[1], s3, metric, counts=counts[1:2])
+    assert torch.equal(one, out[1])
+
+
+def _dispatch_rows(x, counts):
+    """Zero the rows of an (E, Cap, K) buffer past each expert's count, as
+    the dispatch leaves them."""
+    return x * _live_mask(counts, x.shape[1]).numpy()[..., None]
+
+
+@pytest.mark.parametrize("impl", ["fused", "pallas"])
+@pytest.mark.parametrize("lut_dtype", ["int8", "float32"])
+@pytest.mark.parametrize("fuse", [True, False], ids=["fused", "two-pass"])
+def test_expert_proj_with_counts_matches_jax(impl, lut_dtype, fuse):
+    """The JAX package's expert_proj (its Pallas kernels vmapped over the
+    experts, interpret mode) on a buffer whose rows past each count are
+    zero, against the port's grouped call with the counts: live rows
+    within the tolerance, dead rows 0.0."""
+    rng = np.random.default_rng(21)
+    e, cap, k, n, v, c = len(COUNTS), 6, 32, 24, 8, 16
+    p_j, p_t = _expert_params(rng, e, k, n, v, c, lut_dtype)
+    x = _margin_x(rng, np.asarray(p_j["z"]), cap).reshape(e, cap, k)
+    x = _dispatch_rows(x, COUNTS).astype(np.float32)
+    qc_j = JQC(mode="lut_infer", lut_dtype=lut_dtype, v=v, c=c, impl=impl,
+               fuse=fuse)
+    qc_t = TQC(mode="lut_infer", lut_dtype=lut_dtype, v=v, c=c, fuse=fuse)
+    want, _ = jmoe.expert_proj(p_j, jnp.asarray(x), qc_j)
+    got = tmoe.expert_proj(p_t, torch.from_numpy(x), qc_t,
+                           counts=torch.tensor(COUNTS), most_live=18)
+    mask = _live_mask(COUNTS, cap).numpy()
+    np.testing.assert_allclose(got.numpy()[mask], np.asarray(want)[mask],
+                               **TOL)
+    assert not got.numpy()[~mask].any()
+
+
+@pytest.mark.parametrize("t,k,e,cap", [(8, 6, 64, 8), (32, 6, 64, 8),
+                                       (8, 4, 16, 8), (12, 2, 4, 3)])
+def test_route_counts_are_the_reference_kept_pairs(t, k, e, cap):
+    """route's last output, clamped to the capacity, is the number of
+    pairs the reference keeps in each expert's buffer (its live rows),
+    and those pairs take its first slots."""
+    rng = np.random.default_rng(t * 100 + e)
+    logits = rng.standard_normal((t, e)).astype(np.float32)
+    logits[::2] = logits[0]              # tokens that route alike: drops
+    probs = jax.nn.softmax(jnp.asarray(logits), axis=-1)
+    eid_j, slot_j, keep_j = _jax_routing(probs, k, cap)
+    eid, slot, keep, _, load = tmoe.route(torch.from_numpy(
+        np.array(probs)), k, cap)
+    assert tuple(load.shape) == (e,) and load.dtype == torch.int64
+    assert int(load.sum()) == t * k
+    kept = np.bincount(eid_j[keep_j], minlength=e)
+    np.testing.assert_array_equal(load.clamp(max=cap).numpy(), kept)
+    for ex in range(e):
+        assert sorted(slot_j[keep_j & (eid_j == ex)].tolist()) == list(
+            range(kept[ex]))
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+@pytest.mark.parametrize("fuse", [True, False], ids=["fused", "two-pass"])
+def test_moe_ffn_passes_live_counts(arch, fuse, monkeypatch):
+    """moe_ffn's routed expert calls take route's counts (E,) and the
+    bound T x k, its shared expert calls none; the output still equals
+    the JAX package's."""
+    cfg_j = jconfigs.get_smoke_config(arch)
+    cfg_t = tconfigs.get_smoke_config(arch)
+    p_j, qc_j, p_t, qc_t = _moe_pair(cfg_j, 4)
+    seen = []
+
+    def spy(name):
+        orig = getattr(tops, name)
+
+        def call(*a, counts=None, most_live=None):
+            seen.append((name, a[0].shape[0], counts, most_live))
+            return orig(*a, counts=counts, most_live=most_live)
+        monkeypatch.setattr(tops, name, call)
+    for name in ("vq_amm", "vq_assign", "lut_matmul"):
+        spy(name)
+    x = np.random.default_rng(5).standard_normal(
+        (2, 5, cfg_t.d_model)).astype(np.float32)
+    out_t, _ = tmoe.moe_ffn(p_t, torch.from_numpy(x), cfg_t,
+                            qc_t.replace(fuse=fuse))
+    out_j, _, _ = jmoe.moe_ffn(p_j, jnp.asarray(x), cfg_j,
+                               qc_j.replace(fuse=fuse))
+    np.testing.assert_allclose(out_t.numpy(), np.asarray(out_j), **TOL)
+    t, k, e = 10, cfg_t.top_k, cfg_t.num_experts
+    routed = [r for r in seen if r[2] is not None]
+    shared = [r for r in seen if r[2] is None]
+    assert len(routed) == 3 * (1 if fuse else 2)
+    assert len(shared) == (3 * (1 if fuse else 2)
+                           if cfg_t.num_shared_experts else 0)
+    for _, experts, counts, most in routed:
+        assert experts == e and most == t * k
+        assert counts.dtype == torch.int64 and tuple(counts.shape) == (e,)
+        assert int(counts.sum()) == t * k      # every pair, before the cap
+    assert all(r[1] == cfg_t.num_shared_experts for r in shared)
+
+
+def test_work_counts_live_rows():
+    """kernels.work with counts against a hand count: live rows of x (B4:
+    their indices), z and scale of experts with a live row, the LUT rows
+    live rows can select, the whole output; a meta count is unknown (the
+    bound most_live gives), no counts count as before."""
+    from repro_torch.kernels import work
+    e, m, nc, c, v, n = 3, 4, 5, 16, 8, 20
+    x = torch.zeros((e, m, nc, v), dtype=torch.bfloat16)
+    z = torch.zeros((e, nc, c, v), dtype=torch.bfloat16)
+    lut = torch.zeros((e, nc, c, n), dtype=torch.int8)
+    scale = torch.zeros((e, n))
+    idx = torch.zeros((e, m, nc), dtype=torch.int32)
+    counts = [0, 2, 9]                  # 0 + 2 + 4 (clamped) live rows
+    rows, experts = 6, 2
+    out = e * m * n * 4
+    b1 = (rows * nc * v * 2 + experts * nc * c * v * 2 + experts * n * 4
+          + nc * (2 + 4) * n + out,
+          rows * (nc * c * (4 * v + 2) + nc * n + n))
+    assert work.vq_amm(x, z, lut, scale, counts=counts) == b1
+    assert work.vq_amm(x, z, lut, scale,
+                       counts=torch.tensor(counts)) == b1
+    assert work.vq_assign(x, z, counts=counts) == (
+        rows * nc * v * 2 + experts * nc * c * v * 2 + e * m * nc * 4,
+        rows * nc * c * (4 * v + 2))
+    assert work.lut_gemm(idx, lut, scale, counts=counts, rows=7) == (
+        rows * nc * 4 + experts * n * 4 + 7 * n + out,
+        rows * (nc * n + n))
+    # unknown counts: the bound of 5 live rows in all, on up to 3 experts
+    meta = torch.empty(3, dtype=torch.int64, device="meta")
+    assert work.vq_assign(x, z, counts=meta, most_live=5) == (
+        5 * nc * v * 2 + 3 * nc * c * v * 2 + e * m * nc * 4,
+        5 * nc * c * (4 * v + 2))
+    assert work.vq_amm(x, z, lut, scale, most_live=5)[0] == (
+        5 * nc * v * 2 + 3 * nc * c * v * 2 + 3 * n * 4
+        + nc * 5 * n + out)
+    # no counts: every row, as before
+    assert work.vq_amm(x, z, lut, scale) == (
+        work.nbytes(x, z, scale) + e * nc * min(m, c) * n + out,
+        e * (m * nc * c * (4 * v + 2) + m * nc * n + m * n))
+    # the LUT rows live rows select: expert 1's two rows pick 0 and 3 in
+    # every subspace; expert 2's rows pick 1 (its dead rows pick 5)
+    idx[1, 1] = 3
+    idx[2] = 1
+    idx[0] = 5
+    assert work.selected_rows(idx, c) == 3 * nc + nc
+    assert work.selected_rows(idx, c, counts) == 3 * nc
 
 
 # ---------------------------------------------------------------------------
